@@ -2,21 +2,32 @@
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It imports only
-the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs five phases:
+the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs six phases:
 
 1. device: fails without CUDA; prints the card's name and power limit;
-2. build: compiles the four kernels from ``orb_slam3_fast_tpu_torch/csrc``;
-3. each kernel against its plain PyTorch version on the same CUDA tensors at
-   the step's shapes (640x480 pyramid, 1024 keypoint slots, 1024 x 1024
-   stereo, 4096 x 1024 window, 1024 edges), with CUDA-event times;
+2. build: compiles the seven kernels (A-G) from
+   ``orb_slam3_fast_tpu_torch/csrc``, one nvcc per source in parallel;
+3. each kernel against its plain PyTorch version on the same CUDA tensors,
+   with CUDA-event times: A-D at the step's shapes (640x480 pyramid, 1024
+   keypoint slots, 1024 x 1024 stereo, 4096 x 1024 window, 1024 edges); E
+   and F on a local-BA problem at the mapper's caps (32 pose slots, 4096
+   landmarks, 16384 observations) and a whole BA through them; G on 1024
+   matches; C's epipolar and mutual modes at 768 x 768;
 4. the stereo tracking step at 640x480 and 1280x720, 12 frames each, chained
    through the pose with constant-velocity prediction over a textured plane
    of known depth; every frame must match >= 30 landmarks, keep >= 30
    inliers and land within one pixel's worth of translation of the truth,
-   and every kernel must have been launched; a per-stage split follows,
-   and one frame is checked against the plain (CPU) step;
-5. a JSON line of the kernels, then ``{"ok": true, "device": {...}}`` last.
+   and A-D must have been launched; a per-stage split follows;
+5. the stereo ``System`` (configs/synthetic_stereo.yaml) with local mapping
+   on 30 frames of the synthetic corridor: the gates of
+   tests/test_slam_e2e.py's stereo test, >= 3 keyframes, a local BA and
+   triangulated landmarks, and every kernel A-G (C in its epipolar mode
+   too) launched on that path; per-frame and per-BA times;
+6. one frame of the plain (CPU) step, and the whole System run with the
+   plain versions on the host, against the card; a JSON line of the
+   kernels, then ``{"ok": true, "device": {...}}`` last.
 
+Launch counts are zeroed just before phases 4 and 5 and read just after.
 Any failure raises, so the script exits nonzero without the last line.
 """
 from __future__ import annotations
@@ -31,6 +42,7 @@ import torch
 
 N_FRAMES = 12
 WARMUP = 2
+SYS_FRAMES = 30  # the System phase: test_slam_e2e.py's stereo sequence
 N_LM = 4096
 SHIFT = 2  # px per frame, sideways pan
 DISP_640 = 8  # px of disparity at 640 wide; the plane is at bf / disparity
@@ -186,6 +198,126 @@ def check_sequence(rig: Rig, rows) -> None:
             )
 
 
+# --- the System's scene: numpy copies of tests/synthetic.py's helpers ----------
+# (tests/synthetic.py imports jax, which the card's machine does not have)
+
+
+def _frames_from_normals(normals):
+    """Per-splat orthonormal in-plane tangent frames (e1, e2) from normals."""
+    n = normals / np.maximum(np.linalg.norm(normals, axis=-1, keepdims=True), 1e-9)
+    helper = np.where(np.abs(n[:, 2:3]) < 0.9, np.array([[0.0, 0.0, 1.0]]), np.array([[1.0, 0.0, 0.0]]))
+    e1 = np.cross(n, helper)
+    e1 /= np.maximum(np.linalg.norm(e1, axis=-1, keepdims=True), 1e-9)
+    return e1.astype(np.float32), np.cross(n, e1).astype(np.float32)
+
+
+def make_corridor_world(rng, n=800, half_w=4.0, half_h=3.0, length=40.0, tile=6):
+    """Textured square splats on the four walls of a box corridor along +z
+    (synthetic.make_corridor_world, the same draws from ``rng``)."""
+    n4 = n // 4
+    zs = rng.uniform(1.0, length, n)
+    walls = [
+        np.stack([np.full(n4, -half_w), rng.uniform(-half_h, half_h, n4), zs[:n4]], -1),
+        np.stack([np.full(n4, half_w), rng.uniform(-half_h, half_h, n4), zs[n4: 2 * n4]], -1),
+        np.stack([rng.uniform(-half_w, half_w, n4), np.full(n4, -half_h), zs[2 * n4: 3 * n4]], -1),
+        np.stack([rng.uniform(-half_w, half_w, n - 3 * n4), np.full(n - 3 * n4, half_h), zs[3 * n4:]], -1),
+    ]
+    tilt = rng.uniform(0.7, 3.0, (n, 1))
+    base = np.concatenate([np.tile([1.0, 0.0, 0.0], (n4, 1)), np.tile([-1.0, 0.0, 0.0], (n4, 1)),
+                           np.tile([0.0, 1.0, 0.0], (n4, 1)), np.tile([0.0, -1.0, 0.0], (n - 3 * n4, 1))])
+    e1, e2 = _frames_from_normals(base + tilt * np.array([[0.0, 0.0, -1.0]]))
+    return {
+        "centers": np.concatenate(walls).astype(np.float32),
+        "sizes": rng.uniform(0.15, 0.4, n).astype(np.float32),
+        "tex": rng.uniform(40.0, 230.0, (n, tile, tile)).astype(np.float32),
+        "e1": e1,
+        "e2": e2,
+    }
+
+
+def render(world, cam, R, t, wh=(640, 480), bg=30.0) -> np.ndarray:
+    """Perspective render of the world-anchored textured quads seen from
+    T_cw = (R, t) (synthetic.render): per pixel, the ray-plane hit of the
+    nearest quad, its texture sampled bilinearly."""
+    from orb_slam3_fast_tpu_torch.cameras import models as cm
+
+    w, h = wh
+    img = np.full((h, w), bg, dtype=np.float32)
+    zbuf = np.full((h, w), np.inf, dtype=np.float32)
+    R, t = np.asarray(R, np.float64), np.asarray(t, np.float64)
+    centers = world["centers"].astype(np.float64)
+    Xc = centers @ R.T + t
+    tile = world["tex"].shape[1]
+    e1, e2 = world["e1"].astype(np.float64), world["e2"].astype(np.float64)
+    sizes = world["sizes"].astype(np.float64)
+    uu, vv = np.meshgrid(np.arange(w, dtype=np.float64), np.arange(h, dtype=np.float64))
+    grid = torch.as_tensor(np.stack([uu, vv], -1).reshape(-1, 2), dtype=torch.float32)
+    all_dirs = cm.unproject(cam, grid).numpy().reshape(h, w, 3).astype(np.float64)
+    half = 0.5 * sizes
+    quad = np.array([[-1, -1], [1, -1], [1, 1], [-1, 1]], np.float64)
+    corners_w = centers[:, None, :] + np.einsum("qa,iad->iqd", quad, np.stack([e1 * half[:, None], e2 * half[:, None]], 1))
+    cc = corners_w @ R.T + t  # (n,4,3)
+    uvq = cm.project(cam, torch.as_tensor(cc, dtype=torch.float32)).numpy()
+    for i in range(len(centers)):
+        if Xc[i, 2] < 0.5 or np.any(cc[i, :, 2] < 0.2):
+            continue
+        u0 = max(int(np.floor(uvq[i, :, 0].min())), 0)
+        u1 = min(int(np.ceil(uvq[i, :, 0].max())) + 1, w)
+        v0 = max(int(np.floor(uvq[i, :, 1].min())), 0)
+        v1 = min(int(np.ceil(uvq[i, :, 1].max())) + 1, h)
+        if u1 <= u0 or v1 <= v0 or (u1 - u0) * (v1 - v0) > 200_000:
+            continue
+        dirs = all_dirs[v0:v1, u0:u1]
+        pc, a1, a2 = Xc[i], R @ e1[i], R @ e2[i]
+        nc = np.cross(a1, a2)
+        denom = dirs @ nc
+        ok = np.abs(denom) > 1e-9
+        lam = (pc @ nc) / np.where(ok, denom, 1.0)
+        hit = dirs * lam[..., None]
+        rel = hit - pc
+        a = rel @ a1 / (half[i] * 2)
+        b = rel @ a2 / (half[i] * 2)
+        inside = ok & (lam > 0.2) & (np.abs(a) <= 0.5) & (np.abs(b) <= 0.5)
+        if not inside.any():
+            continue
+        depth = hit[..., 2]
+        zb = zbuf[v0:v1, u0:u1]
+        vis = inside & (depth < zb)
+        if not vis.any():
+            continue
+        txf = np.clip((a + 0.5) * tile - 0.5, 0.0, tile - 1.001)
+        tyf = np.clip((b + 0.5) * tile - 0.5, 0.0, tile - 1.001)
+        x0i, y0i = txf.astype(np.int32), tyf.astype(np.int32)
+        wx, wy = txf - x0i, tyf - y0i
+        T_ = world["tex"][i]
+        x1i, y1i = np.minimum(x0i + 1, tile - 1), np.minimum(y0i + 1, tile - 1)
+        val = (T_[y0i, x0i] * (1 - wy) * (1 - wx) + T_[y0i, x1i] * (1 - wy) * wx
+               + T_[y1i, x0i] * wy * (1 - wx) + T_[y1i, x1i] * wy * wx)
+        img[v0:v1, u0:u1][vis] = val[vis]
+        zb[vis] = depth[vis]
+    return img
+
+
+def arc_trajectory(n_frames, step=0.08, yaw_rate=0.004, lateral=0.0):
+    """Forward motion with a slow yaw (synthetic.arc_trajectory): a list of
+    T_cw as (R, t) numpy float32 pairs."""
+    from orb_slam3_fast_tpu_torch.utils import lie
+
+    poses = []
+    T_wc = lie.SE3.identity("cpu")
+    inc = lie.se3_exp(torch.tensor([step * 0.3, lateral, step, 0.0, yaw_rate, 0.0], dtype=torch.float32))
+    for _ in range(n_frames):
+        T_cw = T_wc.inverse()
+        poses.append((T_cw.R.numpy(), T_cw.t.numpy()))
+        T_wc = T_wc.compose(inc)
+    return poses
+
+
+def stereo_pair(world, cam, R, t, baseline, wh=(640, 480)):
+    """The right camera sits +baseline along x of the left one."""
+    return render(world, cam, R, t, wh), render(world, cam, R, np.asarray(t) - np.array([baseline, 0.0, 0.0]), wh)
+
+
 # --- phase 3: each kernel against its plain version ---------------------------
 
 
@@ -300,6 +432,236 @@ def compare_kernels(device) -> list[dict]:
     return out
 
 
+def ba_problem(rng, device, K=32, live=20, fixed=8, M=4096, obs_per_lm=4):
+    """A seeded local-BA problem at the path's caps (MapperConfig: 12 + 8
+    keyframes padded to K = 32, 4096 landmarks, 16384 observations): ``live``
+    free poses and ``fixed`` fixed ones along a forward arc, the rest
+    padding; every landmark seen from ``obs_per_lm`` random poses; 60%
+    stereo edges, 10% outliers, 0.5 px noise; free poses and landmarks
+    perturbed from the truth."""
+    from orb_slam3_fast_tpu_torch.optim import ba
+    from orb_slam3_fast_tpu_torch.utils import lie
+
+    n_real = live + fixed
+    R = np.tile(np.eye(3, dtype=np.float32), (K, 1, 1))
+    t = np.zeros((K, 3), np.float32)
+    for k in range(n_real):
+        T = lie.se3_exp(torch.tensor([0.02 * k, 0.0, 0.1 * k, 0.0, 0.004 * k, 0.0])).inverse()
+        R[k], t[k] = T.R.numpy(), T.t.numpy()
+    X = np.stack([rng.uniform(-4, 4, M), rng.uniform(-3, 3, M), rng.uniform(5, 30, M)], -1).astype(np.float32)
+    lm = np.repeat(np.arange(M), obs_per_lm).astype(np.int32)
+    kf = rng.integers(0, n_real, len(lm)).astype(np.int32)
+    xc = np.einsum("oij,oj->oi", R[kf], X[lm]) + t[kf]
+    fx, cx, cy, bf = 400.0, 320.0, 240.0, 48.0
+    u = fx * xc[:, 0] / xc[:, 2] + cx
+    uv = np.stack([u, fx * xc[:, 1] / xc[:, 2] + cy, u - bf / xc[:, 2]], -1) + rng.normal(0, 0.5, (len(lm), 3))
+    out = rng.uniform(size=len(lm)) < 0.1
+    uv[out, :2] += rng.uniform(15, 40, (out.sum(), 2)) * rng.choice([-1, 1], (out.sum(), 2))
+    stereo = rng.uniform(size=len(lm)) < 0.6
+    uv[~stereo, 2] = -1.0
+    pose_fixed = np.ones(K, bool)
+    pose_fixed[fixed:n_real] = False
+    t0 = t.copy()
+    t0[~pose_fixed] += rng.normal(0, 0.02, ((~pose_fixed).sum(), 3)).astype(np.float32)
+    return ba.make_problem(
+        R, t0, pose_fixed, X + rng.normal(0, 0.05, X.shape).astype(np.float32), np.ones(M, bool), kf, lm,
+        uv.astype(np.float32), (1.0 / 1.44 ** rng.integers(0, 4, len(lm))).astype(np.float32), stereo,
+        np.ones(len(lm), bool), device=device,
+    )
+
+
+def corridor_keypoints(device):
+    """Keypoints (768 features) of two corridor frames 6 cm apart, with F
+    from their true poses: the inputs of kernel C's epipolar and mutual
+    modes at the System's shapes."""
+    from orb_slam3_fast_tpu_torch.cameras.models import Camera
+    from orb_slam3_fast_tpu_torch.ops import extractor as ext
+
+    cam = Camera.pinhole(400.0, 400.0, 320.0, 240.0)
+    world = make_corridor_world(np.random.default_rng(1), n=900)
+    poses = arc_trajectory(6, step=0.06, lateral=0.05)
+    cfg = ext.ExtractorConfig(n_features=768)
+    kps = [ext.extract(torch.as_tensor(render(world, cam, *poses[i])).to(device), cfg) for i in (0, 5)]
+    (Ra, ta), (Rb, tb) = poses[0], poses[5]
+    R_ba = Rb @ Ra.T  # a -> b
+    t_ba = tb - R_ba @ ta
+    tx = np.array([[0, -t_ba[2], t_ba[1]], [t_ba[2], 0, -t_ba[0]], [-t_ba[1], t_ba[0], 0]])
+    Kinv = np.linalg.inv(cam.K().numpy().astype(np.float64))
+    F_ab = (Kinv.T @ tx @ R_ba @ Kinv).astype(np.float32)  # x_b^T F x_a = 0
+    return kps, torch.as_tensor(F_ab).to(device), torch.as_tensor(ext.level_sigma2(cfg)).to(device)
+
+
+def compare_system_kernels(device, ba_sizes=None, n_dlt=1024) -> tuple[list[dict], dict]:
+    """Phase 3 for the System's kernels: E + F on a BA problem at the path's
+    caps, G on ``n_dlt`` matches, C's epipolar and mutual modes at 768 x 768,
+    each against its plain version, with CUDA-event times.  Returns (E, F, G
+    entries, C's two modes)."""
+    from orb_slam3_fast_tpu_torch.cameras.models import Camera
+    from orb_slam3_fast_tpu_torch.ops import hamming as ham
+    from orb_slam3_fast_tpu_torch.ops import matching as mat
+    from orb_slam3_fast_tpu_torch.ops import twoview
+    from orb_slam3_fast_tpu_torch.optim import ba
+
+    timed = device.type == "cuda"
+    ms = cuda_ms if timed else (lambda fn, reps: float("nan"))
+    rng = np.random.default_rng(3)
+    cam, bf = Camera.pinhole(400.0, 400.0, 320.0, 240.0), 48.0
+    prob = ba_problem(rng, device, **(ba_sizes or {}))
+    K, M, O = prob.R.shape[0], prob.xw.shape[0], prob.obs_kf.shape[0]
+    out = []
+
+    # E: the blocks; W scattered into Z for the comparison
+    inl = torch.ones_like(prob.obs_valid)
+    args = (cam, bf, prob.R, prob.t, prob.xw, prob, inl)
+    bk, bp = ba.build_normal_blocks(*args), ba.build_normal_blocks_plain(*args)
+    lm, kf = prob.obs_lm.long(), prob.obs_kf.long()
+    Zk = bk[4] if bk[4].dim() == 4 else (  # the plain version (a CPU rehearsal) already gives Z
+        torch.zeros((M * K, 6, 3), device=device).index_add_(0, lm * K + kf, bk[4]).reshape(M, K, 6, 3))
+    err_e = max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-12)
+                for x, y in zip((*bk[:4], Zk, *bk[5:]), bp))
+    # atomics sum in another order: every block within 1e-4 of its max
+    if not err_e <= 1e-4:
+        raise RuntimeError(f"ba_blocks: a block differs by {err_e:.3g} of its max from the plain version")
+    out.append(dict(name="ba_blocks", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/ba_blocks.cu",
+                    replaces="orb_slam3_fast_tpu/optim/ba.py:72", max_abs_err=err_e,
+                    ms=ms(lambda: ba.build_normal_blocks(*args), 20), plain_ms=ms(lambda: ba.build_normal_blocks_plain(*args), 5),
+                    shapes=f"K={K} ({int((~prob.pose_fixed).sum())} free), M={M}, O={O}; error relative to each block's max, tolerance 1e-4"))
+
+    # F: the same blocks into the kernel and into a float64 plain solve
+    lam = torch.tensor(1e-4, device=device)
+    dk, lk = ba.schur_solve(*bk[:6], prob, lam)
+    b64 = [x.double() for x in (*bk[:4], Zk, bk[5])]
+    d64, l64 = ba.schur_solve_plain(*b64, prob.pose_fixed, prob.lm_valid, lam.double())
+    err_f = max(float((dk.double() - d64).abs().max() / d64.abs().max()),
+                float((lk.double() - l64).abs().max() / l64.abs().max()))
+    d32, _ = ba.schur_solve_plain(*bp[:6], prob.pose_fixed, prob.lm_valid, lam)
+    err_f32 = float((dk - d32).abs().max() / d32.abs().max())
+    if not err_f <= 1e-4:
+        raise RuntimeError(f"ba_schur: dp / dl differ by {err_f:.3g} (relative) from the float64 plain solve")
+    out.append(dict(name="ba_schur", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/ba_schur.cu",
+                    replaces="orb_slam3_fast_tpu/optim/ba.py:108", max_abs_err=err_f,
+                    ms=ms(lambda: ba.schur_solve(*bk[:6], prob, lam), 20),
+                    plain_ms=ms(lambda: ba.schur_solve_plain(*bp[:6], prob.pose_fixed, prob.lm_valid, lam), 5),
+                    shapes=f"6K={6 * K}; error relative to the float64 plain solve of the same blocks, tolerance "
+                           f"1e-4; {err_f32:.3g} against the float32 plain solve"))
+
+    # E + F: a whole bundle_adjust against the plain one
+    Rk, tk, _, ik = ba.bundle_adjust(cam, bf, prob)
+    Rp, tp, _, ip = ba.bundle_adjust_plain(cam, bf, prob)
+    err_ba = max(float((tk - tp).abs().max()), float((Rk - Rp).abs().max()))
+    flips = float((ik != ip).float().mean())
+    if not (err_ba <= 1e-3 and flips <= 0.005):
+        raise RuntimeError(f"bundle_adjust: pose err {err_ba:.3g}, inlier flags differing {flips:.4f}")
+    ba_ms = ms(lambda: ba.bundle_adjust(cam, bf, prob), 3)
+    ba_plain_ms = ms(lambda: ba.bundle_adjust_plain(cam, bf, prob), 2)
+    out[-1]["shapes"] += (f"; bundle_adjust 5+10 LM via E+F {ba_ms:.3f} ms (plain {ba_plain_ms:.3f}), pose err "
+                          f"{err_ba:.3g} (tolerance 1e-3), inlier flags differing {flips:.4f} (tolerance 0.005)")
+
+    # G: 1024 matches of two keyframes 0.4 m apart
+    g = torch.Generator().manual_seed(0)
+    Xs = torch.stack([torch.rand(n_dlt, generator=g) * 8 - 4, torch.rand(n_dlt, generator=g) * 6 - 3,
+                      2 + 20 * torch.rand(n_dlt, generator=g)], 1)
+    P0 = torch.tensor([[1.0, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 0]])
+    P1 = torch.tensor([[1.0, 0, 0, -0.4], [0, 1, 0, 0.05], [0, 0, 1, 0.1]])
+    x0 = Xs[:, :2] / Xs[:, 2:] + 1e-3 * torch.randn(n_dlt, 2, generator=g)
+    xc1 = Xs + P1[:, 3]
+    x1 = xc1[:, :2] / xc1[:, 2:] + 1e-3 * torch.randn(n_dlt, 2, generator=g)
+    dlt = [a.to(device).contiguous() for a in (P0, P1, x0, x1)]
+    Xk, Xp = twoview.triangulate_dlt(*dlt), twoview.triangulate_dlt_plain(*dlt)
+    c1 = -P1[:, 3]
+    cosp = (Xs * (Xs - c1)).sum(1) / (Xs.norm(dim=1) * (Xs - c1).norm(dim=1))
+    good = (cosp < 0.9998).to(device)
+    err_g = float(((Xk - Xp).norm(dim=1) / Xp.norm(dim=1))[good].max())
+    if not err_g <= 1e-4:
+        raise RuntimeError(f"triangulate_dlt: {err_g:.3g} relative on well-conditioned rows")
+    out.append(dict(name="triangulate_dlt", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/triangulate_dlt.cu",
+                    replaces="orb_slam3_fast_tpu/ops/twoview.py:164", max_abs_err=err_g,
+                    ms=ms(lambda: twoview.triangulate_dlt(*dlt), 50), plain_ms=ms(lambda: twoview.triangulate_dlt_plain(*dlt), 10),
+                    shapes=f"{n_dlt} matches ({int(good.sum())} with parallax cos < 0.9998); relative error there, "
+                           "tolerance 1e-4"))
+
+    # C: epipolar and mutual modes, 768 x 768, exact
+    (kp_a, kp_b), F_ab, sigma2 = corridor_keypoints(device)
+    f32 = torch.float32
+    xa = torch.cat([kp_a.xy, torch.ones_like(kp_a.xy[:, :1])], 1)
+    lines = xa @ F_ab.T
+    epi = ham.EpipolarGate(lines[:, 0].contiguous(), lines[:, 1].contiguous(), lines[:, 2].contiguous(),
+                           lines[:, 0] ** 2 + lines[:, 1] ** 2, kp_a.valid.to(f32), kp_b.xy[:, 0].contiguous(),
+                           kp_b.xy[:, 1].contiguous(), 3.84 * mat._pow_level(kp_b.level, sigma2), kp_b.valid.to(f32))
+    mutual = ham.MutualGate(kp_a.valid.to(f32), kp_b.valid.to(f32))
+    modes = {}
+    for name, gate in (("epipolar", epi), ("mutual", mutual)):
+        (bk_, ck), (bp_, cp) = ham.hamming_best2(kp_a.desc, kp_b.desc, gate), ham.hamming_best2_plain(kp_a.desc, kp_b.desc, gate)
+        if not (all(torch.equal(x, y) for x, y in zip(bk_, bp_)) and torch.equal(ck, cp)):
+            raise RuntimeError(f"hamming_best2 {name} mode differs from its plain version")
+        modes[name] = dict(n=kp_a.n, m=kp_b.n, ms=ms(lambda: ham.hamming_best2(kp_a.desc, kp_b.desc, gate), 50),
+                           plain_ms=ms(lambda: ham.hamming_best2_plain(kp_a.desc, kp_b.desc, gate), 10),
+                           accepted=int((bp_.dist < ham.INF_DIST).sum()))
+    return out, modes
+
+
+def corridor_frames(n_frames: int, wh=(640, 480)):
+    """The System phase's input: test_slam_e2e.py's stereo corridor (seed 1,
+    900 splats, arc_trajectory(step=0.06, lateral=0.05), 0.12 m baseline),
+    rendered on the host; returns (frames, true T_cw per frame)."""
+    from orb_slam3_fast_tpu_torch.cameras.models import Camera
+
+    cam = Camera.pinhole(400.0, 400.0, 320.0, 240.0)
+    world = make_corridor_world(np.random.default_rng(1), n=900)
+    poses = arc_trajectory(n_frames, step=0.06, lateral=0.05)
+    return [stereo_pair(world, cam, R, t, 0.12, wh) for R, t in poses], poses
+
+
+def run_system(frames, poses, device, config="configs/synthetic_stereo.yaml"):
+    """The stereo System on the corridor, as test_slam_e2e.py's stereo test
+    drives the JAX tracker; checks its gates (final state OK, > 25 of 30
+    frames tracked, unscaled ATE < 0.10 m, |scale - 1| < 0.1) and that
+    mapping ran (>= 3 keyframes, a local BA, triangulated landmarks).
+    Returns the System, a summary dict and the per-frame (state, R, t)."""
+    from orb_slam3_fast_tpu_torch.eval import ate
+    from orb_slam3_fast_tpu_torch.slam.system import System
+
+    slam = System(config, "stereo", enable_loop_closing=False, multi_map=False, async_backend=False, device=device)
+    est, gt, ts, track = [], [], [], []
+    for i, ((il, ir), (R, t)) in enumerate(zip(frames, poses)):
+        state, pose = slam.track_stereo(il, ir, i * 0.05)
+        track.append((state, *pose))
+        if state == "OK" and pose is not None:
+            est.append(-pose[0].T @ pose[1])
+            gt.append(-R.T @ t)
+            ts.append(i * 0.05)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    est, gt, ts = np.asarray(est), np.asarray(gt), np.asarray(ts)
+    rmse, _, _ = ate.ate_rmse(ts, est, ts, gt, with_scale=False)
+    _, _, s_fit = ate.ate_rmse(ts, est, ts, gt, with_scale=True)
+    summary = dict(state=slam.get_tracking_state(), tracked=len(est), ate_m=rmse, scale=s_fit, n_kf=slam.world.n_kf,
+                   landmarks=int(slam.world.lm_valid.sum()), local_ba=slam.mapper.n_local_ba,
+                   triangulated=slam.mapper.n_triangulated)
+    need_tracked = int(len(frames) * 25 / 30)
+    if not (summary["state"] == "OK" and summary["tracked"] > need_tracked and rmse < 0.10 and abs(s_fit - 1) < 0.1
+            and summary["n_kf"] >= 3 and summary["local_ba"] >= 1 and summary["triangulated"] > 0):
+        raise RuntimeError(f"System gates failed: {summary}")
+    return slam, summary, track
+
+
+def check_system_against_plain(card, plain) -> str:
+    """The System on the card against the same run with the plain versions
+    on the host (the path the tests hold against the JAX package): the
+    whole-path test's tolerances -- the same state per frame, poses within
+    2e-3 m and rotation entries within 1e-3, the same keyframe count, live
+    landmarks within 3%."""
+    (slam_c, sum_c, track_c), (slam_p, sum_p, track_p) = card, plain
+    for i, ((sc, Rc, tc), (sp, Rp, tp)) in enumerate(zip(track_c, track_p)):
+        if sc != sp or np.abs(tc - tp).max() > 2e-3 or np.abs(Rc - Rp).max() > 1e-3:
+            raise RuntimeError(f"System frame {i}: card {sc} {tc} vs plain {sp} {tp}")
+    if sum_c["n_kf"] != sum_p["n_kf"] or abs(sum_c["landmarks"] - sum_p["landmarks"]) > 0.03 * sum_p["landmarks"]:
+        raise RuntimeError(f"System map: card {sum_c} vs plain {sum_p}")
+    dt = max(float(np.abs(a[2] - b[2]).max()) for a, b in zip(track_c, track_p))
+    return (f"{len(track_c)} frames in the same states, max |dt| {dt:.3g} m, keyframes {sum_c['n_kf']} / "
+            f"{sum_p['n_kf']}, landmarks {sum_c['landmarks']} / {sum_p['landmarks']}")
+
+
 def stage_split(rig: Rig, device) -> dict:
     """Per-stage CUDA-event times of the step on one frame."""
     from orb_slam3_fast_tpu_torch.ops import extractor as ext
@@ -321,6 +683,37 @@ def stage_split(rig: Rig, device) -> dict:
             "visibility_projection_match_ms": t_map, "pose_obs_ms": t_obs, "pose_opt_ms": t_pose}
 
 
+WRAPPER_NAMES = ("fast_nms", "orb_describe", "hamming_best2", "pose_lm", "ba_blocks", "ba_schur", "triangulate_dlt")
+
+
+def wrappers() -> dict:
+    """Each kernel's wrapper, by the kernel's name."""
+    from orb_slam3_fast_tpu_torch.ops import extractor as ext
+    from orb_slam3_fast_tpu_torch.ops import fast
+    from orb_slam3_fast_tpu_torch.ops import hamming as ham
+    from orb_slam3_fast_tpu_torch.ops import twoview
+    from orb_slam3_fast_tpu_torch.optim import ba, pose_opt
+
+    return dict(zip(WRAPPER_NAMES, (fast.fast_nms, ext.orb_describe, ham.hamming_best2, pose_opt.pose_optimization,
+                                    ba.build_normal_blocks, ba.schur_solve, twoview.triangulate_dlt)))
+
+
+def reset_counts() -> None:
+    from orb_slam3_fast_tpu_torch.ops import hamming as ham
+
+    for w in wrappers().values():
+        w.launches = 0
+    ham.hamming_best2.mode_launches = [0, 0, 0, 0]
+
+
+def read_counts() -> dict:
+    from orb_slam3_fast_tpu_torch.ops import hamming as ham
+
+    counts = {name: w.launches for name, w in wrappers().items()}
+    counts.update({f"hamming_best2[{m}]": n for m, n in zip(ham.MODE_NAMES, ham.hamming_best2.mode_launches)})
+    return counts
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -340,36 +733,39 @@ def main() -> int:
     t0 = time.perf_counter()
     _, nvcc_out = _kernels.build()  # a fresh checkout has no library yet: this compiles
     _kernels.lib()
-    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {' '.join(_kernels.NVCC_FLAGS)})")
+    log(f"build: {time.perf_counter() - t0:.1f} s (one nvcc per source, in parallel; {' '.join(_kernels.NVCC_FLAGS)})")
     for line in nvcc_out.splitlines():
-        if "registers" in line or ("spill" in line and "0 bytes spill" not in line):
+        if line.startswith("==") or "registers" in line or ("spill" in line and "0 bytes spill" not in line):
             log(f"  ptxas {line.strip()}")
 
-    from orb_slam3_fast_tpu_torch.ops import extractor as ext
-    from orb_slam3_fast_tpu_torch.ops import fast
-    from orb_slam3_fast_tpu_torch.ops import hamming as ham
-    from orb_slam3_fast_tpu_torch.optim import pose_opt
-
-    wrappers = {"fast_nms": fast.fast_nms, "orb_describe": ext.orb_describe,
-                "hamming_best2": ham.hamming_best2, "pose_lm": pose_opt.pose_optimization}
-
     # 3. each kernel against its plain version
+    t0 = time.perf_counter()
     kernels = compare_kernels(device)
+    system_kernels, c_modes = compare_system_kernels(device)
+    kernels += system_kernels
+    c = next(k for k in kernels if k["name"] == "hamming_best2")
+    for mode, r in c_modes.items():
+        c["ms"] += r["ms"]
+        c["plain_ms"] += r["plain_ms"]
+        c["shapes"] += (f", {mode} {r['n']}x{r['m']} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+                        f"{r['accepted']} rows with a candidate)")
     for k in kernels:
         log(f"kernel {k['name']}: max_abs_err {k['max_abs_err']:.3g}, {k['ms']:.4f} ms vs plain "
             f"{k['plain_ms']:.4f} ms ({k['shapes']})")
+    log(f"phase 3: {time.perf_counter() - t0:.1f} s")
 
-    # 4. the step at both sizes: the main path, with the launch counts
+    # 4. the tracking step at both sizes: its path, with the launch counts
+    t0 = time.perf_counter()
     rigs = [Rig(640, 480), Rig(1280, 720)]
     scenes = [setup(rig, device) for rig in rigs]
-    for w in wrappers.values():
-        w.launches = 0
+    reset_counts()
     results = {(rig.w, rig.h): track(rig, *scene, device) for rig, scene in zip(rigs, scenes)}
-    launches = {name: w.launches for name, w in wrappers.items()}
+    step_launches = read_counts()
     for rig in rigs:
         check_sequence(rig, results[(rig.w, rig.h)])
-    if min(launches.values()) < 1:
-        raise RuntimeError(f"a kernel of the main path was never launched: {launches}")
+    missing = [n for n in WRAPPER_NAMES[:4] if step_launches[n] < 1]
+    if missing:
+        raise RuntimeError(f"kernels of the step's path never launched: {missing} ({step_launches})")
     for (w, h), rows in results.items():
         ms = [r[4] for r in rows if r[4] is not None]
         log(f"step {w}x{h}: {len(rows)} frames, matches {min(r[0] for r in rows)}-{max(r[0] for r in rows)}, "
@@ -377,11 +773,32 @@ def main() -> int:
             f"{max(r[2] for r in rows):.3g} m (bound {Rig(w, h).z / Rig(w, h).fx:.3g}), "
             f"step {np.mean(ms):.3f} ms mean / {np.median(ms):.3f} median over {len(ms)} frames "
             f"({1e3 / np.mean(ms):.1f} fps); per frame ms {[round(x, 3) for x in ms]}")
-    log(f"launches in the main-path run: {launches}")
-
+    log(f"launches in the step's run: {step_launches}")
     for (w, h) in results:
         split = stage_split(Rig(w, h), device)
         log(f"stages {w}x{h}: " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    log(f"phase 4: {time.perf_counter() - t0:.1f} s")
+
+    # 5. the stereo System with local mapping: its path, with the launch counts
+    t0 = time.perf_counter()
+    frames, poses = corridor_frames(SYS_FRAMES)
+    log(f"System scene: {SYS_FRAMES} stereo pairs rendered on the host in {time.perf_counter() - t0:.1f} s")
+    reset_counts()
+    t1 = time.perf_counter()
+    card_run = run_system(frames, poses, device)
+    slam, summary, _ = card_run
+    sys_s = time.perf_counter() - t1
+    sys_launches = read_counts()
+    missing = [n for n in (*WRAPPER_NAMES, "hamming_best2[epipolar]") if sys_launches[n] < 1]
+    if missing:
+        raise RuntimeError(f"kernels of the System's path never launched: {missing} ({sys_launches})")
+    spans, mspans = slam.timers.spans, slam.mapper.timers.spans
+    log(f"System: {summary}, {sys_s:.2f} s for {SYS_FRAMES} frames")
+    log(f"System track_total ms per frame: {[round(x, 3) for x in spans['track_total']]}")
+    log(f"System map_local_ba ms per keyframe: {[round(x, 3) for x in mspans['map_local_ba']]}")
+    log("System stage means:\n" + slam.print_time_stats())
+    log(f"launches in the System's run: {sys_launches}")
+    log(f"phase 5: {time.perf_counter() - t0:.1f} s")
 
     # the plain (CPU) step, which the tests hold against the JAX package,
     # agrees with the card on frame 1 at 640x480.  Last, because the host
@@ -393,12 +810,16 @@ def main() -> int:
     if abs(m_g - m_c) > 0.05 * m_c or abs(n_g - n_c) > 0.05 * n_c or et_c > rig.z / rig.fx:
         raise RuntimeError(f"card vs plain step: matches {m_g}/{m_c}, inliers {n_g}/{n_c}, cpu |dt| {et_c}")
     log(f"plain step on the host, frame 1 at 640x480: matches {m_c} (card {m_g}), inliers {n_c} (card {n_g})")
+    t0 = time.perf_counter()
+    log(f"plain System on the host against the card: {check_system_against_plain(card_run, run_system(frames, poses, cpu))}"
+        f" ({time.perf_counter() - t0:.1f} s)")
 
-    # 5. results
+    # 6. results: launches are those of the System's run, whose path runs every kernel
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = sys_launches[k["name"]]
     log(json.dumps({"kernels": [{key: k[key] for key in ("name", "route", "source", "replaces", "launches",
-                                                         "max_abs_err", "ms", "plain_ms")} for k in kernels]}))
+                                                         "max_abs_err", "ms", "plain_ms", "shapes")}
+                                for k in kernels]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
     return 0

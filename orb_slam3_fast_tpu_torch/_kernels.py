@@ -1,6 +1,7 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
-All ``csrc/*.cu`` sources compile with one ``nvcc`` call into
+Each ``csrc/*.cu`` source compiles with its own ``nvcc`` process, all
+started together, and one more ``nvcc`` links the objects into
 ``_build/libkernels.so`` (a plain C interface, no PyTorch headers, so the
 build takes seconds), at first use and again whenever a source is newer than
 the library.  The library is loaded with ``ctypes``; every pointer and the
@@ -26,7 +27,7 @@ BUILD_DIR = _PKG / "_build"
 LIB_PATH = BUILD_DIR / "libkernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills per kernel, in build()'s output
 )
 
@@ -45,6 +46,15 @@ SIGNATURES = {
     # xw, uv, inv_sigma2, is_stereo, valid, n, cam (fx,fy,cx,cy,bf), R0, t0,
     # n_rounds, iters, R_out, t_out, inlier_out, n_inl_out, stream
     "pose_lm_launch": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+    # cam5, R, t, xw, pose_fixed, lm_valid, obs_kf, obs_lm, obs_uv,
+    # inv_sigma2, is_stereo, obs_valid, inlier, n_obs, Hpp, Hll, bp, bl, W,
+    # w_lm, cost, stream
+    "ba_blocks_launch": [_P] * 13 + [_I] + [_P] * 8,
+    # Hpp, Hll, bp, bl, W, w_lm, pose_fixed, lm_valid, obs_kf, lm_ptr,
+    # lm_obs, lam, n_poses, n_lm, n_obs, S, bs, dp, dl, stream
+    "ba_schur_launch": [_P] * 12 + [_I] * 3 + [_P] * 5,
+    # P0, P1, x0, x1, n, X, stream
+    "triangulate_dlt_launch": [_P, _P, _P, _P, _I, _P, _P],
 }
 
 
@@ -69,15 +79,35 @@ def build() -> tuple[float, str]:
     if not _stale():
         return 0.0, ""
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = BUILD_DIR / f"libkernels.{os.getpid()}.tmp.so"
-    srcs = sorted(str(p) for p in SRC_DIR.glob("*.cu"))
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *srcs]
+    tag = f"{os.getpid()}.tmp"
+    tmp = BUILD_DIR / f"libkernels.{tag}.so"
+    srcs = sorted(SRC_DIR.glob("*.cu"))
+    objs = [BUILD_DIR / f"{p.stem}.{tag}.o" for p in srcs]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {res.returncode}:\n{res.stdout}{res.stderr}")
-    os.replace(tmp, LIB_PATH)
-    return time.perf_counter() - t0, res.stdout + res.stderr
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)], stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+        for p, o in zip(srcs, objs)
+    ]
+    out, failed = [], []
+    for p, proc in zip(srcs, procs):
+        text = proc.communicate()[0]
+        out.append(f"== {p.name}\n{text}")
+        if proc.returncode != 0:
+            failed.append(p.name)
+    try:
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n" + "".join(out))
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed with code {link.returncode}:\n{link.stdout}{link.stderr}")
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    return time.perf_counter() - t0, "".join(out)
 
 
 @functools.cache

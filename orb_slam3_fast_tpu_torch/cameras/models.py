@@ -34,6 +34,12 @@ class Camera(NamedTuple):
     def kb8(fx, fy, cx, cy, k1, k2, k3, k4, device="cpu") -> "Camera":
         return Camera(KB8, torch.tensor([fx, fy, cx, cy, k1, k2, k3, k4], dtype=torch.float32, device=device))
 
+    def K(self) -> torch.Tensor:
+        """(3,3) intrinsic matrix."""
+        fx, fy, cx, cy = self.params[:4]
+        z, o = torch.zeros_like(fx), torch.ones_like(fx)
+        return torch.stack([torch.stack([fx, z, cx]), torch.stack([z, fy, cy]), torch.stack([z, z, o])])
+
 
 def _distort_radtan(p: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
     k1, k2, p1, p2, k3 = p[4], p[5], p[6], p[7], p[8]
@@ -92,6 +98,35 @@ def project_jac(cam: Camera, xc: torch.Tensor) -> torch.Tensor:
     du = torch.stack([fx * a * iz, fx * b * iz, -fx * (a * x + b * y) * iz], dim=-1)
     dv = torch.stack([fy * b * iz, fy * d * iz, -fy * (b * x + d * y) * iz], dim=-1)
     return torch.stack([du, dv], dim=-2)
+
+
+def unproject(cam: Camera, uv: torch.Tensor, newton_iters: int = 10) -> torch.Tensor:
+    """Pixel coords (...,2) -> unit-z ray (...,3) [x/z, y/z, 1].  Pin-hole:
+    ``newton_iters`` fixed-point steps of rad-tan undistortion (skipped
+    without distortion); KB8: Newton on the distortion polynomial."""
+    p = cam.params
+    fx, fy, cx, cy = p[0], p[1], p[2], p[3]
+    mx = (uv[..., 0] - cx) / fx
+    my = (uv[..., 1] - cy) / fy
+    if cam.kind == PINHOLE:
+        x, y = mx, my
+        if bool(torch.any(torch.abs(p[4:]) > 0)):
+            for _ in range(newton_iters):
+                xd, yd = _distort_radtan(p, x, y)
+                x, y = mx - (xd - x), my - (yd - y)
+        return torch.stack([x, y, torch.ones_like(x)], dim=-1)
+    if cam.kind == KB8:
+        k1, k2, k3, k4 = p[4], p[5], p[6], p[7]
+        d = torch.clamp(torch.sqrt(mx * mx + my * my), 0.0, torch.pi)
+        theta = d
+        for _ in range(newton_iters):
+            t2 = theta * theta
+            poly = theta * (1.0 + t2 * (k1 + t2 * (k2 + t2 * (k3 + t2 * k4))))
+            dpoly = 1.0 + t2 * (3 * k1 + t2 * (5 * k2 + t2 * (7 * k3 + t2 * 9 * k4)))
+            theta = theta - (poly - d) / torch.where(torch.abs(dpoly) < _EPS, torch.full_like(dpoly, _EPS), dpoly)
+        scale = torch.where(d < _EPS, torch.ones_like(d), torch.tan(theta) / torch.clamp(d, min=_EPS))
+        return torch.stack([mx * scale, my * scale, torch.ones_like(mx)], dim=-1)
+    raise ValueError(f"unknown camera kind {cam.kind}")
 
 
 def stereo_project(cam: Camera, xc: torch.Tensor, bf) -> torch.Tensor:

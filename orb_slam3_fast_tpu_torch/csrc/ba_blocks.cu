@@ -1,0 +1,135 @@
+// Kernel E: local-BA normal-equation blocks, one thread per observation:
+// residual, closed-form stereo pin-hole Jacobian, Huber weight, atomic sums
+// into Hpp / Hll / bp / bl / w_lm / cost and the per-observation coupling
+// W_o = Jp^T w Jl.  See the source note in optim/ba.py;
+// build_normal_blocks_plain there is the JAX form with the dense Z.
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr float kChi2Mono = 5.991f;
+constexpr float kChi2Stereo = 7.815f;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+__global__ void __launch_bounds__(kThreads)
+ba_blocks_kernel(const float* __restrict__ cam5, const float* __restrict__ R,
+                 const float* __restrict__ t, const float* __restrict__ xw,
+                 const uint8_t* __restrict__ pose_fixed, const uint8_t* __restrict__ lm_valid,
+                 const int* __restrict__ obs_kf, const int* __restrict__ obs_lm,
+                 const float* __restrict__ obs_uv, const float* __restrict__ inv_s2,
+                 const uint8_t* __restrict__ is_stereo, const uint8_t* __restrict__ obs_valid,
+                 const uint8_t* __restrict__ inlier, int n_obs, float* __restrict__ Hpp,
+                 float* __restrict__ Hll, float* __restrict__ bp, float* __restrict__ bl,
+                 float* __restrict__ W, float* __restrict__ w_lm, float* __restrict__ cost) {
+  const int o = blockIdx.x * kThreads + threadIdx.x;
+  float rho = 0.f;
+  if (o < n_obs) {
+    const float fx = cam5[0], fy = cam5[1], cx = cam5[2], cy = cam5[3], bf = cam5[4];
+    const int k = obs_kf[o], m = obs_lm[o];
+    const float* Rk = R + 9 * k;
+    const float X = xw[3 * m], Y = xw[3 * m + 1], Z = xw[3 * m + 2];
+    float xc[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) xc[i] = Rk[3 * i] * X + Rk[3 * i + 1] * Y + Rk[3 * i + 2] * Z + t[3 * k + i];
+    const float z = fabsf(xc[2]) < 1e-9f ? 1e-9f : xc[2];
+    const float iz = 1.f / z;
+    const float u = fx * (xc[0] * iz) + cx, v = fy * (xc[1] * iz) + cy;
+    const bool stereo = is_stereo[o];
+    float r[3];
+    r[0] = obs_uv[3 * o] - u;
+    r[1] = obs_uv[3 * o + 1] - v;
+    r[2] = stereo ? obs_uv[3 * o + 2] - (u - bf * iz) : 0.f;
+    const float s2 = inv_s2[o];
+    const float chi2 = (r[0] * r[0] + r[1] * r[1] + r[2] * r[2]) * s2;
+    const float delta2 = stereo ? kChi2Stereo : kChi2Mono;
+    const bool active = obs_valid[o] && inlier[o] && xc[2] > 0.05f && lm_valid[m];
+    const float w_h = chi2 <= delta2 ? 1.f : sqrtf(delta2 / fmaxf(chi2, 1e-12f));
+    const float w = active ? w_h * s2 : 0.f;
+    if (active)
+      rho = chi2 <= delta2 ? chi2 : 2.f * sqrtf(delta2 * fmaxf(chi2, 1e-12f)) - delta2;
+    const bool free_pose = !pose_fixed[k];
+    // rows a of d(u, v, u_r)/d(xc); Jp row = -(a [I | -hat(xc)]), Jl row = -(a R);
+    // the signs cancel in every product below except b = -J^T w r
+    const float xn = xc[0] * iz, yn = xc[1] * iz;
+    const float A[3][3] = {{fx * iz, 0.f, -fx * xn * iz},
+                           {0.f, fy * iz, -fy * yn * iz},
+                           {fx * iz, 0.f, -fx * xn * iz + bf * iz * iz}};
+    float hpp[21] = {}, hll[6] = {}, gp[6] = {}, gl[3] = {}, wo[18] = {};
+    const int rows = stereo ? 3 : 2;
+    for (int q = 0; q < rows; ++q) {
+      const float a0 = A[q][0], a1 = A[q][1], a2 = A[q][2];
+      float jp[6] = {a0, a1, a2, a2 * xc[1] - a1 * xc[2], a0 * xc[2] - a2 * xc[0],
+                     a1 * xc[0] - a0 * xc[1]};
+      if (!free_pose)
+#pragma unroll
+        for (int i = 0; i < 6; ++i) jp[i] = 0.f;
+      float jl[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) jl[c] = a0 * Rk[c] + a1 * Rk[3 + c] + a2 * Rk[6 + c];
+      int h = 0;
+#pragma unroll
+      for (int i = 0; i < 6; ++i)
+#pragma unroll
+        for (int j = i; j < 6; ++j) hpp[h++] += w * (jp[i] * jp[j]);
+      h = 0;
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = i; j < 3; ++j) hll[h++] += w * (jl[i] * jl[j]);
+#pragma unroll
+      for (int i = 0; i < 6; ++i) gp[i] += w * jp[i] * r[q];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) gl[i] += w * jl[i] * r[q];
+#pragma unroll
+      for (int i = 0; i < 6; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) wo[3 * i + j] += w * (jp[i] * jl[j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 18; ++i) W[18 * o + i] = wo[i];
+    if (w != 0.f) {
+      float* H = Hpp + 36 * k;
+      int h = 0;
+      for (int i = 0; i < 6; ++i)
+        for (int j = i; j < 6; ++j, ++h) {
+          atomicAdd(&H[6 * i + j], hpp[h]);
+          if (j != i) atomicAdd(&H[6 * j + i], hpp[h]);
+        }
+      float* L = Hll + 9 * m;
+      h = 0;
+      for (int i = 0; i < 3; ++i)
+        for (int j = i; j < 3; ++j, ++h) {
+          atomicAdd(&L[3 * i + j], hll[h]);
+          if (j != i) atomicAdd(&L[3 * j + i], hll[h]);
+        }
+      for (int i = 0; i < 6; ++i) atomicAdd(&bp[6 * k + i], gp[i]);
+      for (int i = 0; i < 3; ++i) atomicAdd(&bl[3 * m + i], gl[i]);
+      atomicAdd(&w_lm[m], w);
+    }
+  }
+  // the robust cost: a warp sum, then one atomic per warp
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) rho += __shfl_down_sync(kFull, rho, s);
+  if ((threadIdx.x & 31) == 0 && rho != 0.f) atomicAdd(cost, rho);
+}
+
+}  // namespace
+
+extern "C" int ba_blocks_launch(const float* cam5, const float* R, const float* t, const float* xw,
+                                const uint8_t* pose_fixed, const uint8_t* lm_valid,
+                                const int* obs_kf, const int* obs_lm, const float* obs_uv,
+                                const float* inv_s2, const uint8_t* is_stereo,
+                                const uint8_t* obs_valid, const uint8_t* inlier, int n_obs,
+                                float* Hpp, float* Hll, float* bp, float* bl, float* W,
+                                float* w_lm, float* cost, void* stream) {
+  if (n_obs > 0) {
+    const int grid = (n_obs + kThreads - 1) / kThreads;
+    ba_blocks_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        cam5, R, t, xw, pose_fixed, lm_valid, obs_kf, obs_lm, obs_uv, inv_s2, is_stereo, obs_valid,
+        inlier, n_obs, Hpp, Hll, bp, bl, W, w_lm, cost);
+  }
+  return cudaGetLastError();
+}

@@ -1,5 +1,6 @@
 // Kernel C: gated Hamming best / second-best on packed descriptors, one warp
-// per row, the (N, M) matrix never written.  See the source note in
+// per row, the (N, M) matrix never written.  Four gates (modes): stereo soft
+// penalty, projection window, epipolar band, validity only (mutual).  See the source note in
 // ops/hamming.py; hamming_best2_plain there is the same function in PyTorch.
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -11,8 +12,10 @@ namespace {
 constexpr int kWarps = 8;  // rows per block
 constexpr int kStereo = 0;
 constexpr int kWindow = 1;
+constexpr int kEpipolar = 2;
+constexpr int kMutual = 3;
 constexpr float kBig = 10000.f;      // soft-gate penalty scale (stereo)
-constexpr float kInfDist = 10000.f;  // masked-out distance (window)
+constexpr float kInfDist = 10000.f;  // masked-out distance (window, epipolar, mutual)
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 struct Top2 {
@@ -66,10 +69,11 @@ hamming_best2_kernel(const int4* __restrict__ desc_a, const int4* __restrict__ d
                      const float* __restrict__ col_f, float max_disp, int* __restrict__ idx,
                      float* __restrict__ dist, float* __restrict__ dist2,
                      int* __restrict__ idx2, unsigned long long* __restrict__ col_key) {
-  extern __shared__ unsigned long long s_col[];  // stereo: per-column (value, row) minimum
+  extern __shared__ unsigned long long s_col[];  // per-column (value, row) minimum
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (mode == kStereo) {
+  const bool col_argmin = mode != kWindow;
+  if (col_argmin) {
     for (int j = threadIdx.x; j < m; j += blockDim.x) s_col[j] = ~0ull;
     __syncthreads();
   }
@@ -94,14 +98,26 @@ hamming_best2_kernel(const int4* __restrict__ desc_a, const int4* __restrict__ d
         pen = pen + (1.f - r3);
         pen = pen + (1.f - c4);
         v = __fadd_rn((float)d, __fmul_rn(kBig, pen));
-        const unsigned long long key =
-            ((unsigned long long)__float_as_uint(v + 0.f) << 32) | (unsigned)row;
-        atomicMin(&s_col[j], key);
-      } else {
+      } else if (mode == kWindow) {
         // row = [u, v, radius, pred_level, valid], col = [x, y, level, valid, -]
         const bool ok = fabsf(r0 - c0) <= r2 && fabsf(r1 - c1) <= r2 && c2 >= r3 - 1.f &&
                         c2 <= r3 + 1.f && r4 > 0.5f && c3 > 0.5f;
         v = ok ? (float)d : kInfDist;
+      } else if (mode == kEpipolar) {
+        // row = [a, b, c, a^2 + b^2, valid] (the epipolar line in image b),
+        // col = [x, y, 3.84 sigma2 band, valid, -]; (a x + b y + c)^2 / den
+        // in the plain version's op order, without FMA contraction
+        const float num = __fadd_rn(__fadd_rn(__fmul_rn(r0, c0), __fmul_rn(r1, c1)), r2);
+        const float dsq = __fdiv_rn(__fmul_rn(num, num), fmaxf(r3, 1e-12f));
+        v = (dsq < c2 && r4 * c3 > 0.5f) ? (float)d : kInfDist;
+      } else {
+        // mutual: row = [valid, ...], col = [valid, ...]
+        v = r0 * c0 > 0.5f ? (float)d : kInfDist;
+      }
+      if (col_argmin) {
+        const unsigned long long key =
+            ((unsigned long long)__float_as_uint(v + 0.f) << 32) | (unsigned)row;
+        atomicMin(&s_col[j], key);
       }
       push(t, v, j);
     }
@@ -125,7 +141,7 @@ hamming_best2_kernel(const int4* __restrict__ desc_a, const int4* __restrict__ d
       idx2[row] = keep ? t.i2 : t.i1;
     }
   }
-  if (mode == kStereo) {
+  if (col_argmin) {
     __syncthreads();
     for (int j = threadIdx.x; j < m; j += blockDim.x)
       if (s_col[j] != ~0ull) atomicMin(&col_key[j], s_col[j]);
@@ -140,7 +156,7 @@ extern "C" int hamming_best2_launch(const int* desc_a, const int* desc_b, int n,
                                     long long* col_key, void* stream) {
   if (n > 0) {
     const int grid = (n + kWarps - 1) / kWarps;
-    const size_t smem = mode == kStereo ? (size_t)m * sizeof(unsigned long long) : 0;
+    const size_t smem = mode != kWindow ? (size_t)m * sizeof(unsigned long long) : 0;
     hamming_best2_kernel<<<grid, 32 * kWarps, smem, static_cast<cudaStream_t>(stream)>>>(
         reinterpret_cast<const int4*>(desc_a), reinterpret_cast<const int4*>(desc_b), n, m, mode,
         row_f, col_f, max_disp, idx, dist, dist2, idx2,

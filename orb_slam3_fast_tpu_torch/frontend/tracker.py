@@ -1,26 +1,76 @@
-"""The per-frame stereo tracking step.
+"""Tracking front end: the per-frame state machine of the stereo System and
+the fixed-map tracking step.
 
-Counterpart of the device half of ``Tracker.process_stereo`` in
-``orb_slam3_fast_tpu/frontend/tracker.py``: ``stereo_front`` is
-``_stereo_front``, ``visible_landmarks`` is ``_visible_landmarks``, and
-``StereoTrackingStep`` chains them with ``search_by_projection`` and
-``pose_optimization`` as ``_track_local_map`` and ``_pose_opt_from_obs``
-do.  The host state machine (``Tracker``) is not ported yet.
+Counterpart of ``orb_slam3_fast_tpu/frontend/tracker.py`` (Tracking::Track,
+Tracking.cc:1798-2292): the state machine runs on the host, the keypoints
+stay on ``device``, the map is the host ``WorldMap``.  Per frame:
+``stereo_front`` (dual extraction, banded stereo match, SAD refine) ->
+motion-model match + pose opt, with the reference-keyframe fallback ->
+local-map match + pose opt -> keyframe decision -> local mapping.
+
+``stereo_front`` is ``_stereo_front``, ``visible_landmarks`` is
+``_visible_landmarks``; ``StereoTrackingStep`` is the fixed-map step that
+chains them with ``search_by_projection`` and ``pose_optimization`` as
+``_track_local_map`` does.
+
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP §A
+item): the mono (item 7) and RGB-D (item 6, next) paths, place recognition
+and relocalization with a vocabulary (item 8), loop closing, the Atlas and
+the async backend (items 6 and 9), the inertial tracker (item 10), fisheye
+two-camera stereo (item 11).  With no vocabulary, ``_index_kf`` does
+nothing and ``_relocalize`` fails, as in the JAX package.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
 from orb_slam3_fast_tpu_torch.cameras import models as cam_models
+from orb_slam3_fast_tpu_torch.map.worldmap import WorldMap, host
 from orb_slam3_fast_tpu_torch.ops import extractor as ext
 from orb_slam3_fast_tpu_torch.ops import matching as mat
 from orb_slam3_fast_tpu_torch.optim import pose_opt
-from orb_slam3_fast_tpu_torch.utils import lie
+from orb_slam3_fast_tpu_torch.utils import lie, verbose
+from orb_slam3_fast_tpu_torch.utils.timers import StageTimers
+
+# tracking states (Tracking.h:122-130)
+NOT_INITIALIZED = "NOT_INITIALIZED"
+OK = "OK"
+RECENTLY_LOST = "RECENTLY_LOST"
+LOST = "LOST"
+
+
+class TrackerConfig(NamedTuple):
+    """The stereo path's fields of the JAX package's TrackerConfig (the
+    mono-init, Atlas and mono keyframe-ratio fields wait for their paths)."""
+
+    extractor: ext.ExtractorConfig = ext.ExtractorConfig(n_features=1024)
+    lm_cap: int = 4096  # local-map landmark slots per tracking call
+    min_motion_inliers: int = 20
+    min_map_inliers: int = 30  # TrackLocalMap accept (Tracking.cc:2944)
+    max_frames_between_kf: int = 10
+    motion_radius: float = 15.0
+    map_radius: float = 3.0
+    max_recently_lost: int = 20  # frames before LOST
+    th_depth: float = 40.0  # stereo close-point threshold (x baseline)
+    max_stereo_lm_per_kf: int = 350
+    use_stereo_pose_edges: bool = True  # u_r residuals in pose opt (EdgeStereo)
+
+
+@dataclass
+class FrameState:
+    kp: object  # Keypoints on the device
+    ts: float
+    R: np.ndarray  # T_cw
+    t: np.ndarray
+    obs_lm: np.ndarray  # (N,) landmark id per keypoint slot (-1 none)
+    depth: Optional[np.ndarray] = None
+    right_u: Optional[np.ndarray] = None
 
 
 def stereo_front(il, ir, cfg: ext.ExtractorConfig, bf: float, min_z: float, scales, slot_scales):
@@ -141,3 +191,359 @@ class StereoTrackingStep(nn.Module):
         # project back to SO(3) on the host, as the tracker does (tracker.py:596)
         R = torch.as_tensor(lie.normalize_rotation_np(T.R.cpu().numpy()), device=T.R.device)
         return StepResult(lie.SE3(R, T.t), inlier, obs.valid.sum(), n_inl)
+
+
+class Tracker:
+    """Host orchestrator of a rectified stereo rig (Tracking)."""
+
+    def __init__(self, cam: cam_models.Camera, cfg: TrackerConfig = TrackerConfig(), bf: float = 0.0,
+                 image_wh: tuple = (640, 480), world: Optional[WorldMap] = None, mapper=None, voc=None,
+                 kfdb=None, timers=None, device: torch.device | str = "cpu"):
+        """``cam`` stays on the host (a CPU Camera); keypoints, matching and
+        pose optimisation run on ``device``."""
+        if voc is not None or kfdb is not None:
+            raise NotImplementedError("place recognition waits for ROADMAP §A item 8")
+        self.cam = cam
+        self.cfg = cfg
+        self.bf = float(bf)
+        self.device = torch.device(device)
+        self.timers = timers if timers is not None else StageTimers()
+        self.voc = self.kfdb = None
+        self.wh = (float(image_wh[0]), float(image_wh[1]))
+        self.kp_cap = ext.total_capacity(cfg.extractor)
+        self.world = world or WorldMap(kp_cap=self.kp_cap)
+        self.mapper = mapper
+        self.state = NOT_INITIALIZED
+        self.scales = torch.as_tensor(
+            cfg.extractor.scale_factor ** np.arange(cfg.extractor.n_levels), dtype=torch.float32
+        ).to(self.device)
+        self.sigma2 = ext.level_sigma2(cfg.extractor)
+        self.slot_scales = torch.as_tensor(ext.slot_scales(cfg.extractor)).to(self.device)
+        self.last: Optional[FrameState] = None
+        self.velocity = lie.SE3.identity(self.device)  # T_cur_last
+        self.ref_kf: int = -1
+        self.frames_since_kf = 0
+        self.lost_count = 0
+        self.trajectory: list = []  # (ts, R_rel, t_rel, ref_kf, ok) per frame
+        self.stats = {"matches": [], "inliers": []}
+
+    # ------------------------------------------------------------------
+    def process_mono(self, img, ts: float):
+        raise NotImplementedError("the monocular path waits for ROADMAP §A item 7")
+
+    def process_rgbd(self, img, depth, ts: float):
+        raise NotImplementedError("the RGB-D path waits for ROADMAP §A item 6 (queued next)")
+
+    def process_stereo(self, img_l: np.ndarray, img_r: np.ndarray, ts: float):
+        il = torch.as_tensor(np.asarray(img_l, dtype=np.float32)).to(self.device)
+        ir = torch.as_tensor(np.asarray(img_r, dtype=np.float32)).to(self.device)
+        base = self.bf / float(self.cam.params[0])
+        with self.timers.span("orb_extract"):
+            kp_l, _, _, ur_ref, ok = stereo_front(
+                il, ir, self.cfg.extractor, self.bf, max(base * 2.0, 0.1), self.scales, self.slot_scales
+            )
+        with self.timers.span("stereo_match"):
+            # one host transfer for what the state machine needs from the front half
+            ok, ur, kx = host(torch.stack([ok.to(torch.float32), ur_ref, kp_l.xy[:, 0]]))
+            ok = ok > 0.5
+        disp = np.maximum(kx - ur, 0.01)
+        depth = np.where(ok & (disp >= 0.5), self.bf / disp, -1.0)
+        ru = np.where(depth > 0, ur, -1.0)
+        return self._track(kp_l, ts, depth=depth, right_u=ru)
+
+    # ------------------------------------------------------------------
+    def _track(self, kp, ts, depth, right_u):
+        if self.state == NOT_INITIALIZED:
+            self._initialize_depth(kp, ts, depth, right_u)
+        else:
+            self._track_frame(kp, ts, depth, right_u)
+        result = (self.state, self._cur_pose())
+        if self.last is not None:
+            # reference-relative log (Tracking.cc:2268-2287), so that BA
+            # corrections of keyframes reach every past frame at save time
+            r = self.ref_kf
+            if r >= 0:
+                R_ref, t_ref = self.world.kf_R[r], self.world.kf_t[r]
+                R_rel = self.last.R @ R_ref.T
+                t_rel = self.last.t - R_rel @ t_ref
+            else:
+                R_rel, t_rel = self.last.R.copy(), self.last.t.copy()
+            self.trajectory.append((ts, R_rel, t_rel, r, self.state == OK or self.state == NOT_INITIALIZED))
+        return result
+
+    def trajectory_world(self):
+        """Absolute per-frame poses T_cw: the logged relative pose composed
+        with the current reference-keyframe pose (System.cc:748-785).
+        Returns a list of (ts, R, t, ok)."""
+        out = []
+        wm = self.world
+        for ts, R_rel, t_rel, r, ok in self.trajectory:
+            if 0 <= r < wm.n_kf:
+                R = R_rel @ wm.kf_R[r]
+                t = R_rel @ wm.kf_t[r] + t_rel
+            else:
+                R, t = R_rel, t_rel
+            out.append((ts, R, t, ok))
+        return out
+
+    def _cur_pose(self):
+        if self.last is None:
+            return None
+        return self.last.R, self.last.t
+
+    def _index_kf(self, k: int, kp):
+        """Add keyframe k to the place-recognition database: nothing to do
+        without a vocabulary."""
+
+    def _se3(self, R, t) -> lie.SE3:
+        f32 = torch.float32
+        return lie.SE3(torch.as_tensor(np.asarray(R), dtype=f32).to(self.device),
+                       torch.as_tensor(np.asarray(t), dtype=f32).to(self.device))
+
+    # ------------------------------------------------------------------
+    def _initialize_depth(self, kp, ts, depth, right_u) -> bool:
+        """StereoInitialization (Tracking.cc:2294): the first frame with
+        >= 500 keypoints (and >= 100 with depth) becomes keyframe 0 at the
+        origin."""
+        valid = host(kp.valid)
+        good = valid & (depth > 0)
+        if valid.sum() < 500 or good.sum() < 100:
+            return False
+        R0, t0 = np.eye(3, dtype=np.float32), np.zeros(3, np.float32)
+        k0 = self.world.add_keyframe(kp, R0, t0, ts, depth=depth, right_u=right_u)
+        self.world.init_kf_ids = [k0]
+        slots = np.nonzero(good)[0]
+        ray = cam_models.unproject(self.cam, torch.as_tensor(host(kp.xy)[slots])).numpy()
+        ids = self.world.add_landmarks(ray * depth[slots][:, None], host(kp.desc)[slots], k0, slots,
+                                       host(kp.level)[slots])
+        obs_lm = np.full(self.kp_cap, -1, dtype=np.int32)
+        obs_lm[slots] = ids
+        self._index_kf(k0, kp)
+        self.last = FrameState(kp, ts, R0, t0, obs_lm, depth, right_u)
+        self.ref_kf = k0
+        self.state = OK
+        self.frames_since_kf = 0
+        return True
+
+    # ------------------------------------------------------------------
+    def _track_frame(self, kp, ts, depth, right_u) -> bool:
+        last = self.last
+        self._cur_right_u = right_u  # stereo edges of the current frame
+        T_last = self._se3(last.R, last.t)
+        T_pred = self.velocity.compose(T_last)
+        if self.state == OK:
+            with self.timers.span("pose_pred"):
+                ok, T_est, obs_lm, n_inl = self._track_motion_model(kp, T_pred, last)
+                if not ok:
+                    ok, T_est, obs_lm, n_inl = self._track_reference_kf(kp, T_last)
+        else:
+            ok, T_est, obs_lm, n_inl = self._relocalize(kp)
+            if ok:
+                self.velocity = lie.SE3.identity(self.device)
+        if ok:
+            with self.timers.span("lm_track"):
+                ok2, T_est, obs_lm, n_inl = self._track_local_map(kp, T_est, obs_lm)
+            ok = ok and ok2
+        if not ok:
+            self.lost_count += 1
+            self.state = RECENTLY_LOST if self.lost_count < self.cfg.max_recently_lost else LOST
+            self.last = FrameState(kp, ts, last.R.copy(), last.t.copy(), np.full(self.kp_cap, -1, np.int32),
+                                   depth, right_u)
+            return False
+        self.lost_count = 0
+        self.state = OK
+        # back onto SO(3): the velocity chain amplifies float32 drift (lie.normalize_rotation_np)
+        R_est = lie.normalize_rotation_np(host(T_est.R))
+        t_est = host(T_est.t)
+        T_est = self._se3(R_est, t_est)
+        self.velocity = T_est.compose(T_last.inverse())
+        self.last = FrameState(kp, ts, R_est, t_est, obs_lm, depth, right_u)
+        self.frames_since_kf += 1
+        self.stats["inliers"].append(n_inl)
+        with self.timers.span("kf_decision"):
+            need_kf = self._need_new_keyframe(n_inl, depth)
+        if need_kf:
+            with self.timers.span("kf_insert"):
+                self._create_keyframe()
+        return True
+
+    def _pose_opt_from_obs(self, kp, T0, obs_lm):
+        """PoseObs from the slot -> landmark association, then kernel D."""
+        slots = np.nonzero(obs_lm >= 0)[0]
+        n = self.kp_cap
+        xw = np.zeros((n, 3), np.float32)
+        uv = np.full((n, 3), -1.0, np.float32)
+        valid = np.zeros(n, bool)
+        stereo = np.zeros(n, bool)
+        inv_s2 = np.ones(n, np.float32)
+        xw[slots] = self.world.lm_pos[obs_lm[slots]]
+        uv[slots, :2] = host(kp.xy)[slots]
+        inv_s2[slots] = 1.0 / self.sigma2[host(kp.level)[slots]]
+        valid[slots] = True
+        ru = getattr(self, "_cur_right_u", None) if self.cfg.use_stereo_pose_edges else None
+        if ru is not None and self.bf > 0:
+            has_ru = ru[slots] > 0
+            uv[slots, 2] = np.where(has_ru, ru[slots], -1.0)
+            stereo[slots] = has_ru
+        dev = self.device
+        obs = pose_opt.PoseObs(
+            xw=torch.as_tensor(xw).to(dev), uv=torch.as_tensor(uv).to(dev), inv_sigma2=torch.as_tensor(inv_s2).to(dev),
+            is_stereo=torch.as_tensor(stereo).to(dev), valid=torch.as_tensor(valid).to(dev),
+        )
+        T, inlier, n_inl = pose_opt.pose_optimization(self.cam, self.bf, T0, obs)
+        obs_out = obs_lm.copy()
+        obs_out[~host(inlier)] = -1
+        return T, obs_out, int(n_inl)
+
+    def _track_motion_model(self, kp, T_pred, last: FrameState):
+        """TrackWithMotionModel (Tracking.cc:2783-2876), padded to kp_cap."""
+        has = last.obs_lm >= 0
+        if has.sum() < 10:
+            return False, T_pred, None, 0
+        dev = self.device
+        lm_ids = np.where(has, last.obs_lm, 0)
+        pos = torch.as_tensor(self.world.lm_pos[lm_ids]).to(dev)
+        proj = cam_models.project(self.cam, T_pred.apply(pos))
+        pvalid = torch.as_tensor(self.world.lm_valid[lm_ids] & has).to(dev)
+        idx, accept = mat.search_frame_to_frame(
+            kp, proj, pvalid, torch.as_tensor(self.world.lm_desc[lm_ids]).to(dev), last.kp.level, last.kp.angle,
+            self.scales, radius=self.cfg.motion_radius,
+        )
+        acc = host(accept)
+        if acc.sum() < self.cfg.min_motion_inliers:
+            return False, T_pred, None, 0
+        obs_lm = np.full(self.kp_cap, -1, dtype=np.int32)
+        obs_lm[host(idx)[acc]] = lm_ids[acc]
+        T, obs_lm, n_inl = self._pose_opt_from_obs(kp, T_pred, obs_lm)
+        return n_inl >= self.cfg.min_motion_inliers, T, obs_lm, n_inl
+
+    def _track_reference_kf(self, kp, T_last):
+        """TrackReferenceKeyFrame (Tracking.cc:2663-2718): mutual descriptor
+        match against the reference keyframe's landmarks."""
+        k = self.ref_kf
+        if k < 0:
+            return False, T_last, None, 0
+        dev = self.device
+        has_lm = self.world.kf_obs[k] >= 0
+        idx, accept = mat.search_descriptors_mutual(
+            torch.as_tensor(self.world.kf_desc[k]).to(dev), torch.as_tensor(has_lm & self.world.kf_kp_valid[k]).to(dev),
+            kp.desc, kp.valid, th=100, ratio=0.85,
+        )
+        acc = host(accept)
+        if acc.sum() < 15:
+            return False, T_last, None, 0
+        obs_lm = np.full(self.kp_cap, -1, dtype=np.int32)
+        obs_lm[host(idx)[acc]] = self.world.kf_obs[k][acc]
+        T, obs_lm, n_inl = self._pose_opt_from_obs(kp, T_last, obs_lm)
+        return n_inl >= self.cfg.min_motion_inliers, T, obs_lm, n_inl
+
+    def _relocalize(self, kp):
+        """Relocalization (Tracking.cc:3518-3676) needs the vocabulary
+        (ROADMAP §A item 8): without one it fails, as in the JAX package."""
+        return False, lie.SE3.identity(self.device), None, 0
+
+    def _local_landmark_ids(self) -> np.ndarray:
+        """UpdateLocalKeyFrames / Points (Tracking.cc:3370/3341): the
+        reference keyframe, its covisible neighbours and the 3 newest."""
+        k = self.ref_kf
+        kfs = [k] + list(self.world.best_covisible(k, 10, min_shared=5))
+        for r in range(max(0, self.world.n_kf - 3), self.world.n_kf):
+            if r not in kfs:
+                kfs.append(r)
+        return self.world.local_landmarks(np.asarray(kfs, dtype=np.int64))
+
+    def _track_local_map(self, kp, T_est, obs_lm):
+        """TrackLocalMap (Tracking.cc:2879-2970)."""
+        lm_ids = self._local_landmark_ids()
+        cap = self.cfg.lm_cap
+        if len(lm_ids) > cap:
+            verbose.warn_cap("tracker.local_map_landmarks", cap, len(lm_ids))
+            lm_ids = lm_ids[np.random.default_rng(0).choice(len(lm_ids), cap, replace=False)]
+        pad = cap - len(lm_ids)
+        lm_ids_p = np.concatenate([lm_ids, np.zeros(pad, dtype=lm_ids.dtype)])
+        lm_mask = np.concatenate([np.ones(len(lm_ids), bool), np.zeros(pad, bool)])
+        dev = self.device
+        w = self.world
+
+        def d(a):
+            return torch.as_tensor(a).to(dev)
+
+        uv, pred_level, visible = visible_landmarks(
+            self.cam, T_est.R, T_est.t, d(w.lm_pos[lm_ids_p]), d(lm_mask & w.lm_valid[lm_ids_p]),
+            d(w.lm_normal[lm_ids_p]), d(w.lm_dmin[lm_ids_p]), d(w.lm_dmax[lm_ids_p]), self.wh,
+            log_sf=float(np.log(self.cfg.extractor.scale_factor)), n_lvl=int(self.cfg.extractor.n_levels),
+        )
+        vis_np = host(visible)
+        np.add.at(w.lm_visible, lm_ids_p[vis_np], 1)  # GetFoundRatio bookkeeping
+        already = np.isin(lm_ids_p, obs_lm[obs_lm >= 0])
+        radius = self.cfg.map_radius if self.state == OK else 15.0  # SearchLocalPoints th (Tracking.cc:3296-3307)
+        idx, accept = mat.search_by_projection(
+            kp, uv, visible & d(~already), d(w.lm_desc[lm_ids_p]), pred_level, self.scales, radius=radius,
+        )
+        acc = host(accept)
+        new_obs = obs_lm.copy()
+        tgt = host(idx)[acc]
+        free = new_obs[tgt] < 0  # only fill slots that are still free
+        new_obs[tgt[free]] = lm_ids_p[acc][free]
+        T, new_obs, n_inl = self._pose_opt_from_obs(kp, T_est, new_obs)
+        matched = new_obs >= 0
+        np.add.at(w.lm_found, new_obs[matched], 1)
+        self.stats["matches"].append(int(matched.sum()))
+        return n_inl >= self.cfg.min_map_inliers, T, new_obs, n_inl
+
+    # ------------------------------------------------------------------
+    def _need_new_keyframe(self, n_inl, depth) -> bool:
+        """NeedNewKeyFrame (Tracking.cc:2971-3127), its core conditions: the
+        frame budget, and the tracked ratio against the reference keyframe
+        or close points to insert."""
+        if self.mapper is None:
+            return False
+        ref_obs = self.world.kf_obs[self.ref_kf]
+        ref_lm = ref_obs[ref_obs >= 0]
+        min_obs = 3 if self.world.n_kf > 2 else 2  # Tracking.cc:2996-2998
+        ref_tracked = int(((self.world.lm_n_obs[ref_lm] >= min_obs) & self.world.lm_valid[ref_lm]).sum())
+        ref_tracked = max(ref_tracked, 15)
+        c1a = self.frames_since_kf >= self.cfg.max_frames_between_kf
+        ratio = 0.75  # stereo (Tracking.cc:3028-3045)
+        base = self.bf / float(self.cam.params[0])
+        close = (depth > 0) & (depth < self.cfg.th_depth * base)
+        tracked_close = int((close & (self.last.obs_lm >= 0)).sum())
+        untracked_close = int((close & (self.last.obs_lm < 0)).sum())
+        need_close = tracked_close < 100 and untracked_close > 70
+        c2 = (n_inl < ref_tracked * ratio or need_close) and n_inl > self.cfg.min_map_inliers
+        min_gap = 1 if need_close else 2
+        return bool((c1a or c2) and self.frames_since_kf >= min_gap)
+
+    def _create_keyframe(self):
+        """CreateNewKeyFrame (Tracking.cc:3127-3247), then local mapping inline."""
+        last = self.last
+        k = self.world.add_keyframe(last.kp, last.R, last.t, last.ts, depth=last.depth, right_u=last.right_u)
+        slots = np.nonzero(last.obs_lm >= 0)[0]
+        self.world.add_observations(k, slots, last.obs_lm[slots])
+        self._create_stereo_landmarks(k, last)
+        self._index_kf(k, last.kp)
+        self.ref_kf = k
+        self.frames_since_kf = 0
+        if self.mapper is not None:
+            self.mapper.process_new_keyframe(self.world, k)
+            # tracking goes on from the BA-adjusted keyframe pose
+            self.last.R = self.world.kf_R[k].copy()
+            self.last.t = self.world.kf_t[k].copy()
+
+    def _create_stereo_landmarks(self, k: int, last: FrameState):
+        """Landmarks for the closest unmatched points with depth (at most
+        ``max_stereo_lm_per_kf``, closest first)."""
+        base = self.bf / float(self.cam.params[0])
+        close = (last.obs_lm < 0) & (last.depth > 0) & (last.depth < self.cfg.th_depth * base) & host(last.kp.valid)
+        slots = np.nonzero(close)[0]
+        if len(slots) == 0:
+            return
+        order = np.argsort(last.depth[slots])
+        slots = slots[order[: self.cfg.max_stereo_lm_per_kf]]
+        ray = cam_models.unproject(self.cam, torch.as_tensor(host(last.kp.xy)[slots])).numpy()
+        pos_c = ray * last.depth[slots][:, None]
+        Rwc = last.R.T
+        pos_w = pos_c @ Rwc.T + (-Rwc @ last.t)[None, :]
+        ids = self.world.add_landmarks(pos_w.astype(np.float32), host(last.kp.desc)[slots], k, slots,
+                                       host(last.kp.level)[slots])
+        self.last.obs_lm[slots] = ids

@@ -21,12 +21,24 @@ Kernel C -- source note.
   rows) sit in L1/L2, and the (N, M) matrix is never written.
   Design: one warp per row, lanes stride over the columns keeping a
   lexicographic (value, index) top-2, merged by a shuffle butterfly, so ties
-  go to the lowest index as ``argmin`` does.  Stereo mode reproduces the
-  soft penalty ``d + 10000 * pen`` in float32 without FMA contraction and
-  also returns the per-column argmin of that value (the R->L mutual check)
-  through a packed 64-bit (value bits, row) ``atomicMin``, first in shared
-  memory per block, then once per column and block in device memory.  Window
-  mode applies the projection window, level band and validity mask.
+  go to the lowest index as ``argmin`` does.  Four modes, one per gate:
+  * stereo (``StereoGate``) reproduces the soft penalty ``d + 10000 * pen``
+    in float32 without FMA contraction;
+  * window (``WindowGate``) applies the projection window, level band and
+    validity mask (``search_by_projection``, ``search_frame_to_frame``);
+  * epipolar (``EpipolarGate``, K13 ``search_for_triangulation``): the
+    squared distance of column point (x, y) to row line (a, b, c),
+    ``(a x + b y + c)^2 / (a^2 + b^2)``, below the column's chi2 band, in
+    the plain version's op order without FMA contraction, so both agree
+    bit for bit;
+  * mutual (``MutualGate``, K6 ``search_descriptors_mutual``): validity
+    only.
+  Every mode but window also returns the per-column argmin of the gated
+  value (the b->a half of a mutual check) through a packed 64-bit (value
+  bits, row) ``atomicMin``, first in shared memory per block, then once per
+  column and block in device memory; an all-masked column gives row 0, as
+  ``argmin`` over a constant column does.  Those modes take at most 6144
+  columns (48 KB of shared memory).
 """
 from __future__ import annotations
 
@@ -155,6 +167,7 @@ class WindowGate(NamedTuple):
 
 
 _BIG = 10000.0  # soft-gate penalty per unit of excess (INF_DIST)
+_STEREO, _WINDOW, _EPIPOLAR, _MUTUAL = range(4)  # kernel C's modes
 
 
 def stereo_cost(d: torch.Tensor, g: StereoGate) -> torch.Tensor:
@@ -171,6 +184,38 @@ def stereo_cost(d: torch.Tensor, g: StereoGate) -> torch.Tensor:
     return d.to(torch.float32) + _BIG * pen
 
 
+class EpipolarGate(NamedTuple):
+    """Epipolar band of ``search_for_triangulation``: rows are keypoints of
+    keyframe a, columns keypoints of keyframe b; every tensor float32."""
+
+    a: torch.Tensor  # (N,) epipolar line of the row point in image b
+    b: torch.Tensor
+    c: torch.Tensor
+    den: torch.Tensor  # (N,) a^2 + b^2
+    valid_a: torch.Tensor  # (N,) 1.0 / 0.0
+    x: torch.Tensor  # (M,) column point
+    y: torch.Tensor
+    band: torch.Tensor  # (M,) 3.84 * sigma2[level_b]
+    valid_b: torch.Tensor
+
+
+class MutualGate(NamedTuple):
+    """Validity-only gate of ``search_descriptors_mutual``; float32."""
+
+    valid_a: torch.Tensor  # (N,)
+    valid_b: torch.Tensor  # (M,)
+
+
+def _valid_outer(va: torch.Tensor, vb: torch.Tensor) -> torch.Tensor:
+    return va[:, None] * vb[None, :] > 0.5
+
+
+def epipolar_mask(g: EpipolarGate) -> torch.Tensor:
+    num = (g.a[:, None] * g.x[None, :] + g.b[:, None] * g.y[None, :]) + g.c[:, None]
+    dsq = (num * num) / torch.clamp(g.den, min=1e-12)[:, None]
+    return (dsq < g.band[None, :]) & _valid_outer(g.valid_a, g.valid_b)
+
+
 def window_mask(g: WindowGate) -> torch.Tensor:
     dx = torch.abs(g.u[:, None] - g.kx[None, :])
     dy = torch.abs(g.v[:, None] - g.ky[None, :])
@@ -184,12 +229,18 @@ def window_mask(g: WindowGate) -> torch.Tensor:
 def hamming_best2_plain(desc_a: torch.Tensor, desc_b: torch.Tensor, gate):
     """Plain version of kernel C.  Returns (Best2, column argmin or None):
     StereoGate -> float32 distances of d + 10000 * pen and the per-column
-    argmin of that matrix; WindowGate -> int32 masked distances."""
+    argmin of that matrix; WindowGate -> int32 masked distances and None;
+    EpipolarGate, MutualGate -> int32 masked distances and the per-column
+    argmin of the masked matrix."""
     d = hamming_matrix(desc_a, desc_b)
     if isinstance(gate, StereoGate):
         d_eff = stereo_cost(d, gate)
         return penalized_best2(d_eff), torch.argmin(d_eff, dim=0)
-    return masked_best2(d, window_mask(gate)), None
+    if isinstance(gate, WindowGate):
+        return masked_best2(d, window_mask(gate)), None
+    mask = epipolar_mask(gate) if isinstance(gate, EpipolarGate) else _valid_outer(gate.valid_a, gate.valid_b)
+    dm = torch.where(mask, d, torch.full_like(d, INF_DIST))
+    return _best2(dm, INF_DIST), torch.argmin(dm, dim=0)
 
 
 def hamming_best2(desc_a: torch.Tensor, desc_b: torch.Tensor, gate):
@@ -197,15 +248,26 @@ def hamming_best2(desc_a: torch.Tensor, desc_b: torch.Tensor, gate):
     contract as ``hamming_best2_plain``)."""
     if desc_a.device.type == "cpu":
         return hamming_best2_plain(desc_a, desc_b, gate)
-    stereo = isinstance(gate, StereoGate)
-    if stereo:
+    max_disp = 0.0
+    if isinstance(gate, StereoGate):
+        mode = _STEREO
         row_f = torch.stack([gate.xl, gate.yl, gate.level_l, gate.valid_l, torch.zeros_like(gate.xl)], 1)
         col_f = torch.stack([gate.xr, gate.yr, gate.band_r, gate.level_r, gate.valid_r], 1)
         max_disp = float(gate.max_disp)
-    else:
+    elif isinstance(gate, WindowGate):
+        mode = _WINDOW
         row_f = torch.stack([gate.u, gate.v, gate.radius, gate.pred_level, gate.valid], 1)
         col_f = torch.stack([gate.kx, gate.ky, gate.k_level, gate.k_valid, torch.zeros_like(gate.kx)], 1)
-        max_disp = 0.0
+    elif isinstance(gate, EpipolarGate):
+        mode = _EPIPOLAR
+        row_f = torch.stack([gate.a, gate.b, gate.c, gate.den, gate.valid_a], 1)
+        col_f = torch.stack([gate.x, gate.y, gate.band, gate.valid_b, torch.zeros_like(gate.x)], 1)
+    else:
+        mode = _MUTUAL
+        za, zb = torch.zeros_like(gate.valid_a), torch.zeros_like(gate.valid_b)
+        row_f = torch.stack([gate.valid_a, za, za, za, za], 1)
+        col_f = torch.stack([gate.valid_b, zb, zb, zb, zb], 1)
+    col_argmin = mode != _WINDOW
     n, m = desc_a.shape[0], desc_b.shape[0]
     _kernels.require_cuda(
         "hamming_best2", desc_a=(desc_a, torch.int32), desc_b=(desc_b, torch.int32),
@@ -215,28 +277,32 @@ def hamming_best2(desc_a: torch.Tensor, desc_b: torch.Tensor, gate):
         raise ValueError("hamming_best2: needs (N,8) and (M,8) packed descriptors, M >= 1")
     if desc_a.data_ptr() % 16 or desc_b.data_ptr() % 16:
         raise ValueError("hamming_best2: descriptors must be 16-byte aligned (read as int4)")
-    if stereo and m * 8 > _MAX_SHARED:
-        raise ValueError(f"hamming_best2: stereo mode takes at most {_MAX_SHARED // 8} columns")
+    if col_argmin and m * 8 > _MAX_SHARED:
+        raise ValueError(f"hamming_best2: this mode takes at most {_MAX_SHARED // 8} columns")
     dev = desc_a.device
     idx = torch.empty(n, dtype=torch.int32, device=dev)
     idx2 = torch.empty(n, dtype=torch.int32, device=dev)
     dist = torch.empty(n, dtype=torch.float32, device=dev)
     dist2 = torch.empty(n, dtype=torch.float32, device=dev)
-    col_key = torch.full((m if stereo else 1,), -1, dtype=torch.int64, device=dev)
+    col_key = torch.full((m if col_argmin else 1,), -1, dtype=torch.int64, device=dev)
     _kernels.launch(
         "hamming_best2_launch", dev,
-        desc_a.data_ptr(), desc_b.data_ptr(), n, m, 0 if stereo else 1,
+        desc_a.data_ptr(), desc_b.data_ptr(), n, m, mode,
         row_f.data_ptr(), col_f.data_ptr(), max_disp,
         idx.data_ptr(), dist.data_ptr(), dist2.data_ptr(), idx2.data_ptr(), col_key.data_ptr(),
     )
     hamming_best2.launches += 1
-    if stereo:
-        b = Best2(idx.long(), dist, dist2, idx2.long())
-        return b, col_key & 0xFFFFFFFF
-    return Best2(idx.long(), dist.to(torch.int32), dist2.to(torch.int32), idx2.long()), None
+    hamming_best2.mode_launches[mode] += 1
+    col = col_key & 0xFFFFFFFF if col_argmin else None
+    if mode == _STEREO:
+        return Best2(idx.long(), dist, dist2, idx2.long()), col
+    return Best2(idx.long(), dist.to(torch.int32), dist2.to(torch.int32), idx2.long()), col
 
 
 hamming_best2.launches = 0
+# launches per mode, indexed by the kernel's mode number (a part of ``launches``)
+hamming_best2.mode_launches = [0, 0, 0, 0]
+MODE_NAMES = ("stereo", "window", "epipolar", "mutual")
 
 
 def rotation_consistency(angle_a: torch.Tensor, angle_b: torch.Tensor, accept: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,15 @@
-"""Matchers of the stereo tracking step: rectified stereo matching, SAD
-subpixel disparity refinement, and projection matching against the local map.
+"""Matchers of the stereo System: rectified stereo matching, SAD subpixel
+disparity refinement, projection matching against the local map and from
+the last frame, the unconstrained mutual match, and the epipolar search for
+triangulation.
 
 Counterpart of ``stereo_match``, ``stereo_subpixel_refine``,
-``search_by_projection`` and ``_pow_level`` of
-``orb_slam3_fast_tpu/ops/matching.py``.  The gated best-2 searches run in
-kernel C (``ops.hamming.hamming_best2``); their epilogues (ratio, dedup,
-mutual check, median prune) are plain PyTorch.
+``search_by_projection``, ``search_frame_to_frame``,
+``search_descriptors_mutual``, ``search_for_triangulation`` and
+``_pow_level`` of ``orb_slam3_fast_tpu/ops/matching.py``.  The gated best-2
+searches run in kernel C (``ops.hamming.hamming_best2``); their epilogues
+(ratio, dedup, rotation histogram, mutual check, median prune) are plain
+PyTorch.
 """
 from __future__ import annotations
 
@@ -61,6 +65,78 @@ def search_by_projection(
     accept = ham.ratio_gate(b, ratio, th_dist)
     accept = ham.resolve_duplicate_targets(b.idx, b.dist, accept, kp.n)
     return b.idx, accept
+
+
+def search_frame_to_frame(
+    kp_cur: Keypoints,
+    proj_uv: torch.Tensor,
+    proj_valid: torch.Tensor,
+    desc_last: torch.Tensor,
+    level_last: torch.Tensor,
+    angle_last: torch.Tensor,
+    level_scales: torch.Tensor,
+    radius: float = 15.0,
+    check_rotation: bool = True,
+):
+    """Motion-model matcher (SearchByProjection(Current, Last),
+    ORBmatcher.cc:1594-1806): the last frame's landmarks projected into the
+    current frame, window ``radius * scale[level_last]``, keypoint level
+    within one of ``level_last``; accept at distance <= TH_HIGH, dedup, then
+    the rotation histogram.  Returns (match_idx, accept) per landmark row."""
+    f32 = torch.float32
+    r = radius * _pow_level(level_last, level_scales)
+    gate = ham.WindowGate(
+        proj_uv[:, 0].contiguous(), proj_uv[:, 1].contiguous(), r, level_last.to(f32),
+        proj_valid.to(f32), kp_cur.xy[:, 0].contiguous(), kp_cur.xy[:, 1].contiguous(),
+        kp_cur.level.to(f32), kp_cur.valid.to(f32),
+    )
+    b, _ = ham.hamming_best2(desc_last, kp_cur.desc, gate)
+    accept = b.dist <= ham.TH_HIGH
+    accept = ham.resolve_duplicate_targets(b.idx, b.dist, accept, kp_cur.n)
+    if check_rotation:
+        accept = ham.rotation_consistency(angle_last, kp_cur.angle[b.idx], accept)
+    return b.idx, accept
+
+
+def search_descriptors_mutual(desc_a, valid_a, desc_b, valid_b, th: int = ham.TH_LOW, ratio: float = 0.75):
+    """Unconstrained mutual best match (the BoW-free stand-in for
+    SearchByBoW, ORBmatcher.cc:230-404): ratio test a->b and the b->a
+    argmin must map back.  Returns (match_idx, accept) per row of a."""
+    f32 = torch.float32
+    gate = ham.MutualGate(valid_a.to(f32).contiguous(), valid_b.to(f32).contiguous())
+    b_ab, ba_idx = ham.hamming_best2(desc_a, desc_b, gate)
+    accept = ham.ratio_gate(b_ab, ratio, th) & ham.mutual_consistency(b_ab.idx, ba_idx)
+    return b_ab.idx, accept
+
+
+def search_for_triangulation(
+    kp_a: Keypoints,
+    kp_b: Keypoints,
+    free_a: torch.Tensor,
+    free_b: torch.Tensor,
+    F_ab: torch.Tensor,
+    level_sigma2: torch.Tensor,
+    th: int = ham.TH_LOW,
+    ratio: float = 1.0,
+):
+    """Epipolar-constrained matching of unmatched keypoints between two
+    keyframes (SearchForTriangulation, ORBmatcher.cc:886-1106): candidates
+    whose squared distance to the epipolar line of the a-point is below
+    3.84 * sigma2[level_b] (ORBmatcher.cc:1067), best-2 both ways, ratio and
+    mutual check.  ``F_ab`` maps a-points to lines in b (x_b^T F x_a = 0).
+    Returns (match_idx, accept) per keypoint of a."""
+    f32 = torch.float32
+    xa = torch.cat([kp_a.xy, torch.ones_like(kp_a.xy[:, :1])], dim=-1)
+    lines = xa @ F_ab.to(f32).T  # (Na,3) the line of each a-point in image b
+    gate = ham.EpipolarGate(
+        lines[:, 0].contiguous(), lines[:, 1].contiguous(), lines[:, 2].contiguous(),
+        lines[:, 0] ** 2 + lines[:, 1] ** 2, (free_a & kp_a.valid).to(f32),
+        kp_b.xy[:, 0].contiguous(), kp_b.xy[:, 1].contiguous(),
+        3.84 * _pow_level(kp_b.level, level_sigma2), (free_b & kp_b.valid).to(f32),
+    )
+    b_ab, ba_idx = ham.hamming_best2(kp_a.desc, kp_b.desc, gate)
+    accept = ham.ratio_gate(b_ab, ratio, th) & ham.mutual_consistency(b_ab.idx, ba_idx)
+    return b_ab.idx, accept
 
 
 class StereoMatches(NamedTuple):

@@ -1,7 +1,8 @@
 """Lie-group math on tensors: SO(3) exp, SE(3) transforms and exp.
 
 Counterpart of ``orb_slam3_fast_tpu/utils/lie.py`` (``hat``, ``so3_exp``,
-``SE3``, ``se3_exp``, ``normalize_rotation_np``), with the same conventions:
+``rotation_to_quaternion``, ``so3_log``, ``SE3``, ``se3_exp``,
+``normalize_rotation_np``), with the same conventions:
 rotations are (...,3,3) matrices, an ``SE3`` is a named tuple (R, t) that
 maps x -> R @ x + t, and se(3) tangents are ordered [rho(3), phi(3)].
 Small-angle branches use ``torch.where`` with both branches NaN-safe.
@@ -51,6 +52,42 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
     a, b = _sinc_terms(theta2)
     W = hat(w)
     return _eye_like(W) + a[..., None, None] * W + b[..., None, None] * (W @ W)
+
+
+def rotation_to_quaternion(R: torch.Tensor) -> torch.Tensor:
+    """(...,3,3) -> unit quaternion (...,4) ordered [w, x, y, z], w >= 0.
+    Branchless Shepperd extraction: the candidate with the largest pivot."""
+    r00, r01, r02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    r10, r11, r12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    r20, r21, r22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = r00 + r11 + r22
+    pw = torch.clamp(1.0 + tr, min=0.0)
+    px = torch.clamp(1.0 + r00 - r11 - r22, min=0.0)
+    py = torch.clamp(1.0 - r00 + r11 - r22, min=0.0)
+    pz = torch.clamp(1.0 - r00 - r11 + r22, min=0.0)
+    sw, sx, sy, sz = (torch.sqrt(p + _EPS) for p in (pw, px, py, pz))
+    qw = torch.stack([sw, (r21 - r12) / sw, (r02 - r20) / sw, (r10 - r01) / sw], dim=-1)
+    qx = torch.stack([(r21 - r12) / sx, sx, (r01 + r10) / sx, (r02 + r20) / sx], dim=-1)
+    qy = torch.stack([(r02 - r20) / sy, (r01 + r10) / sy, sy, (r12 + r21) / sy], dim=-1)
+    qz = torch.stack([(r10 - r01) / sz, (r02 + r20) / sz, (r12 + r21) / sz, sz], dim=-1)
+    best = torch.argmax(torch.stack([pw, px, py, pz], dim=-1), dim=-1)
+    cands = torch.stack([qw, qx, qy, qz], dim=-2)  # (...,4 candidates,4)
+    q = torch.gather(cands, -2, best[..., None, None].expand(*best.shape, 1, 4))[..., 0, :]
+    q = 0.5 * q
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> tangent vector, (...,3,3) -> (...,3), through the
+    quaternion: w = 2 atan2(|qv|, qw) qv / |qv|."""
+    q = rotation_to_quaternion(R)
+    qw, qv = q[..., 0], q[..., 1:]
+    nv = torch.sqrt(torch.sum(qv * qv, dim=-1) + 1e-24)
+    theta = 2.0 * torch.atan2(nv, qw)
+    small = nv < 1e-6
+    scale = torch.where(small, 2.0 / torch.clamp(qw, min=_EPS), theta / torch.clamp(nv, min=_EPS))
+    return scale[..., None] * qv
 
 
 def so3_right_jacobian(w: torch.Tensor) -> torch.Tensor:

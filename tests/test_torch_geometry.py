@@ -162,12 +162,18 @@ def test_convert_round_trips(rng):
 
 
 def test_port_never_imports_jax():
+    """Every module of the port imports, and a config loads, without jax,
+    the JAX package or pyyaml."""
     code = (
-        "import sys, orb_slam3_fast_tpu_torch as p\n"
-        "from orb_slam3_fast_tpu_torch.frontend import tracker\n"
-        "from orb_slam3_fast_tpu_torch.utils import convert\n"
+        "import importlib, pkgutil, sys, orb_slam3_fast_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'orb_slam3_fast_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from orb_slam3_fast_tpu_torch.slam.settings import Settings\n"
+        "Settings.from_yaml('configs/synthetic_stereo.yaml', 'stereo')\n"
         "import torch\n"
+        "assert 'orb_slam3_fast_tpu_torch.slam.system' in sys.modules\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "assert 'yaml' not in sys.modules, 'yaml imported'\n"
         "assert 'orb_slam3_fast_tpu' not in sys.modules\n"
         "assert torch.backends.cuda.matmul.allow_tf32 is False\n"
         "assert torch.backends.cudnn.allow_tf32 is False\n"
@@ -175,3 +181,33 @@ def test_port_never_imports_jax():
     repo = Path(__file__).resolve().parents[1]
     res = subprocess.run([sys.executable, "-c", code], cwd=repo, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_unproject_K_and_quaternions_match_jax():
+    """cameras.unproject (pin-hole with and without rad-tan, KB8), Camera.K,
+    lie.rotation_to_quaternion and lie.so3_log against the JAX package."""
+    rng = np.random.default_rng(5)
+    uv = np.stack([rng.uniform(0, 640, 200), rng.uniform(0, 480, 200)], -1).astype(np.float32)
+    cams = [
+        ((400.0, 410.0, 320.0, 240.0), (0.0,) * 5, "pinhole"),
+        ((458.654, 457.296, 367.215, 248.375), (-0.2834, 0.07396, 1.9e-4, 1.8e-5, 0.0), "pinhole"),
+        ((190.98, 190.97, 254.93, 256.90), (0.00348, 0.000715, -0.00205, 0.000203), "kb8"),
+    ]
+    for (fx, fy, cx, cy), d, kind in cams:
+        jc = jcam.Camera.pinhole(fx, fy, cx, cy, d) if kind == "pinhole" else jcam.Camera.kb8(fx, fy, cx, cy, *d)
+        tc = tcam.Camera.pinhole(fx, fy, cx, cy, d) if kind == "pinhole" else tcam.Camera.kb8(fx, fy, cx, cy, *d)
+        np.testing.assert_allclose(
+            tcam.unproject(tc, torch.as_tensor(uv)).numpy(), np.asarray(jcam.unproject(jc, jnp.asarray(uv))),
+            rtol=1e-5, atol=1e-6,
+        )
+        np.testing.assert_array_equal(tc.K().numpy(), np.asarray(jc.K()))
+    w = rng.normal(0, 1.0, (300, 3)).astype(np.float32)
+    w[:20] *= 1e-7  # near identity
+    w[20:40] *= 3.1 / np.linalg.norm(w[20:40], axis=1, keepdims=True)  # near pi
+    R = np.array(jlie.so3_exp(jnp.asarray(w)))
+    np.testing.assert_allclose(
+        tlie.rotation_to_quaternion(torch.as_tensor(R)).numpy(), np.asarray(jlie.rotation_to_quaternion(jnp.asarray(R))),
+        atol=2e-6,
+    )
+    np.testing.assert_allclose(tlie.so3_log(torch.as_tensor(R)).numpy(), np.asarray(jlie.so3_log(jnp.asarray(R))),
+                               atol=1e-5)

@@ -1,4 +1,4 @@
-"""The four kernel wrappers: CPU tensors take the plain version, other
+"""The kernel wrappers (A-G): CPU tensors take the plain version, other
 devices launch the kernel or raise (no fallback); on a CUDA card each
 kernel agrees with its plain version (``cuda`` marker; these skip without a
 card and run there, where JAX is absent, with
@@ -13,12 +13,14 @@ from orb_slam3_fast_tpu_torch.ops import extractor as ext
 from orb_slam3_fast_tpu_torch.ops import fast
 from orb_slam3_fast_tpu_torch.ops import hamming as ham
 from orb_slam3_fast_tpu_torch.ops import image
-from orb_slam3_fast_tpu_torch.optim import pose_opt
+from orb_slam3_fast_tpu_torch.ops import twoview
+from orb_slam3_fast_tpu_torch.optim import ba, pose_opt
 from orb_slam3_fast_tpu_torch.utils import lie
 
 torch.set_num_threads(1)
 
-WRAPPERS = (fast.fast_nms, ext.orb_describe, ham.hamming_best2, pose_opt.pose_optimization)
+WRAPPERS = (fast.fast_nms, ext.orb_describe, ham.hamming_best2, pose_opt.pose_optimization,
+            ba.build_normal_blocks, ba.schur_solve, twoview.triangulate_dlt)
 
 
 @pytest.fixture
@@ -68,6 +70,45 @@ def kernel_inputs(rng, device):
     return img, levels, blurs, xy, lvl, desc_a, desc_b, stereo, window, cam, obs
 
 
+def system_inputs(rng, device):
+    """Inputs of kernels E, F, G and kernel C's epipolar and mutual modes at
+    a small size, on ``device``: a BA problem of 4 pose slots (pose 0 and
+    the padding slot fixed), 64 landmarks and 256 observation slots."""
+    cam = cm.Camera.pinhole(300.0, 300.0, 160.0, 120.0)
+    K, M, O, n = 4, 64, 256, 200
+    R = np.tile(np.eye(3, dtype=np.float32), (K, 1, 1))
+    t = np.zeros((K, 3), np.float32)
+    t[:3, 0] = [0.0, -0.4, -0.8]
+    X = np.stack([rng.uniform(-2, 2, M), rng.uniform(-1.5, 1.5, M), rng.uniform(3, 8, M)], -1).astype(np.float32)
+    kf = rng.integers(0, 3, n).astype(np.int32)
+    lm = rng.integers(0, M, n).astype(np.int32)
+    xc = np.einsum("oij,oj->oi", R[kf], X[lm]) + t[kf]
+    uv = np.stack([300 * xc[:, 0] / xc[:, 2] + 160, 300 * xc[:, 1] / xc[:, 2] + 120, 0 * xc[:, 0]], -1)
+    uv[:, 2] = uv[:, 0] - 30.0 / xc[:, 2]
+    uv += rng.normal(0, 0.7, uv.shape)
+    stereo = rng.uniform(size=n) < 0.6
+    uv[~stereo, 2] = -1.0
+    pad = lambda a, f: np.concatenate([a, np.full((O - n, *a.shape[1:]), f, a.dtype)])  # noqa: E731
+    t0 = t + np.concatenate([np.zeros((1, 3)), rng.normal(0, 0.02, (K - 1, 3))]).astype(np.float32)
+    prob = ba.make_problem(
+        R, t0, np.array([True, False, False, True]), X + rng.normal(0, 0.03, X.shape).astype(np.float32),
+        np.ones(M, bool), pad(kf, 0), pad(lm, 0), pad(uv.astype(np.float32), -1.0), np.ones(O, np.float32),
+        pad(stereo, False), pad(np.ones(n, bool), False), device=device,
+    )
+    f = lambda *s: torch.as_tensor(rng.uniform(size=s), dtype=torch.float32, device=device)  # noqa: E731
+    P0 = torch.tensor([[1.0, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 0]], device=device)
+    P1 = torch.tensor([[1.0, 0, 0, -0.3], [0, 1, 0, 0], [0, 0, 1, 0]], device=device)
+    Xs = torch.stack([f(96) * 4 - 2, f(96) * 2 - 1, 2 + 8 * f(96)], 1)
+    x0, x1 = Xs[:, :2] / Xs[:, 2:], (Xs[:, :2] + torch.tensor([-0.3, 0.0], device=device)) / Xs[:, 2:]
+    epi = ham.EpipolarGate(
+        f(64) - 0.5, f(64) - 0.5, (f(64) - 0.5) * 100, None, (f(64) > 0.1).float(), f(80) * 300, f(80) * 200,
+        50 * f(80), (f(80) > 0.1).float(),
+    )
+    epi = epi._replace(den=epi.a ** 2 + epi.b ** 2)
+    mutual = ham.MutualGate((f(64) > 0.2).float(), (f(80) > 0.2).float())
+    return cam, prob, (P0, P1, x0, x1), epi, mutual
+
+
 def test_cpu_tensors_take_the_plain_version():
     rng = np.random.default_rng(0)
     img, levels, blurs, xy, lvl, da, db, stereo, window, cam, obs = kernel_inputs(rng, "cpu")
@@ -81,6 +122,18 @@ def test_cpu_tensors_take_the_plain_version():
     torch.testing.assert_close(
         pose_opt.pose_optimization(cam, 30.0, T0, obs), pose_opt.pose_optimization_plain(cam, 30.0, T0, obs)
     )
+    cam, prob, dlt, epi, mutual = system_inputs(rng, "cpu")
+    inl = torch.ones_like(prob.obs_valid)
+    blocks = ba.build_normal_blocks(cam, 30.0, prob.R, prob.t, prob.xw, prob, inl)
+    torch.testing.assert_close(blocks, ba.build_normal_blocks_plain(cam, 30.0, prob.R, prob.t, prob.xw, prob, inl))
+    lam = torch.tensor(1e-3)
+    torch.testing.assert_close(
+        ba.schur_solve(*blocks[:6], prob, lam),
+        ba.schur_solve_plain(*blocks[:6], prob.pose_fixed, prob.lm_valid, lam),
+    )
+    torch.testing.assert_close(twoview.triangulate_dlt(*dlt), twoview.triangulate_dlt_plain(*dlt))
+    for gate in (epi, mutual):
+        torch.testing.assert_close(ham.hamming_best2(da, db, gate), ham.hamming_best2_plain(da, db, gate))
     assert [w.launches for w in WRAPPERS] == before
 
 
@@ -97,11 +150,28 @@ def test_other_devices_raise_without_fallback():
         ham.hamming_best2(meta(da), meta(db), ham.StereoGate(*[meta(x) for x in stereo[:-1]], stereo.max_disp))
     with pytest.raises(ValueError, match="CUDA"):
         pose_opt.pose_optimization(cam, 30.0, lie.SE3.identity("meta"), pose_opt.PoseObs(*[meta(x) for x in obs]))
+    cam, prob, dlt, epi, mutual = system_inputs(rng, "cpu")
+    mprob = ba.BAProblem(*[meta(x) for x in prob])
+    with pytest.raises(ValueError, match="CUDA"):
+        ba.build_normal_blocks(cam, 30.0, mprob.R, mprob.t, mprob.xw, mprob, meta(prob.obs_valid))
+    blocks = ba.build_normal_blocks_plain(cam, 30.0, prob.R, prob.t, prob.xw, prob, torch.ones_like(prob.obs_valid))
+    with pytest.raises(ValueError, match="CUDA"):
+        ba.schur_solve(*[meta(x) for x in blocks[:6]], mprob, meta(torch.tensor(1e-3)))
+    with pytest.raises(ValueError, match="CUDA"):
+        twoview.triangulate_dlt(*[meta(x) for x in dlt])
+    for gate in (epi, mutual):
+        with pytest.raises(ValueError, match="CUDA"):
+            ham.hamming_best2(meta(da), meta(db), type(gate)(*[meta(x) for x in gate]))
 
 
 def test_build_flags_and_sources():
     srcs = sorted(p.name for p in _kernels.SRC_DIR.glob("*.cu"))
-    assert srcs == ["common.cu", "fast_nms.cu", "hamming_best2.cu", "orb_describe.cu", "pose_lm.cu"]
+    assert srcs == ["ba_blocks.cu", "ba_schur.cu", "common.cu", "fast_nms.cu", "hamming_best2.cu", "orb_describe.cu",
+                    "pose_lm.cu", "triangulate_dlt.cu"]
+    assert set(_kernels.SIGNATURES) == {
+        "fast_nms_launch", "orb_describe_launch", "hamming_best2_launch", "pose_lm_launch", "ba_blocks_launch",
+        "ba_schur_launch", "triangulate_dlt_launch",
+    }
     assert "arch=compute_90a,code=sm_90a" in _kernels.NVCC_FLAGS
     assert _kernels.LIB_PATH.parent.name == "_build"
 
@@ -131,3 +201,41 @@ def test_kernels_match_plain_on_card(cuda):
     torch.testing.assert_close(Tk.R, Tp.R, rtol=0, atol=1e-4)
     torch.testing.assert_close(Tk.t, Tp.t, rtol=0, atol=1e-3)
     assert abs(int(nk) - int(np_)) <= 2
+
+
+@pytest.mark.cuda
+def test_system_kernels_match_plain_on_card(cuda):
+    """E, F, G and kernel C's epipolar and mutual modes against their plain
+    versions on the card: C exact; E's blocks within 1e-4 of each block's
+    max (float atomics sum in another order), its W scattered into Z
+    likewise; F's dp / dl within 1e-3 of their max (float64 Cholesky
+    against a float32 LU); G within 1e-4 relative; a whole BA within 1e-3 m
+    with at most 0.5% of the inlier flags differing."""
+    rng = np.random.default_rng(0)
+    da = ham.pack_desc(torch.as_tensor(rng.integers(0, 2, (64, 256)), device=cuda))
+    db = ham.pack_desc(torch.as_tensor(rng.integers(0, 2, (80, 256)), device=cuda))
+    cam, prob, dlt, epi, mutual = system_inputs(rng, cuda)
+    for gate in (epi, mutual):
+        (bk, ck), (bp, cp) = ham.hamming_best2(da, db, gate), ham.hamming_best2_plain(da, db, gate)
+        for x, y in zip(bk, bp):
+            torch.testing.assert_close(x, y, rtol=0, atol=0)
+        torch.testing.assert_close(ck, cp, rtol=0, atol=0)
+    inl = torch.ones_like(prob.obs_valid)
+    bk = ba.build_normal_blocks(cam, 30.0, prob.R, prob.t, prob.xw, prob, inl)
+    bp = ba.build_normal_blocks_plain(cam, 30.0, prob.R, prob.t, prob.xw, prob, inl)
+    K, M = prob.R.shape[0], prob.xw.shape[0]
+    lm, kf = prob.obs_lm.long(), prob.obs_kf.long()
+    Zk = torch.zeros((M * K, 6, 3), device=cuda).index_add_(0, lm * K + kf, bk[4]).reshape(M, K, 6, 3)
+    for x, y in zip((*bk[:4], Zk, *bk[5:]), bp):
+        assert float((x - y).abs().max()) <= 1e-4 * max(float(y.abs().max()), 1e-12)
+    lam = torch.tensor(1e-3, device=cuda)
+    dk, lk = ba.schur_solve(*bk[:6], prob, lam)
+    dpp, lpp = ba.schur_solve_plain(*bp[:6], prob.pose_fixed, prob.lm_valid, lam)
+    assert float((dk - dpp).abs().max()) <= 1e-3 * float(dpp.abs().max())
+    assert float((lk - lpp).abs().max()) <= 1e-3 * float(lpp.abs().max())
+    Xk, Xp = twoview.triangulate_dlt(*dlt), twoview.triangulate_dlt_plain(*dlt)
+    assert float(((Xk - Xp).norm(dim=1) / Xp.norm(dim=1)).max()) < 1e-4
+    Rk, tk, xk, ik = ba.bundle_adjust(cam, 30.0, prob)
+    Rp, tp, xp, ip = ba.bundle_adjust_plain(cam, 30.0, prob)
+    assert float((tk - tp).abs().max()) < 1e-3 and float((Rk - Rp).abs().max()) < 1e-3
+    assert float((ik != ip).float().mean()) <= 0.005

@@ -1,0 +1,123 @@
+"""The port's WorldMap (packed descriptors, host C++ through its own build
+of native/map_ops.cpp) against the JAX package's WorldMap under one
+scripted sequence of keyframe / landmark / observation edits, and .npz maps
+crossing between the two packages."""
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from orb_slam3_fast_tpu.map.worldmap import WorldMap as JMap
+from orb_slam3_fast_tpu_torch import native as tnative
+from orb_slam3_fast_tpu_torch.map import worldmap as twm
+
+torch.set_num_threads(1)
+
+N = 64  # keypoint slots
+
+
+def _kp(rng):
+    bits = rng.integers(0, 2, (N, 256)).astype(np.int8)
+    common = dict(
+        xy=rng.uniform(0, 300, (N, 2)).astype(np.float32), level=rng.integers(0, 8, N).astype(np.int32),
+        angle=rng.uniform(-3, 3, N).astype(np.float32), valid=rng.uniform(size=N) > 0.1,
+    )
+    return SimpleNamespace(desc=bits, **common), SimpleNamespace(desc=twm.pack_bits(bits), **common)
+
+
+def scripted(rng):
+    """The same edits on a JAX map and a port map; small capacities so both
+    grow.  Returns (jax map, port map)."""
+    maps = JMap(kp_cap=N, max_kf=2, max_lm=16), twm.WorldMap(kp_cap=N, max_kf=2, max_lm=16)
+    for k in range(5):
+        R = np.eye(3, dtype=np.float32)
+        t = np.array([0.3 * k, 0.0, 0.1 * k], np.float32)
+        jk, tk = _kp(rng)
+        depth = rng.uniform(1, 9, N).astype(np.float32)
+        for m, kp in zip(maps, (jk, tk)):
+            assert m.add_keyframe(kp, R, t, 0.1 * k, depth=depth, right_u=depth - 3) == k
+    for k, (lo, n) in enumerate([(0, 20), (5, 15), (10, 12)]):
+        pos = rng.uniform(-2, 2, (n, 3)).astype(np.float32) + np.array([0, 0, 6], np.float32)
+        slots = rng.choice(N, n, replace=False)
+        bits = rng.integers(0, 2, (n, 256)).astype(np.int8)
+        lvl = rng.integers(0, 8, n).astype(np.int32)
+        ids_j = maps[0].add_landmarks(pos, bits, k, slots, lvl)
+        ids_t = maps[1].add_landmarks(pos, twm.pack_bits(bits), k, slots, lvl)
+        np.testing.assert_array_equal(ids_j, ids_t)
+    for k in range(1, 5):  # observations of older landmarks, some slots taken twice
+        slots = rng.choice(N, 25, replace=False)
+        lm = rng.integers(0, 47, 25).astype(np.int32)
+        for m in maps:
+            m.add_observations(k, slots, lm)
+    pairs = [(3, 7), (7, 12), (20, 21), (30, 2)]
+    for m in maps:
+        m.replace_landmarks(pairs)
+        m.remove_landmarks(np.array([4, 33], np.int32))
+        m.update_landmark_stats(np.arange(47))
+        m.remove_keyframe(2)
+        m.lm_visible[:40] += 3
+        m.lm_found[:40] += 1
+    return maps
+
+
+def _same_tables(jm, tm):
+    assert (jm.n_kf, jm.n_lm, jm.max_kf, jm.max_lm) == (tm.n_kf, tm.n_lm, tm.max_kf, tm.max_lm)
+    for name in ("kf_valid", "kf_R", "kf_t", "kf_xy", "kf_level", "kf_obs", "kf_kp_valid", "kf_depth",
+                 "lm_valid", "lm_pos", "lm_first_kf", "lm_n_obs", "lm_found", "lm_visible"):
+        np.testing.assert_array_equal(getattr(tm, name), getattr(jm, name), err_msg=name)
+    for name in ("lm_normal", "lm_dmin", "lm_dmax"):
+        np.testing.assert_allclose(getattr(tm, name), getattr(jm, name), rtol=1e-6, atol=1e-7, err_msg=name)
+    np.testing.assert_array_equal(twm.unpack_bits(tm.kf_desc), jm.kf_desc)
+    np.testing.assert_array_equal(twm.unpack_bits(tm.lm_desc), jm.lm_desc)
+
+
+def test_scripted_sequence_matches_jax():
+    jm, tm = scripted(np.random.default_rng(0))
+    _same_tables(jm, tm)
+    for k in range(jm.n_kf):
+        np.testing.assert_array_equal(tm.covisibility_counts(k), jm.covisibility_counts(k))
+        np.testing.assert_array_equal(tm.best_covisible(k, 3, min_shared=2), jm.best_covisible(k, 3, min_shared=2))
+    kfs = np.array([0, 1, 3, 4])
+    np.testing.assert_array_equal(tm.local_landmarks(kfs), jm.local_landmarks(kfs))
+    lm = jm.local_landmarks(kfs)
+    for x, y in zip(tm.observations_of(lm, kfs), jm.observations_of(lm, kfs)):
+        np.testing.assert_array_equal(x, y)
+    assert jm.lm_valid.sum() > 30 and (jm.kf_obs >= 0).sum() > 100
+
+
+def test_numpy_fallback_matches_native(monkeypatch):
+    """Without a toolchain the port takes the JAX package's numpy fallback."""
+    assert tnative.get_lib() is not None  # g++ is on this machine
+    native_map = scripted(np.random.default_rng(1))[1]
+    monkeypatch.setattr(tnative, "_lib", False)
+    numpy_map = scripted(np.random.default_rng(1))[1]
+    for name in ("kf_obs", "lm_n_obs", "lm_valid"):
+        np.testing.assert_array_equal(getattr(numpy_map, name), getattr(native_map, name))
+    for name in ("lm_normal", "lm_dmin", "lm_dmax"):
+        np.testing.assert_allclose(getattr(numpy_map, name), getattr(native_map, name), rtol=1e-6, atol=1e-7)
+    np.testing.assert_array_equal(numpy_map.covisibility_counts(0), native_map.covisibility_counts(0))
+
+
+def test_pack_roundtrip_matches_torch_layout():
+    bits = np.random.default_rng(2).integers(0, 2, (10, 256)).astype(np.int8)
+    from orb_slam3_fast_tpu_torch.ops.hamming import pack_desc
+
+    np.testing.assert_array_equal(twm.pack_bits(bits), pack_desc(torch.as_tensor(bits)).numpy())
+    np.testing.assert_array_equal(twm.unpack_bits(twm.pack_bits(bits)), bits)
+    x = twm.pack_bits(bits)
+    np.testing.assert_array_equal(twm.popcount_words(x[:, None] ^ x[None]), (bits[:, None] != bits[None]).sum(-1))
+
+
+@pytest.mark.parametrize("direction", ["port_to_jax", "jax_to_port"])
+def test_saved_maps_cross_packages(tmp_path, direction):
+    jm, tm = scripted(np.random.default_rng(3))
+    path = str(tmp_path / "map.npz")
+    if direction == "port_to_jax":
+        tm.save(path)
+        _same_tables(JMap.load(path), tm)
+    else:
+        jm.save(path)
+        loaded = twm.WorldMap.load(path)
+        _same_tables(jm, loaded)
+        assert loaded.kf_desc.dtype == np.int32 and loaded.kf_desc.shape[-1] == 8

@@ -215,3 +215,101 @@ def test_stereo_subpixel_refine(rng):
     # SAD sums of 121 terms in another order: float32 rounding of the parabola
     np.testing.assert_allclose(rt.numpy(), np.asarray(rj), atol=1e-3)
     assert ot.sum() > 5
+
+
+# --- the matchers the System adds: frame to frame, mutual, triangulation -----
+
+
+def _frames(rng, shift=(5, 3), h=160, w=224):
+    """Two crops of one textured canvas, the second moved by ``shift`` px;
+    the port's extractor gives the keypoints, handed to both packages."""
+    from orb_slam3_fast_tpu_torch.ops import extractor as text
+
+    cv = rng.uniform(0, 50, (h + 16, w + 16)).astype(np.float32)
+    for _ in range(70):
+        cy, cx = rng.integers(0, h - 8), rng.integers(0, w - 8)
+        cv[cy : cy + rng.integers(6, 20), cx : cx + rng.integers(6, 20)] += rng.uniform(80, 170)
+    cv = np.clip(cv, 0, 255)
+    cfg = text.ExtractorConfig(256, 4, 1.2, 20.0, 7.0, 32, 8)
+    out = []
+    for dy, dx in ((0, 0), shift):
+        kp = text.extract(torch.as_tensor(cv[8 + dy : 8 + dy + h, 8 + dx : 8 + dx + w].copy()), cfg)
+        f = convert.keypoints_to_numpy(kp)
+        out.append((jext.Keypoints(**{k: jnp.asarray(v) for k, v in f.items()}), kp, f))
+    return out
+
+
+def test_search_frame_to_frame(rng):
+    (j0, t0, f0), (j1, t1, f1) = _frames(rng)
+    uv = (f0["xy"] - np.array([3.0, 5.0], np.float32) + rng.normal(0, 1.0, f0["xy"].shape)).astype(np.float32)
+    pvalid = f0["valid"] & (rng.uniform(size=len(uv)) > 0.1)
+    scales = SCALES[:4]
+    ij, aj = jmat.search_frame_to_frame(
+        j1, jnp.asarray(uv), jnp.asarray(pvalid), j0.desc, j0.level, j0.angle, jnp.asarray(scales)
+    )
+    it, at = tmat.search_frame_to_frame(
+        t1, torch.as_tensor(uv), torch.as_tensor(pvalid), t0.desc, t0.level, t0.angle, torch.as_tensor(scales)
+    )
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_array_equal(at.numpy(), np.asarray(aj))
+    assert at.sum() > 40
+
+
+def test_search_descriptors_mutual(rng):
+    (j0, t0, f0), (j1, t1, f1) = _frames(rng, shift=(-4, 7))
+    has = f0["valid"] & (rng.uniform(size=len(f0["valid"])) > 0.3)
+    for th, ratio in ((100, 0.85), (50, 0.75)):
+        ij, aj = jmat.search_descriptors_mutual(j0.desc, jnp.asarray(has), j1.desc, j1.valid, th=th, ratio=ratio)
+        it, at = tmat.search_descriptors_mutual(t0.desc, torch.as_tensor(has), t1.desc, t1.valid, th=th, ratio=ratio)
+        np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+        np.testing.assert_array_equal(at.numpy(), np.asarray(aj))
+        assert at.sum() > 20
+    # kernel C's mutual-mode plain contract: the column argmin of the masked matrix
+    gate = tham.MutualGate(torch.as_tensor(has, dtype=torch.float32), t1.valid.float())
+    b, col = tham.hamming_best2_plain(t0.desc, t1.desc, gate)
+    bj = jham.masked_best2(jham.hamming_matrix(j0.desc, j1.desc).T, jnp.asarray(has[None, :] & f1["valid"][:, None]))
+    np.testing.assert_array_equal(col.numpy(), np.asarray(bj.idx))
+
+
+def test_search_for_triangulation(rng):
+    """F of a sideways step, keypoints of two shifted crops: the same idx and
+    accept, apart from candidates within 1e-5 (relative) of the chi2 band
+    edge, whose float32 rounding may differ between the two einsum orders."""
+    (j0, t0, f0), (j1, t1, f1) = _frames(rng, shift=(0, 6))
+    # a pure x step: epipolar lines are rows; fx = 200, so x_b^T F x_a = 0 at equal v
+    K = np.array([[200.0, 0, 112], [0, 200.0, 80], [0, 0, 1]])
+    tx = np.array([[0, 0, 0], [0, 0, 1.0], [0, -1.0, 0]])  # t = (-1, 0, 0)
+    Kinv = np.linalg.inv(K)
+    F = (Kinv.T @ tx @ Kinv).astype(np.float32)
+    sigma2 = (1.44 ** np.arange(4)).astype(np.float32)
+    free_a = f0["valid"] & (rng.uniform(size=len(f0["valid"])) > 0.2)
+    free_b = f1["valid"] & (rng.uniform(size=len(f1["valid"])) > 0.2)
+    ij, aj = jmat.search_for_triangulation(j0, j1, jnp.asarray(free_a), jnp.asarray(free_b), jnp.asarray(F),
+                                           jnp.asarray(sigma2))
+    it, at = tmat.search_for_triangulation(t0, t1, torch.as_tensor(free_a), torch.as_tensor(free_b),
+                                           torch.as_tensor(F), torch.as_tensor(sigma2))
+    ij, aj, it, at = np.asarray(ij), np.asarray(aj), it.numpy(), at.numpy()
+    differ = np.nonzero((ij != it) | (aj != at))[0]
+    if len(differ):
+        xa = np.concatenate([f0["xy"], np.ones((len(f0["xy"]), 1))], 1).astype(np.float64)
+        xb = np.concatenate([f1["xy"], np.ones((len(f1["xy"]), 1))], 1).astype(np.float64)
+        lines = xa @ F.T.astype(np.float64)
+        dsq = (lines @ xb.T) ** 2 / (lines[:, :1] ** 2 + lines[:, 1:2] ** 2)
+        thr = 3.84 * sigma2[f1["level"]][None, :]
+        edge = np.abs(dsq / thr - 1.0) < 1e-5
+        for i in differ:
+            cols = {ij[i], it[i]}
+            assert edge[i].any() or edge[:, list(cols)].any(), f"row {i} differs away from the band edge"
+    assert at.sum() > 20
+    # kernel C's epipolar-mode plain contract against the reference's mask
+    xa = np.concatenate([f0["xy"], np.ones((len(f0["xy"]), 1), np.float32)], 1)
+    lines = torch.as_tensor(xa) @ torch.as_tensor(F).T
+    gate = tham.EpipolarGate(
+        lines[:, 0].contiguous(), lines[:, 1].contiguous(), lines[:, 2].contiguous(), lines[:, 0] ** 2 + lines[:, 1] ** 2,
+        torch.as_tensor(free_a & f0["valid"], dtype=torch.float32), t1.xy[:, 0].contiguous(),
+        t1.xy[:, 1].contiguous(), 3.84 * tmat._pow_level(t1.level, torch.as_tensor(sigma2)),
+        torch.as_tensor(free_b & f1["valid"], dtype=torch.float32),
+    )
+    b, col = tham.hamming_best2_plain(t0.desc, t1.desc, gate)
+    np.testing.assert_array_equal(b.idx.numpy()[at], it[at])
+    assert col.shape == (len(f1["xy"]),)
