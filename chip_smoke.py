@@ -6,13 +6,15 @@ the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs six phases:
 
 1. device: fails without CUDA; prints the card's name and power limit;
 2. build: compiles the seven kernels (A-G) from
-   ``orb_slam3_fast_tpu_torch/csrc``, one nvcc per source in parallel;
+   ``orb_slam3_fast_tpu_torch/csrc``, one nvcc per source in parallel, and
+   the map's host C++ library, so that no frame of phase 5 pays for g++;
 3. each kernel against its plain PyTorch version on the same CUDA tensors,
    with CUDA-event times: A-D at the step's shapes (640x480 pyramid, 1024
    keypoint slots, 1024 x 1024 stereo, 4096 x 1024 window, 1024 edges); E
    and F on a local-BA problem at the mapper's caps (32 pose slots, 4096
-   landmarks, 16384 observations) and a whole BA through them; G on 1024
-   matches; C's epipolar and mutual modes at 768 x 768;
+   landmarks, 16384 observations), a whole BA through them, and F's
+   failure flag on an indefinite system; G on 1024 matches; C's epipolar
+   and mutual modes at 768 x 768;
 4. the stereo tracking step at 640x480 and 1280x720, 12 frames each, chained
    through the pose with constant-velocity prediction over a textured plane
    of known depth; every frame must match >= 30 landmarks, keep >= 30
@@ -43,7 +45,9 @@ import torch
 N_FRAMES = 12
 WARMUP = 2
 SYS_FRAMES = 30  # the System phase: test_slam_e2e.py's stereo sequence
+SYS_CONFIG = "configs/synthetic_stereo.yaml"
 N_LM = 4096
+N_DLT = 1024  # kernel G's check: matches of two keyframes
 SHIFT = 2  # px per frame, sideways pan
 DISP_640 = 8  # px of disparity at 640 wide; the plane is at bf / disparity
 
@@ -432,16 +436,16 @@ def compare_kernels(device) -> list[dict]:
     return out
 
 
-def ba_problem(rng, device, K=32, live=20, fixed=8, M=4096, obs_per_lm=4):
+def ba_problem(rng, device):
     """A seeded local-BA problem at the path's caps (MapperConfig: 12 + 8
-    keyframes padded to K = 32, 4096 landmarks, 16384 observations): ``live``
-    free poses and ``fixed`` fixed ones along a forward arc, the rest
-    padding; every landmark seen from ``obs_per_lm`` random poses; 60%
-    stereo edges, 10% outliers, 0.5 px noise; free poses and landmarks
-    perturbed from the truth."""
+    keyframes padded to K = 32, 4096 landmarks, 16384 observations): 20
+    free poses and 8 fixed ones along a forward arc, the rest padding; every
+    landmark seen from 4 random poses; 60% stereo edges, 10% outliers, 0.5
+    px noise; free poses and landmarks perturbed from the truth."""
     from orb_slam3_fast_tpu_torch.optim import ba
     from orb_slam3_fast_tpu_torch.utils import lie
 
+    K, live, fixed, M, obs_per_lm = 32, 20, 8, 4096, 4
     n_real = live + fixed
     R = np.tile(np.eye(3, dtype=np.float32), (K, 1, 1))
     t = np.zeros((K, 3), np.float32)
@@ -491,22 +495,20 @@ def corridor_keypoints(device):
     return kps, torch.as_tensor(F_ab).to(device), torch.as_tensor(ext.level_sigma2(cfg)).to(device)
 
 
-def compare_system_kernels(device, ba_sizes=None, n_dlt=1024) -> tuple[list[dict], dict]:
+def compare_system_kernels(device) -> tuple[list[dict], dict]:
     """Phase 3 for the System's kernels: E + F on a BA problem at the path's
-    caps, G on ``n_dlt`` matches, C's epipolar and mutual modes at 768 x 768,
-    each against its plain version, with CUDA-event times.  Returns (E, F, G
-    entries, C's two modes)."""
+    caps, G on N_DLT matches, C's epipolar and mutual modes at 768 x 768,
+    each against its plain version, with CUDA-event times; F's failure flag
+    on an indefinite system.  Returns (E, F, G entries, C's two modes)."""
     from orb_slam3_fast_tpu_torch.cameras.models import Camera
     from orb_slam3_fast_tpu_torch.ops import hamming as ham
     from orb_slam3_fast_tpu_torch.ops import matching as mat
     from orb_slam3_fast_tpu_torch.ops import twoview
     from orb_slam3_fast_tpu_torch.optim import ba
 
-    timed = device.type == "cuda"
-    ms = cuda_ms if timed else (lambda fn, reps: float("nan"))
     rng = np.random.default_rng(3)
     cam, bf = Camera.pinhole(400.0, 400.0, 320.0, 240.0), 48.0
-    prob = ba_problem(rng, device, **(ba_sizes or {}))
+    prob = ba_problem(rng, device)
     K, M, O = prob.R.shape[0], prob.xw.shape[0], prob.obs_kf.shape[0]
     out = []
 
@@ -514,9 +516,7 @@ def compare_system_kernels(device, ba_sizes=None, n_dlt=1024) -> tuple[list[dict
     inl = torch.ones_like(prob.obs_valid)
     args = (cam, bf, prob.R, prob.t, prob.xw, prob, inl)
     bk, bp = ba.build_normal_blocks(*args), ba.build_normal_blocks_plain(*args)
-    lm, kf = prob.obs_lm.long(), prob.obs_kf.long()
-    Zk = bk[4] if bk[4].dim() == 4 else (  # the plain version (a CPU rehearsal) already gives Z
-        torch.zeros((M * K, 6, 3), device=device).index_add_(0, lm * K + kf, bk[4]).reshape(M, K, 6, 3))
+    Zk = ba.coupling_to_dense(bk[4], prob)
     err_e = max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-12)
                 for x, y in zip((*bk[:4], Zk, *bk[5:]), bp))
     # atomics sum in another order: every block within 1e-4 of its max
@@ -524,12 +524,16 @@ def compare_system_kernels(device, ba_sizes=None, n_dlt=1024) -> tuple[list[dict
         raise RuntimeError(f"ba_blocks: a block differs by {err_e:.3g} of its max from the plain version")
     out.append(dict(name="ba_blocks", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/ba_blocks.cu",
                     replaces="orb_slam3_fast_tpu/optim/ba.py:72", max_abs_err=err_e,
-                    ms=ms(lambda: ba.build_normal_blocks(*args), 20), plain_ms=ms(lambda: ba.build_normal_blocks_plain(*args), 5),
-                    shapes=f"K={K} ({int((~prob.pose_fixed).sum())} free), M={M}, O={O}; error relative to each block's max, tolerance 1e-4"))
+                    ms=cuda_ms(lambda: ba.build_normal_blocks(*args), 20),
+                    plain_ms=cuda_ms(lambda: ba.build_normal_blocks_plain(*args), 5),
+                    shapes=f"K={K} ({int((~prob.pose_fixed).sum())} free), M={M}, O={O}; error relative to each "
+                           "block's max, tolerance 1e-4"))
 
     # F: the same blocks into the kernel and into a float64 plain solve
     lam = torch.tensor(1e-4, device=device)
-    dk, lk = ba.schur_solve(*bk[:6], prob, lam)
+    dk, lk, ok = ba.schur_solve(*bk[:6], prob, lam)
+    if not bool(ok):
+        raise RuntimeError("ba_schur: the Cholesky solve failed on a positive definite system")
     b64 = [x.double() for x in (*bk[:4], Zk, bk[5])]
     d64, l64 = ba.schur_solve_plain(*b64, prob.pose_fixed, prob.lm_valid, lam.double())
     err_f = max(float((dk.double() - d64).abs().max() / d64.abs().max()),
@@ -538,12 +542,20 @@ def compare_system_kernels(device, ba_sizes=None, n_dlt=1024) -> tuple[list[dict
     err_f32 = float((dk - d32).abs().max() / d32.abs().max())
     if not err_f <= 1e-4:
         raise RuntimeError(f"ba_schur: dp / dl differ by {err_f:.3g} (relative) from the float64 plain solve")
+    # a reduced system that is not positive definite (every pose block
+    # shifted below zero by twice its trace): the flag, and no step
+    trace = bk[0].diagonal(dim1=1, dim2=2).sum(-1)
+    bad = [bk[0] - 2.0 * trace[:, None, None] * torch.eye(6, device=device), *bk[1:6]]
+    dz, lz, ok = ba.schur_solve(*bad, prob, lam)
+    if bool(ok) or float(dz.abs().max()) != 0.0 or float(lz.abs().max()) != 0.0:
+        raise RuntimeError("ba_schur: an indefinite system was not flagged, or left a step")
     out.append(dict(name="ba_schur", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/ba_schur.cu",
                     replaces="orb_slam3_fast_tpu/optim/ba.py:108", max_abs_err=err_f,
-                    ms=ms(lambda: ba.schur_solve(*bk[:6], prob, lam), 20),
-                    plain_ms=ms(lambda: ba.schur_solve_plain(*bp[:6], prob.pose_fixed, prob.lm_valid, lam), 5),
+                    ms=cuda_ms(lambda: ba.schur_solve(*bk[:6], prob, lam), 20),
+                    plain_ms=cuda_ms(lambda: ba.schur_solve_plain(*bp[:6], prob.pose_fixed, prob.lm_valid, lam), 5),
                     shapes=f"6K={6 * K}; error relative to the float64 plain solve of the same blocks, tolerance "
-                           f"1e-4; {err_f32:.3g} against the float32 plain solve"))
+                           f"1e-4; {err_f32:.3g} against the float32 plain solve; an indefinite system flagged, "
+                           "dp and dl zero"))
 
     # E + F: a whole bundle_adjust against the plain one
     Rk, tk, _, ik = ba.bundle_adjust(cam, bf, prob)
@@ -552,20 +564,20 @@ def compare_system_kernels(device, ba_sizes=None, n_dlt=1024) -> tuple[list[dict
     flips = float((ik != ip).float().mean())
     if not (err_ba <= 1e-3 and flips <= 0.005):
         raise RuntimeError(f"bundle_adjust: pose err {err_ba:.3g}, inlier flags differing {flips:.4f}")
-    ba_ms = ms(lambda: ba.bundle_adjust(cam, bf, prob), 3)
-    ba_plain_ms = ms(lambda: ba.bundle_adjust_plain(cam, bf, prob), 2)
+    ba_ms = cuda_ms(lambda: ba.bundle_adjust(cam, bf, prob), 3)
+    ba_plain_ms = cuda_ms(lambda: ba.bundle_adjust_plain(cam, bf, prob), 2)
     out[-1]["shapes"] += (f"; bundle_adjust 5+10 LM via E+F {ba_ms:.3f} ms (plain {ba_plain_ms:.3f}), pose err "
                           f"{err_ba:.3g} (tolerance 1e-3), inlier flags differing {flips:.4f} (tolerance 0.005)")
 
     # G: 1024 matches of two keyframes 0.4 m apart
     g = torch.Generator().manual_seed(0)
-    Xs = torch.stack([torch.rand(n_dlt, generator=g) * 8 - 4, torch.rand(n_dlt, generator=g) * 6 - 3,
-                      2 + 20 * torch.rand(n_dlt, generator=g)], 1)
+    Xs = torch.stack([torch.rand(N_DLT, generator=g) * 8 - 4, torch.rand(N_DLT, generator=g) * 6 - 3,
+                      2 + 20 * torch.rand(N_DLT, generator=g)], 1)
     P0 = torch.tensor([[1.0, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 0]])
     P1 = torch.tensor([[1.0, 0, 0, -0.4], [0, 1, 0, 0.05], [0, 0, 1, 0.1]])
-    x0 = Xs[:, :2] / Xs[:, 2:] + 1e-3 * torch.randn(n_dlt, 2, generator=g)
+    x0 = Xs[:, :2] / Xs[:, 2:] + 1e-3 * torch.randn(N_DLT, 2, generator=g)
     xc1 = Xs + P1[:, 3]
-    x1 = xc1[:, :2] / xc1[:, 2:] + 1e-3 * torch.randn(n_dlt, 2, generator=g)
+    x1 = xc1[:, :2] / xc1[:, 2:] + 1e-3 * torch.randn(N_DLT, 2, generator=g)
     dlt = [a.to(device).contiguous() for a in (P0, P1, x0, x1)]
     Xk, Xp = twoview.triangulate_dlt(*dlt), twoview.triangulate_dlt_plain(*dlt)
     c1 = -P1[:, 3]
@@ -576,8 +588,8 @@ def compare_system_kernels(device, ba_sizes=None, n_dlt=1024) -> tuple[list[dict
         raise RuntimeError(f"triangulate_dlt: {err_g:.3g} relative on well-conditioned rows")
     out.append(dict(name="triangulate_dlt", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/triangulate_dlt.cu",
                     replaces="orb_slam3_fast_tpu/ops/twoview.py:164", max_abs_err=err_g,
-                    ms=ms(lambda: twoview.triangulate_dlt(*dlt), 50), plain_ms=ms(lambda: twoview.triangulate_dlt_plain(*dlt), 10),
-                    shapes=f"{n_dlt} matches ({int(good.sum())} with parallax cos < 0.9998); relative error there, "
+                    ms=cuda_ms(lambda: twoview.triangulate_dlt(*dlt), 50), plain_ms=cuda_ms(lambda: twoview.triangulate_dlt_plain(*dlt), 10),
+                    shapes=f"{N_DLT} matches ({int(good.sum())} with parallax cos < 0.9998); relative error there, "
                            "tolerance 1e-4"))
 
     # C: epipolar and mutual modes, 768 x 768, exact
@@ -594,13 +606,13 @@ def compare_system_kernels(device, ba_sizes=None, n_dlt=1024) -> tuple[list[dict
         (bk_, ck), (bp_, cp) = ham.hamming_best2(kp_a.desc, kp_b.desc, gate), ham.hamming_best2_plain(kp_a.desc, kp_b.desc, gate)
         if not (all(torch.equal(x, y) for x, y in zip(bk_, bp_)) and torch.equal(ck, cp)):
             raise RuntimeError(f"hamming_best2 {name} mode differs from its plain version")
-        modes[name] = dict(n=kp_a.n, m=kp_b.n, ms=ms(lambda: ham.hamming_best2(kp_a.desc, kp_b.desc, gate), 50),
-                           plain_ms=ms(lambda: ham.hamming_best2_plain(kp_a.desc, kp_b.desc, gate), 10),
+        modes[name] = dict(n=kp_a.n, m=kp_b.n, ms=cuda_ms(lambda: ham.hamming_best2(kp_a.desc, kp_b.desc, gate), 50),
+                           plain_ms=cuda_ms(lambda: ham.hamming_best2_plain(kp_a.desc, kp_b.desc, gate), 10),
                            accepted=int((bp_.dist < ham.INF_DIST).sum()))
     return out, modes
 
 
-def corridor_frames(n_frames: int, wh=(640, 480)):
+def corridor_frames(n_frames: int):
     """The System phase's input: test_slam_e2e.py's stereo corridor (seed 1,
     900 splats, arc_trajectory(step=0.06, lateral=0.05), 0.12 m baseline),
     rendered on the host; returns (frames, true T_cw per frame)."""
@@ -609,10 +621,10 @@ def corridor_frames(n_frames: int, wh=(640, 480)):
     cam = Camera.pinhole(400.0, 400.0, 320.0, 240.0)
     world = make_corridor_world(np.random.default_rng(1), n=900)
     poses = arc_trajectory(n_frames, step=0.06, lateral=0.05)
-    return [stereo_pair(world, cam, R, t, 0.12, wh) for R, t in poses], poses
+    return [stereo_pair(world, cam, R, t, 0.12) for R, t in poses], poses
 
 
-def run_system(frames, poses, device, config="configs/synthetic_stereo.yaml"):
+def run_system(frames, poses, device):
     """The stereo System on the corridor, as test_slam_e2e.py's stereo test
     drives the JAX tracker; checks its gates (final state OK, > 25 of 30
     frames tracked, unscaled ATE < 0.10 m, |scale - 1| < 0.1) and that
@@ -621,7 +633,7 @@ def run_system(frames, poses, device, config="configs/synthetic_stereo.yaml"):
     from orb_slam3_fast_tpu_torch.eval import ate
     from orb_slam3_fast_tpu_torch.slam.system import System
 
-    slam = System(config, "stereo", enable_loop_closing=False, multi_map=False, async_backend=False, device=device)
+    slam = System(SYS_CONFIG, "stereo", enable_loop_closing=False, multi_map=False, async_backend=False, device=device)
     est, gt, ts, track = [], [], [], []
     for i, ((il, ir), (R, t)) in enumerate(zip(frames, poses)):
         state, pose = slam.track_stereo(il, ir, i * 0.05)
@@ -737,6 +749,12 @@ def main() -> int:
     for line in nvcc_out.splitlines():
         if line.startswith("==") or "registers" in line or ("spill" in line and "0 bytes spill" not in line):
             log(f"  ptxas {line.strip()}")
+    from orb_slam3_fast_tpu_torch import native
+
+    t0 = time.perf_counter()
+    host_lib = native.get_lib()  # built at first use otherwise: inside the System's first tracked frame
+    log(f"host map library: {'g++, loaded' if host_lib else 'unavailable, numpy fallback'} "
+        f"in {time.perf_counter() - t0:.1f} s")
 
     # 3. each kernel against its plain version
     t0 = time.perf_counter()

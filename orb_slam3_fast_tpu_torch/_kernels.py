@@ -51,8 +51,8 @@ SIGNATURES = {
     # w_lm, cost, stream
     "ba_blocks_launch": [_P] * 13 + [_I] + [_P] * 8,
     # Hpp, Hll, bp, bl, W, w_lm, pose_fixed, lm_valid, obs_kf, lm_ptr,
-    # lm_obs, lam, n_poses, n_lm, n_obs, S, bs, dp, dl, stream
-    "ba_schur_launch": [_P] * 12 + [_I] * 3 + [_P] * 5,
+    # lm_obs, lam, n_poses, n_lm, n_obs, S, bs, dp, dl, fail, stream
+    "ba_schur_launch": [_P] * 12 + [_I] * 3 + [_P] * 6,
     # P0, P1, x0, x1, n, X, stream
     "triangulate_dlt_launch": [_P, _P, _P, _P, _I, _P, _P],
 }

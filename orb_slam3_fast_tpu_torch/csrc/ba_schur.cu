@@ -3,8 +3,11 @@
 // subtracted from the lower triangle of S (float64 atomics); (2) one CTA
 // adds the damped pose blocks and the gauge terms and solves the (6K)^2
 // system by Cholesky in float64 shared memory; (3) per landmark, the
-// back-substitution of dl.  See the source note in optim/ba.py;
-// schur_solve_plain there is the JAX form.
+// back-substitution of dl.  A Cholesky pivot <= 0 (an indefinite reduced
+// system) sets the flag ``fail`` in device memory; dp and dl are then zero
+// and the wrapper reports the solve as failed, so that the LM step is
+// rejected.  See the source note in optim/ba.py; schur_solve_plain there is
+// the JAX form.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -113,7 +116,7 @@ __global__ void __launch_bounds__(kSolveThreads)
 schur_solve_kernel(const float* __restrict__ Hpp, const float* __restrict__ bp,
                    const uint8_t* __restrict__ pose_fixed, const float* __restrict__ lam_p, int n6,
                    const double* __restrict__ S, const double* __restrict__ bs,
-                   float* __restrict__ dp) {
+                   float* __restrict__ dp, int* __restrict__ fail_out) {
   extern __shared__ double sm[];
   double* L = sm;                       // packed lower triangle, n6 (n6 + 1) / 2
   double* y = sm + n6 * (n6 + 1) / 2;   // right-hand side, then the solution
@@ -182,6 +185,7 @@ schur_solve_kernel(const float* __restrict__ Hpp, const float* __restrict__ bp,
   __syncthreads();
   for (int i = tid; i < n6; i += kSolveThreads)
     dp[i] = (fail || pose_fixed[i / 6]) ? 0.f : (float)y[i];
+  if (tid == 0) *fail_out = fail;
 }
 
 __global__ void __launch_bounds__(kBacksubThreads)
@@ -189,12 +193,12 @@ schur_backsub_kernel(const float* __restrict__ Hll, const float* __restrict__ bl
                      const float* __restrict__ W, const float* __restrict__ w_lm,
                      const uint8_t* __restrict__ lm_valid, const int* __restrict__ obs_kf,
                      const int* __restrict__ lm_ptr, const int* __restrict__ lm_obs,
-                     const float* __restrict__ lam_p, const float* __restrict__ dp, int n_lm,
-                     float* __restrict__ dl) {
+                     const float* __restrict__ lam_p, const float* __restrict__ dp,
+                     const int* __restrict__ fail, int n_lm, float* __restrict__ dl) {
   const int m = blockIdx.x * kBacksubThreads + threadIdx.x;
   if (m >= n_lm) return;
   const bool seen = w_lm[m] > 0.f;
-  if (!(seen && lm_valid[m])) {
+  if (!(seen && lm_valid[m]) || *fail) {
     dl[3 * m] = dl[3 * m + 1] = dl[3 * m + 2] = 0.f;
     return;
   }
@@ -220,7 +224,8 @@ extern "C" int ba_schur_launch(const float* Hpp, const float* Hll, const float* 
                                const float* W, const float* w_lm, const uint8_t* pose_fixed,
                                const uint8_t* lm_valid, const int* obs_kf, const int* lm_ptr,
                                const int* lm_obs, const float* lam, int n_poses, int n_lm, int n_obs,
-                               double* S, double* bs, float* dp, float* dl, void* stream) {
+                               double* S, double* bs, float* dp, float* dl, int* fail,
+                               void* stream) {
   (void)n_obs;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n6 = 6 * n_poses;
@@ -235,11 +240,11 @@ extern "C" int ba_schur_launch(const float* Hpp, const float* Hll, const float* 
   cudaError_t err = cudaFuncSetAttribute(schur_solve_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  schur_solve_kernel<<<1, kSolveThreads, smem, st>>>(Hpp, bp, pose_fixed, lam, n6, S, bs, dp);
+  schur_solve_kernel<<<1, kSolveThreads, smem, st>>>(Hpp, bp, pose_fixed, lam, n6, S, bs, dp, fail);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (n_lm > 0)
     schur_backsub_kernel<<<(n_lm + kBacksubThreads - 1) / kBacksubThreads, kBacksubThreads, 0, st>>>(
-        Hll, bl, W, w_lm, lm_valid, obs_kf, lm_ptr, lm_obs, lam, dp, n_lm, dl);
+        Hll, bl, W, w_lm, lm_valid, obs_kf, lm_ptr, lm_obs, lam, dp, fail, n_lm, dl);
   return cudaGetLastError();
 }

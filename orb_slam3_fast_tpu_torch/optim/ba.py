@@ -20,7 +20,10 @@ differs between the two forms:
   * kernel: the per-observation ``W_o = Jp^T w Jl`` (O,6,3), never
     scattered into ``Z`` (9.4 MB at M=4096, K=32, almost all zeros).
 So ``build_normal_blocks`` returns ``Z`` for CPU tensors and ``W`` for CUDA
-ones, and ``schur_solve`` takes what the matching call returned.
+ones, ``schur_solve`` takes what the matching call returned, and
+``coupling_to_dense`` turns either into ``Z``.  ``schur_solve`` also returns
+whether the solve succeeded; an LM step whose solve failed is rejected like
+one that raised the cost.
 
 Kernel E -- source note.
   Replaces: ``build_normal_blocks`` (``orb_slam3_fast_tpu/optim/ba.py:72``,
@@ -52,7 +55,11 @@ Kernel F -- source note.
   packed lower triangle in float64 shared memory (148 KB at 6K = 192) and
   solves by two warp-parallel substitutions.  (3) One thread per landmark
   back-substitutes ``dl = V^-1 (bl - sum W_o^T dp)``.  The damping ``lam``
-  is read from device memory.  6K <= 192 (K <= 32 padded poses).
+  is read from device memory.  6K <= 192 (K <= 32 padded poses).  A
+  Cholesky pivot <= 0 sets a flag in device memory and zeroes dp and dl;
+  the wrapper returns the flag as ``ok``, which the LM step folds into its
+  accept with no host read.  Where the reduced system is indefinite but
+  not singular, the reference's LU solve still gives a step; F rejects it.
 """
 from __future__ import annotations
 
@@ -203,6 +210,17 @@ def schur_solve_plain(Hpp, Hll, bp, bl, Z, w_lm, pose_fixed, lm_valid, lam):
     return dp, dl
 
 
+def coupling_to_dense(coupling, prob: BAProblem) -> torch.Tensor:
+    """The dense Z (M,K,6,3) from the coupling ``build_normal_blocks``
+    returned: Z itself, or the per-observation W scattered into it."""
+    if coupling.dim() == 4:
+        return coupling
+    K, M = prob.R.shape[0], prob.xw.shape[0]
+    key = prob.obs_lm.long() * K + prob.obs_kf.long()
+    Z = coupling.new_zeros((M * K, 6, 3)).index_add_(0, key, coupling)
+    return Z.reshape(M, K, 6, 3)
+
+
 def _kernel_camera(cam, bf, device) -> torch.Tensor:
     params = cam.params.tolist()  # free when the camera lives on the host
     if cam.kind != cam_models.PINHOLE or any(params[4:]):
@@ -247,12 +265,21 @@ def build_normal_blocks(cam, bf, R, t, xw, prob: BAProblem, inlier):
 build_normal_blocks.launches = 0
 
 
+def _solve_plain(Hpp, Hll, bp, bl, Z, w_lm, prob, lam):
+    """The plain solve, with ``ok`` False where it gave a non-finite step
+    (a singular system), which the reference's cost test rejects too."""
+    dp, dl = schur_solve_plain(Hpp, Hll, bp, bl, Z, w_lm, prob.pose_fixed, prob.lm_valid, lam)
+    return dp, dl, torch.isfinite(dp).all() & torch.isfinite(dl).all()
+
+
 def schur_solve(Hpp, Hll, bp, bl, coupling, w_lm, prob: BAProblem, lam):
     """Kernel F on CUDA tensors, its plain version on CPU ones; ``coupling``
     is what ``build_normal_blocks`` returned, ``lam`` a () float32 tensor.
-    Returns (dp (K,6), dl (M,3))."""
+    Returns (dp (K,6), dl (M,3), ok ()): ``ok`` is a bool tensor on the
+    device, False where the solve failed (kernel F: the reduced system was
+    not positive definite, and dp and dl are zero)."""
     if Hpp.device.type == "cpu":
-        return schur_solve_plain(Hpp, Hll, bp, bl, coupling, w_lm, prob.pose_fixed, prob.lm_valid, lam)
+        return _solve_plain(Hpp, Hll, bp, bl, coupling, w_lm, prob, lam)
     f32, i32, b = torch.float32, torch.int32, torch.bool
     lam = lam.to(f32).reshape(()).contiguous()
     _kernels.require_cuda(
@@ -268,14 +295,15 @@ def schur_solve(Hpp, Hll, bp, bl, coupling, w_lm, prob: BAProblem, lam):
     bs = torch.zeros(6 * K, dtype=torch.float64, device=dev)  # -Z V^-1 bl
     dp = torch.empty((K, 6), dtype=f32, device=dev)
     dl = torch.empty((M, 3), dtype=f32, device=dev)
+    fail = torch.empty((), dtype=i32, device=dev)
     _kernels.launch(
         "ba_schur_launch", dev, Hpp.data_ptr(), Hll.data_ptr(), bp.data_ptr(), bl.data_ptr(), coupling.data_ptr(),
         w_lm.data_ptr(), prob.pose_fixed.data_ptr(), prob.lm_valid.data_ptr(), prob.obs_kf.data_ptr(),
         prob.lm_ptr.data_ptr(), prob.lm_obs.data_ptr(), lam.data_ptr(), K, M, O, S.data_ptr(), bs.data_ptr(),
-        dp.data_ptr(), dl.data_ptr(),
+        dp.data_ptr(), dl.data_ptr(), fail.data_ptr(),
     )
     schur_solve.launches += 1
-    return dp, dl
+    return dp, dl, fail == 0
 
 
 schur_solve.launches = 0
@@ -289,11 +317,11 @@ def apply_update(R, t, xw, dp, dl):
 def _bundle_adjust(cam, bf, prob: BAProblem, iters1: int, iters2: int, blocks, solve):
     def lm_step(R, t, xw, inlier, lam):
         Hpp, Hll, bp, bl, C, w_lm, cost_old = blocks(cam, bf, R, t, xw, prob, inlier)
-        dp, dl = solve(Hpp, Hll, bp, bl, C, w_lm, prob, lam)
+        dp, dl, ok = solve(Hpp, Hll, bp, bl, C, w_lm, prob, lam)
         R_new, t_new, xw_new = apply_update(R, t, xw, dp, dl)
         r_new, _, posd_new = _obs_residuals(cam, bf, R_new, t_new, xw_new, prob)
         cost_new, _ = _robust_cost(r_new, prob, _active(prob, inlier, posd_new))
-        accept = cost_new < cost_old
+        accept = ok & (cost_new < cost_old)
         lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-8), torch.clamp(lam * 5.0, max=1e6))
         return torch.where(accept, R_new, R), torch.where(accept, t_new, t), torch.where(accept, xw_new, xw), lam
 
@@ -312,10 +340,6 @@ def _bundle_adjust(cam, bf, prob: BAProblem, iters1: int, iters2: int, blocks, s
     R, t, xw = run_phase(prob.R, prob.t, prob.xw, inlier, iters1)
     R, t, xw = run_phase(R, t, xw, classify(R, t, xw), iters2)  # Optimizer.cc:1347-1365
     return R, t, xw, classify(R, t, xw)  # Optimizer.cc:1398-1420
-
-
-def _solve_plain(Hpp, Hll, bp, bl, Z, w_lm, prob, lam):
-    return schur_solve_plain(Hpp, Hll, bp, bl, Z, w_lm, prob.pose_fixed, prob.lm_valid, lam)
 
 
 def bundle_adjust(cam, bf, prob: BAProblem, iters1: int = 5, iters2: int = 10):

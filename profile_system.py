@@ -1,0 +1,117 @@
+#!/usr/bin/env python3
+"""Device profile of the stereo System on one CUDA GPU.
+
+Run from the root of a checkout: ``python3 profile_system.py``.  It builds
+the kernels, renders chip_smoke.py's 30-frame corridor on the host and runs
+the System (configs/synthetic_stereo.yaml) over it three times on the card,
+each time from a fresh System: a warm-up, an untraced run, and a run under
+``torch.profiler`` (CPU and CUDA activity).  From the traced run alone it
+reports:
+
+- its wall time over the 30 frames (host clock, the card synchronised at
+  the end), beside the untraced run's: their ratio is the tracer's cost;
+- the device's busy time, the union of the intervals of every device
+  operation in the trace (kernels, copies, sets);
+- the device's idle share, 1 - busy / wall, and the number of device
+  operations, in all and per frame;
+- the operations with the most device time.
+
+The last line is one JSON object with these numbers.  It exits nonzero
+without a CUDA device, if the System loses track, or if the trace holds no
+device operation.
+"""
+from __future__ import annotations
+
+import collections
+import json
+import subprocess
+import sys
+import time
+
+import torch
+
+import chip_smoke as cs
+
+TOP = 15  # operations listed by device time
+
+
+def run_frames(frames, device, prof=None) -> float:
+    """Milliseconds of wall time for the System over ``frames``; traced by
+    ``prof`` when given."""
+    from orb_slam3_fast_tpu_torch.slam.system import System
+
+    slam = System(cs.SYS_CONFIG, "stereo", enable_loop_closing=False, multi_map=False, async_backend=False,
+                  device=device)
+    torch.cuda.synchronize()
+    if prof is not None:
+        prof.start()
+    t0 = time.perf_counter()
+    for i, (il, ir) in enumerate(frames):
+        slam.track_stereo(il, ir, i * 0.05)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    if prof is not None:
+        prof.stop()
+    if slam.get_tracking_state() != "OK":
+        raise RuntimeError(f"the System ended in state {slam.get_tracking_state()}")
+    return wall_ms
+
+
+def busy_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return total + (cur_e - cur_s if cur_e is not None else 0.0)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_system: torch.cuda.is_available() is False; this script needs a CUDA card")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from orb_slam3_fast_tpu_torch import _kernels
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    device = torch.device("cuda", 0)
+    _kernels.build()
+    frames, _ = cs.corridor_frames(cs.SYS_FRAMES)
+    run_frames(frames, device)  # warm-up: kernel loading, allocator, library handles
+    untraced_ms = run_frames(frames, device)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    traced_ms = run_frames(frames, device, prof)
+
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ops:
+        raise RuntimeError("the trace holds no device operation: time with CUDA events instead")
+    busy_ms = busy_us((e.time_range.start, e.time_range.end) for e in ops) / 1e3
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    for e in ops:
+        by_name[e.name][0] += 1
+        by_name[e.name][1] += (e.time_range.end - e.time_range.start) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:TOP]
+    n = len(frames)
+    print(f"System, {n} frames: traced {traced_ms:.3f} ms, untraced {untraced_ms:.3f} ms "
+          f"(tracer cost x{traced_ms / untraced_ms:.3f})")
+    print(f"device busy {busy_ms:.3f} ms of {traced_ms:.3f} ms traced wall: idle share {1 - busy_ms / traced_ms:.4f}; "
+          f"{len(ops)} device operations, {len(ops) / n:.1f} per frame")
+    for name, (count, ms) in top:
+        print(f"  {ms:10.3f} ms {count:7d}x  {name[:100]}")
+    print(json.dumps({
+        "frames": n, "traced_wall_ms": traced_ms, "untraced_wall_ms": untraced_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": 1 - busy_ms / traced_ms, "device_ops": len(ops), "device_ops_per_frame": len(ops) / n,
+        "top": [{"name": name, "count": count, "ms": ms} for name, (count, ms) in top], "gpu": smi,
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

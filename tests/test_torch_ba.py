@@ -116,8 +116,27 @@ def test_schur_solve_matches_jax():
             w = np.asarray(w)
             assert np.abs(g.numpy() - w).max() <= 1e-4 * np.abs(w).max()
         assert np.abs(np.asarray(dp_j)[[0, 3]]).max() == 0.0  # fixed and padding poses stay
-        dp_w, dl_w = tba.schur_solve(*blocks[:5], blocks[5], tp, torch.tensor(lam))
+        dp_w, dl_w, ok_w = tba.schur_solve(*blocks[:5], blocks[5], tp, torch.tensor(lam))
         torch.testing.assert_close((dp_w, dl_w), (dp_t, dl_t), rtol=0, atol=0)
+        assert bool(ok_w)
+        assert tba.coupling_to_dense(blocks[4], tp) is blocks[4]  # the CPU coupling is already Z
+
+
+def test_failed_solve_rejects_the_step():
+    """A solve that reports failure (kernel F's flag, or a non-finite plain
+    step) leaves the poses and landmarks as they were, whatever step it
+    returned."""
+    tp = tba.make_problem(**problem(seed=3), device="cpu")
+
+    def failing(Hpp, Hll, bp, bl, Z, w_lm, prob, lam):
+        return torch.full_like(bp, 0.01), torch.full_like(bl, 0.01), torch.tensor(False)
+
+    R, t, xw, _ = tba._bundle_adjust(TCAM, BF, tp, 2, 1, tba.build_normal_blocks_plain, failing)
+    assert torch.equal(R, tp.R) and torch.equal(t, tp.t) and torch.equal(xw, tp.xw)
+    blocks = list(tba.build_normal_blocks_plain(TCAM, BF, tp.R, tp.t, tp.xw, tp, torch.ones_like(tp.obs_valid)))
+    blocks[3] = blocks[3].clone()
+    blocks[3][0, 0] = float("nan")
+    assert not bool(tba.schur_solve(*blocks[:6], tp, torch.tensor(1e-4))[2])
 
 
 def test_bundle_adjust_matches_jax():

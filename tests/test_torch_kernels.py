@@ -127,10 +127,9 @@ def test_cpu_tensors_take_the_plain_version():
     blocks = ba.build_normal_blocks(cam, 30.0, prob.R, prob.t, prob.xw, prob, inl)
     torch.testing.assert_close(blocks, ba.build_normal_blocks_plain(cam, 30.0, prob.R, prob.t, prob.xw, prob, inl))
     lam = torch.tensor(1e-3)
-    torch.testing.assert_close(
-        ba.schur_solve(*blocks[:6], prob, lam),
-        ba.schur_solve_plain(*blocks[:6], prob.pose_fixed, prob.lm_valid, lam),
-    )
+    dp, dl, ok = ba.schur_solve(*blocks[:6], prob, lam)
+    torch.testing.assert_close((dp, dl), ba.schur_solve_plain(*blocks[:6], prob.pose_fixed, prob.lm_valid, lam))
+    assert bool(ok)
     torch.testing.assert_close(twoview.triangulate_dlt(*dlt), twoview.triangulate_dlt_plain(*dlt))
     for gate in (epi, mutual):
         torch.testing.assert_close(ham.hamming_best2(da, db, gate), ham.hamming_best2_plain(da, db, gate))
@@ -223,13 +222,11 @@ def test_system_kernels_match_plain_on_card(cuda):
     inl = torch.ones_like(prob.obs_valid)
     bk = ba.build_normal_blocks(cam, 30.0, prob.R, prob.t, prob.xw, prob, inl)
     bp = ba.build_normal_blocks_plain(cam, 30.0, prob.R, prob.t, prob.xw, prob, inl)
-    K, M = prob.R.shape[0], prob.xw.shape[0]
-    lm, kf = prob.obs_lm.long(), prob.obs_kf.long()
-    Zk = torch.zeros((M * K, 6, 3), device=cuda).index_add_(0, lm * K + kf, bk[4]).reshape(M, K, 6, 3)
-    for x, y in zip((*bk[:4], Zk, *bk[5:]), bp):
+    for x, y in zip((*bk[:4], ba.coupling_to_dense(bk[4], prob), *bk[5:]), bp):
         assert float((x - y).abs().max()) <= 1e-4 * max(float(y.abs().max()), 1e-12)
     lam = torch.tensor(1e-3, device=cuda)
-    dk, lk = ba.schur_solve(*bk[:6], prob, lam)
+    dk, lk, ok = ba.schur_solve(*bk[:6], prob, lam)
+    assert bool(ok)
     dpp, lpp = ba.schur_solve_plain(*bp[:6], prob.pose_fixed, prob.lm_valid, lam)
     assert float((dk - dpp).abs().max()) <= 1e-3 * float(dpp.abs().max())
     assert float((lk - lpp).abs().max()) <= 1e-3 * float(lpp.abs().max())
@@ -239,3 +236,36 @@ def test_system_kernels_match_plain_on_card(cuda):
     Rp, tp, xp, ip = ba.bundle_adjust_plain(cam, 30.0, prob)
     assert float((tk - tp).abs().max()) < 1e-3 and float((Rk - Rp).abs().max()) < 1e-3
     assert float((ik != ip).float().mean()) <= 0.005
+
+
+@pytest.mark.cuda
+def test_schur_failure_rejects_the_step_on_card(cuda):
+    """Kernel F on a reduced system that is not positive definite: a free
+    pose's block given a negative eigenvalue of 1e-3 of its largest one
+    (a margin that float32 storage of the block cannot close).  The flag
+    comes back as ``ok`` False with dp and dl zero, and a BA whose every
+    solve fails leaves the problem as it was."""
+    rng = np.random.default_rng(1)
+    cam, prob, _, _, _ = system_inputs(rng, cuda)
+    inl = torch.ones_like(prob.obs_valid)
+    bk = list(ba.build_normal_blocks(cam, 30.0, prob.R, prob.t, prob.xw, prob, inl))
+    lam = torch.tensor(1e-4, device=cuda)
+    dp, dl, ok = ba.schur_solve(*bk[:6], prob, lam)
+    assert bool(ok) and float(dl.abs().max()) > 0
+    H1 = bk[0][1].double()
+    ev = torch.linalg.eigvalsh(H1)
+    shift = float(ev[0] + 1e-3 * ev[-1])
+    bk[0] = bk[0].clone()
+    bk[0][1] = (H1 - shift * torch.eye(6, dtype=torch.float64, device=cuda)).float()
+    dp, dl, ok = ba.schur_solve(*bk[:6], prob, lam)
+    assert not bool(ok)
+    assert float(dp.abs().max()) == 0.0 and float(dl.abs().max()) == 0.0
+
+    def indefinite(*args):
+        blocks = list(ba.build_normal_blocks(*args))
+        trace = blocks[0].diagonal(dim1=1, dim2=2).sum(-1)
+        blocks[0] = blocks[0] - 2.0 * trace[:, None, None] * torch.eye(6, device=cuda)
+        return blocks
+
+    R, t, xw, _ = ba._bundle_adjust(cam, 30.0, prob, 2, 1, indefinite, ba.schur_solve)
+    assert torch.equal(R, prob.R) and torch.equal(t, prob.t) and torch.equal(xw, prob.xw)
