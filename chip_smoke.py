@@ -2,34 +2,45 @@
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It imports only
-the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs six phases:
+the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs seven phases:
 
 1. device: fails without CUDA; prints the card's name and power limit;
-2. build: compiles the seven kernels (A-G) from
+2. build: compiles the eleven kernels (A-L, no K) from
    ``orb_slam3_fast_tpu_torch/csrc``, one nvcc per source in parallel, and
-   the map's host C++ library, so that no frame of phase 5 pays for g++;
+   the map's host C++ library, so that no frame of phases 5-6 pays for g++;
 3. each kernel against its plain PyTorch version on the same CUDA tensors,
-   with CUDA-event times: A-D at the step's shapes (640x480 pyramid, 1024
-   keypoint slots, 1024 x 1024 stereo, 4096 x 1024 window, 1024 edges); E
-   and F on a local-BA problem at the mapper's caps (32 pose slots, 4096
-   landmarks, 16384 observations), a whole BA through them, and F's
-   failure flag on an indefinite system; G on 1024 matches; C's epipolar
-   and mutual modes at 768 x 768;
+   with CUDA-event times, the least time the card could take for the same
+   work (bytes or operations at the H100's published peaks) and, where one
+   PyTorch call computes the same function, that call's time: A-D at the
+   step's shapes (640x480 pyramid, 1024 keypoint slots, 1024 x 1024
+   stereo, 4096 x 1024 window, 1024 edges); E and F on a local-BA problem
+   at the mapper's caps (32 pose slots, 4096 landmarks, 16384
+   observations), a whole BA through them, and F's failure flag on an
+   indefinite system; G on 1024 matches; C's epipolar and mutual modes at
+   768 x 768; H at 640x480 and 1280x720; I on kernel A's maps of those
+   pyramids and on a tie-heavy map; J on 1024 stereo matches; L on 4096
+   landmarks; and the whole extraction on the card against the plain one;
 4. the stereo tracking step at 640x480 and 1280x720, 12 frames each, chained
    through the pose with constant-velocity prediction over a textured plane
    of known depth; every frame must match >= 30 landmarks, keep >= 30
    inliers and land within one pixel's worth of translation of the truth,
-   and A-D must have been launched; a per-stage split follows;
+   and A-D and H-L must have been launched; a per-stage split follows;
 5. the stereo ``System`` (configs/synthetic_stereo.yaml) with local mapping
    on 30 frames of the synthetic corridor: the gates of
    tests/test_slam_e2e.py's stereo test, >= 3 keyframes, a local BA and
-   triangulated landmarks, and every kernel A-G (C in its epipolar mode
+   triangulated landmarks, and every kernel A-L (C in its epipolar mode
    too) launched on that path; per-frame and per-BA times;
-6. one frame of the plain (CPU) step, and the whole System run with the
-   plain versions on the host, against the card; a JSON line of the
-   kernels, then ``{"ok": true, "device": {...}}`` last.
+6. the RGB-D ``System`` (the same configuration loaded for RGB-D, virtual
+   baseline bf = 32) on the 25 frames of tests/test_slam_e2e.py's RGB-D
+   test, depth from the splats: its gates (final state OK, > 20 frames
+   tracked, unscaled ATE < 0.40 m), at least the 3 keyframes and 2 local
+   BAs the JAX tracker makes on the same frames, H, I and L launched and J
+   not (RGB-D has no SAD refine);
+7. one frame of the plain (CPU) step, and both Systems run with the plain
+   versions on the host, against the card; a JSON line of the kernels,
+   then ``{"ok": true, "device": {...}}`` last.
 
-Launch counts are zeroed just before phases 4 and 5 and read just after.
+Launch counts are zeroed just before phases 4, 5 and 6 and read just after.
 Any failure raises, so the script exits nonzero without the last line.
 """
 from __future__ import annotations
@@ -48,6 +59,14 @@ SYS_FRAMES = 30  # the System phase: test_slam_e2e.py's stereo sequence
 SYS_CONFIG = "configs/synthetic_stereo.yaml"
 N_LM = 4096
 N_DLT = 1024  # kernel G's check: matches of two keyframes
+RGBD_FRAMES = 25  # the RGB-D phase: test_slam_e2e.py's RGB-D sequence
+RGBD_BF = 0.08 * 400.0  # its virtual baseline x fx
+RGBD_MIN_KF, RGBD_MIN_BA = 3, 2  # what the JAX tracker + mapper make on those frames on the CPU
+# (python -m tests.rgbd_reference_counts: keyframes at frames 0, 10, 15; 2 local BAs)
+# The H100 SXM's published peaks (NVIDIA's data sheet): HBM3 bytes/s, and
+# float32 outside the tensor cores, taken here for all scalar work.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
 SHIFT = 2  # px per frame, sideways pan
 DISP_640 = 8  # px of disparity at 640 wide; the plane is at bf / disparity
 
@@ -69,6 +88,14 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes the work
+    must move (each input read once, each output written once) over the
+    memory rate and its operations over the peak rate."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 # --- the scene ---------------------------------------------------------------
@@ -322,6 +349,30 @@ def stereo_pair(world, cam, R, t, baseline, wh=(640, 480)):
     return render(world, cam, R, t, wh), render(world, cam, R, np.asarray(t) - np.array([baseline, 0.0, 0.0]), wh)
 
 
+def splat_depth(world, cam, R, t, wh=(640, 480)) -> np.ndarray:
+    """The RGB-D test's depth map (tests/test_slam_e2e.py:102-116): each
+    splat's square footprint at its centre's depth, far to near, 0 where no
+    splat lies (invalid)."""
+    from orb_slam3_fast_tpu_torch.cameras import models as cm
+
+    w, h = wh
+    Xc = world["centers"] @ np.asarray(R, np.float32).T + np.asarray(t, np.float32)
+    uv = cm.project(cam, torch.as_tensor(Xc)).numpy()
+    depth = np.zeros((h, w), np.float32)
+    fx = float(cam.params[0])
+    for j in np.argsort(-Xc[:, 2]):
+        z = Xc[j, 2]
+        if z < 0.5:
+            continue
+        u, v = uv[j]
+        s = world["sizes"][j] * fx / z
+        if s < 2:
+            continue
+        u0, v0, u1, v1 = int(u - s / 2), int(v - s / 2), int(u + s / 2), int(v + s / 2)
+        depth[max(v0, 0) : max(v1, 0), max(u0, 0) : max(u1, 0)] = z
+    return depth
+
+
 # --- phase 3: each kernel against its plain version ---------------------------
 
 
@@ -352,18 +403,21 @@ def compare_kernels(device) -> list[dict]:
         raise RuntimeError(f"fast_nms differs from its plain version by {err}")
     ms = cuda_ms(lambda: [fast.fast_nms(lv, 20.0, 7.0, ext.EDGE_BORDER) for lv in levels], 50)
     plain_ms = cuda_ms(lambda: [fast.fast_nms_plain(lv, 20.0, 7.0, ext.EDGE_BORDER) for lv in levels], 10)
+    px = sum(lv.numel() for lv in levels)
+    # per pixel: 4 bytes read, 8 written; 16 circle differences, 64
+    # threshold tests, up to 64 adds, the run tests and 8 NMS maxima (~150)
     out.append(dict(name="fast_nms", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/fast_nms.cu",
                     replaces="orb_slam3_fast_tpu/ops/fast.py:62", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    shapes="8 levels of 480x640, tolerance exact"))
+                    **bound(12 * px, 150 * px), library_ms=None, shapes="8 levels of 480x640, tolerance exact"))
 
     # B: angle + BRIEF for the 1024 slots of that image
     kp = ext.extract(il, cfg)
     blurs = [image.gaussian_blur(lv) for lv in levels]
     scales = torch.as_tensor(ext.slot_scales(cfg), device=device)
-    xy = torch.round(kp.xy / scales[:, None]).long()  # level-local integer positions (sub < 0.5 px)
-    lvl = kp.level
-    a_k, d_k = ext.orb_describe(levels, blurs, xy, lvl)
-    a_p, d_p = ext.orb_describe_plain(levels, blurs, xy, lvl)
+    xy = torch.round(kp.xy / scales[:, None]).to(torch.int32)  # level-local integer positions (sub < 0.5 px)
+    desc_in = ext.describe_inputs(levels, blurs, kp.level)
+    a_k, d_k = ext.orb_describe(*desc_in, xy)
+    a_p, d_p = ext.orb_describe_plain(*desc_in, xy)
     torch.cuda.synchronize()
     a_err = float((a_k - a_p).abs().max())
     bit_diff = float((ham.unpack_desc(d_k) != ham.unpack_desc(d_p)).float().mean())
@@ -371,10 +425,14 @@ def compare_kernels(device) -> list[dict]:
     # bit flips only where that moves a rotated sample across a rounding edge
     if a_err > 1e-3 or bit_diff > 1e-3:
         raise RuntimeError(f"orb_describe: angle err {a_err}, bit mismatch {bit_diff}")
-    ms = cuda_ms(lambda: ext.orb_describe(levels, blurs, xy, lvl), 50)
-    plain_ms = cuda_ms(lambda: ext.orb_describe_plain(levels, blurs, xy, lvl), 10)
+    ms = cuda_ms(lambda: ext.orb_describe(*desc_in, xy), 50)
+    plain_ms = cuda_ms(lambda: ext.orb_describe_plain(*desc_in, xy), 10)
+    n_kp = xy.shape[0]
+    # per keypoint: the 31x31 and 29x29 patches read, 12 bytes in, 36 out;
+    # 961 moment terms (4 flops) and 512 rotated samples (~10 flops)
     out.append(dict(name="orb_describe", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/orb_describe.cu",
                     replaces="orb_slam3_fast_tpu/ops/extractor.py:297", max_abs_err=a_err, ms=ms, plain_ms=plain_ms,
+                    **bound(n_kp * ((961 + 841) * 4 + 48), n_kp * (961 * 4 + 512 * 10)), library_ms=None,
                     shapes=f"1024 keypoints over 8 levels, angle tol 1e-3 rad, bit mismatch {bit_diff:.2e} <= 1e-3"))
 
     # C: stereo mode (1024 x 1024) and window mode (4096 x 1024)
@@ -409,9 +467,14 @@ def compare_kernels(device) -> list[dict]:
     ms_w = cuda_ms(lambda: ham.hamming_best2(lm.desc, kp.desc, wgate), 50)
     pms_s = cuda_ms(lambda: ham.hamming_best2_plain(kp.desc, kp_r.desc, sgate), 10)
     pms_w = cuda_ms(lambda: ham.hamming_best2_plain(lm.desc, kp.desc, wgate), 10)
+    # every pair's gate (~8 operations); the distance (8 xor, 8 popcount,
+    # 8 adds) where the gate lets it through: every pair in stereo mode
+    n_s, n_w = kp.n * kp_r.n, int(ham.window_mask(wgate).sum())
+    c_bytes = sum((a.shape[0] + b.shape[0]) * 52 + a.shape[0] * 16 for a, b in ((kp.desc, kp_r.desc), (lm.desc, kp.desc)))
+    c_ops = 8 * (kp.n * kp_r.n + lm.desc.shape[0] * kp.n) + 24 * (n_s + n_w)
     out.append(dict(name="hamming_best2", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/hamming_best2.cu",
                     replaces="orb_slam3_fast_tpu/ops/hamming.py:28", max_abs_err=err, ms=ms_s + ms_w,
-                    plain_ms=pms_s + pms_w,
+                    plain_ms=pms_s + pms_w, nbytes=c_bytes, ops=c_ops, library_ms=None,
                     shapes=f"stereo 1024x1024 {ms_s:.4f} ms (plain {pms_s:.4f}), window 4096x1024 "
                            f"{ms_w:.4f} ms (plain {pms_w:.4f}), tolerance exact"))
 
@@ -430,9 +493,183 @@ def compare_kernels(device) -> list[dict]:
         raise RuntimeError(f"pose_lm: pose err {err}, inliers {int(nk)} vs {int(np_)}")
     ms = cuda_ms(lambda: pose_opt.pose_optimization(step.cam, rig.bf, T0, obs), 50)
     plain_ms = cuda_ms(lambda: pose_opt.pose_optimization_plain(step.cam, rig.bf, T0, obs), 5)
+    n_edge = int(obs.valid.sum())
+    # per active edge and LM iteration (4 x 10): residual, Jacobian and
+    # normal-equation terms, ~150 flops; 30 bytes in and 1 out per slot
     out.append(dict(name="pose_lm", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/pose_lm.cu",
                     replaces="orb_slam3_fast_tpu/optim/pose_opt.py:117", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    **bound(obs.xw.shape[0] * 31 + 96, n_edge * 40 * 150), library_ms=None,
                     shapes=f"{int(obs.valid.sum())} active of 1024 edges, 4x10 LM, tolerance 1e-3"))
+    return out + compare_front_kernels(device, cfg, step, lm, il, ir, kp, kp_r)
+
+
+def near(x: torch.Tensor, threshold: float, tol: float = 1e-5) -> torch.Tensor:
+    """Where a float quantity lies within ``tol`` (relative) of a threshold."""
+    return (x - threshold).abs() <= tol * max(abs(threshold), 1.0)
+
+
+def visibility_borderline(R, t, lm, uv, wh, sf: float) -> torch.Tensor:
+    """Landmark slots where one of kernel L's tests, or PredictScale's
+    log(ratio) / log(sf), lies within 1e-5 of its threshold: there float
+    rounding in another order may flip a flag or a level."""
+    pos, normal, dmin, dmax = lm.pos, lm.normal, lm.dmin, lm.dmax
+    xc = pos @ R.T + t
+    po = pos + R.T @ t
+    dist = po.norm(dim=1)
+    q = torch.log(dmax / dist.clamp(min=1e-9)) / float(np.log(sf))  # unclamped: ratio < 1 is level 0 on both
+    return (((q - q.round()).abs() <= 1e-5) | near(xc[:, 2], 0.05) | near(uv[:, 0], 0.0)
+            | near(uv[:, 0], float(wh[0])) | near(uv[:, 1], 0.0) | near(uv[:, 1], float(wh[1]))
+            | near(dist / (dmin * 0.8).clamp(min=1e-12), 1.0) | near(dist / (dmax * 1.2).clamp(min=1e-12), 1.0)
+            | near((po * normal).sum(1) / dist.clamp(min=1e-9), 0.5))
+
+
+def compare_front_kernels(device, cfg, step, lm, il, ir, kp, kp_r) -> list[dict]:
+    """Phase 3 for H, I, J and L, and the whole extraction on the card
+    against the plain one: H at 640x480 and 1280x720, I on kernel A's maps
+    of those pyramids and on a tie-heavy map, J on the 1024 stereo matches
+    of the step's frame, L on its 4096-slot local map at two poses."""
+    from orb_slam3_fast_tpu_torch.frontend import tracker as trk
+    from orb_slam3_fast_tpu_torch.ops import extractor as ext
+    from orb_slam3_fast_tpu_torch.ops import fast, image
+    from orb_slam3_fast_tpu_torch.ops import matching as mat
+    from orb_slam3_fast_tpu_torch.utils import lie
+
+    out = []
+    big = Rig(1280, 720)
+    images = {(640, 480): il, (1280, 720): frame(make_canvas(np.random.default_rng(5), big), big, 0, device)[0]}
+    nl, sf = cfg.n_levels, cfg.scale_factor
+
+    # H: levels within 1e-4 of F.interpolate's chain; each blur bit-equal to
+    # gaussian_blur of the kernel's own level
+    h_err = blur_err = 0.0
+    blur_bad = h_bytes = h_ops = 0
+    h_ms, h_pms, notes, maps = [], [], [], {}
+    for (w, h), img in images.items():
+        shapes, offs = image.pyramid_layout(h, w, nl, sf)
+        lk, bk = image.pyramid_blur(img, nl, sf)
+        lp, bp = image.pyramid_blur_plain(img, nl, sf)
+        torch.cuda.synchronize()
+        h_err = max(h_err, float((lk - lp).abs().max()))
+        blur_err = max(blur_err, float((bk - bp).abs().max()))
+        blur_bad += sum(int((b != image.gaussian_blur(lv)).sum())
+                        for lv, b in zip(image.level_views(lk, shapes, offs), image.level_views(bk, shapes, offs)))
+        h_ms.append(cuda_ms(lambda: image.pyramid_blur(img, nl, sf), 50))
+        h_pms.append(cuda_ms(lambda: image.pyramid_blur_plain(img, nl, sf), 10))
+        notes.append(f"{w}x{h} {h_ms[-1]:.4f} ms (plain {h_pms[-1]:.4f})")
+        # the image read once, every level and blur written once; ~10 flops
+        # of resize and 28 of blur per level pixel
+        h_bytes += 4 * h * w + 8 * lk.numel()
+        h_ops += 38 * lk.numel()
+        raw, nms = torch.empty_like(lk), torch.empty_like(lk)
+        for lv, r, m in zip(*(image.level_views(x, shapes, offs) for x in (lk, raw, nms))):
+            fast.fast_nms(lv, cfg.ini_th_fast, cfg.min_th_fast, ext.EDGE_BORDER, out=(r, m))
+        maps[(w, h)] = (nms, raw, shapes, offs)
+    if not (h_err <= 1e-4 and blur_bad == 0):
+        raise RuntimeError(f"pyramid_blur: levels differ by {h_err:.3g} (tolerance 1e-4), {blur_bad} blurred pixels "
+                           "differ from gaussian_blur of the kernel's level")
+    out.append(dict(name="pyramid_blur", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/pyramid_blur.cu",
+                    replaces="orb_slam3_fast_tpu/ops/image.py:59", max_abs_err=h_err, ms=sum(h_ms), plain_ms=sum(h_pms),
+                    **bound(h_bytes, h_ops), library_ms=None,
+                    shapes=f"8 levels + blurs of {', '.join(notes)}; levels within 1e-4 grey (F.interpolate on the "
+                           f"card), blurs bit-equal to gaussian_blur of the kernel's level ({blur_err:.3g} from the "
+                           "plain chain's)"))
+
+    # I: exact on both pyramids' maps and on a tie-heavy map of small integers
+    nms0, raw0, shapes0, offs0 = maps[(640, 480)]
+    rng = np.random.default_rng(6)
+    ties = torch.as_tensor((rng.integers(0, 4, nms0.numel()) * (rng.uniform(size=nms0.numel()) < 0.2))
+                           .astype(np.float32), device=device)
+    i_ms, i_pms, notes, i_bytes, i_ops = [], [], [], 0, 0
+    for label, args in [(f"{w}x{h}", m) for (w, h), m in maps.items()] + [("ties", (ties, raw0, shapes0, offs0))]:
+        got, want = ext.select_subpixel(*args, cfg), ext.select_subpixel_plain(*args, cfg)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise RuntimeError(f"select_subpixel differs from its plain version on the {label} map")
+        if label == "ties":
+            notes.append(f"tie-heavy map exact ({int(want[3].sum())} valid)")
+            continue
+        i_ms.append(cuda_ms(lambda: ext.select_subpixel(*args, cfg), 50))
+        i_pms.append(cuda_ms(lambda: ext.select_subpixel_plain(*args, cfg), 10))
+        notes.append(f"{label} {i_ms[-1]:.4f} ms (plain {i_pms[-1]:.4f})")
+        # the NMS map read once, 5 pre-NMS pixels per slot, 21 bytes out per
+        # slot; K compares per pixel for the cell top-K, the bitonic sort of
+        # each level's candidates, ~20 flops per slot
+        n = got[0].shape[0]
+        cand = [-(-h // cfg.cell) * -(-w // cfg.cell) * cfg.cand_per_cell for h, w in args[2]]
+        sort_ops = sum(p * k * (k + 1) / 4 for p, k in ((1 << (c - 1).bit_length(), (c - 1).bit_length()) for c in cand))
+        i_bytes += 4 * args[0].numel() + 20 * n + 21 * n
+        i_ops += cfg.cand_per_cell * args[0].numel() + sort_ops + 20 * n
+    out.append(dict(name="select_subpixel", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/select_subpixel.cu",
+                    replaces="orb_slam3_fast_tpu/ops/extractor.py:140", max_abs_err=0.0, ms=sum(i_ms),
+                    plain_ms=sum(i_pms), **bound(i_bytes, i_ops), library_ms=None,
+                    shapes=f"{', '.join(notes)}; 1024 slots, tolerance exact"))
+
+    # the whole extraction: the card's kernels against the plain versions on
+    # the card -- the same valid slots, angles within 1e-4 rad, at most 1%
+    # of the slots' descriptor words differing
+    for (w, h), img in images.items():
+        kk, kpl = ext.extract(img, cfg), ext.extract_plain(img, cfg)
+        torch.cuda.synchronize()
+        same_valid = torch.equal(kk.valid, kpl.valid)
+        v = kpl.valid
+        xy_err = float((kk.xy - kpl.xy)[v].abs().max())
+        ang_err = float((kk.angle - kpl.angle)[v].abs().max())
+        words = int((kk.desc != kpl.desc)[v].sum())
+        log(f"extract {w}x{h} on the card against the plain extractor on the card: valid slots equal {same_valid} "
+            f"({int(v.sum())}), max |dxy| {xy_err:.3g} px, max |dangle| {ang_err:.3g} rad, {words} descriptor words "
+            f"differ ({words / kk.n:.4f} of {kk.n} slots)")
+        if not (same_valid and xy_err <= 1e-3 and ang_err <= 1e-4 and words <= 0.01 * kk.n):
+            raise RuntimeError(f"extract {w}x{h}: the card's extraction differs from the plain one beyond the bounds")
+
+    # J: 1024 stereo matches of the step's frame
+    sm = mat.stereo_match(kp, kp_r, step.scales, bf=step.bf, min_z=step.min_z, slot_scale_r=step.slot_scales)
+    args = (il, ir, kp.xy, sm.right_u, sm.valid)
+    (uk, okk), (up, okp) = mat.stereo_subpixel_refine(*args), mat.stereo_subpixel_refine_plain(*args)
+    sad, _ = mat.sad_table(*args[:4])
+    two = torch.sort(sad, dim=1).values[:, :2]
+    tie = (two[:, 1] - two[:, 0]) <= 1e-5 * two[:, 0].abs().clamp(min=1.0)
+    both = okk & okp & ~tie
+    j_err = float((uk - up)[both].abs().max()) if bool(both.any()) else 0.0
+    if not (torch.equal(okk[~tie], okp[~tie]) and j_err <= 1e-3):
+        raise RuntimeError(f"stereo_subpixel_refine: ok differs off near-tie rows, or u by {j_err:.3g} px")
+    n = kp.n
+    out.append(dict(name="stereo_subpixel_refine", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/sad_refine.cu",
+                    replaces="orb_slam3_fast_tpu/ops/matching.py:380", max_abs_err=j_err,
+                    ms=cuda_ms(lambda: mat.stereo_subpixel_refine(*args), 50),
+                    plain_ms=cuda_ms(lambda: mat.stereo_subpixel_refine_plain(*args), 10),
+                    # 121 left and 231 right pixels per match, 13 bytes in, 5
+                    # out; 11 offsets x 121 pixels x 3 flops
+                    **bound(n * (352 * 4 + 18), n * (11 * 121 * 3 + 20)), library_ms=None,
+                    shapes=f"{n} matches ({int(sm.valid.sum())} valid, {int(okp.sum())} refined); u within 1e-3 px, "
+                           f"ok equal off the {int(tie.sum())} rows whose two least SADs lie within 1e-5"))
+
+    # L: the 4096-slot local map at the step's pose and at a turned one
+    wh = (640, 480)
+    poses = [lie.SE3(torch.eye(3, device=device), torch.as_tensor(Rig(640, 480).t_true(1), device=device)),
+             lie.se3_exp(torch.tensor([0.05, -0.02, 0.1, 0.02, -0.03, 0.01], device=device))]
+    l_err, n_border, n_vis = 0.0, 0, []
+    for T in poses:
+        lm_args = (lm.pos, lm.mask, lm.normal, lm.dmin, lm.dmax, wh)
+        (uvk, lvk, vk), (uvp, lvp, vp) = (trk.visible_landmarks(step.cam, T.R, T.t, *lm_args),
+                                          trk.visible_landmarks_plain(step.cam, T.R, T.t, *lm_args))
+        border = visibility_borderline(T.R, T.t, lm, uvp, wh, cfg.scale_factor)
+        l_err = max(l_err, float((uvk - uvp)[lm.mask].abs().max()))
+        n_border += int(border.sum())
+        n_vis.append(int(vp.sum()))
+        if not (torch.equal(lvk[~border], lvp[~border]) and torch.equal(vk[~border], vp[~border]) and l_err <= 1e-3):
+            raise RuntimeError(f"visible_landmarks: uv differs by {l_err:.3g} px, or a level or flag off the "
+                               "borderline rows")
+    m = lm.pos.shape[0]
+    T = poses[1]
+    lm_args = (lm.pos, lm.mask, lm.normal, lm.dmin, lm.dmax, wh)
+    out.append(dict(name="visible_landmarks", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/visible_landmarks.cu",
+                    replaces="orb_slam3_fast_tpu/frontend/tracker.py:92", max_abs_err=l_err,
+                    ms=cuda_ms(lambda: trk.visible_landmarks(step.cam, T.R, T.t, *lm_args), 50),
+                    plain_ms=cuda_ms(lambda: trk.visible_landmarks_plain(step.cam, T.R, T.t, *lm_args), 10),
+                    # 33 bytes in and 17 out per slot; ~100 flops per slot
+                    **bound(50 * m + 48, 100 * m), library_ms=None,
+                    shapes=f"{m} slots at two poses ({n_vis} visible); uv within 1e-3 px, level and visible equal "
+                           f"off the {n_border} borderline rows"))
     return out
 
 
@@ -522,8 +759,13 @@ def compare_system_kernels(device) -> tuple[list[dict], dict]:
     # atomics sum in another order: every block within 1e-4 of its max
     if not err_e <= 1e-4:
         raise RuntimeError(f"ba_blocks: a block differs by {err_e:.3g} of its max from the plain version")
+    # per observation: 28 bytes in, a 6x3 W (72 bytes) out, ~600 flops of
+    # projection, Jacobians and block products; per pose 48 bytes in and 168
+    # out, per landmark 13 in and 52 out
+    e_bytes = O * (28 + 72) + K * (48 + 168) + M * (13 + 52)
     out.append(dict(name="ba_blocks", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/ba_blocks.cu",
-                    replaces="orb_slam3_fast_tpu/optim/ba.py:72", max_abs_err=err_e,
+                    replaces="orb_slam3_fast_tpu/optim/ba.py:72", max_abs_err=err_e, **bound(e_bytes, 600 * O),
+                    library_ms=None,
                     ms=cuda_ms(lambda: ba.build_normal_blocks(*args), 20),
                     plain_ms=cuda_ms(lambda: ba.build_normal_blocks_plain(*args), 5),
                     shapes=f"K={K} ({int((~prob.pose_fixed).sum())} free), M={M}, O={O}; error relative to each "
@@ -549,8 +791,19 @@ def compare_system_kernels(device) -> tuple[list[dict], dict]:
     dz, lz, ok = ba.schur_solve(*bad, prob, lam)
     if bool(ok) or float(dz.abs().max()) != 0.0 or float(lz.abs().max()) != 0.0:
         raise RuntimeError("ba_schur: an indefinite system was not flagged, or left a step")
+    # the library call: a Cholesky factorisation and solve of the same
+    # float64 reduced system, which the plain path forms first
+    Sd, bs, *_ = ba.reduced_system_plain(*b64, prob.pose_fixed, lam.double())
+    lib_f = cuda_ms(lambda: torch.cholesky_solve(bs[:, None], torch.linalg.cholesky_ex(Sd)[0]), 20)
+    # per landmark with n observations: n^2 6x3x6 products (216 flops each)
+    # into S and 3x3 inverses; the 6K Cholesky (6K)^3 / 3; the blocks read
+    # once (E's outputs), dp and dl written
+    n_obs = torch.bincount(prob.obs_lm[prob.obs_valid].long(), minlength=M).double()
+    f_ops = 216 * float((n_obs**2).sum()) + 60 * M + (6 * K) ** 3 / 3
+    f_bytes = K * 168 + M * 52 + O * 72 + K * 24 + M * 12
     out.append(dict(name="ba_schur", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/ba_schur.cu",
-                    replaces="orb_slam3_fast_tpu/optim/ba.py:108", max_abs_err=err_f,
+                    replaces="orb_slam3_fast_tpu/optim/ba.py:108", max_abs_err=err_f, **bound(f_bytes, f_ops),
+                    library_ms=lib_f,
                     ms=cuda_ms(lambda: ba.schur_solve(*bk[:6], prob, lam), 20),
                     plain_ms=cuda_ms(lambda: ba.schur_solve_plain(*bp[:6], prob.pose_fixed, prob.lm_valid, lam), 5),
                     shapes=f"6K={6 * K}; error relative to the float64 plain solve of the same blocks, tolerance "
@@ -586,8 +839,16 @@ def compare_system_kernels(device) -> tuple[list[dict], dict]:
     err_g = float(((Xk - Xp).norm(dim=1) / Xp.norm(dim=1))[good].max())
     if not err_g <= 1e-4:
         raise RuntimeError(f"triangulate_dlt: {err_g:.3g} relative on well-conditioned rows")
+    # the library call: the batched SVD of the same (N,4,4) DLT systems
+    P0d, P1d, x0d, x1d = dlt
+    A = torch.stack([x0d[:, 0:1] * P0d[2] - P0d[0], x0d[:, 1:2] * P0d[2] - P0d[1], x1d[:, 0:1] * P1d[2] - P1d[0],
+                     x1d[:, 1:2] * P1d[2] - P1d[1]], dim=1)
+    lib_g = cuda_ms(lambda: torch.linalg.svd(A), 20)
+    # per match: 16 bytes in, 12 out; a float64 Jacobi eigen-solve of the
+    # 4x4 normal matrix, ~6000 flops
     out.append(dict(name="triangulate_dlt", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/triangulate_dlt.cu",
                     replaces="orb_slam3_fast_tpu/ops/twoview.py:164", max_abs_err=err_g,
+                    **bound(N_DLT * 28 + 96, N_DLT * 6000), library_ms=lib_g,
                     ms=cuda_ms(lambda: twoview.triangulate_dlt(*dlt), 50), plain_ms=cuda_ms(lambda: twoview.triangulate_dlt_plain(*dlt), 10),
                     shapes=f"{N_DLT} matches ({int(good.sum())} with parallax cos < 0.9998); relative error there, "
                            "tolerance 1e-4"))
@@ -606,7 +867,11 @@ def compare_system_kernels(device) -> tuple[list[dict], dict]:
         (bk_, ck), (bp_, cp) = ham.hamming_best2(kp_a.desc, kp_b.desc, gate), ham.hamming_best2_plain(kp_a.desc, kp_b.desc, gate)
         if not (all(torch.equal(x, y) for x, y in zip(bk_, bp_)) and torch.equal(ck, cp)):
             raise RuntimeError(f"hamming_best2 {name} mode differs from its plain version")
-        modes[name] = dict(n=kp_a.n, m=kp_b.n, ms=cuda_ms(lambda: ham.hamming_best2(kp_a.desc, kp_b.desc, gate), 50),
+        gated = int((ham.epipolar_mask(gate) if name == "epipolar" else
+                     (gate.valid_a[:, None] * gate.valid_b[None, :] > 0.5)).sum())
+        modes[name] = dict(n=kp_a.n, m=kp_b.n, nbytes=(kp_a.n + kp_b.n) * 52 + kp_a.n * 16 + kp_b.n * 8,
+                           ops=8 * kp_a.n * kp_b.n + 24 * gated,
+                           ms=cuda_ms(lambda: ham.hamming_best2(kp_a.desc, kp_b.desc, gate), 50),
                            plain_ms=cuda_ms(lambda: ham.hamming_best2_plain(kp_a.desc, kp_b.desc, gate), 10),
                            accepted=int((bp_.dist < ham.INF_DIST).sum()))
     return out, modes
@@ -624,20 +889,54 @@ def corridor_frames(n_frames: int):
     return [stereo_pair(world, cam, R, t, 0.12) for R, t in poses], poses
 
 
-def run_system(frames, poses, device):
-    """The stereo System on the corridor, as test_slam_e2e.py's stereo test
-    drives the JAX tracker; checks its gates (final state OK, > 25 of 30
-    frames tracked, unscaled ATE < 0.10 m, |scale - 1| < 0.1) and that
-    mapping ran (>= 3 keyframes, a local BA, triangulated landmarks).
-    Returns the System, a summary dict and the per-frame (state, R, t)."""
+def rgbd_settings():
+    """configs/synthetic_stereo.yaml loaded for RGB-D, bf replaced by the
+    RGB-D test's virtual baseline (there is no RGB-D configuration file)."""
+    import dataclasses
+
+    from orb_slam3_fast_tpu_torch.slam.settings import Settings
+
+    return dataclasses.replace(Settings.from_yaml(SYS_CONFIG, "rgbd"), bf=RGBD_BF)
+
+
+def rgbd_frames(n_frames: int):
+    """The RGB-D phase's input: test_slam_e2e.py's RGB-D corridor (seed 2,
+    900 splats, arc_trajectory(step=0.06, lateral=0.05)), image and splat
+    depth rendered on the host; returns (frames, true T_cw per frame)."""
+    from orb_slam3_fast_tpu_torch.cameras.models import Camera
+
+    cam = Camera.pinhole(400.0, 400.0, 320.0, 240.0)
+    world = make_corridor_world(np.random.default_rng(2), n=900)
+    poses = arc_trajectory(n_frames, step=0.06, lateral=0.05)
+    return [(render(world, cam, R, t), splat_depth(world, cam, R, t)) for R, t in poses], poses
+
+
+def run_system(frames, poses, device, sensor: str = "stereo"):
+    """The stereo or RGB-D System on its corridor, as test_slam_e2e.py
+    drives the JAX tracker, and that test's gates.  Stereo: final state OK,
+    > 25 of 30 frames tracked, unscaled ATE < 0.10 m, |scale - 1| < 0.1,
+    and mapping (>= 3 keyframes, a local BA, triangulated landmarks).
+    RGB-D: final state OK, > 20 of 25 frames tracked, unscaled ATE < 0.40
+    m, and at least the keyframes and local BAs of the JAX package on the
+    same frames.  Returns the System, a summary dict and the per-frame
+    (state, R, t)."""
     from orb_slam3_fast_tpu_torch.eval import ate
     from orb_slam3_fast_tpu_torch.slam.system import System
 
-    slam = System(SYS_CONFIG, "stereo", enable_loop_closing=False, multi_map=False, async_backend=False, device=device)
-    est, gt, ts, track = [], [], [], []
-    for i, ((il, ir), (R, t)) in enumerate(zip(frames, poses)):
-        state, pose = slam.track_stereo(il, ir, i * 0.05)
+    opts = dict(enable_loop_closing=False, multi_map=False, async_backend=False, device=device)
+    if sensor == "stereo":
+        slam = System(SYS_CONFIG, "stereo", **opts)
+        feed = slam.track_stereo
+    else:
+        slam = System(rgbd_settings(), "rgbd", **opts)
+        feed = slam.track_rgbd
+    est, gt, ts, track, kf_frames = [], [], [], [], []
+    for i, (f, (R, t)) in enumerate(zip(frames, poses)):
+        n_kf = slam.world.n_kf
+        state, pose = feed(*f, i * 0.05)
         track.append((state, *pose))
+        if slam.world.n_kf > n_kf:
+            kf_frames.append(i)
         if state == "OK" and pose is not None:
             est.append(-pose[0].T @ pose[1])
             gt.append(-R.T @ t)
@@ -649,11 +948,15 @@ def run_system(frames, poses, device):
     _, _, s_fit = ate.ate_rmse(ts, est, ts, gt, with_scale=True)
     summary = dict(state=slam.get_tracking_state(), tracked=len(est), ate_m=rmse, scale=s_fit, n_kf=slam.world.n_kf,
                    landmarks=int(slam.world.lm_valid.sum()), local_ba=slam.mapper.n_local_ba,
-                   triangulated=slam.mapper.n_triangulated)
-    need_tracked = int(len(frames) * 25 / 30)
-    if not (summary["state"] == "OK" and summary["tracked"] > need_tracked and rmse < 0.10 and abs(s_fit - 1) < 0.1
-            and summary["n_kf"] >= 3 and summary["local_ba"] >= 1 and summary["triangulated"] > 0):
-        raise RuntimeError(f"System gates failed: {summary}")
+                   triangulated=slam.mapper.n_triangulated, kf_frames=kf_frames)
+    if sensor == "stereo":
+        ok = (summary["tracked"] > int(len(frames) * 25 / 30) and rmse < 0.10 and abs(s_fit - 1) < 0.1
+              and summary["n_kf"] >= 3 and summary["local_ba"] >= 1 and summary["triangulated"] > 0)
+    else:
+        ok = (summary["tracked"] > int(len(frames) * 20 / 25) and rmse < 0.40 and summary["n_kf"] >= RGBD_MIN_KF
+              and summary["local_ba"] >= RGBD_MIN_BA)
+    if not (ok and summary["state"] == "OK"):
+        raise RuntimeError(f"{sensor} System gates failed: {summary}")
     return slam, summary, track
 
 
@@ -695,19 +998,30 @@ def stage_split(rig: Rig, device) -> dict:
             "visibility_projection_match_ms": t_map, "pose_obs_ms": t_obs, "pose_opt_ms": t_pose}
 
 
-WRAPPER_NAMES = ("fast_nms", "orb_describe", "hamming_best2", "pose_lm", "ba_blocks", "ba_schur", "triangulate_dlt")
+WRAPPER_NAMES = ("fast_nms", "orb_describe", "hamming_best2", "pose_lm", "ba_blocks", "ba_schur", "triangulate_dlt",
+                 "pyramid_blur", "select_subpixel", "stereo_subpixel_refine", "visible_landmarks")
+STEP_KERNELS = ("fast_nms", "orb_describe", "hamming_best2", "pose_lm", "pyramid_blur", "select_subpixel",
+                "stereo_subpixel_refine", "visible_landmarks")
+# the RGB-D path runs every kernel but J; G only where triangulation finds
+# matches, which the RGB-D gates do not require
+RGBD_KERNELS = ("fast_nms", "orb_describe", "hamming_best2", "pose_lm", "ba_blocks", "ba_schur", "pyramid_blur",
+                "select_subpixel", "visible_landmarks")
 
 
 def wrappers() -> dict:
     """Each kernel's wrapper, by the kernel's name."""
+    from orb_slam3_fast_tpu_torch.frontend import tracker as trk
     from orb_slam3_fast_tpu_torch.ops import extractor as ext
-    from orb_slam3_fast_tpu_torch.ops import fast
+    from orb_slam3_fast_tpu_torch.ops import fast, image
     from orb_slam3_fast_tpu_torch.ops import hamming as ham
+    from orb_slam3_fast_tpu_torch.ops import matching as mat
     from orb_slam3_fast_tpu_torch.ops import twoview
     from orb_slam3_fast_tpu_torch.optim import ba, pose_opt
 
     return dict(zip(WRAPPER_NAMES, (fast.fast_nms, ext.orb_describe, ham.hamming_best2, pose_opt.pose_optimization,
-                                    ba.build_normal_blocks, ba.schur_solve, twoview.triangulate_dlt)))
+                                    ba.build_normal_blocks, ba.schur_solve, twoview.triangulate_dlt,
+                                    image.pyramid_blur, ext.select_subpixel, mat.stereo_subpixel_refine,
+                                    trk.visible_landmarks)))
 
 
 def reset_counts() -> None:
@@ -763,13 +1077,16 @@ def main() -> int:
     kernels += system_kernels
     c = next(k for k in kernels if k["name"] == "hamming_best2")
     for mode, r in c_modes.items():
-        c["ms"] += r["ms"]
-        c["plain_ms"] += r["plain_ms"]
+        for key in ("ms", "plain_ms", "nbytes", "ops"):
+            c[key] += r[key]
         c["shapes"] += (f", {mode} {r['n']}x{r['m']} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
                         f"{r['accepted']} rows with a candidate)")
+    c.update(bound(c.pop("nbytes"), c.pop("ops")))
     for k in kernels:
+        lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         log(f"kernel {k['name']}: max_abs_err {k['max_abs_err']:.3g}, {k['ms']:.4f} ms vs plain "
-            f"{k['plain_ms']:.4f} ms ({k['shapes']})")
+            f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.5f} ms ({k['bound_by']}), library call {lib} "
+            f"({k['shapes']})")
     log(f"phase 3: {time.perf_counter() - t0:.1f} s")
 
     # 4. the tracking step at both sizes: its path, with the launch counts
@@ -781,7 +1098,7 @@ def main() -> int:
     step_launches = read_counts()
     for rig in rigs:
         check_sequence(rig, results[(rig.w, rig.h)])
-    missing = [n for n in WRAPPER_NAMES[:4] if step_launches[n] < 1]
+    missing = [n for n in STEP_KERNELS if step_launches[n] < 1]
     if missing:
         raise RuntimeError(f"kernels of the step's path never launched: {missing} ({step_launches})")
     for (w, h), rows in results.items():
@@ -818,7 +1135,29 @@ def main() -> int:
     log(f"launches in the System's run: {sys_launches}")
     log(f"phase 5: {time.perf_counter() - t0:.1f} s")
 
-    # the plain (CPU) step, which the tests hold against the JAX package,
+    # 6. the RGB-D System: its path, with the launch counts
+    t0 = time.perf_counter()
+    rgbd_in, rgbd_poses = rgbd_frames(RGBD_FRAMES)
+    log(f"RGB-D scene: {RGBD_FRAMES} images and depth maps rendered on the host in {time.perf_counter() - t0:.1f} s")
+    reset_counts()
+    t1 = time.perf_counter()
+    rgbd_run = run_system(rgbd_in, rgbd_poses, device, "rgbd")
+    slam_d, summary_d, _ = rgbd_run
+    rgbd_s = time.perf_counter() - t1
+    rgbd_launches = read_counts()
+    missing = [n for n in RGBD_KERNELS if rgbd_launches[n] < 1]
+    if missing or rgbd_launches["stereo_subpixel_refine"] != 0:
+        raise RuntimeError(f"the RGB-D path: kernels never launched {missing}, or J launched ({rgbd_launches})")
+    spans, mspans = slam_d.timers.spans, slam_d.mapper.timers.spans
+    log(f"RGB-D System: {summary_d}, {rgbd_s:.2f} s for {RGBD_FRAMES} frames (gates: > 20 tracked, ATE < 0.40 m, "
+        f">= {RGBD_MIN_KF} keyframes, >= {RGBD_MIN_BA} local BAs)")
+    log(f"RGB-D track_total ms per frame: {[round(x, 3) for x in spans['track_total']]}")
+    log(f"RGB-D map_local_ba ms per keyframe: {[round(x, 3) for x in mspans.get('map_local_ba', [])]}")
+    log("RGB-D stage means:\n" + slam_d.print_time_stats())
+    log(f"launches in the RGB-D System's run: {rgbd_launches}")
+    log(f"phase 6: {time.perf_counter() - t0:.1f} s")
+
+    # 7. the plain (CPU) step, which the tests hold against the JAX package,
     # agrees with the card on frame 1 at 640x480.  Last, because the host
     # threads it starts would slow the timed phases above.
     rig, cpu = Rig(640, 480), torch.device("cpu")
@@ -831,12 +1170,20 @@ def main() -> int:
     t0 = time.perf_counter()
     log(f"plain System on the host against the card: {check_system_against_plain(card_run, run_system(frames, poses, cpu))}"
         f" ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    plain_rgbd = run_system(rgbd_in, rgbd_poses, cpu, "rgbd")
+    log(f"plain RGB-D System on the host against the card: {check_system_against_plain(rgbd_run, plain_rgbd)}"
+        f" ({time.perf_counter() - t0:.1f} s)")
 
-    # 6. results: launches are those of the System's run, whose path runs every kernel
+    # results: launches are those of the stereo System's run, whose path
+    # runs every kernel; the step's and the RGB-D run's beside them
     for k in kernels:
         k["launches"] = sys_launches[k["name"]]
+        k["launches_by_path"] = {"step": step_launches[k["name"]], "stereo_system": sys_launches[k["name"]],
+                                 "rgbd_system": rgbd_launches[k["name"]]}
     log(json.dumps({"kernels": [{key: k[key] for key in ("name", "route", "source", "replaces", "launches",
-                                                         "max_abs_err", "ms", "plain_ms", "shapes")}
+                                                         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                         "library_ms", "launches_by_path", "shapes")}
                                 for k in kernels]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -55,6 +55,17 @@ SIGNATURES = {
     "ba_schur_launch": [_P] * 12 + [_I] * 3 + [_P] * 6,
     # P0, P1, x0, x1, n, X, stream
     "triangulate_dlt_launch": [_P, _P, _P, _P, _I, _P, _P],
+    # img, shapes (host), offs (host), n_levels, taps (host), img_flat,
+    # blur_flat, stream
+    "pyramid_blur_launch": [_P, _P, _P, _I, _P, _P, _P, _P],
+    # nms, raw, shapes, offs, n_sel, scales (host), n_levels, cell, K,
+    # border, cand_v, cand_i, xy_lvl, xy, resp, valid, stream
+    "select_subpixel_launch": [_P] * 6 + [_I] * 4 + [_P] * 7,
+    # img_l, img_r, h, w, xy_l, right_u, valid, n, u_out, ok_out, stream
+    "sad_refine_launch": [_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P],
+    # R, t, pos, mask, normal, dmin, dmax, m, cam_params (host), width,
+    # height, log_sf, n_lvl, uv, level, visible, stream
+    "visible_landmarks_launch": [_P] * 7 + [_I, _P, _F, _F, _F, _I, _P, _P, _P, _P],
 }
 
 
@@ -138,6 +149,17 @@ def launch(name: str, device: torch.device, *args) -> None:
     index = device.index if device.index is not None else torch.cuda.current_device()
     _check(so, "kernels_set_device", so.kernels_set_device(index))
     _check(so, name, getattr(so, name)(*args, torch.cuda.current_stream(index).cuda_stream))
+
+
+def resolve_device(device: torch.device | str) -> torch.device:
+    """The device an entry point runs on.  ``"cuda"`` (the default of
+    ``System``, ``Tracker``, ``Mapper`` and ``StereoTrackingStep``) raises
+    when PyTorch sees no CUDA card: the CPU is taken only when asked for."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(dev)!r}: PyTorch sees no CUDA card; pass device='cpu' to run on the CPU "
+                           "with the kernels' plain versions")
+    return dev
 
 
 def require_cuda(name: str, **tensors: tuple[torch.Tensor, torch.dtype]) -> None:

@@ -22,7 +22,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from orb_slam3_fast_tpu_torch import native
+from orb_slam3_fast_tpu_torch import _kernels, native
 from orb_slam3_fast_tpu_torch.cameras import models as cam_models
 from orb_slam3_fast_tpu_torch.map.worldmap import WorldMap, popcount_words
 from orb_slam3_fast_tpu_torch.ops import matching as mat
@@ -89,16 +89,17 @@ class MapperConfig:
 
 class Mapper:
     def __init__(self, cam, bf: float, cfg: MapperConfig = MapperConfig(), sigma2: np.ndarray | None = None,
-                 timers=None, device: torch.device | str = "cpu"):
+                 timers=None, device: torch.device | str = "cuda"):
         """``cam`` stays on the host (a CPU Camera); ``device`` is where the
-        matchers, the triangulation and the BA run.  Stereo only: ``bf``
-        (baseline * fx) must be positive."""
+        matchers, the triangulation and the BA run: the card unless the
+        caller passes ``device="cpu"``.  Stereo and RGB-D only: ``bf``
+        (baseline * fx, virtual for RGB-D) must be positive."""
         if not bf > 0:
             raise NotImplementedError("mono local mapping waits for ROADMAP §A item 7 (monocular init)")
         self.cam = cam
         self.bf = float(bf)
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = _kernels.resolve_device(device)
         self.timers = timers if timers is not None else StageTimers()
         self.sigma2 = sigma2 if sigma2 is not None else (1.2 ** (2 * np.arange(8))).astype(np.float32)
         self.n_levels = len(self.sigma2)

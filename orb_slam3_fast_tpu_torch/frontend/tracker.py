@@ -1,24 +1,41 @@
-"""Tracking front end: the per-frame state machine of the stereo System and
-the fixed-map tracking step.
+"""Tracking front end: the per-frame state machine of the stereo and RGB-D
+System and the fixed-map tracking step.
 
 Counterpart of ``orb_slam3_fast_tpu/frontend/tracker.py`` (Tracking::Track,
 Tracking.cc:1798-2292): the state machine runs on the host, the keypoints
 stay on ``device``, the map is the host ``WorldMap``.  Per frame:
-``stereo_front`` (dual extraction, banded stereo match, SAD refine) ->
+``stereo_front`` (dual extraction, banded stereo match, SAD refine) or, for
+RGB-D, one extraction and the depth map sampled at the keypoints ->
 motion-model match + pose opt, with the reference-keyframe fallback ->
 local-map match + pose opt -> keyframe decision -> local mapping.
 
 ``stereo_front`` is ``_stereo_front``, ``visible_landmarks`` is
-``_visible_landmarks``; ``StereoTrackingStep`` is the fixed-map step that
-chains them with ``search_by_projection`` and ``pose_optimization`` as
-``_track_local_map`` does.
+``_visible_landmarks`` (the wrapper of kernel L); ``StereoTrackingStep`` is
+the fixed-map step that chains them with ``search_by_projection`` and
+``pose_optimization`` as ``_track_local_map`` does.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP §A
-item): the mono (item 7) and RGB-D (item 6, next) paths, place recognition
-and relocalization with a vocabulary (item 8), loop closing, the Atlas and
-the async backend (items 6 and 9), the inertial tracker (item 10), fisheye
-two-camera stereo (item 11).  With no vocabulary, ``_index_kf`` does
-nothing and ``_relocalize`` fails, as in the JAX package.
+item): the mono path (item 7), place recognition and relocalization with a
+vocabulary (item 8), loop closing, the Atlas and the async backend (items 6
+and 9), the inertial tracker (item 10), fisheye two-camera stereo (item 11).
+With no vocabulary, ``_index_kf`` does nothing and ``_relocalize`` fails, as
+in the JAX package.
+
+Kernel L -- source note.
+  Replaces: ``_visible_landmarks`` (``orb_slam3_fast_tpu/frontend/
+  tracker.py:92``), a jitted program of ~40 elementwise operations over the
+  4096 landmark slots.
+  Bound on the card: launch latency.  It reads 33 bytes and writes 17 per
+  slot (~0.2 MB at 4096 slots, 60 ns at 3.35 TB/s) and does ~100 flops per
+  slot.
+  Design: one thread per landmark slot, R and t read from device memory
+  (no host read of the pose), intrinsics and distortion passed as floats
+  from the host Camera; it computes what the plain version computes, in
+  float32, with the compiler's FMA contraction, so uv agrees to float
+  rounding and a level or flag differs only where a quantity lies within
+  rounding of its threshold.  It stays a kernel of its own rather than a
+  prologue of kernel C: the tracker reads ``visible`` on the host for its
+  ``lm_visible`` bookkeeping anyway.
 """
 from __future__ import annotations
 
@@ -30,6 +47,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from orb_slam3_fast_tpu_torch import _kernels
 from orb_slam3_fast_tpu_torch.cameras import models as cam_models
 from orb_slam3_fast_tpu_torch.map.worldmap import WorldMap, host
 from orb_slam3_fast_tpu_torch.ops import extractor as ext
@@ -84,11 +102,9 @@ def stereo_front(il, ir, cfg: ext.ExtractorConfig, bf: float, min_z: float, scal
     return kp_l, kp_r, sm, ur_ref, ok
 
 
-def visible_landmarks(cam, R, t, lm_pos, lm_mask, lm_normal, lm_dmin, lm_dmax, wh,
-                      log_sf: float = math.log(1.2), n_lvl: int = 8):
-    """Frustum, distance-band and view-angle test (Frame::isInFrustum) and
-    PredictScale for a padded landmark block.  Returns (uv, pred_level,
-    visible)."""
+def visible_landmarks_plain(cam, R, t, lm_pos, lm_mask, lm_normal, lm_dmin, lm_dmax, wh,
+                            log_sf: float = math.log(1.2), n_lvl: int = 8):
+    """Plain version of kernel L: (uv, pred_level, visible)."""
     xc = lm_pos @ R.T + t
     uv = cam_models.project(cam, xc)
     z_ok = xc[:, 2] > 0.05
@@ -101,6 +117,44 @@ def visible_landmarks(cam, R, t, lm_pos, lm_mask, lm_normal, lm_dmin, lm_dmax, w
     ratio = torch.clamp(lm_dmax / torch.clamp(dist, min=1e-9), min=1.0)
     pred_level = torch.clamp(torch.ceil(torch.log(ratio) / log_sf).long(), 0, n_lvl - 1)
     return uv, pred_level, lm_mask & z_ok & in_img & dist_ok & angle_ok
+
+
+def visible_landmarks(cam, R, t, lm_pos, lm_mask, lm_normal, lm_dmin, lm_dmax, wh,
+                      log_sf: float = math.log(1.2), n_lvl: int = 8):
+    """Frustum, distance-band and view-angle test (Frame::isInFrustum) and
+    PredictScale for a padded landmark block.  Returns (uv (M,2), pred_level
+    (M,) int64, visible (M,) bool).  Kernel L on CUDA tensors (``cam`` a host
+    pin-hole Camera, read as scalars), its plain version on CPU ones."""
+    if lm_pos.device.type == "cpu":
+        return visible_landmarks_plain(cam, R, t, lm_pos, lm_mask, lm_normal, lm_dmin, lm_dmax, wh, log_sf, n_lvl)
+    if cam.kind != cam_models.PINHOLE:
+        raise NotImplementedError("kernel L takes pin-hole cameras; KB8 waits for ROADMAP §A item 11 (fisheye)")
+    f32 = torch.float32
+    R, t = R.to(f32).contiguous(), t.to(f32).contiguous()
+    _kernels.require_cuda(
+        "visible_landmarks", R=(R, f32), t=(t, f32), lm_pos=(lm_pos, f32), lm_mask=(lm_mask, torch.bool),
+        lm_normal=(lm_normal, f32), lm_dmin=(lm_dmin, f32), lm_dmax=(lm_dmax, f32),
+    )
+    m = lm_pos.shape[0]
+    if R.shape != (3, 3) or t.shape != (3,) or lm_pos.shape != (m, 3) or lm_normal.shape != (m, 3) or \
+            lm_mask.shape != (m,) or lm_dmin.shape != (m,) or lm_dmax.shape != (m,):
+        raise ValueError("visible_landmarks: needs R (3,3), t (3,), (M,3) positions and normals, (M,) mask and band")
+    dev = lm_pos.device
+    params = np.asarray(cam.params.tolist(), np.float32)
+    uv = torch.empty((m, 2), dtype=f32, device=dev)
+    level = torch.empty(m, dtype=torch.int64, device=dev)
+    visible = torch.empty(m, dtype=torch.bool, device=dev)
+    _kernels.launch(
+        "visible_landmarks_launch", dev,
+        R.data_ptr(), t.data_ptr(), lm_pos.data_ptr(), lm_mask.data_ptr(), lm_normal.data_ptr(), lm_dmin.data_ptr(),
+        lm_dmax.data_ptr(), m, params.ctypes.data, float(wh[0]), float(wh[1]), float(log_sf), int(n_lvl),
+        uv.data_ptr(), level.data_ptr(), visible.data_ptr(),
+    )
+    visible_landmarks.launches += 1
+    return uv, level, visible
+
+
+visible_landmarks.launches = 0
 
 
 class LocalMap(NamedTuple):
@@ -131,8 +185,9 @@ class StereoTrackingStep(nn.Module):
 
     def __init__(self, cam: cam_models.Camera, bf: float, image_wh: tuple[int, int],
                  cfg: ext.ExtractorConfig = ext.ExtractorConfig(), map_radius: float = 3.0,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         super().__init__()
+        device = _kernels.resolve_device(device)
         self.cam = cam
         self.bf = float(bf)
         self.cfg = cfg
@@ -198,15 +253,16 @@ class Tracker:
 
     def __init__(self, cam: cam_models.Camera, cfg: TrackerConfig = TrackerConfig(), bf: float = 0.0,
                  image_wh: tuple = (640, 480), world: Optional[WorldMap] = None, mapper=None, voc=None,
-                 kfdb=None, timers=None, device: torch.device | str = "cpu"):
+                 kfdb=None, timers=None, device: torch.device | str = "cuda"):
         """``cam`` stays on the host (a CPU Camera); keypoints, matching and
-        pose optimisation run on ``device``."""
+        pose optimisation run on ``device``: the card unless the caller
+        passes ``device="cpu"``."""
         if voc is not None or kfdb is not None:
             raise NotImplementedError("place recognition waits for ROADMAP §A item 8")
         self.cam = cam
         self.cfg = cfg
         self.bf = float(bf)
-        self.device = torch.device(device)
+        self.device = _kernels.resolve_device(device)
         self.timers = timers if timers is not None else StageTimers()
         self.voc = self.kfdb = None
         self.wh = (float(image_wh[0]), float(image_wh[1]))
@@ -231,8 +287,23 @@ class Tracker:
     def process_mono(self, img, ts: float):
         raise NotImplementedError("the monocular path waits for ROADMAP §A item 7")
 
-    def process_rgbd(self, img, depth, ts: float):
-        raise NotImplementedError("the RGB-D path waits for ROADMAP §A item 6 (queued next)")
+    def process_rgbd(self, img: np.ndarray, depth: np.ndarray, ts: float):
+        """RGB-D: the depth map sampled at the keypoints (ComputeStereoFromRGBD,
+        Frame.cc:1086-1154), a virtual right-u ``x - bf / d`` per keypoint."""
+        im = torch.as_tensor(np.asarray(img, dtype=np.float32)).to(self.device)
+        with self.timers.span("orb_extract"):
+            kp = ext.extract(im, self.cfg.extractor)
+        with self.timers.span("depth_sample"):
+            # one host transfer of what the depth lookup needs
+            kx, ky, valid = host(torch.stack([kp.xy[:, 0], kp.xy[:, 1], kp.valid.to(torch.float32)]))
+            # nearest pixel (np.round: half to even): corners sit on depth edges
+            h, w = depth.shape
+            xs = np.clip(np.round(kx).astype(np.int32), 0, w - 1)
+            ys = np.clip(np.round(ky).astype(np.int32), 0, h - 1)
+            d = depth[ys, xs].astype(np.float32)
+            d = np.where((valid > 0.5) & (d > 0), d, -1.0)
+            ru = np.where(d > 0, kx - self.bf / np.maximum(d, 1e-6), -1.0)
+        return self._track(kp, ts, depth=d, right_u=ru)
 
     def process_stereo(self, img_l: np.ndarray, img_r: np.ndarray, ts: float):
         il = torch.as_tensor(np.asarray(img_l, dtype=np.float32)).to(self.device)

@@ -4,9 +4,34 @@ intensity-centroid angle -> rotated BRIEF.
 Counterpart of ``orb_slam3_fast_tpu/ops/extractor.py`` (``_extract`` and the
 functions it calls).  Descriptors are packed: (N, 8) int32, bit k of the
 JAX package's (N, 256) int8 row is bit k % 32 of word k // 32
-(``ops.hamming.pack_desc``).  ``orb_describe`` is the wrapper of kernel B
-(``csrc/orb_describe.cu``); ``orb_describe_plain`` computes the same with
-``extract_patches`` + ``ic_angles_from_patches`` + ``brief_from_patches``.
+(``ops.hamming.pack_desc``).  ``extract`` runs kernel H
+(``ops.image.pyramid_blur``), kernel A per level, kernel I and kernel B on
+one set of flat per-image buffers; ``extract_plain`` runs their plain
+versions.  ``select_subpixel`` is the wrapper of kernel I
+(``csrc/select_subpixel.cu``), ``select_subpixel_plain`` computes the same
+with ``select_keypoints`` + ``subpixel_refine``; ``orb_describe`` is the
+wrapper of kernel B (``csrc/orb_describe.cu``), ``orb_describe_plain``
+computes the same with ``extract_patches`` + ``ic_angles_from_patches`` +
+``brief_from_patches``.
+
+Kernel I -- source note.
+  Replaces: ``select_keypoints`` and ``subpixel_refine``
+  (``orb_slam3_fast_tpu/ops/extractor.py:140-207``), per level a cell
+  top-k, a global top-k and five gathers: ~35 PyTorch operations a level
+  in the plain version, with sorts.
+  Bound on the card: latency of the level sort.  The bytes are the NMS
+  maps read once (3.8 MB at 640x480) and ~40 bytes per slot, ~1 us; the
+  work is 8 compares per pixel and a sort of each level's candidates.
+  Design: two launches per image over all levels.  (1) One 256-thread CTA
+  per 32x32 cell of any level keeps 4 pixels a thread in registers as
+  64-bit keys (value, 1023 - in-cell index), a total order, so K rounds of
+  a block-wide max give ``lax.top_k``'s best K with its tie rule.  (2) One
+  1024-thread CTA per level sorts its cells' candidates on (ordered
+  priority, flat index) with a bitonic sort in shared memory (up to 8,192
+  keys, 64 KB), takes the first n_l, clamps them into the descriptor
+  border and fits the parabolic offsets on the dense pre-NMS map in the
+  plain version's operation order (no FMA), so the output equals the plain
+  version's, invalid slots (priority +inf) included.
 
 Kernel B -- source note.
   Replaces: ``extract_patches`` + ``ic_angles_from_patches`` +
@@ -184,27 +209,112 @@ def subpixel_refine(score: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     return torch.stack([torch.clamp(ox, -0.5, 0.5), torch.clamp(oy, -0.5, 0.5)], dim=-1)
 
 
-def _flatten_levels(levels: list[torch.Tensor]):
-    """One flat buffer of all levels, with per-level offsets and widths."""
-    sizes = [lv.numel() for lv in levels]
-    offs = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
-    dev = levels[0].device
-    flat = torch.cat([lv.reshape(-1) for lv in levels])
-    return (
-        flat,
-        torch.as_tensor(offs, device=dev),
-        torch.as_tensor([lv.shape[1] for lv in levels], dtype=torch.int64, device=dev),
+def select_subpixel_plain(nms: torch.Tensor, raw: torch.Tensor, shapes, offsets, cfg: ExtractorConfig):
+    """Plain version of kernel I: per level, ``select_keypoints`` on the NMS
+    map, the selection clamped into the descriptor border and
+    ``subpixel_refine`` on the dense pre-NMS map.  ``nms`` / ``raw`` are flat
+    buffers of all levels (kernel H's layout).  Returns, in slot order,
+    (level-local xy (N,2) int32, level-0 subpixel xy (N,2) float32,
+    response (N,), valid (N,))."""
+    budgets = per_level_budget(cfg.n_features, cfg.n_levels, cfg.scale_factor)
+    xy_parts, sub_parts, resp_parts, valid_parts = [], [], [], []
+    for score, score_raw, n_l in zip(image_ops.level_views(nms, shapes, offsets),
+                                     image_ops.level_views(raw, shapes, offsets), budgets):
+        h, w = score.shape
+        xy, resp, valid = select_keypoints(score, n_l, cfg.cell, cfg.cand_per_cell)
+        # clamp invalid / padded selections into the border-safe interior
+        xyq = torch.stack(
+            [
+                torch.clamp(xy[:, 0], EDGE_BORDER, w - EDGE_BORDER - 1),
+                torch.clamp(xy[:, 1], EDGE_BORDER, h - EDGE_BORDER - 1),
+            ],
+            dim=1,
+        )
+        sub_parts.append(subpixel_refine(score_raw, xyq))
+        xy_parts.append(xyq)
+        resp_parts.append(resp)
+        valid_parts.append(valid)
+    xy_lvl = torch.cat(xy_parts)
+    k_scale = torch.as_tensor(slot_scales(cfg), device=nms.device)
+    xy = (xy_lvl.to(torch.float32) + torch.cat(sub_parts)) * k_scale[:, None]
+    return xy_lvl.to(torch.int32), xy, torch.cat(resp_parts), torch.cat(valid_parts)
+
+
+@functools.lru_cache(maxsize=16)
+def _select_host(shapes, offsets, cfg: ExtractorConfig):
+    """Host arrays of kernel I's level table (kept alive by the cache while
+    their pointers are in use) and its scratch size."""
+    budgets = per_level_budget(cfg.n_features, cfg.n_levels, cfg.scale_factor)
+    scales = cfg.scale_factor ** np.arange(cfg.n_levels)
+    level_scale = np.asarray([slot_scales(cfg)[sum(budgets[:l])] if budgets[l] else scales[l]
+                              for l in range(cfg.n_levels)], np.float32)
+    cells = sum(-(-h // cfg.cell) * -(-w // cfg.cell) for h, w in shapes)
+    cand = [-(-h // cfg.cell) * -(-w // cfg.cell) * cfg.cand_per_cell for h, w in shapes]
+    return (np.asarray(shapes, np.int32).reshape(-1), np.asarray(offsets, np.int64), np.asarray(budgets, np.int32),
+            level_scale, cells, cand, sum(budgets))
+
+
+SELECT_MAX_CANDIDATES = 16384  # one level's cells x candidates, sorted in one CTA's shared memory (128 KB)
+
+
+def select_subpixel(nms: torch.Tensor, raw: torch.Tensor, shapes, offsets, cfg: ExtractorConfig):
+    """Kernel I on CUDA tensors, its plain version on CPU ones: the
+    selection and subpixel refinement of every level of one image, from
+    kernel A's flat NMS and pre-NMS maps.  ``shapes`` / ``offsets``: the
+    ``image.pyramid_layout``.  Returns (level-local xy (N,2) int32, level-0
+    subpixel xy (N,2) float32, response (N,), valid (N,) bool)."""
+    if nms.device.type == "cpu":
+        return select_subpixel_plain(nms, raw, shapes, offsets, cfg)
+    _kernels.require_cuda("select_subpixel", nms=(nms, torch.float32), raw=(raw, torch.float32))
+    if cfg.cell != fast_ops.FALLBACK_CELL:
+        raise ValueError(f"select_subpixel: the kernel takes {fast_ops.FALLBACK_CELL}-px cells, got {cfg.cell}")
+    hw, offs, budgets, level_scale, cells, cand, n = _select_host(tuple(shapes), tuple(offsets), cfg)
+    total = sum(h * w for h, w in shapes)
+    if nms.shape != (total,) or raw.shape != (total,):
+        raise ValueError(f"select_subpixel: nms and raw must be flat buffers of the layout's {total} pixels")
+    if max(cand) > SELECT_MAX_CANDIDATES or any(b > c for b, c in zip(budgets, cand)):
+        raise ValueError(f"select_subpixel: candidates per level {cand} exceed {SELECT_MAX_CANDIDATES} or "
+                         f"fall short of the budgets {budgets.tolist()}")
+    dev = nms.device
+    cand_v = torch.empty(cells * cfg.cand_per_cell, dtype=torch.float32, device=dev)
+    cand_i = torch.empty(cells * cfg.cand_per_cell, dtype=torch.int32, device=dev)
+    xy_lvl = torch.empty((n, 2), dtype=torch.int32, device=dev)
+    xy = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    resp = torch.empty(n, dtype=torch.float32, device=dev)
+    valid = torch.empty(n, dtype=torch.bool, device=dev)
+    _kernels.launch(
+        "select_subpixel_launch", dev,
+        nms.data_ptr(), raw.data_ptr(), hw.ctypes.data, offs.ctypes.data, budgets.ctypes.data,
+        level_scale.ctypes.data, cfg.n_levels, cfg.cell, cfg.cand_per_cell, EDGE_BORDER,
+        cand_v.data_ptr(), cand_i.data_ptr(), xy_lvl.data_ptr(), xy.data_ptr(), resp.data_ptr(), valid.data_ptr(),
     )
+    select_subpixel.launches += 1
+    return xy_lvl, xy, resp, valid
 
 
-def extract_patches(levels: list[torch.Tensor], xy: torch.Tensor, level: torch.Tensor, radius: int):
+select_subpixel.launches = 0
+
+
+def describe_inputs(levels: list[torch.Tensor], blurs: list[torch.Tensor], level: torch.Tensor):
+    """``orb_describe``'s inputs from per-level images, their blurs and each
+    keypoint's level: (levels flat, blurs flat, in kernel H's layout;
+    per-keypoint offset of its level, per-keypoint row width)."""
+    offs = np.concatenate([[0], np.cumsum([lv.numel() for lv in levels])[:-1]])
+    dev = level.device
+    kp_off = torch.as_tensor(offs, dtype=torch.int64, device=dev)[level].contiguous()
+    kp_w = torch.as_tensor([lv.shape[1] for lv in levels], dtype=torch.int32, device=dev)[level].contiguous()
+    return torch.cat([lv.reshape(-1) for lv in levels]), torch.cat([b.reshape(-1) for b in blurs]), kp_off, kp_w
+
+
+def extract_patches(flat: torch.Tensor, kp_off: torch.Tensor, kp_w: torch.Tensor, xy: torch.Tensor, radius: int):
     """(N, 2r+1, 2r+1) square patches centred on level-local integer ``xy``
+    of the level at ``kp_off`` (row width ``kp_w``) in a flat buffer
     (callers keep them ``radius`` px inside their level)."""
-    flat, offs, widths = _flatten_levels(levels)
     d = 2 * radius + 1
     o = torch.arange(-radius, radius + 1, device=xy.device)
-    w = widths[level][:, None, None]
-    idx = offs[level][:, None, None] + (xy[:, 1, None, None] + o[None, :, None]) * w + (
+    w = kp_w.long()[:, None, None]
+    xy = xy.long()
+    idx = kp_off[:, None, None] + (xy[:, 1, None, None] + o[None, :, None]) * w + (
         xy[:, 0, None, None] + o[None, None, :]
     )
     return flat[idx.reshape(-1)].reshape(-1, d, d)
@@ -236,10 +346,10 @@ def brief_from_patches(patches: torch.Tensor, angle: torch.Tensor) -> torch.Tens
     return (v[:, :256] < v[:, 256:]).to(torch.int8)
 
 
-def orb_describe_plain(levels, blurs, xy: torch.Tensor, level: torch.Tensor):
+def orb_describe_plain(img_flat, blur_flat, kp_off, kp_w, xy: torch.Tensor):
     """Plain version of kernel B: (angle (N,) float32, desc (N,8) int32)."""
-    angle = ic_angles_from_patches(extract_patches(levels, xy, level, PATCH_RADIUS))
-    bits = brief_from_patches(extract_patches(blurs, xy, level, BRIEF_RADIUS), angle)
+    angle = ic_angles_from_patches(extract_patches(img_flat, kp_off, kp_w, xy, PATCH_RADIUS))
+    bits = brief_from_patches(extract_patches(blur_flat, kp_off, kp_w, xy, BRIEF_RADIUS), angle)
     return angle, pack_desc(bits)
 
 
@@ -250,25 +360,23 @@ def _describe_consts(device: torch.device):
     return pattern, umax
 
 
-def orb_describe(levels: list[torch.Tensor], blurs: list[torch.Tensor], xy: torch.Tensor, level: torch.Tensor):
+def orb_describe(img_flat: torch.Tensor, blur_flat: torch.Tensor, kp_off: torch.Tensor, kp_w: torch.Tensor,
+                 xy: torch.Tensor):
     """Kernel B on CUDA tensors, its plain version on CPU ones.
 
-    levels / blurs: per-level (H_l,W_l) float32 images and their blurs.
-    xy: (N,2) int64 level-local keypoint coordinates, at least
-    ``EDGE_BORDER`` px inside their level; level: (N,) int64.
-    Returns (angle (N,) float32, desc (N,8) int32).
+    img_flat / blur_flat: every level and its blur in one flat float32
+    buffer each (kernel H's layout); kp_off: (N,) int64 offset of each
+    keypoint's level there; kp_w: (N,) int32 its row width; xy: (N,2) int32
+    level-local keypoint coordinates, at least ``EDGE_BORDER`` px inside
+    their level.  Returns (angle (N,) float32, desc (N,8) int32).
     """
     if xy.device.type == "cpu":
-        return orb_describe_plain(levels, blurs, xy, level)
-    img_flat, offs, widths = _flatten_levels(levels)
-    blur_flat, _, _ = _flatten_levels(blurs)
-    kp_off = offs[level].contiguous()
-    kp_w = widths[level].to(torch.int32)
+        return orb_describe_plain(img_flat, blur_flat, kp_off, kp_w, xy)
     kp_xy = xy.to(torch.int32).contiguous()
     pattern, umax = _describe_consts(xy.device)
     _kernels.require_cuda(
         "orb_describe", img=(img_flat, torch.float32), blur=(blur_flat, torch.float32),
-        kp_off=(kp_off, torch.int64), kp_xy=(kp_xy, torch.int32),
+        kp_off=(kp_off, torch.int64), kp_w=(kp_w, torch.int32), kp_xy=(kp_xy, torch.int32),
     )
     n = xy.shape[0]
     angle = torch.empty(n, dtype=torch.float32, device=xy.device)
@@ -309,48 +417,41 @@ def level_sigma2(cfg: ExtractorConfig) -> np.ndarray:
     return (BASE_SIGMA**2 * cfg.scale_factor ** (2.0 * np.arange(cfg.n_levels))).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=8)
-def _slot_consts(cfg: ExtractorConfig, device: torch.device):
+@functools.lru_cache(maxsize=16)
+def _slot_consts(cfg: ExtractorConfig, shapes, offsets, device: torch.device):
+    """Per-slot level, and the offset and row width of each slot's level in
+    the flat buffers (kernel B's inputs)."""
+    lv = slot_levels(cfg)
     return (
-        torch.as_tensor(slot_levels(cfg), dtype=torch.int64, device=device),
-        torch.as_tensor(slot_scales(cfg), device=device),
+        torch.as_tensor(lv, dtype=torch.int64, device=device),
+        torch.as_tensor(np.asarray(offsets, np.int64)[lv], device=device),
+        torch.as_tensor(np.asarray([w for _, w in shapes], np.int32)[lv], device=device),
     )
+
+
+def _extract(img: torch.Tensor, cfg: ExtractorConfig, pyramid, fast_nms, select, describe) -> Keypoints:
+    shapes, offsets = image_ops.pyramid_layout(*img.shape, cfg.n_levels, cfg.scale_factor)
+    levels, blurs = pyramid(img, cfg.n_levels, cfg.scale_factor)
+    raw, nms = torch.empty_like(levels), torch.empty_like(levels)
+    for lvl_img, r, m in zip(*(image_ops.level_views(x, shapes, offsets) for x in (levels, raw, nms))):
+        fast_nms(lvl_img, cfg.ini_th_fast, cfg.min_th_fast, EDGE_BORDER, out=(r, m))
+    xy_lvl, xy, resp, valid = select(nms, raw, shapes, offsets, cfg)
+    level, kp_off, kp_w = _slot_consts(cfg, shapes, offsets, img.device)
+    angle, desc = describe(levels, blurs, kp_off, kp_w, xy_lvl)
+    return Keypoints(xy=xy, level=level, angle=angle, response=resp, desc=desc, valid=valid)
 
 
 def extract(img: torch.Tensor, cfg: ExtractorConfig = ExtractorConfig()) -> Keypoints:
-    """ORB extraction on one (H,W) float32 image in [0, 255].
-
-    Dense stages run per level (kernel A for FAST + NMS); the keypoint
-    stages run once over all levels (kernel B for angle + BRIEF).
+    """ORB extraction on one (H,W) float32 image in [0, 255]: kernel H
+    (pyramid and blurs), kernel A per level (FAST + NMS), kernel I
+    (selection and subpixel refinement over all levels) and kernel B (angle
+    and BRIEF over all levels), all on one set of flat per-image buffers.
     """
-    levels = image_ops.build_pyramid(img, cfg.n_levels, cfg.scale_factor)
-    budgets = per_level_budget(cfg.n_features, cfg.n_levels, cfg.scale_factor)
-    xy_parts, resp_parts, valid_parts, sub_parts, blurs = [], [], [], [], []
-    for lvl_img, n_l in zip(levels, budgets):
-        h, w = lvl_img.shape
-        score_raw_inb, score = fast_ops.fast_nms(lvl_img, cfg.ini_th_fast, cfg.min_th_fast, EDGE_BORDER)
-        xy, resp, valid = select_keypoints(score, n_l, cfg.cell, cfg.cand_per_cell)
-        # clamp invalid / padded selections into the border-safe interior
-        xyq = torch.stack(
-            [
-                torch.clamp(xy[:, 0], EDGE_BORDER, w - EDGE_BORDER - 1),
-                torch.clamp(xy[:, 1], EDGE_BORDER, h - EDGE_BORDER - 1),
-            ],
-            dim=1,
-        )
-        sub_parts.append(subpixel_refine(score_raw_inb, xyq))
-        blurs.append(image_ops.gaussian_blur(lvl_img))
-        xy_parts.append(xyq)
-        resp_parts.append(resp)
-        valid_parts.append(valid)
-    xy_all = torch.cat(xy_parts)
-    level, k_scale = _slot_consts(cfg, img.device)
-    angle, desc = orb_describe(levels, blurs, xy_all, level)
-    return Keypoints(
-        xy=(xy_all.to(torch.float32) + torch.cat(sub_parts)) * k_scale[:, None],
-        level=level,
-        angle=angle,
-        response=torch.cat(resp_parts),
-        desc=desc,
-        valid=torch.cat(valid_parts),
-    )
+    return _extract(img, cfg, image_ops.pyramid_blur, fast_ops.fast_nms, select_subpixel, orb_describe)
+
+
+def extract_plain(img: torch.Tensor, cfg: ExtractorConfig = ExtractorConfig()) -> Keypoints:
+    """``extract`` through every kernel's plain version, on any device: the
+    yardstick of the whole extraction on the card."""
+    return _extract(img, cfg, image_ops.pyramid_blur_plain, fast_ops.fast_nms_plain, select_subpixel_plain,
+                    orb_describe_plain)

@@ -119,28 +119,37 @@ def fast_with_fallback(img: torch.Tensor, ini_th: float, min_th: float) -> torch
     return torch.where(cell_mask, s_hi, s_lo)
 
 
-def fast_nms_plain(img: torch.Tensor, ini_th: float, min_th: float, border: int):
+def fast_nms_plain(img: torch.Tensor, ini_th: float, min_th: float, border: int, out=None):
     """Plain version of kernel A: (dense pre-NMS score, NMS score), both zero
-    within ``border`` px of the edge."""
+    within ``border`` px of the edge; written into ``out`` when given."""
     raw = fast_with_fallback(img, ini_th, min_th)
     nms = nonmax_3x3(raw)
     inb = _border_mask(*img.shape, border, img.device)
     zero = torch.zeros((), dtype=raw.dtype, device=raw.device)
-    return torch.where(inb, raw, zero), torch.where(inb, nms, zero)
+    res = torch.where(inb, raw, zero), torch.where(inb, nms, zero)
+    if out is None:
+        return res
+    for o, r in zip(out, res):
+        o.copy_(r)
+    return out
 
 
-def fast_nms(img: torch.Tensor, ini_th: float, min_th: float, border: int):
+def fast_nms(img: torch.Tensor, ini_th: float, min_th: float, border: int, out=None):
     """Kernel A on a CUDA level image, its plain version on a CPU one.
-    Returns (dense pre-NMS score, NMS score) of shape (H,W) float32."""
+    Returns (dense pre-NMS score, NMS score) of shape (H,W) float32, written
+    into ``out`` (two (H,W) float32 tensors, e.g. views of a flat buffer of
+    all levels) when it is given."""
     if img.device.type == "cpu":
-        return fast_nms_plain(img, ini_th, min_th, border)
+        return fast_nms_plain(img, ini_th, min_th, border, out)
     _kernels.require_cuda("fast_nms", img=(img, torch.float32))
     if img.dim() != 2 or border < 1:
         raise ValueError("fast_nms: needs an (H,W) image and a border of at least 1 px")
     h, w = img.shape
     raw = torch.empty_like(img)
-    raw_inb = torch.empty_like(img)
-    nms = torch.empty_like(img)
+    raw_inb, nms = out if out is not None else (torch.empty_like(img), torch.empty_like(img))
+    _kernels.require_cuda("fast_nms", raw_inb=(raw_inb, torch.float32), nms=(nms, torch.float32))
+    if raw_inb.shape != img.shape or nms.shape != img.shape:
+        raise ValueError("fast_nms: out tensors must have the image's shape")
     _kernels.launch(
         "fast_nms_launch", img.device,
         img.data_ptr(), raw.data_ptr(), raw_inb.data_ptr(), nms.data_ptr(),

@@ -183,9 +183,10 @@ def _damped(H: torch.Tensor, lam) -> torch.Tensor:
     return H + torch.diag_embed(lam * torch.clamp(d, min=1e-3))
 
 
-def schur_solve_plain(Hpp, Hll, bp, bl, Z, w_lm, pose_fixed, lm_valid, lam):
-    """Plain version of kernel F (the JAX einsums and a dense solve).
-    Returns (dp (K,6), dl (M,3))."""
+def reduced_system_plain(Hpp, Hll, bp, bl, Z, w_lm, pose_fixed, lam):
+    """The damped reduced camera system of ``schur_solve_plain``: (S (6K,6K)
+    with fixed poses' rows and columns set to the identity, its right-hand
+    side (6K,), V^-1 (M,3,3), free-pose flags (K,), seen-landmark flags)."""
     K = Hpp.shape[0]
     eye3 = torch.eye(3, dtype=Hll.dtype, device=Hll.device)
     Hpp_d = _damped(Hpp, lam)
@@ -204,7 +205,15 @@ def schur_solve_plain(Hpp, Hll, bp, bl, Z, w_lm, pose_fixed, lm_valid, lam):
     S[diag, :, diag, :] += (1.0 - free_f)[:, None, None] * torch.eye(6, dtype=S.dtype, device=S.device)
     b_s = b_s * free_f[:, None]
     Sd = S.reshape(K * 6, K * 6) + 1e-6 * torch.eye(K * 6, dtype=S.dtype, device=S.device)
-    dp = torch.linalg.solve(Sd, b_s.reshape(-1)).reshape(K, 6) * free_f[:, None]
+    return Sd, b_s.reshape(-1), Vinv, free_f, lm_seen
+
+
+def schur_solve_plain(Hpp, Hll, bp, bl, Z, w_lm, pose_fixed, lm_valid, lam):
+    """Plain version of kernel F (the JAX einsums and a dense solve).
+    Returns (dp (K,6), dl (M,3))."""
+    K = Hpp.shape[0]
+    Sd, b_s, Vinv, free_f, lm_seen = reduced_system_plain(Hpp, Hll, bp, bl, Z, w_lm, pose_fixed, lam)
+    dp = torch.linalg.solve(Sd, b_s).reshape(K, 6) * free_f[:, None]
     Wt_dp = torch.einsum("mkab,ka->mb", Z, dp)
     dl = torch.einsum("mab,mb->ma", Vinv, bl - Wt_dp) * (lm_seen & lm_valid)[:, None]
     return dp, dl

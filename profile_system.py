@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Device profile of the stereo System on one CUDA GPU.
+"""Device profile of the stereo or RGB-D System on one CUDA GPU.
 
-Run from the root of a checkout: ``python3 profile_system.py``.  It builds
-the kernels, renders chip_smoke.py's 30-frame corridor on the host and runs
-the System (configs/synthetic_stereo.yaml) over it three times on the card,
-each time from a fresh System: a warm-up, an untraced run, and a run under
-``torch.profiler`` (CPU and CUDA activity).  From the traced run alone it
-reports:
+Run from the root of a checkout: ``python3 profile_system.py`` (the stereo
+System) or ``python3 profile_system.py --sensor rgbd``.  It builds the
+kernels, renders chip_smoke.py's sequence for the sensor on the host (the
+30-frame stereo corridor, or the 25-frame RGB-D one) and runs the System
+over it three times on the card, each time from a fresh System: a warm-up,
+an untraced run, and a run under ``torch.profiler`` (CPU and CUDA
+activity).  From the traced run alone it reports:
 
 - its wall time over the 30 frames (host clock, the card synchronised at
   the end), beside the untraced run's: their ratio is the tracer's cost;
@@ -22,6 +23,7 @@ device operation.
 """
 from __future__ import annotations
 
+import argparse
 import collections
 import json
 import subprocess
@@ -35,19 +37,24 @@ import chip_smoke as cs
 TOP = 15  # operations listed by device time
 
 
-def run_frames(frames, device, prof=None) -> float:
+def run_frames(frames, device, sensor: str, prof=None) -> float:
     """Milliseconds of wall time for the System over ``frames``; traced by
     ``prof`` when given."""
     from orb_slam3_fast_tpu_torch.slam.system import System
 
-    slam = System(cs.SYS_CONFIG, "stereo", enable_loop_closing=False, multi_map=False, async_backend=False,
-                  device=device)
+    opts = dict(enable_loop_closing=False, multi_map=False, async_backend=False, device=device)
+    if sensor == "stereo":
+        slam = System(cs.SYS_CONFIG, "stereo", **opts)
+        feed = slam.track_stereo
+    else:
+        slam = System(cs.rgbd_settings(), "rgbd", **opts)
+        feed = slam.track_rgbd
     torch.cuda.synchronize()
     if prof is not None:
         prof.start()
     t0 = time.perf_counter()
-    for i, (il, ir) in enumerate(frames):
-        slam.track_stereo(il, ir, i * 0.05)
+    for i, f in enumerate(frames):
+        feed(*f, i * 0.05)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     if prof is not None:
@@ -71,6 +78,9 @@ def busy_us(intervals) -> float:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--sensor", choices=("stereo", "rgbd"), default="stereo")
+    sensor = parser.parse_args().sensor
     if not torch.cuda.is_available():
         raise SystemExit("profile_system: torch.cuda.is_available() is False; this script needs a CUDA card")
     from torch.autograd import DeviceType
@@ -83,11 +93,11 @@ def main() -> int:
     print(smi, flush=True)
     device = torch.device("cuda", 0)
     _kernels.build()
-    frames, _ = cs.corridor_frames(cs.SYS_FRAMES)
-    run_frames(frames, device)  # warm-up: kernel loading, allocator, library handles
-    untraced_ms = run_frames(frames, device)
+    frames, _ = cs.corridor_frames(cs.SYS_FRAMES) if sensor == "stereo" else cs.rgbd_frames(cs.RGBD_FRAMES)
+    run_frames(frames, device, sensor)  # warm-up: kernel loading, allocator, library handles
+    untraced_ms = run_frames(frames, device, sensor)
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    traced_ms = run_frames(frames, device, prof)
+    traced_ms = run_frames(frames, device, sensor, prof)
 
     ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not ops:
@@ -99,14 +109,14 @@ def main() -> int:
         by_name[e.name][1] += (e.time_range.end - e.time_range.start) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:TOP]
     n = len(frames)
-    print(f"System, {n} frames: traced {traced_ms:.3f} ms, untraced {untraced_ms:.3f} ms "
+    print(f"{sensor} System, {n} frames: traced {traced_ms:.3f} ms, untraced {untraced_ms:.3f} ms "
           f"(tracer cost x{traced_ms / untraced_ms:.3f})")
     print(f"device busy {busy_ms:.3f} ms of {traced_ms:.3f} ms traced wall: idle share {1 - busy_ms / traced_ms:.4f}; "
           f"{len(ops)} device operations, {len(ops) / n:.1f} per frame")
     for name, (count, ms) in top:
         print(f"  {ms:10.3f} ms {count:7d}x  {name[:100]}")
     print(json.dumps({
-        "frames": n, "traced_wall_ms": traced_ms, "untraced_wall_ms": untraced_ms, "device_busy_ms": busy_ms,
+        "sensor": sensor, "frames": n, "traced_wall_ms": traced_ms, "untraced_wall_ms": untraced_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1 - busy_ms / traced_ms, "device_ops": len(ops), "device_ops_per_frame": len(ops) / n,
         "top": [{"name": name, "count": count, "ms": ms} for name, (count, ms) in top], "gpu": smi,
     }))

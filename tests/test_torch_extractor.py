@@ -42,6 +42,58 @@ def test_blur_and_pyramid(rng):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=5e-4)
 
 
+def test_pyramid_blur_matches_reference(rng):
+    """Kernel H's plain version (the wrapper on a CPU tensor): every level
+    and every blur in one flat buffer each, in ``pyramid_layout``'s order,
+    against the JAX pyramid and its blurs (the resize tolerance of
+    ``test_blur_and_pyramid``)."""
+    img = scene(rng)
+    shapes, offs = timage.pyramid_layout(*img.shape, 8, 1.2)
+    lv_t, bl_t = timage.pyramid_blur(torch.as_tensor(img), 8, 1.2)
+    lv_j = jimage.build_pyramid(jnp.asarray(img))
+    assert list(shapes) == [tuple(l.shape) for l in lv_j]
+    assert lv_t.shape == bl_t.shape == (sum(h * w for h, w in shapes),)
+    for a, b, l in zip(timage.level_views(lv_t, shapes, offs), timage.level_views(bl_t, shapes, offs), lv_j):
+        np.testing.assert_allclose(a.numpy(), np.asarray(l), atol=5e-4)
+        np.testing.assert_allclose(b.numpy(), np.asarray(jimage.gaussian_blur(l)), atol=5e-4)
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_select_subpixel_matches_reference(rng, ties):
+    """Kernel I's plain version over all levels against the JAX per-level
+    chain of ``_extract`` (select_keypoints, border clamp, subpixel_refine,
+    level-0 scaling) on the same maps: exact.  ``ties``: NMS maps of small
+    integers, so that the cell top-8 and the global priority sort both
+    meet equal keys."""
+    img = scene(rng)
+    cfg = text.ExtractorConfig(n_features=256)
+    shapes, offs = timage.pyramid_layout(*img.shape, cfg.n_levels, cfg.scale_factor)
+    levels, _ = timage.pyramid_blur(torch.as_tensor(img), cfg.n_levels, cfg.scale_factor)
+    raw, nms = torch.empty_like(levels), torch.empty_like(levels)
+    for lv, r, m in zip(*(timage.level_views(x, shapes, offs) for x in (levels, raw, nms))):
+        tfast.fast_nms(lv, cfg.ini_th_fast, cfg.min_th_fast, text.EDGE_BORDER, out=(r, m))
+    if ties:
+        nms = torch.as_tensor((rng.integers(0, 4, nms.shape[0]) * (rng.uniform(size=nms.shape[0]) < 0.2))
+                              .astype(np.float32))
+    xy_lvl, xy, resp, valid = text.select_subpixel(nms, raw, shapes, offs, cfg)
+    budgets = jext.per_level_budget(cfg.n_features, cfg.n_levels, cfg.scale_factor)
+    want = [[], [], [], []]
+    for score, score_raw, n_l in zip(timage.level_views(nms, shapes, offs), timage.level_views(raw, shapes, offs),
+                                     budgets):
+        h, w = score.shape
+        xy_j, r_j, v_j = jext.select_keypoints(jnp.asarray(score.numpy()), n_l, cfg.cell, cfg.cand_per_cell)
+        xyq = jnp.stack([jnp.clip(xy_j[:, 0], jext.EDGE_BORDER, w - jext.EDGE_BORDER - 1),
+                         jnp.clip(xy_j[:, 1], jext.EDGE_BORDER, h - jext.EDGE_BORDER - 1)], axis=1)
+        for k, v in enumerate((xyq, jext.subpixel_refine(jnp.asarray(score_raw.numpy()), xyq), r_j, v_j)):
+            want[k].append(np.asarray(v))
+    xyq, sub, r_j, v_j = (np.concatenate(w) for w in want)
+    np.testing.assert_array_equal(xy_lvl.numpy(), xyq)
+    np.testing.assert_array_equal(xy.numpy(), (xyq.astype(np.float32) + sub) * jext.slot_scales(cfg)[:, None])
+    np.testing.assert_array_equal(resp.numpy(), r_j)
+    np.testing.assert_array_equal(valid.numpy(), v_j)
+    assert 0 < int(valid.sum()) < len(valid) or ties
+
+
 def test_has_run9_all_masks():
     m = np.arange(1 << 16, dtype=np.int32)
     np.testing.assert_array_equal(
@@ -140,9 +192,8 @@ def test_orb_describe_plain_matches_reference(rng):
         lvl_all.append(np.full(12, l))
     lv_t = [torch.tensor(np.asarray(lv)) for lv in levels]
     blur_t = [timage.gaussian_blur(lv) for lv in lv_t]
-    a_t, d_t = text.orb_describe(
-        lv_t, blur_t, torch.as_tensor(np.concatenate(xy_all)).long(), torch.as_tensor(np.concatenate(lvl_all))
-    )
+    lvl_t = torch.as_tensor(np.concatenate(lvl_all))
+    a_t, d_t = text.orb_describe(*text.describe_inputs(lv_t, blur_t, lvl_t), torch.as_tensor(np.concatenate(xy_all)))
     assert np.all(np.abs(a_t.numpy() - np.concatenate(ang_j)) <= np.concatenate(tol))
     bits = tham.unpack_desc(d_t).numpy()
     assert np.mean(bits != np.concatenate(desc_j)) <= 1e-3

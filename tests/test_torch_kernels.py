@@ -1,4 +1,4 @@
-"""The kernel wrappers (A-G): CPU tensors take the plain version, other
+"""The kernel wrappers (A-L): CPU tensors take the plain version, other
 devices launch the kernel or raise (no fallback); on a CUDA card each
 kernel agrees with its plain version (``cuda`` marker; these skip without a
 card and run there, where JAX is absent, with
@@ -9,10 +9,12 @@ import torch
 
 from orb_slam3_fast_tpu_torch import _kernels
 from orb_slam3_fast_tpu_torch.cameras import models as cm
+from orb_slam3_fast_tpu_torch.frontend import tracker as trk
 from orb_slam3_fast_tpu_torch.ops import extractor as ext
 from orb_slam3_fast_tpu_torch.ops import fast
 from orb_slam3_fast_tpu_torch.ops import hamming as ham
 from orb_slam3_fast_tpu_torch.ops import image
+from orb_slam3_fast_tpu_torch.ops import matching as mat
 from orb_slam3_fast_tpu_torch.ops import twoview
 from orb_slam3_fast_tpu_torch.optim import ba, pose_opt
 from orb_slam3_fast_tpu_torch.utils import lie
@@ -20,7 +22,9 @@ from orb_slam3_fast_tpu_torch.utils import lie
 torch.set_num_threads(1)
 
 WRAPPERS = (fast.fast_nms, ext.orb_describe, ham.hamming_best2, pose_opt.pose_optimization,
-            ba.build_normal_blocks, ba.schur_solve, twoview.triangulate_dlt)
+            ba.build_normal_blocks, ba.schur_solve, twoview.triangulate_dlt, image.pyramid_blur,
+            ext.select_subpixel, mat.stereo_subpixel_refine, trk.visible_landmarks)
+FRONT_CFG = ext.ExtractorConfig(n_features=256)
 
 
 @pytest.fixture
@@ -109,13 +113,43 @@ def system_inputs(rng, device):
     return cam, prob, (P0, P1, x0, x1), epi, mutual
 
 
+def front_inputs(rng, device, h=240, w=320):
+    """Inputs of kernels H, I, J and L at a small size, on ``device``: an
+    image, kernel A's flat maps of its pyramid (from the plain pyramid), a
+    tie-heavy map of small integers, stereo matches and a landmark block."""
+    img = scene(rng, h, w).to(device)
+    shapes, offs = image.pyramid_layout(h, w, FRONT_CFG.n_levels, FRONT_CFG.scale_factor)
+    levels, _ = image.pyramid_blur_plain(img, FRONT_CFG.n_levels, FRONT_CFG.scale_factor)
+    raw, nms = torch.empty_like(levels), torch.empty_like(levels)
+    for lv, r, m in zip(*(image.level_views(x, shapes, offs) for x in (levels, raw, nms))):
+        fast.fast_nms_plain(lv, 20.0, 7.0, ext.EDGE_BORDER, out=(r, m))
+    ties = torch.as_tensor(rng.integers(0, 4, levels.shape[0]) * (rng.uniform(size=levels.shape[0]) < 0.2),
+                           dtype=torch.float32, device=device)
+    n = 64
+    f = lambda *s: torch.as_tensor(rng.uniform(size=s), dtype=torch.float32, device=device)  # noqa: E731
+    img_r = torch.roll(img, -6, 1) + f(h, w)
+    xy_l = torch.stack([20 + f(n) * (w - 40), 8 + f(n) * (h - 16)], 1)
+    right_u = torch.where(f(n) < 0.1, torch.full_like(xy_l[:, 0], -1.0), xy_l[:, 0] - 6 + 3 * (f(n) - 0.5))
+    valid = right_u > 0
+    M = 256
+    cam = cm.Camera.pinhole(300.0, 300.0, 160.0, 120.0, (0.05, -0.01, 1e-3, -1e-3, 0.0))
+    pos = torch.stack([f(M) * 6 - 3, f(M) * 4 - 2, f(M) * 8 - 1], 1)
+    normal = torch.nn.functional.normalize(pos + f(M, 3) - 0.5, dim=1)
+    dist = pos.norm(dim=1)
+    dmax = dist * (0.6 + 1.2 * f(M))
+    lm = (pos, f(M) > 0.1, normal, dmax / 1.2 ** 7, dmax)
+    T = lie.se3_exp(torch.tensor([0.05, -0.02, 0.1, 0.02, -0.03, 0.01], device=device))
+    return img, (nms, raw, shapes, offs), ties, (img, img_r, xy_l, right_u, valid), cam, T, lm
+
+
 def test_cpu_tensors_take_the_plain_version():
     rng = np.random.default_rng(0)
     img, levels, blurs, xy, lvl, da, db, stereo, window, cam, obs = kernel_inputs(rng, "cpu")
     before = [w.launches for w in WRAPPERS]
     raw, nms = fast.fast_nms(levels[0], 20.0, 7.0, ext.EDGE_BORDER)
     torch.testing.assert_close((raw, nms), fast.fast_nms_plain(levels[0], 20.0, 7.0, ext.EDGE_BORDER))
-    torch.testing.assert_close(ext.orb_describe(levels, blurs, xy, lvl), ext.orb_describe_plain(levels, blurs, xy, lvl))
+    desc_in = ext.describe_inputs(levels, blurs, lvl)
+    torch.testing.assert_close(ext.orb_describe(*desc_in, xy), ext.orb_describe_plain(*desc_in, xy))
     torch.testing.assert_close(ham.hamming_best2(da, db, stereo), ham.hamming_best2_plain(da, db, stereo))
     torch.testing.assert_close(ham.hamming_best2(da, db, window), ham.hamming_best2_plain(da, db, window))
     T0 = lie.SE3.identity("cpu")
@@ -133,6 +167,14 @@ def test_cpu_tensors_take_the_plain_version():
     torch.testing.assert_close(twoview.triangulate_dlt(*dlt), twoview.triangulate_dlt_plain(*dlt))
     for gate in (epi, mutual):
         torch.testing.assert_close(ham.hamming_best2(da, db, gate), ham.hamming_best2_plain(da, db, gate))
+    img, maps, ties, sad_in, cam, T, lm = front_inputs(rng, "cpu")
+    torch.testing.assert_close(image.pyramid_blur(img, 8, 1.2), image.pyramid_blur_plain(img, 8, 1.2))
+    for nms in (maps[0], ties):
+        torch.testing.assert_close(ext.select_subpixel(nms, *maps[1:], FRONT_CFG),
+                                   ext.select_subpixel_plain(nms, *maps[1:], FRONT_CFG))
+    torch.testing.assert_close(mat.stereo_subpixel_refine(*sad_in), mat.stereo_subpixel_refine_plain(*sad_in))
+    torch.testing.assert_close(trk.visible_landmarks(cam, T.R, T.t, *lm, (320, 240)),
+                               trk.visible_landmarks_plain(cam, T.R, T.t, *lm, (320, 240)))
     assert [w.launches for w in WRAPPERS] == before
 
 
@@ -144,7 +186,7 @@ def test_other_devices_raise_without_fallback():
     with pytest.raises(ValueError, match="CUDA"):
         fast.fast_nms(meta(levels[0]), 20.0, 7.0, ext.EDGE_BORDER)
     with pytest.raises(ValueError, match="CUDA"):
-        ext.orb_describe([meta(l) for l in levels], [meta(b) for b in blurs], meta(xy), meta(lvl))
+        ext.orb_describe(*[meta(x) for x in ext.describe_inputs(levels, blurs, lvl)], meta(xy))
     with pytest.raises(ValueError, match="CUDA"):
         ham.hamming_best2(meta(da), meta(db), ham.StereoGate(*[meta(x) for x in stereo[:-1]], stereo.max_disp))
     with pytest.raises(ValueError, match="CUDA"):
@@ -161,15 +203,29 @@ def test_other_devices_raise_without_fallback():
     for gate in (epi, mutual):
         with pytest.raises(ValueError, match="CUDA"):
             ham.hamming_best2(meta(da), meta(db), type(gate)(*[meta(x) for x in gate]))
+    img, (nms, raw, shapes, offs), ties, sad_in, cam, T, lm = front_inputs(rng, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        image.pyramid_blur(meta(img), 8, 1.2)
+    with pytest.raises(ValueError, match="CUDA"):
+        ext.select_subpixel(meta(nms), meta(raw), shapes, offs, FRONT_CFG)
+    with pytest.raises(ValueError, match="CUDA"):
+        mat.stereo_subpixel_refine(*[meta(x) for x in sad_in])
+    with pytest.raises(ValueError, match="CUDA"):
+        trk.visible_landmarks(cam, meta(T.R), meta(T.t), *[meta(x) for x in lm], (320, 240))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        trk.visible_landmarks(cm.Camera.kb8(300.0, 300.0, 160.0, 120.0, 0, 0, 0, 0), meta(T.R), meta(T.t),
+                              *[meta(x) for x in lm], (320, 240))
 
 
 def test_build_flags_and_sources():
     srcs = sorted(p.name for p in _kernels.SRC_DIR.glob("*.cu"))
     assert srcs == ["ba_blocks.cu", "ba_schur.cu", "common.cu", "fast_nms.cu", "hamming_best2.cu", "orb_describe.cu",
-                    "pose_lm.cu", "triangulate_dlt.cu"]
+                    "pose_lm.cu", "pyramid_blur.cu", "sad_refine.cu", "select_subpixel.cu", "triangulate_dlt.cu",
+                    "visible_landmarks.cu"]
     assert set(_kernels.SIGNATURES) == {
         "fast_nms_launch", "orb_describe_launch", "hamming_best2_launch", "pose_lm_launch", "ba_blocks_launch",
-        "ba_schur_launch", "triangulate_dlt_launch",
+        "ba_schur_launch", "triangulate_dlt_launch", "pyramid_blur_launch", "select_subpixel_launch",
+        "sad_refine_launch", "visible_landmarks_launch",
     }
     assert "arch=compute_90a,code=sm_90a" in _kernels.NVCC_FLAGS
     assert _kernels.LIB_PATH.parent.name == "_build"
@@ -184,8 +240,9 @@ def test_kernels_match_plain_on_card(cuda):
             fast.fast_nms(lv, 20.0, 7.0, ext.EDGE_BORDER), fast.fast_nms_plain(lv, 20.0, 7.0, ext.EDGE_BORDER),
             rtol=0, atol=0,
         )
-    a_k, d_k = ext.orb_describe(levels, blurs, xy, lvl)
-    a_p, d_p = ext.orb_describe_plain(levels, blurs, xy, lvl)
+    desc_in = ext.describe_inputs(levels, blurs, lvl)
+    a_k, d_k = ext.orb_describe(*desc_in, xy)
+    a_p, d_p = ext.orb_describe_plain(*desc_in, xy)
     torch.testing.assert_close(a_k, a_p, rtol=0, atol=1e-4)
     assert (ham.unpack_desc(d_k) != ham.unpack_desc(d_p)).float().mean() <= 1e-3
     for gate in (stereo, window):
@@ -269,3 +326,52 @@ def test_schur_failure_rejects_the_step_on_card(cuda):
 
     R, t, xw, _ = ba._bundle_adjust(cam, 30.0, prob, 2, 1, indefinite, ba.schur_solve)
     assert torch.equal(R, prob.R) and torch.equal(t, prob.t) and torch.equal(xw, prob.xw)
+
+
+def near(x: torch.Tensor, threshold: float, tol: float = 1e-5) -> torch.Tensor:
+    """Where a float quantity lies within ``tol`` (relative) of a threshold."""
+    return (x - threshold).abs() <= tol * max(abs(threshold), 1.0)
+
+
+@pytest.mark.cuda
+def test_front_kernels_match_plain_on_card(cuda):
+    """H, I, J and L against their plain versions on the same CUDA tensors.
+    H: levels within 1e-4 grey levels of F.interpolate's chain, and each
+    blur bit-equal to ``gaussian_blur`` of the kernel's own level.  I:
+    exact, on kernel A's maps and on a tie-heavy map.  J: refined u within
+    1e-3 px, ``ok`` equal except where two SADs lie within 1e-5 (relative).
+    L: uv within 1e-3 px; level and visible equal except where a tested
+    quantity lies within 1e-5 of its threshold."""
+    rng = np.random.default_rng(0)
+    img, maps, ties, sad_in, cam, T, lm = front_inputs(rng, cuda)
+    shapes, offs = image.pyramid_layout(*img.shape, 8, 1.2)
+    lk, bk = image.pyramid_blur(img, 8, 1.2)
+    lp, _ = image.pyramid_blur_plain(img, 8, 1.2)
+    assert float((lk - lp).abs().max()) <= 1e-4
+    for lv, bl in zip(image.level_views(lk, shapes, offs), image.level_views(bk, shapes, offs)):
+        assert torch.equal(bl, image.gaussian_blur(lv))
+    for nms in (maps[0], ties):
+        for x, y in zip(ext.select_subpixel(nms, *maps[1:], FRONT_CFG),
+                        ext.select_subpixel_plain(nms, *maps[1:], FRONT_CFG)):
+            assert torch.equal(x, y)
+    (uk, ok_k), (up, ok_p) = mat.stereo_subpixel_refine(*sad_in), mat.stereo_subpixel_refine_plain(*sad_in)
+    sad, _ = mat.sad_table(*sad_in[:4])
+    two = torch.sort(sad, dim=1).values[:, :2]
+    tie = (two[:, 1] - two[:, 0]) <= 1e-5 * two[:, 0].abs().clamp(min=1.0)
+    assert torch.equal(ok_k[~tie], ok_p[~tie])
+    both = ok_k & ok_p & ~tie
+    assert float((uk - up)[both].abs().max()) <= 1e-3
+    (uvk, lvk, vk), (uvp, lvp, vp) = (trk.visible_landmarks(cam, T.R, T.t, *lm, (320, 240)),
+                                      trk.visible_landmarks_plain(cam, T.R, T.t, *lm, (320, 240)))
+    # points near z = 0 project far out: there uv agrees to 1e-5 relative
+    assert bool(((uvk - uvp).abs() <= 1e-3 + 1e-5 * uvp.abs()).all())
+    pos, mask, normal, dmin, dmax = lm
+    xc = pos @ T.R.T + T.t
+    po = pos + T.R.T @ T.t
+    dist = po.norm(dim=1)
+    q = torch.log(dmax / dist) / float(np.log(1.2))  # unclamped: ratio < 1 is level 0 on both
+    border = ((q - q.round()).abs().le(1e-5) | near(xc[:, 2], 0.05) | near(uvp[:, 0], 0.0)
+              | near(uvp[:, 0], 320.0) | near(uvp[:, 1], 0.0) | near(uvp[:, 1], 240.0) | near(dist, 0.0)
+              | near(dist / (dmin * 0.8), 1.0) | near(dist / (dmax * 1.2), 1.0)
+              | near((po * normal).sum(1) / dist, 0.5))
+    assert torch.equal(lvk[~border], lvp[~border]) and torch.equal(vk[~border], vp[~border])

@@ -32,16 +32,19 @@ def test_loader_matches_pyyaml(path, monkeypatch):
         assert _equal(got[k], want[k]), (k, got[k], want[k])
 
 
-@pytest.mark.parametrize("path,sensor", [(CONFIGS[-1], "stereo"), (CONFIGS[0], "stereo-inertial")],
-                         ids=["synthetic_stereo", "euroc_rectified"])
+@pytest.mark.parametrize("path,sensor", [(CONFIGS[-1], "stereo"), (CONFIGS[0], "stereo-inertial"),
+                                         (CONFIGS[-1], "rgbd")],
+                         ids=["synthetic_stereo", "euroc_rectified", "synthetic_rgbd"])
 def test_settings_match(path, sensor):
-    """Rectified stereo, and pin-hole stereo with extrinsics (rectification
-    maps computed by the copied ops/rectify.py)."""
+    """Rectified stereo, pin-hole stereo with extrinsics (rectification
+    maps computed by the copied ops/rectify.py), and the synthetic
+    configuration loaded for RGB-D: ``th_depth`` from ``Stereo.ThDepth`` and
+    ``depth_map_factor`` as the JAX loader reads them."""
     j, t = jset.Settings.from_yaml(path, sensor), tset.Settings.from_yaml(path, sensor)
     assert t.camera_type == j.camera_type and t.cam.kind == j.cam.kind
     np.testing.assert_allclose(t.cam.params.numpy(), np.asarray(j.cam.params), rtol=1e-6)
-    for name in ("width", "height", "fps", "rgb", "bf", "th_depth", "n_features", "scale_factor", "n_levels",
-                 "ini_th_fast", "min_th_fast", "imu_frequency"):
+    for name in ("sensor", "width", "height", "fps", "rgb", "bf", "th_depth", "depth_map_factor", "n_features",
+                 "scale_factor", "n_levels", "ini_th_fast", "min_th_fast", "imu_frequency"):
         assert getattr(t, name) == getattr(j, name), name
     if j.rect_map_left is not None:
         for a, b in zip(t.rect_map_left + t.rect_map_right, j.rect_map_left + j.rect_map_right):

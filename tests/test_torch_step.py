@@ -133,7 +133,8 @@ def test_step_matches_jax_chain():
 
     R_j, t_j, m_j, n_j = jax_step(il, ir, R0, t0, lm)
 
-    step = ttr.StereoTrackingStep(tcam.Camera.pinhole(FX, FY, CX, CY), BF, (W, H), text.ExtractorConfig(*CFG))
+    step = ttr.StereoTrackingStep(tcam.Camera.pinhole(FX, FY, CX, CY), BF, (W, H), text.ExtractorConfig(*CFG),
+                                  device="cpu")
     res = step(
         torch.as_tensor(il), torch.as_tensor(ir), convert.se3_to_torch(R0, t0, "cpu"),
         convert.local_map_to_torch(**lm, device="cpu"),
@@ -148,3 +149,32 @@ def test_step_matches_jax_chain():
     # the returned rotation is on SO(3)
     R = res.T.R.numpy().astype(np.float64)
     assert np.abs(R @ R.T - np.eye(3)).max() < 1e-6
+
+
+def test_visible_landmarks_matches_jax(rng):
+    """Kernel L's plain version (the wrapper on CPU tensors) against the JAX
+    ``_visible_landmarks`` on a distorted pin-hole camera: uv within 1e-3
+    px or 1e-5 relative (float32 in another operation order; points near
+    z = 0 project far out), levels and flags equal."""
+    M = 512
+    params = (300.0, 310.0, 160.0, 120.0, 0.05, -0.01, 1e-3, -1e-3, 0.002)
+    pos = np.stack([rng.uniform(-3, 3, M), rng.uniform(-2, 2, M), rng.uniform(-1, 8, M)], -1).astype(np.float32)
+    normal = pos + rng.uniform(-0.5, 0.5, (M, 3))
+    normal = (normal / np.linalg.norm(normal, axis=1, keepdims=True)).astype(np.float32)
+    dmax = (np.linalg.norm(pos, axis=1) * rng.uniform(0.6, 1.8, M)).astype(np.float32)
+    dmin = (dmax / 1.2**7).astype(np.float32)
+    mask = rng.uniform(size=M) > 0.1
+    T = jlie.se3_exp(jnp.asarray([0.05, -0.02, 0.1, 0.02, -0.03, 0.01], jnp.float32))
+    R, t = np.array(T.R), np.array(T.t)
+    got = ttr.visible_landmarks(
+        tcam.Camera.pinhole(*params[:4], params[4:]), torch.as_tensor(R), torch.as_tensor(t), torch.as_tensor(pos),
+        torch.as_tensor(mask), torch.as_tensor(normal), torch.as_tensor(dmin), torch.as_tensor(dmax), (320, 240),
+    )
+    want = jtr._visible_landmarks(
+        jcam.Camera.pinhole(*params[:4], params[4:]), T.R, T.t, jnp.asarray(pos), jnp.asarray(mask),
+        jnp.asarray(normal), jnp.asarray(dmin), jnp.asarray(dmax), jnp.asarray([320, 240], jnp.float32),
+    )
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=1e-5, atol=1e-3)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    assert 50 < int(got[2].sum()) < M

@@ -24,7 +24,7 @@ torch.set_num_threads(1)
 
 CONFIG = str(Path(__file__).resolve().parents[1] / "configs" / "synthetic_stereo.yaml")
 N_FRAMES, BASELINE, BF = 8, 0.12, 48.0
-OPTS = dict(enable_loop_closing=False, multi_map=False, async_backend=False)
+OPTS = dict(enable_loop_closing=False, multi_map=False, async_backend=False, device="cpu")
 
 
 def test_numpy_scene_matches_synthetic():
@@ -50,7 +50,7 @@ def test_not_ported_options_raise():
     for kw in (dict(OPTS, enable_loop_closing=True), dict(OPTS, multi_map=True), dict(OPTS, async_backend=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tsys.System(CONFIG, "stereo", **kw)
-    for sensor in ("monocular", "rgbd", "stereo-inertial"):
+    for sensor in ("monocular", "rgbd-inertial", "stereo-inertial"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tsys.System(CONFIG, sensor, **OPTS)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
