@@ -66,6 +66,15 @@ SIGNATURES = {
     # R, t, pos, mask, normal, dmin, dmax, m, cam_params (host), width,
     # height, log_sf, n_lvl, uv, level, visible, stream
     "visible_landmarks_launch": [_P] * 7 + [_I, _P, _F, _F, _F, _I, _P, _P, _P, _P],
+    # x0, x1, valid, samples, n, n_hyp, sigma2, hyp, hyp_score, model,
+    # model_score, inl, Rall, tall, X, tri, n_good, parallax, qual, stream
+    "twoview_ransac_launch": [_P] * 4 + [_I, _I, _F] + [_P] * 13,
+    # centroids, alive, weights, B, depth, node_lvl, desc, valid, n, n_words,
+    # words, nodes, bow, total, stream
+    "vocab_transform_launch": [_P] * 3 + [_I] * 3 + [_P, _P, _I, _I] + [_P] * 5,
+    # xw, uv, xn, inv_sigma2, valid, subsets, n, n_hyp, cam9 (host),
+    # min_inliers, hyp_R, hyp_t, counts, R, t, inliers, n_inl, ok, stream
+    "pnp_ransac_launch": [_P] * 6 + [_I, _I, _P, _I] + [_P] * 9,
 }
 
 

@@ -1,10 +1,10 @@
-"""Matchers of the stereo System: rectified stereo matching, SAD subpixel
-disparity refinement, projection matching against the local map and from
-the last frame, the unconstrained mutual match, and the epipolar search for
-triangulation.
+"""Matchers of the Systems: rectified stereo matching, SAD subpixel
+disparity refinement, the windowed match of mono initialisation, projection
+matching against the local map and from the last frame, the unconstrained
+mutual match, and the epipolar search for triangulation.
 
 Counterpart of ``stereo_match``, ``stereo_subpixel_refine``,
-``search_by_projection``, ``search_frame_to_frame``,
+``search_for_initialization``, ``search_by_projection``, ``search_frame_to_frame``,
 ``search_descriptors_mutual``, ``search_for_triangulation`` and
 ``_pow_level`` of ``orb_slam3_fast_tpu/ops/matching.py``.  The gated best-2
 searches run in kernel C (``ops.hamming.hamming_best2``); their epilogues
@@ -56,6 +56,29 @@ def _median(x: torch.Tensor) -> torch.Tensor:
     n = x.shape[0]
     med = (s[(n - 1) // 2] + s[n // 2]) * 0.5
     return torch.where(torch.isnan(x).any(), torch.full_like(med, torch.nan), med)
+
+
+def search_for_initialization(kp0: Keypoints, kp1: Keypoints, window: float = 100.0, ratio: float = 0.9,
+                              check_rotation: bool = True):
+    """Monocular-initialisation matcher (SearchForInitialization,
+    ORBmatcher.cc:618-764): level-0 keypoints of two frames within a square
+    window, ratio test, dedup, rotation histogram.  Kernel C's window mode
+    with the level-0 test folded into the validity flags: rows carry level 0
+    and radius ``window``, so the mode's band [-1, 1] and its square window
+    are exactly this mask.  Returns (match_idx, accept) per keypoint of kp0."""
+    f32 = torch.float32
+    gate = ham.WindowGate(
+        kp0.xy[:, 0].contiguous(), kp0.xy[:, 1].contiguous(), torch.full_like(kp0.xy[:, 0], window),
+        torch.zeros_like(kp0.xy[:, 0]), (kp0.valid & (kp0.level == 0)).to(f32),
+        kp1.xy[:, 0].contiguous(), kp1.xy[:, 1].contiguous(), kp1.level.to(f32),
+        (kp1.valid & (kp1.level == 0)).to(f32),
+    )
+    b, _ = ham.hamming_best2(kp0.desc, kp1.desc, gate)
+    accept = ham.ratio_gate(b, ratio, ham.TH_LOW)
+    accept = ham.resolve_duplicate_targets(b.idx, b.dist, accept, kp1.n)
+    if check_rotation:
+        accept = ham.rotation_consistency(kp0.angle, kp1.angle[b.idx], accept)
+    return b.idx, accept
 
 
 def search_by_projection(

@@ -2,7 +2,7 @@
 
 Counterpart of ``orb_slam3_fast_tpu/utils/lie.py`` (``hat``, ``so3_exp``,
 ``rotation_to_quaternion``, ``so3_log``, ``SE3``, ``se3_exp``,
-``normalize_rotation_np``), with the same conventions:
+``normalize_rotation``, ``normalize_rotation_np``), with the same conventions:
 rotations are (...,3,3) matrices, an ``SE3`` is a named tuple (R, t) that
 maps x -> R @ x + t, and se(3) tangents are ordered [rho(3), phi(3)].
 Small-angle branches use ``torch.where`` with both branches NaN-safe.
@@ -120,6 +120,15 @@ def normalize_rotation_np(R) -> np.ndarray:
     d = np.sign(np.linalg.det(u @ vt))
     u[..., :, 2] *= d[..., None] if np.ndim(d) else d
     return (u @ vt).astype(np.float32)
+
+
+def normalize_rotation(R: torch.Tensor) -> torch.Tensor:
+    """Re-orthonormalise near-rotations (...,3,3) by an SVD, the last column
+    of u scaled by det(u vt) (ImuTypes.cc:35-39, the JAX package's formula)."""
+    u, _, vt = torch.linalg.svd(R)
+    det = torch.linalg.det(u @ vt)
+    one = torch.ones_like(det)
+    return (u * torch.stack([one, one, det], dim=-1)[..., None, :]) @ vt
 
 
 class SE3(NamedTuple):

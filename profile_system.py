@@ -1,21 +1,25 @@
 #!/usr/bin/env python3
-"""Device profile of the stereo or RGB-D System on one CUDA GPU.
+"""Device profile of the stereo, RGB-D or monocular System on one CUDA GPU.
 
 Run from the root of a checkout: ``python3 profile_system.py`` (the stereo
-System) or ``python3 profile_system.py --sensor rgbd``.  It builds the
-kernels, renders chip_smoke.py's sequence for the sensor on the host (the
-30-frame stereo corridor, or the 25-frame RGB-D one) and runs the System
+System), ``python3 profile_system.py --sensor rgbd``, ``--sensor mono`` or
+``--sensor reloc``.  It builds the kernels, renders chip_smoke.py's
+sequence for the sensor on the host (the 30-frame stereo corridor, the
+25-frame RGB-D one, the 40-frame mono one, or tests/test_reloc.py's
+scenario on the mono System: 30 frames, 3 blank ones, frame 20 again) and
+runs the System
 over it three times on the card, each time from a fresh System: a warm-up,
 an untraced run, and a run under ``torch.profiler`` (CPU and CUDA
 activity).  From the traced run alone it reports:
 
-- its wall time over the 30 frames (host clock, the card synchronised at
+- its wall time over the frames (host clock, the card synchronised at
   the end), beside the untraced run's: their ratio is the tracer's cost;
 - the device's busy time, the union of the intervals of every device
   operation in the trace (kernels, copies, sets);
 - the device's idle share, 1 - busy / wall, and the number of device
   operations, in all and per frame;
-- the operations with the most device time.
+- the operations with the most device time, and every launch of the
+  port's hand-written kernels (``csrc/``) by name.
 
 The last line is one JSON object with these numbers.  It exits nonzero
 without a CUDA device, if the System loses track, or if the trace holds no
@@ -30,6 +34,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 import chip_smoke as cs
@@ -46,9 +51,12 @@ def run_frames(frames, device, sensor: str, prof=None) -> float:
     if sensor == "stereo":
         slam = System(cs.SYS_CONFIG, "stereo", **opts)
         feed = slam.track_stereo
-    else:
+    elif sensor == "rgbd":
         slam = System(cs.rgbd_settings(), "rgbd", **opts)
         feed = slam.track_rgbd
+    else:  # mono and the relocalisation scenario, which ends relocalised (OK)
+        slam = System(cs.MONO_CONFIG, "monocular", tracker_overrides=dict(min_init_matches=60), **opts)
+        feed = slam.track_monocular
     torch.cuda.synchronize()
     if prof is not None:
         prof.start()
@@ -79,7 +87,7 @@ def busy_us(intervals) -> float:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--sensor", choices=("stereo", "rgbd"), default="stereo")
+    parser.add_argument("--sensor", choices=("stereo", "rgbd", "mono", "reloc"), default="stereo")
     sensor = parser.parse_args().sensor
     if not torch.cuda.is_available():
         raise SystemExit("profile_system: torch.cuda.is_available() is False; this script needs a CUDA card")
@@ -93,7 +101,14 @@ def main() -> int:
     print(smi, flush=True)
     device = torch.device("cuda", 0)
     _kernels.build()
-    frames, _ = cs.corridor_frames(cs.SYS_FRAMES) if sensor == "stereo" else cs.rgbd_frames(cs.RGBD_FRAMES)
+    if sensor in ("mono", "reloc"):
+        imgs = cs.mono_frames(cs.MONO_FRAMES)[0]
+        frames = [(img,) for img in imgs]
+        if sensor == "reloc":
+            blank = np.full((480, 640), 25.0, np.float32)
+            frames = frames[: cs.RELOC_FRAMES] + [(blank,)] * 3 + [(imgs[cs.RELOC_REVISIT],)]
+    else:
+        frames, _ = cs.corridor_frames(cs.SYS_FRAMES) if sensor == "stereo" else cs.rgbd_frames(cs.RGBD_FRAMES)
     run_frames(frames, device, sensor)  # warm-up: kernel loading, allocator, library handles
     untraced_ms = run_frames(frames, device, sensor)
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
@@ -108,6 +123,9 @@ def main() -> int:
         by_name[e.name][0] += 1
         by_name[e.name][1] += (e.time_range.end - e.time_range.start) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:TOP]
+    # the kernels of csrc/ live in anonymous namespaces; PyTorch's do not
+    ours = sorted(((name.split("::")[1].split("(")[0], c, ms) for name, (c, ms) in by_name.items()
+                   if name.startswith("(anonymous namespace)::")), key=lambda x: -x[2])
     n = len(frames)
     print(f"{sensor} System, {n} frames: traced {traced_ms:.3f} ms, untraced {untraced_ms:.3f} ms "
           f"(tracer cost x{traced_ms / untraced_ms:.3f})")
@@ -115,10 +133,12 @@ def main() -> int:
           f"{len(ops)} device operations, {len(ops) / n:.1f} per frame")
     for name, (count, ms) in top:
         print(f"  {ms:10.3f} ms {count:7d}x  {name[:100]}")
+    print("hand-written kernels: " + ", ".join(f"{name} {ms:.3f} ms / {count}" for name, count, ms in ours))
     print(json.dumps({
         "sensor": sensor, "frames": n, "traced_wall_ms": traced_ms, "untraced_wall_ms": untraced_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1 - busy_ms / traced_ms, "device_ops": len(ops), "device_ops_per_frame": len(ops) / n,
-        "top": [{"name": name, "count": count, "ms": ms} for name, (count, ms) in top], "gpu": smi,
+        "top": [{"name": name, "count": count, "ms": ms} for name, (count, ms) in top],
+        "kernels": [{"name": name, "count": count, "ms": ms} for name, count, ms in ours], "gpu": smi,
     }))
     return 0
 

@@ -1,4 +1,4 @@
-"""The kernel wrappers (A-L): CPU tensors take the plain version, other
+"""The kernel wrappers (A-P, no K or O): CPU tensors take the plain version, other
 devices launch the kernel or raise (no fallback); on a CUDA card each
 kernel agrees with its plain version (``cuda`` marker; these skip without a
 card and run there, where JAX is absent, with
@@ -16,14 +16,16 @@ from orb_slam3_fast_tpu_torch.ops import hamming as ham
 from orb_slam3_fast_tpu_torch.ops import image
 from orb_slam3_fast_tpu_torch.ops import matching as mat
 from orb_slam3_fast_tpu_torch.ops import twoview
-from orb_slam3_fast_tpu_torch.optim import ba, pose_opt
+from orb_slam3_fast_tpu_torch.optim import ba, pnp, pose_opt
 from orb_slam3_fast_tpu_torch.utils import lie
+from orb_slam3_fast_tpu_torch.vocab import vocabulary as voc_mod
 
 torch.set_num_threads(1)
 
 WRAPPERS = (fast.fast_nms, ext.orb_describe, ham.hamming_best2, pose_opt.pose_optimization,
             ba.build_normal_blocks, ba.schur_solve, twoview.triangulate_dlt, image.pyramid_blur,
-            ext.select_subpixel, mat.stereo_subpixel_refine, trk.visible_landmarks)
+            ext.select_subpixel, mat.stereo_subpixel_refine, trk.visible_landmarks, twoview.reconstruct,
+            voc_mod.transform, pnp.pnp_ransac)
 FRONT_CFG = ext.ExtractorConfig(n_features=256)
 
 
@@ -175,6 +177,13 @@ def test_cpu_tensors_take_the_plain_version():
     torch.testing.assert_close(mat.stereo_subpixel_refine(*sad_in), mat.stereo_subpixel_refine_plain(*sad_in))
     torch.testing.assert_close(trk.visible_landmarks(cam, T.R, T.t, *lm, (320, 240)),
                                trk.visible_landmarks_plain(cam, T.R, T.t, *lm, (320, 240)))
+    cam, tv, samples, voc, desc, valid, pnp_in, subsets = mono_inputs(rng, "cpu")
+    for case in tv:
+        torch.testing.assert_close(twoview.reconstruct(cam, *case, 0, samples=samples),
+                                   twoview.reconstruct_plain(cam, *case, samples))
+    torch.testing.assert_close(voc_mod.transform(voc, desc, valid), voc_mod.transform_plain(voc, desc, valid))
+    torch.testing.assert_close(pnp.pnp_ransac(cam, *pnp_in, 0, subsets=subsets),
+                               pnp.pnp_ransac_plain(cam, *pnp_in, subsets))
     assert [w.launches for w in WRAPPERS] == before
 
 
@@ -215,17 +224,57 @@ def test_other_devices_raise_without_fallback():
     with pytest.raises(NotImplementedError, match="item 11"):
         trk.visible_landmarks(cm.Camera.kb8(300.0, 300.0, 160.0, 120.0, 0, 0, 0, 0), meta(T.R), meta(T.t),
                               *[meta(x) for x in lm], (320, 240))
+    cam, tv, samples, voc, desc, valid, pnp_in, subsets = mono_inputs(rng, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        twoview.reconstruct(cam, *[meta(x) for x in tv[0]], 0, samples=meta(samples))
+    with pytest.raises(ValueError, match="CUDA"):
+        voc_mod.transform(voc, meta(desc), meta(valid))
+    with pytest.raises(ValueError, match="CUDA"):
+        pnp.pnp_ransac(cam, *[meta(x) for x in pnp_in], 0, subsets=meta(subsets))
+    kb8 = cm.Camera.kb8(300.0, 300.0, 160.0, 120.0, 0, 0, 0, 0)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        twoview.reconstruct(kb8, *[meta(x) for x in tv[0]], 0, samples=meta(samples))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        pnp.pnp_ransac(kb8, *[meta(x) for x in pnp_in], 0, subsets=meta(subsets))
+
+
+def mono_inputs(rng, device):
+    """Inputs of M, N and P at a small size, on ``device``: a planar and a
+    3-D two-view case over 256 slots with their 200 samples, the default
+    vocabulary with 128 random descriptors, and a 256-slot PnP problem with
+    64 subsets."""
+    import chip_smoke
+
+    cam = cm.Camera.pinhole(400.0, 400.0, 320.0, 240.0)
+    plane = chip_smoke.planar_matches(rng, n=256, n_valid=150)
+    X = np.stack([rng.uniform(-3, 3, 256), rng.uniform(-2, 2, 256), rng.uniform(3, 9, 256)], -1)
+    T = lie.se3_exp(torch.tensor([0.3, 0.05, 0.1, 0.02, -0.05, 0.01], dtype=torch.float64)).inverse()
+    X1 = X @ T.R.numpy().T + T.t.numpy()
+    uv = [400.0 * Y[:, :2] / Y[:, 2:] + [320.0, 240.0] + rng.normal(0, 0.5, (256, 2)) for Y in (X, X1)]
+    space = (uv[0].astype(np.float32), uv[1].astype(np.float32), np.arange(256) < 180)
+    tv = [tuple(torch.as_tensor(a).to(device) for a in case) for case in (plane, space)]
+    samples = twoview._sample_hypotheses(1, tv[1][2])
+    voc = voc_mod.default_vocabulary().to(device)
+    desc = ham.pack_desc(torch.as_tensor(rng.integers(0, 2, (128, 256)))).to(device)
+    valid = torch.as_tensor(rng.uniform(size=128) > 0.2).to(device)
+    pnp_in = tuple(torch.as_tensor(a).to(device) for a in chip_smoke.pnp_problem(rng, 256, 200, 0.2)[:4])
+    return cam, tv, samples, voc, desc, valid, pnp_in, pnp._sample_subsets(2, pnp_in[3], 64)
 
 
 def test_build_flags_and_sources():
     srcs = sorted(p.name for p in _kernels.SRC_DIR.glob("*.cu"))
     assert srcs == ["ba_blocks.cu", "ba_schur.cu", "common.cu", "fast_nms.cu", "hamming_best2.cu", "orb_describe.cu",
-                    "pose_lm.cu", "pyramid_blur.cu", "sad_refine.cu", "select_subpixel.cu", "triangulate_dlt.cu",
-                    "visible_landmarks.cu"]
+                    "pnp_ransac.cu", "pose_lm.cu", "pyramid_blur.cu", "sad_refine.cu", "select_subpixel.cu",
+                    "triangulate_dlt.cu", "twoview_ransac.cu", "visible_landmarks.cu", "vocab_transform.cu"]
+    # the one Jacobi eigen-solver, shared by G, M and P
+    assert sorted(p.name for p in _kernels.SRC_DIR.glob("*.cuh")) == ["jacobi.cuh"]
+    for name in ("triangulate_dlt.cu", "twoview_ransac.cu", "pnp_ransac.cu"):
+        assert '#include "jacobi.cuh"' in (_kernels.SRC_DIR / name).read_text()
     assert set(_kernels.SIGNATURES) == {
         "fast_nms_launch", "orb_describe_launch", "hamming_best2_launch", "pose_lm_launch", "ba_blocks_launch",
         "ba_schur_launch", "triangulate_dlt_launch", "pyramid_blur_launch", "select_subpixel_launch",
-        "sad_refine_launch", "visible_landmarks_launch",
+        "sad_refine_launch", "visible_landmarks_launch", "twoview_ransac_launch", "vocab_transform_launch",
+        "pnp_ransac_launch",
     }
     assert "arch=compute_90a,code=sm_90a" in _kernels.NVCC_FLAGS
     assert _kernels.LIB_PATH.parent.name == "_build"
@@ -375,3 +424,36 @@ def test_front_kernels_match_plain_on_card(cuda):
               | near(dist / (dmin * 0.8), 1.0) | near(dist / (dmax * 1.2), 1.0)
               | near((po * normal).sum(1) / dist, 0.5))
     assert torch.equal(lvk[~border], lvp[~border]) and torch.equal(vk[~border], vp[~border])
+
+
+@pytest.mark.cuda
+def test_mono_kernels_match_plain_on_card(cuda):
+    """M, N and P against their plain versions on the same CUDA tensors.  M,
+    on a planar (H) and a 3-D (F) case: success and used_h equal, R within
+    1e-3 rad, t's direction within 1e-3, good equal on >= 99%, X within
+    1e-3 relative where both good.  N: words and nodes exact, the BoW within
+    1e-5 relative on the same words.  P: the count and ok equal, the pose
+    within 1e-3 rad and 1e-3 of the scene scale."""
+    from chip_smoke import rot_angle as _angle
+
+    rng = np.random.default_rng(0)
+    cam, tv, samples, voc, desc, valid, pnp_in, subsets = mono_inputs(rng, cuda)
+    used_h = set()
+    for case in tv:
+        rk = twoview.reconstruct(cam, *case, 0, samples=samples)
+        rp = twoview.reconstruct_plain(cam, *case, samples)
+        assert bool(rk.success) == bool(rp.success) and bool(rk.used_h) == bool(rp.used_h)
+        used_h.add(bool(rp.used_h))
+        assert _angle(rk.R, rp.R) <= 1e-3 and 1.0 - abs(float(torch.dot(rk.t, rp.t))) <= 1e-3
+        assert float((rk.good == rp.good).float().mean()) >= 0.99
+        both = rk.good & rp.good
+        if bool(both.any()):
+            assert float(((rk.X - rp.X).norm(dim=1) / rp.X.norm(dim=1))[both].max()) <= 1e-3
+    assert used_h == {False, True}
+    (wk, nk, bk), (wp, np_, bp) = voc_mod.transform(voc, desc, valid), voc_mod.transform_plain(voc, desc, valid)
+    assert torch.equal(wk, wp) and torch.equal(nk, np_) and torch.equal(bk != 0, bp != 0)
+    assert float(((bk - bp).abs() / bp.abs().clamp(min=1e-30))[bp != 0].max()) <= 1e-5
+    rk, rp = pnp.pnp_ransac(cam, *pnp_in, 0, subsets=subsets), pnp.pnp_ransac_plain(cam, *pnp_in, subsets)
+    assert int(rk.n_inliers) == int(rp.n_inliers) and bool(rk.ok) == bool(rp.ok) and bool(rp.ok)
+    scale = float(pnp_in[0][pnp_in[3]].norm(dim=1).median())
+    assert _angle(rk.R, rp.R) <= 1e-3 and float((rk.t - rp.t).norm()) <= 1e-3 * scale

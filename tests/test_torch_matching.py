@@ -313,3 +313,27 @@ def test_search_for_triangulation(rng):
     b, col = tham.hamming_best2_plain(t0.desc, t1.desc, gate)
     np.testing.assert_array_equal(b.idx.numpy()[at], it[at])
     assert col.shape == (len(f1["xy"]),)
+
+
+def test_search_for_initialization(rng):
+    """Kernel C's window mode with the level-0 test in the validity flags:
+    the same idx and accept as the JAX matcher, on the mono corridor's
+    frames 0 and 5 (the JAX extraction) and on shifted crops whose levels
+    vary."""
+    import chip_smoke
+
+    imgs, _ = chip_smoke.mono_frames(6)
+    cfg = jext.ExtractorConfig(n_features=768)
+    pairs = []
+    for i in (0, 5):
+        kp = jext.extract(jnp.asarray(imgs[i]), cfg)
+        pairs.append((kp, convert.keypoints_to_torch(**{k: np.asarray(getattr(kp, k)) for k in kp._fields},
+                                                     device="cpu")))
+    (j0, t0), (j1, t1) = pairs
+    (c0, u0, _), (c1, u1, _) = _frames(rng, shift=(-6, 4))
+    for (ja, ta), (jb, tb) in (((j0, t0), (j1, t1)), ((c0, u0), (c1, u1))):
+        ij, aj = jmat.search_for_initialization(ja, jb, 100.0)
+        it, at = tmat.search_for_initialization(ta, tb, 100.0)
+        np.testing.assert_array_equal(at.numpy(), np.asarray(aj))
+        np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+        assert at.sum() > 20

@@ -50,11 +50,11 @@ def test_not_ported_options_raise():
     for kw in (dict(OPTS, enable_loop_closing=True), dict(OPTS, multi_map=True), dict(OPTS, async_backend=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tsys.System(CONFIG, "stereo", **kw)
-    for sensor in ("monocular", "rgbd-inertial", "stereo-inertial"):
+    for sensor in ("monocular-inertial", "rgbd-inertial", "stereo-inertial"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tsys.System(CONFIG, sensor, **OPTS)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsys.System(CONFIG, "stereo", vocabulary=object(), **OPTS)
+        tsys.System(CONFIG, "stereo", **OPTS).kfdb.attach_mesh(None)
 
 
 def _jax_tum(tracker, path):
@@ -91,6 +91,8 @@ def test_whole_path_matches_jax(tmp_path):
     n_t, n_j = int(port.world.lm_valid.sum()), int(jt.world.lm_valid.sum())
     assert abs(n_t - n_j) <= 0.03 * n_j
     assert port.world.n_kf >= 3 and port.mapper.n_local_ba >= 2 and port.mapper.n_triangulated > 0
+    # every keyframe indexed for place recognition, culled ones erased
+    np.testing.assert_array_equal(port.kfdb.valid[: port.world.n_kf], port.world.kf_valid[: port.world.n_kf])
     assert {"track_total", "orb_extract", "lm_track"} <= set(port.timers.spans)
     assert {"map_local_ba", "map_triangulate"} <= set(port.mapper.timers.spans)
     assert port.map_changed() and not port.map_changed()
