@@ -81,10 +81,24 @@ RGBD_MIN_KF, RGBD_MIN_BA = 3, 2  # what the JAX tracker + mapper make on those f
 MONO_CONFIG = "configs/synthetic_mono.yaml"
 MONO_FRAMES = 40  # the mono phase: test_slam_e2e.py's mono sequence
 RELOC_FRAMES, RELOC_REVISIT = 30, 20  # test_reloc.py: 30 frames, 3 blank ones, frame 20 again
+TRACK_DT, TRACK_DR = 2e-3, 1e-3  # a System's card run against its host run: t, rotation entries
 # The H100 SXM's published peaks (NVIDIA's data sheet): HBM3 bytes/s, and
 # float32 outside the tensor cores, taken here for all scalar work.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+# The bounds of the kernels that solve small systems (G, M, P) count what a
+# direct method needs, whatever algorithm the kernel runs: r n (n + 1) flops
+# to form the n x n normal matrix of r rows, n^3 for its null vector by
+# elimination, 200 for a 3x3 SVD (the closed-form symmetric eigenproblem).
+SVD3_FLOPS = 200
+
+
+def normal_flops(rows: int, n: int) -> int:
+    return rows * n * (n + 1)
+
+
+def null_flops(n: int) -> int:
+    return n**3
 SHIFT = 2  # px per frame, sideways pan
 DISP_640 = 8  # px of disparity at 640 wide; the plane is at bf / disparity
 
@@ -862,11 +876,11 @@ def compare_system_kernels(device) -> tuple[list[dict], dict]:
     A = torch.stack([x0d[:, 0:1] * P0d[2] - P0d[0], x0d[:, 1:2] * P0d[2] - P0d[1], x1d[:, 0:1] * P1d[2] - P1d[0],
                      x1d[:, 1:2] * P1d[2] - P1d[1]], dim=1)
     lib_g = cuda_ms(lambda: torch.linalg.svd(A), 20)
-    # per match: 16 bytes in, 12 out; a float64 Jacobi eigen-solve of the
-    # 4x4 normal matrix, ~6000 flops
+    # per match: 16 bytes in, 12 out; the 4x4 system (16 flops), its normal
+    # matrix and null vector, and the division by w
     out.append(dict(name="triangulate_dlt", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/triangulate_dlt.cu",
                     replaces="orb_slam3_fast_tpu/ops/twoview.py:164", max_abs_err=err_g,
-                    **bound(N_DLT * 28 + 96, N_DLT * 6000), library_ms=lib_g,
+                    **bound(N_DLT * 28 + 96, N_DLT * (16 + normal_flops(4, 4) + null_flops(4) + 3)), library_ms=lib_g,
                     ms=cuda_ms(lambda: twoview.triangulate_dlt(*dlt), 50), plain_ms=cuda_ms(lambda: twoview.triangulate_dlt_plain(*dlt), 10),
                     shapes=f"{N_DLT} matches ({int(good.sum())} with parallax cos < 0.9998); relative error there, "
                            "tolerance 1e-4"))
@@ -1008,15 +1022,18 @@ def compare_mono_kernels(device) -> list[dict]:
         Af, Ah = twoview._f_rows(s0n[samples], s1n[samples]), twoview._h_rows(s0n[samples], s1n[samples])
         lib = cuda_ms(lambda: (torch.linalg.svd(Af), torch.linalg.svd(Ah)), 20)
         m_ms, m_pms, m_lib = m_ms + ms, m_pms + pms, m_lib + lib
-        n, n_hyp = uv0.shape[0], samples.shape[0]
-        # inputs 17 bytes per slot and the samples; out 12 motions of N points (13 bytes) and the models.
-        # operations: per hypothesis two 9x9 Jacobi solves (~50k flops each) and both scores on every
-        # point (~70 flops); the refit 2 x (45 x 2 x N + 50k); per motion a 4x4 Jacobi DLT (~6000) and
-        # ~60 flops of tests per point, and the bitonic sort
-        n_pad = 1 << (n - 1).bit_length()
-        m_bytes += n * 17 + n_hyp * 32 + 12 * n * 13 + 12 * 60 + 2 * (n + 40)
-        m_ops += (n_hyp * (2 * 50_000 + 70 * n) + 2 * (180 * n + 50_000) + 12 * n * 6060
-                  + 12 * n_pad * (n_pad.bit_length() ** 2) // 4)
+        n, n_hyp, nv, n_good = uv0.shape[0], samples.shape[0], int(valid.sum()), int(rp.good.sum())
+        # bytes: 17 per slot and the samples in; the chosen motion, its X and good flags (13 per slot) out.
+        # operations: the Hartley normalisation (6 per valid point and view); per hypothesis the 8-point F
+        # and H (their normal matrices and null vectors, F's rank-2 SVD, 4 3x3 products to denormalise,
+        # H's inverse by the adjugate) and both transfer scores on every valid point (~90); the refit of
+        # each model on its inliers (normal matrices, ~90 + 180, a null vector, a rescore), the 4 + 8
+        # motions (2 SVDs, ~60 each), and per motion the triangulation (a 4x4 DLT) and CheckRT's tests
+        # (~60) of the model's inliers; the inlier counts are at least the chosen motion's good points
+        m_bytes += n * 17 + n_hyp * 32 + n * 13 + 60
+        fit = normal_flops(8, 9) + normal_flops(16, 9) + 2 * null_flops(9) + SVD3_FLOPS + 4 * 45 + 45
+        m_ops += (2 * 6 * nv + n_hyp * (fit + 90 * nv) + 2 * null_flops(9) + SVD3_FLOPS + n_good * (12 + 90 + 180 + 90)
+                  + 2 * SVD3_FLOPS + 12 * 60 + 12 * n_good * (16 + normal_flops(4, 4) + null_flops(4) + 60))
         m_notes.append(f"{label}: {int(valid.sum())} valid of {n}, success {bool(rp.success)}, used_h "
                        f"{bool(rp.used_h)}, R {ang:.2e} rad, t dir {t_dir:.2e}, good equal {good_eq:.4f}, X "
                        f"{x_err:.2e}; {ms:.4f} ms (plain {pms:.4f}, svd {lib:.4f})")
@@ -1044,11 +1061,16 @@ def compare_mono_kernels(device) -> list[dict]:
         ms = cuda_ms(lambda: voc_mod.transform(voc, kp5.desc, kp5.valid), 50)
         pms = cuda_ms(lambda: voc_mod.transform_plain(voc, kp5.desc, kp5.valid), 10)
         n_ms, n_pms = n_ms + ms, n_pms + pms
-        nv, B, D = int(kp5.valid.sum()), voc.branching, voc.depth
-        # per valid descriptor: 33 bytes in, D x B centroids (33 bytes each) and a weight read, 16 bytes out;
-        # the (W,) BoW written once; D x B x 24 integer operations, and a divide per word
-        n_bytes += kp5.n * 49 + nv * (D * B * 33 + 4) + 4 * voc.n_words
-        n_ops += nv * D * B * 24 + voc.n_words
+        nv, B, D, W = int(kp5.valid.sum()), voc.branching, voc.depth, voc.n_words
+        # bytes: 33 per slot in and 16 out (word, node); the tree rows the descent reads (33 bytes each),
+        # B children of each distinct node it passes (the root, then the distinct ancestors of the words:
+        # the node of level l - 1 above word w is w // B^(D - l)); the idf weight of each distinct word;
+        # the (W,) BoW written once.  Operations: D x B Hamming distances of 24 integer operations per
+        # valid descriptor, and a divide per non-zero word
+        words = wp[kp5.valid]
+        rows = B * (1 + sum(int(torch.unique(words // B ** (D - lvl)).numel()) for lvl in range(1, D)))
+        n_bytes += kp5.n * 49 + rows * 33 + 4 * int(torch.unique(words).numel()) + 4 * W
+        n_ops += nv * D * B * 24 + int((bp != 0).sum())
         n_notes.append(f"{label} ({nv} valid of {kp5.n}, {int((bp != 0).sum())} words): {ms:.4f} ms (plain "
                        f"{pms:.4f}), BoW within {rel:.2e} relative")
     out.append(dict(name="vocab_transform", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/vocab_transform.cu",
@@ -1077,15 +1099,20 @@ def compare_mono_kernels(device) -> list[dict]:
     z = torch.zeros_like(Xh)
     A = torch.cat([torch.cat([Xh, z, -xn[subsets][..., 0:1] * Xh], -1), torch.cat([z, Xh, -xn[subsets][..., 1:2] * Xh], -1)], 1)
     lib = cuda_ms(lambda: torch.linalg.svd(A), 20)
-    n, h = xw.shape[0], subsets.shape[0]
-    # in: 37 bytes per slot and the subsets; out: the pose, the mask and the flags.  Per subset a 12x12
-    # Jacobi (~10 sweeps x 66 rotations x 216 flops), per sign Procrustes and 4 GN steps (~5 3x3 Jacobi
-    # SVDs and 6x6 Cholesky solves, ~20k flops); 512 poses x N points x ~40 flops of scoring
+    n, h, nv = xw.shape[0], subsets.shape[0], int(valid.sum())
+    # bytes: 25 per slot and the subsets in; the pose, the mask and the flags out.  Operations: the
+    # conditioning (6 per valid point); per subset the 12x12 DLT's normal matrix and null vector, and per
+    # sign Procrustes (an SVD and ~100) and 4 GN steps on the 6 points (residuals and Jacobian ~54 per
+    # point, the 6x6 normal matrix, its Cholesky and solves ~150, so3_exp ~60 and normalize_rotation's
+    # SVD); 512 poses scored on every valid point (~45: transform, radtan projection, error) and the
+    # winner's inlier mask
+    gn = 6 * 54 + normal_flops(12, 6) + 144 + 150 + 60 + SVD3_FLOPS
+    p_ops = 6 * nv + h * (normal_flops(12, 12) + null_flops(12) + 2 * (SVD3_FLOPS + 100 + 4 * gn)) + (2 * h + 1) * nv * 45
     out.append(dict(name="pnp_ransac", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/pnp_ransac.cu",
                     replaces="orb_slam3_fast_tpu/optim/pnp.py:110", max_abs_err=max(ang, dt),
                     ms=cuda_ms(lambda: pnp.pnp_ransac(cam, xw, uv, inv_s2, valid, 0, subsets=subsets), 20),
                     plain_ms=cuda_ms(lambda: pnp.pnp_ransac_plain(cam, xw, uv, inv_s2, valid, subsets), 5),
-                    **bound(n * 37 + h * 24 + 48 + n + 5, h * (10 * 66 * 216 + 2 * 20_000) + 2 * h * n * 40),
+                    **bound(n * 25 + h * 24 + 48 + n + 5, p_ops),
                     library_ms=lib,
                     shapes=f"{n} slots ({int(valid.sum())} valid, 20% outliers), {h} subsets: {int(rp.n_inliers)} "
                            f"inliers on both, ok on both, R {ang:.2e} rad, t {dt:.2e} of the scene scale, inlier "
@@ -1259,25 +1286,19 @@ def run_system(frames, poses, device, sensor: str = "stereo"):
 
 def compare_tracks(track_c, track_p) -> tuple[list[str], str]:
     """Per-frame (state, R, t) of a run on the card against the same run with
-    the plain versions on the host: the same state, rotation entries within
-    1e-3, and t within 2e-3 plus 1e-3 of the distance the camera has
-    travelled so far (in the run's units).  The whole-path tests hold 2e-3
-    over 8-13 frames; over 30-40 frames the card's own runs drift apart: on
-    the stereo corridor two card runs differed by 1.85e-3 at frame 29, and a
-    card run from its plain one by 1.8e-3 to 3.3e-3 (E sums with float
-    atomics, whose order changes from run to run; PERF.md, PR 4, call 2).
+    the plain versions on the host, at the whole-path tests' tolerances: the
+    same state, t within ``TRACK_DT`` and rotation entries within
+    ``TRACK_DR``.  Kernels E and F sum in a fixed order, so a run on the card
+    repeats exactly (``track_spread.py`` measures it; PERF.md, PR 4).
     Returns (failures, summary)."""
-    bad, dt, travelled, worst = [], [], 0.0, 0.0
+    bad, dt, dr = [], [], []
     for i, ((sc, Rc, tc), (sp, Rp, tp)) in enumerate(zip(track_c, track_p)):
-        if i:
-            travelled += float(np.linalg.norm(-Rc.T @ tc + track_c[i - 1][1].T @ track_c[i - 1][2]))
-        d = float(np.abs(tc - tp).max())
-        dt.append(d)
-        worst = max(worst, d / (2e-3 + 1e-3 * travelled))
-        if sc != sp or d > 2e-3 + 1e-3 * travelled or np.abs(Rc - Rp).max() > 1e-3:
-            bad.append(f"frame {i}: card {sc} {tc} vs plain {sp} {tp}")
-    return bad, (f"{len(track_c)} frames, max |dt| {max(dt):.3g} at frame {int(np.argmax(dt))} ({worst:.2f} of its "
-                 f"tolerance), path {travelled:.3g}")
+        dt.append(float(np.abs(tc - tp).max()))
+        dr.append(float(np.abs(Rc - Rp).max()))
+        if sc != sp or dt[-1] > TRACK_DT or dr[-1] > TRACK_DR:
+            bad.append(f"frame {i}: card {sc} {tc} vs plain {sp} {tp}, |dR| {dr[-1]:.3g}")
+    return bad, (f"{len(track_c)} frames, max |dt| {max(dt):.3g} at frame {int(np.argmax(dt))} (bound {TRACK_DT:g}), "
+                 f"max |dR| {max(dr):.3g} (bound {TRACK_DR:g})")
 
 
 def check_system_against_plain(card, plain) -> tuple[list[str], str]:

@@ -47,9 +47,9 @@ SIGNATURES = {
     # n_rounds, iters, R_out, t_out, inlier_out, n_inl_out, stream
     "pose_lm_launch": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
     # cam5, R, t, xw, pose_fixed, lm_valid, obs_kf, obs_lm, obs_uv,
-    # inv_sigma2, is_stereo, obs_valid, inlier, n_obs, Hpp, Hll, bp, bl, W,
-    # w_lm, cost, stream
-    "ba_blocks_launch": [_P] * 13 + [_I] + [_P] * 8,
+    # inv_sigma2, is_stereo, obs_valid, inlier, n_obs, n_kf, n_lm, W, acc
+    # (float64 sums), out (Hpp | Hll | bp | bl | w_lm | cost), stream
+    "ba_blocks_launch": [_P] * 13 + [_I] * 3 + [_P] * 4,
     # Hpp, Hll, bp, bl, W, w_lm, pose_fixed, lm_valid, obs_kf, lm_ptr,
     # lm_obs, lam, n_poses, n_lm, n_obs, S, bs, dp, dl, fail, stream
     "ba_schur_launch": [_P] * 12 + [_I] * 3 + [_P] * 6,

@@ -1,7 +1,11 @@
 // Kernel E: local-BA normal-equation blocks, one thread per observation:
-// residual, closed-form stereo pin-hole Jacobian, Huber weight, atomic sums
-// into Hpp / Hll / bp / bl / w_lm / cost and the per-observation coupling
-// W_o = Jp^T w Jl.  See the source note in optim/ba.py;
+// residual, closed-form stereo pin-hole Jacobian, Huber weight, float64
+// atomic sums into Hpp / Hll / bp / bl / w_lm / cost and the per-observation
+// coupling W_o = Jp^T w Jl; a second launch rounds the sums to float32.  The
+// order in which the atomics land moves a float64 sum of float32 terms by
+// ~1e-16 of its size, which the rounding hides: a run repeats bit for bit,
+// where float32 atomics would round each run differently and a System's
+// runs on the card would drift apart.  See the source note in optim/ba.py;
 // build_normal_blocks_plain there is the JAX form with the dense Z.
 #include <cuda_runtime.h>
 #include <math.h>
@@ -21,9 +25,15 @@ ba_blocks_kernel(const float* __restrict__ cam5, const float* __restrict__ R,
                  const int* __restrict__ obs_kf, const int* __restrict__ obs_lm,
                  const float* __restrict__ obs_uv, const float* __restrict__ inv_s2,
                  const uint8_t* __restrict__ is_stereo, const uint8_t* __restrict__ obs_valid,
-                 const uint8_t* __restrict__ inlier, int n_obs, float* __restrict__ Hpp,
-                 float* __restrict__ Hll, float* __restrict__ bp, float* __restrict__ bl,
-                 float* __restrict__ W, float* __restrict__ w_lm, float* __restrict__ cost) {
+                 const uint8_t* __restrict__ inlier, int n_obs, int n_kf, int n_lm,
+                 float* __restrict__ W, double* __restrict__ acc) {
+  // acc: Hpp (K,6,6) | Hll (M,3,3) | bp (K,6) | bl (M,3) | w_lm (M) | cost
+  double* Hpp = acc;
+  double* Hll = Hpp + 36 * n_kf;
+  double* bp = Hll + 9 * n_lm;
+  double* bl = bp + 6 * n_kf;
+  double* w_lm = bl + 3 * n_lm;
+  double* cost = w_lm + n_lm;
   const int o = blockIdx.x * kThreads + threadIdx.x;
   float rho = 0.f;
   if (o < n_obs) {
@@ -91,29 +101,34 @@ ba_blocks_kernel(const float* __restrict__ cam5, const float* __restrict__ R,
 #pragma unroll
     for (int i = 0; i < 18; ++i) W[18 * o + i] = wo[i];
     if (w != 0.f) {
-      float* H = Hpp + 36 * k;
+      double* H = Hpp + 36 * k;
       int h = 0;
       for (int i = 0; i < 6; ++i)
         for (int j = i; j < 6; ++j, ++h) {
-          atomicAdd(&H[6 * i + j], hpp[h]);
-          if (j != i) atomicAdd(&H[6 * j + i], hpp[h]);
+          atomicAdd(&H[6 * i + j], (double)hpp[h]);
+          if (j != i) atomicAdd(&H[6 * j + i], (double)hpp[h]);
         }
-      float* L = Hll + 9 * m;
+      double* L = Hll + 9 * m;
       h = 0;
       for (int i = 0; i < 3; ++i)
         for (int j = i; j < 3; ++j, ++h) {
-          atomicAdd(&L[3 * i + j], hll[h]);
-          if (j != i) atomicAdd(&L[3 * j + i], hll[h]);
+          atomicAdd(&L[3 * i + j], (double)hll[h]);
+          if (j != i) atomicAdd(&L[3 * j + i], (double)hll[h]);
         }
-      for (int i = 0; i < 6; ++i) atomicAdd(&bp[6 * k + i], gp[i]);
-      for (int i = 0; i < 3; ++i) atomicAdd(&bl[3 * m + i], gl[i]);
-      atomicAdd(&w_lm[m], w);
+      for (int i = 0; i < 6; ++i) atomicAdd(&bp[6 * k + i], (double)gp[i]);
+      for (int i = 0; i < 3; ++i) atomicAdd(&bl[3 * m + i], (double)gl[i]);
+      atomicAdd(&w_lm[m], (double)w);
     }
   }
   // the robust cost: a warp sum, then one atomic per warp
 #pragma unroll
   for (int s = 16; s > 0; s >>= 1) rho += __shfl_down_sync(kFull, rho, s);
-  if ((threadIdx.x & 31) == 0 && rho != 0.f) atomicAdd(cost, rho);
+  if ((threadIdx.x & 31) == 0 && rho != 0.f) atomicAdd(cost, (double)rho);
+}
+
+__global__ void round_kernel(const double* __restrict__ acc, float* __restrict__ out, int n) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x)
+    out[i] = (float)acc[i];
 }
 
 }  // namespace
@@ -123,13 +138,18 @@ extern "C" int ba_blocks_launch(const float* cam5, const float* R, const float* 
                                 const int* obs_kf, const int* obs_lm, const float* obs_uv,
                                 const float* inv_s2, const uint8_t* is_stereo,
                                 const uint8_t* obs_valid, const uint8_t* inlier, int n_obs,
-                                float* Hpp, float* Hll, float* bp, float* bl, float* W,
-                                float* w_lm, float* cost, void* stream) {
+                                int n_kf, int n_lm, float* W, double* acc, float* out,
+                                void* stream) {
+  // acc: the zeroed float64 sums; out: the same layout in float32
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_obs > 0) {
     const int grid = (n_obs + kThreads - 1) / kThreads;
-    ba_blocks_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        cam5, R, t, xw, pose_fixed, lm_valid, obs_kf, obs_lm, obs_uv, inv_s2, is_stereo, obs_valid,
-        inlier, n_obs, Hpp, Hll, bp, bl, W, w_lm, cost);
+    ba_blocks_kernel<<<grid, kThreads, 0, st>>>(cam5, R, t, xw, pose_fixed, lm_valid, obs_kf, obs_lm,
+                                               obs_uv, inv_s2, is_stereo, obs_valid, inlier, n_obs,
+                                               n_kf, n_lm, W, acc);
   }
+  const int n = 42 * n_kf + 13 * n_lm + 1;
+  const int grid = (n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024;
+  round_kernel<<<grid, 256, 0, st>>>(acc, out, n);
   return cudaGetLastError();
 }

@@ -1,6 +1,9 @@
 // Kernel F: the damped pose-landmark Schur solve of local BA in three
-// launches: (1) per landmark, V^-1 and the pair products W_i V^-1 W_j^T
-// subtracted from the lower triangle of S (float64 atomics); (2) one CTA
+// launches: (1) per pair of free poses (ki >= kj), the sum over landmarks of
+// the pair products W_i V^-1 W_j^T into block (ki, kj) of S, and on the
+// diagonal W_i V^-1 bl into b_s, each in a fixed order (threads stride the
+// landmarks, then a shuffle tree and the warps in turn), so that a run
+// repeats bit for bit; (2) one CTA
 // adds the damped pose blocks and the gauge terms and solves the (6K)^2
 // system by Cholesky in float64 shared memory; (3) per landmark, the
 // back-substitution of dl.  A Cholesky pivot <= 0 (an indefinite reduced
@@ -14,7 +17,7 @@
 
 namespace {
 
-constexpr int kReduceThreads = 256;  // 8 landmarks per block, one warp each
+constexpr int kReduceThreads = 256;  // per pose pair, landmarks strided over the threads
 constexpr int kSolveThreads = 1024;
 constexpr int kBacksubThreads = 128;
 constexpr unsigned kFull = 0xFFFFFFFFu;
@@ -64,49 +67,84 @@ schur_reduce_kernel(const float* __restrict__ Hll, const float* __restrict__ bl,
                     const float* __restrict__ W, const float* __restrict__ w_lm,
                     const uint8_t* __restrict__ pose_fixed, const int* __restrict__ obs_kf,
                     const int* __restrict__ lm_ptr, const int* __restrict__ lm_obs,
-                    const float* __restrict__ lam_p, int n_lm, int n6, double* __restrict__ S,
+                    const float* __restrict__ lam_p, int n_lm, int n_poses, double* __restrict__ S,
                     double* __restrict__ bs) {
-  const int lane = threadIdx.x & 31;
-  const int m = blockIdx.x * (kReduceThreads / 32) + (threadIdx.x >> 5);
-  if (m >= n_lm) return;
-  const int base = lm_ptr[m], n = lm_ptr[m + 1] - base;
-  if (n == 0) return;
-  double V[3][3];
-  damped_inverse(Hll + 9 * m, *lam_p, w_lm[m] > 0.f, V);
-  // b_s -= W_i V^-1 bl
-  const double b0 = bl[3 * m], b1 = bl[3 * m + 1], b2 = bl[3 * m + 2];
-  const double vb[3] = {V[0][0] * b0 + V[0][1] * b1 + V[0][2] * b2,
-                        V[1][0] * b0 + V[1][1] * b1 + V[1][2] * b2,
-                        V[2][0] * b0 + V[2][1] * b1 + V[2][2] * b2};
-  for (int i = lane; i < n; i += 32) {
-    const int o = lm_obs[base + i], k = obs_kf[o];
-    if (pose_fixed[k]) continue;  // its W is zero
-    const float* Wo = W + 18 * o;
+  // block -> (ki, kj), ki >= kj, the lower triangle in row order
+  const int blk = blockIdx.x;
+  int ki = 0;
+  while ((ki + 1) * (ki + 2) / 2 <= blk) ++ki;
+  const int kj = blk - ki * (ki + 1) / 2;
+  if (pose_fixed[ki] || pose_fixed[kj]) return;  // their W are zero; the whole block leaves here
+  const bool diag = ki == kj;
+  const int n6 = 6 * n_poses;
+  const float lam = *lam_p;
+  double acc[42];  // the S block at 6 a + b, then b_s at 36 + a
 #pragma unroll
-    for (int a = 0; a < 6; ++a)
-      atomicAdd(&bs[6 * k + a], -(Wo[3 * a] * vb[0] + Wo[3 * a + 1] * vb[1] + Wo[3 * a + 2] * vb[2]));
-  }
-  // S -= W_i V^-1 W_j^T over the ordered pairs (i, j), lower triangle only
-  for (int p = lane; p < n * n; p += 32) {
-    const int oi = lm_obs[base + p / n], oj = lm_obs[base + p % n];
-    const int ki = obs_kf[oi], kj = obs_kf[oj];
-    if (ki < kj || pose_fixed[ki] || pose_fixed[kj]) continue;
-    const float* Wi = W + 18 * oi;
-    const float* Wj = W + 18 * oj;
-    double wv[6][3];
+  for (int e = 0; e < 42; ++e) acc[e] = 0.0;
+  for (int m = threadIdx.x; m < n_lm; m += kReduceThreads) {
+    const int beg = lm_ptr[m], end = lm_ptr[m + 1];
+    bool has_i = false, has_j = false;
+    for (int e = beg; e < end; ++e) {
+      const int k = obs_kf[lm_obs[e]];
+      has_i |= k == ki;
+      has_j |= k == kj;
+    }
+    if (!(has_i && has_j)) continue;
+    double V[3][3];
+    damped_inverse(Hll + 9 * m, lam, w_lm[m] > 0.f, V);
+    // b_s -= W_i V^-1 bl
+    const double b0 = bl[3 * m], b1 = bl[3 * m + 1], b2 = bl[3 * m + 2];
+    const double vb[3] = {V[0][0] * b0 + V[0][1] * b1 + V[0][2] * b2,
+                          V[1][0] * b0 + V[1][1] * b1 + V[1][2] * b2,
+                          V[2][0] * b0 + V[2][1] * b1 + V[2][2] * b2};
+    for (int e = beg; e < end; ++e) {
+      const int oi = lm_obs[e];
+      if (obs_kf[oi] != ki) continue;
+      const float* Wi = W + 18 * oi;
+      if (diag)
 #pragma unroll
-    for (int a = 0; a < 6; ++a)
+        for (int a = 0; a < 6; ++a) acc[36 + a] -= Wi[3 * a] * vb[0] + Wi[3 * a + 1] * vb[1] + Wi[3 * a + 2] * vb[2];
+      double wv[6][3];
 #pragma unroll
-      for (int c = 0; c < 3; ++c)
-        wv[a][c] = Wi[3 * a] * V[0][c] + Wi[3 * a + 1] * V[1][c] + Wi[3 * a + 2] * V[2][c];
+      for (int a = 0; a < 6; ++a)
 #pragma unroll
-    for (int a = 0; a < 6; ++a)
+        for (int c = 0; c < 3; ++c)
+          wv[a][c] = Wi[3 * a] * V[0][c] + Wi[3 * a + 1] * V[1][c] + Wi[3 * a + 2] * V[2][c];
+      // S -= W_i V^-1 W_j^T over the observations j of this landmark from kj
+      for (int f = beg; f < end; ++f) {
+        const int oj = lm_obs[f];
+        if (obs_kf[oj] != kj) continue;
+        const float* Wj = W + 18 * oj;
 #pragma unroll
-      for (int b = 0; b < 6; ++b) {
-        if (ki == kj && b > a) continue;
-        const double val = wv[a][0] * Wj[3 * b] + wv[a][1] * Wj[3 * b + 1] + wv[a][2] * Wj[3 * b + 2];
-        atomicAdd(&S[(size_t)(6 * ki + a) * n6 + 6 * kj + b], -val);
+        for (int a = 0; a < 6; ++a)
+#pragma unroll
+          for (int b = 0; b < 6; ++b) {
+            if (diag && b > a) continue;
+            acc[6 * a + b] -= wv[a][0] * Wj[3 * b] + wv[a][1] * Wj[3 * b + 1] + wv[a][2] * Wj[3 * b + 2];
+          }
       }
+    }
+  }
+  __shared__ double part[kReduceThreads / 32][42];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int e = 0; e < 42; ++e) {
+    double v = acc[e];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
+    if (lane == 0) part[warp][e] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < 42) {
+    const int e = threadIdx.x;
+    double v = 0.0;
+    for (int w = 0; w < kReduceThreads / 32; ++w) v += part[w][e];
+    if (e < 36) {
+      const int a = e / 6, b = e % 6;
+      if (!diag || b <= a) S[(size_t)(6 * ki + a) * n6 + 6 * kj + b] = v;
+    } else if (diag) {
+      bs[6 * ki + e - 36] = v;
+    }
   }
 }
 
@@ -230,9 +268,8 @@ extern "C" int ba_schur_launch(const float* Hpp, const float* Hll, const float* 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n6 = 6 * n_poses;
   if (n_lm > 0) {
-    const int lm_per_block = kReduceThreads / 32;
-    schur_reduce_kernel<<<(n_lm + lm_per_block - 1) / lm_per_block, kReduceThreads, 0, st>>>(
-        Hll, bl, W, w_lm, pose_fixed, obs_kf, lm_ptr, lm_obs, lam, n_lm, n6, S, bs);
+    schur_reduce_kernel<<<n_poses * (n_poses + 1) / 2, kReduceThreads, 0, st>>>(
+        Hll, bl, W, w_lm, pose_fixed, obs_kf, lm_ptr, lm_obs, lam, n_lm, n_poses, S, bs);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }

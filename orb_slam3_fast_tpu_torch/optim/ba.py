@@ -30,11 +30,15 @@ Kernel E -- source note.
   K12): residuals, ``jax.jacfwd`` projection Jacobians, and segment sums
   into Hpp, Hll, bp, bl and the dense Z.
   Bound on the card: atomics.  One thread per observation does ~400 flops
-  and ~70 float ``atomicAdd``s into K * 42 + M * 13 sums; the observation
+  and ~70 float64 ``atomicAdd``s into K * 42 + M * 13 sums; the observation
   table (O = 16384) is 1 MB.
   Design: closed-form stereo pin-hole Jacobian (as kernel D), ``Jp`` zeroed
   for fixed poses, ``W_o`` written per observation, the cost reduced per
-  warp before one atomic.  Pin-hole cameras without distortion only; the
+  warp before one atomic.  The sums are float64, rounded to float32 by a
+  second launch, so that their order does not reach the result and a run
+  on the card repeats exactly; float32 atomics would round each run
+  differently, and a System's runs would drift apart (3.3e-3 m over 30
+  frames of the stereo corridor, PERF.md).  Pin-hole cameras without distortion only; the
   wrapper raises for others (the plain version handles them).
 
 Kernel F -- source note.
@@ -45,12 +49,16 @@ Kernel F -- source note.
   Bound on the card: latency.  The reduction does ~100 flops per pair of
   observations of one landmark (~16 pairs per landmark here); the solve is
   a 192 x 192 Cholesky, ~1.2 Mflop with 192 dependent steps.
-  Design: three launches.  (1) One warp per landmark (observations grouped
-  by landmark through the CSR offsets ``lm_ptr`` / ``lm_obs``, built on
-  the host at gather time) inverts the damped 3x3 block in float64 and
-  subtracts ``W_i V^-1 W_j^T`` for each pair of its observations from the
-  lower triangle of S, and ``W_i V^-1 bl`` from b_s, with float64
-  ``atomicAdd``.  (2) One CTA of 1024 threads adds the damped pose blocks,
+  Design: three launches.  (1) One CTA per pair of free poses (ki >= kj)
+  strides its threads over the landmarks (observations grouped by landmark
+  through the CSR offsets ``lm_ptr`` / ``lm_obs``, built on the host at
+  gather time); where a landmark is seen from both poses it inverts the
+  damped 3x3 block in float64 and subtracts ``W_i V^-1 W_j^T`` for each
+  such pair of its observations, and on the diagonal ``W_i V^-1 bl``; a
+  shuffle tree and the warps in turn sum the threads into block (ki, kj)
+  of S and b_s.  The order of every sum is fixed, so a run repeats bit for
+  bit (float64 atomics, in whatever order they land, move S by ~1e-16,
+  which an ill-conditioned S can carry into the last bit of dp).  (2) One CTA of 1024 threads adds the damped pose blocks,
   the gauge handling and ``1e-6 I`` as the reference does, factors the
   packed lower triangle in float64 shared memory (148 KB at 6K = 192) and
   solves by two warp-parallel substitutions.  (3) One thread per landmark
@@ -253,22 +261,19 @@ def build_normal_blocks(cam, bf, R, t, xw, prob: BAProblem, inlier):
     dev = R.device
     K, M, O = R.shape[0], xw.shape[0], prob.obs_kf.shape[0]
     cam5 = _kernel_camera(cam, bf, dev)
-    Hpp = torch.zeros((K, 6, 6), dtype=f32, device=dev)
-    Hll = torch.zeros((M, 3, 3), dtype=f32, device=dev)
-    bp = torch.zeros((K, 6), dtype=f32, device=dev)
-    bl = torch.zeros((M, 3), dtype=f32, device=dev)
+    sizes = (K * 36, M * 9, K * 6, M * 3, M, 1)  # Hpp, Hll, bp, bl, w_lm, cost in one buffer
+    acc = torch.zeros(sum(sizes), dtype=torch.float64, device=dev)
+    out = torch.empty(sum(sizes), dtype=f32, device=dev)
     W = torch.empty((O, 6, 3), dtype=f32, device=dev)
-    w_lm = torch.zeros(M, dtype=f32, device=dev)
-    cost = torch.zeros((), dtype=f32, device=dev)
     _kernels.launch(
         "ba_blocks_launch", dev, cam5.data_ptr(), R.data_ptr(), t.data_ptr(), xw.data_ptr(),
         prob.pose_fixed.data_ptr(), prob.lm_valid.data_ptr(), prob.obs_kf.data_ptr(), prob.obs_lm.data_ptr(),
         prob.obs_uv.data_ptr(), prob.obs_inv_sigma2.data_ptr(), prob.obs_is_stereo.data_ptr(),
-        prob.obs_valid.data_ptr(), inlier.data_ptr(), O, Hpp.data_ptr(), Hll.data_ptr(), bp.data_ptr(),
-        bl.data_ptr(), W.data_ptr(), w_lm.data_ptr(), cost.data_ptr(),
+        prob.obs_valid.data_ptr(), inlier.data_ptr(), O, K, M, W.data_ptr(), acc.data_ptr(), out.data_ptr(),
     )
     build_normal_blocks.launches += 1
-    return Hpp, Hll, bp, bl, W, w_lm, cost
+    Hpp, Hll, bp, bl, w_lm, cost = torch.split(out, sizes)
+    return Hpp.view(K, 6, 6), Hll.view(M, 3, 3), bp.view(K, 6), bl.view(M, 3), W, w_lm, cost.view(())
 
 
 build_normal_blocks.launches = 0

@@ -2,11 +2,12 @@
 tf-idf bag of words.
 
 Counterpart of ``orb_slam3_fast_tpu/vocab/vocabulary.py`` (DBoW2's
-TemplatedVocabulary): a complete B-ary tree stored as dense per-level
-centroid tables, level l holding B^(l+1) nodes, child j of node p at index
-``p * B + j``; dead branches are masked by ``alive``.  The port keeps each
-level packed as (nodes, 8) int32 words (``ops.hamming.pack_desc``'s layout)
-and reads the JAX package's ``.npz`` files by path; ``checksum`` hashes the
+TemplatedVocabulary): a complete B-ary tree, level l holding B^(l+1)
+nodes, child j of node p at index ``p * B + j``; dead branches are masked
+by ``alive``.  The port keeps every level in one table of (nodes, 8) int32
+packed words (``ops.hamming.pack_desc``'s layout), level after level, which
+the plain descent and kernel N index alike, and reads the JAX package's
+``.npz`` files by path; ``checksum`` hashes the
 unpacked int8 centroids with their 0x7F sentinels and the weights, exactly
 as the JAX package does, so a map saved by either package loads in the
 other.  Training waits for ROADMAP §A item 8's remainder (a missing file
@@ -21,9 +22,10 @@ Kernel N -- source note.
   (N, B, 256) int8 gather and an int32 MXU einsum over unpacked bits, then
   an idf scatter-add and an L1 normalisation.
   Bound on the card: latency.  768 descriptors x 4 levels x 10 children
-  are 31k Hamming distances (~0.8 Mop) over ~1 MB of centroids at most;
-  with the 10^6-word vocabulary the (W,) zeroing and normalisation (8 MB
-  of writes and reads) is what binds.
+  are 31k Hamming distances (~0.8 Mop) over the distinct tree rows the
+  descent reads (the upper levels are shared by every descriptor); with
+  the 10^6-word vocabulary the (W,) zeroing and normalisation (8 MB of
+  writes and reads) is what binds.
   Design: one warp per descriptor.  At each level lanes 0..B-1 take one
   child each: 8 XOR + ``__popc`` on the packed words, ``1 << 20`` for a
   dead child; a shuffle argmin on (distance, child) sends ties to the
@@ -35,7 +37,6 @@ Kernel N -- source note.
 """
 from __future__ import annotations
 
-import functools
 import hashlib
 from dataclasses import dataclass
 from pathlib import Path
@@ -68,23 +69,34 @@ def _unpack_np(words: np.ndarray) -> np.ndarray:
 
 @dataclass(frozen=True)
 class Vocabulary:
-    """Dense complete-tree vocabulary.
+    """Dense complete-tree vocabulary in one table.
 
-    ``centroids[l]``: (B^(l+1), 8) int32 packed centroids of level l;
-    ``alive[l]``: (B^(l+1),) bool; ``weights``: (B^depth,) float32 idf;
-    leaves are the nodes of level ``depth - 1`` and a word is a leaf index.
+    ``centroids``: (sum_l B^(l+1), 8) int32 packed centroids, level after
+    level, node p of level l at row ``offset(l) + p``; ``alive``: the rows'
+    (sum_l B^(l+1),) bool; ``weights``: (B^depth,) float32 idf; leaves are
+    the nodes of level ``depth - 1`` and a word is a leaf index.
     """
 
     branching: int
     depth: int
-    centroids: tuple
-    alive: tuple
+    centroids: torch.Tensor
+    alive: torch.Tensor
     weights: torch.Tensor
     levels_up: int = 2
 
     @property
     def n_words(self) -> int:
         return self.branching**self.depth
+
+    def offset(self, level: int) -> int:
+        """Row of level ``level``'s first node in the table."""
+        return sum(self.branching ** (k + 1) for k in range(level))
+
+    def level(self, level: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Level ``level``'s (B^(level+1), 8) centroids and alive flags, as
+        views of the table."""
+        rows = slice(self.offset(level), self.offset(level + 1))
+        return self.centroids[rows], self.alive[rows]
 
     def checksum(self) -> str:
         """MD5 of the tree as the JAX package computes it
@@ -93,8 +105,8 @@ class Vocabulary:
         weights."""
         h = hashlib.md5()
         h.update(str((self.branching, self.depth)).encode())
-        for c, a in zip(self.centroids, self.alive):
-            c, a = c.cpu().numpy(), a.cpu().numpy()
+        for lvl in range(self.depth):
+            c, a = (x.cpu().numpy() for x in self.level(lvl))
             for s in range(0, len(c), 1 << 16):  # in row chunks: the 10^6-word level is 256 MB unpacked
                 rows = _unpack_np(c[s : s + (1 << 16)])
                 rows[~a[s : s + (1 << 16)]] = _SENTINEL
@@ -104,16 +116,8 @@ class Vocabulary:
 
     def to(self, device) -> "Vocabulary":
         """The same vocabulary with its tables on ``device``."""
-        mv = lambda ts: tuple(t.to(device) for t in ts)  # noqa: E731
-        return Vocabulary(self.branching, self.depth, mv(self.centroids), mv(self.alive), self.weights.to(device),
-                          self.levels_up)
-
-    @functools.cached_property
-    def flat(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """Kernel N's tables: every level's centroids, level after level, as
-        one (sum B^(l+1), 8) int32 tensor, and ``alive`` as uint8."""
-        return (torch.cat(self.centroids).contiguous(),
-                torch.cat(self.alive).to(torch.uint8).contiguous())
+        return Vocabulary(self.branching, self.depth, self.centroids.to(device), self.alive.to(device),
+                          self.weights.to(device), self.levels_up)
 
     @staticmethod
     def load(path) -> "Vocabulary":
@@ -132,10 +136,11 @@ class Vocabulary:
                 if not (np.isin(live, (0, 1)).all() and (c[~a] == _SENTINEL).all()):
                     raise ValueError(f"{path}: level {l} holds centroid bytes other than 0/1 and the dead-row sentinel")
                 words = _pack_np(c == 1)
-            cents.append(torch.as_tensor(np.ascontiguousarray(words)))
-            alive.append(torch.as_tensor(a))
-        return Vocabulary(int(z["branching"]), depth, tuple(cents), tuple(alive),
-                          torch.as_tensor(z["weights"].astype(np.float32)), int(z["levels_up"]))
+            cents.append(words)
+            alive.append(a)
+        return Vocabulary(int(z["branching"]), depth, torch.as_tensor(np.concatenate(cents)),
+                          torch.as_tensor(np.concatenate(alive)), torch.as_tensor(z["weights"].astype(np.float32)),
+                          int(z["levels_up"]))
 
 
 def _load_cached(path: Path, branching: int, depth: int) -> Vocabulary:
@@ -185,9 +190,10 @@ def descend(voc: Vocabulary, desc: torch.Tensor) -> torch.Tensor:
     kids = torch.arange(B, device=desc.device)
     levels = []
     for lvl in range(voc.depth):
-        cand = node[:, None] * B + kids  # (N,B)
-        ham = _popcount32(desc[:, None, :] ^ voc.centroids[lvl][cand]).sum(-1)
-        ham = torch.where(voc.alive[lvl][cand], ham, torch.full_like(ham, DEAD_DIST))
+        cand = node[:, None] * B + kids  # (N,B) node ids of the children
+        rows = voc.offset(lvl) + cand  # their rows in the table, as kernel N indexes it
+        ham = _popcount32(desc[:, None, :] ^ voc.centroids[rows]).sum(-1)
+        ham = torch.where(voc.alive[rows], ham, torch.full_like(ham, DEAD_DIST))
         node = torch.gather(cand, 1, torch.argmin(ham, dim=-1, keepdim=True))[:, 0]
         levels.append(node)
     return torch.stack(levels)
@@ -218,7 +224,7 @@ def transform(voc: Vocabulary, desc: torch.Tensor, valid: torch.Tensor):
     device), its plain version on CPU ones."""
     if desc.device.type == "cpu":
         return transform_plain(voc, desc, valid)
-    cents, alive = voc.flat
+    cents, alive = voc.centroids, voc.alive.view(torch.uint8)
     _kernels.require_cuda(
         "vocab_transform", desc=(desc, torch.int32), valid=(valid, torch.bool), centroids=(cents, torch.int32),
         alive=(alive, torch.uint8), weights=(voc.weights, torch.float32),

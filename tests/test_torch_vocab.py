@@ -46,7 +46,9 @@ def test_load_matches_jax(name):
     weights, levels_up and the checksum are the JAX package's."""
     jv, tv = getattr(jvoc, f"{name}_vocabulary")(), getattr(tvoc, f"{name}_vocabulary")()
     assert (tv.branching, tv.depth, tv.levels_up, tv.n_words) == (jv.branching, jv.depth, jv.levels_up, jv.n_words)
-    for c_j, a_j, c_t, a_t in zip(jv.centroids, jv.alive, tv.centroids, tv.alive):
+    assert tv.centroids.shape == (sum(c.shape[0] for c in jv.centroids), 8)
+    for lvl, (c_j, a_j) in enumerate(zip(jv.centroids, jv.alive)):
+        c_t, a_t = tv.level(lvl)
         assert c_t.dtype == torch.int32 and c_t.shape == (c_j.shape[0], 8)
         bits = tham.unpack_desc(c_t).numpy()
         bits[~a_t.numpy()] = 0x7F
