@@ -2,10 +2,10 @@
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It imports only
-the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs eight phases:
+the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs nine phases:
 
 1. device: fails without CUDA; prints the card's name and power limit;
-2. build: compiles the fourteen kernels (A-P, no K or O) from the 14
+2. build: compiles the eighteen kernels (A-T, no K or O) from the 18
    sources of ``orb_slam3_fast_tpu_torch/csrc``, one nvcc per source in
    parallel, and the map's host C++ library, so that no timed frame pays
    for g++;
@@ -24,7 +24,11 @@ the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs eight phases:
    the 768 two-view matches of the mono corridor's frames 0 and 5 and on a
    planar pair (its F and H branches); N on a corridor frame's 768
    descriptors with the 10^4- and the 10^6-word vocabulary; P on 768 slots
-   with 256 subsets and 20% outliers;
+   with 256 subsets and 20% outliers; Q (128 hypotheses) and R on the 768
+   pair slots of a keyframe pair, with and without the scale; S on a
+   70-keyframe essential graph; T and E at the circle's global-BA size (128
+   pose slots, 4096 landmarks, ~30k observations), and a whole
+   bundle_adjust_cg through E and T;
 4. the stereo tracking step at 640x480 and 1280x720, 12 frames each, chained
    through the pose with constant-velocity prediction over a textured plane
    of known depth; every frame must match >= 30 landmarks, keep >= 30
@@ -49,14 +53,26 @@ the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs eight phases:
    tests/test_reloc.py's scenario (30 frames, 3 blank ones ->
    RECENTLY_LOST, frame 20 again -> OK near its pose) with P and N
    launched;
+9. (run before phase 8, whose host threads would slow it) the monocular
+   System with loop closing and the Atlas (``System(..., "monocular",
+   enable_loop_closing=True, multi_map=True)``) on tests/test_loop_closing.py's
+   150-frame circle, rendered by a pool of worker processes: that test's
+   gates (final OK, > 120 tracked, >= 1 loop, scale-aligned ATE < 0.20 m),
+   Q, R, S, T, E, N and the mono path's kernels launched, T and not F inside
+   the global BA; then tests/test_atlas.py's scenario (the same circle,
+   frames 55-67 black, max_recently_lost 6): >= 2 maps, >= 1 merge, final
+   OK, > 100 frames OK, the ATE of ``trajectory_world()`` < 0.5;
 8. one frame of the plain (CPU) step, and the stereo, RGB-D and mono
-   Systems and the relocalisation run with the plain versions on the host,
-   against the card; a JSON line of the kernels, then ``{"ok": true,
-   "device": {...}}`` last.
+   Systems, the relocalisation run and the loop scenario (all 150 frames)
+   with the plain versions on the host, against the card; a JSON line of
+   the kernels, then ``{"ok": true, "device": {...}}`` last.  The loop
+   path is held to its own bound (``LOOP_DT`` / ``LOOP_DR``: two host CPUs
+   running the plain path alone land 6.1e-3 apart over its 150 frames) and
+   to closing its loop at the same frame as the host run.
 
-Launch counts are zeroed just before each path of phases 4-7 and read just
-after.  Any failure raises, so the script exits nonzero without the last
-line.
+Launch counts are zeroed just before each path of phases 4-7 and 9 and
+read just after.  No path's host comparison is cut in depth.  Any failure
+raises, so the script exits nonzero without the last line.
 """
 from __future__ import annotations
 
@@ -81,7 +97,14 @@ RGBD_MIN_KF, RGBD_MIN_BA = 3, 2  # what the JAX tracker + mapper make on those f
 MONO_CONFIG = "configs/synthetic_mono.yaml"
 MONO_FRAMES = 40  # the mono phase: test_slam_e2e.py's mono sequence
 RELOC_FRAMES, RELOC_REVISIT = 30, 20  # test_reloc.py: 30 frames, 3 blank ones, frame 20 again
+LOOP_FRAMES = 150  # tests/test_loop_closing.py's circle
+ATLAS_BLACKOUT = range(55, 68)  # tests/test_atlas.py's sensor dropout
 TRACK_DT, TRACK_DR = 2e-3, 1e-3  # a System's card run against its host run: t, rotation entries
+# The loop path's own bound (150 frames of mono SLAM, map units of ~7.8 m): the plain path alone,
+# run on two host CPUs, lands 6.1e-3 / 2.66e-3 apart at frames 44-137 (its float32 LU solves round
+# differently per CPU and the drifting middle of the circle amplifies it; float64 solves repeat
+# across CPUs), and the card 6.07e-3 / 2.76e-3 from the host run (PERF.md, the loop path's spread)
+LOOP_DT, LOOP_DR = 1e-2, 5e-3
 # The H100 SXM's published peaks (NVIDIA's data sheet): HBM3 bytes/s, and
 # float32 outside the tensor cores, taken here for all scalar work.
 PEAK_BYTES_PER_S = 3.35e12
@@ -359,6 +382,49 @@ def render(world, cam, R, t, wh=(640, 480), bg=30.0) -> np.ndarray:
         img[v0:v1, u0:u1][vis] = val[vis]
         zb[vis] = depth[vis]
     return img
+
+
+def make_ring_world(rng, n=1800, r_wall=9.0, half_h=2.5, tile=6):
+    """Splats on a cylinder wall around the origin and over the whole floor
+    and ceiling disc, a closed scene for a loop (synthetic.make_ring_world,
+    the same draws from ``rng``)."""
+    n_wall = n // 2
+    a = rng.uniform(0, 2 * np.pi, n_wall)
+    wall = np.stack([r_wall * np.cos(a), r_wall * np.sin(a), rng.uniform(-half_h, half_h, n_wall)], -1)
+    n_fc = n - n_wall
+    a2 = rng.uniform(0, 2 * np.pi, n_fc)
+    rr = r_wall * np.sqrt(rng.uniform(0.0, 1.0, n_fc))
+    zf = np.where(rng.uniform(size=n_fc) < 0.5, -half_h, half_h)
+    fc = np.stack([rr * np.cos(a2), rr * np.sin(a2), zf], -1)
+    tilt = rng.uniform(0.7, 3.0, n_fc)
+    normals = np.concatenate([
+        np.stack([-np.cos(a), -np.sin(a), np.zeros(n_wall)], -1),  # the wall faces inward
+        np.stack([-np.cos(a2), -np.sin(a2), -np.sign(zf) * tilt], -1),  # floor and ceiling tilted inward
+    ])
+    e1, e2 = _frames_from_normals(normals)
+    return {
+        "centers": np.concatenate([wall, fc]).astype(np.float32),
+        "sizes": rng.uniform(0.25, 0.7, n).astype(np.float32),
+        "tex": rng.uniform(40.0, 230.0, (n, tile, tile)).astype(np.float32),
+        "e1": e1,
+        "e2": e2,
+    }
+
+
+def circle_trajectory(n_frames, radius=4.0, frac=1.1):
+    """The camera circling the origin at ``radius``, looking along the
+    tangent; ``frac`` > 1 revisits the start (synthetic.circle_trajectory).
+    A list of T_cw as (R, t) numpy float32 pairs."""
+    poses = []
+    for i in range(n_frames):
+        a = 2 * np.pi * frac * i / n_frames
+        c, s = np.cos(a), np.sin(a)
+        center = np.array([radius * c, radius * s, 0.0], np.float32)
+        R_wc = np.stack([np.array([c, s, 0.0], np.float32), np.array([0.0, 0.0, -1.0], np.float32),
+                         np.array([-s, c, 0.0], np.float32)], axis=1)  # columns: right, down, forward
+        R = R_wc.T
+        poses.append((R, -R @ center))
+    return poses
 
 
 def arc_trajectory(n_frames, step=0.08, yaw_rate=0.004, lateral=0.0):
@@ -1122,6 +1188,433 @@ def compare_mono_kernels(device) -> list[dict]:
     return out
 
 
+LOOP_CONFIG = dict(min_covis_edge=30, temporal_gap=15)  # tests/test_loop_closing.py:35
+
+
+def sim3_pairs(rng, n: int = 768, n_valid: int = 300, outliers: float = 0.25, s: float = 1.3):
+    """Kernels Q and R's input at the loop verification's width: matched
+    points of two keyframes in their camera frames (``n`` = kp_cap slots,
+    ``n_valid`` live), xc1 = S12 xc2 with a share of the pairs replaced by
+    random points, pixels with 0.5 px noise, levels 0-3.  Returns (the seven
+    numpy arrays of ``sim3_ransac``, the true S12 tangent)."""
+    from orb_slam3_fast_tpu_torch.utils import lie
+
+    xi = np.array([0.2, -0.1, 0.3, 0.05, -0.1, 0.08, np.log(s)], np.float32)
+    S = lie.sim3_exp(torch.as_tensor(xi))
+    R, t, sc = S.R.numpy(), S.t.numpy(), float(S.s)
+    xc2 = np.zeros((n, 3), np.float32)
+    xc2[:n_valid] = np.stack([rng.uniform(-2, 2, n_valid), rng.uniform(-1.5, 1.5, n_valid),
+                              rng.uniform(3, 8, n_valid)], -1)
+    xc1 = (sc * xc2 @ R.T + t).astype(np.float32)
+    bad = (rng.uniform(size=n) < outliers) & (np.arange(n) < n_valid)
+    xc1[bad] = np.stack([rng.uniform(-2, 2, bad.sum()), rng.uniform(-1.5, 1.5, bad.sum()),
+                         rng.uniform(3, 8, bad.sum())], -1)
+
+    def proj(x):
+        z = np.where(np.abs(x[:, 2]) < 1e-9, 1e-9, x[:, 2])
+        return np.stack([400.0 * x[:, 0] / z + 320.0, 400.0 * x[:, 1] / z + 240.0], -1)
+
+    uv1 = (proj(xc1) + rng.normal(0, 0.5, (n, 2))).astype(np.float32)
+    uv2 = (proj(xc2) + rng.normal(0, 0.5, (n, 2))).astype(np.float32)
+    is1 = (1.0 / 1.44 ** rng.integers(0, 4, n)).astype(np.float32)
+    is2 = (1.0 / 1.44 ** rng.integers(0, 4, n)).astype(np.float32)
+    return (xc1, xc2, uv1, uv2, is1, is2, np.arange(n) < n_valid), xi
+
+
+def sim3_graph_problem(rng, K: int = 70):
+    """Kernel S's input at the circle's size: the essential graph of K
+    keyframes on a circle of radius 4, the odometry chain measured with
+    noise and 1% scale drift (tests/test_pose_graph.py's construction), the
+    estimates integrated from it, exact covisibility edges from each keyframe
+    to the 2 to 4 before it, the exact loop edge (K-1, 0), keyframe 0 fixed.
+    Returns the Sim3Graph's numpy fields and the true camera centres."""
+    from orb_slam3_fast_tpu_torch.utils import lie
+
+    Rg, tg = [], []
+    for k in range(K):
+        a = 2 * np.pi * k / K
+        c, s = np.cos(a), np.sin(a)
+        Rwc = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+        Rg.append(Rwc.T)
+        tg.append(-Rwc.T @ np.array([4.0 * c, 4.0 * s, 0.0], np.float32))
+    Rg, tg = np.stack(Rg), np.stack(tg)
+
+    def rel(i, j):  # the true S_ij = S_iw S_jw^-1, scale 1
+        R = Rg[i] @ Rg[j].T
+        return R, tg[i] - R @ tg[j], 1.0
+
+    odo = []
+    for k in range(K - 1):
+        R, t, s = rel(k + 1, k)
+        dR = lie.so3_exp(torch.as_tensor(rng.normal(0, 0.01, 3), dtype=torch.float32)).numpy()
+        odo.append((dR @ R, t + rng.normal(0, 0.02, 3).astype(np.float32), s * 1.01))
+    R0, t0, s0 = [Rg[0]], [tg[0]], [1.0]
+    for k in range(K - 1):
+        R, t, s = odo[k]
+        R0.append(R @ R0[k])
+        t0.append(s * (R @ t0[k]) + t)
+        s0.append(s * s0[k])
+    edges = [(k + 1, k, *odo[k]) for k in range(K - 1)]
+    edges += [(i, i - d, *rel(i, i - d)) for i in range(K) for d in (2, 3, 4) if i >= d]
+    edges.append((K - 1, 0, *rel(K - 1, 0)))
+    E = len(edges)
+    fixed = np.zeros(K, bool)
+    fixed[0] = True
+    g = dict(R=np.stack(R0).astype(np.float32), t=np.stack(t0).astype(np.float32), s=np.asarray(s0, np.float32),
+             edge_i=np.asarray([e[0] for e in edges], np.int32), edge_j=np.asarray([e[1] for e in edges], np.int32),
+             meas_R=np.stack([e[2] for e in edges]).astype(np.float32),
+             meas_t=np.stack([e[3] for e in edges]).astype(np.float32),
+             meas_s=np.asarray([e[4] for e in edges], np.float32), edge_valid=np.ones(E, bool), fixed=fixed,
+             edge_w=np.ones(E, np.float32))
+    return g, -np.einsum("kji,kj->ki", Rg, tg)
+
+
+def gba_problem(rng, device, K_live: int = 70, M_live: int = 3000, obs_per_lm: int = 10):
+    """Kernels E and T's input at the circle's global-BA size: K_live
+    keyframes on a circle of radius 4 looking along the tangent (padded to
+    K = 128 pose slots, as the mapper pads), keyframe 0 fixed; M_live
+    landmarks on the ring's wall and floor (padded to M = 4096), each seen
+    from ``obs_per_lm`` keyframes that face it (~30k observations, padded
+    to 32768); mono edges, 0.5 px noise, 5% outliers; poses and landmarks
+    perturbed from the truth."""
+    from orb_slam3_fast_tpu_torch.optim import ba
+
+    K, M = 128, 4096
+    R = np.tile(np.eye(3, dtype=np.float32), (K, 1, 1))
+    t = np.zeros((K, 3), np.float32)
+    for k, (Rk, tk) in enumerate(circle_trajectory(K_live, radius=4.0, frac=1.0)):
+        R[k], t[k] = Rk, tk
+    a = rng.uniform(0, 2 * np.pi, M)
+    X = np.zeros((M, 3), np.float32)
+    X[:M_live] = np.stack([9.0 * np.cos(a[:M_live]), 9.0 * np.sin(a[:M_live]), rng.uniform(-2.5, 2.5, M_live)], -1)
+    kf, lm = [], []
+    for m in range(M_live):
+        xc = np.einsum("kij,j->ki", R[:K_live], X[m]) + t[:K_live]
+        ok = np.nonzero((xc[:, 2] > 0.5) & (np.abs(xc[:, 0] / xc[:, 2]) < 0.8) & (np.abs(xc[:, 1] / xc[:, 2]) < 0.6))[0]
+        if len(ok) < 2:
+            continue
+        sel = rng.choice(ok, min(obs_per_lm, len(ok)), replace=False)
+        kf += sel.tolist()
+        lm += [m] * len(sel)
+    kf, lm = np.asarray(kf, np.int32), np.asarray(lm, np.int32)
+    n = len(kf)
+    O = int(2 ** np.ceil(np.log2(n)))
+    xc = np.einsum("oij,oj->oi", R[kf], X[lm]) + t[kf]
+    uv = np.stack([400.0 * xc[:, 0] / xc[:, 2] + 320.0, 400.0 * xc[:, 1] / xc[:, 2] + 240.0, np.full(n, -1.0)], -1)
+    uv[:, :2] += rng.normal(0, 0.5, (n, 2))
+    out = rng.uniform(size=n) < 0.05
+    uv[out, :2] += rng.uniform(15, 40, (out.sum(), 2)) * rng.choice([-1, 1], (out.sum(), 2))
+    pad = lambda v, fill: np.concatenate([v, np.full((O - n, *v.shape[1:]), fill, v.dtype)])  # noqa: E731
+    pose_fixed = np.ones(K, bool)
+    pose_fixed[1:K_live] = False
+    t0 = t.copy()
+    t0[~pose_fixed] += rng.normal(0, 0.02, ((~pose_fixed).sum(), 3)).astype(np.float32)
+    lm_valid = np.zeros(M, bool)
+    lm_valid[np.unique(lm)] = True
+    return ba.make_problem(
+        R, t0, pose_fixed, (X + rng.normal(0, 0.05, X.shape)).astype(np.float32), lm_valid, pad(kf, 0), pad(lm, 0),
+        pad(uv.astype(np.float32), -1.0), pad((1.0 / 1.44 ** rng.integers(0, 4, n)).astype(np.float32), 1.0),
+        np.zeros(O, bool), pad(np.ones(n, bool), False), device=device,
+    )
+
+
+def sim3_rel_err(Sa, Sb) -> float:
+    """The largest difference of two Sim3s' rotation entries, translation
+    (relative to its size) and scale (relative)."""
+    tn = max(float(Sb.t.norm()), 1e-9)
+    return max(float((Sa.R - Sb.R).abs().max()), float((Sa.t - Sb.t).norm()) / tn,
+               abs(float(Sa.s) - float(Sb.s)) / abs(float(Sb.s)))
+
+
+def compare_loop_kernels(device) -> list[dict]:
+    """Phase 3 for loop closing's kernels, each against its plain version on
+    the same CUDA tensors, with CUDA-event times: Q (128 hypotheses over the
+    768 slots of a keyframe pair, with and without the scale) and R (the 15
+    steps on those pairs), S (12 iterations on a 70-keyframe essential
+    graph), T (32 CG iterations on a global-BA problem at the circle's size,
+    128 pose slots, 4096 landmarks, ~30k observations); E at that size, and
+    a whole bundle_adjust_cg through E and T against its plain run."""
+    from orb_slam3_fast_tpu_torch.cameras.models import Camera
+    from orb_slam3_fast_tpu_torch.optim import ba, ba_cg
+    from orb_slam3_fast_tpu_torch.optim import pose_graph as pg
+    from orb_slam3_fast_tpu_torch.optim import sim3
+    from orb_slam3_fast_tpu_torch.utils import lie
+
+    cam = Camera.pinhole(400.0, 400.0, 320.0, 240.0)
+    out = []
+    cases = {}  # fix_scale -> (pairs on the card, true tangent): a mono pair (s = 1.3) and a stereo one (s = 1)
+    for fix, s_true in ((False, 1.3), (True, 1.0)):
+        arrays, xi_true = sim3_pairs(np.random.default_rng(9), s=s_true)
+        cases[fix] = ([torch.as_tensor(a).to(device) for a in arrays], xi_true)
+    valid = cases[False][0][-1]
+    n, nv = valid.shape[0], int(valid.sum())
+
+    # Q: with and without the scale, the same 128 subsets
+    subsets = sim3._sample_subsets(sim3.jax_seed(30 * 2654435761 + 5), valid)
+    h = subsets.shape[0]
+    q_err, q_notes, q_ms, q_pms = 0.0, [], 0.0, 0.0
+    for fix in (False, True):
+        pairs = cases[fix][0]
+        rk = sim3.sim3_ransac(cam, cam, *pairs, 0, fix_scale=fix, subsets=subsets)
+        rp = sim3.sim3_ransac_plain(cam, cam, *pairs, subsets, fix_scale=fix)
+        torch.cuda.synchronize()
+        err = sim3_rel_err(rk.S12, rp.S12)
+        flips = int((rk.inliers != rp.inliers).sum())
+        # a pair within float rounding of the chi2 threshold can count on one side only
+        if not (abs(int(rk.n_inliers) - int(rp.n_inliers)) <= 1 and bool(rk.ok) == bool(rp.ok) and bool(rp.ok)
+                and err <= 1e-4 and flips <= 1):
+            raise RuntimeError(f"sim3_ransac fix_scale={fix}: inliers {int(rk.n_inliers)}/{int(rp.n_inliers)}, ok "
+                               f"{bool(rk.ok)}/{bool(rp.ok)}, Sim3 {err:.3g}, masks differ on {flips}")
+        q_err = max(q_err, err)
+        ms = cuda_ms(lambda: sim3.sim3_ransac(cam, cam, *pairs, 0, fix_scale=fix, subsets=subsets), 50)
+        pms = cuda_ms(lambda: sim3.sim3_ransac_plain(cam, cam, *pairs, subsets, fix_scale=fix), 10)
+        q_ms, q_pms = q_ms + ms, q_pms + pms
+        q_notes.append(f"fix_scale={fix}: {int(rp.n_inliers)} inliers on both, Sim3 {err:.2e}, {ms:.4f} ms (plain "
+                       f"{pms:.4f})")
+    # the library call: the batched SVD of the 128 Horn matrices M = yc^T xc, for both cases
+    x, y = cases[False][0][1][subsets], cases[False][0][0][subsets]
+    Mh = torch.einsum("hni,hnj->hij", y - y.mean(1, keepdim=True), x - x.mean(1, keepdim=True))
+    lib_q = 2 * cuda_ms(lambda: torch.linalg.svd(Mh), 50)
+    # per case: bytes 49 per slot and the subsets in, the Sim3, mask and flags out; operations: per
+    # hypothesis Horn (centroids and M ~90, a 3x3 SVD, R, s and t ~80) and the two-sided test of every
+    # valid pair (two Sim3 maps, two projections and errors, ~60), the winner's mask again
+    q_ops = 2 * (h * (90 + SVD3_FLOPS + 80 + 60 * nv) + 60 * nv)
+    out.append(dict(name="sim3_ransac", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/sim3_ransac.cu",
+                    replaces="orb_slam3_fast_tpu/optim/sim3.py:62", max_abs_err=q_err, ms=q_ms, plain_ms=q_pms,
+                    **bound(2 * (n * 49 + h * 12 + 52 + n + 5), q_ops), library_ms=lib_q,
+                    shapes=f"{n} slots ({nv} valid, 25% outliers), {h} subsets; " + "; ".join(q_notes) +
+                           "; tolerances: count within 1, ok equal, Sim3 1e-4 (rotation entries, relative t and s), "
+                           "masks differing on at most 1 pair; library = batched torch.linalg.svd of the (128,3,3) "
+                           "Horn matrices, twice"))
+
+    # R: from the RANSAC's start, with and without the scale
+    r_err, r_notes, r_ms, r_pms, n_act = 0.0, [], 0.0, 0.0, 0
+    for fix in (False, True):
+        pairs, xi_true = cases[fix]
+        S0 = sim3.sim3_ransac_plain(cam, cam, *pairs, subsets, fix_scale=fix).S12
+        Sk, ik, nk = sim3.optimize_sim3(cam, cam, S0, *pairs, fix_scale=fix)
+        Sp, ip, np_ = sim3.optimize_sim3_plain(cam, cam, S0, *pairs, fix_scale=fix)
+        torch.cuda.synchronize()
+        err = sim3_rel_err(Sk, Sp)
+        flips = int((ik != ip).sum())
+        if not (abs(int(nk) - int(np_)) <= 1 and err <= 2e-4 and flips <= 1):
+            raise RuntimeError(f"optimize_sim3 fix_scale={fix}: inliers {int(nk)}/{int(np_)}, Sim3 {err:.3g}, "
+                               f"masks differ on {flips}")
+        r_err = max(r_err, err)
+        n_act += int(np_)
+        ms = cuda_ms(lambda: sim3.optimize_sim3(cam, cam, S0, *pairs, fix_scale=fix), 20)
+        pms = cuda_ms(lambda: sim3.optimize_sim3_plain(cam, cam, S0, *pairs, fix_scale=fix), 3)
+        r_ms, r_pms = r_ms + ms, r_pms + pms
+        r_notes.append(f"fix_scale={fix}: {int(np_)} inliers on both, Sim3 {err:.2e}, truth within "
+                       f"{sim3_rel_err(Sp, lie.sim3_exp(torch.as_tensor(xi_true).to(device))):.2e}; {ms:.4f} ms "
+                       f"(plain {pms:.4f})")
+    # per case: bytes 49 per slot and the start in, the Sim3 and the mask out; operations per step and
+    # pair under the mask: two maps, projections and residuals (~60), both 2x7 Jacobians (~130), the
+    # Huber weights (~20), J^T W J and J^T W r (2 x 2 x 35 x 2 = 280); per step the 7x7 Cholesky and
+    # solves (~250), sim3_exp (~300) and an SVD; the two gates on the valid pairs (~60 each)
+    step = 60 + 130 + 20 + 280
+    r_ops = 15 * (step * (nv + n_act) // 2) + 2 * 15 * (250 + 300 + SVD3_FLOPS) + 2 * 2 * 60 * nv
+    out.append(dict(name="sim3_refine", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/sim3_refine.cu",
+                    replaces="orb_slam3_fast_tpu/optim/sim3.py:134", max_abs_err=r_err, ms=r_ms, plain_ms=r_pms,
+                    **bound(2 * (n * 49 + 52 + 52 + n + 4), r_ops), library_ms=None,
+                    shapes=f"{n} slots ({nv} valid), 5 + 10 steps; " + "; ".join(r_notes) +
+                           "; tolerances: count within 1, Sim3 2e-4 (float32 residuals summed in float64 in "
+                           "another order), masks differing on at most 1 pair; no single library call"))
+
+    # S: 12 iterations on the drifted circle's essential graph
+    g_np, c_true = sim3_graph_problem(np.random.default_rng(10))
+    g = pg.Sim3Graph(**{k: torch.as_tensor(v).to(device) for k, v in g_np.items()})
+    Kg, Eg = g.R.shape[0], g.edge_i.shape[0]
+    gk, gp = pg.optimize_sim3_graph(g), pg.optimize_sim3_graph_plain(g)
+    torch.cuda.synchronize()
+    if int(pg.optimize_sim3_graph.last_fail) != 0:
+        raise RuntimeError("optimize_sim3_graph: the Cholesky failed on a positive definite system")
+    s_err = max(float((gk[0] - gp[0]).abs().max()), float((gk[1] - gp[1]).abs().max()),
+                float((gk[2] - gp[2]).abs().max()))
+    centres = lambda R, t, s: (-torch.einsum("kji,kj->ki", R, t) / s[:, None]).cpu().numpy()  # noqa: E731
+    ate_before = float(np.sqrt(((centres(g.R, g.t, g.s) - c_true) ** 2).sum(1).mean()))
+    ate_after = float(np.sqrt(((centres(*gk) - c_true) ** 2).sum(1).mean()))
+    if not (s_err <= 1e-3 and ate_after < 0.25 * ate_before):
+        raise RuntimeError(f"optimize_sim3_graph: {s_err:.3g} from the plain version, centres {ate_before:.3g} -> "
+                           f"{ate_after:.3g} m")
+    # the library call: a Cholesky factorisation and solve of the (7K)^2 system the plain version forms
+    r, Ji, Jj = pg.edge_jacobians(g.R, g.t, g.s, g)
+    Hd, rhs = pg.dense_normal_system(r, Ji, Jj, g.edge_i, g.edge_j, g.edge_w, g.fixed, 1e-6)
+    lib_s = cuda_ms(lambda: torch.cholesky_solve(rhs[:, None], torch.linalg.cholesky_ex(Hd)[0]), 20)
+    # bytes: the vertices (52 per vertex) and edges (64 each) in, the vertices out.  Operations per
+    # iteration: each edge's residual and its 14 directional derivatives (sim3_exp twice, three
+    # compositions and sim3_log, ~1500 flops a direction, 15 with the value), its four 7x7 blocks and
+    # two gradients (4 x 49 x 14 + 2 x 7 x 14); the (7K)^3 / 3 Cholesky and 2 (7K)^2 substitutions; per
+    # vertex sim3_exp, the composition and an SVD (~700)
+    nK = 7 * Kg
+    s_ops = 12 * (Eg * (15 * 1500 + 4 * 49 * 14 + 2 * 7 * 14) + nK**3 / 3 + 2 * nK**2 + Kg * 700)
+    out.append(dict(name="sim3_graph", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/sim3_graph.cu",
+                    replaces="orb_slam3_fast_tpu/optim/pose_graph.py:152", max_abs_err=s_err,
+                    ms=cuda_ms(lambda: pg.optimize_sim3_graph(g), 5),
+                    plain_ms=cuda_ms(lambda: pg.optimize_sim3_graph_plain(g), 2),
+                    **bound(Kg * (52 + 1) + Eg * 64 + Kg * 52, s_ops), library_ms=lib_s,
+                    shapes=f"K={Kg} vertices (7K = {nK}), {Eg} edges, 12 iterations: {s_err:.2e} from the plain "
+                           f"version (tolerance 1e-3: float64 dual numbers against float32 forward mode), camera "
+                           f"centres {ate_before:.3f} -> {ate_after:.3f} m from the truth; library = "
+                           "torch.linalg.cholesky_ex + cholesky_solve of one iteration's float64 (7K)^2 system"))
+
+    # E at the global BA's size, then T on its blocks
+    gprob = gba_problem(np.random.default_rng(11), device)
+    K, M, O = gprob.R.shape[0], gprob.xw.shape[0], gprob.obs_kf.shape[0]
+    inl = torch.ones_like(gprob.obs_valid)
+    args = (cam, 0.0, gprob.R, gprob.t, gprob.xw, gprob, inl)
+    bk = ba_cg.build_blocks(*args)
+    bp = ba.build_normal_blocks_plain(*args, per_obs=True)
+    torch.cuda.synchronize()
+    err_e = max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-12) for x, y in zip(bk, bp))
+    if not err_e <= 1e-4:
+        raise RuntimeError(f"ba_blocks at the global BA's size: a block differs by {err_e:.3g} of its max")
+    e_gba = (f"; at the global BA's size (K={K}, M={M}, O={O}, {int(gprob.obs_valid.sum())} live observations) "
+             f"{cuda_ms(lambda: ba_cg.build_blocks(*args), 20):.4f} ms, every block within {err_e:.2e} of its max "
+             "(tolerance 1e-4)")
+    lam = torch.tensor(1e-4, device=device)
+    dk, lk = ba_cg.implicit_schur_solve(*bk[:5], gprob, bk[5], lam)
+    dp, lp = ba_cg.implicit_schur_solve_plain(*bk[:5], gprob.obs_kf, gprob.obs_lm, bk[5], gprob.pose_fixed,
+                                              gprob.lm_valid, lam)
+    torch.cuda.synchronize()
+    t_err = max(float((dk - dp).abs().max() / dp.abs().max()), float((lk - lp).abs().max() / lp.abs().max()))
+    if not t_err <= 1e-4:
+        raise RuntimeError(f"implicit_schur_solve: dp / dl differ by {t_err:.3g} (relative) from the plain version")
+    live = gprob.obs_valid & ~gprob.pose_fixed[gprob.obs_kf.long()]
+    n_live, n_lm = int(live.sum()), int(gprob.lm_valid.sum())
+    n_free = int((~gprob.pose_fixed).sum())
+    # bytes: the blocks (Hpp, Hll, bp, bl, w_lm), W (72 per observation), the observation and CSR
+    # indices (16 per observation), the flags in once; dp and dl out.  Operations: setup per live
+    # observation W V^-1 W^T and W V^-1 bl (~330), per landmark a 3x3 inverse (~60), per free pose a 6x6
+    # inverse (~500); per CG iteration two passes over the live observations (36 flops each) and the
+    # pose blocks (72) and vector updates (~60 per pose entry); the back-substitution (36 per observation)
+    t_ops = 330 * n_live + 60 * n_lm + 500 * n_free + 32 * (72 * n_live + n_free * (72 + 360) + 15 * n_lm) \
+        + 36 * n_live + 15 * n_lm
+    t_bytes = K * 168 + M * 52 + O * (72 + 16) + 4 * (M + K + 2) + K + M + 4 + K * 24 + M * 12
+    ms_t = cuda_ms(lambda: ba_cg.implicit_schur_solve(*bk[:5], gprob, bk[5], lam), 20)
+    pms_t = cuda_ms(lambda: ba_cg.implicit_schur_solve_plain(*bk[:5], gprob.obs_kf, gprob.obs_lm, bk[5],
+                                                             gprob.pose_fixed, gprob.lm_valid, lam), 3)
+    # E + T: a whole bundle_adjust_cg (8 + 12 LM iterations) against the plain one
+    Rk, tk, xk, ik, _ = ba_cg.bundle_adjust_cg(cam, 0.0, gprob, iters1=8, iters2=12)
+    Rp, tp, xp, ip, _ = ba_cg.bundle_adjust_cg_plain(cam, 0.0, gprob, iters1=8, iters2=12)
+    torch.cuda.synchronize()
+    err_gba = max(float((tk - tp).abs().max()), float((Rk - Rp).abs().max()))
+    flips = float((ik != ip).float().mean())
+    if not (err_gba <= 1e-3 and flips <= 0.005):
+        raise RuntimeError(f"bundle_adjust_cg: pose err {err_gba:.3g}, inlier flags differing {flips:.4f}")
+    gba_ms = cuda_ms(lambda: ba_cg.bundle_adjust_cg(cam, 0.0, gprob, iters1=8, iters2=12), 2)
+    gba_plain_ms = cuda_ms(lambda: ba_cg.bundle_adjust_cg_plain(cam, 0.0, gprob, iters1=8, iters2=12), 1)
+    out.append(dict(name="ba_pcg", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/ba_pcg.cu",
+                    replaces="orb_slam3_fast_tpu/optim/ba_cg.py:81", max_abs_err=t_err, ms=ms_t, plain_ms=pms_t,
+                    **bound(t_bytes, t_ops), library_ms=None,
+                    shapes=f"K={K} ({n_free} free), M={M} ({n_lm} live), O={O} ({n_live} live of free poses), 32 "
+                           f"CG iterations in {3 + 3 * 32 + 1} launches: dp / dl within {t_err:.2e} of the plain "
+                           "float64 version (relative to their max, tolerance 1e-4); bundle_adjust_cg 8+12 LM via "
+                           f"E+T {gba_ms:.3f} ms (plain {gba_plain_ms:.3f}), pose err {err_gba:.3g} (tolerance 1e-3), "
+                           f"inlier flags differing {flips:.4f} (tolerance 0.005); no single library call", e_gba=e_gba))
+    return out
+
+
+def _render_circle(i: int) -> np.ndarray:
+    """Frame i of the loop scenario (run in a worker process)."""
+    from orb_slam3_fast_tpu_torch.cameras.models import Camera
+
+    world = make_ring_world(np.random.default_rng(0))
+    R, t = circle_trajectory(LOOP_FRAMES, radius=4.0, frac=1.12)[i]
+    return render(world, Camera.pinhole(400.0, 400.0, 320.0, 240.0), R, t)
+
+
+def loop_frames():
+    """The loop scenario's input: tests/test_loop_closing.py's circle
+    (make_ring_world(seed 0), circle_trajectory(150, radius=4.0,
+    frac=1.12)), rendered on the host by one worker process per core;
+    returns (images, true T_cw per frame)."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    with ProcessPoolExecutor(max(1, min(8, os.cpu_count() or 1)), mp_context=multiprocessing.get_context("spawn")) as ex:
+        frames = list(ex.map(_render_circle, range(LOOP_FRAMES)))
+    return frames, circle_trajectory(LOOP_FRAMES, radius=4.0, frac=1.12)
+
+
+def run_loop(frames, poses, device, blackout=()):
+    """The monocular System with loop closing and the Atlas
+    (configs/synthetic_mono.yaml, min_init_matches 60, motion_radius 25,
+    256 keyframes, LoopCloserConfig(min_covis_edge=30, temporal_gap=15)) on
+    the circle.  Without ``blackout``, tests/test_loop_closing.py:60-65's
+    gates: final state OK, > 120 frames tracked, >= 1 loop closed,
+    scale-aligned ATE < 0.20 m.  With it (black frames there and
+    max_recently_lost 6, tests/test_atlas.py:34-79), that test's gates: >= 2
+    maps, >= 1 merge, final state OK, > 100 frames OK, the scale-aligned ATE
+    of ``trajectory_world()`` < 0.5.  The global BAs are wrapped to count the
+    launches of kernels F and T inside them.  Returns the System, a summary
+    and the per-frame (state, R, t)."""
+    from orb_slam3_fast_tpu_torch.backend.loopcloser import LoopCloserConfig
+    from orb_slam3_fast_tpu_torch.eval import ate
+    from orb_slam3_fast_tpu_torch.optim import ba, ba_cg
+    from orb_slam3_fast_tpu_torch.slam.system import System
+
+    overrides = dict(min_init_matches=60, motion_radius=25.0)
+    if len(blackout):
+        overrides["max_recently_lost"] = 6
+    slam = System(MONO_CONFIG, "monocular", tracker_overrides=overrides, max_keyframes=256, enable_loop_closing=True,
+                  multi_map=True, async_backend=False, device=device)
+    slam.loopcloser.cfg = LoopCloserConfig(**LOOP_CONFIG)
+    gba_launches = {"F": 0, "T": 0, "gba": 0}
+    run_gba = slam.mapper._run_gba
+
+    def counted_gba(*a, **kw):
+        f0, t0 = ba.schur_solve.launches, ba_cg.implicit_schur_solve.launches
+        done = run_gba(*a, **kw)
+        gba_launches["F"] += ba.schur_solve.launches - f0
+        gba_launches["T"] += ba_cg.implicit_schur_solve.launches - t0
+        gba_launches["gba"] += 1
+        return done
+
+    slam.mapper._run_gba = counted_gba
+    black = np.zeros((480, 640), np.float32)
+    est, gt, ts, track, max_maps, gt_by_ts, closed_at = [], [], [], [], 1, {}, []
+    for i, (img, (R, t)) in enumerate(zip(frames, poses)):
+        n_closed = slam.loopcloser.n_loops_closed + slam.loopcloser.n_maps_merged
+        state, pose = slam.track_monocular(black if i in blackout else img, i * 0.05)
+        if slam.loopcloser.n_loops_closed + slam.loopcloser.n_maps_merged > n_closed:
+            closed_at.append(i)
+        if pose is None:
+            pose = (np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
+        track.append((state, *pose))
+        max_maps = max(max_maps, len(slam.atlas.maps))
+        if state == "OK" and i not in blackout:
+            est.append(-pose[0].T @ pose[1])
+            gt.append(-R.T @ t)
+            ts.append(i * 0.05)
+            gt_by_ts[round(i * 0.05, 4)] = gt[-1]
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    if len(blackout):  # the saved trajectory, through the merged keyframe poses
+        est, gt, ts = [], [], []
+        for tsv, R, t, ok in slam.tracker.trajectory_world():
+            if ok and round(tsv, 4) in gt_by_ts:
+                est.append(-R.T @ t)
+                gt.append(gt_by_ts[round(tsv, 4)])
+                ts.append(tsv)
+    est, gt, ts = np.asarray(est), np.asarray(gt), np.asarray(ts)
+    rmse, _, s_fit = ate.ate_rmse(ts, est, ts, gt, with_scale=True)
+    lc = slam.loopcloser
+    summary = dict(state=slam.get_tracking_state(), tracked=len(gt_by_ts), ate_m=rmse, scale=s_fit,
+                   n_kf=slam.tracker.world.n_kf, landmarks=int(slam.tracker.world.lm_valid.sum()),
+                   loops=lc.n_loops_closed, merges=lc.n_maps_merged, closed_at=closed_at, maps=max_maps,
+                   gba=gba_launches["gba"],
+                   gba_launches_F=gba_launches["F"], gba_launches_T=gba_launches["T"])
+    if len(blackout):
+        ok = summary["maps"] >= 2 and summary["merges"] >= 1 and summary["tracked"] > 100 and rmse < 0.5
+    else:
+        ok = summary["tracked"] > 120 and summary["loops"] >= 1 and rmse < 0.20
+    if not (ok and summary["state"] == "OK"):
+        raise RuntimeError(f"{'Atlas' if len(blackout) else 'loop'} scenario gates failed: {summary}")
+    return slam, summary, track
+
+
 def run_mono(frames, poses, device):
     """The monocular System (configs/synthetic_mono.yaml, min_init_matches
     60 as tests/test_slam_e2e.py:17) on its corridor, and that test's gates
@@ -1284,31 +1777,37 @@ def run_system(frames, poses, device, sensor: str = "stereo"):
     return slam, summary, track
 
 
-def compare_tracks(track_c, track_p) -> tuple[list[str], str]:
+def compare_tracks(track_c, track_p, bound_dt: float = TRACK_DT, bound_dr: float = TRACK_DR) -> tuple[list[str], str]:
     """Per-frame (state, R, t) of a run on the card against the same run with
     the plain versions on the host, at the whole-path tests' tolerances: the
     same state, t within ``TRACK_DT`` and rotation entries within
-    ``TRACK_DR``.  Kernels E and F sum in a fixed order, so a run on the card
-    repeats exactly (``track_spread.py`` measures it; PERF.md, PR 4).
-    Returns (failures, summary)."""
+    ``TRACK_DR`` (the loop path: ``LOOP_DT``, ``LOOP_DR``).  Every kernel
+    sums in a fixed order, so a run on the card repeats exactly
+    (``track_spread.py`` measures it; PERF.md).  Returns
+    (failures, summary)."""
     bad, dt, dr = [], [], []
     for i, ((sc, Rc, tc), (sp, Rp, tp)) in enumerate(zip(track_c, track_p)):
         dt.append(float(np.abs(tc - tp).max()))
         dr.append(float(np.abs(Rc - Rp).max()))
-        if sc != sp or dt[-1] > TRACK_DT or dr[-1] > TRACK_DR:
+        if sc != sp or dt[-1] > bound_dt or dr[-1] > bound_dr:
             bad.append(f"frame {i}: card {sc} {tc} vs plain {sp} {tp}, |dR| {dr[-1]:.3g}")
-    return bad, (f"{len(track_c)} frames, max |dt| {max(dt):.3g} at frame {int(np.argmax(dt))} (bound {TRACK_DT:g}), "
-                 f"max |dR| {max(dr):.3g} (bound {TRACK_DR:g})")
+    over = [i for i, (a, b) in enumerate(zip(dt, dr)) if a > TRACK_DT or b > TRACK_DR]
+    return bad, (f"{len(track_c)} frames, max |dt| {max(dt):.3g} at frame {int(np.argmax(dt))} (bound {bound_dt:g}), "
+                 f"max |dR| {max(dr):.3g} (bound {bound_dr:g}); {len(over)} frames beyond {TRACK_DT:g} / "
+                 f"{TRACK_DR:g}" + (f" (frames {over[0]}-{over[-1]})" if over else ""))
 
 
-def check_system_against_plain(card, plain) -> tuple[list[str], str]:
+def check_system_against_plain(card, plain, bound_dt: float = TRACK_DT,
+                               bound_dr: float = TRACK_DR) -> tuple[list[str], str]:
     """A System on the card against its run with the plain versions on the
     host (the path the tests hold against the JAX package): the frames as
     ``compare_tracks`` holds them, the same keyframe count, live landmarks
-    within 3%.  Returns (failures, summary)."""
+    within 3%, and a loop closed at the same frames.  Returns (failures,
+    summary)."""
     (slam_c, sum_c, track_c), (slam_p, sum_p, track_p) = card, plain
-    bad, summary = compare_tracks(track_c, track_p)
-    if sum_c["n_kf"] != sum_p["n_kf"] or abs(sum_c["landmarks"] - sum_p["landmarks"]) > 0.03 * sum_p["landmarks"]:
+    bad, summary = compare_tracks(track_c, track_p, bound_dt, bound_dr)
+    if sum_c["n_kf"] != sum_p["n_kf"] or abs(sum_c["landmarks"] - sum_p["landmarks"]) > 0.03 * sum_p["landmarks"] \
+            or sum_c.get("closed_at") != sum_p.get("closed_at"):
         bad.append(f"map: card {sum_c} vs plain {sum_p}")
     return bad, (f"{summary}; keyframes {sum_c['n_kf']} / {sum_p['n_kf']}, landmarks {sum_c['landmarks']} / "
                  f"{sum_p['landmarks']}")
@@ -1337,7 +1836,7 @@ def stage_split(rig: Rig, device) -> dict:
 
 WRAPPER_NAMES = ("fast_nms", "orb_describe", "hamming_best2", "pose_lm", "ba_blocks", "ba_schur", "triangulate_dlt",
                  "pyramid_blur", "select_subpixel", "stereo_subpixel_refine", "visible_landmarks", "twoview_ransac",
-                 "vocab_transform", "pnp_ransac")
+                 "vocab_transform", "pnp_ransac", "sim3_ransac", "sim3_refine", "sim3_graph", "ba_pcg")
 SYSTEM_KERNELS = WRAPPER_NAMES[:11]  # the stereo System runs A-L, N to index its keyframes, and not M or P
 STEP_KERNELS = ("fast_nms", "orb_describe", "hamming_best2", "pose_lm", "pyramid_blur", "select_subpixel",
                 "stereo_subpixel_refine", "visible_landmarks")
@@ -1349,6 +1848,8 @@ RGBD_KERNELS = ("fast_nms", "orb_describe", "hamming_best2", "pose_lm", "ba_bloc
 MONO_KERNELS = ("fast_nms", "orb_describe", "hamming_best2", "pose_lm", "ba_blocks", "ba_schur", "triangulate_dlt",
                 "pyramid_blur", "select_subpixel", "visible_landmarks", "twoview_ransac", "vocab_transform")
 RELOC_KERNELS = MONO_KERNELS + ("pnp_ransac",)
+# loop closing: Q, R, S, T on top of the mono path (E in every BA, N for the queries and the keyframes)
+LOOP_KERNELS = MONO_KERNELS + ("sim3_ransac", "sim3_refine", "sim3_graph", "ba_pcg")
 
 
 def wrappers() -> dict:
@@ -1359,14 +1860,16 @@ def wrappers() -> dict:
     from orb_slam3_fast_tpu_torch.ops import hamming as ham
     from orb_slam3_fast_tpu_torch.ops import matching as mat
     from orb_slam3_fast_tpu_torch.ops import twoview
-    from orb_slam3_fast_tpu_torch.optim import ba, pnp, pose_opt
+    from orb_slam3_fast_tpu_torch.optim import ba, ba_cg, pnp, pose_opt, sim3
+    from orb_slam3_fast_tpu_torch.optim import pose_graph as pg
     from orb_slam3_fast_tpu_torch.vocab import vocabulary as voc_mod
 
     return dict(zip(WRAPPER_NAMES, (fast.fast_nms, ext.orb_describe, ham.hamming_best2, pose_opt.pose_optimization,
                                     ba.build_normal_blocks, ba.schur_solve, twoview.triangulate_dlt,
                                     image.pyramid_blur, ext.select_subpixel, mat.stereo_subpixel_refine,
                                     trk.visible_landmarks, twoview.reconstruct, voc_mod.transform,
-                                    pnp.pnp_ransac)))
+                                    pnp.pnp_ransac, sim3.sim3_ransac, sim3.optimize_sim3, pg.optimize_sim3_graph,
+                                    ba_cg.implicit_schur_solve)))
 
 
 def reset_counts() -> None:
@@ -1419,7 +1922,9 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels = compare_kernels(device)
     system_kernels, c_modes = compare_system_kernels(device)
-    kernels += system_kernels + compare_mono_kernels(device)
+    kernels += system_kernels + compare_mono_kernels(device) + compare_loop_kernels(device)
+    e_entry, t_entry = (next(k for k in kernels if k["name"] == name) for name in ("ba_blocks", "ba_pcg"))
+    e_entry["shapes"] += t_entry.pop("e_gba")
     c = next(k for k in kernels if k["name"] == "hamming_best2")
     for mode, r in c_modes.items():
         for key in ("ms", "plain_ms", "nbytes", "ops"):
@@ -1536,6 +2041,41 @@ def main() -> int:
     log(f"launches in the relocalisation run: {reloc_launches}")
     log(f"phase 7: {time.perf_counter() - t0:.1f} s")
 
+    # 9. loop closing and the Atlas on the card (run before the host replicas of phase 8, whose host
+    # threads would slow it): their paths, with the launch counts
+    t0 = time.perf_counter()
+    loop_in, loop_poses = loop_frames()
+    log(f"loop scene: {LOOP_FRAMES} images rendered on the host in {time.perf_counter() - t0:.1f} s")
+    reset_counts()
+    t1 = time.perf_counter()
+    loop_run = run_loop(loop_in, loop_poses, device)
+    slam_l, summary_l, _ = loop_run
+    loop_s = time.perf_counter() - t1
+    loop_launches = read_counts()
+    missing = [n for n in LOOP_KERNELS if loop_launches[n] < 1]
+    if missing or summary_l["gba_launches_F"] or summary_l["gba_launches_T"] < 1:
+        raise RuntimeError(f"the loop path: kernels never launched {missing}, or F launched inside the global BA, or "
+                           f"T not ({summary_l}, {loop_launches})")
+    spans, mspans, lspans = slam_l.timers.spans, slam_l.mapper.timers.spans, slam_l.loopcloser.timers.spans
+    closing = int(np.argmax(spans["track_total"]))
+    log(f"loop scenario: {summary_l}, {loop_s:.2f} s for {LOOP_FRAMES} frames (gates: final OK, > 120 tracked, >= 1 "
+        "loop, scale-aligned ATE < 0.20 m)")
+    log(f"loop track_total ms per frame: {[round(x, 3) for x in spans['track_total']]}")
+    log(f"loop-closure frame {closing}: track_total {spans['track_total'][closing]:.3f} ms; " +
+        ", ".join(f"{k} {v[-1]:.3f} ms" for k, v in lspans.items() if k != "loop_detect" and k != "loop_verify") +
+        f"; loop_detect {sum(lspans.get('loop_detect', [])):.3f} ms and loop_verify "
+        f"{sum(lspans.get('loop_verify', [])):.3f} ms over the run ({len(lspans.get('loop_verify', []))} verifications)")
+    log("loop stage means:\n" + slam_l.print_time_stats())
+    log(f"launches in the loop run: {loop_launches}")
+    reset_counts()
+    t1 = time.perf_counter()
+    _, summary_a, _ = run_loop(loop_in, loop_poses, device, blackout=ATLAS_BLACKOUT)
+    atlas_launches = read_counts()
+    log(f"Atlas scenario: {summary_a}, {time.perf_counter() - t1:.2f} s (gates: >= 2 maps, >= 1 merge, final OK, > 100 "
+        "frames OK, ATE of trajectory_world < 0.5)")
+    log(f"launches in the Atlas run: {atlas_launches}")
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s")
+
     # 8. the plain (CPU) step, which the tests hold against the JAX package,
     # agrees with the card on frame 1 at 640x480.  Last, because the host
     # threads it starts would slow the timed phases above.
@@ -1548,13 +2088,14 @@ def main() -> int:
     log(f"plain step on the host, frame 1 at 640x480: matches {m_c} (card {m_g}), inliers {n_c} (card {n_g})")
     # every path's plain host run against its card run; all are logged before any failure raises
     failures = []
-    for label, card, plain_run in (
-        ("stereo System", card_run, lambda: run_system(frames, poses, cpu)),
-        ("RGB-D System", rgbd_run, lambda: run_system(rgbd_in, rgbd_poses, cpu, "rgbd")),
-        ("mono System", mono_run, lambda: run_mono(mono_in, mono_poses, cpu)),
+    for label, card, plain_run, bounds in (
+        ("stereo System", card_run, lambda: run_system(frames, poses, cpu), ()),
+        ("RGB-D System", rgbd_run, lambda: run_system(rgbd_in, rgbd_poses, cpu, "rgbd"), ()),
+        ("mono System", mono_run, lambda: run_mono(mono_in, mono_poses, cpu), ()),
+        ("loop scenario", loop_run, lambda: run_loop(loop_in, loop_poses, cpu), (LOOP_DT, LOOP_DR)),
     ):
         t0 = time.perf_counter()
-        bad, summary = check_system_against_plain(card, plain_run())
+        bad, summary = check_system_against_plain(card, plain_run(), *bounds)
         log(f"plain {label} on the host against the card: {summary}, {len(bad)} failing "
             f"({time.perf_counter() - t0:.1f} s)")
         failures += [f"{label} {b}" for b in bad]
@@ -1573,8 +2114,10 @@ def main() -> int:
     # stereo System for A-L, the mono System for M and N, relocalisation for
     # P; every path's beside them
     runs = {"step": step_launches, "stereo_system": sys_launches, "rgbd_system": rgbd_launches,
-            "mono_system": mono_launches, "relocalisation": reloc_launches}
-    main_run = {"twoview_ransac": "mono_system", "vocab_transform": "mono_system", "pnp_ransac": "relocalisation"}
+            "mono_system": mono_launches, "relocalisation": reloc_launches, "loop": loop_launches,
+            "atlas": atlas_launches}
+    main_run = {"twoview_ransac": "mono_system", "vocab_transform": "mono_system", "pnp_ransac": "relocalisation",
+                "sim3_ransac": "loop", "sim3_refine": "loop", "sim3_graph": "loop", "ba_pcg": "loop"}
     for k in kernels:
         k["launches"] = runs[main_run.get(k["name"], "stereo_system")][k["name"]]
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in runs.items()}

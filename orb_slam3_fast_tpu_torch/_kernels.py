@@ -31,7 +31,7 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",  # registers, shared memory and spills per kernel, in build()'s output
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 
 # C signature of every entry point (all return a cudaError_t as int).
 SIGNATURES = {
@@ -75,6 +75,19 @@ SIGNATURES = {
     # xw, uv, xn, inv_sigma2, valid, subsets, n, n_hyp, cam9 (host),
     # min_inliers, hyp_R, hyp_t, counts, R, t, inliers, n_inl, ok, stream
     "pnp_ransac_launch": [_P] * 6 + [_I, _I, _P, _I] + [_P] * 9,
+    # xc1, xc2, uv1, uv2, is1, is2, valid, subsets, n, n_hyp, cams8 (host),
+    # fix_scale, min_inliers, hyp, counts, S, inliers, n_inl, ok, stream
+    "sim3_ransac_launch": [_P] * 8 + [_I, _I, _P, _I, _I] + [_P] * 7,
+    # xc1, xc2, uv1, uv2, is1, is2, valid, S0, n, cams8 (host), fix_scale,
+    # iters, chi2, S, inliers, n_inl, stream
+    "sim3_refine_launch": [_P] * 8 + [_I, _P, _I, _I, _F] + [_P] * 4,
+    # vertices, edge_i, edge_j, meas, w, fixed, K, E, iters, damping,
+    # vertices_out, jac, H, vec, fail, stream
+    "sim3_graph_launch": [_P] * 6 + [_I] * 3 + [_D] + [_P] * 6,
+    # Hpp, Hll, bp, bl, W, w_lm, pose_fixed, lm_valid, obs_kf, obs_lm,
+    # lm_ptr, lm_obs, kf_ptr, kf_obs, lam, K, M, O, cg_iters, scratch, dp,
+    # dl, stream
+    "ba_pcg_launch": [_P] * 15 + [_I] * 4 + [_P] * 4,
 }
 
 

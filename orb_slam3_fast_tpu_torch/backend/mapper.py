@@ -7,20 +7,24 @@ LocalMapping.cc:82-326), one synchronous pass per keyframe.  The map is the
 host ``WorldMap``; the device work goes to the port's kernels: kernel C's
 epipolar mode (``search_for_triangulation``) and window mode
 (``search_by_projection``), kernel G (``triangulate_dlt``) and kernels E
-and F (``bundle_adjust``).  Shapes are padded as the JAX package pads them
-(``_bucket``, powers of two in ``_gather_problem``), so both packages see
-the same arrays.
+and F (``bundle_adjust``), and for the global BA of loop closing
+(``_run_gba``) kernels E and T (``optim/ba_cg.bundle_adjust_cg``).  Shapes
+are padded as the JAX package pads them (``_bucket``, powers of two in
+``_gather_problem``), so both packages see the same arrays.
 
 Mono (``bf <= 0``): triangulation skips neighbours whose baseline is
 below 1% of their median landmark depth, BA takes mono edges only, and
 ``initial_ba`` polishes the two-view map of mono initialisation.  A
 keyframe culled here is erased from the keyframe database when one is
-passed.  Not ported yet: the global BA ``_run_gba`` and
-``correct_new_since_snapshot`` (loop closing, ROADMAP §A item 9), the
-distributed BA (item 12) and the map lock of the async backend.
+passed.  ``_run_gba`` takes the map lock of an async backend (held while
+the problem is gathered and written back) and an abort flag polled between
+LM segments; keyframes and landmarks made while it ran are carried along by
+``correct_new_since_snapshot``.  Not ported yet: the distributed BA
+(ROADMAP §A item 12) and the async backend itself (item 6).
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -32,7 +36,7 @@ from orb_slam3_fast_tpu_torch.map.worldmap import WorldMap, popcount_words
 from orb_slam3_fast_tpu_torch.ops import matching as mat
 from orb_slam3_fast_tpu_torch.ops import twoview
 from orb_slam3_fast_tpu_torch.ops.extractor import Keypoints
-from orb_slam3_fast_tpu_torch.optim import ba
+from orb_slam3_fast_tpu_torch.optim import ba, ba_cg
 from orb_slam3_fast_tpu_torch.utils import lie, verbose
 from orb_slam3_fast_tpu_torch.utils.timers import StageTimers
 
@@ -69,6 +73,43 @@ def compute_f12(world: WorldMap, cam, k1: int, k2: int) -> np.ndarray:
     K = cam.K().numpy()
     Kinv = np.linalg.inv(K)
     return Kinv.T @ tx @ R12 @ Kinv
+
+
+def correct_new_since_snapshot(world: WorldMap, K_snap: int, M_snap: int, R_before: np.ndarray,
+                               t_before: np.ndarray):
+    """Carry the keyframes and landmarks made while a global BA ran along
+    with its correction (LoopClosing.cc:2443-2649, the spanning-tree walk
+    with mTcwBefGBA): a new keyframe k keeps its pose relative to its parent
+    p < k (the most covisible earlier keyframe, the latest on ties; k - 1
+    without one), T_k' = T_k T_p^-1 T_p'; a new landmark keeps its position
+    in its first keyframe's camera.  The caller holds the map lock."""
+    old_R: dict[int, np.ndarray] = {}
+    old_t: dict[int, np.ndarray] = {}
+    for k in range(K_snap, world.n_kf):
+        if not world.kf_valid[k]:
+            continue
+        counts = world.covisibility_counts(k)[:k]
+        p = k - 1 - int(np.argmax(counts[::-1])) if len(counts) and counts.max() > 0 else k - 1
+        p_R_old = R_before[p] if p < K_snap else old_R.get(p, world.kf_R[p])
+        p_t_old = t_before[p] if p < K_snap else old_t.get(p, world.kf_t[p])
+        R_k_old, t_k_old = world.kf_R[k].copy(), world.kf_t[k].copy()
+        old_R[k], old_t[k] = R_k_old, t_k_old
+        R_rel = R_k_old @ p_R_old.T
+        t_rel = t_k_old - R_rel @ p_t_old
+        world.kf_R[k] = lie.normalize_rotation_np(R_rel @ world.kf_R[p])
+        world.kf_t[k] = R_rel @ world.kf_t[p] + t_rel
+    new_lm = np.arange(M_snap, world.n_lm)
+    new_lm = new_lm[world.lm_valid[new_lm]] if len(new_lm) else new_lm
+    for m in new_lm:
+        a = int(world.lm_first_kf[m])
+        if a < 0:
+            continue
+        a_R_old = R_before[a] if a < K_snap else old_R.get(a)
+        a_t_old = t_before[a] if a < K_snap else old_t.get(a)
+        if a_R_old is None:
+            continue
+        xc = a_R_old @ world.lm_pos[m] + a_t_old
+        world.lm_pos[m] = world.kf_R[a].T @ (xc - world.kf_t[a])
 
 
 def _bucket(n: int, base: int = 256) -> int:
@@ -387,17 +428,19 @@ class Mapper:
                 fixed.append(g)
         self._run_ba(world, np.asarray(window + fixed), fixed=np.asarray(fixed), iters=(5, 10))
 
-    def _gather_problem(self, world: WorldMap, kf_ids, fixed, lm_cap=None, obs_cap=None):
-        """COO observation gather and power-of-two padding, as the JAX
-        package pads.  Returns (prob, lm_ids, obs_kf, obs_lm, slots,
-        pose_fixed, n_o) or None."""
-        lm_ids = world.local_landmarks(kf_ids)
-        if len(lm_ids) == 0:
-            return None
-        if lm_cap is not None and len(lm_ids) > lm_cap:
-            verbose.warn_cap("mapper.local_ba_landmarks", lm_cap, len(lm_ids))
-            lm_ids = lm_ids[:lm_cap]
-        obs_kf, obs_lm, slots = world.observations_of(lm_ids, kf_ids)
+    def _gather_problem(self, world: WorldMap, kf_ids, fixed, lm_cap=None, obs_cap=None, lock=None):
+        """COO observation gather (under ``lock``) and power-of-two padding,
+        as the JAX package pads; ``lm_cap`` / ``obs_cap`` None gather all.
+        Returns (prob, lm_ids, obs_kf, obs_lm, slots, pose_fixed, n_o) or
+        None."""
+        with lock if lock is not None else contextlib.nullcontext():
+            lm_ids = world.local_landmarks(kf_ids)
+            if len(lm_ids) == 0:
+                return None
+            if lm_cap is not None and len(lm_ids) > lm_cap:
+                verbose.warn_cap("mapper.local_ba_landmarks", lm_cap, len(lm_ids))
+                lm_ids = lm_ids[:lm_cap]
+            obs_kf, obs_lm, slots = world.observations_of(lm_ids, kf_ids)
         if len(obs_kf) == 0:
             return None
         if obs_cap is not None and len(obs_kf) > obs_cap:
@@ -462,3 +505,37 @@ class Mapper:
         R, t, xw, inlier = ba.bundle_adjust(self.cam, self.bf, prob, iters1=iters[0], iters2=iters[1])
         self._write_back(world, kf_ids, lm_ids, obs_kf, obs_lm, slots, pose_fixed, n_o, R, t, xw, inlier)
         self.n_local_ba += 1
+
+    def _run_gba(self, world: WorldMap, kf_ids: np.ndarray, fixed: np.ndarray, iters=(8, 12), map_lock=None,
+                 abort_flag=None, distributed: bool = False, cg_iters: int = 32) -> bool:
+        """Global BA over every given keyframe, all their landmarks and every
+        observation, with no cap (Optimizer::GlobalBundleAdjustemnt,
+        Optimizer.cc:47-373), through kernels E and T
+        (``ba_cg.bundle_adjust_cg``, host segments with ``abort_flag`` polled
+        between them); never through kernel F, whose reduced system holds at
+        most ``ba.MAX_POSES`` poses.  ``map_lock`` is held while the problem
+        is gathered and written back, not while it is solved.  Keyframes and
+        landmarks made meanwhile follow through ``correct_new_since_snapshot``.
+        ``distributed`` shards the observations over the devices where there
+        are several (ROADMAP §A item 12); on one device it changes nothing.
+        Returns True when the BA ran to its end (an aborted one is
+        discarded, LoopClosing.cc:2412-2422)."""
+        if distributed and self.device.type == "cuda" and torch.cuda.device_count() > 1:
+            raise NotImplementedError("the global BA over several devices waits for ROADMAP §A item 12 "
+                                      "(multi-device)")
+        lock = map_lock if map_lock is not None else contextlib.nullcontext()
+        got = self._gather_problem(world, kf_ids, fixed, lock=lock)
+        if got is None:
+            return False
+        prob, lm_ids, obs_kf, obs_lm, slots, pose_fixed, n_o = got
+        with lock:
+            K_snap, M_snap = world.n_kf, world.n_lm
+            R_before, t_before = world.kf_R[:K_snap].copy(), world.kf_t[:K_snap].copy()
+        R, t, xw, inlier, aborted = ba_cg.bundle_adjust_cg(self.cam, self.bf, prob, iters1=iters[0], iters2=iters[1],
+                                                           cg_iters=cg_iters, abort_flag=abort_flag)
+        if aborted:
+            return False
+        with lock:
+            self._write_back(world, kf_ids, lm_ids, obs_kf, obs_lm, slots, pose_fixed, n_o, R, t, xw, inlier)
+            correct_new_since_snapshot(world, K_snap, M_snap, R_before, t_before)
+        return True

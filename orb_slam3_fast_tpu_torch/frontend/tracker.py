@@ -19,10 +19,15 @@ and pose optimisation.
 the fixed-map step that chains them with ``search_by_projection`` and
 ``pose_optimization`` as ``_track_local_map`` does.
 
-Not ported yet: loop closing, the Atlas and the async backend (ROADMAP §A
-items 6 and 9), the inertial tracker (item 10), fisheye two-camera stereo
-(item 11).  With no vocabulary, ``_index_kf`` does nothing and
-``_relocalize`` fails, as in the JAX package.
+With a loop closer every keyframe goes to ``LoopCloser.process_keyframe``
+after local mapping, and tracking goes on from the corrected keyframe pose;
+with an Atlas a lost map (or a timestamp jump) is kept and a new one
+started, or reset when it is poor, keyframe-database rows are global, and
+a merge rebases the tracker's cached ids and pose
+(``_remap_after_merge``).  Not ported yet: the async backend (ROADMAP §A
+item 6), the inertial tracker (item 10), fisheye two-camera stereo (item
+11).  With no vocabulary, ``_index_kf`` does nothing and ``_relocalize``
+fails, as in the JAX package.
 
 Kernel L -- source note.
   Replaces: ``_visible_landmarks`` (``orb_slam3_fast_tpu/frontend/
@@ -69,9 +74,7 @@ LOST = "LOST"
 
 
 class TrackerConfig(NamedTuple):
-    """The JAX package's TrackerConfig without its Atlas fields
-    (``timestamp_jump``, ``min_kf_keep_map``), which wait for ROADMAP §A
-    item 9."""
+    """The JAX package's TrackerConfig."""
 
     extractor: ext.ExtractorConfig = ext.ExtractorConfig(n_features=1024)
     lm_cap: int = 4096  # local-map landmark slots per tracking call
@@ -86,6 +89,12 @@ class TrackerConfig(NamedTuple):
     th_depth: float = 40.0  # stereo close-point threshold (x baseline)
     max_stereo_lm_per_kf: int = 350
     use_stereo_pose_edges: bool = True  # u_r residuals in pose opt (EdgeStereo)
+    # a gap between frames above this (or a clock going back) starts a new
+    # Atlas map (Tracking.cc:1818-1848)
+    timestamp_jump: float = 1.0
+    # a lost map with more keyframes than this is kept in the Atlas, a
+    # poorer one reset (Tracking.cc:1824-1848)
+    min_kf_keep_map: int = 10
 
 
 @dataclass
@@ -262,12 +271,14 @@ class Tracker:
 
     def __init__(self, cam: cam_models.Camera, cfg: TrackerConfig = TrackerConfig(), bf: float = 0.0,
                  image_wh: tuple = (640, 480), world: Optional[WorldMap] = None, mapper=None, voc=None,
-                 kfdb=None, timers=None, device: torch.device | str = "cuda"):
+                 kfdb=None, loopcloser=None, map_id: int = 0, atlas=None, timers=None,
+                 device: torch.device | str = "cuda"):
         """``cam`` stays on the host (a CPU Camera); keypoints, matching and
         pose optimisation run on ``device``: the card unless the caller
         passes ``device="cpu"``.  ``voc`` (a Vocabulary on ``device``) and
         ``kfdb`` (a KeyFrameDatabase) enable keyframe indexing and
-        relocalisation."""
+        relocalisation, ``loopcloser`` (a LoopCloser) loop closing, ``atlas``
+        (an Atlas, whose current map replaces ``world``) several maps."""
         self.cam = cam
         self.cfg = cfg
         self.bf = float(bf)
@@ -275,7 +286,11 @@ class Tracker:
         self.timers = timers if timers is not None else StageTimers()
         self.voc = voc
         self.kfdb = kfdb
-        self.map_id = 0
+        self.loopcloser = loopcloser
+        self.atlas = atlas
+        self.map_id = map_id if atlas is None else atlas.current_id
+        if atlas is not None:
+            world = atlas.current
         self.wh = (float(image_wh[0]), float(image_wh[1]))
         self.kp_cap = ext.total_capacity(cfg.extractor)
         self.world = world or WorldMap(kp_cap=self.kp_cap)
@@ -292,7 +307,7 @@ class Tracker:
         self.ref_kf: int = -1
         self.frames_since_kf = 0
         self.lost_count = 0
-        self.trajectory: list = []  # (ts, R_rel, t_rel, ref_kf, ok) per frame
+        self.trajectory: list = []  # (ts, R_rel, t_rel, ref_kf, map_id, ok) per frame
         self.stats = {"matches": [], "inliers": []}
 
     # ------------------------------------------------------------------
@@ -339,6 +354,14 @@ class Tracker:
 
     # ------------------------------------------------------------------
     def _track(self, kp, ts, depth, right_u):
+        # a timestamp jump or a clock going back (Tracking.cc:1818-1848): a rich
+        # map is kept and a new one started, a poor one reset
+        if (self.state != NOT_INITIALIZED and self.last is not None and self.atlas is not None
+                and (ts - self.last.ts > self.cfg.timestamp_jump or ts < self.last.ts)):
+            if self.world.n_kf > self.cfg.min_kf_keep_map:
+                self._create_map_in_atlas()
+            else:
+                self._reset_active_map()
         if self.state == NOT_INITIALIZED:
             self._initialize(kp, ts, depth, right_u)
         else:
@@ -354,16 +377,20 @@ class Tracker:
                 t_rel = self.last.t - R_rel @ t_ref
             else:
                 R_rel, t_rel = self.last.R.copy(), self.last.t.copy()
-            self.trajectory.append((ts, R_rel, t_rel, r, self.state == OK or self.state == NOT_INITIALIZED))
+            self.trajectory.append((ts, R_rel, t_rel, r, self.map_id,
+                                    self.state == OK or self.state == NOT_INITIALIZED))
         return result
 
     def trajectory_world(self):
         """Absolute per-frame poses T_cw: the logged relative pose composed
-        with the current reference-keyframe pose (System.cc:748-785).
-        Returns a list of (ts, R, t, ok)."""
+        with the current pose of its reference keyframe, in the map the frame
+        belongs to now (System.cc:748-785).  Returns a list of (ts, R, t,
+        ok)."""
         out = []
-        wm = self.world
-        for ts, R_rel, t_rel, r, ok in self.trajectory:
+        for ts, R_rel, t_rel, r, mid, ok in self.trajectory:
+            wm = self.world
+            if self.atlas is not None and self.atlas.maps[mid] is not None:
+                wm = self.atlas.maps[mid]
             if 0 <= r < wm.n_kf:
                 R = R_rel @ wm.kf_R[r]
                 t = R_rel @ wm.kf_t[r] + t_rel
@@ -372,17 +399,50 @@ class Tracker:
             out.append((ts, R, t, ok))
         return out
 
+    def _remap_after_merge(self, src_id: int, dst_id: int, kf_off: int, lm_off: int, S_dst_src=None):
+        """Rebase the cached local ids after the Atlas merged the active map
+        into a stored one; the cached frame pose moves by ``S_dst_src`` as
+        ``Atlas.merge_into`` moves the keyframes."""
+        self.world = self.atlas.current
+        self.map_id = dst_id
+        if self.ref_kf >= 0:
+            self.ref_kf += kf_off
+        if self.last is not None:
+            obs = self.last.obs_lm
+            obs[obs >= 0] += lm_off
+            if S_dst_src is not None:
+                S = lie.Sim3(*(torch.as_tensor(x).detach().cpu().to(torch.float64) for x in S_dst_src))
+                R, t, s = S.R.numpy(), S.t.numpy(), float(S.s)
+                Rp = self.last.R.astype(np.float64) @ R.T
+                self.last.t = (-Rp @ t + s * self.last.t.astype(np.float64)).astype(np.float32)
+                self.last.R = lie.normalize_rotation_np(Rp)
+        self.velocity = lie.SE3.identity(self.device)
+        if self.mapper is not None:
+            self.mapper.recent_lm = [ids + lm_off for ids in self.mapper.recent_lm]
+        self.trajectory = [
+            (ts, R_rel, t_rel, (r + kf_off) if r >= 0 else r, dst_id, ok) if mid == src_id
+            else (ts, R_rel, t_rel, r, mid, ok)
+            for ts, R_rel, t_rel, r, mid, ok in self.trajectory
+        ]
+
     def _cur_pose(self):
         if self.last is None:
             return None
         return self.last.R, self.last.t
+
+    def _kf_row(self, k: int) -> int:
+        """The keyframe-database row of keyframe k: global under an Atlas,
+        the local id otherwise."""
+        if self.atlas is not None:
+            return self.atlas.register_kf(self.map_id, k)
+        return k
 
     def _index_kf(self, k: int, kp):
         """Add keyframe k to the place-recognition database (kernel N for the
         BoW); nothing to do without a vocabulary."""
         if self.voc is not None and self.kfdb is not None:
             _, _, bow = voc_mod.transform(self.voc, kp.desc, kp.valid)
-            self.kfdb.add(k, host(bow), map_id=self.map_id)
+            self.kfdb.add(self._kf_row(k), host(bow), map_id=self.map_id)
 
     def _se3(self, R, t) -> lie.SE3:
         f32 = torch.float32
@@ -488,6 +548,12 @@ class Tracker:
             self.state = RECENTLY_LOST if self.lost_count < self.cfg.max_recently_lost else LOST
             self.last = FrameState(kp, ts, last.R.copy(), last.t.copy(), np.full(self.kp_cap, -1, np.int32),
                                    depth, right_u)
+            if self.state == LOST and self.atlas is not None:
+                # Tracking.cc:1824-1848: a rich map is kept and a new one started, a poor one reset
+                if self.world.n_kf > self.cfg.min_kf_keep_map:
+                    self._create_map_in_atlas()
+                else:
+                    self._reset_active_map()
             return False
         self.lost_count = 0
         self.state = OK
@@ -586,6 +652,8 @@ class Tracker:
             return False, T0, None, 0
         _, _, bow = voc_mod.transform(self.voc, kp.desc, kp.valid)
         cands = self.kfdb.detect_reloc_candidates(host(bow), query_map=self.map_id)
+        if self.atlas is not None:  # the rows are global: resolve them to local ids
+            cands = [self.atlas.resolve_row(int(r))[1] for r in cands]
         dev = self.device
         kxy, klvl = host(kp.xy), host(kp.level)
         for k in cands[:5]:
@@ -621,6 +689,34 @@ class Tracker:
                 self.ref_kf = k
                 return True, T, obs_out, n_inl
         return False, T0, None, 0
+
+    def _create_map_in_atlas(self):
+        """Tracking::CreateMapInAtlas (Tracking.cc:2607-2649): keep the old
+        map in the Atlas and track into a new one."""
+        verbose.print_mess(f"Creation of new map with id {self.atlas.current_id + 1}", verbose.VERBOSITY_NORMAL)
+        self.world = self.atlas.create_new_map()
+        self.map_id = self.atlas.current_id
+        self._reset_tracking_state()
+
+    def _reset_active_map(self):
+        """Tracking::ResetActiveMap (Tracking.cc:3734): a young map is not
+        worth keeping; replace it in place."""
+        if self.kfdb is not None:
+            self.kfdb.clear_map(self.map_id)
+        self.atlas.maps[self.map_id] = self.atlas._make()
+        self.world = self.atlas.current
+        self._reset_tracking_state()
+
+    def _reset_tracking_state(self):
+        self.state = NOT_INITIALIZED
+        self.last = None
+        self.init_ref = None
+        self.ref_kf = -1
+        self.velocity = lie.SE3.identity(self.device)
+        self.lost_count = 0
+        self.frames_since_kf = 0
+        if self.mapper is not None:
+            self.mapper.recent_lm = []
 
     def _local_landmark_ids(self) -> np.ndarray:
         """UpdateLocalKeyFrames / Points (Tracking.cc:3370/3341): the
@@ -699,7 +795,8 @@ class Tracker:
         return bool((c1a or c2) and self.frames_since_kf >= min_gap)
 
     def _create_keyframe(self):
-        """CreateNewKeyFrame (Tracking.cc:3127-3247), then local mapping inline."""
+        """CreateNewKeyFrame (Tracking.cc:3127-3247), then local mapping and
+        loop closing inline."""
         last = self.last
         k = self.world.add_keyframe(last.kp, last.R, last.t, last.ts, depth=last.depth, right_u=last.right_u)
         slots = np.nonzero(last.obs_lm >= 0)[0]
@@ -711,7 +808,20 @@ class Tracker:
         self.frames_since_kf = 0
         if self.mapper is not None:
             self.mapper.process_new_keyframe(self.world, k, kfdb=self.kfdb)
-            # tracking goes on from the BA-adjusted keyframe pose
+        if self.loopcloser is not None:
+            closed = self.loopcloser.process_keyframe(self.world, k, map_id=self.map_id, atlas=self.atlas)
+            if closed:
+                # the motion model does not hold across a loop or merge correction
+                # (the reference rebases through its change index, Tracking.cc:1884)
+                kind, info = closed
+                self.velocity = lie.SE3.identity(self.device)
+                if kind == "merge":
+                    self._remap_after_merge(info["src_id"], info["dst_id"], info["kf_offset"], info["lm_offset"],
+                                            S_dst_src=info["S_dst_src"])
+                    k = k + info["kf_offset"]
+                    self.ref_kf = k
+        if self.mapper is not None or self.loopcloser is not None:
+            # tracking goes on from the (BA- or loop-) adjusted keyframe pose
             self.last.R = self.world.kf_R[k].copy()
             self.last.t = self.world.kf_t[k].copy()
 

@@ -1,5 +1,5 @@
-"""Host C++ kernels of the map (covisibility counts, observation gather,
-redundancy counts, landmark stats), loaded with ctypes.
+"""Host C++ kernels of the map (covisibility counts and matrix, observation
+gather, redundancy counts, landmark stats), loaded with ctypes.
 
 Counterpart of ``orb_slam3_fast_tpu/native/__init__.py``.  The source is the
 JAX package's ``native/map_ops.cpp``, read by path and compiled with ``g++``
@@ -67,6 +67,8 @@ def get_lib():
     lib.observations_of.restype = i64
     lib.redundancy_counts.argtypes = [i32p, i32p, i64, i64p, i64, i32p, i64, i32p, i64, i32p]
     lib.redundancy_counts.restype = None
+    lib.covis_matrix.argtypes = [i32p, i64, i64, i64, i32p, i32p, i32p]
+    lib.covis_matrix.restype = None
     lib.landmark_stats.argtypes = [i32p, i64, i64, i32p, i64, fp, fp, fp, i32p, i32p, i32p]
     lib.landmark_stats.restype = None
     _lib = lib
@@ -110,6 +112,22 @@ def observations_of(kf_obs: np.ndarray, kf_ids: np.ndarray, lm_local: np.ndarray
                             _ptr(lm_local, ctypes.c_int32), len(lm_local), _ptr(out_kf, ctypes.c_int32),
                             _ptr(out_lm, ctypes.c_int32), _ptr(out_slot, ctypes.c_int32), cap)
     return out_kf[:n], out_lm[:n], out_slot[:n]
+
+
+def covis_matrix(kf_obs: np.ndarray, max_lm: int) -> np.ndarray | None:
+    """The (K,K) covisibility matrix (shared landmarks per keyframe pair, 0
+    on the diagonal) in one pass; None without the library."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    K, N = kf_obs.shape
+    kf_obs = np.ascontiguousarray(kf_obs, dtype=np.int32)
+    lm_count = np.zeros(max_lm + 1, np.int32)
+    lm_list = np.empty(K * N, np.int32)
+    out = np.empty((K, K), np.int32)
+    lib.covis_matrix(_ptr(kf_obs, ctypes.c_int32), K, N, max_lm, _ptr(lm_count, ctypes.c_int32),
+                     _ptr(lm_list, ctypes.c_int32), _ptr(out, ctypes.c_int32))
+    return out
 
 
 def landmark_stats(kf_obs: np.ndarray, lm_local: np.ndarray, centers: np.ndarray, lm_pos: np.ndarray, n_out: int):

@@ -98,11 +98,14 @@ class BAProblem(NamedTuple):
     obs_valid: torch.Tensor  # (O,) bool
     lm_ptr: torch.Tensor  # (M+1,) int32 CSR offsets of the valid observations by landmark
     lm_obs: torch.Tensor  # (O,) int32 observation ids in landmark order
+    kf_ptr: torch.Tensor  # (K+1,) int32 CSR offsets of the valid observations by pose
+    kf_obs: torch.Tensor  # (O,) int32 observation ids in pose order
 
 
 def landmark_csr(obs_lm: np.ndarray, obs_valid: np.ndarray, n_lm: int):
-    """CSR grouping of the valid observations by landmark: (lm_ptr (M+1,),
-    lm_obs (O,)), both int32; the invalid observations trail unreferenced."""
+    """CSR grouping of the valid observations by landmark (or by pose, given
+    ``obs_kf`` and K): (ptr (n+1,), ids (O,)), both int32, each group in
+    observation order; the invalid observations trail unreferenced."""
     obs_lm = np.asarray(obs_lm)
     key = np.where(np.asarray(obs_valid), obs_lm, n_lm)
     order = np.argsort(key, kind="stable").astype(np.int32)
@@ -113,8 +116,9 @@ def landmark_csr(obs_lm: np.ndarray, obs_valid: np.ndarray, n_lm: int):
 def make_problem(R, t, pose_fixed, xw, lm_valid, obs_kf, obs_lm, obs_uv, obs_inv_sigma2, obs_is_stereo, obs_valid,
                  device) -> BAProblem:
     """A BAProblem on ``device`` from numpy arrays in the JAX package's
-    layout, with the landmark CSR built here."""
+    layout, with the landmark and pose CSR built here."""
     lm_ptr, lm_obs = landmark_csr(obs_lm, obs_valid, len(xw))
+    kf_ptr, kf_obs = landmark_csr(obs_kf, obs_valid, len(R))
 
     def dev(a, dtype):
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(device)
@@ -124,7 +128,7 @@ def make_problem(R, t, pose_fixed, xw, lm_valid, obs_kf, obs_lm, obs_uv, obs_inv
         R=dev(R, f32), t=dev(t, f32), pose_fixed=dev(pose_fixed, b), xw=dev(xw, f32), lm_valid=dev(lm_valid, b),
         obs_kf=dev(obs_kf, i32), obs_lm=dev(obs_lm, i32), obs_uv=dev(obs_uv, f32),
         obs_inv_sigma2=dev(obs_inv_sigma2, f32), obs_is_stereo=dev(obs_is_stereo, b), obs_valid=dev(obs_valid, b),
-        lm_ptr=dev(lm_ptr, i32), lm_obs=dev(lm_obs, i32),
+        lm_ptr=dev(lm_ptr, i32), lm_obs=dev(lm_obs, i32), kf_ptr=dev(kf_ptr, i32), kf_obs=dev(kf_obs, i32),
     )
 
 
@@ -158,9 +162,11 @@ def _active(prob: BAProblem, inlier, posd):
     return prob.obs_valid & inlier & posd & prob.lm_valid[prob.obs_lm.long()]
 
 
-def build_normal_blocks_plain(cam, bf, R, t, xw, prob: BAProblem, inlier):
+def build_normal_blocks_plain(cam, bf, R, t, xw, prob: BAProblem, inlier, per_obs: bool = False):
     """Plain version of kernel E: (Hpp (K,6,6), Hll (M,3,3), bp (K,6),
-    bl (M,3), Z (M,K,6,3), w_lm (M,), cost ())."""
+    bl (M,3), Z (M,K,6,3), w_lm (M,), cost ()); with ``per_obs`` the
+    per-observation W (O,6,3) in Z's place, as the kernel returns it
+    (``optim/ba_cg.build_blocks``)."""
     K, M = R.shape[0], xw.shape[0]
     kf, lm = prob.obs_kf.long(), prob.obs_lm.long()
     r, xc, posd = _obs_residuals(cam, bf, R, t, xw, prob)
@@ -180,9 +186,11 @@ def build_normal_blocks_plain(cam, bf, R, t, xw, prob: BAProblem, inlier):
     bp = z((K, 6)).index_add_(0, kf, -torch.einsum("oij,o,oi->oj", Jp, w, r))
     bl = z((M, 3)).index_add_(0, lm, -torch.einsum("oij,o,oi->oj", Jl, w, r))
     Wob = torch.einsum("oij,o,oik->ojk", Jp, w, Jl)  # (O,6,3)
-    Z = z((M * K, 6, 3)).index_add_(0, lm * K + kf, Wob).reshape(M, K, 6, 3)
     w_lm = z((M,)).index_add_(0, lm, w)
     cost, _ = _robust_cost(r, prob, active)
+    if per_obs:
+        return Hpp, Hll, bp, bl, Wob, w_lm, cost
+    Z = z((M * K, 6, 3)).index_add_(0, lm * K + kf, Wob).reshape(M, K, 6, 3)
     return Hpp, Hll, bp, bl, Z, w_lm, cost
 
 

@@ -7,18 +7,19 @@ sensors: the constructor loads the vocabulary (the default one unless
 database, then wires the map, the local mapper and the tracker on one
 device, the card unless the caller passes ``device="cpu"``;
 ``track_monocular`` / ``track_stereo`` / ``track_rgbd`` feed frames; local
-mapping runs inline per keyframe; every keyframe is indexed and a lost
+mapping and, with ``enable_loop_closing``, loop closing run inline per
+keyframe (scale fixed for stereo and RGB-D); with ``multi_map`` an Atlas
+keeps several maps and merges them; every keyframe is indexed and a lost
 tracker relocalises; the trajectory savers write ORB-SLAM3's TUM / EuRoC /
-KITTI formats (System.cc:579/641/672/1244); ``save_atlas`` writes the map
-and the vocabulary's checksum beside it, and ``load_atlas`` refuses a map
-saved with another vocabulary.
+KITTI formats (System.cc:579/641/672/1244); ``save_atlas`` writes the
+Atlas (or the one map without one) and the vocabulary's checksum beside
+it, in the JAX package's files, and ``load_atlas`` refuses what was saved
+with another vocabulary.
 
 Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
 §A item: the inertial sensors (10), fisheye two-camera stereo (11),
-``enable_loop_closing`` and ``multi_map`` (loop closing and the Atlas, 9),
 ``async_backend`` (``backend/pipeline.py``, 6).  Callers pass
-``enable_loop_closing=False, multi_map=False, async_backend=False``; the
-atlas saver writes the one map, as the JAX package does without an Atlas.
+``async_backend=False``.
 """
 from __future__ import annotations
 
@@ -28,8 +29,10 @@ import numpy as np
 import torch
 
 from orb_slam3_fast_tpu_torch import _kernels
+from orb_slam3_fast_tpu_torch.backend.loopcloser import LoopCloser, LoopCloserConfig
 from orb_slam3_fast_tpu_torch.backend.mapper import Mapper
 from orb_slam3_fast_tpu_torch.frontend import tracker as trk
+from orb_slam3_fast_tpu_torch.map.atlas import Atlas
 from orb_slam3_fast_tpu_torch.map.worldmap import WorldMap
 from orb_slam3_fast_tpu_torch.ops import extractor as ext
 from orb_slam3_fast_tpu_torch.slam.settings import Settings
@@ -71,10 +74,6 @@ class System:
         on the host."""
         if sensor not in (MONOCULAR, STEREO, RGBD):
             raise NotImplementedError(f"sensor {sensor!r} waits for {_WAITING.get(sensor, 'a later slice')}")
-        if enable_loop_closing:
-            raise NotImplementedError("loop closing waits for ROADMAP §A item 9; pass enable_loop_closing=False")
-        if multi_map:
-            raise NotImplementedError("the Atlas waits for ROADMAP §A item 9; pass multi_map=False")
         if async_backend:
             raise NotImplementedError("backend/pipeline.py waits for ROADMAP §A item 6; pass async_backend=False")
         if isinstance(settings, str):
@@ -93,13 +92,22 @@ class System:
         tcfg = trk.TrackerConfig(extractor=ecfg, th_depth=settings.th_depth)._replace(**dict(tracker_overrides or {}))
         sigma2 = ext.level_sigma2(ecfg)
         wh = (settings.new_width or settings.width, settings.new_height or settings.height)
-        self.world = WorldMap(kp_cap=ext.total_capacity(ecfg), max_kf=max_keyframes, n_levels=settings.n_levels,
-                              scale_factor=settings.scale_factor)
+
+        def make_map():
+            return WorldMap(kp_cap=ext.total_capacity(ecfg), max_kf=max_keyframes, n_levels=settings.n_levels,
+                            scale_factor=settings.scale_factor)
+
+        self.atlas = Atlas(make_map) if multi_map else None
+        self.world = self.atlas.current if self.atlas else make_map()
         self.mapper = Mapper(settings.cam, bf=settings.bf, sigma2=sigma2, device=self.device)
+        self.loopcloser = None
+        if enable_loop_closing:
+            self.loopcloser = LoopCloser(settings.cam, self.voc, self.kfdb, self.mapper, bf=settings.bf,
+                                         cfg=LoopCloserConfig(fix_scale=(sensor != MONOCULAR)), sigma2=sigma2)
         self.timers = StageTimers()
         self.tracker = trk.Tracker(settings.cam, tcfg, bf=settings.bf, image_wh=wh, world=self.world,
-                                   mapper=self.mapper, voc=self.voc, kfdb=self.kfdb, timers=self.timers,
-                                   device=self.device)
+                                   mapper=self.mapper, voc=self.voc, kfdb=self.kfdb, loopcloser=self.loopcloser,
+                                   atlas=self.atlas, timers=self.timers, device=self.device)
         self._finished = False
 
     # ------------------------------------------------------------------
@@ -172,8 +180,11 @@ class System:
 
     def map_changed(self) -> bool:
         """Change-index handshake (System::MapChanged, System.cc:508): True
-        once per map update (a BA write-back) since the previous query."""
-        cur = self.world.change_index
+        once per map update (a BA write-back, a loop, a merge) since the
+        previous query."""
+        cur = self.tracker.world.change_index
+        if self.loopcloser is not None:
+            cur += self.loopcloser.n_loops_closed + self.loopcloser.n_maps_merged
         changed = cur != getattr(self, "_last_map_change", 0)
         self._last_map_change = cur
         return changed
@@ -228,10 +239,13 @@ class System:
 
     # ------------------------------------------------------------------
     def save_atlas(self, path: str):
-        """System::SaveAtlas (System.cc:1430): the one map, in the JAX
-        package's layout, and ``<path>.md5`` with the vocabulary's checksum
-        (CalculateCheckSum, System.cc:1531)."""
-        self.tracker.world.save(path)
+        """System::SaveAtlas (System.cc:1430): the whole Atlas when there is
+        one, else the one map, in the JAX package's files, and ``<path>.md5``
+        with the vocabulary's checksum (CalculateCheckSum, System.cc:1531)."""
+        if self.atlas is not None:
+            self.atlas.save(path)
+        else:
+            self.tracker.world.save(path)
         try:
             with open(path + ".md5", "w") as f:
                 f.write(self.voc.checksum())
@@ -248,10 +262,20 @@ class System:
             if saved != self.voc.checksum():
                 raise ValueError("vocabulary checksum mismatch: the atlas was built with a different vocabulary "
                                  "(System::LoadAtlas guard, System.cc:1505-1529)")
+        if self.atlas is not None and os.path.exists(f"{path}.atlas.npz"):
+            self.atlas = Atlas.load(path, self.atlas._make)
+            self.tracker.atlas = self.atlas
+            self.world = self.atlas.current
+            self.tracker.world = self.world
+            self.tracker.map_id = self.atlas.current_id
+            return
         self.world = WorldMap.load(path)
         self.tracker.world = self.world
+        if self.atlas is not None:
+            self.atlas.maps[self.atlas.current_id] = self.world
 
     def print_time_stats(self):
         """Tracking::PrintTimeStats (Tracking.cc:189-268): the tracker's
-        stages, then local mapping's."""
-        return "\n".join(s for s in (self.timers.summary(), self.mapper.timers.summary()) if s)
+        stages, then local mapping's and loop closing's."""
+        timers = [self.timers, self.mapper.timers] + ([self.loopcloser.timers] if self.loopcloser else [])
+        return "\n".join(s for s in (t.summary() for t in timers) if s)

@@ -2,12 +2,13 @@
 """Device profile of the stereo, RGB-D or monocular System on one CUDA GPU.
 
 Run from the root of a checkout: ``python3 profile_system.py`` (the stereo
-System), ``python3 profile_system.py --sensor rgbd``, ``--sensor mono`` or
-``--sensor reloc``.  It builds the kernels, renders chip_smoke.py's
-sequence for the sensor on the host (the 30-frame stereo corridor, the
-25-frame RGB-D one, the 40-frame mono one, or tests/test_reloc.py's
-scenario on the mono System: 30 frames, 3 blank ones, frame 20 again) and
-runs the System
+System), ``python3 profile_system.py --sensor rgbd``, ``--sensor mono``,
+``--sensor reloc`` or ``--sensor loop``.  It builds the kernels, renders
+chip_smoke.py's sequence for the sensor on the host (the 30-frame stereo
+corridor, the 25-frame RGB-D one, the 40-frame mono one, tests/test_reloc.py's
+scenario on the mono System: 30 frames, 3 blank ones, frame 20 again, or
+the loop scenario: the 150-frame circle through the mono System with loop
+closing and the Atlas) and runs the System
 over it three times on the card, each time from a fresh System: a warm-up,
 an untraced run, and a run under ``torch.profiler`` (CPU and CUDA
 activity).  From the traced run alone it reports:
@@ -54,6 +55,13 @@ def run_frames(frames, device, sensor: str, prof=None) -> float:
     elif sensor == "rgbd":
         slam = System(cs.rgbd_settings(), "rgbd", **opts)
         feed = slam.track_rgbd
+    elif sensor == "loop":  # chip_smoke.run_loop's System
+        from orb_slam3_fast_tpu_torch.backend.loopcloser import LoopCloserConfig
+
+        slam = System(cs.MONO_CONFIG, "monocular", tracker_overrides=dict(min_init_matches=60, motion_radius=25.0),
+                      max_keyframes=256, **dict(opts, enable_loop_closing=True, multi_map=True))
+        slam.loopcloser.cfg = LoopCloserConfig(**cs.LOOP_CONFIG)
+        feed = slam.track_monocular
     else:  # mono and the relocalisation scenario, which ends relocalised (OK)
         slam = System(cs.MONO_CONFIG, "monocular", tracker_overrides=dict(min_init_matches=60), **opts)
         feed = slam.track_monocular
@@ -69,6 +77,8 @@ def run_frames(frames, device, sensor: str, prof=None) -> float:
         prof.stop()
     if slam.get_tracking_state() != "OK":
         raise RuntimeError(f"the System ended in state {slam.get_tracking_state()}")
+    if sensor == "loop" and slam.loopcloser.n_loops_closed < 1:
+        raise RuntimeError("the loop scenario closed no loop")
     return wall_ms
 
 
@@ -87,7 +97,7 @@ def busy_us(intervals) -> float:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--sensor", choices=("stereo", "rgbd", "mono", "reloc"), default="stereo")
+    parser.add_argument("--sensor", choices=("stereo", "rgbd", "mono", "reloc", "loop"), default="stereo")
     sensor = parser.parse_args().sensor
     if not torch.cuda.is_available():
         raise SystemExit("profile_system: torch.cuda.is_available() is False; this script needs a CUDA card")
@@ -107,6 +117,8 @@ def main() -> int:
         if sensor == "reloc":
             blank = np.full((480, 640), 25.0, np.float32)
             frames = frames[: cs.RELOC_FRAMES] + [(blank,)] * 3 + [(imgs[cs.RELOC_REVISIT],)]
+    elif sensor == "loop":
+        frames = [(img,) for img in cs.loop_frames()[0]]
     else:
         frames, _ = cs.corridor_frames(cs.SYS_FRAMES) if sensor == "stereo" else cs.rgbd_frames(cs.RGBD_FRAMES)
     run_frames(frames, device, sensor)  # warm-up: kernel loading, allocator, library handles

@@ -1,4 +1,4 @@
-"""The kernel wrappers (A-P, no K or O): CPU tensors take the plain version, other
+"""The kernel wrappers (A-T, no K or O): CPU tensors take the plain version, other
 devices launch the kernel or raise (no fallback); on a CUDA card each
 kernel agrees with its plain version (``cuda`` marker; these skip without a
 card and run there, where JAX is absent, with
@@ -16,7 +16,8 @@ from orb_slam3_fast_tpu_torch.ops import hamming as ham
 from orb_slam3_fast_tpu_torch.ops import image
 from orb_slam3_fast_tpu_torch.ops import matching as mat
 from orb_slam3_fast_tpu_torch.ops import twoview
-from orb_slam3_fast_tpu_torch.optim import ba, pnp, pose_opt
+from orb_slam3_fast_tpu_torch.optim import ba, ba_cg, pnp, pose_opt, sim3
+from orb_slam3_fast_tpu_torch.optim import pose_graph as pg
 from orb_slam3_fast_tpu_torch.utils import lie
 from orb_slam3_fast_tpu_torch.vocab import vocabulary as voc_mod
 
@@ -263,18 +264,21 @@ def mono_inputs(rng, device):
 
 def test_build_flags_and_sources():
     srcs = sorted(p.name for p in _kernels.SRC_DIR.glob("*.cu"))
-    assert srcs == ["ba_blocks.cu", "ba_schur.cu", "common.cu", "fast_nms.cu", "hamming_best2.cu", "orb_describe.cu",
-                    "pnp_ransac.cu", "pose_lm.cu", "pyramid_blur.cu", "sad_refine.cu", "select_subpixel.cu",
-                    "triangulate_dlt.cu", "twoview_ransac.cu", "visible_landmarks.cu", "vocab_transform.cu"]
-    # the one Jacobi eigen-solver, shared by G, M and P
-    assert sorted(p.name for p in _kernels.SRC_DIR.glob("*.cuh")) == ["jacobi.cuh"]
-    for name in ("triangulate_dlt.cu", "twoview_ransac.cu", "pnp_ransac.cu"):
+    assert srcs == ["ba_blocks.cu", "ba_pcg.cu", "ba_schur.cu", "common.cu", "fast_nms.cu", "hamming_best2.cu",
+                    "orb_describe.cu", "pnp_ransac.cu", "pose_lm.cu", "pyramid_blur.cu", "sad_refine.cu",
+                    "select_subpixel.cu", "sim3_graph.cu", "sim3_ransac.cu", "sim3_refine.cu", "triangulate_dlt.cu",
+                    "twoview_ransac.cu", "visible_landmarks.cu", "vocab_transform.cu"]
+    # the one Jacobi eigen-solver, shared by G, M, P, Q, R, S and T; the Sim3 maps, shared by R and S
+    assert sorted(p.name for p in _kernels.SRC_DIR.glob("*.cuh")) == ["jacobi.cuh", "sim3.cuh"]
+    for name in ("triangulate_dlt.cu", "twoview_ransac.cu", "pnp_ransac.cu", "sim3_ransac.cu", "ba_pcg.cu"):
         assert '#include "jacobi.cuh"' in (_kernels.SRC_DIR / name).read_text()
+    for name in ("sim3_refine.cu", "sim3_graph.cu"):
+        assert '#include "sim3.cuh"' in (_kernels.SRC_DIR / name).read_text()
     assert set(_kernels.SIGNATURES) == {
         "fast_nms_launch", "orb_describe_launch", "hamming_best2_launch", "pose_lm_launch", "ba_blocks_launch",
         "ba_schur_launch", "triangulate_dlt_launch", "pyramid_blur_launch", "select_subpixel_launch",
         "sad_refine_launch", "visible_landmarks_launch", "twoview_ransac_launch", "vocab_transform_launch",
-        "pnp_ransac_launch",
+        "pnp_ransac_launch", "sim3_ransac_launch", "sim3_refine_launch", "sim3_graph_launch", "ba_pcg_launch",
     }
     assert "arch=compute_90a,code=sm_90a" in _kernels.NVCC_FLAGS
     assert _kernels.LIB_PATH.parent.name == "_build"
@@ -457,3 +461,90 @@ def test_mono_kernels_match_plain_on_card(cuda):
     assert int(rk.n_inliers) == int(rp.n_inliers) and bool(rk.ok) == bool(rp.ok) and bool(rp.ok)
     scale = float(pnp_in[0][pnp_in[3]].norm(dim=1).median())
     assert _angle(rk.R, rp.R) <= 1e-3 and float((rk.t - rp.t).norm()) <= 1e-3 * scale
+
+
+LOOP_WRAPPERS = (sim3.sim3_ransac, sim3.optimize_sim3, pg.optimize_sim3_graph, ba_cg.implicit_schur_solve)
+
+
+def loop_inputs(rng, device):
+    """Inputs of Q, R, S and T at a small size, on ``device``: 256 pair
+    slots (150 valid) with 64 subsets, a 12-keyframe essential graph, and
+    the BA problem of ``system_inputs`` with its per-observation blocks."""
+    import chip_smoke
+
+    cam = cm.Camera.pinhole(400.0, 400.0, 320.0, 240.0)
+    arrays, _ = chip_smoke.sim3_pairs(rng, n=256, n_valid=150)
+    pairs = [torch.as_tensor(a).to(device) for a in arrays]
+    subsets = sim3._sample_subsets(3, pairs[-1], 64)
+    g_np, _ = chip_smoke.sim3_graph_problem(rng, K=12)
+    graph = pg.Sim3Graph(**{k: torch.as_tensor(v).to(device) for k, v in g_np.items()})
+    _, prob, *_ = system_inputs(rng, "cpu")
+    blocks = ba.build_normal_blocks_plain(cam, 30.0, prob.R, prob.t, prob.xw, prob, torch.ones_like(prob.obs_valid),
+                                          per_obs=True)
+    move = lambda x: x.to(device)  # noqa: E731
+    return cam, pairs, subsets, graph, ba.BAProblem(*map(move, prob)), [move(b) for b in blocks]
+
+
+def test_loop_wrappers_cpu_plain_and_other_devices_raise():
+    """Q, R, S and T: CPU tensors take the plain version (no launch); a
+    tensor on another device (meta) gets no plain path; a distorted camera
+    is refused by Q and R."""
+    rng = np.random.default_rng(5)
+    cam, pairs, subsets, graph, prob, blocks = loop_inputs(rng, "cpu")
+    before = [w.launches for w in LOOP_WRAPPERS]
+    torch.testing.assert_close(sim3.sim3_ransac(cam, cam, *pairs, 0, subsets=subsets),
+                               sim3.sim3_ransac_plain(cam, cam, *pairs, subsets))
+    S0 = sim3.sim3_ransac_plain(cam, cam, *pairs, subsets).S12
+    torch.testing.assert_close(sim3.optimize_sim3(cam, cam, S0, *pairs), sim3.optimize_sim3_plain(cam, cam, S0, *pairs))
+    torch.testing.assert_close(pg.optimize_sim3_graph(graph, iters=2), pg.optimize_sim3_graph_plain(graph, iters=2))
+    lam = torch.tensor(1e-3)
+    torch.testing.assert_close(
+        ba_cg.implicit_schur_solve(*blocks[:5], prob, blocks[5], lam, cg_iters=8),
+        ba_cg.implicit_schur_solve_plain(*blocks[:5], prob.obs_kf, prob.obs_lm, blocks[5], prob.pose_fixed,
+                                         prob.lm_valid, lam, 8))
+    assert [w.launches for w in LOOP_WRAPPERS] == before
+    meta = lambda t: t.to("meta")  # noqa: E731
+    mpairs = [meta(x) for x in pairs]
+    with pytest.raises(ValueError, match="CUDA"):
+        sim3.sim3_ransac(cam, cam, *mpairs, 0, subsets=meta(subsets))
+    with pytest.raises(ValueError, match="CUDA"):
+        sim3.optimize_sim3(cam, cam, lie.Sim3(*map(meta, S0)), *mpairs)
+    with pytest.raises(ValueError, match="CUDA"):
+        pg.optimize_sim3_graph(pg.Sim3Graph(*map(meta, graph)))
+    with pytest.raises(ValueError, match="CUDA"):
+        ba_cg.implicit_schur_solve(*map(meta, blocks[:5]), ba.BAProblem(*map(meta, prob)), meta(blocks[5]), meta(lam))
+    distorted = cm.Camera.pinhole(400.0, 400.0, 320.0, 240.0, dist=(0.1, 0.0, 0.0, 0.0, 0.0))
+    with pytest.raises(ValueError, match="distortion"):
+        sim3.sim3_ransac(distorted, distorted, *mpairs, 0, subsets=meta(subsets))
+
+
+@pytest.mark.cuda
+def test_loop_kernels_match_plain_on_card(cuda):
+    """Q, R, S and T against their plain versions on the same CUDA tensors:
+    Q's count within 1 and ok equal, its Sim3 within 1e-4; R's count within
+    1, its Sim3 within 2e-4; S within 1e-3 with no Cholesky failure; T's dp
+    and dl within 1e-4 of their largest entries; two runs of each kernel
+    equal bit for bit."""
+    from chip_smoke import sim3_rel_err
+
+    rng = np.random.default_rng(5)
+    cam, pairs, subsets, graph, prob, blocks = loop_inputs(rng, cuda)
+    rk, rp = sim3.sim3_ransac(cam, cam, *pairs, 0, subsets=subsets), sim3.sim3_ransac_plain(cam, cam, *pairs, subsets)
+    assert abs(int(rk.n_inliers) - int(rp.n_inliers)) <= 1 and bool(rk.ok) == bool(rp.ok) and bool(rp.ok)
+    assert sim3_rel_err(rk.S12, rp.S12) <= 1e-4
+    Sk, _, nk = sim3.optimize_sim3(cam, cam, rp.S12, *pairs)
+    Sp, _, np_ = sim3.optimize_sim3_plain(cam, cam, rp.S12, *pairs)
+    assert abs(int(nk) - int(np_)) <= 1 and sim3_rel_err(Sk, Sp) <= 2e-4
+    assert torch.equal(sim3.optimize_sim3(cam, cam, rp.S12, *pairs)[0].t, Sk.t)
+    gk, gp = pg.optimize_sim3_graph(graph), pg.optimize_sim3_graph_plain(graph)
+    assert int(pg.optimize_sim3_graph.last_fail) == 0
+    assert max(float((a - b).abs().max()) for a, b in zip(gk, gp)) <= 1e-3
+    assert all(torch.equal(a, b) for a, b in zip(pg.optimize_sim3_graph(graph), gk))
+    lam = torch.tensor(1e-3, device=cuda)
+    dk, lk = ba_cg.implicit_schur_solve(*blocks[:5], prob, blocks[5], lam)
+    dp, lp = ba_cg.implicit_schur_solve_plain(*blocks[:5], prob.obs_kf, prob.obs_lm, blocks[5], prob.pose_fixed,
+                                              prob.lm_valid, lam)
+    assert float((dk - dp).abs().max()) <= 1e-4 * float(dp.abs().max())
+    assert float((lk - lp).abs().max()) <= 1e-4 * float(lp.abs().max())
+    d2, l2 = ba_cg.implicit_schur_solve(*blocks[:5], prob, blocks[5], lam)
+    assert torch.equal(d2, dk) and torch.equal(l2, lk)

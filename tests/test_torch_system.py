@@ -47,14 +47,21 @@ def test_numpy_scene_matches_synthetic():
 
 
 def test_not_ported_options_raise():
-    for kw in (dict(OPTS, enable_loop_closing=True), dict(OPTS, multi_map=True), dict(OPTS, async_backend=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsys.System(CONFIG, "stereo", **kw)
+    """The async backend, the inertial sensors, the database on a device mesh
+    and an inertial map's 4-DoF essential graph raise, naming their ROADMAP
+    items; loop closing and the Atlas are built (fix_scale for stereo)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP §A item 6"):
+        tsys.System(CONFIG, "stereo", **dict(OPTS, async_backend=True))
     for sensor in ("monocular-inertial", "rgbd-inertial", "stereo-inertial"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="ROADMAP §A item 10"):
             tsys.System(CONFIG, sensor, **OPTS)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP §A item 12"):
         tsys.System(CONFIG, "stereo", **OPTS).kfdb.attach_mesh(None)
+    slam = tsys.System(CONFIG, "stereo", **dict(OPTS, enable_loop_closing=True, multi_map=True))
+    assert slam.loopcloser.cfg.fix_scale and slam.atlas.current is slam.world
+    slam.world.imu_initialized = True
+    with pytest.raises(NotImplementedError, match="ROADMAP §A item 10"):
+        slam.loopcloser._essential_graph(slam.world, 0, 0, *([None] * 6))
 
 
 def _jax_tum(tracker, path):

@@ -5,18 +5,21 @@ from the same runs with the plain versions on the host.
 Run from the root of a checkout: ``python3 track_spread.py`` measures that
 checkout; ``python3 track_spread.py --root DIR`` measures the checkout at
 DIR (for example a parent commit unpacked with ``git archive``), whose
-``chip_smoke.py`` and port it imports.  ``--sensor stereo rgbd mono``
-chooses the Systems (mono needs a checkout that has it) and ``--runs`` the
-card runs of each.  For each sensor it renders chip_smoke.py's sequence
-(the 30-frame stereo corridor, the 25-frame RGB-D one, the 40-frame mono
-one), runs the System over it ``--runs`` times on the card, each from a
-fresh System, and once on the host, and prints:
+``chip_smoke.py`` and port it imports.  ``--sensor stereo rgbd mono loop``
+chooses the Systems (mono and loop need a checkout that has them) and
+``--runs`` the card runs of each.  For each sensor it renders
+chip_smoke.py's sequence (the 30-frame stereo corridor, the 25-frame RGB-D
+one, the 40-frame mono one, the 150-frame circle of the loop scenario: the
+mono System with loop closing and the Atlas), runs the System over it
+``--runs`` times on the card, each from a fresh System, and once on the
+host, and prints:
 
 - per card run, the largest per-frame translation difference from the host
   run (max |t_card - t_host| over the axes, in the run's units) and its
   frame, the largest rotation-entry difference, the largest share of this
-  checkout's bounds (``chip_smoke.TRACK_DT`` and ``TRACK_DR``, which
-  ``chip_smoke.compare_tracks`` holds every frame to) that any frame takes,
+  checkout's bounds (``chip_smoke.TRACK_DT`` and ``TRACK_DR``, the loop
+  path's ``LOOP_DT`` and ``LOOP_DR``, which ``chip_smoke.compare_tracks``
+  holds every frame to) that any frame takes,
   and the frames whose state differs from the host run's;
 - the largest translation and rotation-entry differences between any two
   card runs.
@@ -51,7 +54,7 @@ def frame_diffs(track_a, track_b) -> tuple[np.ndarray, np.ndarray]:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", type=Path, default=HERE)
-    parser.add_argument("--sensor", nargs="+", choices=("stereo", "rgbd", "mono"), default=["stereo", "rgbd"])
+    parser.add_argument("--sensor", nargs="+", choices=("stereo", "rgbd", "mono", "loop"), default=["stereo", "rgbd"])
     parser.add_argument("--runs", type=int, default=5)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -62,7 +65,7 @@ def main() -> int:
 
     sys.path.insert(0, str(HERE))
     here = importlib.import_module("chip_smoke")
-    bound_dt, bound_dr = here.TRACK_DT, here.TRACK_DR  # this checkout's bounds
+    bounds = {"loop": (here.LOOP_DT, here.LOOP_DR)}  # this checkout's bounds; the rest TRACK_DT / TRACK_DR
     root = args.root.resolve()
     if root != HERE:  # the measured checkout's chip_smoke and port, its configs by relative path
         del sys.modules["chip_smoke"]
@@ -78,9 +81,13 @@ def main() -> int:
         if sensor == "mono":
             frames, poses = cs.mono_frames(cs.MONO_FRAMES)
             run = lambda dev: cs.run_mono(frames, poses, dev)[2]  # noqa: E731
+        elif sensor == "loop":
+            frames, poses = cs.loop_frames()
+            run = lambda dev: cs.run_loop(frames, poses, dev)[2]  # noqa: E731
         else:
             frames, poses = cs.corridor_frames(cs.SYS_FRAMES) if sensor == "stereo" else cs.rgbd_frames(cs.RGBD_FRAMES)
             run = lambda dev: cs.run_system(frames, poses, dev, sensor)[2]  # noqa: E731
+        bound_dt, bound_dr = bounds.get(sensor, (here.TRACK_DT, here.TRACK_DR))
         host = run(cpu)
         cards = [run(card) for _ in range(args.runs)]
         per_run = []
