@@ -9,13 +9,20 @@ stream are passed as ``c_void_p``.  Each C entry point launches on the
 caller's stream and returns ``cudaGetLastError()``; :func:`launch` raises if
 that is not ``cudaSuccess``.  There is no fallback: a kernel that does not
 build or launch raises.
+
+Each wrapper counts its launches in a :class:`LaunchCounter`, which is safe
+under threads and keeps the counts per thread name, so that a run of the
+asynchronous System can show which thread (``slam-backend``, ``slam-gba``
+or the tracker's) launched which kernel.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import os
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -43,13 +50,13 @@ SIGNATURES = {
     # desc_a, desc_b, n, m, mode, row_f, col_f, max_disp, idx, dist, dist2,
     # idx2, col_key, stream
     "hamming_best2_launch": [_P, _P, _I, _I, _I, _P, _P, _F, _P, _P, _P, _P, _P, _P],
-    # xw, uv, inv_sigma2, is_stereo, valid, n, cam (fx,fy,cx,cy,bf), R0, t0,
-    # n_rounds, iters, R_out, t_out, inlier_out, n_inl_out, stream
-    "pose_lm_launch": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
-    # cam5, R, t, xw, pose_fixed, lm_valid, obs_kf, obs_lm, obs_uv,
+    # xw, uv, inv_sigma2, is_stereo, valid, n, cam (fx,fy,cx,cy,bf,k1,k2,p1,p2,k3),
+    # dist, R0, t0, n_rounds, iters, R_out, t_out, inlier_out, n_inl_out, stream
+    "pose_lm_launch": [_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+    # cam10, dist, R, t, xw, pose_fixed, lm_valid, obs_kf, obs_lm, obs_uv,
     # inv_sigma2, is_stereo, obs_valid, inlier, n_obs, n_kf, n_lm, W, acc
     # (float64 sums), out (Hpp | Hll | bp | bl | w_lm | cost), stream
-    "ba_blocks_launch": [_P] * 13 + [_I] * 3 + [_P] * 4,
+    "ba_blocks_launch": [_P, _I] + [_P] * 12 + [_I] * 3 + [_P] * 4,
     # Hpp, Hll, bp, bl, W, w_lm, pose_fixed, lm_valid, obs_kf, lm_ptr,
     # lm_obs, lam, n_poses, n_lm, n_obs, S, bs, dp, dl, fail, stream
     "ba_schur_launch": [_P] * 12 + [_I] * 3 + [_P] * 6,
@@ -75,15 +82,18 @@ SIGNATURES = {
     # xw, uv, xn, inv_sigma2, valid, subsets, n, n_hyp, cam9 (host),
     # min_inliers, hyp_R, hyp_t, counts, R, t, inliers, n_inl, ok, stream
     "pnp_ransac_launch": [_P] * 6 + [_I, _I, _P, _I] + [_P] * 9,
-    # xc1, xc2, uv1, uv2, is1, is2, valid, subsets, n, n_hyp, cams8 (host),
+    # xc1, xc2, uv1, uv2, is1, is2, valid, subsets, n, n_hyp, cams18 (host),
     # fix_scale, min_inliers, hyp, counts, S, inliers, n_inl, ok, stream
     "sim3_ransac_launch": [_P] * 8 + [_I, _I, _P, _I, _I] + [_P] * 7,
-    # xc1, xc2, uv1, uv2, is1, is2, valid, S0, n, cams8 (host), fix_scale,
+    # xc1, xc2, uv1, uv2, is1, is2, valid, S0, n, cams18 (host), fix_scale,
     # iters, chi2, S, inliers, n_inl, stream
     "sim3_refine_launch": [_P] * 8 + [_I, _P, _I, _I, _F] + [_P] * 4,
     # vertices, edge_i, edge_j, meas, w, fixed, K, E, iters, damping,
     # vertices_out, jac, H, vec, fail, stream
     "sim3_graph_launch": [_P] * 6 + [_I] * 3 + [_D] + [_P] * 6,
+    # vertices, edge_i, edge_j, meas, w, fixed, vptr, vlist, K, E, iters,
+    # cg_iters, damping, vertices_out, jac, blk, dinv, vec, cg_run, fail, stream
+    "sim3_pcg_launch": [_P] * 8 + [_I] * 4 + [_D] + [_P] * 8,
     # Hpp, Hll, bp, bl, W, w_lm, pose_fixed, lm_valid, obs_kf, obs_lm,
     # lm_ptr, lm_obs, kf_ptr, kf_obs, lam, K, M, O, cg_iters, scratch, dp,
     # dl, stream
@@ -143,10 +153,14 @@ def build() -> tuple[float, str]:
     return time.perf_counter() - t0, "".join(out)
 
 
+_BUILD_LOCK = threading.Lock()  # one build at a time: the tracker and the backend threads may ask at once
+
+
 @functools.cache
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built first if needed)."""
-    build()
+    with _BUILD_LOCK:
+        build()
     so = ctypes.CDLL(str(LIB_PATH))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(so, name)
@@ -171,6 +185,38 @@ def launch(name: str, device: torch.device, *args) -> None:
     index = device.index if device.index is not None else torch.cuda.current_device()
     _check(so, "kernels_set_device", so.kernels_set_device(index))
     _check(so, name, getattr(so, name)(*args, torch.cuda.current_stream(index).cuda_stream))
+
+
+class LaunchCounter:
+    """The launches of one kernel's wrapper, counted per (thread name, mode)
+    under a lock so that concurrent threads lose no count.  The wrapper
+    calls :meth:`add` where it launches its kernel and nowhere else."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._counts: collections.Counter = collections.Counter()
+
+    def add(self, mode: str = "") -> None:
+        key = (threading.current_thread().name, mode)
+        with self._lock:
+            self._counts[key] += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self._counts.clear()
+
+    def total(self, thread: str | None = None, mode: str | None = None) -> int:
+        """Launches in all, or those of one thread name and / or mode."""
+        with self._lock:
+            return sum(n for (t, m), n in self._counts.items()
+                       if (thread is None or t == thread) and (mode is None or m == mode))
+
+    def by_thread(self) -> dict[str, int]:
+        with self._lock:
+            out: dict[str, int] = {}
+            for (t, _), n in self._counts.items():
+                out[t] = out.get(t, 0) + n
+            return out
 
 
 def resolve_device(device: torch.device | str) -> torch.device:

@@ -5,11 +5,15 @@
 // order in which the atomics land moves a float64 sum of float32 terms by
 // ~1e-16 of its size, which the rounding hides: a run repeats bit for bit,
 // where float32 atomics would round each run differently and a System's
-// runs on the card would drift apart.  See the source note in optim/ba.py;
-// build_normal_blocks_plain there is the JAX form with the dense Z.
+// runs on the card would drift apart.  A camera with radial-tangential
+// distortion takes the kDist instance (camera.cuh); one without, the code it
+// always ran.  See the source note in optim/ba.py; build_normal_blocks_plain
+// there is the JAX form with the dense Z.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "camera.cuh"
 
 namespace {
 
@@ -18,8 +22,9 @@ constexpr float kChi2Mono = 5.991f;
 constexpr float kChi2Stereo = 7.815f;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
+template <bool kDist>
 __global__ void __launch_bounds__(kThreads)
-ba_blocks_kernel(const float* __restrict__ cam5, const float* __restrict__ R,
+ba_blocks_kernel(const float* __restrict__ cam10, const float* __restrict__ R,
                  const float* __restrict__ t, const float* __restrict__ xw,
                  const uint8_t* __restrict__ pose_fixed, const uint8_t* __restrict__ lm_valid,
                  const int* __restrict__ obs_kf, const int* __restrict__ obs_lm,
@@ -37,7 +42,7 @@ ba_blocks_kernel(const float* __restrict__ cam5, const float* __restrict__ R,
   const int o = blockIdx.x * kThreads + threadIdx.x;
   float rho = 0.f;
   if (o < n_obs) {
-    const float fx = cam5[0], fy = cam5[1], cx = cam5[2], cy = cam5[3], bf = cam5[4];
+    const float fx = cam10[0], fy = cam10[1], cx = cam10[2], cy = cam10[3], bf = cam10[4];
     const int k = obs_kf[o], m = obs_lm[o];
     const float* Rk = R + 9 * k;
     const float X = xw[3 * m], Y = xw[3 * m + 1], Z = xw[3 * m + 2];
@@ -46,7 +51,18 @@ ba_blocks_kernel(const float* __restrict__ cam5, const float* __restrict__ R,
     for (int i = 0; i < 3; ++i) xc[i] = Rk[3 * i] * X + Rk[3 * i + 1] * Y + Rk[3 * i + 2] * Z + t[3 * k + i];
     const float z = fabsf(xc[2]) < 1e-9f ? 1e-9f : xc[2];
     const float iz = 1.f / z;
-    const float u = fx * (xc[0] * iz) + cx, v = fy * (xc[1] * iz) + cy;
+    float u, v;
+    cam::Radtan dist = {};
+    if constexpr (kDist) {
+      dist = {cam10[5], cam10[6], cam10[7], cam10[8], cam10[9]};
+      float xd, yd;
+      cam::distort(dist, xc[0] / z, xc[1] / z, xd, yd);
+      u = fx * xd + cx;
+      v = fy * yd + cy;
+    } else {
+      u = fx * (xc[0] * iz) + cx;
+      v = fy * (xc[1] * iz) + cy;
+    }
     const bool stereo = is_stereo[o];
     float r[3];
     r[0] = obs_uv[3 * o] - u;
@@ -64,9 +80,18 @@ ba_blocks_kernel(const float* __restrict__ cam5, const float* __restrict__ R,
     // rows a of d(u, v, u_r)/d(xc); Jp row = -(a [I | -hat(xc)]), Jl row = -(a R);
     // the signs cancel in every product below except b = -J^T w r
     const float xn = xc[0] * iz, yn = xc[1] * iz;
-    const float A[3][3] = {{fx * iz, 0.f, -fx * xn * iz},
-                           {0.f, fy * iz, -fy * yn * iz},
-                           {fx * iz, 0.f, -fx * xn * iz + bf * iz * iz}};
+    float A[3][3] = {{fx * iz, 0.f, -fx * xn * iz},
+                     {0.f, fy * iz, -fy * yn * iz},
+                     {fx * iz, 0.f, -fx * xn * iz + bf * iz * iz}};
+    if constexpr (kDist) {  // rows of models.stereo_project_jac with the distortion's Jacobian
+      float J[2][3];
+      cam::pixel_jac(fx, fy, dist, xn, yn, iz, J);
+      for (int k = 0; k < 3; ++k) {
+        A[0][k] = A[2][k] = J[0][k];
+        A[1][k] = J[1][k];
+      }
+      A[2][2] = J[0][2] + bf * iz * iz;
+    }
     float hpp[21] = {}, hll[6] = {}, gp[6] = {}, gl[3] = {}, wo[18] = {};
     const int rows = stereo ? 3 : 2;
     for (int q = 0; q < rows; ++q) {
@@ -133,7 +158,8 @@ __global__ void round_kernel(const double* __restrict__ acc, float* __restrict__
 
 }  // namespace
 
-extern "C" int ba_blocks_launch(const float* cam5, const float* R, const float* t, const float* xw,
+// cam10: fx fy cx cy bf k1 k2 p1 p2 k3 on the device; dist: whether any coefficient is not 0
+extern "C" int ba_blocks_launch(const float* cam10, int dist, const float* R, const float* t, const float* xw,
                                 const uint8_t* pose_fixed, const uint8_t* lm_valid,
                                 const int* obs_kf, const int* obs_lm, const float* obs_uv,
                                 const float* inv_s2, const uint8_t* is_stereo,
@@ -144,9 +170,14 @@ extern "C" int ba_blocks_launch(const float* cam5, const float* R, const float* 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_obs > 0) {
     const int grid = (n_obs + kThreads - 1) / kThreads;
-    ba_blocks_kernel<<<grid, kThreads, 0, st>>>(cam5, R, t, xw, pose_fixed, lm_valid, obs_kf, obs_lm,
-                                               obs_uv, inv_s2, is_stereo, obs_valid, inlier, n_obs,
-                                               n_kf, n_lm, W, acc);
+    if (dist)
+      ba_blocks_kernel<true><<<grid, kThreads, 0, st>>>(cam10, R, t, xw, pose_fixed, lm_valid, obs_kf, obs_lm,
+                                                         obs_uv, inv_s2, is_stereo, obs_valid, inlier, n_obs,
+                                                         n_kf, n_lm, W, acc);
+    else
+      ba_blocks_kernel<false><<<grid, kThreads, 0, st>>>(cam10, R, t, xw, pose_fixed, lm_valid, obs_kf, obs_lm,
+                                                          obs_uv, inv_s2, is_stereo, obs_valid, inlier, n_obs,
+                                                          n_kf, n_lm, W, acc);
   }
   const int n = 42 * n_kf + 13 * n_lm + 1;
   const int grid = (n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024;

@@ -1,10 +1,14 @@
 // Kernel D: 4 x 10 Levenberg-Marquardt pose optimisation with Huber IRLS and
 // the final chi2 classification, all in one CTA.  Every round optimises with
-// the round-0 mask, as the reference does.  See the source note in
-// optim/pose_opt.py; pose_optimization_plain there is the same algorithm.
+// the round-0 mask, as the reference does.  A camera with radial-tangential
+// distortion takes the kDist instance (camera.cuh); one without, the code
+// it always ran.  See the source note in optim/pose_opt.py;
+// pose_optimization_plain there is the same algorithm.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "camera.cuh"
 
 namespace {
 
@@ -27,7 +31,8 @@ struct Edge {
 };
 
 // T = [R (row-major 9), t (3)]
-__device__ __forceinline__ Edge eval_edge(const float* __restrict__ T, const Cam& c,
+template <bool kDist>
+__device__ __forceinline__ Edge eval_edge(const float* __restrict__ T, const Cam& c, const cam::Radtan& dist,
                                           const float* __restrict__ xw,
                                           const float* __restrict__ uv, float inv_s2,
                                           bool stereo, bool valid) {
@@ -36,8 +41,16 @@ __device__ __forceinline__ Edge eval_edge(const float* __restrict__ T, const Cam
 #pragma unroll
   for (int i = 0; i < 3; ++i) e.xc[i] = T[3 * i] * X + T[3 * i + 1] * Y + T[3 * i + 2] * Z + T[9 + i];
   const float z = fabsf(e.xc[2]) < 1e-9f ? 1e-9f : e.xc[2];
-  const float u = c.fx * (e.xc[0] / z) + c.cx;
-  const float v = c.fy * (e.xc[1] / z) + c.cy;
+  float u, v;
+  if constexpr (kDist) {
+    float xd, yd;
+    cam::distort(dist, e.xc[0] / z, e.xc[1] / z, xd, yd);
+    u = c.fx * xd + c.cx;
+    v = c.fy * yd + c.cy;
+  } else {
+    u = c.fx * (e.xc[0] / z) + c.cx;
+    v = c.fy * (e.xc[1] / z) + c.cy;
+  }
   e.r[0] = uv[0] - u;
   e.r[1] = uv[1] - v;
   e.r[2] = stereo ? uv[2] - (u - c.bf / z) : 0.f;
@@ -126,10 +139,11 @@ __device__ void exp_compose(const double (&dx)[6], const float* T, float* T_out)
   }
 }
 
+template <bool kDist>
 __global__ void __launch_bounds__(kThreads)
 pose_lm_kernel(const float* __restrict__ xw, const float* __restrict__ uv,
                const float* __restrict__ inv_s2, const uint8_t* __restrict__ is_stereo,
-               const uint8_t* __restrict__ valid, int n, const float* __restrict__ cam5,
+               const uint8_t* __restrict__ valid, int n, const float* __restrict__ cam10,
                const float* __restrict__ R0, const float* __restrict__ t0, int n_rounds,
                int iters, float* __restrict__ R_out, float* __restrict__ t_out,
                uint8_t* __restrict__ inlier, int* __restrict__ n_inl_out) {
@@ -137,7 +151,9 @@ pose_lm_kernel(const float* __restrict__ xw, const float* __restrict__ uv,
   __shared__ float red[kWarps][kSums];
   __shared__ float tot[kSums];
   const int tid = threadIdx.x;
-  const Cam c = {cam5[0], cam5[1], cam5[2], cam5[3], cam5[4]};
+  const Cam c = {cam10[0], cam10[1], cam10[2], cam10[3], cam10[4]};
+  cam::Radtan dist = {};
+  if constexpr (kDist) dist = {cam10[5], cam10[6], cam10[7], cam10[8], cam10[9]};
   if (tid < 9) sT[tid] = R0[tid];
   if (tid < 3) sT[9 + tid] = t0[tid];
   __syncthreads();
@@ -151,7 +167,7 @@ pose_lm_kernel(const float* __restrict__ xw, const float* __restrict__ uv,
 #pragma unroll
       for (int k = 0; k < kSums; ++k) acc[k] = 0.f;
       for (int e = tid; e < n; e += kThreads) {
-        const Edge ed = eval_edge(sT, c, xw + 3 * e, uv + 3 * e, inv_s2[e], is_stereo[e], valid[e]);
+        const Edge ed = eval_edge<kDist>(sT, c, dist, xw + 3 * e, uv + 3 * e, inv_s2[e], is_stereo[e], valid[e]);
         if (!ed.active) continue;
         const float w = ed.w_huber * inv_s2[e];
         const float X = ed.xc[0], Y = ed.xc[1], Z = ed.xc[2];
@@ -159,9 +175,18 @@ pose_lm_kernel(const float* __restrict__ xw, const float* __restrict__ uv,
         const float iz = 1.f / z;
         const float xn = X * iz, yn = Y * iz;
         // rows of d(u, v, u_r)/d(xc); the residual Jacobian is -(row * [I | -hat(xc)])
-        const float A[3][3] = {{c.fx * iz, 0.f, -c.fx * xn * iz},
-                               {0.f, c.fy * iz, -c.fy * yn * iz},
-                               {c.fx * iz, 0.f, -c.fx * xn * iz + c.bf * iz * iz}};
+        float A[3][3] = {{c.fx * iz, 0.f, -c.fx * xn * iz},
+                         {0.f, c.fy * iz, -c.fy * yn * iz},
+                         {c.fx * iz, 0.f, -c.fx * xn * iz + c.bf * iz * iz}};
+        if constexpr (kDist) {  // rows of models.stereo_project_jac with the distortion's Jacobian
+          float J[2][3];
+          cam::pixel_jac(c.fx, c.fy, dist, xn, yn, iz, J);
+          for (int k = 0; k < 3; ++k) {
+            A[0][k] = A[2][k] = J[0][k];
+            A[1][k] = J[1][k];
+          }
+          A[2][2] = J[0][2] + c.bf * iz * iz;
+        }
         const int rows = ed.stereo ? 3 : 2;
         for (int q = 0; q < rows; ++q) {
           const float a0 = A[q][0], a1 = A[q][1], a2 = A[q][2];
@@ -196,7 +221,7 @@ pose_lm_kernel(const float* __restrict__ xw, const float* __restrict__ uv,
       // pass 2: cost at the candidate pose
       float cn[1] = {0.f};
       for (int e = tid; e < n; e += kThreads) {
-        const Edge ed = eval_edge(sTn, c, xw + 3 * e, uv + 3 * e, inv_s2[e], is_stereo[e], valid[e]);
+        const Edge ed = eval_edge<kDist>(sTn, c, dist, xw + 3 * e, uv + 3 * e, inv_s2[e], is_stereo[e], valid[e]);
         if (ed.active) cn[0] += ed.w_huber * ed.chi2;
       }
       const float cost = tot[27];
@@ -216,7 +241,7 @@ pose_lm_kernel(const float* __restrict__ xw, const float* __restrict__ uv,
   // chi2 classification at the final pose
   float cnt[1] = {0.f};
   for (int e = tid; e < n; e += kThreads) {
-    const Edge ed = eval_edge(sT, c, xw + 3 * e, uv + 3 * e, inv_s2[e], is_stereo[e], valid[e]);
+    const Edge ed = eval_edge<kDist>(sT, c, dist, xw + 3 * e, uv + 3 * e, inv_s2[e], is_stereo[e], valid[e]);
     const float delta2 = ed.stereo ? kChi2Stereo : kChi2Mono;
     const bool in = ed.active && ed.chi2 <= delta2;
     inlier[e] = in;
@@ -230,13 +255,18 @@ pose_lm_kernel(const float* __restrict__ xw, const float* __restrict__ uv,
 
 }  // namespace
 
+// cam10: fx fy cx cy bf k1 k2 p1 p2 k3 on the device; dist: whether any coefficient is not 0
 extern "C" int pose_lm_launch(const float* xw, const float* uv, const float* inv_s2,
                               const uint8_t* is_stereo, const uint8_t* valid, int n,
-                              const float* cam5, const float* R0, const float* t0, int n_rounds,
+                              const float* cam10, int dist, const float* R0, const float* t0, int n_rounds,
                               int iters, float* R_out, float* t_out, uint8_t* inlier,
                               int* n_inl_out, void* stream) {
-  pose_lm_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      xw, uv, inv_s2, is_stereo, valid, n, cam5, R0, t0, n_rounds, iters, R_out, t_out, inlier,
-      n_inl_out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dist)
+    pose_lm_kernel<true><<<1, kThreads, 0, st>>>(xw, uv, inv_s2, is_stereo, valid, n, cam10, R0, t0, n_rounds,
+                                                  iters, R_out, t_out, inlier, n_inl_out);
+  else
+    pose_lm_kernel<false><<<1, kThreads, 0, st>>>(xw, uv, inv_s2, is_stereo, valid, n, cam10, R0, t0, n_rounds,
+                                                   iters, R_out, t_out, inlier, n_inl_out);
   return cudaGetLastError();
 }

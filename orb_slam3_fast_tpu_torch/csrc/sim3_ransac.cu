@@ -9,11 +9,14 @@
 //  2. One CTA: the first maximum of the counts (argmax's choice), its Sim3,
 //     its inlier mask, and ok = count >= min_inliers with a finite Sim3 and
 //     1e-3 < s < 1e3.
-// See the source note in optim/sim3.py; sim3_ransac_plain there is the same
-// function in PyTorch.
+// Cameras with radial-tangential distortion take the kDist instances
+// (camera.cuh); cameras without, the code they always ran.  See the source
+// note in optim/sim3.py; sim3_ransac_plain there is the same function in
+// PyTorch.
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "camera.cuh"
 #include "jacobi.cuh"
 
 namespace {
@@ -25,9 +28,15 @@ struct Cams {
   float fx1, fy1, cx1, cy1, fx2, fy2, cx2, cy2;
 };
 
+struct Dist {
+  cam::Radtan d1, d2;
+};
+
 // Both reprojection tests of pair i under S = (R, t, s) (sim3._two_sided):
 // x2 -> s R x2 + t into camera 1, x1 -> (R^T x1 - R^T t) / s into camera 2.
-__device__ __forceinline__ bool pair_inlier(const float* __restrict__ S, const Cams& c, const float* __restrict__ x1,
+template <bool kDist>
+__device__ __forceinline__ bool pair_inlier(const float* __restrict__ S, const Cams& c, const Dist& dc,
+                                            const float* __restrict__ x1,
                                             const float* __restrict__ x2, const float* __restrict__ uv1,
                                             const float* __restrict__ uv2, float is1, float is2) {
   const float* R = S;
@@ -39,8 +48,17 @@ __device__ __forceinline__ bool pair_inlier(const float* __restrict__ S, const C
   }
   for (int r = 0; r < 3; ++r) q[r] = si * (R[r] * x1[0] + R[3 + r] * x1[1] + R[6 + r] * x1[2]) + ti[r];
   const float z1 = fabsf(y[2]) < 1e-9f ? 1e-9f : y[2], z2 = fabsf(q[2]) < 1e-9f ? 1e-9f : q[2];
-  const float du1 = c.fx1 * (y[0] / z1) + c.cx1 - uv1[0], dv1 = c.fy1 * (y[1] / z1) + c.cy1 - uv1[1];
-  const float du2 = c.fx2 * (q[0] / z2) + c.cx2 - uv2[0], dv2 = c.fy2 * (q[1] / z2) + c.cy2 - uv2[1];
+  float du1, dv1, du2, dv2;
+  if constexpr (kDist) {
+    float xd, yd;
+    cam::distort(dc.d1, y[0] / z1, y[1] / z1, xd, yd);
+    du1 = c.fx1 * xd + c.cx1 - uv1[0], dv1 = c.fy1 * yd + c.cy1 - uv1[1];
+    cam::distort(dc.d2, q[0] / z2, q[1] / z2, xd, yd);
+    du2 = c.fx2 * xd + c.cx2 - uv2[0], dv2 = c.fy2 * yd + c.cy2 - uv2[1];
+  } else {
+    du1 = c.fx1 * (y[0] / z1) + c.cx1 - uv1[0], dv1 = c.fy1 * (y[1] / z1) + c.cy1 - uv1[1];
+    du2 = c.fx2 * (q[0] / z2) + c.cx2 - uv2[0], dv2 = c.fy2 * (q[1] / z2) + c.cy2 - uv2[1];
+  }
   return (du1 * du1 + dv1 * dv1) * is1 < kChi2 && (du2 * du2 + dv2 * dv2) * is2 < kChi2 && y[2] > 0.f &&
          q[2] > 0.f;
 }
@@ -80,10 +98,12 @@ __device__ void horn3(const float* __restrict__ xc1, const float* __restrict__ x
   S[12] = (float)s;
 }
 
+template <bool kDist>
 __global__ void __launch_bounds__(kThreads)
 hypotheses_kernel(const float* __restrict__ xc1, const float* __restrict__ xc2, const float* __restrict__ uv1,
                   const float* __restrict__ uv2, const float* __restrict__ is1, const float* __restrict__ is2,
-                  const bool* __restrict__ valid, const int* __restrict__ subsets, int n, Cams cams, int fix_scale,
+                  const bool* __restrict__ valid, const int* __restrict__ subsets, int n, Cams cams, Dist dist,
+                  int fix_scale,
                   float* __restrict__ hyp, int* __restrict__ counts) {
   __shared__ float S[13];
   __shared__ int warp_sum[kThreads / 32];
@@ -92,7 +112,8 @@ hypotheses_kernel(const float* __restrict__ xc1, const float* __restrict__ xc2, 
   __syncthreads();
   int cnt = 0;
   for (int i = threadIdx.x; i < n; i += kThreads)
-    cnt += valid[i] && pair_inlier(S, cams, xc1 + 3 * i, xc2 + 3 * i, uv1 + 2 * i, uv2 + 2 * i, is1[i], is2[i]);
+    cnt += valid[i] &&
+           pair_inlier<kDist>(S, cams, dist, xc1 + 3 * i, xc2 + 3 * i, uv1 + 2 * i, uv2 + 2 * i, is1[i], is2[i]);
   for (int o = 16; o > 0; o >>= 1) cnt += __shfl_xor_sync(0xFFFFFFFFu, cnt, o);
   if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = cnt;
   __syncthreads();
@@ -104,10 +125,11 @@ hypotheses_kernel(const float* __restrict__ xc1, const float* __restrict__ xc2, 
   }
 }
 
+template <bool kDist>
 __global__ void __launch_bounds__(kThreads)
 select_kernel(const float* __restrict__ xc1, const float* __restrict__ xc2, const float* __restrict__ uv1,
               const float* __restrict__ uv2, const float* __restrict__ is1, const float* __restrict__ is2,
-              const bool* __restrict__ valid, int n, int n_hyp, Cams cams, int min_inliers,
+              const bool* __restrict__ valid, int n, int n_hyp, Cams cams, Dist dist, int min_inliers,
               const float* __restrict__ hyp, const int* __restrict__ counts, float* __restrict__ S_out,
               bool* __restrict__ inliers, int* __restrict__ n_inl, bool* __restrict__ ok) {
   __shared__ float S[13];
@@ -126,21 +148,33 @@ select_kernel(const float* __restrict__ xc1, const float* __restrict__ xc2, cons
   }
   __syncthreads();
   for (int i = threadIdx.x; i < n; i += kThreads)
-    inliers[i] = valid[i] && pair_inlier(S, cams, xc1 + 3 * i, xc2 + 3 * i, uv1 + 2 * i, uv2 + 2 * i, is1[i], is2[i]);
+    inliers[i] = valid[i] &&
+                 pair_inlier<kDist>(S, cams, dist, xc1 + 3 * i, xc2 + 3 * i, uv1 + 2 * i, uv2 + 2 * i, is1[i], is2[i]);
 }
 
 }  // namespace
 
+// cams18 (host): fx fy cx cy k1 k2 p1 p2 k3 of camera 1, then of camera 2
 extern "C" int sim3_ransac_launch(const float* xc1, const float* xc2, const float* uv1, const float* uv2,
                                   const float* is1, const float* is2, const bool* valid, const int* subsets, int n,
-                                  int n_hyp, const float* cams8, int fix_scale, int min_inliers, float* hyp,
+                                  int n_hyp, const float* cams18, int fix_scale, int min_inliers, float* hyp,
                                   int* counts, float* S, bool* inliers, int* n_inl, bool* ok, void* stream) {
   if (n < 1 || n_hyp < 1) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Cams cams = {cams8[0], cams8[1], cams8[2], cams8[3], cams8[4], cams8[5], cams8[6], cams8[7]};  // host copy
-  hypotheses_kernel<<<n_hyp, kThreads, 0, st>>>(xc1, xc2, uv1, uv2, is1, is2, valid, subsets, n, cams, fix_scale,
-                                                hyp, counts);
-  select_kernel<<<1, kThreads, 0, st>>>(xc1, xc2, uv1, uv2, is1, is2, valid, n, n_hyp, cams, min_inliers, hyp,
-                                        counts, S, inliers, n_inl, ok);
+  const float* c1 = cams18;
+  const float* c2 = cams18 + 9;
+  const Cams cams = {c1[0], c1[1], c1[2], c1[3], c2[0], c2[1], c2[2], c2[3]};  // host copies
+  const Dist dist = {cam::from(c1 + 4), cam::from(c2 + 4)};
+  if (cam::any(dist.d1) || cam::any(dist.d2)) {
+    hypotheses_kernel<true><<<n_hyp, kThreads, 0, st>>>(xc1, xc2, uv1, uv2, is1, is2, valid, subsets, n, cams, dist,
+                                                         fix_scale, hyp, counts);
+    select_kernel<true><<<1, kThreads, 0, st>>>(xc1, xc2, uv1, uv2, is1, is2, valid, n, n_hyp, cams, dist,
+                                                 min_inliers, hyp, counts, S, inliers, n_inl, ok);
+  } else {
+    hypotheses_kernel<false><<<n_hyp, kThreads, 0, st>>>(xc1, xc2, uv1, uv2, is1, is2, valid, subsets, n, cams,
+                                                          dist, fix_scale, hyp, counts);
+    select_kernel<false><<<1, kThreads, 0, st>>>(xc1, xc2, uv1, uv2, is1, is2, valid, n, n_hyp, cams, dist,
+                                                  min_inliers, hyp, counts, S, inliers, n_inl, ok);
+  }
   return cudaGetLastError();
 }

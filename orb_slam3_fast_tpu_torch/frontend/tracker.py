@@ -24,10 +24,15 @@ after local mapping, and tracking goes on from the corrected keyframe pose;
 with an Atlas a lost map (or a timestamp jump) is kept and a new one
 started, or reset when it is poor, keyframe-database rows are global, and
 a merge rebases the tracker's cached ids and pose
-(``_remap_after_merge``).  Not ported yet: the async backend (ROADMAP §A
-item 6), the inertial tracker (item 10), fisheye two-camera stereo (item
-11).  With no vocabulary, ``_index_kf`` does nothing and ``_relocalize``
-fails, as in the JAX package.
+(``_remap_after_merge``).  With an async backend (``backend=``, a
+``backend.pipeline.AsyncBackend``) a new keyframe is written into the map
+under the backend's lock and queued to its worker thread instead of being
+mapped inline, and before each tracked frame ``_sync_backend`` takes the
+worker's loop and merge events and, when the worker changed the map,
+rebases the last pose through its reference keyframe (Tracking.cc:
+1884-1891).  Not ported yet: the inertial tracker (ROADMAP §A item 10),
+fisheye two-camera stereo (item 11).  With no vocabulary, ``_index_kf``
+does nothing and ``_relocalize`` fails, as in the JAX package.
 
 Kernel L -- source note.
   Replaces: ``_visible_landmarks`` (``orb_slam3_fast_tpu/frontend/
@@ -47,6 +52,7 @@ Kernel L -- source note.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
@@ -167,11 +173,11 @@ def visible_landmarks(cam, R, t, lm_pos, lm_mask, lm_normal, lm_dmin, lm_dmax, w
         lm_dmax.data_ptr(), m, params.ctypes.data, float(wh[0]), float(wh[1]), float(log_sf), int(n_lvl),
         uv.data_ptr(), level.data_ptr(), visible.data_ptr(),
     )
-    visible_landmarks.launches += 1
+    visible_landmarks.launches.add()
     return uv, level, visible
 
 
-visible_landmarks.launches = 0
+visible_landmarks.launches = _kernels.LaunchCounter()
 
 
 class LocalMap(NamedTuple):
@@ -271,14 +277,16 @@ class Tracker:
 
     def __init__(self, cam: cam_models.Camera, cfg: TrackerConfig = TrackerConfig(), bf: float = 0.0,
                  image_wh: tuple = (640, 480), world: Optional[WorldMap] = None, mapper=None, voc=None,
-                 kfdb=None, loopcloser=None, map_id: int = 0, atlas=None, timers=None,
+                 kfdb=None, loopcloser=None, map_id: int = 0, atlas=None, backend=None, timers=None,
                  device: torch.device | str = "cuda"):
         """``cam`` stays on the host (a CPU Camera); keypoints, matching and
         pose optimisation run on ``device``: the card unless the caller
         passes ``device="cpu"``.  ``voc`` (a Vocabulary on ``device``) and
         ``kfdb`` (a KeyFrameDatabase) enable keyframe indexing and
         relocalisation, ``loopcloser`` (a LoopCloser) loop closing, ``atlas``
-        (an Atlas, whose current map replaces ``world``) several maps."""
+        (an Atlas, whose current map replaces ``world``) several maps,
+        ``backend`` (an AsyncBackend) local mapping and loop closing on its
+        threads."""
         self.cam = cam
         self.cfg = cfg
         self.bf = float(bf)
@@ -288,6 +296,9 @@ class Tracker:
         self.kfdb = kfdb
         self.loopcloser = loopcloser
         self.atlas = atlas
+        self.backend = backend
+        self._seen_map_version = 0
+        self._rel_to_ref = None  # the last frame's pose relative to its reference keyframe
         self.map_id = map_id if atlas is None else atlas.current_id
         if atlas is not None:
             world = atlas.current
@@ -375,6 +386,7 @@ class Tracker:
                 R_ref, t_ref = self.world.kf_R[r], self.world.kf_t[r]
                 R_rel = self.last.R @ R_ref.T
                 t_rel = self.last.t - R_rel @ t_ref
+                self._rel_to_ref = (R_rel, t_rel)  # for the rebase after a backend map change
             else:
                 R_rel, t_rel = self.last.R.copy(), self.last.t.copy()
             self.trajectory.append((ts, R_rel, t_rel, r, self.map_id,
@@ -525,7 +537,36 @@ class Tracker:
         return True
 
     # ------------------------------------------------------------------
+    def _sync_backend(self):
+        """Take the async backend's events before a frame is tracked: apply
+        a merge's remap, drop the motion model across a loop correction, and
+        when the worker changed the map rebase the last pose through the
+        reference keyframe (the change-index handshake, Tracking.cc:
+        1884-1891)."""
+        b = self.backend
+        if b is None:
+            return
+        while b.results:
+            kind, info = b.results.popleft()
+            if kind == "merge":
+                with b.lock:
+                    self._remap_after_merge(info["src_id"], info["dst_id"], info["kf_offset"], info["lm_offset"],
+                                            S_dst_src=info["S_dst_src"])
+            else:  # a loop closed: the motion model does not hold across the correction
+                self.velocity = lie.SE3.identity(self.device)
+        if b.map_version != self._seen_map_version:
+            self._seen_map_version = b.map_version
+            r = self.ref_kf
+            if r >= 0 and self.last is not None and self._rel_to_ref is not None:
+                R_rel, t_rel = self._rel_to_ref
+                with b.lock:
+                    R_ref, t_ref = self.world.kf_R[r].copy(), self.world.kf_t[r].copy()
+                self.last.R = lie.normalize_rotation_np(R_rel @ R_ref)
+                self.last.t = (R_rel @ t_ref + t_rel).astype(np.float32)
+                self.velocity = lie.SE3.identity(self.device)
+
     def _track_frame(self, kp, ts, depth, right_u) -> bool:
+        self._sync_backend()
         last = self.last
         self._cur_right_u = right_u  # stereo edges of the current frame
         T_last = self._se3(last.R, last.t)
@@ -796,16 +837,21 @@ class Tracker:
 
     def _create_keyframe(self):
         """CreateNewKeyFrame (Tracking.cc:3127-3247), then local mapping and
-        loop closing inline."""
+        loop closing: queued to the async backend's worker (the reference's
+        LocalMapping::InsertKeyFrame), or inline without one."""
         last = self.last
-        k = self.world.add_keyframe(last.kp, last.R, last.t, last.ts, depth=last.depth, right_u=last.right_u)
-        slots = np.nonzero(last.obs_lm >= 0)[0]
-        self.world.add_observations(k, slots, last.obs_lm[slots])
-        if last.depth is not None:
-            self._create_stereo_landmarks(k, last)
+        with self.backend.lock if self.backend is not None else contextlib.nullcontext():
+            k = self.world.add_keyframe(last.kp, last.R, last.t, last.ts, depth=last.depth, right_u=last.right_u)
+            slots = np.nonzero(last.obs_lm >= 0)[0]
+            self.world.add_observations(k, slots, last.obs_lm[slots])
+            if last.depth is not None:
+                self._create_stereo_landmarks(k, last)
         self._index_kf(k, last.kp)  # KeyFrameDatabase::add, at insertion
         self.ref_kf = k
         self.frames_since_kf = 0
+        if self.backend is not None:
+            self.backend.insert_keyframe(self.world, k, map_id=self.map_id, atlas=self.atlas)
+            return
         if self.mapper is not None:
             self.mapper.process_new_keyframe(self.world, k, kfdb=self.kfdb)
         if self.loopcloser is not None:

@@ -288,11 +288,11 @@ def select_subpixel(nms: torch.Tensor, raw: torch.Tensor, shapes, offsets, cfg: 
         level_scale.ctypes.data, cfg.n_levels, cfg.cell, cfg.cand_per_cell, EDGE_BORDER,
         cand_v.data_ptr(), cand_i.data_ptr(), xy_lvl.data_ptr(), xy.data_ptr(), resp.data_ptr(), valid.data_ptr(),
     )
-    select_subpixel.launches += 1
+    select_subpixel.launches.add()
     return xy_lvl, xy, resp, valid
 
 
-select_subpixel.launches = 0
+select_subpixel.launches = _kernels.LaunchCounter()
 
 
 def describe_inputs(levels: list[torch.Tensor], blurs: list[torch.Tensor], level: torch.Tensor):
@@ -387,11 +387,11 @@ def orb_describe(img_flat: torch.Tensor, blur_flat: torch.Tensor, kp_off: torch.
         kp_xy.data_ptr(), pattern.data_ptr(), umax.data_ptr(), n,
         angle.data_ptr(), desc.data_ptr(),
     )
-    orb_describe.launches += 1
+    orb_describe.launches.add()
     return angle, desc
 
 
-orb_describe.launches = 0
+orb_describe.launches = _kernels.LaunchCounter()
 
 
 def total_capacity(cfg: ExtractorConfig) -> int:

@@ -155,8 +155,8 @@ def fast_nms(img: torch.Tensor, ini_th: float, min_th: float, border: int, out=N
         img.data_ptr(), raw.data_ptr(), raw_inb.data_ptr(), nms.data_ptr(),
         h, w, border, float(ini_th), float(min_th),
     )
-    fast_nms.launches += 1
+    fast_nms.launches.add()
     return raw_inb, nms
 
 
-fast_nms.launches = 0
+fast_nms.launches = _kernels.LaunchCounter()

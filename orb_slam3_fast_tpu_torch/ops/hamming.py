@@ -291,18 +291,15 @@ def hamming_best2(desc_a: torch.Tensor, desc_b: torch.Tensor, gate):
         row_f.data_ptr(), col_f.data_ptr(), max_disp,
         idx.data_ptr(), dist.data_ptr(), dist2.data_ptr(), idx2.data_ptr(), col_key.data_ptr(),
     )
-    hamming_best2.launches += 1
-    hamming_best2.mode_launches[mode] += 1
+    hamming_best2.launches.add(MODE_NAMES[mode])
     col = col_key & 0xFFFFFFFF if col_argmin else None
     if mode == _STEREO:
         return Best2(idx.long(), dist, dist2, idx2.long()), col
     return Best2(idx.long(), dist.to(torch.int32), dist2.to(torch.int32), idx2.long()), col
 
 
-hamming_best2.launches = 0
-# launches per mode, indexed by the kernel's mode number (a part of ``launches``)
-hamming_best2.mode_launches = [0, 0, 0, 0]
-MODE_NAMES = ("stereo", "window", "epipolar", "mutual")
+hamming_best2.launches = _kernels.LaunchCounter()  # counted per mode too, by the names below
+MODE_NAMES = ("stereo", "window", "epipolar", "mutual")  # by the kernel's mode number
 
 
 def rotation_consistency(angle_a: torch.Tensor, angle_b: torch.Tensor, accept: torch.Tensor) -> torch.Tensor:

@@ -137,8 +137,8 @@ def pyramid_blur(img: torch.Tensor, n_levels: int = 8, scale_factor: float = 1.2
         img.data_ptr(), shapes.ctypes.data, offs.ctypes.data, n_levels, taps.ctypes.data,
         levels.data_ptr(), blurs.data_ptr(),
     )
-    pyramid_blur.launches += 1
+    pyramid_blur.launches.add()
     return levels, blurs
 
 
-pyramid_blur.launches = 0
+pyramid_blur.launches = _kernels.LaunchCounter()

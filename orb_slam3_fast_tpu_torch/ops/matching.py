@@ -306,8 +306,8 @@ def stereo_subpixel_refine(
         img_l.data_ptr(), img_r.data_ptr(), img_l.shape[0], img_l.shape[1], xy_l.data_ptr(), right_u.data_ptr(),
         valid.data_ptr(), n, u.data_ptr(), ok.data_ptr(),
     )
-    stereo_subpixel_refine.launches += 1
+    stereo_subpixel_refine.launches.add()
     return u, ok
 
 
-stereo_subpixel_refine.launches = 0
+stereo_subpixel_refine.launches = _kernels.LaunchCounter()

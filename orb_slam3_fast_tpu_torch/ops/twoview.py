@@ -105,11 +105,11 @@ def triangulate_dlt(P0: torch.Tensor, P1: torch.Tensor, x0: torch.Tensor, x1: to
         "triangulate_dlt_launch", x0.device, P0.data_ptr(), P1.data_ptr(), x0.data_ptr(), x1.data_ptr(), n,
         X.data_ptr(),
     )
-    triangulate_dlt.launches += 1
+    triangulate_dlt.launches.add()
     return X
 
 
-triangulate_dlt.launches = 0
+triangulate_dlt.launches = _kernels.LaunchCounter()
 
 
 # --- two-view reconstruction -----------------------------------------------------
@@ -432,9 +432,9 @@ def reconstruct(cam: cam_models.Camera, uv0: torch.Tensor, uv1: torch.Tensor, va
         Rall.data_ptr(), tall.data_ptr(), Xs.data_ptr(), goods.data_ptr(), ngood.data_ptr(), parallax.data_ptr(),
         qual.data_ptr(),
     )
-    reconstruct.launches += 1
+    reconstruct.launches.add()
     return _verdict(Rall, tall, ngood, goods, parallax, Xs, qual, model_score[0], model_score[1], valid, inl[0],
                     inl[1], min_triangulated, min_parallax_deg)
 
 
-reconstruct.launches = 0
+reconstruct.launches = _kernels.LaunchCounter()

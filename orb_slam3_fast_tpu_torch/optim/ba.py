@@ -38,8 +38,12 @@ Kernel E -- source note.
   second launch, so that their order does not reach the result and a run
   on the card repeats exactly; float32 atomics would round each run
   differently, and a System's runs would drift apart (3.3e-3 m over 30
-  frames of the stereo corridor, PERF.md).  Pin-hole cameras without distortion only; the
-  wrapper raises for others (the plain version handles them).
+  frames of the stereo corridor, PERF.md).  A pin-hole camera with
+  radial-tangential distortion takes a second instance of the kernel, with
+  the distortion's closed-form Jacobian (``csrc/camera.cuh``), which kernels
+  F and T then take their blocks from; one without distortion runs the
+  instructions it always ran.  KB8 cameras raise (ROADMAP §A item 11); the
+  plain version handles them.
 
 Kernel F -- source note.
   Replaces: ``schur_solve`` (``orb_slam3_fast_tpu/optim/ba.py:108``, K12):
@@ -78,7 +82,7 @@ import torch
 
 from orb_slam3_fast_tpu_torch import _kernels
 from orb_slam3_fast_tpu_torch.cameras import models as cam_models
-from orb_slam3_fast_tpu_torch.optim.pose_opt import CHI2_MONO, CHI2_STEREO, _huber_weight
+from orb_slam3_fast_tpu_torch.optim.pose_opt import CHI2_MONO, CHI2_STEREO, _huber_weight, kernel_camera
 from orb_slam3_fast_tpu_torch.utils import lie
 
 MAX_POSES = 32  # kernel F's shared-memory bound: 6K <= 192
@@ -246,13 +250,6 @@ def coupling_to_dense(coupling, prob: BAProblem) -> torch.Tensor:
     return Z.reshape(M, K, 6, 3)
 
 
-def _kernel_camera(cam, bf, device) -> torch.Tensor:
-    params = cam.params.tolist()  # free when the camera lives on the host
-    if cam.kind != cam_models.PINHOLE or any(params[4:]):
-        raise ValueError("bundle adjustment kernels take pin-hole cameras without distortion")
-    return torch.tensor([*params[:4], float(bf)], dtype=torch.float32).to(device)
-
-
 def build_normal_blocks(cam, bf, R, t, xw, prob: BAProblem, inlier):
     """Kernel E on CUDA tensors, its plain version on CPU ones.  Returns
     (Hpp, Hll, bp, bl, coupling, w_lm, cost): the coupling is the dense Z
@@ -268,23 +265,24 @@ def build_normal_blocks(cam, bf, R, t, xw, prob: BAProblem, inlier):
     )
     dev = R.device
     K, M, O = R.shape[0], xw.shape[0], prob.obs_kf.shape[0]
-    cam5 = _kernel_camera(cam, bf, dev)
+    cam10, dist = kernel_camera(cam, bf, "kernel E")
+    cam10 = cam10.to(dev)
     sizes = (K * 36, M * 9, K * 6, M * 3, M, 1)  # Hpp, Hll, bp, bl, w_lm, cost in one buffer
     acc = torch.zeros(sum(sizes), dtype=torch.float64, device=dev)
     out = torch.empty(sum(sizes), dtype=f32, device=dev)
     W = torch.empty((O, 6, 3), dtype=f32, device=dev)
     _kernels.launch(
-        "ba_blocks_launch", dev, cam5.data_ptr(), R.data_ptr(), t.data_ptr(), xw.data_ptr(),
+        "ba_blocks_launch", dev, cam10.data_ptr(), int(dist), R.data_ptr(), t.data_ptr(), xw.data_ptr(),
         prob.pose_fixed.data_ptr(), prob.lm_valid.data_ptr(), prob.obs_kf.data_ptr(), prob.obs_lm.data_ptr(),
         prob.obs_uv.data_ptr(), prob.obs_inv_sigma2.data_ptr(), prob.obs_is_stereo.data_ptr(),
         prob.obs_valid.data_ptr(), inlier.data_ptr(), O, K, M, W.data_ptr(), acc.data_ptr(), out.data_ptr(),
     )
-    build_normal_blocks.launches += 1
+    build_normal_blocks.launches.add("radtan" if dist else "")
     Hpp, Hll, bp, bl, w_lm, cost = torch.split(out, sizes)
     return Hpp.view(K, 6, 6), Hll.view(M, 3, 3), bp.view(K, 6), bl.view(M, 3), W, w_lm, cost.view(())
 
 
-build_normal_blocks.launches = 0
+build_normal_blocks.launches = _kernels.LaunchCounter()  # mode "radtan" for a distorted camera
 
 
 def _solve_plain(Hpp, Hll, bp, bl, Z, w_lm, prob, lam):
@@ -324,11 +322,11 @@ def schur_solve(Hpp, Hll, bp, bl, coupling, w_lm, prob: BAProblem, lam):
         prob.lm_ptr.data_ptr(), prob.lm_obs.data_ptr(), lam.data_ptr(), K, M, O, S.data_ptr(), bs.data_ptr(),
         dp.data_ptr(), dl.data_ptr(), fail.data_ptr(),
     )
-    schur_solve.launches += 1
+    schur_solve.launches.add()
     return dp, dl, fail == 0
 
 
-schur_solve.launches = 0
+schur_solve.launches = _kernels.LaunchCounter()
 
 
 def apply_update(R, t, xw, dp, dl):

@@ -150,11 +150,11 @@ def implicit_schur_solve(Hpp, Hll, bp, bl, W, prob: BAProblem, w_lm, lam, cg_ite
         prob.obs_lm.data_ptr(), prob.lm_ptr.data_ptr(), prob.lm_obs.data_ptr(), prob.kf_ptr.data_ptr(),
         prob.kf_obs.data_ptr(), lam.data_ptr(), K, M, O, cg_iters, scratch.data_ptr(), dp.data_ptr(), dl.data_ptr(),
     )
-    implicit_schur_solve.launches += 1
+    implicit_schur_solve.launches.add()
     return dp, dl
 
 
-implicit_schur_solve.launches = 0
+implicit_schur_solve.launches = _kernels.LaunchCounter()
 
 
 def _lm_step(cam, bf, prob: BAProblem, R, t, xw, inlier, lam, cg_iters: int, blocks, solve):

@@ -210,8 +210,8 @@ def pnp_ransac(cam: cam_models.Camera, xw: torch.Tensor, uv: torch.Tensor, inv_s
         hyp_t.data_ptr(), counts.data_ptr(), R.data_ptr(), t.data_ptr(), inliers.data_ptr(), n_inl.data_ptr(),
         ok.data_ptr(),
     )
-    pnp_ransac.launches += 1
+    pnp_ransac.launches.add()
     return PnPResult(R, t, inliers, n_inl, ok)
 
 
-pnp_ransac.launches = 0
+pnp_ransac.launches = _kernels.LaunchCounter()

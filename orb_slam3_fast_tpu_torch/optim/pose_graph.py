@@ -15,12 +15,13 @@ yaw-only 4-DoF graph of inertial maps (``SE3Graph``,
 The JAX package takes both Jacobians with ``jax.jacfwd``; the plain
 version here takes them in forward mode too: one ``torch.func.jvp`` over
 14 copies of the edge list, one copy per tangent direction (7 for each
-end).  Its dense
-solve is float64 (the JAX package's is a float32 LU).
+end).  Both of its solves are float64 (the JAX package's are float32).
 
-``optimize_sim3_graph`` runs kernel S (``csrc/sim3_graph.cu``) on CUDA
-tensors for graphs of at most ``DENSE_MAX_K`` vertices, the plain version
-on CPU ones; the PCG branch on the card waits for its kernel (ROADMAP §B).
+``optimize_sim3_graph`` runs on CUDA tensors kernel S
+(``csrc/sim3_graph.cu``) for graphs of at most ``DENSE_MAX_K`` vertices
+and kernel U (``csrc/sim3_pcg.cu``) above, or at any size under
+``_FORCE_CG``; the plain version on CPU ones.  It returns the vertices and
+``ok``, False where a solve failed.
 
 Kernel S -- source note.
   Replaces: ``optimize_sim3_graph`` with the dense branch of
@@ -47,6 +48,36 @@ Kernel S -- source note.
   a flag.  (3) One thread per vertex: ``S <- sim3_exp(dx) S`` in float64
   and R re-orthonormalised by the 3x3 SVD.  Every sum has a fixed order,
   so a run repeats bit for bit.
+
+Kernel U -- source note.
+  Replaces: the PCG branch of ``_solve_normal_eqs``
+  (``orb_slam3_fast_tpu/optim/pose_graph.py:80-123``, K20, with
+  ``optimize_sim3_graph`` ``:152`` around it): per Gauss-Newton iteration
+  the per-edge blocks, a block-Jacobi preconditioner and ``max(64,
+  min(512, K // 4))`` CG iterations (a ``lax.scan``) on the implicit
+  operator H v, the per-edge mat-vecs scatter-added to both ends.
+  Bound on the card: latency of the dependent CG iterations.  Per CG
+  iteration the work is 4 7x7 mat-vecs per edge and one per vertex and
+  three dot products (~0.5 Mflop at K = 2048), which one CTA does in
+  microseconds; what sets the pace is that the CTA runs on one SM: the
+  operator pass reads the per-edge blocks (1.2 KB an edge, ~2.5 MB at
+  K = 2048) from L2 at one SM's share of its bandwidth, and each
+  iteration has five barriers.  A multi-CTA form would spread the
+  operator pass over the card's 132 SMs and pay a grid-wide barrier (or
+  a launch) for each dot product instead; that is a later PR's work.
+  Design: one C entry point, five launches per Gauss-Newton iteration:
+  (1) kernel S's edge evaluation in float64 dual numbers; (2) one thread
+  per (edge, block entry): H_ii, H_jj, H_ij and b_i, b_j; (3) one thread
+  per vertex: b and the diagonal block summed over the vertex's edge list
+  (``vertex_csr``: the edges that start at it, then those that end at it,
+  each in edge order -- the order in which ``index_add_`` visits them),
+  damped, inverted by Gauss-Jordan in float64; (4) one CTA of 1024
+  threads runs the CG loop with the vectors in global memory (L2), H p per
+  row over the same lists, the dot products as warp butterflies and then
+  the warps in order; the ``rz > 1e-12`` freeze ends the loop, since from
+  there x no longer moves; (5) kernel S's vertex update.  No
+  floating-point atomics: a run repeats bit for bit.  It follows the
+  plain version in float64 (the JAX package's branch is float32).
 """
 from __future__ import annotations
 
@@ -59,6 +90,11 @@ from orb_slam3_fast_tpu_torch.utils import lie
 
 DENSE_MAX_K = 128  # above this vertex count the step takes the edge-operator PCG branch
 _FORCE_CG = False  # test hook: the PCG branch at any size
+
+
+def cg_iterations(K: int) -> int:
+    """The PCG branch's iteration count for K vertices."""
+    return int(max(64, min(512, K // 4)))
 
 
 class Sim3Graph(NamedTuple):
@@ -157,7 +193,7 @@ def _solve_normal_eqs(r, Ji, Jj, edge_i, edge_j, w, fixed, damping):
     D = Hii.shape[-1]
     ei, ej = edge_i.long(), edge_j.long()
     eye = torch.eye(D, dtype=b.dtype, device=b.device)
-    cg_iters = int(max(64, min(512, K // 4)))
+    cg_iters = cg_iterations(K)
     b_s = -b * free_f[:, None]
     Dblk = torch.zeros((K, D, D), dtype=b.dtype, device=b.device).index_add_(0, ei, Hii).index_add_(0, ej, Hjj)
     Dblk = torch.where(fixed[:, None, None], eye, Dblk + damping * eye)
@@ -207,17 +243,40 @@ def optimize_sim3_graph_plain(g: Sim3Graph, iters: int = 12, damping: float = 1e
     return R, t, s
 
 
-def optimize_sim3_graph(g: Sim3Graph, iters: int = 12, damping: float = 1e-6):
-    """Gauss-Newton on the Sim3 pose graph.  Returns the updated (R, t, s).
-    Kernel S on CUDA tensors, the plain version on CPU ones; on the card a
-    graph above ``DENSE_MAX_K`` vertices raises (its PCG kernel is queued,
-    ROADMAP §B)."""
+class Sim3GraphResult(NamedTuple):
+    R: torch.Tensor  # (K,3,3)
+    t: torch.Tensor  # (K,3)
+    s: torch.Tensor  # (K,)
+    ok: torch.Tensor  # () bool on the device: False where a solve failed (S: a Cholesky pivot <= 0; U: a singular
+    # diagonal block) and its step, as every later one on U, was zero; on the CPU: the result is finite
+    cg_run: torch.Tensor | None  # (iters,) int32: the CG iterations each step of kernel U ran; None elsewhere
+
+
+def vertex_csr(edge_i: torch.Tensor, edge_j: torch.Tensor, K: int):
+    """Each vertex's edge ends in the order the plain version's ``index_add_``
+    visits them: the edges that start at it, then those that end at it,
+    each in edge order.  Returns (ptr (K+1,), ends (2E,) holding 2 e + 1
+    where the vertex is edge e's j end, 2 e where it is its i end), int32
+    on the edges' device."""
+    E = edge_i.shape[0]
+    ends = torch.cat([edge_i, edge_j]).long()
+    order = torch.sort(ends, stable=True).indices
+    entries = torch.where(order < E, 2 * order, 2 * (order - E) + 1)
+    ptr = torch.zeros(K + 1, dtype=torch.int64, device=ends.device)
+    ptr[1:] = torch.cumsum(torch.bincount(ends, minlength=K), 0)
+    return ptr.to(torch.int32), entries.to(torch.int32)
+
+
+def optimize_sim3_graph(g: Sim3Graph, iters: int = 12, damping: float = 1e-6) -> Sim3GraphResult:
+    """Gauss-Newton on the Sim3 pose graph.  Returns the updated (R, t, s),
+    ``ok`` and, for kernel U, the CG iterations each step ran.  On CUDA
+    tensors kernel S for at most ``DENSE_MAX_K`` vertices, kernel U above
+    (or under ``_FORCE_CG``); the plain version on CPU ones."""
     if g.R.device.type == "cpu":
-        return optimize_sim3_graph_plain(g, iters, damping)
+        R, t, s = optimize_sim3_graph_plain(g, iters, damping)
+        ok = torch.isfinite(R).all() & torch.isfinite(t).all() & torch.isfinite(s).all()
+        return Sim3GraphResult(R, t, s, ok, None)
     K, E = g.R.shape[0], g.edge_i.shape[0]
-    if K > DENSE_MAX_K or _FORCE_CG:
-        raise NotImplementedError(f"the pose graph's PCG branch (K = {K} > {DENSE_MAX_K}) has no kernel yet "
-                                  "(ROADMAP §B, K20)")
     f32, i32 = torch.float32, torch.int32
     w = (g.edge_valid.to(f32) * g.edge_w.to(f32)).contiguous()
     ei, ej = g.edge_i.to(i32).contiguous(), g.edge_j.to(i32).contiguous()
@@ -228,24 +287,37 @@ def optimize_sim3_graph(g: Sim3Graph, iters: int = 12, damping: float = 1e-6):
     if g.fixed.shape != (K,) or ej.shape != (E,) or w.shape != (E,):
         raise ValueError("optimize_sim3_graph: needs (K,) fixed flags and (E,) edges and weights")
     dev = g.R.device
-    n = 7 * K
     out = torch.empty_like(verts)
     jac = torch.empty((E, 15, 7), dtype=torch.float64, device=dev)  # r | J_i^T | J_j^T per edge
-    H = torch.empty((n, n), dtype=torch.float64, device=dev)
-    vec = torch.empty(2 * n, dtype=torch.float64, device=dev)  # b | dx
     fail = torch.zeros((), dtype=i32, device=dev)
-    _kernels.launch(
-        "sim3_graph_launch", dev, verts.data_ptr(), ei.data_ptr(), ej.data_ptr(), meas.data_ptr(), w.data_ptr(),
-        g.fixed.data_ptr(), K, E, iters, float(damping), out.data_ptr(), jac.data_ptr(), H.data_ptr(),
-        vec.data_ptr(), fail.data_ptr(),
-    )
-    optimize_sim3_graph.launches += 1
-    optimize_sim3_graph.last_fail = fail
-    return out[:, :9].view(K, 3, 3), out[:, 9:12], out[:, 12]
+    cg_run = None
+    if K > DENSE_MAX_K or _FORCE_CG:
+        vptr, vlist = vertex_csr(ei, ej, K)
+        blk = torch.empty((E, 3 * 49 + 14), dtype=torch.float64, device=dev)  # H_ii | H_jj | H_ij | b_i | b_j
+        dinv = torch.empty((K, 49), dtype=torch.float64, device=dev)
+        vec = torch.empty(6 * 7 * K, dtype=torch.float64, device=dev)  # b | x | r | z | p | Ap
+        cg_run = torch.zeros(iters, dtype=i32, device=dev)
+        _kernels.launch(
+            "sim3_pcg_launch", dev, verts.data_ptr(), ei.data_ptr(), ej.data_ptr(), meas.data_ptr(), w.data_ptr(),
+            g.fixed.data_ptr(), vptr.data_ptr(), vlist.data_ptr(), K, E, iters, cg_iterations(K), float(damping),
+            out.data_ptr(), jac.data_ptr(), blk.data_ptr(), dinv.data_ptr(), vec.data_ptr(), cg_run.data_ptr(),
+            fail.data_ptr(),
+        )
+        optimize_sim3_graph.launches.add("pcg")
+    else:
+        n = 7 * K
+        H = torch.empty((n, n), dtype=torch.float64, device=dev)
+        vec = torch.empty(2 * n, dtype=torch.float64, device=dev)  # b | dx
+        _kernels.launch(
+            "sim3_graph_launch", dev, verts.data_ptr(), ei.data_ptr(), ej.data_ptr(), meas.data_ptr(), w.data_ptr(),
+            g.fixed.data_ptr(), K, E, iters, float(damping), out.data_ptr(), jac.data_ptr(), H.data_ptr(),
+            vec.data_ptr(), fail.data_ptr(),
+        )
+        optimize_sim3_graph.launches.add("dense")
+    return Sim3GraphResult(out[:, :9].view(K, 3, 3), out[:, 9:12], out[:, 12], fail == 0, cg_run)
 
 
-optimize_sim3_graph.launches = 0
-optimize_sim3_graph.last_fail = None
+optimize_sim3_graph.launches = _kernels.LaunchCounter()  # by mode: "dense" (kernel S), "pcg" (kernel U)
 
 
 def correct_landmarks(lm_pos, ref_kf, R_old, t_old, s_old, R_new, t_new, s_new):

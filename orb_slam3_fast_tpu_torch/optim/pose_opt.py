@@ -31,8 +31,12 @@ Kernel D -- source note.
   it by a 6x6 Cholesky in double, applies se3_exp on the left and, after a
   second pass for the cost at the candidate pose, accepts or rejects
   (lam * 0.5 / lam * 4, clamped to [1e-7, 1e4]).  A last pass classifies
-  the edges by chi2.  Only pin-hole cameras without distortion are taken;
-  the wrapper raises for others (the plain version handles them).
+  the edges by chi2.  A pin-hole camera with radial-tangential distortion
+  takes a second instance of the kernel, which distorts the normalised
+  point and chains the distortion's closed-form 2x2 Jacobian
+  (``csrc/camera.cuh``); one without distortion runs the instructions it
+  always ran.  KB8 cameras raise (ROADMAP §A item 11); the plain version
+  handles them.
 """
 from __future__ import annotations
 
@@ -128,14 +132,23 @@ def pose_optimization_plain(cam, bf: float, T0: lie.SE3, obs: PoseObs, n_rounds:
     return T, inlier, inlier.sum()
 
 
+def kernel_camera(cam, bf: float, name: str):
+    """The host (10,) float32 [fx, fy, cx, cy, bf, k1, k2, p1, p2, k3] of a
+    pin-hole camera for kernels D and E, and whether it has distortion;
+    KB8 raises (ROADMAP §A item 11)."""
+    if cam.kind != cam_models.PINHOLE:
+        raise NotImplementedError(f"{name} takes pin-hole cameras; KB8 waits for ROADMAP §A item 11 (fisheye)")
+    params = cam.params.tolist()  # free when the camera lives on the host
+    dist = [float(x) for x in params[4:9]] + [0.0] * (9 - len(params))
+    return torch.tensor([*params[:4], float(bf), *dist], dtype=torch.float32), any(dist)
+
+
 def pose_optimization(cam, bf: float, T0: lie.SE3, obs: PoseObs, n_rounds: int = 4, iters_per_round: int = 10):
     """Kernel D on CUDA tensors, its plain version on CPU ones.
     Returns (T, inlier (N,) bool, n_inliers () int)."""
     if obs.xw.device.type == "cpu":
         return pose_optimization_plain(cam, bf, T0, obs, n_rounds, iters_per_round)
-    params = cam.params.tolist()  # free when the camera lives on the host
-    if cam.kind != cam_models.PINHOLE or any(params[4:]):
-        raise ValueError("pose_optimization: the kernel takes pin-hole cameras without distortion")
+    cam10, dist = kernel_camera(cam, bf, "kernel D")
     f32 = torch.float32
     dev = obs.xw.device
     R0 = T0.R.to(f32).contiguous()
@@ -145,7 +158,7 @@ def pose_optimization(cam, bf: float, T0: lie.SE3, obs: PoseObs, n_rounds: int =
         is_stereo=(obs.is_stereo, torch.bool), valid=(obs.valid, torch.bool), R0=(R0, f32), t0=(t0, f32),
     )
     n = obs.xw.shape[0]
-    cam5 = torch.tensor([*params[:4], float(bf)], dtype=f32).to(dev)
+    cam10 = cam10.to(dev)
     R = torch.empty((3, 3), dtype=f32, device=dev)
     t = torch.empty(3, dtype=f32, device=dev)
     inlier = torch.empty(n, dtype=torch.bool, device=dev)
@@ -153,11 +166,11 @@ def pose_optimization(cam, bf: float, T0: lie.SE3, obs: PoseObs, n_rounds: int =
     _kernels.launch(
         "pose_lm_launch", dev,
         obs.xw.data_ptr(), obs.uv.data_ptr(), obs.inv_sigma2.data_ptr(), obs.is_stereo.data_ptr(),
-        obs.valid.data_ptr(), n, cam5.data_ptr(), R0.data_ptr(), t0.data_ptr(), n_rounds, iters_per_round,
+        obs.valid.data_ptr(), n, cam10.data_ptr(), int(dist), R0.data_ptr(), t0.data_ptr(), n_rounds, iters_per_round,
         R.data_ptr(), t.data_ptr(), inlier.data_ptr(), n_inl.data_ptr(),
     )
-    pose_optimization.launches += 1
+    pose_optimization.launches.add("radtan" if dist else "")
     return lie.SE3(R, t), inlier, n_inl
 
 
-pose_optimization.launches = 0
+pose_optimization.launches = _kernels.LaunchCounter()  # mode "radtan" for a distorted camera

@@ -14,7 +14,10 @@ as ``subsets``.
 ``sim3_ransac`` runs kernel Q (``csrc/sim3_ransac.cu``) and
 ``optimize_sim3`` kernel R (``csrc/sim3_refine.cu``) on CUDA tensors, and
 their plain versions on CPU ones.  Both kernels take pin-hole cameras
-without distortion; the plain versions take any camera.
+with or without radial-tangential distortion (a camera with distortion
+takes a second instance of each, ``csrc/camera.cuh``; one without runs the
+instructions it always ran); KB8 cameras raise (ROADMAP §A item 11) and the
+plain versions take any camera.
 
 Kernel Q -- source note.
   Replaces: ``sim3_ransac`` (``orb_slam3_fast_tpu/optim/sim3.py:62``,
@@ -141,16 +144,18 @@ def sim3_ransac_plain(cam1, cam2, xc1, xc2, uv1, uv2, inv_sigma2_1, inv_sigma2_2
     return Sim3Result(S, inl[best], scores[best], (scores[best] >= min_inliers) & finite)
 
 
-def _pinhole4(cam, name: str):
-    params = cam.params.tolist()  # free when the camera lives on the host
-    if cam.kind != cam_models.PINHOLE or any(params[4:]):
-        raise ValueError(f"{name} takes pin-hole cameras without distortion")
-    return params[:4]
+def _pinhole9(cam, name: str) -> list:
+    if cam.kind != cam_models.PINHOLE:
+        raise NotImplementedError(f"{name} takes pin-hole cameras; KB8 waits for ROADMAP §A item 11 (fisheye)")
+    params = [float(x) for x in cam.params.tolist()]  # free when the camera lives on the host
+    return params + [0.0] * (9 - len(params))
 
 
-def _cams8(cam1, cam2, name: str) -> torch.Tensor:
-    """fx fy cx cy of both cameras, on the host."""
-    return torch.tensor(_pinhole4(cam1, name) + _pinhole4(cam2, name), dtype=torch.float32)
+def _cams18(cam1, cam2, name: str) -> tuple[torch.Tensor, bool]:
+    """fx fy cx cy k1 k2 p1 p2 k3 of both cameras, on the host, and whether
+    either has distortion."""
+    c = _pinhole9(cam1, name) + _pinhole9(cam2, name)
+    return torch.tensor(c, dtype=torch.float32), any(c[4:9] + c[13:18])
 
 
 def _check_pairs(name, xc1, xc2, uv1, uv2, is1, is2, valid, **more):
@@ -187,7 +192,7 @@ def sim3_ransac(cam1: cam_models.Camera, cam2: cam_models.Camera, xc1: torch.Ten
     if xc1.device.type == "cpu":
         return sim3_ransac_plain(cam1, cam2, xc1, xc2, uv1, uv2, inv_sigma2_1, inv_sigma2_2, valid, subsets,
                                  fix_scale, min_inliers)
-    cams = _cams8(cam1, cam2, "kernel Q")
+    cams, dist = _cams18(cam1, cam2, "kernel Q")
     subsets = subsets.to(torch.int32).contiguous()
     n = _check_pairs("sim3_ransac", xc1, xc2, uv1, uv2, inv_sigma2_1, inv_sigma2_2, valid,
                      subsets=(subsets, torch.int32))
@@ -207,11 +212,11 @@ def sim3_ransac(cam1: cam_models.Camera, cam2: cam_models.Camera, xc1: torch.Ten
         cams.numpy().ctypes.data, int(fix_scale), min_inliers, hyp.data_ptr(), counts.data_ptr(), S.data_ptr(),
         inliers.data_ptr(), n_inl.data_ptr(), ok.data_ptr(),
     )
-    sim3_ransac.launches += 1
+    sim3_ransac.launches.add("radtan" if dist else "")
     return Sim3Result(_unpack_sim3(S), inliers, n_inl, ok)
 
 
-sim3_ransac.launches = 0
+sim3_ransac.launches = _kernels.LaunchCounter()  # mode "radtan" for distorted cameras
 
 
 # ---------------------------------------------------------------------------
@@ -303,7 +308,7 @@ def optimize_sim3(cam1: cam_models.Camera, cam2: cam_models.Camera, S0: lie.Sim3
     if xc1.device.type == "cpu":
         return optimize_sim3_plain(cam1, cam2, S0, xc1, xc2, uv1, uv2, inv_sigma2_1, inv_sigma2_2, valid,
                                    fix_scale, iters, chi2_th)
-    cams = _cams8(cam1, cam2, "kernel R")
+    cams, dist = _cams18(cam1, cam2, "kernel R")
     s0 = _pack_sim3(S0)
     n = _check_pairs("optimize_sim3", xc1, xc2, uv1, uv2, inv_sigma2_1, inv_sigma2_2, valid,
                      S0=(s0, torch.float32))
@@ -317,8 +322,8 @@ def optimize_sim3(cam1: cam_models.Camera, cam2: cam_models.Camera, S0: lie.Sim3
         cams.numpy().ctypes.data, int(fix_scale), iters, float(chi2_th), S.data_ptr(), inliers.data_ptr(),
         n_inl.data_ptr(),
     )
-    optimize_sim3.launches += 1
+    optimize_sim3.launches.add("radtan" if dist else "")
     return _unpack_sim3(S), inliers, n_inl
 
 
-optimize_sim3.launches = 0
+optimize_sim3.launches = _kernels.LaunchCounter()  # mode "radtan" for distorted cameras

@@ -243,11 +243,11 @@ def transform(voc: Vocabulary, desc: torch.Tensor, valid: torch.Tensor):
         max(voc.depth - 1 - voc.levels_up, 0), desc.data_ptr(), valid.data_ptr(), n, voc.n_words,
         words.data_ptr(), nodes.data_ptr(), bow.data_ptr(), total.data_ptr(),
     )
-    transform.launches += 1
+    transform.launches.add()
     return words, nodes, bow
 
 
-transform.launches = 0
+transform.launches = _kernels.LaunchCounter()
 
 
 def score_l1(bow_a: torch.Tensor, bow_b: torch.Tensor) -> torch.Tensor:

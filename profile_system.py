@@ -3,12 +3,15 @@
 
 Run from the root of a checkout: ``python3 profile_system.py`` (the stereo
 System), ``python3 profile_system.py --sensor rgbd``, ``--sensor mono``,
-``--sensor reloc`` or ``--sensor loop``.  It builds the kernels, renders
-chip_smoke.py's sequence for the sensor on the host (the 30-frame stereo
-corridor, the 25-frame RGB-D one, the 40-frame mono one, tests/test_reloc.py's
-scenario on the mono System: 30 frames, 3 blank ones, frame 20 again, or
-the loop scenario: the 150-frame circle through the mono System with loop
-closing and the Atlas) and runs the System
+``--sensor reloc``, ``--sensor loop`` or ``--sensor async``.  It builds the
+kernels, renders chip_smoke.py's sequence for the sensor on the host (the
+30-frame stereo corridor, the 25-frame RGB-D one, the 40-frame mono one,
+tests/test_reloc.py's scenario on the mono System: 30 frames, 3 blank ones,
+frame 20 again, the loop scenario: the 150-frame circle through the mono
+System with loop closing and the Atlas, or ``async``: the stereo corridor
+through the default stereo System, its local mapping on the backend's
+worker thread and its own CUDA stream, the wall time running until the
+backend has drained) and runs the System
 over it three times on the card, each time from a fresh System: a warm-up,
 an untraced run, and a run under ``torch.profiler`` (CPU and CUDA
 activity).  From the traced run alone it reports:
@@ -31,6 +34,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import re
 import subprocess
 import sys
 import time
@@ -41,6 +45,7 @@ import torch
 import chip_smoke as cs
 
 TOP = 15  # operations listed by device time
+OURS = re.compile(r"^(?:void )?\(anonymous namespace\)::(\w+(?:<[^>(]*>)?)")
 
 
 def run_frames(frames, device, sensor: str, prof=None) -> float:
@@ -49,7 +54,10 @@ def run_frames(frames, device, sensor: str, prof=None) -> float:
     from orb_slam3_fast_tpu_torch.slam.system import System
 
     opts = dict(enable_loop_closing=False, multi_map=False, async_backend=False, device=device)
-    if sensor == "stereo":
+    if sensor == "async":  # every default: the async backend, loop closing, the Atlas
+        slam = System(cs.SYS_CONFIG, "stereo", device=device)
+        feed = slam.track_stereo
+    elif sensor == "stereo":
         slam = System(cs.SYS_CONFIG, "stereo", **opts)
         feed = slam.track_stereo
     elif sensor == "rgbd":
@@ -71,6 +79,10 @@ def run_frames(frames, device, sensor: str, prof=None) -> float:
     t0 = time.perf_counter()
     for i, f in enumerate(frames):
         feed(*f, i * 0.05)
+    if slam.backend is not None:
+        if not slam.backend.wait_idle(timeout=120) or slam.backend.errors:
+            raise RuntimeError(f"the backend did not drain, or failed: {slam.backend.errors[:1]}")
+        slam.shutdown()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     if prof is not None:
@@ -97,7 +109,7 @@ def busy_us(intervals) -> float:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--sensor", choices=("stereo", "rgbd", "mono", "reloc", "loop"), default="stereo")
+    parser.add_argument("--sensor", choices=("stereo", "rgbd", "mono", "reloc", "loop", "async"), default="stereo")
     sensor = parser.parse_args().sensor
     if not torch.cuda.is_available():
         raise SystemExit("profile_system: torch.cuda.is_available() is False; this script needs a CUDA card")
@@ -120,7 +132,7 @@ def main() -> int:
     elif sensor == "loop":
         frames = [(img,) for img in cs.loop_frames()[0]]
     else:
-        frames, _ = cs.corridor_frames(cs.SYS_FRAMES) if sensor == "stereo" else cs.rgbd_frames(cs.RGBD_FRAMES)
+        frames, _ = cs.rgbd_frames(cs.RGBD_FRAMES) if sensor == "rgbd" else cs.corridor_frames(cs.SYS_FRAMES)
     run_frames(frames, device, sensor)  # warm-up: kernel loading, allocator, library handles
     untraced_ms = run_frames(frames, device, sensor)
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
@@ -135,9 +147,10 @@ def main() -> int:
         by_name[e.name][0] += 1
         by_name[e.name][1] += (e.time_range.end - e.time_range.start) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:TOP]
-    # the kernels of csrc/ live in anonymous namespaces; PyTorch's do not
-    ours = sorted(((name.split("::")[1].split("(")[0], c, ms) for name, (c, ms) in by_name.items()
-                   if name.startswith("(anonymous namespace)::")), key=lambda x: -x[2])
+    # the kernels of csrc/ live in top-level anonymous namespaces (a template's name starts with its return type);
+    # PyTorch's do not
+    ours = sorted(((m.group(1), c, ms) for name, (c, ms) in by_name.items()
+                   if (m := OURS.match(name))), key=lambda x: -x[2])
     n = len(frames)
     print(f"{sensor} System, {n} frames: traced {traced_ms:.3f} ms, untraced {untraced_ms:.3f} ms "
           f"(tracer cost x{traced_ms / untraced_ms:.3f})")

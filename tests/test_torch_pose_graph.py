@@ -1,6 +1,6 @@
 """The port's Sim3 essential graph (kernel S's plain version) against the
 JAX package on the drifted circle of tests/test_pose_graph.py: the dense
-branch, the PCG branch (``_FORCE_CG``), padded against unpadded vertices,
+branch, the PCG branch (``_FORCE_CG``, and at 200 vertices), padded against unpadded vertices,
 the edge Jacobians against ``jax.jacfwd``, and ``correct_landmarks``."""
 import jax
 import jax.numpy as jnp
@@ -12,7 +12,8 @@ from orb_slam3_fast_tpu.optim import pose_graph as jpg
 from orb_slam3_fast_tpu.utils import lie as jlie
 from orb_slam3_fast_tpu_torch.optim import pose_graph as tpg
 from orb_slam3_fast_tpu_torch.utils import lie as tlie
-from tests.test_pose_graph import _ate, _build_drifted, _rel_sim3
+import chip_smoke
+from tests.test_pose_graph import _ate, _build_drifted, _rel_sim3, _sim3_graph_from_drift
 
 torch.set_num_threads(1)
 
@@ -49,7 +50,7 @@ def _graph(K=K, pad_k=0, pad_e=0):
 def _run_both(arrays, iters=12):
     gt = tpg.Sim3Graph(**{k: torch.as_tensor(v) for k, v in arrays.items()})
     gj = jpg.Sim3Graph(**{k: jnp.asarray(v) for k, v in arrays.items()})
-    return [x.numpy() for x in tpg.optimize_sim3_graph(gt, iters=iters)], \
+    return [x.numpy() for x in tpg.optimize_sim3_graph(gt, iters=iters)[:3]], \
         [np.asarray(x) for x in jpg.optimize_sim3_graph(gj, iters=iters)]
 
 
@@ -73,7 +74,7 @@ def test_pcg_branch_matches_jax(monkeypatch):
     2e-3 of the JAX package's and within 2e-3 of the port's dense solve."""
     arrays, _ = _graph()
     dense = [x.numpy() for x in tpg.optimize_sim3_graph(
-        tpg.Sim3Graph(**{k: torch.as_tensor(v) for k, v in arrays.items()}), iters=6)]
+        tpg.Sim3Graph(**{k: torch.as_tensor(v) for k, v in arrays.items()}), iters=6)[:3]]
     monkeypatch.setattr(tpg, "_FORCE_CG", True)
     monkeypatch.setattr(jpg, "_FORCE_CG", True)
     jax.clear_caches()  # the JAX program reads _FORCE_CG while it traces
@@ -86,6 +87,30 @@ def test_pcg_branch_matches_jax(monkeypatch):
         np.testing.assert_allclose(a, c, atol=2e-3)
 
 
+def test_pcg_branch_at_200_vertices_matches_jax():
+    """tests/test_pose_graph.py's drift graph of 200 vertices (seed 3),
+    which both packages solve by the PCG branch without ``_FORCE_CG`` (K >
+    DENSE_MAX_K), 12 iterations: the port (float64 CG, kernel U's plain
+    version) within 2e-3 of the JAX package (float32 CG), both moving the
+    camera centres towards the truth (3.85 -> 2.71 m: 64 CG iterations a
+    step do not carry the loop edge around the whole chain in 12 steps);
+    chip_smoke.drift_graph, which builds kernel U's check on the card,
+    gives the same graph to 1e-6."""
+    g, R0, t0, s0, R_gt, t_gt = _sim3_graph_from_drift(200, seed=3)
+    assert g.R.shape[0] > tpg.DENSE_MAX_K and not tpg._FORCE_CG and not jpg._FORCE_CG
+    arrays = {k: np.asarray(v) for k, v in g._asdict().items()}
+    mine, (Rg, tg) = chip_smoke.drift_graph(200, seed=3)
+    for k, v in arrays.items():
+        np.testing.assert_allclose(mine[k], v, atol=1e-6, err_msg=k)
+    np.testing.assert_allclose(Rg, R_gt, atol=1e-7)
+    (R_t, t_t, s_t), (R_j, t_j, s_j) = _run_both(arrays)
+    for a, b in ((R_t, R_j), (t_t, t_j), (s_t, s_j)):
+        np.testing.assert_allclose(a, b, atol=2e-3)
+    before, after = _ate(R0, t0, s0, R_gt, t_gt), _ate(R_t, t_t, s_t, R_gt, t_gt)
+    assert after < 0.8 * before and abs(after - _ate(R_j, t_j, s_j, R_gt, t_gt)) < 1e-3, (before, after)
+    assert chip_smoke.graph_ate(R_t, t_t, s_t, R_gt, t_gt) == pytest.approx(after, rel=1e-6)
+
+
 def test_padding_changes_nothing():
     """Fixed vertices touched by no edge and invalid edges (the JAX loop
     closer's power-of-two padding) leave the solution as it is, to 1e-5."""
@@ -93,8 +118,8 @@ def test_padding_changes_nothing():
     padded, _ = _graph(pad_k=8, pad_e=6)
     g0 = tpg.Sim3Graph(**{k: torch.as_tensor(v) for k, v in arrays.items()})
     g1 = tpg.Sim3Graph(**{k: torch.as_tensor(v) for k, v in padded.items()})
-    out0 = tpg.optimize_sim3_graph(g0, iters=6)
-    out1 = tpg.optimize_sim3_graph(g1, iters=6)
+    out0 = tpg.optimize_sim3_graph(g0, iters=6)[:3]
+    out1 = tpg.optimize_sim3_graph(g1, iters=6)[:3]
     for a, b in zip(out0, out1):
         np.testing.assert_allclose(b[:K].numpy(), a.numpy(), atol=1e-5)
     np.testing.assert_array_equal(out1[1][K:].numpy(), 0.0)
@@ -147,13 +172,16 @@ def test_correct_landmarks_matches_jax(rng):
 
 
 def test_gpu_branch_refuses_the_pcg_size():
-    """The card takes graphs up to DENSE_MAX_K vertices; the PCG branch waits
-    for its kernel and is refused, not run plain (checked on a meta tensor,
-    which counts as a device other than the CPU)."""
+    """A graph above DENSE_MAX_K vertices on a device other than the CPU (a
+    meta tensor) goes to kernel U's wrapper, whose argument check refuses a
+    tensor that is not on CUDA; it is neither run plain nor refused as a
+    branch without a kernel."""
     arrays, _ = _graph()
     g = tpg.Sim3Graph(**{k: torch.as_tensor(v).to("meta") for k, v in arrays.items()})
-    big = g._replace(R=torch.empty((tpg.DENSE_MAX_K + 1, 3, 3), device="meta"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    K = tpg.DENSE_MAX_K + 1
+    big = g._replace(R=torch.empty((K, 3, 3), device="meta"), t=torch.empty((K, 3), device="meta"),
+                     s=torch.empty(K, device="meta"), fixed=torch.zeros(K, dtype=torch.bool, device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
         tpg.optimize_sim3_graph(big)
     assert tlie.Sim3.identity().s.shape == ()
 

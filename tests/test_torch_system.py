@@ -47,11 +47,16 @@ def test_numpy_scene_matches_synthetic():
 
 
 def test_not_ported_options_raise():
-    """The async backend, the inertial sensors, the database on a device mesh
-    and an inertial map's 4-DoF essential graph raise, naming their ROADMAP
-    items; loop closing and the Atlas are built (fix_scale for stereo)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 6"):
-        tsys.System(CONFIG, "stereo", **dict(OPTS, async_backend=True))
+    """The inertial sensors, fisheye two-camera stereo, the database on a
+    device mesh and an inertial map's 4-DoF essential graph raise, naming
+    their ROADMAP items; the async backend, loop closing and the Atlas are
+    built (fix_scale for stereo)."""
+    slam = tsys.System(CONFIG, "stereo", **dict(OPTS, async_backend=True))
+    assert slam.backend is not None and slam.tracker.backend is slam.backend
+    slam.shutdown()
+    fisheye = tsys.Settings.from_yaml(str(Path(CONFIG).parents[0] / "TUMVI_fisheye_stereo_inertial.yaml"), "stereo")
+    with pytest.raises(NotImplementedError, match="ROADMAP §A item 11"):
+        tsys.System(fisheye, "stereo", **OPTS)
     for sensor in ("monocular-inertial", "rgbd-inertial", "stereo-inertial"):
         with pytest.raises(NotImplementedError, match="ROADMAP §A item 10"):
             tsys.System(CONFIG, sensor, **OPTS)
@@ -61,7 +66,7 @@ def test_not_ported_options_raise():
     assert slam.loopcloser.cfg.fix_scale and slam.atlas.current is slam.world
     slam.world.imu_initialized = True
     with pytest.raises(NotImplementedError, match="ROADMAP §A item 10"):
-        slam.loopcloser._essential_graph(slam.world, 0, 0, *([None] * 6))
+        slam.loopcloser._essential_graph(slam.world, 0, 0, *([None] * 7))
 
 
 def _jax_tum(tracker, path):

@@ -5,12 +5,18 @@ from the same runs with the plain versions on the host.
 Run from the root of a checkout: ``python3 track_spread.py`` measures that
 checkout; ``python3 track_spread.py --root DIR`` measures the checkout at
 DIR (for example a parent commit unpacked with ``git archive``), whose
-``chip_smoke.py`` and port it imports.  ``--sensor stereo rgbd mono loop``
-chooses the Systems (mono and loop need a checkout that has them) and
-``--runs`` the card runs of each.  For each sensor it renders
+``chip_smoke.py`` and port it imports.  ``--sensor stereo rgbd mono loop
+async async-loop`` chooses the Systems (mono, loop and the async ones need
+a checkout that has them) and ``--runs`` the card runs of each.  For each sensor it renders
 chip_smoke.py's sequence (the 30-frame stereo corridor, the 25-frame RGB-D
 one, the 40-frame mono one, the 150-frame circle of the loop scenario: the
-mono System with loop closing and the Atlas), runs the System over it
+mono System with loop closing and the Atlas; ``async``: the stereo
+corridor through the default stereo System, whose local mapping runs on
+the backend's worker thread, so that its runs differ by how far the worker
+got before each frame: their spread is a reading, not zero and not a
+bound; ``async-loop``: chip_smoke's phase 10 (b), the default mono System
+fed the circle at 20 fps, each run's summary printed too: frames tracked,
+loops closed, global BAs completed, ATE), runs the System over it
 ``--runs`` times on the card, each from a fresh System, and once on the
 host, and prints:
 
@@ -54,7 +60,8 @@ def frame_diffs(track_a, track_b) -> tuple[np.ndarray, np.ndarray]:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", type=Path, default=HERE)
-    parser.add_argument("--sensor", nargs="+", choices=("stereo", "rgbd", "mono", "loop"), default=["stereo", "rgbd"])
+    parser.add_argument("--sensor", nargs="+", choices=("stereo", "rgbd", "mono", "loop", "async", "async-loop"),
+                        default=["stereo", "rgbd"])
     parser.add_argument("--runs", type=int, default=5)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -84,6 +91,17 @@ def main() -> int:
         elif sensor == "loop":
             frames, poses = cs.loop_frames()
             run = lambda dev: cs.run_loop(frames, poses, dev)[2]  # noqa: E731
+        elif sensor == "async":
+            frames, poses = cs.corridor_frames(cs.SYS_FRAMES)
+            run = lambda dev: cs.run_default_stereo(frames, poses, dev)[2]  # noqa: E731
+        elif sensor == "async-loop":
+            frames, poses = cs.loop_frames()
+
+            def run(dev):
+                _, summary, track = cs.run_default_loop(frames, poses, dev)
+                summary.pop("kf_frames")
+                print(f"async-loop run on {dev.type}: {summary}", flush=True)
+                return track
         else:
             frames, poses = cs.corridor_frames(cs.SYS_FRAMES) if sensor == "stereo" else cs.rgbd_frames(cs.RGBD_FRAMES)
             run = lambda dev: cs.run_system(frames, poses, dev, sensor)[2]  # noqa: E731
