@@ -2,10 +2,10 @@
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It imports only
-the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs ten phases:
+the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs eleven phases:
 
 1. device: fails without CUDA; prints the card's name and power limit;
-2. build: compiles the nineteen kernels (A-U, no K or O) from the 19
+2. build: compiles the twenty-three kernels (A-Y, no K or O) from the 23
    sources of ``orb_slam3_fast_tpu_torch/csrc``, one nvcc per source in
    parallel, and the map's host C++ library, so that no timed frame pays
    for g++;
@@ -29,8 +29,11 @@ the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs ten phases:
    70-keyframe essential graph; U (the graph's PCG branch) on drift graphs
    of 200, 512 and 2048 vertices and forced on S's graph; T and E at the
    circle's global-BA size (128 pose slots, 4096 landmarks, ~30k
-   observations), and a whole bundle_adjust_cg through E and T; and D, E,
-   Q and R with a camera carrying EuRoC cam0's distortion;
+   observations), and a whole bundle_adjust_cg through E and T; D, E,
+   Q and R with a camera carrying EuRoC cam0's distortion; V on a
+   64-sample window (and its merge and compose), W at the frame's 768
+   slots in its three forms, X at K = 16 and 32 and its refinement, Y at
+   K = 16, M = 2048, O = 8192;
 4. the stereo tracking step at 640x480 and 1280x720, 12 frames each, chained
    through the pose with constant-velocity prediction over a textured plane
    of known depth; every frame must match >= 30 landmarks, keep >= 30
@@ -78,10 +81,28 @@ the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs ten phases:
    gates, D and E launched in their distorted instances; (e) a global BA
    over phase 9's loop map requested of an async backend's GBA thread: it
    completes, T launched on ``slam-gba`` alone, F not;
+11. (also before phase 8) the inertial System, synchronous, without loop
+   closing: (a) ``System(configs/synthetic_mono.yaml, "monocular-inertial")``
+   on tests/test_vi_tracker.py's 45-frame arc with its IMU stream, biases
+   and noise (init_min_kfs 8, init_min_time 1.0, min_init_matches 60):
+   the IMU initialised, >= 5 frames OK after the init frame, scale-aligned
+   ATE after it < 0.25 m (where the JAX package's own tracker stands on
+   that scenario; ``VI_GATES``), V, W, X and Y launched; (b)
+   ``"stereo-inertial"`` (scale fixed) on the stereo corridor with the
+   same IMU stream: final OK, at most one frame lost (the JAX package's
+   own tracker loses one there too), the IMU initialised, unscaled ATE
+   after it < 0.10 m; and the RGB-D-inertial System on 25 frames of the
+   RGB-D corridor with the same IMU stream: final OK, every frame tracked,
+   V launched every frame;
 8. one frame of the plain (CPU) step, and the stereo, RGB-D and mono
    Systems, the relocalisation run, the loop scenario (all 150 frames) and
    the distorted mono System with the plain versions on the host, against
-   the card; the total time, a JSON line of the kernels, then ``{"ok":
+   the card; (11 c) the inertial Systems' 45 (mono) and first 41 (stereo)
+   frames on the host against the card: the same states, keyframes and
+   IMU-initialisation frame, poses within each path's own bound
+   (``VI_BOUNDS``: the inertial plain paths alone do not repeat across
+   host CPUs to 2e-3, ``track_spread.py --save-host``); the total time, a
+   JSON line of the kernels, then ``{"ok":
    true, "device": {...}}`` last.  The loop path is held to its own bound
    (``LOOP_DT`` / ``LOOP_DR``: two host CPUs running the plain path alone
    land 6.1e-3 apart over its 150 frames) and to closing its loop at the
@@ -89,9 +110,11 @@ the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs ten phases:
    against the host: what the worker has done by the time a frame is
    tracked depends on the host's speed, so they do not repeat.
 
-Launch counts are zeroed just before each path of phases 4-7, 9 and 10 and
+Launch counts are zeroed just before each path of phases 4-7 and 9-11 and
 read just after; a run on the async backend also reads them per thread.
-No path's host comparison is cut in depth.  Any failure raises, so the
+No path's host comparison is cut in depth but the stereo-inertial one (a
+prefix: past frame 40 its card run and its host run end in other
+states).  Any failure raises, so the
 script exits nonzero without the last line.
 """
 from __future__ import annotations
@@ -116,6 +139,32 @@ RGBD_MIN_KF, RGBD_MIN_BA = 3, 2  # what the JAX tracker + mapper make on those f
 # (python -m tests.rgbd_reference_counts: keyframes at frames 0, 10, 15; 2 local BAs)
 MONO_CONFIG = "configs/synthetic_mono.yaml"
 MONO_FRAMES = 40  # the mono phase: test_slam_e2e.py's mono sequence
+VI_FRAMES = 45  # tests/test_vi_tracker.py's mono-inertial arc
+X_LONG = 120  # phase 3's long chain for kernel X (42 s of coarse edges 0.35 s apart; P = 369)
+VI_RGBD_FRAMES = 25  # the RGB-D-inertial run of phase 11: the RGB-D phase's length
+# Phase 11's gates.  The JAX package's own InertialTracker on test_vi_tracker.py's mono scenario (CPU, python -m
+# tests.test_torch_vi_system) initialises the IMU at frame 29, is RECENTLY_LOST from frame 37 on, tracks 6 frames
+# after the initialisation frame, fits a scale of 1.388 (scale-aligned ATE 0.033 m) and ends with a gyro bias
+# (0.00175, 0.00071, 0.00159): short of that test's own gates (final OK, >= 10 frames after init, |s - 1| < 0.12,
+# the bias within 1.5e-3), which it does not meet.  The mono gates are where the reference stands: the IMU
+# initialised, >= VI_MONO_MIN_AFTER frames tracked after it, the test's ATE < 0.25 m; the rest is reported.
+VI_MONO_MIN_AFTER = 5
+# The JAX package's own stereo-inertial tracker on phase 11 (b)'s scene (CPU, python -m tests.test_torch_vi_sensors)
+# initialises the IMU at frame 36, loses one frame of 45, ends OK with an unscaled ATE of 0.0101 m after the init.
+# Phase 11 (c) holds each inertial run against its host run at its own bound (as the loop path has LOOP_DT /
+# LOOP_DR), because the plain paths alone do not repeat across host CPUs to TRACK_DT (track_spread.py --save-host,
+# PERF.md §6): two hosts running the mono-inertial plain path land 1.04e-2 / 6.1e-4 apart at worst (frame 36, the
+# last before the tracker is lost; beyond 2e-3 from frame 34), so the whole mono run is held to 2e-2 in t and the
+# sync paths' 1e-3 in rotation entries; the stereo-inertial runs land within 5e-2 / 5e-3 of each other over frames
+# 0-42 and its card run in another state than the host's at 41-42, so its first 41 frames are held to 5e-2 / 5e-3.
+VI_HOST_PREFIX = {"monocular": VI_FRAMES, "stereo": 41}
+VI_BOUNDS = {"monocular": (2e-2, 1e-3), "stereo": (5e-2, 5e-3)}
+VI_STEREO_MAX_ATE = 0.10
+VI_GATES = {"monocular": f"IMU initialised, >= {VI_MONO_MIN_AFTER} frames OK after the init frame, scale-aligned ATE "
+                         "after it < 0.25 m, V-Y launched",
+            "stereo": f"final OK, at most one frame lost, IMU initialised, unscaled ATE after it < "
+                      f"{VI_STEREO_MAX_ATE} m, V-Y launched"}
+VI_GYRO_BIAS, VI_ACC_BIAS = (0.002, -0.001, 0.0015), (0.03, -0.02, 0.04)
 RELOC_FRAMES, RELOC_REVISIT = 30, 20  # test_reloc.py: 30 frames, 3 blank ones, frame 20 again
 LOOP_FRAMES = 150  # tests/test_loop_closing.py's circle
 ATLAS_BLACKOUT = range(55, 68)  # tests/test_atlas.py's sensor dropout
@@ -174,6 +223,17 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed(fn):
+    """(fn's result, its milliseconds by CUDA events) of one call."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -473,6 +533,42 @@ def arc_trajectory(n_frames, step=0.08, yaw_rate=0.004, lateral=0.0):
     return poses
 
 
+def arc_trajectory_with_imu(n_frames, dt_frame=0.05, imu_rate=200.0, step=0.08, yaw_rate=0.004, lateral=0.0,
+                            g_world=(0.0, 9.81, 0.0), gyro_bias=(0.0, 0.0, 0.0), acc_bias=(0.0, 0.0, 0.0),
+                            noise_gyro=0.0, noise_acc=0.0, seed=0, accel_amp=0.6, accel_freq=0.9):
+    """An arc whose speed is modulated sinusoidally and the IMU stream a
+    body-mounted sensor measures on it (synthetic.arc_trajectory_with_imu,
+    the same draws from ``seed``); the camera is the body.  Returns (T_cw
+    per frame as (R, t) numpy float32 pairs, IMU rows (ts, ax, ay, az, wx,
+    wy, wz))."""
+    from orb_slam3_fast_tpu_torch.utils import lie
+
+    rng = np.random.default_rng(seed)
+    xi0 = np.array([step * 0.3, lateral, step, 0.0, yaw_rate, 0.0], np.float64) / dt_frame
+    v0, w_b = xi0[:3], xi0[3:]
+    g_w = np.asarray(g_world, np.float64)
+    dt_imu = 1.0 / imu_rate
+    two_pi_f = 2.0 * np.pi * accel_freq
+    poses, imu = [], []
+    T_wb = lie.SE3.identity("cpu")
+    for i in range(n_frames):
+        T_cw = T_wb.inverse()
+        poses.append((T_cw.R.numpy(), T_cw.t.numpy()))
+        for j in range(int(round(dt_frame * imu_rate))):
+            t0 = i * dt_frame + j * dt_imu
+            m = 1.0 + accel_amp * np.sin(two_pi_f * t0)
+            dm = accel_amp * two_pi_f * np.cos(two_pi_f * t0)
+            R_wb = T_wb.R.numpy().astype(np.float64)
+            f_b = v0 * dm + np.cross(w_b, v0 * m) - R_wb.T @ g_w
+            a_meas = f_b + np.asarray(acc_bias) + rng.normal(0, noise_acc, 3)
+            w_meas = w_b + np.asarray(gyro_bias) + rng.normal(0, noise_gyro, 3)
+            imu.append([t0 + dt_imu, *a_meas, *w_meas])
+            m_mid = 1.0 + accel_amp * np.sin(two_pi_f * (t0 + 0.5 * dt_imu))
+            xi = np.concatenate([v0 * m_mid, w_b]) * dt_imu
+            T_wb = T_wb.compose(lie.se3_exp(torch.tensor(xi, dtype=torch.float32)))
+    return poses, np.asarray(imu)
+
+
 def stereo_pair(world, cam, R, t, baseline, wh=(640, 480)):
     """The right camera sits +baseline along x of the left one."""
     return render(world, cam, R, t, wh), render(world, cam, R, np.asarray(t) - np.array([baseline, 0.0, 0.0]), wh)
@@ -679,6 +775,7 @@ def compare_front_kernels(device, cfg, step, lm, il, ir, kp, kp_r) -> list[dict]
     of those pyramids and on a tie-heavy map, J on the 1024 stereo matches
     of the step's frame, L on its 4096-slot local map at two poses."""
     from orb_slam3_fast_tpu_torch.frontend import tracker as trk
+    from orb_slam3_fast_tpu_torch.imu import preintegration as pre
     from orb_slam3_fast_tpu_torch.ops import extractor as ext
     from orb_slam3_fast_tpu_torch.ops import fast, image
     from orb_slam3_fast_tpu_torch.ops import matching as mat
@@ -2071,6 +2168,414 @@ def run_system(frames, poses, device, sensor: str = "stereo"):
     return slam, summary, track
 
 
+def vi_frames(sensor: str, n_frames: int = VI_FRAMES):
+    """Phase 11's input: tests/test_vi_tracker.py's IMU stream (step 0.06,
+    lateral 0.05, its biases and noise) along the arc, and the frames the
+    sensor sees of its corridor: mono the mono test's (seed 0, as
+    test_vi_tracker.py), stereo the stereo corridor (seed 1, 0.12 m
+    baseline), RGB-D the RGB-D corridor (seed 2, splat depth).  Returns
+    (frames, true T_cw per frame, IMU rows)."""
+    from orb_slam3_fast_tpu_torch.cameras.models import Camera
+
+    cam = Camera.pinhole(400.0, 400.0, 320.0, 240.0)
+    seed = {"monocular": 0, "stereo": 1, "rgbd": 2}[sensor]
+    world = make_corridor_world(np.random.default_rng(seed), n=900)
+    poses, imu = arc_trajectory_with_imu(n_frames, step=0.06, lateral=0.05, gyro_bias=VI_GYRO_BIAS,
+                                         acc_bias=VI_ACC_BIAS, noise_gyro=1.7e-4 * np.sqrt(200.0),
+                                         noise_acc=2e-3 * np.sqrt(200.0), seed=0)
+    if sensor == "monocular":
+        frames = [(render(world, cam, R, t),) for R, t in poses]
+    elif sensor == "stereo":
+        frames = [stereo_pair(world, cam, R, t, 0.12) for R, t in poses]
+    else:
+        frames = [(render(world, cam, R, t), splat_depth(world, cam, R, t)) for R, t in poses]
+    return frames, poses, imu
+
+
+def imu_slices(imu, n_frames: int, dt_frame: float = 0.05):
+    """The samples up to each frame's timestamp, as test_vi_tracker.py feeds them."""
+    out, i = [], 0
+    for f in range(n_frames):
+        j = i
+        while j < len(imu) and imu[j, 0] <= f * dt_frame + 1e-9:
+            j += 1
+        out.append(imu[i:j])
+        i = j
+    return out
+
+
+def run_vi(frames, poses, imu, device, sensor: str = "monocular"):
+    """Phase 11: the inertial System (``System(..., sensor + "-inertial",
+    enable_loop_closing=False, async_backend=False)``) on a scene of
+    :func:`vi_frames`, with test_vi_tracker.py's ``init_min_kfs=8,
+    init_min_time=1.0`` (and its min_init_matches=60 for mono).  Returns
+    the System, a summary dict (state, tracked, IMU-init frame, keyframes,
+    the scale-aligned and unscaled ATE after the init frame, the fitted
+    scale, the gyro bias) and the per-frame (state, R, t)."""
+    from orb_slam3_fast_tpu_torch.eval import ate
+    from orb_slam3_fast_tpu_torch.slam.system import System
+
+    opts = dict(enable_loop_closing=False, multi_map=False, async_backend=False, device=device)
+    if sensor == "monocular":
+        slam = System(MONO_CONFIG, "monocular-inertial", tracker_overrides=dict(min_init_matches=60), **opts)
+        feed = slam.track_monocular
+    elif sensor == "stereo":
+        slam = System(SYS_CONFIG, "stereo-inertial", **opts)
+        feed = slam.track_stereo
+    else:
+        slam = System(rgbd_settings(), "rgbd-inertial", **opts)
+        feed = slam.track_rgbd
+    slam.tracker.icfg = slam.tracker.icfg._replace(init_min_kfs=8, init_min_time=1.0)
+    est, gt, ts, track, kf_frames, init_frame = [], [], [], [], [], None
+    for i, (f, (R, t), samples) in enumerate(zip(frames, poses, imu_slices(imu, len(frames)))):
+        n_kf = slam.world.n_kf
+        state, pose = feed(*f, i * 0.05, imu=samples)
+        if pose is None:
+            pose = (np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
+        track.append((state, *pose))
+        if slam.world.n_kf > n_kf:
+            kf_frames.append(i)
+        if slam.world.imu_initialized and init_frame is None:
+            init_frame = i
+        if state == "OK" and init_frame is not None and i > init_frame:
+            est.append(-pose[0].T @ pose[1])
+            gt.append(-R.T @ t)
+            ts.append(i * 0.05)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    summary = dict(state=slam.get_tracking_state(), tracked=sum(s == "OK" for s, _, _ in track),
+                   init_frame=init_frame, after_init=len(est), n_kf=slam.world.n_kf, kf_frames=kf_frames,
+                   bg=[round(float(x), 5) for x in slam.tracker.cur_bias[:3].tolist()])
+    if len(est) >= 3:
+        est, gt, ts = np.asarray(est), np.asarray(gt), np.asarray(ts)
+        summary["ate_m"], _, summary["scale"] = ate.ate_rmse(ts, est, ts, gt, with_scale=True)
+        summary["ate_unscaled_m"] = ate.ate_rmse(ts, est, ts, gt, with_scale=False)[0]
+    return slam, summary, track
+
+
+def imu_chain(rng, n_kf: int, kf_dt: float = 0.25, hz: float = 200.0, gyro_bias=None, acc_bias=None):
+    """tests/test_inertial.py's simulate_trajectory in numpy: a body flying
+    with sinusoidal acceleration and yaw; the states (R_wb, p, v) at each of
+    ``n_kf`` keyframes ``kf_dt`` apart and the IMU samples between them.
+    Returns (states, [(acc, gyro)] per segment, dt)."""
+    from orb_slam3_fast_tpu_torch.utils import lie
+
+    steps, dt = int(kf_dt * hz), 1.0 / hz
+    g = np.array([0.0, 0.0, -9.81])
+    bg = np.zeros(3) if gyro_bias is None else np.asarray(gyro_bias)
+    ba = np.zeros(3) if acc_bias is None else np.asarray(acc_bias)
+    R, p, v, t = np.eye(3), np.zeros(3), np.array([0.3, 0.0, 0.0]), 0.0
+    states, segments = [(R.copy(), p.copy(), v.copy())], []
+    for _ in range(n_kf - 1):
+        acc, gyr = [], []
+        for _ in range(steps):
+            a_w = np.array([0.4 * np.sin(2 * t), 0.3 * np.cos(1.5 * t), 0.2 * np.sin(t)])
+            w_b = np.array([0.05 * np.sin(t), 0.08 * np.cos(2 * t), 0.3])
+            acc.append(R.T @ (a_w - g) + ba)
+            gyr.append(w_b + bg)
+            p, v = p + v * dt + 0.5 * a_w * dt * dt, v + a_w * dt
+            R = R @ lie.so3_exp(torch.tensor(w_b * dt, dtype=torch.float32)).numpy().astype(np.float64)
+            t += dt
+        states.append((R.copy(), p.copy(), v.copy()))
+        segments.append((np.asarray(acc, np.float32), np.asarray(gyr, np.float32)))
+    return states, segments, dt
+
+
+def _preints(segments, dt, noise, device):
+    from orb_slam3_fast_tpu_torch.imu import preintegration as pre
+
+    ps = [pre.preintegrate_plain(torch.as_tensor(a), torch.as_tensor(g), torch.full((len(a),), dt), torch.zeros(6),
+                                 noise) for a, g in segments]
+    return pre.stack(ps).to(device)
+
+
+def w_problem(rng, device, n: int):
+    """Kernel W's input at the frame's capacity ``n``: two body states one
+    frame (0.05 s) apart, the window between them, 40% of the slots
+    observing landmarks 4-12 m ahead (half of them stereo, bf 48, 10%
+    outliers, 0.3 px noise), the start 0.02 rad / 5 cm / 0.1 m/s off, a
+    camera a few cm and degrees off the body."""
+    from orb_slam3_fast_tpu_torch.cameras import models as cm
+    from orb_slam3_fast_tpu_torch.imu import preintegration as pre
+    from orb_slam3_fast_tpu_torch.optim import inertial as inr
+    from orb_slam3_fast_tpu_torch.utils import lie
+
+    noise = pre.ImuNoise.from_continuous(1.7e-4, 2e-3, 1.9e-5, 3e-3, 200.0)
+    states, segments, dt = imu_chain(rng, 2, kf_dt=0.05)
+    preint = pre.unpack(pre.pack(_preints(segments, dt, noise, device))[0])
+    T_bc = lie.se3_exp(torch.tensor([0.05, -0.02, 0.01, 0.02, -0.03, 0.01]))
+    T_cb = lie.SE3(T_bc.R.to(device), T_bc.t.to(device)).inverse()
+    b0 = torch.tensor([0.001, -0.002, 0.0015, 0.02, -0.01, 0.03])
+    s_prev = inr.BodyState(*(torch.tensor(x, dtype=torch.float32) for x in states[0]), b0).to(device)
+    s_true = inr.BodyState(*(torch.tensor(x, dtype=torch.float32) for x in states[1]), b0).to(device)
+    xw = np.stack([rng.uniform(-4, 4, n), rng.uniform(-3, 3, n), rng.uniform(4, 12, n)], -1).astype(np.float32)
+    R_cw, t_cw = inr.camera_pose(T_cb, s_true.R, s_true.p)
+    xc = torch.as_tensor(xw).to(device) @ R_cw.T + t_cw
+    cam = cm.Camera.pinhole(400.0, 400.0, 320.0, 240.0)
+    uvr = cm.stereo_project(cam, xc, 48.0).cpu().numpy() + rng.normal(0, 0.3, (n, 3))
+    valid = rng.uniform(size=n) < 0.4
+    st = valid & (rng.uniform(size=n) < 0.5)
+    uvr[~st, 2] = -1.0
+    out = rng.uniform(size=n) < 0.1
+    uvr[out, :2] += rng.uniform(20, 40, (int(out.sum()), 2))
+    obs = inr.VIObs(*(torch.as_tensor(a).to(device) for a in (
+        xw, uvr.astype(np.float32), (1.0 / 1.44 ** rng.integers(0, 4, n)).astype(np.float32), st, valid)))
+    d = torch.tensor([0.02, -0.01, 0.015], device=device)
+    s0 = inr.BodyState(s_true.R @ lie.so3_exp(d), s_true.p + torch.tensor([0.05, -0.03, 0.02], device=device),
+                       s_true.v + torch.tensor([0.1, 0.05, -0.05], device=device), s_true.bias)
+    prior = inr.PriorState(state=s_prev._replace(p=s_prev.p + 0.01),
+                           H=torch.diag(torch.linspace(10.0, 1e3, 15)).to(device))
+    return cam, T_cb, preint, s_prev, s0, obs, prior
+
+
+def x_problem(rng, device, K: int):
+    """Kernel X's input: a chain of K keyframes 0.35 s apart (the coarse
+    edges of the initialisation) with the biases of tests/test_inertial.py,
+    seen by visual SLAM in a world tilted by (0.15, -0.1, 0) rad and scaled
+    by 1/3."""
+    from orb_slam3_fast_tpu_torch.imu import preintegration as pre
+    from orb_slam3_fast_tpu_torch.utils import lie
+
+    noise = pre.ImuNoise.from_continuous(1.7e-4, 2e-3, 1.9e-5, 3e-3, 200.0)
+    states, segments, dt = imu_chain(rng, K, kf_dt=0.35, gyro_bias=(0.02, -0.01, 0.015), acc_bias=(0.05, 0.08, -0.06))
+    rot = lie.so3_exp(torch.tensor([0.15, -0.1, 0.0])).numpy().astype(np.float64)
+    R = torch.tensor(np.stack([rot @ s[0] for s in states]), dtype=torch.float32, device=device)
+    p = torch.tensor(np.stack([rot @ s[1] / 3.0 for s in states]), dtype=torch.float32, device=device)
+    v = torch.tensor(np.stack([rot @ s[2] / 3.0 for s in states]), dtype=torch.float32, device=device)
+    return R, p, v, _preints(segments, dt, noise, device)
+
+
+def y_problem(rng, device, K: int = 16, M: int = 2048, per_lm: int = 4, n_real: int = 11):
+    """Kernel Y's input at the mono path's bucket: ``n_real`` keyframe
+    states 0.3 s apart (11: the window of 10 and its fixed anchor; more:
+    the full inertial BA at the IMU initialisation) padded to K with fixed
+    repeats of the newest, M landmarks 3-8 m ahead each seen by ``per_lm``
+    of 11 neighbouring real keyframes spanning at least 6 of them (O = M * per_lm
+    observations, 0.5 px noise, 5% outliers, monocular), the states and
+    landmarks perturbed, the K-1 edge table with its padded edges invalid.
+    (Landmarks seen over a shorter baseline are so weakly constrained in
+    depth that a float32 and a float64 solve place them metres apart.)"""
+    from orb_slam3_fast_tpu_torch.cameras import models as cm
+    from orb_slam3_fast_tpu_torch.imu import preintegration as pre
+    from orb_slam3_fast_tpu_torch.optim import vi_ba
+    from orb_slam3_fast_tpu_torch.utils import lie
+
+    noise = pre.ImuNoise.from_continuous(1.7e-4, 2e-3, 1.9e-5, 3e-3, 200.0)
+    states, segments, dt = imu_chain(rng, n_real, kf_dt=0.3)
+    R = np.stack([s[0] for s in states] + [states[-1][0]] * (K - n_real)).astype(np.float32)
+    p = np.stack([s[1] for s in states] + [states[-1][1]] * (K - n_real)).astype(np.float32)
+    v = np.stack([s[2] for s in states] + [states[-1][2]] * (K - n_real)).astype(np.float32)
+    xw = np.stack([rng.uniform(-3, 3, M), rng.uniform(-2, 2, M), rng.uniform(3, 8, M)], -1).astype(np.float32)
+
+    local = n_real > 11  # a longer chain: each landmark ahead of a stretch of 11 keyframes that see it
+
+    def spread():
+        while True:
+            c = (rng.integers(0, n_real - 10) if local else 0) + rng.choice(11, per_lm, replace=False)
+            if c.max() - c.min() >= 6:
+                return c
+
+    kf = np.concatenate([spread() for _ in range(M)]).astype(np.int32)
+    lm = np.repeat(np.arange(M), per_lm).astype(np.int32)
+    if local:
+        xw += p[kf].reshape(M, per_lm, 3).mean(1)
+    xc = np.einsum("oji,oj->oi", R[kf], xw[lm] - p[kf])
+    cam = cm.Camera.pinhole(400.0, 400.0, 320.0, 240.0)
+    uv = cm.project(cam, torch.as_tensor(xc.astype(np.float32))).numpy() + rng.normal(0, 0.5, (len(kf), 2))
+    out = rng.uniform(size=len(kf)) < 0.05
+    uv[out] += rng.uniform(15, 30, (int(out.sum()), 2))
+    uvr = np.concatenate([uv, -np.ones((len(kf), 1))], 1).astype(np.float32)
+    for k in range(1, n_real):
+        R[k] = R[k] @ lie.so3_exp(torch.tensor(rng.normal(0, 0.01, 3), dtype=torch.float32)).numpy()
+        p[k] += rng.normal(0, 0.02, 3).astype(np.float32)
+        v[k] += rng.normal(0, 0.05, 3).astype(np.float32)
+    E = K - 1
+    pre_list = [pre.unpack(x) for x in pre.pack(_preints(segments, dt, noise, "cpu"))]
+    pre_list += [pre_list[-1]] * (E - len(pre_list))
+    d = lambda a: torch.as_tensor(a).to(device)
+    prob = vi_ba.VIBAProblem(
+        R_wb=d(R), p_wb=d(p), v_w=d(v), bias=torch.zeros((K, 6), device=device),
+        state_fixed=d((np.arange(K) == 0) | (np.arange(K) >= n_real)),
+        xw=d(xw + rng.normal(0, 0.03, xw.shape).astype(np.float32)), lm_valid=torch.ones(M, dtype=torch.bool,
+                                                                                          device=device),
+        obs_kf=d(kf), obs_lm=d(lm), obs_uv=d(uvr), obs_inv_sigma2=torch.ones(len(kf), device=device),
+        obs_is_stereo=torch.zeros(len(kf), dtype=torch.bool, device=device),
+        obs_valid=d(xc[:, 2] > 0.5), edge_i=d(np.r_[np.arange(n_real - 1), np.zeros(E - n_real + 1)].astype(np.int32)),
+        edge_j=d(np.r_[np.arange(1, n_real), np.ones(E - n_real + 1)].astype(np.int32)),
+        edge_valid=d(np.arange(E) < n_real - 1), preint=pre.stack(pre_list).to(device))
+    return cam, prob
+
+
+def compare_vi_kernels(device) -> list[dict]:
+    """Phase 3 for the inertial path's kernels, each against its plain
+    version on the same CUDA tensors, with CUDA-event times: V on a
+    64-sample window (and its merge and compose forms), W at the frame's
+    keypoint capacity in its three forms (no prior, a prior, the last
+    frame), X at K = 16 and 32 and its refinement, Y at K = 16, M = 2048,
+    O = 8192; and beyond the windows the path usually takes, X's two
+    entries on a chain of X_LONG keyframes (its system in global memory)
+    and Y at K = 128 (100 real states: the full inertial BA at a late
+    initialisation), held to the same tolerances and timed apart."""
+    from orb_slam3_fast_tpu_torch.imu import preintegration as pre
+    from orb_slam3_fast_tpu_torch.ops import extractor as ext
+    from orb_slam3_fast_tpu_torch.optim import imu_init, inertial, vi_ba
+    from orb_slam3_fast_tpu_torch.utils import lie
+
+    out = []
+    rng = np.random.default_rng(11)
+    noise = pre.ImuNoise.from_continuous(1.7e-4, 2e-3, 1.9e-5, 3e-3, 200.0)
+    # V
+    n = 64
+    acc = torch.as_tensor((rng.normal(size=(n, 3)) * 2.0 + [0, 0, 9.81]).astype(np.float32)).to(device)
+    gyro = torch.as_tensor((rng.normal(size=(n, 3)) * 0.3).astype(np.float32)).to(device)
+    dts = torch.full((n,), 1.0 / 200.0, device=device)
+    valid = torch.ones(n, dtype=torch.bool, device=device)
+    bias = torch.as_tensor((rng.normal(size=6) * 0.01).astype(np.float32)).to(device)
+    pk = pre.preintegrate(acc, gyro, dts, bias, noise, valid)
+    pp, pms = timed(lambda: pre.preintegrate_plain(acc, gyro, dts, bias, noise, valid))
+    mk, mp = pre.merge(pk, acc, gyro, dts, noise, valid), pre.merge_plain(pp, acc, gyro, dts, noise, valid)
+    ck, cp = pre.compose(pk, pk), pre.compose_plain(pp, pp)
+    torch.cuda.synchronize()
+
+    def preint_err(a, b):
+        e = max(float((getattr(a, f) - getattr(b, f)).abs().max()) for f in pre.Preintegrated._fields if f != "C")
+        return e, float((a.C - b.C).abs().max() / b.C.abs().max())
+
+    v_err = [preint_err(a, b) for a, b in ((pk, pp), (mk, mp), (ck, cp))]
+    if max(e for e, _ in v_err) > 1e-4 or max(c for _, c in v_err) > 1e-3:
+        raise RuntimeError(f"kernel V disagrees with its plain version: {v_err}")
+    ms = cuda_ms(lambda: pre.preintegrate(acc, gyro, dts, bias, noise, valid), 50)
+    mats = torch.randn((n, 3, 3), device=device)
+    lib = cuda_ms(lambda: torch.linalg.svd(mats), 20)
+    out.append(dict(name="imu_preint", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/imu_preint.cu",
+                    replaces="orb_slam3_fast_tpu/imu/preintegration.py:172", max_abs_err=max(e for e, _ in v_err),
+                    ms=ms, plain_ms=pms, **bound(n * 29 + 2 * pre.PACKED * 4, n * 6000), library_ms=lib,
+                    shapes=f"a {n}-sample window; merge and compose errors {[round(e, 9) for e, _ in v_err[1:]]}, "
+                           f"covariance relative errors {[f'{c:.2g}' for _, c in v_err]}; tolerances 1e-4 (deltas, "
+                           "Jacobians), 1e-3 of the covariance's largest entry; library = batched torch.linalg.svd "
+                           f"of the {n} 3x3 re-orthonormalisations"))
+    # W: the frame's capacity
+    cap = ext.total_capacity(ext.ExtractorConfig(n_features=768))
+    cam, T_cb, preint, s_prev, s0, obs, prior = w_problem(rng, device, cap)
+    w_err, notes, w_ms, w_pms = 0.0, [], 0.0, 0.0
+    forms = (("no prior", lambda: inertial.pose_inertial_optimization(cam, 48.0, T_cb, s_prev, preint, s0, obs),
+              lambda: inertial.pose_inertial_optimization_plain(cam, 48.0, T_cb, s_prev, preint, s0, obs)),
+             ("prior", lambda: inertial.pose_inertial_optimization(cam, 48.0, T_cb, s_prev, preint, s0, obs, prior),
+              lambda: inertial.pose_inertial_optimization_plain(cam, 48.0, T_cb, s_prev, preint, s0, obs, prior)),
+             ("last frame", lambda: inertial.pose_inertial_optimization_last_frame(cam, 48.0, T_cb, s_prev, prior,
+                                                                                  preint, s0, obs),
+              lambda: inertial.pose_inertial_optimization_last_frame_plain(cam, 48.0, T_cb, s_prev, prior, preint,
+                                                                           s0, obs)))
+    for label, fk, fp in forms:
+        (sk, ik, nk, Hk), ((sp, ip, np_, Hp), p_ms) = fk(), timed(fp)
+        torch.cuda.synchronize()
+        e = max(float((a - b).abs().max()) for a, b in zip(sk, sp))
+        h = float((Hk - Hp).abs().max() / Hp.abs().max())
+        mism = int((ik != ip).sum())
+        if e > 5e-3 or h > 5e-3 or mism > 2:
+            raise RuntimeError(f"kernel W ({label}) disagrees with its plain version: state {e}, H {h}, {mism} edges")
+        w_err = max(w_err, e)
+        k_ms = cuda_ms(fk, 10)
+        w_ms += k_ms
+        w_pms += p_ms
+        notes.append(f"{label} {k_ms:.3f} ms (plain {p_ms:.1f}), state err {e:.2g}, H rel err {h:.2g}, "
+                     f"{int(nk)} inliers, {mism} classified otherwise")
+    nv = int(obs.valid.sum())
+    w_ops = 40 * (nv * 260 + 60_000) * 3 + 4 * cap * 40 * 3
+    Hs = torch.eye(30, device=device) * 2.0 + 0.01
+    lib = cuda_ms(lambda: torch.linalg.solve(Hs, torch.ones(30, device=device)), 20)
+    out.append(dict(name="pose_inertial", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/pose_inertial.cu",
+                    replaces="orb_slam3_fast_tpu/optim/inertial.py:123", max_abs_err=w_err, ms=w_ms, plain_ms=w_pms,
+                    **bound(3 * (cap * 30 + 3 * 21 * 4 + pre.PACKED * 4 + 246 * 4), w_ops), library_ms=lib,
+                    shapes=f"{cap} slots ({nv} observing), the three forms summed: " + "; ".join(notes) +
+                           "; tolerances: state 5e-3, H 5e-3 of its largest entry, 2 edges; library = one "
+                           "torch.linalg.solve of a 30x30 system (one of the 40 solves of the last-frame form)"))
+    # X: K = 16 and 32, and the refinement
+    x_err, notes, x_ms, x_pms, x_ops = 0.0, [], 0.0, 0.0, 0
+    for K in (16, 32):
+        R, p, v, preints = x_problem(rng, device, K)
+        fk = lambda: imu_init.inertial_only_optimization(R, p, preints)
+        fp = lambda: imu_init.inertial_only_optimization_plain(R, p, preints)
+        ik, (ip, p_ms) = fk(), timed(fp)
+        torch.cuda.synchronize()
+        e = max(abs(float(ik.scale) / float(ip.scale) - 1), float((ik.Rwg - ip.Rwg).abs().max()),
+                float((ik.bias - ip.bias).abs().max()), float((ik.vel - ip.vel).abs().max() / ip.vel.abs().max()))
+        if e > 5e-3:
+            raise RuntimeError(f"kernel X (K={K}) disagrees with its plain version: {e}")
+        x_err = max(x_err, e)
+        k_ms = cuda_ms(fk, 5)
+        x_ms += k_ms
+        x_pms += p_ms
+        P, E = 9 + 3 * K, K - 1
+        x_ops += 40 * (E * 15 * 3000 + E * 2430 + P * P * 18 + 2 * P ** 3 // 3)
+        notes.append(f"K={K} (P={P}) {k_ms:.3f} ms (plain {p_ms:.1f}), err {e:.2g}, scale {float(ik.scale):.4f}")
+    Rr, sr = imu_init.scale_gravity_refinement(R, p * 0.95, v * 0.95, torch.zeros(6, device=device), preints)
+    Rq, sq = imu_init.scale_gravity_refinement_plain(R, p * 0.95, v * 0.95, torch.zeros(6, device=device), preints)
+    e = max(abs(float(sr) - float(sq)), float((Rr - Rq).abs().max()))
+    if e > 1e-3:
+        raise RuntimeError(f"kernel X's refinement disagrees with its plain version: {e}")
+    notes.append(f"refinement K=32 err {e:.2g}, scale {float(sr):.4f}")
+    # the long chain: the system beyond shared memory; the refinement over the chain a long run grows
+    R, p, v, preints = x_problem(np.random.default_rng(12), device, X_LONG)  # its own draws: K = 16's unchanged
+    (ik, k_ms), (ip, p_ms) = timed(lambda: imu_init.inertial_only_optimization(R, p, preints)), \
+        timed(lambda: imu_init.inertial_only_optimization_plain(R, p, preints))
+    e = max(abs(float(ik.scale) / float(ip.scale) - 1), float((ik.Rwg - ip.Rwg).abs().max()),
+            float((ik.bias - ip.bias).abs().max()), float((ik.vel - ip.vel).abs().max() / ip.vel.abs().max()))
+    ((Rr, sr), r_ms), (Rq, sq) = timed(lambda: imu_init.scale_gravity_refinement(
+        R, p * 0.95, v * 0.95, torch.zeros(6, device=device), preints)), imu_init.scale_gravity_refinement_plain(
+        R, p * 0.95, v * 0.95, torch.zeros(6, device=device), preints)
+    er = max(abs(float(sr) - float(sq)), float((Rr - Rq).abs().max()))
+    if e > 5e-3 or er > 1e-3:
+        raise RuntimeError(f"kernel X (K={X_LONG}) disagrees with its plain version: {e}, refinement {er}")
+    x_err = max(x_err, e, er)
+    notes.append(f"K={X_LONG} (P={9 + 3 * X_LONG}, system in global memory) {k_ms:.3f} ms (plain {p_ms:.1f}), "
+                 f"err {e:.2g}; its refinement {r_ms:.3f} ms, err {er:.2g} (one call each, not in ms)")
+    Hx = torch.eye(105, device=device) * 2.0 + 0.01
+    lib = cuda_ms(lambda: torch.linalg.solve(Hx, torch.ones(105, device=device)), 20)
+    out.append(dict(name="imu_init", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/imu_init.cu",
+                    replaces="orb_slam3_fast_tpu/optim/imu_init.py:53", max_abs_err=x_err, ms=x_ms, plain_ms=x_pms,
+                    **bound((16 + 32) * (48 + pre.PACKED * 4), x_ops), library_ms=lib,
+                    shapes="; ".join(notes) + "; tolerance 5e-3 (scale relative, Rwg entries, biases, velocities "
+                           "relative); library = one torch.linalg.solve of the 105x105 system (one of the 40)"))
+    # Y: K = 16, M = 2048, O = 8192
+    cam, prob = y_problem(rng, device)
+    T_cb = lie.SE3.identity(device)  # the synthetic camera is the body, as on the mono path
+    K, M, O = prob.R_wb.shape[0], prob.xw.shape[0], prob.obs_kf.shape[0]
+    fk = lambda: vi_ba.vi_bundle_adjust(cam, 0.0, T_cb, prob)
+    fp = lambda: vi_ba.vi_bundle_adjust_plain(cam, 0.0, T_cb, prob)
+    yk, (yp, y_pms) = fk(), timed(fp)
+    torch.cuda.synchronize()
+    errs = [float((a - b).abs().max()) for a, b in zip(yk[:5], yp[:5])]
+    mism = float((yk[5] != yp[5]).float().mean())
+    if errs[1] > 2e-3 or errs[4] > 1e-2 or errs[0] > 2e-4 or mism > 0.01:
+        raise RuntimeError(f"kernel Y disagrees with its plain version: {errs}, {mism:.3%} classified otherwise")
+    y_ms = cuda_ms(fk, 3, warmup=1)
+    n = 15 * K
+    A = torch.eye(n, device=device) * 2.0 + 0.001 * torch.ones((n, n), device=device)
+    lib = cuda_ms(lambda: torch.linalg.solve(A, torch.ones(n, device=device)), 20)
+    pairs = int(sum(c * c for c in torch.bincount(prob.obs_lm.long()).tolist()))
+    y_ops = 12 * (O * 500 + pairs * 216 + 15 * 30 * 3000 + n * n * 60 + 2 * n ** 3 // 3)
+    out.append(dict(name="vi_ba", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/vi_ba.cu",
+                    replaces="orb_slam3_fast_tpu/optim/vi_ba.py:184", max_abs_err=max(errs), ms=y_ms, plain_ms=y_pms,
+                    **bound(O * 27 + M * 13 + (K - 1) * pre.PACKED * 4 + K * 21 * 8, y_ops), library_ms=lib,
+                    shapes=f"K={K} (11 real), M={M}, O={O}, {pairs} observation pairs; errors R {errs[0]:.2g} p "
+                           f"{errs[1]:.2g} v {errs[2]:.2g} bias {errs[3]:.2g} xw {errs[4]:.2g}, {mism:.2%} classified "
+                           "otherwise; tolerances p 2e-3 m, R 2e-4, xw 1e-2 m, 1%; library = one torch.linalg.solve "
+                           f"of the formed {n}x{n} system (one of the 12)"))
+    # K = 128: 100 real states
+    cam, prob = y_problem(np.random.default_rng(13), device, K=128, n_real=100)
+    (yk, k_ms), (yp, p_ms) = timed(lambda: vi_ba.vi_bundle_adjust(cam, 0.0, T_cb, prob)), \
+        timed(lambda: vi_ba.vi_bundle_adjust_plain(cam, 0.0, T_cb, prob))
+    errs = [float((a - b).abs().max()) for a, b in zip(yk[:5], yp[:5])]
+    mism = float((yk[5] != yp[5]).float().mean())
+    if errs[1] > 2e-3 or errs[4] > 1e-2 or errs[0] > 2e-4 or mism > 0.01:
+        raise RuntimeError(f"kernel Y (K=128) disagrees with its plain version: {errs}, {mism:.3%} otherwise")
+    out[-1]["max_abs_err"] = max(out[-1]["max_abs_err"], *errs)
+    out[-1]["shapes"] += (f"; K=128 (100 real, n={15 * 128}) {k_ms:.1f} ms (plain {p_ms:.1f}), errors R {errs[0]:.2g} "
+                          f"p {errs[1]:.2g} xw {errs[4]:.2g}, {mism:.2%} otherwise (one call, not in ms)")
+    return out
+
+
 def run_default_stereo(frames, poses, device):
     """Phase 10 (a): ``System(configs/synthetic_stereo.yaml, "stereo")``
     with every default (the async backend, loop closing, the Atlas, 512
@@ -2209,6 +2714,33 @@ def run_gba_thread(slam):
     return summary
 
 
+def check_vi(sensor: str, summary: dict, launches: dict) -> None:
+    """Phase 11's gates (``VI_GATES``) and V, W, X and Y launched on the path."""
+    missing = [n for n in VI_KERNELS if launches[n] < 1]
+    ok = summary["init_frame"] is not None and not missing
+    if ok and sensor == "monocular":
+        ok = summary["after_init"] >= VI_MONO_MIN_AFTER and summary.get("ate_m", 1.0) < 0.25
+    elif ok:
+        ok = (summary["state"] == "OK" and summary["tracked"] >= VI_FRAMES - 1
+              and summary.get("ate_unscaled_m", 1.0) < VI_STEREO_MAX_ATE)
+    if not ok:
+        raise RuntimeError(f"{sensor}-inertial System gates failed: {summary}, never launched {missing}")
+
+
+def check_vi_against_plain(card, plain, n: int, bounds: tuple[float, float]) -> tuple[list[str], str]:
+    """Phase 11 (c): an inertial System on the card against its host run on
+    the first ``n`` frames: the frames as ``compare_tracks`` holds them at
+    ``bounds`` (``VI_BOUNDS``), the same keyframes and the same
+    IMU-initialisation frame."""
+    (_, sum_c, track_c), (_, sum_p, track_p) = card, plain
+    bad, summary = compare_tracks(track_c[:n], track_p, *bounds)
+    kf_c = [k for k in sum_c["kf_frames"] if k < n]
+    if kf_c != sum_p["kf_frames"] or sum_c["init_frame"] != sum_p["init_frame"]:
+        bad.append(f"keyframes / IMU init: card {sum_c} vs plain {sum_p}")
+    return bad, (f"{summary}; keyframes at {kf_c} / {sum_p['kf_frames']}, IMU init at frame "
+                 f"{sum_c['init_frame']} / {sum_p['init_frame']}")
+
+
 def compare_tracks(track_c, track_p, bound_dt: float = TRACK_DT, bound_dr: float = TRACK_DR) -> tuple[list[str], str]:
     """Per-frame (state, R, t) of a run on the card against the same run with
     the plain versions on the host, at the whole-path tests' tolerances: the
@@ -2268,7 +2800,9 @@ def stage_split(rig: Rig, device) -> dict:
 
 WRAPPER_NAMES = ("fast_nms", "orb_describe", "hamming_best2", "pose_lm", "ba_blocks", "ba_schur", "triangulate_dlt",
                  "pyramid_blur", "select_subpixel", "stereo_subpixel_refine", "visible_landmarks", "twoview_ransac",
-                 "vocab_transform", "pnp_ransac", "sim3_ransac", "sim3_refine", "sim3_graph", "ba_pcg", "sim3_pcg")
+                 "vocab_transform", "pnp_ransac", "sim3_ransac", "sim3_refine", "sim3_graph", "ba_pcg", "sim3_pcg",
+                 "imu_preint", "pose_inertial", "imu_init", "vi_ba")
+VI_KERNELS = ("imu_preint", "pose_inertial", "imu_init", "vi_ba")  # V, W, X, Y: the inertial path
 SYSTEM_KERNELS = WRAPPER_NAMES[:11]  # the stereo System runs A-L, N to index its keyframes, and not M or P
 STEP_KERNELS = ("fast_nms", "orb_describe", "hamming_best2", "pose_lm", "pyramid_blur", "select_subpixel",
                 "stereo_subpixel_refine", "visible_landmarks")
@@ -2291,12 +2825,13 @@ RADTAN_KERNELS = ("pose_lm", "ba_blocks", "sim3_ransac", "sim3_refine")
 def wrappers() -> dict:
     """Each kernel's wrapper, by the kernel's name (S and U share one)."""
     from orb_slam3_fast_tpu_torch.frontend import tracker as trk
+    from orb_slam3_fast_tpu_torch.imu import preintegration as pre
     from orb_slam3_fast_tpu_torch.ops import extractor as ext
     from orb_slam3_fast_tpu_torch.ops import fast, image
     from orb_slam3_fast_tpu_torch.ops import hamming as ham
     from orb_slam3_fast_tpu_torch.ops import matching as mat
     from orb_slam3_fast_tpu_torch.ops import twoview
-    from orb_slam3_fast_tpu_torch.optim import ba, ba_cg, pnp, pose_opt, sim3
+    from orb_slam3_fast_tpu_torch.optim import ba, ba_cg, imu_init, inertial, pnp, pose_opt, sim3, vi_ba
     from orb_slam3_fast_tpu_torch.optim import pose_graph as pg
     from orb_slam3_fast_tpu_torch.vocab import vocabulary as voc_mod
 
@@ -2305,7 +2840,9 @@ def wrappers() -> dict:
                                     image.pyramid_blur, ext.select_subpixel, mat.stereo_subpixel_refine,
                                     trk.visible_landmarks, twoview.reconstruct, voc_mod.transform,
                                     pnp.pnp_ransac, sim3.sim3_ransac, sim3.optimize_sim3, pg.optimize_sim3_graph,
-                                    ba_cg.implicit_schur_solve, pg.optimize_sim3_graph)))
+                                    ba_cg.implicit_schur_solve, pg.optimize_sim3_graph, pre.preintegrate,
+                                    inertial.pose_inertial_optimization, imu_init.inertial_only_optimization,
+                                    vi_ba.vi_bundle_adjust)))
 
 
 def reset_counts() -> None:
@@ -2365,7 +2902,7 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels = compare_kernels(device)
     system_kernels, c_modes = compare_system_kernels(device)
-    kernels += system_kernels + compare_mono_kernels(device) + compare_loop_kernels(device)
+    kernels += system_kernels + compare_mono_kernels(device) + compare_loop_kernels(device) + compare_vi_kernels(device)
     e_entry, t_entry = (next(k for k in kernels if k["name"] == name) for name in ("ba_blocks", "ba_pcg"))
     e_entry["shapes"] += t_entry.pop("e_gba")
     c = next(k for k in kernels if k["name"] == "hamming_best2")
@@ -2584,6 +3121,39 @@ def main() -> int:
         "s, completed, not aborted, no error, T on slam-gba alone, F not)")
     log(f"phase 10: {time.perf_counter() - t0:.1f} s")
 
+    # 11. the inertial System, synchronous, no loop closing (run before phase 8 too): (a) mono-inertial on
+    # test_vi_tracker.py's arc, (b) stereo-inertial on the stereo corridor with the same IMU stream
+    t0 = time.perf_counter()
+    vi_runs = {}
+    for sensor in ("monocular", "stereo"):
+        t1 = time.perf_counter()
+        vi_in = vi_frames(sensor)
+        log(f"11 {sensor}-inertial scene: {VI_FRAMES} frames rendered on the host in {time.perf_counter() - t1:.1f} s")
+        reset_counts()
+        t1 = time.perf_counter()
+        run = run_vi(*vi_in, device, sensor)
+        launches = read_counts()
+        vi_runs[sensor] = (vi_in, run, launches)
+        check_vi(sensor, run[1], launches)
+        spans = run[0].timers.spans
+        log(f"11 ({'a' if sensor == 'monocular' else 'b'}) {sensor}-inertial System: {run[1]}, "
+            f"{time.perf_counter() - t1:.2f} s for {VI_FRAMES} frames (gates: {VI_GATES[sensor]})")
+        log(f"11 {sensor}-inertial track_total ms per frame: {[round(x, 3) for x in spans['track_total']]}")
+        log(f"launches in the {sensor}-inertial run: {launches}")
+    # the third inertial sensor on the card: the RGB-D-inertial System tracks the RGB-D corridor with the IMU
+    # stream, preintegrating every frame (no IMU initialisation within its keyframes)
+    t1 = time.perf_counter()
+    vi_in = vi_frames("rgbd", VI_RGBD_FRAMES)
+    reset_counts()
+    _, summary_r, _ = run_vi(*vi_in, device, "rgbd")
+    launches_r = read_counts()
+    if not (summary_r["state"] == "OK" and summary_r["tracked"] == VI_RGBD_FRAMES
+            and launches_r["imu_preint"] >= VI_RGBD_FRAMES - 1):
+        raise RuntimeError(f"rgbd-inertial System: {summary_r}, V launched {launches_r['imu_preint']} times")
+    log(f"11 rgbd-inertial System: {summary_r}, {time.perf_counter() - t1:.2f} s with the render (gates: final OK, "
+        f"every frame tracked, V launched on every frame after the first)")
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+
     # 8. the plain (CPU) step, which the tests hold against the JAX package,
     # agrees with the card on frame 1 at 640x480.  Last, because the host
     # threads it starts would slow the timed phases above.
@@ -2608,6 +3178,15 @@ def main() -> int:
         log(f"plain {label} on the host against the card: {summary}, {len(bad)} failing "
             f"({time.perf_counter() - t0:.1f} s)")
         failures += [f"{label} {b}" for b in bad]
+    for sensor, (vi_in, run, _) in vi_runs.items():  # 11 (c): the inertial Systems against their host runs
+        t0 = time.perf_counter()
+        n = VI_HOST_PREFIX[sensor]
+        frames_n, poses_n, imu_n = vi_in[0][:n], vi_in[1][:n], vi_in[2]
+        bad, summary = check_vi_against_plain(run, run_vi(frames_n, poses_n, imu_n, cpu, sensor), n,
+                                              VI_BOUNDS[sensor])
+        log(f"11 (c) plain {sensor}-inertial System on the host against the card: {summary}, {len(bad)} failing "
+            f"({time.perf_counter() - t0:.1f} s)")
+        failures += [f"{sensor}-inertial System {b}" for b in bad]
     t0 = time.perf_counter()
     plain_reloc, _, plain_reloc_sum = run_reloc(mono_in, mono_poses, cpu)
     bad, summary = compare_tracks(reloc_track, plain_reloc)
@@ -2625,10 +3204,11 @@ def main() -> int:
     runs = {"step": step_launches, "stereo_system": sys_launches, "rgbd_system": rgbd_launches,
             "mono_system": mono_launches, "relocalisation": reloc_launches, "loop": loop_launches,
             "atlas": atlas_launches, "default_stereo": launches_a10, "default_loop": launches_b10,
-            "loop_pcg": launches_c10, "distorted_mono": launches_d10, "gba_thread": launches_e10}
+            "loop_pcg": launches_c10, "distorted_mono": launches_d10, "gba_thread": launches_e10,
+            "vi_mono": vi_runs["monocular"][2], "vi_stereo": vi_runs["stereo"][2], "vi_rgbd": launches_r}
     main_run = {"twoview_ransac": "mono_system", "vocab_transform": "mono_system", "pnp_ransac": "relocalisation",
                 "sim3_ransac": "loop", "sim3_refine": "loop", "sim3_graph": "loop", "ba_pcg": "loop",
-                "sim3_pcg": "loop_pcg"}
+                "sim3_pcg": "loop_pcg", **{name: "vi_mono" for name in VI_KERNELS}}
     for k in kernels:
         k["launches"] = runs[main_run.get(k["name"], "stereo_system")][k["name"]]
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in runs.items()}

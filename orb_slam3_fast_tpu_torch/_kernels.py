@@ -98,6 +98,19 @@ SIGNATURES = {
     # lm_ptr, lm_obs, kf_ptr, kf_obs, lam, K, M, O, cg_iters, scratch, dp,
     # dl, stream
     "ba_pcg_launch": [_P] * 15 + [_I] * 4 + [_P] * 4,
+    # start (packed window or null), bias, acc, gyro, dts, valid, n, noise (host), out, stream
+    "imu_preint_launch": [_P] * 6 + [_I, _P, _P, _P],
+    # a, b (packed windows), out, stream
+    "imu_compose_launch": [_P] * 4,
+    # cam10, dist, tcb, s_prev, pk, s0, prior, last, xw, uv, inv_sigma2, is_stereo, valid, n, n_rounds, iters,
+    # state_out, inlier, n_inl, H_out, stream
+    "pose_inertial_launch": [_P, _I] + [_P] * 5 + [_I] + [_P] * 5 + [_I] * 3 + [_P] * 5,
+    # R, p, pk, edge_valid, vel, bias, K, prior (host), iters, fix_scale, refine, work, out, stream
+    "imu_init_launch": [_P] * 6 + [_I, _P, _I, _I, _I, _P, _P, _P],
+    # cam10, dist, tcb, K, M, O, E, R, p, v, bias, fixed, xw, lm_valid, obs_kf, obs_lm, uv, inv_sigma2,
+    # is_stereo, obs_valid, edge_i, edge_j, edge_valid, pk, lm_ptr, lm_obs, kf_ptr, kf_obs, ke_ptr, ke_edge,
+    # free_ids, free_pos, nf, iters1, iters2, scratch, state_out, xw_out, inlier, stream
+    "vi_ba_launch": [_P, _I, _P] + [_I] * 4 + [_P] * 25 + [_I] * 3 + [_P] * 5,
 }
 
 

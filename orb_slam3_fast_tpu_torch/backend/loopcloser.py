@@ -26,7 +26,7 @@ its worker thread after the mapper, and ``gba_hook``, set by the backend,
 hands the global BA to its GBA thread; without a backend the global BA
 runs inline.  Not ported yet: the inertial hooks (``inertial_ba``,
 ``inertial_gba``, ``merge_inertial_ba``) stay None and an inertial map's
-4-DoF essential graph raises (ROADMAP §A item 10).
+4-DoF essential graph raises (ROADMAP §A item 10, second part).
 """
 from __future__ import annotations
 
@@ -102,7 +102,7 @@ class LoopCloser:
         self.n_loops_closed = 0
         self.n_maps_merged = 0
         # the inertial hooks (MergeInertialBA, FullInertialBA), wired by the
-        # inertial System; nothing reads them before ROADMAP §A item 10
+        # inertial System; nothing reads them before ROADMAP §A item 10's second part
         self.inertial_ba = None
         self.inertial_gba = None
         self.merge_inertial_ba = None
@@ -212,7 +212,7 @@ class LoopCloser:
         LoopClosing.cc:1347-1930): transplant the arrays by the world-to-world
         Sim3, fuse duplicates in the welding window, local BA of the weld."""
         if world2.imu_initialized:
-            raise NotImplementedError("MergeInertialBA waits for ROADMAP §A item 10 (inertial)")
+            raise NotImplementedError("MergeInertialBA waits for ROADMAP §A item 10, second part")
         # x_dst = T_c2w2^-1 o S_kc^-1 o T_c1w1 (x_src)
         S_kc = _host_sim3(S_kc)
         T_c1w1 = _sim3_of(world.kf_R[k], world.kf_t[k])
@@ -528,8 +528,8 @@ class LoopCloser:
         edges to powers of two against recompiles; a padded vertex is fixed
         and touched by no edge, so the solution is the same)."""
         if world.imu_initialized:
-            raise NotImplementedError("the 4-DoF essential graph of an inertial map waits for ROADMAP §A item 10 "
-                                      "(inertial)")
+            raise NotImplementedError("the 4-DoF essential graph of an inertial map waits for ROADMAP §A item 10, "
+                                      "second part")
         cfg = self.cfg
         pairs = [(i, i - 1) for i in range(1, K)]
         C = native.covis_matrix(world.kf_obs[:K], world.max_lm)

@@ -206,6 +206,8 @@ class Mapper:
             c = int(c)
             if c in (world.init_kf_ids or [0, 1]) or c == k or not world.kf_valid[c]:
                 continue
+            if c in world.kf_preint or (c + 1) in world.kf_preint:  # inertial chain members stay
+                continue
             slots = np.nonzero(world.kf_obs[c] >= 0)[0]
             if len(slots) < 30:
                 world.remove_keyframe(c)

@@ -30,9 +30,11 @@ under the backend's lock and queued to its worker thread instead of being
 mapped inline, and before each tracked frame ``_sync_backend`` takes the
 worker's loop and merge events and, when the worker changed the map,
 rebases the last pose through its reference keyframe (Tracking.cc:
-1884-1891).  Not ported yet: the inertial tracker (ROADMAP §A item 10),
-fisheye two-camera stereo (item 11).  With no vocabulary, ``_index_kf``
-does nothing and ``_relocalize`` fails, as in the JAX package.
+1884-1891).  ``_predict_lost_pose`` and ``_lost_state`` are the hooks the
+inertial tracker (``frontend/vi_tracker.py``) overrides.  Not ported yet:
+fisheye two-camera stereo (ROADMAP §A item 11).  With no vocabulary,
+``_index_kf`` does nothing and ``_relocalize`` fails, as in the JAX
+package.
 
 Kernel L -- source note.
   Replaces: ``_visible_landmarks`` (``orb_slam3_fast_tpu/frontend/
@@ -298,7 +300,10 @@ class Tracker:
         self.atlas = atlas
         self.backend = backend
         self._seen_map_version = 0
+        self.map_updated = False  # mbMapUpdated (Tracking.cc:1884-1891)
         self._rel_to_ref = None  # the last frame's pose relative to its reference keyframe
+        self._lost_since_ts = None  # when the current lost spell began
+        self._lost_pred_pose = None  # a pose the subclass advanced while lost (IMU prediction)
         self.map_id = map_id if atlas is None else atlas.current_id
         if atlas is not None:
             world = atlas.current
@@ -556,6 +561,7 @@ class Tracker:
                 self.velocity = lie.SE3.identity(self.device)
         if b.map_version != self._seen_map_version:
             self._seen_map_version = b.map_version
+            self.map_updated = True
             r = self.ref_kf
             if r >= 0 and self.last is not None and self._rel_to_ref is not None:
                 R_rel, t_rel = self._rel_to_ref
@@ -577,18 +583,29 @@ class Tracker:
                 if not ok:
                     ok, T_est, obs_lm, n_inl = self._track_reference_kf(kp, T_last)
         else:
-            ok, T_est, obs_lm, n_inl = self._relocalize(kp)
-            if ok:
-                self.velocity = lie.SE3.identity(self.device)
+            # lost: a pose the subclass predicts (the IMU, Tracking.cc:1966-1977) bridges the gap, else
+            # relocalisation (Tracking.cc:2053-2078)
+            self._lost_pred_pose = None
+            T_pred_lost = self._predict_lost_pose(ts)
+            if T_pred_lost is not None:
+                ok, T_est, obs_lm, n_inl = True, T_pred_lost, np.full(self.kp_cap, -1, np.int32), 0
+            else:
+                ok, T_est, obs_lm, n_inl = self._relocalize(kp)
+                if ok:
+                    self.velocity = lie.SE3.identity(self.device)
         if ok:
             with self.timers.span("lm_track"):
                 ok2, T_est, obs_lm, n_inl = self._track_local_map(kp, T_est, obs_lm)
             ok = ok and ok2
         if not ok:
+            if self.lost_count == 0:
+                self._lost_since_ts = ts
             self.lost_count += 1
-            self.state = RECENTLY_LOST if self.lost_count < self.cfg.max_recently_lost else LOST
-            self.last = FrameState(kp, ts, last.R.copy(), last.t.copy(), np.full(self.kp_cap, -1, np.int32),
-                                   depth, right_u)
+            self.state = self._lost_state(ts)
+            # hold the last good pose, unless the subclass advanced it while lost
+            pred = self._lost_pred_pose
+            hold_R, hold_t = pred if pred is not None else (last.R.copy(), last.t.copy())
+            self.last = FrameState(kp, ts, hold_R, hold_t, np.full(self.kp_cap, -1, np.int32), depth, right_u)
             if self.state == LOST and self.atlas is not None:
                 # Tracking.cc:1824-1848: a rich map is kept and a new one started, a poor one reset
                 if self.world.n_kf > self.cfg.min_kf_keep_map:
@@ -730,6 +747,16 @@ class Tracker:
                 self.ref_kf = k
                 return True, T, obs_out, n_inl
         return False, T0, None, 0
+
+    def _predict_lost_pose(self, ts):
+        """A pose for a lost frame: None here (the visual tracker
+        relocalises); the inertial tracker predicts one from the IMU."""
+        return None
+
+    def _lost_state(self, ts):
+        """RECENTLY_LOST or LOST: a count of frames here; the inertial
+        tracker's wall-clock grace window (Tracking.cc:69) overrides it."""
+        return RECENTLY_LOST if self.lost_count < self.cfg.max_recently_lost else LOST
 
     def _create_map_in_atlas(self):
         """Tracking::CreateMapInAtlas (Tracking.cc:2607-2649): keep the old

@@ -102,6 +102,8 @@ class Atlas:
         dst.kf_obs[kf] = obs
         dst.kf_vel[kf] = s * np.einsum("ij,kj->ki", R, src.kf_vel[:Ks].astype(np.float64)).astype(np.float32)
         dst.kf_bias[kf] = src.kf_bias[:Ks]
+        for k, p in src.kf_preint.items():
+            dst.kf_preint[k + kf_off] = p
         dst.n_kf += Ks
         # landmarks: x_dst = s R x_src + t
         lm = slice(lm_off, lm_off + Ms)

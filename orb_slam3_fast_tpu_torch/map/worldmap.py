@@ -19,6 +19,8 @@ import numpy as np
 import torch
 
 from orb_slam3_fast_tpu_torch import native
+from orb_slam3_fast_tpu_torch.imu.preintegration import Preintegrated
+from orb_slam3_fast_tpu_torch.utils.lie import normalize_rotation_np
 
 _SHIFTS = np.arange(32, dtype=np.uint32)
 
@@ -76,7 +78,8 @@ class WorldMap:
         self.kf_obs = np.full((K, N), -1, dtype=np.int32)  # landmark id per slot
         self.kf_vel = np.zeros((K, 3), dtype=np.float32)
         self.kf_bias = np.zeros((K, 6), dtype=np.float32)
-        self.imu_initialized = False  # kf_vel, kf_bias and this keep the JAX package's .npz layout
+        self.imu_initialized = False  # Map::SetImuInitialized (Map.cc:103)
+        self.kf_preint: dict = {}  # k -> Preintegrated from keyframe k-1 to k
         self.n_lm = 0
         self.lm_valid = np.zeros(M, dtype=bool)
         self.lm_pos = np.zeros((M, 3), dtype=np.float32)
@@ -143,6 +146,7 @@ class WorldMap:
         self.kf_obs[k] = -1
         self.kf_kp_valid[k] = False
         self.kf_valid[k] = False
+        self.kf_preint.pop(k, None)
 
     def set_pose(self, k: int, R, t):
         self.kf_R[k] = host(R)
@@ -267,6 +271,23 @@ class WorldMap:
         self.lm_dmax[ids] = dist0 * self.scale_factor ** lvl.astype(np.float32)
         self.lm_dmin[ids] = self.lm_dmax[ids] / (self.scale_factor ** (self.n_levels - 1))
 
+    def apply_scaled_rotation(self, R_yw: np.ndarray, s: float):
+        """The gauge transform after IMU initialisation (Map::
+        ApplyScaledRotation, Map.cc:231-265): landmarks x <- s R_yw x; poses
+        R_cw <- R_cw R_yw^T, t_cw <- s t_cw; velocities s R_yw v."""
+        K = self.n_kf
+        self.change_index += 1
+        R_yw = np.asarray(R_yw, dtype=np.float32)
+        s = float(s)
+        self.kf_R[:K] = normalize_rotation_np(self.kf_R[:K] @ R_yw.T)
+        self.kf_t[:K] = s * self.kf_t[:K]
+        self.kf_vel[:K] = s * (self.kf_vel[:K] @ R_yw.T)
+        ids = np.nonzero(self.lm_valid[: self.n_lm])[0]
+        self.lm_pos[ids] = s * (self.lm_pos[ids] @ R_yw.T)
+        self.lm_normal[ids] = self.lm_normal[ids] @ R_yw.T
+        self.lm_dmin[ids] *= s
+        self.lm_dmax[ids] *= s
+
     # ------------------------------------------------------------------
     # covisibility
     # ------------------------------------------------------------------
@@ -330,6 +351,11 @@ class WorldMap:
         arrays = {k: v for k, v in self.__dict__.items() if isinstance(v, np.ndarray) and not k.startswith("_")}
         arrays["kf_desc"] = unpack_bits(self.kf_desc)
         arrays["lm_desc"] = unpack_bits(self.lm_desc)
+        if self.kf_preint:  # the inertial chain, stacked field by field
+            ks = sorted(self.kf_preint)
+            arrays["preint_keys"] = np.asarray(ks, dtype=np.int64)
+            for f in Preintegrated._fields:
+                arrays[f"preint_{f}"] = np.stack([host(getattr(self.kf_preint[k], f)) for k in ks])
         np.savez_compressed(path, **arrays, n_kf=self.n_kf, n_lm=self.n_lm, kp_cap=self.kp_cap,
                             max_kf=self.max_kf, max_lm=self.max_lm, imu_initialized=self.imu_initialized,
                             init_kf_ids=np.asarray(self.init_kf_ids, dtype=np.int64))
@@ -338,8 +364,6 @@ class WorldMap:
     def load(path: str) -> "WorldMap":
         """Load a map saved by either package; descriptors are packed."""
         z = np.load(path)
-        if "preint_keys" in z:
-            raise NotImplementedError("loading an inertial map waits for ROADMAP §A item 10 (inertial)")
         wm = WorldMap(int(z["kp_cap"]), int(z["max_kf"]), int(z["max_lm"]))
         for k in wm.__dict__:
             if isinstance(getattr(wm, k), np.ndarray) and k in z:
@@ -351,4 +375,8 @@ class WorldMap:
             wm.imu_initialized = bool(z["imu_initialized"])
         if "init_kf_ids" in z:
             wm.init_kf_ids = [int(i) for i in z["init_kf_ids"]]
+        if "preint_keys" in z:
+            for i, k in enumerate(z["preint_keys"]):
+                wm.kf_preint[int(k)] = Preintegrated(*(torch.as_tensor(z[f"preint_{f}"][i], dtype=torch.float32)
+                                                       for f in Preintegrated._fields))
         return wm

@@ -1,10 +1,11 @@
 """Host C++ kernels of the map (covisibility counts and matrix, observation
 gather, redundancy counts, landmark stats), loaded with ctypes.
 
-Counterpart of ``orb_slam3_fast_tpu/native/__init__.py``.  The source is the
-JAX package's ``native/map_ops.cpp``, read by path and compiled with ``g++``
-into ``orb_slam3_fast_tpu_torch/_build/libmap_ops.so`` at first use (the
-JAX package's own import would pull in jax).  This is host code, not a
+Counterpart of ``orb_slam3_fast_tpu/native/__init__.py``.  The source,
+``map_ops.cpp`` beside this file, is the port's own copy of the JAX
+package's ``native/map_ops.cpp`` (byte for byte; a test holds the two
+equal), compiled with ``g++`` into
+``orb_slam3_fast_tpu_torch/_build/libmap_ops.so`` at first use.  This is host code, not a
 device kernel: where no toolchain is found every function returns None or a
 numpy result, and ``WorldMap`` takes the same numpy fallback as the JAX
 package.
@@ -18,7 +19,7 @@ from pathlib import Path
 
 import numpy as np
 
-_SRC = Path(__file__).resolve().parents[2] / "orb_slam3_fast_tpu" / "native" / "map_ops.cpp"
+_SRC = Path(__file__).resolve().parent / "map_ops.cpp"
 _SO = Path(__file__).resolve().parents[1] / "_build" / "libmap_ops.so"
 
 _lib = None

@@ -10,7 +10,7 @@ evaluates all edge residuals and both 7x7 Jacobians at once, and
 ``DENSE_MAX_K`` vertices and by block-Jacobi PCG on the implicit edge
 operator above (``_FORCE_CG`` takes the PCG branch at any size).  The
 yaw-only 4-DoF graph of inertial maps (``SE3Graph``,
-``optimize_4dof_graph``) waits for ROADMAP §A item 10.
+``optimize_4dof_graph``) waits for ROADMAP §A item 10's second part.
 
 The JAX package takes both Jacobians with ``jax.jacfwd``; the plain
 version here takes them in forward mode too: one ``torch.func.jvp`` over

@@ -20,8 +20,18 @@ the one map without one) and the vocabulary's checksum beside it, in the
 JAX package's files, and ``load_atlas`` refuses what was saved with
 another vocabulary.
 
+The inertial sensors (``IMU_MONOCULAR``, ``IMU_STEREO``, ``IMU_RGBD``) get
+the inertial tracker (``frontend/vi_tracker.py``) built from the settings'
+IMU block as the JAX package builds it (System.cc:203, Tracking.cc:567-654):
+the discrete noise from the continuous densities, an IMU bucket from the
+IMU and camera rates, the scale fixed for stereo and RGB-D, ``T_b_c1``;
+``track_*`` take each frame's samples as ``imu=``.  They run the
+synchronous System without loop closing.
+
 Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
-§A item: the inertial sensors (10), fisheye two-camera stereo (11).
+§A item: an inertial System with loop closing or the async backend (item
+10's second part), fisheye two-camera stereo (11).  The failure comes at
+construction.
 """
 from __future__ import annotations
 
@@ -51,11 +61,7 @@ IMU_MONOCULAR = "monocular-inertial"
 IMU_STEREO = "stereo-inertial"
 IMU_RGBD = "rgbd-inertial"
 
-_WAITING = {
-    IMU_MONOCULAR: "ROADMAP §A item 10 (inertial)",
-    IMU_STEREO: "ROADMAP §A item 10 (inertial)",
-    IMU_RGBD: "ROADMAP §A item 10 (inertial)",
-}
+INERTIAL_WAITING = "ROADMAP §A item 10, second part (inertial loop closing and the async inertial System)"
 
 
 class System:
@@ -78,8 +84,12 @@ class System:
         on a worker thread and the global BA on another (the reference's
         threads, System.cc:221,241); False runs them inline per keyframe,
         which repeats exactly."""
-        if sensor not in (MONOCULAR, STEREO, RGBD):
-            raise NotImplementedError(f"sensor {sensor!r} waits for {_WAITING.get(sensor, 'a later slice')}")
+        if sensor not in (MONOCULAR, STEREO, RGBD, IMU_MONOCULAR, IMU_STEREO, IMU_RGBD):
+            raise ValueError(f"unknown sensor {sensor!r}")
+        self.inertial = "inertial" in sensor
+        if self.inertial and (enable_loop_closing or async_backend):
+            raise NotImplementedError(f"an inertial System with loop closing or the async backend waits for "
+                                      f"{INERTIAL_WAITING}; pass enable_loop_closing=False, async_backend=False")
         if isinstance(settings, str):
             settings = Settings.from_yaml(settings, sensor=sensor)
         if settings.camera_type == "KannalaBrandt8" and settings.cam2 is not None:
@@ -110,9 +120,22 @@ class System:
                                          cfg=LoopCloserConfig(fix_scale=(sensor != MONOCULAR)), sigma2=sigma2)
         self.backend = AsyncBackend(self.mapper, self.loopcloser, kfdb=self.kfdb) if async_backend else None
         self.timers = StageTimers()
-        self.tracker = trk.Tracker(settings.cam, tcfg, bf=settings.bf, image_wh=wh, world=self.world,
-                                   mapper=self.mapper, voc=self.voc, kfdb=self.kfdb, loopcloser=self.loopcloser,
-                                   atlas=self.atlas, backend=self.backend, timers=self.timers, device=self.device)
+        common = dict(bf=settings.bf, image_wh=wh, world=self.world, mapper=self.mapper, voc=self.voc,
+                      kfdb=self.kfdb, loopcloser=self.loopcloser, atlas=self.atlas, backend=self.backend,
+                      timers=self.timers, device=self.device)
+        if self.inertial:
+            from orb_slam3_fast_tpu_torch.frontend.vi_tracker import InertialConfig, InertialTracker
+            from orb_slam3_fast_tpu_torch.imu import preintegration as pre
+
+            noise = pre.ImuNoise.from_continuous(settings.imu_noise_gyro, settings.imu_noise_acc,
+                                                 settings.imu_gyro_walk, settings.imu_acc_walk,
+                                                 settings.imu_frequency)
+            n_bucket = int(2 ** np.ceil(np.log2(max(2 * settings.imu_frequency / max(settings.fps, 1.0), 16))))
+            self.tracker = InertialTracker(settings.cam, tcfg, T_bc=settings.T_b_c1, noise=noise,
+                                           icfg=InertialConfig(fix_scale=(sensor != IMU_MONOCULAR),
+                                                               imu_bucket=n_bucket), **common)
+        else:
+            self.tracker = trk.Tracker(settings.cam, tcfg, **common)
         self._finished = False
 
     # ------------------------------------------------------------------
@@ -134,10 +157,10 @@ class System:
 
     def track_monocular(self, img, ts: float, imu=()):
         """One monocular frame (System::TrackMonocular, System.cc:478-527)."""
-        if self.sensor != MONOCULAR:
+        if self.sensor not in (MONOCULAR, IMU_MONOCULAR):
             raise ValueError(f"track_monocular on a {self.sensor!r} System")
-        if len(imu):
-            raise NotImplementedError(f"IMU input waits for {_WAITING[IMU_MONOCULAR]}")
+        if self.inertial and len(imu):  # a visual System ignores samples, as the JAX System does
+            self.tracker.grab_imu(imu)
         img = self._preprocess(img)
         with self.timers.span("track_total"):
             state, pose = self.tracker.process_mono(img, ts)
@@ -146,10 +169,10 @@ class System:
     def track_rgbd(self, img, depth, ts: float, imu=()):
         """One RGB-D frame: the depth map in the units of the settings'
         ``depth_map_factor`` (System::TrackRGBD, System.cc:402-476)."""
-        if self.sensor != RGBD:
+        if self.sensor not in (RGBD, IMU_RGBD):
             raise ValueError(f"track_rgbd on a {self.sensor!r} System")
-        if len(imu):
-            raise NotImplementedError(f"IMU input waits for {_WAITING[IMU_RGBD]}")
+        if self.inertial and len(imu):  # a visual System ignores samples, as the JAX System does
+            self.tracker.grab_imu(imu)
         img = self._preprocess(img)
         depth = np.asarray(depth, dtype=np.float32)
         if self.settings.depth_map_factor != 1.0:
@@ -159,10 +182,10 @@ class System:
         return state, pose
 
     def track_stereo(self, img_l, img_r, ts: float, imu=()):
-        if self.sensor != STEREO:
+        if self.sensor not in (STEREO, IMU_STEREO):
             raise ValueError(f"track_stereo on a {self.sensor!r} System")
-        if len(imu):
-            raise NotImplementedError(f"IMU input waits for {_WAITING[IMU_STEREO]}")
+        if self.inertial and len(imu):  # a visual System ignores samples, as the JAX System does
+            self.tracker.grab_imu(imu)
         img_l = self._preprocess(img_l)
         img_r = self._preprocess(img_r)
         if self.settings.rect_map_left is not None:

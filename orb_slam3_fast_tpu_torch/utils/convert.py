@@ -2,8 +2,9 @@
 
 The system has no learned weights; what crosses over is the camera, the
 keypoints of a frame, the local-map arrays as ``WorldMap`` holds them and a
-pose.  Each ``*_to_torch`` takes numpy arrays in the JAX package's layout
-(descriptors unpacked as (N, 256) int8) and returns the port's tensors on
+pose, and the inertial path's state (``inertial_to_torch`` /
+``inertial_to_numpy``).  Each ``*_to_torch`` takes numpy arrays in the JAX
+package's layout (descriptors unpacked as (N, 256) int8) and returns the port's tensors on
 ``device`` (descriptors packed as (N, 8) int32); each ``*_to_numpy`` is its
 inverse.
 """
@@ -14,6 +15,10 @@ import torch
 
 from orb_slam3_fast_tpu_torch.cameras.models import Camera
 from orb_slam3_fast_tpu_torch.frontend.tracker import LocalMap
+from orb_slam3_fast_tpu_torch.imu.preintegration import ImuNoise, Preintegrated
+from orb_slam3_fast_tpu_torch.optim.imu_init import InertialInit
+from orb_slam3_fast_tpu_torch.optim.inertial import BodyState, PriorState, VIObs
+from orb_slam3_fast_tpu_torch.optim.vi_ba import VIBAProblem
 from orb_slam3_fast_tpu_torch.ops.extractor import Keypoints
 from orb_slam3_fast_tpu_torch.ops.hamming import pack_desc, unpack_desc
 from orb_slam3_fast_tpu_torch.utils.lie import SE3
@@ -98,3 +103,54 @@ def se3_to_torch(R, t, device) -> SE3:
 
 def se3_to_numpy(T: SE3) -> tuple[np.ndarray, np.ndarray]:
     return T.R.cpu().numpy(), T.t.cpu().numpy()
+
+
+# --- inertial state ----------------------------------------------------------
+# The JAX package's NamedTuples of the inertial path (ImuNoise, Preintegrated,
+# BodyState, PriorState, VIObs, VIBAProblem, InertialInit) cross over field by
+# field, as numpy arrays: floats as float32, integers as int32, masks as bool;
+# nested NamedTuples (a PriorState's BodyState, a VIBAProblem's stacked
+# Preintegrated) recursively.  ImuNoise's fields are Python floats in the port.
+
+
+def _leaf_to_torch(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype == bool:
+        return torch.tensor(a, device=device)
+    if np.issubdtype(a.dtype, np.integer):
+        return torch.tensor(a.astype(np.int32), device=device)
+    return torch.tensor(a.astype(np.float32), device=device)
+
+
+def _tree_to_torch(obj, cls, device):
+    return cls(*(_tree_to_torch(v, INERTIAL_TYPES[type(v).__name__], device) if hasattr(v, "_fields")
+                 else _leaf_to_torch(v, device) for v in obj))
+
+
+def _tree_to_numpy(obj):
+    return {name: (_tree_to_numpy(v) if hasattr(v, "_fields") else np.asarray(v.detach().cpu().numpy()
+                                                                              if torch.is_tensor(v) else v))
+            for name, v in zip(obj._fields, obj)}
+
+
+def inertial_to_torch(obj, device="cpu"):
+    """One of the JAX package's inertial NamedTuples (or a NamedTuple of
+    numpy arrays with the same fields) -> the port's, on ``device``.  The
+    JAX type is recognised by its class name."""
+    cls = INERTIAL_TYPES[type(obj).__name__]
+    if cls is ImuNoise:
+        return ImuNoise(*(float(np.float32(x)) for x in obj))
+    return _tree_to_torch(obj, cls, device)
+
+
+def inertial_to_numpy(obj) -> dict:
+    """The port's inertial NamedTuple -> a dict of numpy arrays (nested
+    dicts for nested tuples), the fields of the JAX package's type, which
+    ``JaxType(**d)`` rebuilds (nested ones first)."""
+    if isinstance(obj, ImuNoise):
+        return {name: np.float32(v) for name, v in zip(obj._fields, obj)}
+    return _tree_to_numpy(obj)
+
+
+INERTIAL_TYPES = {cls.__name__: cls for cls in (ImuNoise, Preintegrated, BodyState, PriorState, VIObs, VIBAProblem,
+                                                InertialInit)}

@@ -265,12 +265,19 @@ def mono_inputs(rng, device):
 def test_build_flags_and_sources():
     srcs = sorted(p.name for p in _kernels.SRC_DIR.glob("*.cu"))
     assert srcs == ["ba_blocks.cu", "ba_pcg.cu", "ba_schur.cu", "common.cu", "fast_nms.cu", "hamming_best2.cu",
-                    "orb_describe.cu", "pnp_ransac.cu", "pose_lm.cu", "pyramid_blur.cu", "sad_refine.cu",
-                    "select_subpixel.cu", "sim3_graph.cu", "sim3_pcg.cu", "sim3_ransac.cu", "sim3_refine.cu",
-                    "triangulate_dlt.cu", "twoview_ransac.cu", "visible_landmarks.cu", "vocab_transform.cu"]
-    # the one Jacobi eigen-solver, shared by G, M, P, Q, R, S and T; the Sim3 maps, shared by R, S and U;
-    # the distorted pin-hole camera, shared by D, E, Q and R
-    assert sorted(p.name for p in _kernels.SRC_DIR.glob("*.cuh")) == ["camera.cuh", "jacobi.cuh", "sim3.cuh"]
+                    "imu_init.cu", "imu_preint.cu", "orb_describe.cu", "pnp_ransac.cu", "pose_inertial.cu", "pose_lm.cu",
+                    "pyramid_blur.cu", "sad_refine.cu", "select_subpixel.cu", "sim3_graph.cu", "sim3_pcg.cu",
+                    "sim3_ransac.cu", "sim3_refine.cu", "triangulate_dlt.cu", "twoview_ransac.cu", "vi_ba.cu",
+                    "visible_landmarks.cu", "vocab_transform.cu"]
+    # the one Jacobi eigen-solver, shared by G, M, P, Q, R, S, T and V; the Sim3 maps and dual numbers, shared by
+    # R, S and U and (through inertial.cuh) W, X and Y; the distorted pin-hole camera, shared by D, E, Q, R, W, Y;
+    # the inertial factors, shared by V, W, X and Y
+    assert sorted(p.name for p in _kernels.SRC_DIR.glob("*.cuh")) == ["camera.cuh", "inertial.cuh", "jacobi.cuh",
+                                                                      "sim3.cuh"]
+    for name in ("imu_preint.cu", "pose_inertial.cu", "imu_init.cu", "vi_ba.cu"):
+        assert '#include "inertial.cuh"' in (_kernels.SRC_DIR / name).read_text()
+    for name in ("pose_inertial.cu", "vi_ba.cu"):
+        assert '#include "camera.cuh"' in (_kernels.SRC_DIR / name).read_text()
     for name in ("triangulate_dlt.cu", "twoview_ransac.cu", "pnp_ransac.cu", "sim3_ransac.cu", "ba_pcg.cu"):
         assert '#include "jacobi.cuh"' in (_kernels.SRC_DIR / name).read_text()
     for name in ("sim3_refine.cu", "sim3_graph.cu", "sim3_pcg.cu"):
@@ -282,7 +289,8 @@ def test_build_flags_and_sources():
         "ba_schur_launch", "triangulate_dlt_launch", "pyramid_blur_launch", "select_subpixel_launch",
         "sad_refine_launch", "visible_landmarks_launch", "twoview_ransac_launch", "vocab_transform_launch",
         "pnp_ransac_launch", "sim3_ransac_launch", "sim3_refine_launch", "sim3_graph_launch", "sim3_pcg_launch",
-        "ba_pcg_launch",
+        "ba_pcg_launch", "imu_preint_launch", "imu_compose_launch", "pose_inertial_launch", "imu_init_launch",
+        "vi_ba_launch",
     }
     assert "arch=compute_90a,code=sm_90a" in _kernels.NVCC_FLAGS
     assert _kernels.LIB_PATH.parent.name == "_build"
@@ -629,3 +637,146 @@ def test_distorted_camera_kernels_match_plain_on_card(cuda):
     after = [w.launches.total(mode="radtan") for w in (pose_opt.pose_optimization, ba.build_normal_blocks,
                                                          sim3.sim3_ransac, sim3.optimize_sim3)]
     assert all(a == b + 1 for a, b in zip(after, counts))
+
+
+def vi_inputs(device):
+    """The inertial kernels' inputs at small shapes (chip_smoke.py's
+    phase 3 problems): a 40-sample window, a frame of 256 slots, a chain of
+    8 keyframes, a window of 8 states, 256 landmarks and 1024 observations."""
+    import chip_smoke
+
+    rng = np.random.default_rng(8)
+    acc = torch.as_tensor((rng.normal(size=(40, 3)) + [0, 0, 9.81]).astype(np.float32)).to(device)
+    gyro = torch.as_tensor((rng.normal(size=(40, 3)) * 0.3).astype(np.float32)).to(device)
+    window = (acc, gyro, torch.full((40,), 0.005, device=device), torch.arange(40, device=device) < 30)
+    w = chip_smoke.w_problem(rng, device, 256)
+    x = chip_smoke.x_problem(rng, device, 8)
+    y = chip_smoke.y_problem(rng, device, K=16, M=256, per_lm=4)
+    return window, w, x, y
+
+
+def _vi_noise():
+    from orb_slam3_fast_tpu_torch.imu import preintegration as pre
+
+    return pre.ImuNoise.from_continuous(1.7e-4, 2e-3, 1.9e-5, 3e-3, 200.0)
+
+
+def test_vi_wrappers_cpu_plain_and_other_devices_raise():
+    """V, W, X and Y: CPU tensors take the plain version (no launch); a
+    tensor on another device (meta) gets no plain path; a KB8 camera is
+    refused by W and Y, naming ROADMAP §A item 11."""
+    from orb_slam3_fast_tpu_torch.imu import preintegration as pre
+    from orb_slam3_fast_tpu_torch.optim import imu_init, inertial, vi_ba
+
+    wrappers = (pre.preintegrate, inertial.pose_inertial_optimization, imu_init.inertial_only_optimization,
+                vi_ba.vi_bundle_adjust)
+    before = [w.launches.total() for w in wrappers]
+    (acc, gyro, dts, valid), (cam, T_cb, preint, s_prev, s0, obs, prior), (R, p, v, pis), (cam_y, prob) = \
+        vi_inputs("cpu")
+    noise = _vi_noise()
+    torch.testing.assert_close(pre.preintegrate(acc, gyro, dts, torch.zeros(6), noise, valid),
+                               pre.preintegrate_plain(acc, gyro, dts, torch.zeros(6), noise, valid))
+    a = inertial.pose_inertial_optimization(cam, 48.0, T_cb, s_prev, preint, s0, obs, n_rounds=1, iters=2)
+    b = inertial.pose_inertial_optimization_plain(cam, 48.0, T_cb, s_prev, preint, s0, obs, n_rounds=1, iters=2)
+    torch.testing.assert_close(a, b)
+    torch.testing.assert_close(imu_init.inertial_only_optimization(R, p, pis, iters=3),
+                               imu_init.inertial_only_optimization_plain(R, p, pis, iters=3))
+    T_id = lie.SE3.identity("cpu")
+    torch.testing.assert_close(vi_ba.vi_bundle_adjust(cam_y, 0.0, T_id, prob, 1, 1),
+                               vi_ba.vi_bundle_adjust_plain(cam_y, 0.0, T_id, prob, 1, 1))
+    assert [w.launches.total() for w in wrappers] == before
+    meta = lambda t: t.to("meta")  # noqa: E731
+    with pytest.raises(ValueError, match="CUDA"):
+        pre.preintegrate(meta(acc), meta(gyro), meta(dts), meta(torch.zeros(6)), noise, meta(valid))
+    mobs = inertial.VIObs(*map(meta, obs))
+    with pytest.raises(ValueError, match="CUDA"):
+        inertial.pose_inertial_optimization(cam, 48.0, T_cb, s_prev, preint, s0, mobs)
+    with pytest.raises(ValueError, match="CUDA"):
+        imu_init.inertial_only_optimization(meta(R), meta(p), pis)
+    mprob = vi_ba.VIBAProblem(*[x if f == "preint" else meta(x) for f, x in zip(prob._fields, prob)])
+    with pytest.raises(ValueError, match="CUDA"):
+        vi_ba.vi_bundle_adjust(cam_y, 0.0, T_id, mprob)
+    kb8 = cm.Camera.kb8(400.0, 400.0, 320.0, 240.0, 0.0, 0.0, 0.0, 0.0)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        inertial.pose_inertial_optimization(kb8, 48.0, T_cb, s_prev, preint, s0, mobs)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        vi_ba.vi_bundle_adjust(kb8, 0.0, T_id, mprob)
+
+
+@pytest.mark.cuda
+def test_vi_kernels_match_plain_on_card(cuda):
+    """V, W (its three forms), X (both entries) and Y against their plain
+    versions on the same CUDA tensors: V's deltas within 1e-4 and its
+    covariance within 1e-3 of its largest entry; W's state within 5e-3,
+    H within 5e-3 of its largest entry, at most 2 edges classified
+    otherwise; X's scale within 5e-3 (relative), gravity, biases and
+    velocities within 5e-3; Y's positions within 2e-3 m, rotation entries
+    2e-4, landmarks 1e-2 m; every kernel launched, two runs of W and Y
+    equal bit for bit."""
+    from orb_slam3_fast_tpu_torch.imu import preintegration as pre
+    from orb_slam3_fast_tpu_torch.optim import imu_init, inertial, vi_ba
+
+    (acc, gyro, dts, valid), (cam, T_cb, preint, s_prev, s0, obs, prior), (R, p, v, pis), (cam_y, prob) = \
+        vi_inputs(cuda)
+    noise = _vi_noise()
+    bias = torch.full((6,), 0.01, device=cuda)
+    k, q = pre.preintegrate(acc, gyro, dts, bias, noise, valid), pre.preintegrate_plain(acc, gyro, dts, bias, noise,
+                                                                                        valid)
+    for f in pre.Preintegrated._fields:
+        tol = 1e-3 * float(q.C.abs().max()) if f == "C" else 1e-4
+        assert float((getattr(k, f) - getattr(q, f)).abs().max()) <= tol, f
+    assert float((pre.compose(k, k).dP - pre.compose_plain(q, q).dP).abs().max()) <= 1e-4
+    for form in ("none", "prior", "last"):
+        if form == "last":
+            run = lambda: inertial.pose_inertial_optimization_last_frame(cam, 48.0, T_cb, s_prev, prior, preint, s0, obs)
+            ref = inertial.pose_inertial_optimization_last_frame_plain(cam, 48.0, T_cb, s_prev, prior, preint, s0, obs)
+        else:
+            pr = prior if form == "prior" else None
+            run = lambda: inertial.pose_inertial_optimization(cam, 48.0, T_cb, s_prev, preint, s0, obs, pr)
+            ref = inertial.pose_inertial_optimization_plain(cam, 48.0, T_cb, s_prev, preint, s0, obs, pr)
+        out = run()
+        assert max(float((a - b).abs().max()) for a, b in zip(out[0], ref[0])) <= 5e-3, form
+        assert float((out[3] - ref[3]).abs().max()) <= 5e-3 * float(ref[3].abs().max()), form
+        assert int((out[1] != ref[1]).sum()) <= 2, form
+        again = run()
+        assert all(torch.equal(a, b) for a, b in zip(again[0], out[0])) and torch.equal(again[3], out[3])
+    ik, ip = imu_init.inertial_only_optimization(R, p, pis), imu_init.inertial_only_optimization_plain(R, p, pis)
+    assert abs(float(ik.scale) / float(ip.scale) - 1) <= 5e-3
+    assert max(float((a - b).abs().max()) for a, b in zip((ik.Rwg, ik.bias), (ip.Rwg, ip.bias))) <= 5e-3
+    Rk, sk = imu_init.scale_gravity_refinement(R, p, v, torch.zeros(6, device=cuda), pis)
+    Rq, sq = imu_init.scale_gravity_refinement_plain(R, p, v, torch.zeros(6, device=cuda), pis)
+    assert abs(float(sk) - float(sq)) <= 5e-3 and float((Rk - Rq).abs().max()) <= 5e-3
+    T_id = lie.SE3.identity(cuda)
+    yk, yp = vi_ba.vi_bundle_adjust(cam_y, 0.0, T_id, prob), vi_ba.vi_bundle_adjust_plain(cam_y, 0.0, T_id, prob)
+    for name, tol, a, b in zip(("R", "p", "v", "bias", "xw"), (2e-4, 2e-3, 1e-2, 1e-3, 1e-2), yk[:5], yp[:5]):
+        assert float((a - b).abs().max()) <= tol, name
+    again = vi_ba.vi_bundle_adjust(cam_y, 0.0, T_id, prob)
+    assert all(torch.equal(a, b) for a, b in zip(again, yk))
+
+
+@pytest.mark.cuda
+def test_vi_kernels_at_long_chains_on_card(cuda):
+    """X's two entries on a chain of 120 keyframes (its P = 369 system in
+    global memory) and Y at K = 128 (100 real states) against their plain
+    versions on the same CUDA tensors, at test_vi_kernels_match_plain_on_card's
+    tolerances; X launched twice, Y once."""
+    import chip_smoke
+    from orb_slam3_fast_tpu_torch.optim import imu_init, vi_ba
+
+    R, p, v, pis = chip_smoke.x_problem(np.random.default_rng(12), cuda, 120)
+    before = imu_init.inertial_only_optimization.launches.total()
+    ik, ip = imu_init.inertial_only_optimization(R, p, pis), imu_init.inertial_only_optimization_plain(R, p, pis)
+    assert abs(float(ik.scale) / float(ip.scale) - 1) <= 5e-3
+    assert max(float((a - b).abs().max()) for a, b in zip((ik.Rwg, ik.bias), (ip.Rwg, ip.bias))) <= 5e-3
+    assert float((ik.vel - ip.vel).abs().max()) <= 5e-3 * float(ip.vel.abs().max())
+    zero = torch.zeros(6, device=cuda)
+    Rk, sk = imu_init.scale_gravity_refinement(R, p * 0.95, v * 0.95, zero, pis)
+    Rq, sq = imu_init.scale_gravity_refinement_plain(R, p * 0.95, v * 0.95, zero, pis)
+    assert abs(float(sk) - float(sq)) <= 1e-3 and float((Rk - Rq).abs().max()) <= 1e-3
+    assert imu_init.inertial_only_optimization.launches.total() == before + 2
+    cam, prob = chip_smoke.y_problem(np.random.default_rng(13), cuda, K=128, n_real=100)
+    T_id = lie.SE3.identity(cuda)
+    yk, yp = vi_ba.vi_bundle_adjust(cam, 0.0, T_id, prob), vi_ba.vi_bundle_adjust_plain(cam, 0.0, T_id, prob)
+    for name, tol, a, b in zip(("R", "p", "v", "bias", "xw"), (2e-4, 2e-3, 1e-2, 1e-3, 1e-2), yk[:5], yp[:5]):
+        assert float((a - b).abs().max()) <= tol, name
+    assert float((yk[5] != yp[5]).float().mean()) <= 0.01

@@ -121,3 +121,72 @@ def test_saved_maps_cross_packages(tmp_path, direction):
         loaded = twm.WorldMap.load(path)
         _same_tables(jm, loaded)
         assert loaded.kf_desc.dtype == np.int32 and loaded.kf_desc.shape[-1] == 8
+
+
+def _inertial_state(rng, jm, tm):
+    """The same inertial state on both maps: velocities, biases, two stored
+    windows (JAX Preintegrated on one, the port's on the other) and the
+    initialised flag."""
+    import jax.numpy as jnp
+
+    from orb_slam3_fast_tpu.imu import preintegration as jpre
+    from orb_slam3_fast_tpu_torch.utils import convert
+
+    noise = jpre.ImuNoise.from_continuous(1.7e-4, 2e-3, 1.9e-5, 3e-3, 200.0)
+    for m in (jm, tm):
+        m.kf_vel[: m.n_kf] = np.arange(3 * m.n_kf, dtype=np.float32).reshape(-1, 3) * 0.1
+        m.kf_bias[: m.n_kf] = 0.01
+        m.imu_initialized = True
+    for k in (1, 2):
+        p = jpre.preintegrate(jnp.asarray(rng.normal(size=(8, 3)), jnp.float32),
+                              jnp.asarray(rng.normal(size=(8, 3)) * 0.1, jnp.float32), jnp.full((8,), 0.005),
+                              jnp.zeros(6), noise)
+        jm.kf_preint[k] = p
+        tm.kf_preint[k] = convert.inertial_to_torch(p)
+
+
+@pytest.mark.parametrize("direction", ["port_to_jax", "jax_to_port"])
+def test_inertial_maps_cross_packages(tmp_path, direction):
+    """A map with stored preintegration windows, velocities, biases and the
+    initialised flag, saved by one package and loaded by the other: every
+    field of every window equal, the state equal."""
+    jm, tm = scripted(np.random.default_rng(3))
+    _inertial_state(np.random.default_rng(4), jm, tm)
+    path = str(tmp_path / "map.npz")
+    src, load = (tm, JMap.load) if direction == "port_to_jax" else (jm, twm.WorldMap.load)
+    src.save(path)
+    loaded = load(path)
+    _same_tables(*((loaded, src) if direction == "port_to_jax" else (src, loaded)))
+    assert loaded.imu_initialized and sorted(loaded.kf_preint) == [1, 2]
+    for k in (1, 2):
+        for f, a, b in zip(loaded.kf_preint[k]._fields, loaded.kf_preint[k], src.kf_preint[k]):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=f)
+    np.testing.assert_array_equal(loaded.kf_vel, src.kf_vel)
+    np.testing.assert_array_equal(loaded.kf_bias, src.kf_bias)
+
+
+def test_apply_scaled_rotation_and_removal_match_jax():
+    """The gauge transform after IMU initialisation, and a removed keyframe
+    dropping its window, as the JAX map does them."""
+    jm, tm = scripted(np.random.default_rng(5))
+    _inertial_state(np.random.default_rng(6), jm, tm)
+    R = np.asarray([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]], np.float32)
+    jm.apply_scaled_rotation(R, 1.7)
+    tm.apply_scaled_rotation(R, 1.7)
+    _same_tables(jm, tm)
+    np.testing.assert_array_equal(tm.kf_vel, jm.kf_vel)
+    assert tm.change_index == jm.change_index
+    jm.remove_keyframe(2)
+    tm.remove_keyframe(2)
+    assert sorted(tm.kf_preint) == sorted(jm.kf_preint) == [1]
+
+
+def test_map_ops_source_is_the_jax_packages():
+    """The port compiles its own copy of the map's host C++, byte for byte
+    the JAX package's: a later edit to either shows here."""
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    port_src = root / "orb_slam3_fast_tpu_torch" / "native" / "map_ops.cpp"
+    assert tnative._SRC == port_src.resolve()
+    assert port_src.read_bytes() == (root / "orb_slam3_fast_tpu" / "native" / "map_ops.cpp").read_bytes()

@@ -124,7 +124,8 @@ def test_mono_path_matches_jax(monkeypatch):
 def test_system_vocabulary_and_atlas_guard(tmp_path):
     """The System loads the default vocabulary (the JAX package's checksum),
     builds a database over its words, and writes the checksum beside a saved
-    map; a map whose checksum differs is refused."""
+    map; a map whose checksum differs is refused; IMU samples given to the
+    visual System are ignored."""
     port = tsys.System(CONFIG, "monocular", **OPTS)
     assert port.settings.bf == 0.0 and port.mapper.bf == 0.0
     assert port.voc.checksum() == jvoc.default_vocabulary().checksum()
@@ -136,5 +137,6 @@ def test_system_vocabulary_and_atlas_guard(tmp_path):
     Path(path + ".md5").write_text("0" * 32)
     with pytest.raises(ValueError, match="checksum"):
         port.load_atlas(path)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        port.track_monocular(np.zeros((480, 640), np.float32), 0.0, imu=[(0.0,) * 7])
+    # IMU samples given to a visual System are ignored, as the JAX System ignores them
+    state, _ = port.track_monocular(np.zeros((480, 640), np.float32), 0.0, imu=[(0.0,) * 7])
+    assert state == "NOT_INITIALIZED" and not hasattr(port.tracker, "imu_queue")

@@ -47,10 +47,13 @@ def test_numpy_scene_matches_synthetic():
 
 
 def test_not_ported_options_raise():
-    """The inertial sensors, fisheye two-camera stereo, the database on a
-    device mesh and an inertial map's 4-DoF essential graph raise, naming
-    their ROADMAP items; the async backend, loop closing and the Atlas are
-    built (fix_scale for stereo)."""
+    """The inertial sensors construct without loop closing and the async
+    backend, and raise with either, naming ROADMAP §A item 10's second
+    part, as the inertial tracker's MergeInertialBA and FullInertialBA do;
+    fisheye two-camera stereo, the database on a device mesh and an
+    inertial map's 4-DoF essential graph raise, naming their ROADMAP items;
+    the async backend, loop closing and the Atlas are built (fix_scale for
+    stereo)."""
     slam = tsys.System(CONFIG, "stereo", **dict(OPTS, async_backend=True))
     assert slam.backend is not None and slam.tracker.backend is slam.backend
     slam.shutdown()
@@ -58,8 +61,16 @@ def test_not_ported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP §A item 11"):
         tsys.System(fisheye, "stereo", **OPTS)
     for sensor in ("monocular-inertial", "rgbd-inertial", "stereo-inertial"):
-        with pytest.raises(NotImplementedError, match="ROADMAP §A item 10"):
-            tsys.System(CONFIG, sensor, **OPTS)
+        slam = tsys.System(CONFIG, sensor, **dict(OPTS, multi_map=True))
+        assert slam.tracker.icfg.fix_scale == (sensor != "monocular-inertial")
+        assert slam.tracker.icfg.imu_bucket == 32  # 200 Hz IMU, 20 fps camera
+        for opts in (dict(enable_loop_closing=True), dict(async_backend=True)):
+            with pytest.raises(NotImplementedError, match="ROADMAP §A item 10, second part"):
+                tsys.System(CONFIG, sensor, **dict(OPTS, **opts))
+    with pytest.raises(NotImplementedError, match="ROADMAP §A item 10, second part"):
+        slam.tracker._full_inertial_ba(slam.world, [0])
+    with pytest.raises(NotImplementedError, match="ROADMAP §A item 10, second part"):
+        slam.tracker._merge_inertial_ba(slam.world, 1, 0)
     with pytest.raises(NotImplementedError, match="ROADMAP §A item 12"):
         tsys.System(CONFIG, "stereo", **OPTS).kfdb.attach_mesh(None)
     slam = tsys.System(CONFIG, "stereo", **dict(OPTS, enable_loop_closing=True, multi_map=True))

@@ -7,7 +7,9 @@ checkout; ``python3 track_spread.py --root DIR`` measures the checkout at
 DIR (for example a parent commit unpacked with ``git archive``), whose
 ``chip_smoke.py`` and port it imports.  ``--sensor stereo rgbd mono loop
 async async-loop`` chooses the Systems (mono, loop and the async ones need
-a checkout that has them) and ``--runs`` the card runs of each.  For each sensor it renders
+a checkout that has them; ``vi-mono`` and ``vi-stereo`` are chip_smoke's
+phase 11 (a) and (b), the mono- and stereo-inertial Systems on their 45
+frames) and ``--runs`` the card runs of each.  For each sensor it renders
 chip_smoke.py's sequence (the 30-frame stereo corridor, the 25-frame RGB-D
 one, the 40-frame mono one, the 150-frame circle of the loop scenario: the
 mono System with loop closing and the Atlas; ``async``: the stereo
@@ -30,16 +32,32 @@ host, and prints:
 - the largest translation and rotation-entry differences between any two
   card runs.
 
+``--save-host DIR`` also writes each sensor's host run to
+``DIR/<sensor>-<tag>.npz`` (``--tag``, by default the host's name) and
+holds it against every other host's file there: how far the plain path
+alone lands on two host CPUs, which sets a path's bound where the card
+cannot meet TRACK_DT / TRACK_DR (chip_smoke's LOOP_DT, VI_BOUNDS).  With
+``--runs 0`` it needs no card, so a host without one adds its file:
+``python3 track_spread.py --sensor vi-mono vi-stereo --runs 0 --save-host
+DIR`` there, then the same with ``--runs 2`` on the card's machine, DIR
+copied along.  ``--per-call`` (inertial sensors) also runs, at each call
+of kernels W, X and Y in the first card run, the plain version on the
+same inputs on the card and prints how far the two land apart, frame by
+frame: where a card run departs from the host's, whether one call or the
+accumulation of many does it.
+
 The last line is one JSON object with these readings.  It exits nonzero
 without a CUDA device or if a run fails its gates.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib
 import itertools
 import json
 import os
+import platform
 import subprocess
 import sys
 from pathlib import Path
@@ -48,6 +66,7 @@ import numpy as np
 import torch
 
 HERE = Path(__file__).resolve().parent
+VI = {"vi-mono": "monocular", "vi-stereo": "stereo"}  # the inertial sensors: chip_smoke's sensor names
 
 
 def frame_diffs(track_a, track_b) -> tuple[np.ndarray, np.ndarray]:
@@ -57,22 +76,122 @@ def frame_diffs(track_a, track_b) -> tuple[np.ndarray, np.ndarray]:
             np.array([float(np.abs(Ra - Rb).max()) for (_, Ra, _), (_, Rb, _) in pairs]))
 
 
+def spread(track_a, track_b, bound_dt: float, bound_dr: float) -> dict:
+    """Two runs' per-frame distance: the largest |dt| and its frame, the
+    largest |dR|, the largest share of the bounds, the first frame beyond
+    them and the frames whose state differs."""
+    d, r = frame_diffs(track_a, track_b)
+    i = int(np.argmax(d))
+    over = np.nonzero((d > bound_dt) | (r > bound_dr))[0]
+    return dict(max_dt=float(d[i]), frame=i, max_dr=float(r.max()),
+                bound_share=float(max((d / bound_dt).max(), (r / bound_dr).max())),
+                first_beyond=int(over[0]) if len(over) else None,
+                state_differs=[j for j, (a, b) in enumerate(zip(track_a, track_b)) if a[0] != b[0]])
+
+
+def save_host(out: Path, sensor: str, tag: str, host, bounds) -> dict:
+    """Write this host's run to ``out`` and hold it against every other
+    host's run of the sensor there."""
+    out.mkdir(parents=True, exist_ok=True)
+    np.savez(out / f"{sensor}-{tag}.npz", states=np.array([s for s, _, _ in host]),
+             R=np.stack([R for _, R, _ in host]), t=np.stack([t for _, _, t in host]))
+    found = {}
+    for f in sorted(out.glob(f"{sensor}-*.npz")):
+        other = f.stem[len(sensor) + 1:]
+        if other == tag:
+            continue
+        z = np.load(f)
+        found[other] = spread(host, list(zip(z["states"].tolist(), z["R"], z["t"])), *bounds)
+        print(f"{sensor} host {tag} ({platform.processor() or platform.machine()}) against host {other}: "
+              f"{found[other]}", flush=True)
+    return found
+
+
+@contextlib.contextmanager
+def per_call(records: list):
+    """While open, each call of kernels W, X and Y through the modules the
+    inertial tracker calls also runs the plain version on the same inputs;
+    ``records`` gains (frame, call, distances) per call."""
+    from orb_slam3_fast_tpu_torch.optim import imu_init, inertial, vi_ba
+    from orb_slam3_fast_tpu_torch.slam.system import System
+
+    frame = [None]
+
+    def feeding(fn):
+        def wrapped(self, *a, **k):
+            frame[0] = int(round(a[-1] / 0.05))  # the timestamp, last positional argument; 20 fps
+            return fn(self, *a, **k)
+        return wrapped
+
+    def gap(a, b):
+        return float((a - b).abs().max())
+
+    def w_diff(o, q):
+        return dict(dp=gap(o[0].p, q[0].p), dR=gap(o[0].R, q[0].R), dv=gap(o[0].v, q[0].v),
+                    inliers=(int(o[2]), int(q[2])), classified_otherwise=int((o[1] != q[1]).sum()))
+
+    compare = {
+        (inertial, "pose_inertial_optimization"): ("W", w_diff),
+        (inertial, "pose_inertial_optimization_last_frame"): ("W last-frame", w_diff),
+        (imu_init, "inertial_only_optimization"): (
+            "X", lambda o, q: dict(scale=(float(o.scale), float(q.scale)), dRwg=gap(o.Rwg, q.Rwg),
+                                   dbias=gap(o.bias, q.bias))),
+        (imu_init, "scale_gravity_refinement"): (
+            "X refinement", lambda o, q: dict(scale=(float(o[1]), float(q[1])), dRwg=gap(o[0], q[0]))),
+        (vi_ba, "vi_bundle_adjust"): (
+            "Y", lambda o, q: dict(dp=gap(o[1], q[1]), dR=gap(o[0], q[0]), dxw=gap(o[4], q[4]),
+                                   classified_otherwise=int((o[5] != q[5]).sum()))),
+    }
+    saved = {key: getattr(*key) for key in compare}
+    saved_feed = {name: getattr(System, name) for name in ("track_monocular", "track_stereo")}
+
+    def hooked(key, name, diff):
+        kernel, plain = saved[key], getattr(key[0], key[1] + "_plain")
+
+        def call(*a, **k):
+            out = kernel(*a, **k)
+            records.append(dict(frame=frame[0], call=name, **diff(out, plain(*a, **k))))
+            return out
+        if hasattr(kernel, "launches"):  # the wrappers that carry their kernel's counter keep it
+            call.launches = kernel.launches
+        return call
+
+    for key, (name, diff) in compare.items():
+        setattr(*key, hooked(key, name, diff))
+    for name, fn in saved_feed.items():
+        setattr(System, name, feeding(fn))
+    try:
+        yield records
+    finally:
+        for key, fn in saved.items():
+            setattr(*key, fn)
+        for name, fn in saved_feed.items():
+            setattr(System, name, fn)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", type=Path, default=HERE)
-    parser.add_argument("--sensor", nargs="+", choices=("stereo", "rgbd", "mono", "loop", "async", "async-loop"),
-                        default=["stereo", "rgbd"])
+    parser.add_argument("--sensor", nargs="+", choices=("stereo", "rgbd", "mono", "loop", "async", "async-loop",
+                                                        *VI), default=["stereo", "rgbd"])
     parser.add_argument("--runs", type=int, default=5)
+    parser.add_argument("--save-host", type=Path, default=None)
+    parser.add_argument("--tag", default=platform.node() or "host")
+    parser.add_argument("--per-call", action="store_true")
     args = parser.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("track_spread: torch.cuda.is_available() is False; this script needs a CUDA card")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    if args.runs > 0 and not torch.cuda.is_available():
+        raise SystemExit("track_spread: torch.cuda.is_available() is False; card runs need a CUDA card")
+    smi = "no card (host runs only)"
+    if args.runs > 0:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
+    save_dir = args.save_host.resolve() if args.save_host else None
 
     sys.path.insert(0, str(HERE))
     here = importlib.import_module("chip_smoke")
-    bounds = {"loop": (here.LOOP_DT, here.LOOP_DR)}  # this checkout's bounds; the rest TRACK_DT / TRACK_DR
+    bounds = {"loop": (here.LOOP_DT, here.LOOP_DR),  # this checkout's bounds; the rest TRACK_DT / TRACK_DR
+              **{s: here.VI_BOUNDS[v] for s, v in VI.items()}}
     root = args.root.resolve()
     if root != HERE:  # the measured checkout's chip_smoke and port, its configs by relative path
         del sys.modules["chip_smoke"]
@@ -81,7 +200,8 @@ def main() -> int:
     cs = importlib.import_module("chip_smoke")
     from orb_slam3_fast_tpu_torch import _kernels
 
-    _kernels.build()
+    if args.runs > 0:
+        _kernels.build()
     card, cpu = torch.device("cuda", 0), torch.device("cpu")
     report = {"root": str(root), "gpu": smi, "runs": args.runs, "sensors": {}}
     for sensor in args.sensor:
@@ -102,29 +222,43 @@ def main() -> int:
                 summary.pop("kf_frames")
                 print(f"async-loop run on {dev.type}: {summary}", flush=True)
                 return track
+        elif sensor in VI:
+            vi_in = cs.vi_frames(VI[sensor])
+            frames = vi_in[0]
+
+            def run(dev):
+                _, summary, track = cs.run_vi(*vi_in, dev, VI[sensor])
+                print(f"{sensor} run on {dev.type}: {summary}", flush=True)
+                return track
         else:
             frames, poses = cs.corridor_frames(cs.SYS_FRAMES) if sensor == "stereo" else cs.rgbd_frames(cs.RGBD_FRAMES)
             run = lambda dev: cs.run_system(frames, poses, dev, sensor)[2]  # noqa: E731
         bound_dt, bound_dr = bounds.get(sensor, (here.TRACK_DT, here.TRACK_DR))
         host = run(cpu)
-        cards = [run(card) for _ in range(args.runs)]
+        entry = dict(frames=len(frames), bounds=[bound_dt, bound_dr])
+        if save_dir is not None:
+            entry["host_vs_hosts"] = save_host(save_dir, sensor, args.tag, host, (bound_dt, bound_dr))
+        calls = []
+        cards = []
+        for k in range(args.runs):
+            with per_call(calls) if (args.per_call and sensor in VI and k == 0) else contextlib.nullcontext():
+                cards.append(run(card))
+        for c in calls:
+            print(f"{sensor} card run 0, frame {c['frame']}, {c['call']} against its plain version on the same "
+                  f"inputs: {({k: v for k, v in c.items() if k not in ('frame', 'call')})}", flush=True)
         per_run = []
         for k, tr in enumerate(cards):
-            d, r = frame_diffs(tr, host)
-            i = int(np.argmax(d))
-            share = float(max((d / bound_dt).max(), (r / bound_dr).max()))
-            states = [j for j, (a, b) in enumerate(zip(tr, host)) if a[0] != b[0]]
-            per_run.append(dict(max_dt=float(d[i]), frame=i, max_dr=float(r.max()), bound_share=share,
-                                state_differs=states))
-            print(f"{sensor} card run {k}: from the host run max |dt| {d[i]:.6g} at frame {i}, max |dR| "
-                  f"{r.max():.6g}, {share:.3f} of the bounds at worst; frames in another state: {states or 'none'}",
-                  flush=True)
+            sp = spread(tr, host, bound_dt, bound_dr)
+            per_run.append(sp)
+            print(f"{sensor} card run {k}: from the host run max |dt| {sp['max_dt']:.6g} at frame {sp['frame']}, "
+                  f"max |dR| {sp['max_dr']:.6g}, {sp['bound_share']:.3f} of the bounds at worst, first frame beyond "
+                  f"them {sp['first_beyond']}; frames in another state: {sp['state_differs'] or 'none'}", flush=True)
         diffs = [frame_diffs(a, b) for a, b in itertools.combinations(cards, 2)]
         pair_dt = max((float(d.max()) for d, _ in diffs), default=0.0)
         pair_dr = max((float(r.max()) for _, r in diffs), default=0.0)
         print(f"{sensor}: between two card runs max |dt| {pair_dt:.6g}, max |dR| {pair_dr:.6g}", flush=True)
-        report["sensors"][sensor] = dict(frames=len(frames), card_vs_host=per_run, card_vs_card_dt=pair_dt,
-                                         card_vs_card_dr=pair_dr)
+        report["sensors"][sensor] = dict(entry, card_vs_host=per_run, card_vs_card_dt=pair_dt,
+                                         card_vs_card_dr=pair_dr, per_call=calls)
     print(json.dumps(report))
     return 0
 
