@@ -14,6 +14,12 @@ reference keyframe when the map changed under it):
 * the persistent thread ``slam-gba`` runs the global BA requests of the
   loop closer (``gba_hook``), only the newest one: a newer request aborts
   the one in flight between its LM segments;
+* a queued keyframe whose map the Atlas has retired meanwhile (merged
+  into another map by the loop closer of an earlier keyframe, or reset by
+  the tracker) is dropped: mapping it would write into a map no one reads,
+  and its loop closer would try to merge a map that is gone (the JAX
+  package's worker fails there, ``Atlas.merge_into`` reading a retired
+  map);
 * one re-entrant map lock bounds the sections that touch the shared host
   map (the tracker's keyframe insertion, the workers' problem gathers and
   write-backs); ``map_version`` counts the workers' map updates, which the
@@ -65,6 +71,7 @@ class AsyncBackend:
         self.errors: list = []
         self.gba_completed = 0
         self.gba_aborted = 0
+        self.n_retired_skipped = 0  # queued keyframes dropped because their map was retired meanwhile
         self._thread = threading.Thread(target=self._run, daemon=True, name="slam-backend")
         self._gba_thread = threading.Thread(target=self._run_gba_loop, daemon=True, name="slam-gba")
         self._thread.start()
@@ -140,6 +147,11 @@ class AsyncBackend:
                     self._busy = True
                 self.abort_ba.clear()
                 try:
+                    with self.lock:
+                        retired = atlas is not None and atlas.maps[map_id] is not world
+                    if retired:  # its map was merged into another or reset after the keyframe was queued
+                        self.n_retired_skipped += 1
+                        continue
                     self.mapper.process_new_keyframe(world, k, kfdb=self.kfdb, map_lock=self.lock,
                                                      abort_flag=self.abort_ba)
                     if self.loopcloser is not None:

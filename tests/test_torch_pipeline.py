@@ -4,7 +4,7 @@ record (tests/test_gba.py:148-178), and the default stereo System, whose
 local mapping and loop closing run on the worker thread, on
 tests/test_pipeline.py's scenario with that test's gates; the kernel
 wrappers' launch counters under threads; and a loop correction while the
-tracker inserts a keyframe."""
+tracker inserts a keyframe, and the worker dropping a keyframe of a retired map."""
 import sys
 import threading
 import time
@@ -165,3 +165,31 @@ def test_loop_correction_keeps_its_keyframe_count_while_the_tracker_inserts():
     np.testing.assert_array_equal(world.kf_R[N_KF], inserted[0][0])
     np.testing.assert_array_equal(world.kf_t[N_KF], inserted[0][1])
     assert np.isfinite(world.kf_R[: N_KF + 1]).all() and np.isfinite(world.kf_t[: N_KF + 1]).all()
+
+
+def test_worker_drops_keyframes_of_a_retired_map():
+    """A keyframe queued for a map that the Atlas retired before the worker
+    reached it (merged into another by the loop closer of an earlier
+    keyframe, or reset by the tracker) is dropped and counted, with no
+    worker error; a keyframe of the live map is mapped and handed to the
+    loop closer.  (The JAX package's worker maps such a keyframe and its
+    loop closer then fails in ``Atlas.merge_into`` on the retired map.)"""
+    from orb_slam3_fast_tpu_torch.map.atlas import Atlas
+    from orb_slam3_fast_tpu_torch.map.worldmap import WorldMap
+
+    seen = []
+    mapper = Mapper(cm.Camera.pinhole(400.0, 400.0, 320.0, 240.0), bf=0.0, device="cpu")
+    mapper.process_new_keyframe = lambda world, k, **kw: seen.append(("map", k))
+    closer = type("Closer", (), {"process_keyframe": lambda self, world, k, map_id=0, atlas=None:
+                                 seen.append(("close", k)) and False})()
+    backend = AsyncBackend(mapper, closer)
+    atlas = Atlas(lambda: WorldMap(kp_cap=8, max_kf=8))
+    retired = atlas.current
+    atlas.maps[atlas.current_id] = None  # merged away before the worker reached its keyframe
+    live = atlas.create_new_map()
+    backend.insert_keyframe(retired, 3, map_id=0, atlas=atlas)
+    backend.insert_keyframe(live, 0, map_id=atlas.current_id, atlas=atlas)
+    assert backend.wait_idle(timeout=10)
+    backend.shutdown()
+    assert seen == [("map", 0), ("close", 0)]
+    assert backend.n_retired_skipped == 1 and not backend.errors

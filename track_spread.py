@@ -40,7 +40,11 @@ cannot meet TRACK_DT / TRACK_DR (chip_smoke's LOOP_DT, VI_BOUNDS).  With
 ``--runs 0`` it needs no card, so a host without one adds its file:
 ``python3 track_spread.py --sensor vi-mono vi-stereo --runs 0 --save-host
 DIR`` there, then the same with ``--runs 2`` on the card's machine, DIR
-copied along.  ``--per-call`` (inertial sensors) also runs, at each call
+copied along.  ``--trace`` prints, for each card run of the async sensors, every
+frame's state, the backend's queue length after it (the keyframes queued
+or in the worker), the keyframe count, the frame's inliers and its
+``track_total``; ``--no-host`` skips the host run (and the distances from
+it), for readings of the async Systems alone.  ``--per-call`` (inertial sensors) also runs, at each call
 of kernels W, X and Y in the first card run, the plain version on the
 same inputs on the card and prints how far the two land apart, frame by
 frame: where a card run departs from the host's, whether one call or the
@@ -105,6 +109,35 @@ def save_host(out: Path, sensor: str, tag: str, host, bounds) -> dict:
         print(f"{sensor} host {tag} ({platform.processor() or platform.machine()}) against host {other}: "
               f"{found[other]}", flush=True)
     return found
+
+
+@contextlib.contextmanager
+def frame_trace(rows: list):
+    """While open, each frame fed to a System appends (frame, state, the
+    backend's queue length, keyframes, inliers, track_total ms) to
+    ``rows``."""
+    from orb_slam3_fast_tpu_torch.slam.system import System
+
+    saved = {name: getattr(System, name) for name in ("track_monocular", "track_stereo")}
+
+    def traced(fn):
+        def wrapped(self, *a, **k):
+            n_inl = len(self.tracker.stats["inliers"])
+            out = fn(self, *a, **k)
+            inl = self.tracker.stats["inliers"]
+            rows.append((int(round(a[-1] / 0.05)), out[0], self.backend.queue_len() if self.backend else 0,
+                         self.world.n_kf, inl[-1] if len(inl) > n_inl else None,
+                         round(self.timers.spans["track_total"][-1], 1)))
+            return out
+        return wrapped
+
+    for name, fn in saved.items():
+        setattr(System, name, traced(fn))
+    try:
+        yield rows
+    finally:
+        for name, fn in saved.items():
+            setattr(System, name, fn)
 
 
 @contextlib.contextmanager
@@ -178,6 +211,8 @@ def main() -> int:
     parser.add_argument("--save-host", type=Path, default=None)
     parser.add_argument("--tag", default=platform.node() or "host")
     parser.add_argument("--per-call", action="store_true")
+    parser.add_argument("--trace", action="store_true")
+    parser.add_argument("--no-host", action="store_true")
     args = parser.parse_args()
     if args.runs > 0 and not torch.cuda.is_available():
         raise SystemExit("track_spread: torch.cuda.is_available() is False; card runs need a CUDA card")
@@ -220,7 +255,12 @@ def main() -> int:
             def run(dev):
                 _, summary, track = cs.run_default_loop(frames, poses, dev)
                 summary.pop("kf_frames")
-                print(f"async-loop run on {dev.type}: {summary}", flush=True)
+                try:
+                    cs.check_default_loop(summary)
+                    verdict = "holds"
+                except RuntimeError:
+                    verdict = "FAILS"
+                print(f"async-loop run on {dev.type}: {summary}; phase 10 (b)'s gates: {verdict}", flush=True)
                 return track
         elif sensor in VI:
             vi_in = cs.vi_frames(VI[sensor])
@@ -234,20 +274,25 @@ def main() -> int:
             frames, poses = cs.corridor_frames(cs.SYS_FRAMES) if sensor == "stereo" else cs.rgbd_frames(cs.RGBD_FRAMES)
             run = lambda dev: cs.run_system(frames, poses, dev, sensor)[2]  # noqa: E731
         bound_dt, bound_dr = bounds.get(sensor, (here.TRACK_DT, here.TRACK_DR))
-        host = run(cpu)
         entry = dict(frames=len(frames), bounds=[bound_dt, bound_dr])
-        if save_dir is not None:
+        host = None if args.no_host else run(cpu)
+        if save_dir is not None and host is not None:
             entry["host_vs_hosts"] = save_host(save_dir, sensor, args.tag, host, (bound_dt, bound_dr))
         calls = []
         cards = []
         for k in range(args.runs):
-            with per_call(calls) if (args.per_call and sensor in VI and k == 0) else contextlib.nullcontext():
+            rows = []
+            with per_call(calls) if (args.per_call and sensor in VI and k == 0) else contextlib.nullcontext(), \
+                    frame_trace(rows) if args.trace else contextlib.nullcontext():
                 cards.append(run(card))
+            if rows:
+                print(f"{sensor} card run {k} per frame (frame, state, queue, keyframes, inliers, ms): "
+                      + " ".join(f"{i}:{st[0]}:{q}:{nk}:{n}:{ms}" for i, st, q, nk, n, ms in rows), flush=True)
         for c in calls:
             print(f"{sensor} card run 0, frame {c['frame']}, {c['call']} against its plain version on the same "
                   f"inputs: {({k: v for k, v in c.items() if k not in ('frame', 'call')})}", flush=True)
         per_run = []
-        for k, tr in enumerate(cards):
+        for k, tr in enumerate(cards if host is not None else ()):
             sp = spread(tr, host, bound_dt, bound_dr)
             per_run.append(sp)
             print(f"{sensor} card run {k}: from the host run max |dt| {sp['max_dt']:.6g} at frame {sp['frame']}, "
