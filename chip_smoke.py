@@ -2,13 +2,13 @@
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It imports only
-the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs eleven phases:
+the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs twelve phases:
 
 1. device: fails without CUDA; prints the card's name and power limit;
-2. build: compiles the twenty-three kernels (A-Y, no K or O) from the 23
-   sources of ``orb_slam3_fast_tpu_torch/csrc``, one nvcc per source in
-   parallel, and the map's host C++ library, so that no timed frame pays
-   for g++;
+2. build: compiles the twenty-five kernels (A-Y, no K or O, then Z and
+   AA) from the 26 sources of ``orb_slam3_fast_tpu_torch/csrc``, one nvcc
+   per source in parallel, and the map's host C++ library, so that no timed
+   frame pays for g++;
 3. each kernel against its plain PyTorch version on the same CUDA tensors,
    with CUDA-event times, the least time the card could take for the same
    work (bytes or operations at the H100's published peaks) and, where one
@@ -33,7 +33,11 @@ the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs eleven phases:
    Q and R with a camera carrying EuRoC cam0's distortion; V on a
    64-sample window (and its merge and compose), W at the frame's 768
    slots in its three forms, X at K = 16 and 32 and its refinement, Y at
-   K = 16, M = 2048, O = 8192;
+   K = 16, M = 2048, O = 8192; Z (the 4-DoF essential graph) on
+   yaw-drifted circles of 30 (dense), 200 and 512 (PCG) vertices; AA
+   (FullInertialBA's LM segment) on tests/test_vi_ba.py's problem and on
+   tests/test_vi_ba_cg.py's 200-keyframe inertial world, a segment and a
+   whole solve each, the latter moving every state toward the truth;
 4. the stereo tracking step at 640x480 and 1280x720, 12 frames each, chained
    through the pose with constant-velocity prediction over a textured plane
    of known depth; every frame must match >= 30 landmarks, keep >= 30
@@ -94,6 +98,20 @@ the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs eleven phases:
    after it < 0.10 m; and the RGB-D-inertial System on 25 frames of the
    RGB-D corridor with the same IMU stream: final OK, every frame tracked,
    V launched every frame;
+12. (also before phase 8) inertial loop closing: (a) the stereo-inertial
+   System, synchronous, with loop closing and the Atlas, on the loop
+   scenario's ring world seen in stereo along the circle flown at a
+   modulated speed, with its exact IMU stream: final OK, > 120 tracked,
+   the IMU initialised, >= 1 loop closed, unscaled ATE < 0.20 m, Z (the
+   4-DoF essential graph) and AA (FullInertialBA) launched and S, U and T
+   not; (b) its first loop correction rerun on the card from a snapshot
+   of the map taken just before it, against the same correction on the
+   host's plain path (in phase 8's host section; ``VI_CORRECTION_BOUNDS``);
+   (c) the default constructor ``System(settings, "stereo-inertial")``
+   (the async backend, loop closing, the Atlas) on phase 11 (b)'s corridor
+   at 20 fps: drained, no worker error, the IMU initialised, V-Y launched
+   on the tracker thread; (d) MergeInertialBA on tests/test_vi_ba_cg.py's
+   welded map with that test's gates, Y launched;
 8. one frame of the plain (CPU) step, and the stereo, RGB-D and mono
    Systems, the relocalisation run, the loop scenario (all 150 frames) and
    the distorted mono System with the plain versions on the host, against
@@ -110,7 +128,7 @@ the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs eleven phases:
    against the host: what the worker has done by the time a frame is
    tracked depends on the host's speed, so they do not repeat.
 
-Launch counts are zeroed just before each path of phases 4-7 and 9-11 and
+Launch counts are zeroed just before each path of phases 4-7 and 9-12 and
 read just after; a run on the async backend also reads them per thread.
 No path's host comparison is cut in depth but the stereo-inertial one (a
 prefix: past frame 40 its card run and its host run end in other
@@ -1502,13 +1520,16 @@ def sim3_rel_err(Sa, Sb) -> float:
                abs(float(Sa.s) - float(Sb.s)) / abs(float(Sb.s)))
 
 
-def drift_graph(K: int, seed: int):
+def drift_graph(K: int, seed: int, rot_noise: float = 0.01, s_drift: float = 1.01, yaw_only: bool = False,
+                pad_e: int = 8):
     """tests/test_pose_graph.py's _sim3_graph_from_drift: K keyframes on a
     circle of radius 5 looking along the tangent, the odometry chain
-    measured with 0.01 rad and 0.02 of noise and 1% scale drift (numpy
-    seed ``seed``), the estimates integrated from it, the exact loop edge
-    (0, K-1), 8 invalid padding edges, vertex 0 fixed.  Returns the
-    Sim3Graph's numpy fields and the true (R, t)."""
+    measured with ``rot_noise`` rad (about gravity alone with ``yaw_only``:
+    the 4-DoF graph's drift) and 0.02 of noise and ``s_drift`` scale drift
+    (numpy seed ``seed``), the estimates integrated from it, the exact loop
+    edge (0, K-1), ``pad_e`` invalid padding edges, vertex 0 fixed.
+    Returns the Sim3Graph's numpy fields (an SE3Graph's and s, meas_s) and
+    the true (R, t)."""
     from orb_slam3_fast_tpu_torch.utils import lie
 
     rng = np.random.default_rng(seed)
@@ -1529,15 +1550,18 @@ def drift_graph(K: int, seed: int):
     meas = []
     for k in range(K - 1):
         R, t, sc = rel(Rg[k + 1], tg[k + 1], 1.0, Rg[k], tg[k], 1.0)
-        dR = lie.so3_exp(torch.as_tensor(rng.normal(0, 0.01, 3).astype(np.float32))).numpy()
-        meas.append((dR @ R, t + rng.normal(0, 0.02, 3).astype(np.float32), sc * 1.01))
+        w = rng.normal(0, rot_noise, 3).astype(np.float32)
+        if yaw_only:
+            w[:2] = 0.0
+        dR = lie.so3_exp(torch.as_tensor(w)).numpy()
+        meas.append((dR @ R, t + rng.normal(0, 0.02, 3).astype(np.float32), sc * s_drift))
     R0, t0, s0 = [Rg[0]], [tg[0]], [1.0]
     for k in range(K - 1):
         R, t, sc = meas[k]
         R0.append(R @ R0[k])
         t0.append(sc * (R @ t0[k]) + t)
         s0.append(sc * s0[k])
-    E = K + 8
+    E = K + pad_e
     ei, ej = np.zeros(E, np.int32), np.zeros(E, np.int32)
     mR = np.tile(np.eye(3, dtype=np.float32), (E, 1, 1))
     mt, ms, ev = np.zeros((E, 3), np.float32), np.ones(E, np.float32), np.zeros(E, bool)
@@ -2779,6 +2803,564 @@ def check_system_against_plain(card, plain, bound_dt: float = TRACK_DT,
                  f"{sum_p['landmarks']}")
 
 
+# --- the inertial loop path: kernels Z and AA (phase 3), phase 12 ---------------------------------------------
+
+VI_NOISE = (1.7e-4, 2e-3, 1.9e-5, 3e-3, 200.0)  # tests/test_inertial.py's NOISE: gyro, acc, walks, rate
+
+
+def vi_cg_problem(rng, device, n_kf: int = 6, n_lm: int = 200, noise: float = 0.3, pert: float = 0.03):
+    """tests/test_vi_ba.py's build_vi_problem in the port: the flight of
+    tests/test_inertial.py (camera = body), n_lm landmarks ahead seen by every
+    keyframe (0.3 px noise, monocular), the states but the first (fixed)
+    perturbed by ``pert`` (rad, m; 3x in m/s), the landmarks by 0.03 m.
+    Returns (VIBAProblem on ``device``, truth (R, p, v))."""
+    from orb_slam3_fast_tpu_torch.cameras import models as cm
+    from orb_slam3_fast_tpu_torch.imu import preintegration as pre
+    from orb_slam3_fast_tpu_torch.optim import vi_ba
+    from orb_slam3_fast_tpu_torch.utils import lie
+
+    states, segments, dt = imu_chain(rng, n_kf)
+    preints = _preints(segments, dt, pre.ImuNoise.from_continuous(*VI_NOISE), device)
+    R_gt, p_gt, v_gt = (np.stack([s[i] for s in states]).astype(np.float32) for i in range(3))
+    xw = np.stack([rng.uniform(-5, 5, n_lm), rng.uniform(-4, 4, n_lm), rng.uniform(4, 14, n_lm)], -1).astype(np.float32)
+    kf = np.repeat(np.arange(n_kf), n_lm).astype(np.int32)
+    lm = np.tile(np.arange(n_lm), n_kf).astype(np.int32)
+    xc = np.einsum("oji,oj->oi", R_gt[kf], xw[lm] - p_gt[kf])
+    uv = cm.project(cm.Camera.pinhole(400.0, 400.0, 320.0, 240.0), torch.as_tensor(xc)).numpy()
+    uv = uv + rng.normal(0, noise, uv.shape)
+    valid = (xc[:, 2] > 0.5) & (uv[:, 0] > 0) & (uv[:, 0] < 640) & (uv[:, 1] > 0) & (uv[:, 1] < 480)
+    R0, p0, v0 = R_gt.copy(), p_gt.copy(), v_gt.copy()
+    for k in range(1, n_kf):
+        R0[k] = R0[k] @ lie.so3_exp(torch.as_tensor(rng.normal(0, pert, 3).astype(np.float32))).numpy()
+        p0[k] = p0[k] + rng.normal(0, pert, 3)
+        v0[k] = v0[k] + rng.normal(0, pert * 3, 3)
+    xw0 = xw + rng.normal(0, 0.03, xw.shape).astype(np.float32)
+    d = lambda a: torch.as_tensor(np.asarray(a)).to(device)  # noqa: E731
+    O = len(kf)
+    prob = vi_ba.VIBAProblem(
+        R_wb=d(R0), p_wb=d(p0), v_w=d(v0), bias=torch.zeros((n_kf, 6), device=device),
+        state_fixed=d(np.arange(n_kf) == 0), xw=d(xw0), lm_valid=torch.ones(n_lm, dtype=torch.bool, device=device),
+        obs_kf=d(kf), obs_lm=d(lm), obs_uv=d(np.concatenate([uv, -np.ones((O, 1))], 1).astype(np.float32)),
+        obs_inv_sigma2=torch.ones(O, device=device), obs_is_stereo=torch.zeros(O, dtype=torch.bool, device=device),
+        obs_valid=d(valid), edge_i=d(np.arange(n_kf - 1, dtype=np.int32)), edge_j=d(np.arange(1, n_kf, dtype=np.int32)),
+        edge_valid=torch.ones(n_kf - 1, dtype=torch.bool, device=device), preint=preints)
+    return prob, (R_gt, p_gt, v_gt)
+
+
+def inertial_world(rng, n_kf: int = 200, n_lm: int = 400, obs_per_kf: int = 96, noise: float = 0.3,
+                   pose_pert: float = 0.02, lm_pert: float = 0.05, device="cpu"):
+    """tests/test_vi_ba_cg.py's make_inertial_world in the port (the same
+    draws from ``rng``): an ``n_kf``-keyframe inertial chain 0.25 s apart
+    (camera = body) on tests/test_inertial.py's flight, landmarks around
+    the whole trajectory, each keyframe observing its ``obs_per_kf``
+    nearest visible ones (``noise`` px), the windows stored, the states but
+    the first perturbed (``pose_pert`` rad and m, 3x in m/s), the landmarks
+    by ``lm_pert``; the windows preintegrated on ``device`` (kernel V on the
+    card).  Returns (WorldMap, R_gt, p_gt, v_gt)."""
+    from orb_slam3_fast_tpu_torch.cameras import models as cm
+    from orb_slam3_fast_tpu_torch.imu import preintegration as pre
+    from orb_slam3_fast_tpu_torch.map.worldmap import WorldMap
+    from orb_slam3_fast_tpu_torch.utils import lie
+
+    states, segments, dt = imu_chain(rng, n_kf)
+    R_gt, p_gt, v_gt = (np.stack([s[i] for s in states]).astype(np.float32) for i in range(3))
+    xw_gt = (p_gt[rng.integers(0, n_kf, n_lm)] + rng.uniform(-6, 6, (n_lm, 3))).astype(np.float32)
+    cam = cm.Camera.pinhole(400.0, 400.0, 320.0, 240.0)
+    w = WorldMap(kp_cap=int(2 ** np.ceil(np.log2(obs_per_kf))), max_kf=int(2 ** np.ceil(np.log2(n_kf + 1))),
+                 max_lm=2 * n_lm)
+    w.n_lm = n_lm
+    w.lm_valid[:n_lm] = True
+    w.lm_pos[:n_lm] = xw_gt + rng.normal(0, lm_pert, (n_lm, 3)).astype(np.float32)
+    w.lm_first_kf[:n_lm] = 0
+    for k in range(n_kf):
+        w.kf_valid[k] = True
+        w.kf_ts[k] = 0.25 * k
+        R_cw = R_gt[k].T
+        xc = xw_gt @ R_cw.T - R_cw @ p_gt[k]
+        uv = cm.project(cam, torch.as_tensor(xc)).numpy()
+        vis = (xc[:, 2] > 0.5) & (uv[:, 0] > 10) & (uv[:, 0] < 630) & (uv[:, 1] > 10) & (uv[:, 1] < 470)
+        cand = np.nonzero(vis)[0]
+        take = cand[np.argsort(xc[cand, 2])][:obs_per_kf]
+        n = len(take)
+        w.kf_xy[k, :n] = uv[take] + rng.normal(0, noise, (n, 2)).astype(np.float32)
+        w.kf_obs[k, :n] = take
+        w.kf_kp_valid[k, :n] = True
+        np.add.at(w.lm_n_obs, take, 1)
+        pert = pose_pert if k else 0.0
+        dR = lie.so3_exp(torch.as_tensor(rng.normal(0, pert, 3).astype(np.float32))).numpy()
+        R_wb0 = R_gt[k] @ dR
+        p_wb0 = p_gt[k] + rng.normal(0, pert, 3).astype(np.float32)
+        w.kf_R[k] = R_wb0.T
+        w.kf_t[k] = -R_wb0.T @ p_wb0
+        w.kf_vel[k] = v_gt[k] + rng.normal(0, 3 * pert, 3).astype(np.float32)
+    w.n_kf = n_kf
+    w.imu_initialized = True
+    noise_m = pre.ImuNoise.from_continuous(*VI_NOISE)
+    for k in range(1, n_kf):
+        acc, gyr = (torch.as_tensor(x).to(device) for x in segments[k - 1])
+        w.kf_preint[k] = pre.preintegrate(acc, gyr, torch.full((len(acc),), dt, device=device),
+                                          torch.zeros(6, device=device), noise_m)
+    return w, R_gt, p_gt, v_gt
+
+
+def welded_world(device="cpu"):
+    """tests/test_vi_ba_cg.py:208's welded map (seed 0): one flight whose
+    keyframes 0-9 play the destination map and 10-19 the transplanted
+    source (no window spans the weld 9 -> 10), the source's welding window
+    14-19 perturbed (0.02 rad, 5 cm, 0.1 m/s).  Returns (WorldMap, R_gt,
+    p_gt, v_gt)."""
+    from orb_slam3_fast_tpu_torch.utils import lie
+
+    rng = np.random.default_rng(0)
+    w, R_gt, p_gt, v_gt = inertial_world(rng, n_kf=20, n_lm=300, obs_per_kf=96, pose_pert=0.0, device=device)
+    del w.kf_preint[10]
+    for k in range(14, 20):
+        R_wb = R_gt[k] @ lie.so3_exp(torch.as_tensor(rng.normal(0, 0.02, 3).astype(np.float32))).numpy()
+        p_wb = p_gt[k] + rng.normal(0, 0.05, 3).astype(np.float32)
+        w.kf_R[k] = R_wb.T
+        w.kf_t[k] = -R_wb.T @ p_wb
+        w.kf_vel[k] = v_gt[k] + rng.normal(0, 0.1, 3).astype(np.float32)
+    return w, R_gt, p_gt, v_gt
+
+
+def body_positions(w, n: int) -> np.ndarray:
+    """The first ``n`` keyframes' body (= camera) centres."""
+    return -np.einsum("kji,kj->ki", w.kf_R[:n], w.kf_t[:n])
+
+
+def inertial_tracker(world, device):
+    """The inertial tracker of the JAX tests' _make_tracker in the port:
+    camera = body, tests/test_inertial.py's noise, a mapper."""
+    from orb_slam3_fast_tpu_torch.backend.mapper import Mapper
+    from orb_slam3_fast_tpu_torch.cameras.models import Camera
+    from orb_slam3_fast_tpu_torch.frontend.vi_tracker import InertialTracker
+    from orb_slam3_fast_tpu_torch.imu import preintegration as pre
+
+    cam = Camera.pinhole(400.0, 400.0, 320.0, 240.0)
+    return InertialTracker(cam, world=world, noise=pre.ImuNoise.from_continuous(*VI_NOISE),
+                           mapper=Mapper(cam, bf=0.0, device=device), device=device)
+
+
+def graph4_dist(a, b) -> float:
+    """The largest difference of two 4-DoF graph solutions: rotation entries
+    and camera centres (m)."""
+    Ra, ta = (np.asarray(torch.as_tensor(x).detach().cpu(), np.float64) for x in a[:2])
+    Rb, tb = (np.asarray(torch.as_tensor(x).detach().cpu(), np.float64) for x in b[:2])
+    ca, cb = -np.einsum("kji,kj->ki", Ra, ta), -np.einsum("kji,kj->ki", Rb, tb)
+    return float(max(np.abs(Ra - Rb).max(), np.abs(ca - cb).max()))
+
+
+def graph4_ops(K: int, E: int, pcg: bool, cg_run=None) -> float:
+    """The operations kernel Z's function needs: per Gauss-Newton step each
+    edge's residual and its 8 derivatives (two yaw updates, two
+    compositions, an SO(3) log and the Jacobian inverse, ~900 flops a
+    direction, 9 with the value), its blocks (4 x 16 x 12 + 2 x 4 x 12); the
+    dense (4K)^3 / 3 Cholesky and 2 (4K)^2 substitutions, or per vertex a
+    4x4 inverse (~130) and per CG iteration that ran 4 4x4 mat-vecs per
+    edge, one per vertex (32 flops each) and 12 per vertex entry; per vertex
+    the update and an SVD (~700)."""
+    per_step = E * (9 * 900 + 4 * 16 * 12 + 2 * 4 * 12) + K * 700
+    if not pcg:
+        return 12 * (per_step + (4 * K) ** 3 / 3 + 2 * (4 * K) ** 2)
+    per_cg = E * 4 * 32 + K * 32 + 4 * K * 12
+    return len(cg_run) * (per_step + K * 130) + int(np.sum(cg_run)) * per_cg
+
+
+def vi_pcg_ops(K: int, M: int, O: int, E: int, steps: int, cg_run: int) -> float:
+    """The operations kernel AA's function needs: per LM step per
+    observation the residual, both Jacobians, the weight, W and W V^-1, its
+    terms of Hpp, Hll, the gradients, W V^-1 W^T and the candidate's cost
+    (~1100 flops); per edge 30 dual-number evaluations of the chain (~3500
+    flops each, with their tangents), the information-weighted rows and the
+    30x30 block (~36000), its costs (~3000); per state a 15x15 inverse and
+    the retraction (~7500); per landmark its 3x3 inverse and
+    back-substitution (~60); per CG iteration that ran 72 flops per
+    observation, 18 per landmark and ~2550 per state (its edges' blocks,
+    Hpp, the preconditioner, three dot products and vector updates)."""
+    return steps * (O * 1100 + E * (30 * 3500 + 36000 + 3000) + K * 7500 + M * 60) + \
+        cg_run * (O * 72 + M * 18 + K * 2550)
+
+
+def vi_pcg_bytes(K: int, M: int, O: int, E: int) -> int:
+    """Bytes kernel AA must move: the states (84 per state), landmarks (12),
+    observations (index pairs, uv, sigma, flags: 26) and windows (1168 per
+    edge, packed) in once, the states and landmarks out."""
+    return K * 84 * 2 + M * 12 * 2 + O * 26 + E * (1168 + 9) + K + M
+
+
+def compare_inertial_loop_kernels(device) -> list[dict]:
+    """Phase 3 for the inertial loop path's kernels, each against its plain
+    version on the same CUDA tensors, with CUDA-event times: Z on
+    tests/test_pose_graph.py:105's yaw-drifted circle of 30 vertices (the
+    dense branch, 12 iterations) and on yaw-drifted circles of 200 and 512
+    (the PCG branch); AA (one segment of 2 LM steps, 40 CG iterations, and
+    a whole full_inertial_ba_cg, 5 + 8 steps) on tests/test_vi_ba.py's
+    problem (6 keyframes, 200 landmarks) and on tests/test_vi_ba_cg.py:167's
+    200-keyframe inertial world, where the whole solve must also move every
+    state toward the truth."""
+    from orb_slam3_fast_tpu_torch.cameras.models import Camera
+    from orb_slam3_fast_tpu_torch.optim import pose_graph as pg
+    from orb_slam3_fast_tpu_torch.optim import vi_ba_cg
+    from orb_slam3_fast_tpu_torch.utils import lie
+
+    out = []
+    # Z: dense at K = 30, PCG at K = 200 and 512; plain versions on the card
+    z_err, z_ms, z_pms, z_ops, z_bytes, z_notes, lib_z = 0.0, 0.0, 0.0, 0.0, 0, [], None
+    fields = pg.SE3Graph._fields
+    for K, seed in ((30, 1), (200, 3), (512, 3)):
+        arrays, (R_gt, t_gt) = drift_graph(K, seed, rot_noise=0.015, s_drift=1.0, yaw_only=True, pad_e=4)
+        g = pg.SE3Graph(**{k: torch.as_tensor(arrays[k]).to(device) for k in fields})
+        E = g.edge_i.shape[0]
+        rk, rp = pg.optimize_4dof_graph(g), pg.optimize_4dof_graph_plain(g)
+        torch.cuda.synchronize()
+        err = graph4_dist(rk, rp)
+        ones = np.ones(K)
+        before, after = graph_ate(g.R, g.t, ones, R_gt, t_gt), graph_ate(rk.R, rk.t, ones, R_gt, t_gt)
+        pcg = K > pg.DENSE_MAX_K
+        if not (bool(rk.ok) and err <= 1e-3 and after < (0.8 if pcg else 0.3) * before):
+            raise RuntimeError(f"optimize_4dof_graph K={K}: ok {bool(rk.ok)}, {err:.3g} from the plain version, "
+                               f"centres {before:.3g} -> {after:.3g} m")
+        ms = cuda_ms(lambda: pg.optimize_4dof_graph(g), 5)
+        pms = cuda_ms(lambda: pg.optimize_4dof_graph_plain(g), 1)
+        ops = graph4_ops(K, E, pcg, None if not pcg else rk.cg_run.cpu().numpy())
+        z_err, z_ms, z_pms, z_ops, z_bytes = max(z_err, err), z_ms + ms, z_pms + pms, z_ops + ops, \
+            z_bytes + K * 48 * 2 + E * 57
+        if K == 30:  # the library call: one Cholesky factorisation and solve of the formed (4K)^2 system
+            r, Ji, Jj = pg.edge_jacobians_4dof(g.R, g.t, g)
+            Hd, rhs = pg.dense_normal_system(r, Ji, Jj, g.edge_i, g.edge_j, g.edge_w * g.edge_valid, g.fixed, 1e-6)
+            lib_z = cuda_ms(lambda: torch.cholesky_solve(rhs[:, None], torch.linalg.cholesky_ex(Hd)[0]), 20)
+        z_notes.append(f"K={K} ({'PCG, ' + str(int(rk.cg_run.sum())) + ' CG iterations' if pcg else 'dense'}, "
+                       f"{E} edges): {err:.2e} from the plain version, centres {before:.3f} -> {after:.3f} m, "
+                       f"{ms:.4f} ms (plain {pms:.4f})")
+    out.append(dict(name="pose_graph4", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/pose_graph4.cu",
+                    replaces="orb_slam3_fast_tpu/optim/pose_graph.py:224", max_abs_err=z_err, ms=z_ms, plain_ms=z_pms,
+                    **bound(z_bytes, z_ops), library_ms=lib_z,
+                    shapes="; ".join(z_notes) + "; 12 iterations each; tolerance 1e-3 in rotation entries and camera "
+                           "centres (float64 Cholesky / CG against the plain float64 LU / CG, float32 vertices); "
+                           "library = torch.linalg.cholesky_ex + cholesky_solve of one iteration's float64 (4K)^2 "
+                           "system at K = 30"))
+
+    # AA: a segment and a whole solve on build_vi_problem's size, then the 200-keyframe world
+    cam = Camera.pinhole(400.0, 400.0, 320.0, 240.0)
+    T_id = lie.SE3.identity(device)
+    a_err, a_ms, a_pms, a_ops, a_bytes, a_notes = 0.0, 0.0, 0.0, 0.0, 0, []
+    prob, (R_gt, p_gt, v_gt) = vi_cg_problem(np.random.default_rng(12), device)
+    big_w, bR, bp, _ = inertial_world(np.random.default_rng(13), n_kf=200, device=device)
+    big = inertial_tracker(big_w, device).full_inertial_problem(big_w, [0])[0]
+    err0 = np.linalg.norm(body_positions(big_w, 200) - bp, axis=1)
+    for label, pr in (("build_vi_problem", prob), ("200-keyframe world", big)):
+        K, M, O, E = pr.R_wb.shape[0], pr.xw.shape[0], pr.obs_kf.shape[0], pr.edge_i.shape[0]
+        inl = torch.ones(O, dtype=torch.bool, device=device)
+        lam = torch.tensor(1e-4, device=device)
+        state = (pr.R_wb, pr.p_wb, pr.v_w, pr.bias)
+        info = {}
+        sk = vi_ba_cg._kernel(cam, 0.0, T_id, pr, state, pr.xw, inl, lam, 2, 40, info)
+        sp = vi_ba_cg.lm_segment_vi_plain(cam, 0.0, T_id, pr, *state, pr.xw, inl, lam, 2, 40)
+        fk = vi_ba_cg.full_inertial_ba_cg(cam, 0.0, T_id, pr)
+        fp = vi_ba_cg.full_inertial_ba_cg_plain(cam, 0.0, T_id, pr)
+        torch.cuda.synchronize()
+        seg_err = max(float((a - b).abs().max()) for a, b in zip(sk[:4], sp[:4]))
+        full_err = max(float((a - b).abs().max()) for a, b in zip(fk[:4], fp[:4]))
+        xw_err = float((fk[4] - fp[4]).abs().max())
+        flips = float((fk[5] != fp[5]).float().mean())
+        notes = ""
+        if label == "build_vi_problem":
+            p_err = float(np.linalg.norm(fk[1].cpu().numpy() - p_gt, axis=1).max())
+            v_err = float(np.linalg.norm(fk[2].cpu().numpy() - v_gt, axis=1).max())
+            gate = p_err < 0.01 and v_err < 0.05
+            notes = f"positions within {p_err:.4f} m, velocities within {v_err:.4f} m/s of the truth"
+        else:
+            err1 = np.linalg.norm(fk[1].cpu().numpy() - bp, axis=1)  # body positions (camera = body)
+            gate = err1.max() < 0.5 * err0.max() and err1.mean() < 0.02
+            notes = (f"position error max {err0.max():.4f} -> {err1.max():.4f} m, mean {err0.mean():.4f} -> "
+                     f"{err1.mean():.4f} m")
+        if not (bool(torch.isfinite(sk[0]).all()) and seg_err <= 1e-3 and full_err <= 2e-3 and xw_err <= 1e-2
+                and flips <= 0.005 and gate):
+            raise RuntimeError(f"lm_segment_vi on {label}: segment {seg_err:.3g}, whole solve {full_err:.3g} "
+                               f"(landmarks {xw_err:.3g}, flags {flips:.4f}) from the plain version; {notes}")
+        ms = cuda_ms(lambda: vi_ba_cg._kernel(cam, 0.0, T_id, pr, state, pr.xw, inl, lam, 2, 40), 5)
+        pms = cuda_ms(lambda: vi_ba_cg.lm_segment_vi_plain(cam, 0.0, T_id, pr, *state, pr.xw, inl, lam, 2, 40), 1)
+        whole_ms = cuda_ms(lambda: vi_ba_cg.full_inertial_ba_cg(cam, 0.0, T_id, pr), 1, warmup=0)
+        a_err, a_ms, a_pms = max(a_err, seg_err, full_err), a_ms + ms, a_pms + pms
+        a_ops += vi_pcg_ops(K, M, O, E, 2, info["cg_run"])
+        a_bytes += vi_pcg_bytes(K, M, O, E)
+        a_notes.append(f"{label} (K={K}, M={M}, O={O}, E={E}): a segment {ms:.3f} ms (plain {pms:.3f}, "
+                       f"{info['cg_run']} CG iterations), {seg_err:.2e} from the plain version; the whole 5+8 "
+                       f"solve {whole_ms:.2f} ms, {full_err:.2e} (landmarks {xw_err:.2e}, flags {flips:.4f}); {notes}")
+    out.append(dict(name="vi_pcg", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/vi_pcg.cu",
+                    replaces="orb_slam3_fast_tpu/optim/vi_ba_cg.py:348", max_abs_err=a_err, ms=a_ms, plain_ms=a_pms,
+                    **bound(a_bytes, a_ops), library_ms=None,
+                    shapes="; ".join(a_notes) + "; tolerances: states 1e-3 after a segment and 2e-3 after the whole "
+                           "solve (float64 CG both, float32 observations), landmarks 1e-2 m, inlier flags 0.005; no "
+                           "single library call computes the implicit-Schur LM"))
+    return out
+
+
+# --- phase 12: inertial loop closing -----------------------------------------------------------------------
+
+VI_LOOP_SPEED = (0.6, 0.9)  # the circle's angular speed modulated by 1 + 0.6 cos(2 pi 0.9 t)
+# Phase 12's IMU noise densities, as multiples of the configuration file's (EuRoC's): with EuRoC's the JAX
+# package's own stereo-inertial System, and the port with it, loses the track on the frame after the IMU
+# initialisation (its tracker runs the inertial pose optimisation twice a frame, the second anchored on the
+# previous frame with the first's marginal as its prior: at 0.05 rad and 0.19 m a frame the two disagree; PERF.md,
+# PR 9); a low-grade IMU, whose factors the camera outweighs, tracks the whole circle
+VI_LOOP_IMU_NOISE = 300.0
+VI_LOOP_MAX_ATE = 0.20  # tests/test_loop_closing.py's gate, unscaled here (the scale is the stereo rig's)
+# Phase 12 (b): the loop correction from one snapshot on the card against the host's plain path: camera
+# centres (m), rotation entries and velocities (m/s).  The loop path's own bound (LOOP_DT, LOOP_DR) for the
+# poses; the velocities come out of the same solve, divided by the 0.25 s between keyframes: 2e-2.
+VI_CORRECTION_BOUNDS = (LOOP_DT, LOOP_DR, 2e-2)
+
+
+def circle_trajectory_with_imu(n_frames, radius=4.0, frac=1.12, dt_frame=0.05, imu_rate=200.0,
+                               speed=VI_LOOP_SPEED):
+    """The loop scenario's circle (circle_trajectory's camera, looking along
+    the tangent, radius 4, ``frac`` turns over ``n_frames``) flown at a
+    speed modulated as arc_trajectory_with_imu's (``speed`` = (amplitude,
+    frequency): the angle a(t) = w0 (t + A sin(2 pi f t) / (2 pi f))), so
+    that the accelerometer sees the speed change and the IMU initialises,
+    and the noise-free stream a body-mounted sensor measures (camera =
+    body, gravity along the world's -z), each sample stamped at the end of
+    its 1 / ``imu_rate`` interval and made exact for the preintegration's
+    first-order step (the rotation at the interval's start carrying the
+    sample): the specific force at the interval's middle in the body frame
+    at its start, and the interval's mean rate (the turn is about a fixed
+    axis).  Returns (T_cw per frame as (R, t) numpy float32 pairs, IMU rows
+    (ts, ax, ay, az, wx, wy, wz))."""
+    amp, freq = speed
+    w0 = 2 * np.pi * frac / (n_frames * dt_frame)
+    om = 2 * np.pi * freq
+    g_w = np.array([0.0, 0.0, -9.81])
+
+    def frame_of(a):
+        c, s = np.cos(a), np.sin(a)
+        R_wc = np.stack([np.array([c, s, 0.0]), np.array([0.0, 0.0, -1.0]), np.array([-s, c, 0.0])], axis=1)
+        return R_wc, np.array([radius * c, radius * s, 0.0])
+
+    poses = []
+    for i in range(n_frames):
+        R_wc, center = frame_of(w0 * (i * dt_frame + amp / om * np.sin(om * i * dt_frame)))
+        R = R_wc.T.astype(np.float32)
+        poses.append((R, (-R_wc.T @ center).astype(np.float32)))
+    imu, dt_imu = [], 1.0 / imu_rate
+
+    def angle(t):
+        return w0 * (t + amp / om * np.sin(om * t))
+
+    for j in range(int(round((n_frames - 1) * dt_frame * imu_rate))):
+        tm = (j + 0.5) * dt_imu
+        a = angle(tm)
+        ad = w0 * (1.0 + amp * np.cos(om * tm))
+        add = -w0 * amp * om * np.sin(om * tm)
+        c, s = np.cos(a), np.sin(a)
+        acc_w = radius * (add * np.array([-s, c, 0.0]) + ad * ad * np.array([-c, -s, 0.0]))
+        R_wc, _ = frame_of(angle(j * dt_imu))
+        rate = (angle((j + 1) * dt_imu) - angle(j * dt_imu)) / dt_imu
+        imu.append([(j + 1) * dt_imu, *(R_wc.T @ (acc_w - g_w)), 0.0, -rate, 0.0])
+    return poses, np.asarray(imu)
+
+
+def _render_vi_circle(i: int):
+    """Frame i of phase 12's stereo circle (run in a worker process)."""
+    from orb_slam3_fast_tpu_torch.cameras.models import Camera
+
+    world = make_ring_world(np.random.default_rng(0))
+    R, t = circle_trajectory_with_imu(LOOP_FRAMES)[0][i]
+    return stereo_pair(world, Camera.pinhole(400.0, 400.0, 320.0, 240.0), R, t, 0.12)
+
+
+def vi_loop_frames():
+    """Phase 12's input: the loop scenario's ring world (make_ring_world,
+    seed 0) seen in stereo (0.12 m baseline) along
+    circle_trajectory_with_imu(150), rendered by one worker process per
+    core.  Returns (stereo pairs, true T_cw per frame, IMU rows)."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    with ProcessPoolExecutor(max(1, min(8, os.cpu_count() or 1)), mp_context=multiprocessing.get_context("spawn")) as ex:
+        frames = list(ex.map(_render_vi_circle, range(LOOP_FRAMES)))
+    poses, imu = circle_trajectory_with_imu(LOOP_FRAMES)
+    return frames, poses, imu
+
+
+def vi_loop_settings():
+    """configs/synthetic_stereo.yaml loaded for stereo-inertial, its IMU
+    noise densities (gyro, accelerometer and both walks) scaled by
+    ``VI_LOOP_IMU_NOISE``."""
+    import dataclasses
+
+    from orb_slam3_fast_tpu_torch.slam.settings import Settings
+
+    s = Settings.from_yaml(SYS_CONFIG, "stereo-inertial")
+    k = VI_LOOP_IMU_NOISE
+    return dataclasses.replace(s, imu_noise_gyro=k * s.imu_noise_gyro, imu_noise_acc=k * s.imu_noise_acc,
+                               imu_gyro_walk=k * s.imu_gyro_walk, imu_acc_walk=k * s.imu_acc_walk)
+
+
+def vi_loop_system(device):
+    """``System(vi_loop_settings(), "stereo-inertial")`` with loop closing and
+    the Atlas and 256 keyframes, the loop closer at phase 9's
+    LoopCloserConfig (the scale fixed)."""
+    from orb_slam3_fast_tpu_torch.backend.loopcloser import LoopCloserConfig
+    from orb_slam3_fast_tpu_torch.slam.system import System
+
+    slam = System(vi_loop_settings(), "stereo-inertial", max_keyframes=256, enable_loop_closing=True, multi_map=True,
+                  async_backend=False, device=device)
+    slam.loopcloser.cfg = LoopCloserConfig(**LOOP_CONFIG, fix_scale=True)
+    return slam
+
+
+def run_vi_loop(frames, poses, imu, device):
+    """Phase 12 (a): the stereo-inertial System, synchronous, with loop
+    closing and the Atlas, on the circle with its IMU stream.  The first
+    loop correction's inputs are kept: the map as it stood just before it
+    (a deep copy) and its arguments, for phase 12 (b).  Returns the System,
+    a summary (state, frames tracked, the IMU-initialisation frame, loops
+    and their frames, keyframes, the unscaled ATE of the frames tracked
+    after the initialisation, in the gravity-aligned world) and the
+    snapshot."""
+    import copy
+
+    from orb_slam3_fast_tpu_torch.eval import ate
+
+    slam = vi_loop_system(device)
+    lc = slam.loopcloser
+    snapshot = {}
+    correct = lc._correct
+
+    def kept(world, k, c, S_kc):
+        if not snapshot:
+            snapshot.update(world=copy.deepcopy(world), args=(k, c, S_kc))
+        return correct(world, k, c, S_kc)
+
+    lc._correct = kept
+    est, gt, ts, closed_at, init_frame, track = [], [], [], [], None, []
+    for i, ((img_l, img_r), (R, t), samples) in enumerate(zip(frames, poses, imu_slices(imu, len(frames)))):
+        n_closed = lc.n_loops_closed
+        state, pose = slam.track_stereo(img_l, img_r, i * 0.05, imu=samples)
+        if lc.n_loops_closed > n_closed:
+            closed_at.append(i)
+        if slam.world.imu_initialized and init_frame is None:
+            init_frame = i
+        track.append((state, *(pose if pose is not None else (np.eye(3, dtype=np.float32), np.zeros(3, np.float32)))))
+        if state == "OK" and init_frame is not None and i > init_frame:  # the world is gravity-aligned from here
+            est.append(-pose[0].T @ pose[1])
+            gt.append(-R.T @ t)
+            ts.append(i * 0.05)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    summary = dict(state=slam.get_tracking_state(), tracked=sum(s == "OK" for s, _, _ in track), init_frame=init_frame,
+                   loops=lc.n_loops_closed, merges=lc.n_maps_merged, closed_at=closed_at, n_kf=slam.world.n_kf,
+                   after_init=len(est))
+    if len(est) >= 3:
+        summary["ate_unscaled_m"] = ate.ate_rmse(np.asarray(ts), np.asarray(est), np.asarray(ts), np.asarray(gt),
+                                                 with_scale=False)[0]
+    return slam, summary, snapshot
+
+
+def check_vi_loop(summary, launches) -> None:
+    """Phase 12 (a)'s gates: final OK, > 120 frames tracked, the IMU
+    initialised, >= 1 loop closed, unscaled ATE < VI_LOOP_MAX_ATE; Z and AA
+    launched on the path, S, U and T not."""
+    ok = (summary["state"] == "OK" and summary["tracked"] > 120 and summary["init_frame"] is not None
+          and summary["loops"] >= 1 and summary.get("ate_unscaled_m", 1e9) < VI_LOOP_MAX_ATE)
+    kernels = launches["pose_graph4"] >= 1 and launches["vi_pcg"] >= 1 and not (
+        launches["sim3_graph"] or launches["sim3_pcg"] or launches["ba_pcg"])
+    if not (ok and kernels):
+        raise RuntimeError(f"stereo-inertial loop System gates failed: {summary}, launches {launches}")
+
+
+def correct_from_snapshot(snapshot, device):
+    """Phase 12 (b): the loop correction (window propagation, fusion, the
+    4-DoF essential graph, FullInertialBA) run on a copy of the snapshot by a
+    stereo-inertial System on ``device``.  Returns the corrected map."""
+    import copy
+
+    from orb_slam3_fast_tpu_torch.utils import lie
+
+    w = copy.deepcopy(snapshot["world"])
+    w.kf_preint = {k: p.to(device) for k, p in w.kf_preint.items()}
+    k, c, S_kc = snapshot["args"]
+    slam = vi_loop_system(device)
+    slam.tracker.world = slam.world = w
+    slam.loopcloser._correct(w, k, c, lie.Sim3(*(x.to(device) for x in S_kc)))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return w
+
+
+def compare_corrections(card, host, bounds=VI_CORRECTION_BOUNDS) -> tuple[list[str], str]:
+    """Phase 12 (b): the keyframes' camera centres, rotation entries and
+    velocities of two corrected maps against ``bounds``."""
+    n = card.n_kf
+    live = card.kf_valid[:n] & host.kf_valid[:n]
+    dc = float(np.abs(body_positions(card, n) - body_positions(host, n))[live].max())
+    dr = float(np.abs(card.kf_R[:n] - host.kf_R[:n])[live].max())
+    dv = float(np.abs(card.kf_vel[:n] - host.kf_vel[:n])[live].max())
+    bad = [f"{name} {d:.3g} > {b}" for name, d, b in zip(("centres", "rotations", "velocities"), (dc, dr, dv), bounds)
+           if not d <= b]
+    if host.n_kf != n:
+        bad.append(f"keyframes {n} / {host.n_kf}")
+    return bad, f"{n} keyframes: centres {dc:.3g} m, rotation entries {dr:.3g}, velocities {dv:.3g} m/s apart"
+
+
+def run_default_vi(frames, poses, imu, device):
+    """Phase 12 (c): the default constructor of an inertial sensor,
+    ``System(configs/synthetic_stereo.yaml, "stereo-inertial")`` with every
+    default (the async backend, loop closing, the Atlas), fed phase 11 (b)'s
+    corridor and IMU stream at 20 fps with phase 11's initialisation
+    settings.  Gates: the backend drains within 120 s, no worker error, the
+    IMU initialised.  Returns the System and a summary."""
+    from orb_slam3_fast_tpu_torch.slam.system import System
+
+    slam = System(SYS_CONFIG, "stereo-inertial", device=device)
+    slam.tracker.icfg = slam.tracker.icfg._replace(init_min_kfs=8, init_min_time=1.0)
+    b = slam.backend
+    states, t0 = [], time.perf_counter()
+    for i, ((img_l, img_r), samples) in enumerate(zip(frames, imu_slices(imu, len(frames)))):
+        wait = t0 + i * 0.05 - time.perf_counter()
+        if wait > 0:
+            time.sleep(wait)
+        states.append(slam.track_stereo(img_l, img_r, i * 0.05, imu=samples)[0])
+    drained = b.wait_idle(timeout=120)
+    slam.shutdown()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    summary = dict(state=slam.get_tracking_state(), tracked=sum(s == "OK" for s in states), drained=drained,
+                   errors=len(b.errors), imu_initialized=bool(slam.world.imu_initialized), n_kf=slam.world.n_kf,
+                   local_ba=slam.mapper.n_local_ba, error=b.errors[0] if b.errors else None)
+    if not (drained and not b.errors and summary["imu_initialized"]):
+        raise RuntimeError(f"default stereo-inertial System gates failed: {summary}")
+    return slam, summary
+
+
+def run_merge_inertial(device):
+    """Phase 12 (d): MergeInertialBA (the inertial tracker's
+    _merge_inertial_ba, kernel Y) on tests/test_vi_ba_cg.py:208's welded
+    map, with that test's gates: the window covers both sides of the weld,
+    the source window's position error halves, velocities within 0.06 m/s
+    and biases within 0.02 of the truth, the velocity across the weld
+    within 0.15 m/s of the finite difference.  Returns a summary."""
+    w, R_gt, p_gt, v_gt = welded_world(device)
+    err0 = np.linalg.norm(body_positions(w, 20) - p_gt, axis=1)[14:20]
+    real = inertial_tracker(w, device)._merge_inertial_ba(w, k_new=19, c2=8)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    p_wb = body_positions(w, 20)
+    err1 = np.linalg.norm(p_wb - p_gt, axis=1)[14:20]
+    v_err = float(np.linalg.norm(w.kf_vel[14:20] - v_gt[14:20], axis=1).max())
+    v_fd = (p_wb[15] - p_wb[13]) / float(w.kf_ts[15] - w.kf_ts[13])
+    summary = dict(window=None if real is None else [int(r) for r in real], err0=float(err0.max()),
+                   err1=float(err1.max()), v_err=v_err, bias=float(np.abs(w.kf_bias[14:20]).max()),
+                   v_weld=float(np.linalg.norm(w.kf_vel[14] - v_fd)))
+    if not (real is not None and any(r >= 14 for r in real) and any(r <= 9 for r in real)
+            and summary["err1"] < 0.5 * summary["err0"] and v_err < 0.06 and summary["bias"] < 0.02
+            and summary["v_weld"] < 0.15):
+        raise RuntimeError(f"MergeInertialBA on the welded map: {summary}")
+    return summary
+
+
 def stage_split(rig: Rig, device) -> dict:
     """Per-stage CUDA-event times of the step on one frame."""
     from orb_slam3_fast_tpu_torch.ops import extractor as ext
@@ -2803,7 +3385,7 @@ def stage_split(rig: Rig, device) -> dict:
 WRAPPER_NAMES = ("fast_nms", "orb_describe", "hamming_best2", "pose_lm", "ba_blocks", "ba_schur", "triangulate_dlt",
                  "pyramid_blur", "select_subpixel", "stereo_subpixel_refine", "visible_landmarks", "twoview_ransac",
                  "vocab_transform", "pnp_ransac", "sim3_ransac", "sim3_refine", "sim3_graph", "ba_pcg", "sim3_pcg",
-                 "imu_preint", "pose_inertial", "imu_init", "vi_ba")
+                 "imu_preint", "pose_inertial", "imu_init", "vi_ba", "pose_graph4", "vi_pcg")
 VI_KERNELS = ("imu_preint", "pose_inertial", "imu_init", "vi_ba")  # V, W, X, Y: the inertial path
 SYSTEM_KERNELS = WRAPPER_NAMES[:11]  # the stereo System runs A-L, N to index its keyframes, and not M or P
 STEP_KERNELS = ("fast_nms", "orb_describe", "hamming_best2", "pose_lm", "pyramid_blur", "select_subpixel",
@@ -2833,7 +3415,7 @@ def wrappers() -> dict:
     from orb_slam3_fast_tpu_torch.ops import hamming as ham
     from orb_slam3_fast_tpu_torch.ops import matching as mat
     from orb_slam3_fast_tpu_torch.ops import twoview
-    from orb_slam3_fast_tpu_torch.optim import ba, ba_cg, imu_init, inertial, pnp, pose_opt, sim3, vi_ba
+    from orb_slam3_fast_tpu_torch.optim import ba, ba_cg, imu_init, inertial, pnp, pose_opt, sim3, vi_ba, vi_ba_cg
     from orb_slam3_fast_tpu_torch.optim import pose_graph as pg
     from orb_slam3_fast_tpu_torch.vocab import vocabulary as voc_mod
 
@@ -2844,7 +3426,7 @@ def wrappers() -> dict:
                                     pnp.pnp_ransac, sim3.sim3_ransac, sim3.optimize_sim3, pg.optimize_sim3_graph,
                                     ba_cg.implicit_schur_solve, pg.optimize_sim3_graph, pre.preintegrate,
                                     inertial.pose_inertial_optimization, imu_init.inertial_only_optimization,
-                                    vi_ba.vi_bundle_adjust)))
+                                    vi_ba.vi_bundle_adjust, pg.optimize_4dof_graph, vi_ba_cg.lm_segment_vi)))
 
 
 def reset_counts() -> None:
@@ -2905,6 +3487,7 @@ def main() -> int:
     kernels = compare_kernels(device)
     system_kernels, c_modes = compare_system_kernels(device)
     kernels += system_kernels + compare_mono_kernels(device) + compare_loop_kernels(device) + compare_vi_kernels(device)
+    kernels += compare_inertial_loop_kernels(device)
     e_entry, t_entry = (next(k for k in kernels if k["name"] == name) for name in ("ba_blocks", "ba_pcg"))
     e_entry["shapes"] += t_entry.pop("e_gba")
     c = next(k for k in kernels if k["name"] == "hamming_best2")
@@ -3156,6 +3739,49 @@ def main() -> int:
         f"every frame tracked, V launched on every frame after the first)")
     log(f"phase 11: {time.perf_counter() - t0:.1f} s")
 
+    # 12. inertial loop closing (before phase 8 too): (a) the stereo-inertial System with loop closing on the
+    # circle, (b) its first correction rerun on the card from a snapshot, (c) the default inertial constructor,
+    # (d) MergeInertialBA on the welded map
+    t0 = time.perf_counter()
+    vil_in = vi_loop_frames()
+    log(f"12 stereo-inertial circle: {LOOP_FRAMES} stereo pairs rendered on the host in {time.perf_counter() - t0:.1f} s")
+    reset_counts()
+    t1 = time.perf_counter()
+    slam_v, summary_v, snapshot = run_vi_loop(*vil_in, device)
+    vil_s = time.perf_counter() - t1
+    launches_vil = read_counts()
+    check_vi_loop(summary_v, launches_vil)
+    spans, lspans = slam_v.timers.spans, slam_v.loopcloser.timers.spans
+    closing = int(np.argmax(spans["track_total"]))
+    log(f"12 (a) stereo-inertial System with loop closing: {summary_v}, {vil_s:.2f} s for {LOOP_FRAMES} frames "
+        f"(gates: final OK, > 120 tracked, IMU initialised, >= 1 loop, unscaled ATE < {VI_LOOP_MAX_ATE} m; Z and AA "
+        "launched, S, U, T not)")
+    log(f"12 (a) track_total ms per frame: {[round(x, 3) for x in spans['track_total']]}")
+    log(f"12 (a) slowest frame {closing}: {spans['track_total'][closing]:.3f} ms; loop spans: " +
+        ", ".join(f"{k} {[round(x, 3) for x in v]}" for k, v in lspans.items() if k not in ("loop_detect", "loop_verify")))
+    log(f"launches in 12 (a): {launches_vil}")
+    reset_counts()
+    card_fix = correct_from_snapshot(snapshot, device)
+    log(f"12 (b) the first loop correction (keyframe {snapshot['args'][0]} <-> {snapshot['args'][1]}) rerun on the card "
+        f"from its snapshot: {card_fix.n_kf} keyframes")
+    reset_counts()
+    slam_c, summary_c = run_default_vi(*vi_runs["stereo"][0], device)
+    launches_vic = read_counts()
+    on_tracker = {n: wrappers()[n].launches.total(thread="MainThread") for n in VI_KERNELS}
+    if min(on_tracker.values()) < 1:
+        raise RuntimeError(f"12 (c): V-Y on the tracker thread {on_tracker}")
+    log(f"12 (c) default stereo-inertial System (async) on phase 11 (b)'s corridor at 20 fps: {summary_c} (gates: "
+        f"drained in 120 s, no error, IMU initialised; V-Y on the tracker thread {on_tracker})")
+    log(f"launches in 12 (c): {launches_vic}")
+    reset_counts()
+    summary_d = run_merge_inertial(device)
+    launches_vid = read_counts()
+    if launches_vid["vi_ba"] < 1:
+        raise RuntimeError(f"12 (d): Y never launched ({launches_vid})")
+    log(f"12 (d) MergeInertialBA on the welded map: {summary_d} (gates: the window over both sides, position error "
+        "halved, velocities < 0.06 m/s, biases < 0.02, the weld's velocity < 0.15 m/s)")
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+
     # 8. the plain (CPU) step, which the tests hold against the JAX package,
     # agrees with the card on frame 1 at 640x480.  Last, because the host
     # threads it starts would slow the timed phases above.
@@ -3189,6 +3815,11 @@ def main() -> int:
         log(f"11 (c) plain {sensor}-inertial System on the host against the card: {summary}, {len(bad)} failing "
             f"({time.perf_counter() - t0:.1f} s)")
         failures += [f"{sensor}-inertial System {b}" for b in bad]
+    t0 = time.perf_counter()  # 12 (b): the loop correction from the snapshot on the host
+    bad, summary = compare_corrections(card_fix, correct_from_snapshot(snapshot, cpu))
+    log(f"12 (b) the loop correction from the snapshot, the host's plain path against the card: {summary} (bounds "
+        f"{VI_CORRECTION_BOUNDS}), {len(bad)} failing ({time.perf_counter() - t0:.1f} s)")
+    failures += [f"12 (b) loop correction {b}" for b in bad]
     t0 = time.perf_counter()
     plain_reloc, _, plain_reloc_sum = run_reloc(mono_in, mono_poses, cpu)
     bad, summary = compare_tracks(reloc_track, plain_reloc)
@@ -3207,10 +3838,12 @@ def main() -> int:
             "mono_system": mono_launches, "relocalisation": reloc_launches, "loop": loop_launches,
             "atlas": atlas_launches, "default_stereo": launches_a10, "default_loop": launches_b10,
             "loop_pcg": launches_c10, "distorted_mono": launches_d10, "gba_thread": launches_e10,
-            "vi_mono": vi_runs["monocular"][2], "vi_stereo": vi_runs["stereo"][2], "vi_rgbd": launches_r}
+            "vi_mono": vi_runs["monocular"][2], "vi_stereo": vi_runs["stereo"][2], "vi_rgbd": launches_r,
+            "vi_loop": launches_vil, "default_vi": launches_vic, "merge_inertial": launches_vid}
     main_run = {"twoview_ransac": "mono_system", "vocab_transform": "mono_system", "pnp_ransac": "relocalisation",
                 "sim3_ransac": "loop", "sim3_refine": "loop", "sim3_graph": "loop", "ba_pcg": "loop",
-                "sim3_pcg": "loop_pcg", **{name: "vi_mono" for name in VI_KERNELS}}
+                "sim3_pcg": "loop_pcg", **{name: "vi_mono" for name in VI_KERNELS}, "pose_graph4": "vi_loop",
+                "vi_pcg": "vi_loop"}
     for k in kernels:
         k["launches"] = runs[main_run.get(k["name"], "stereo_system")][k["name"]]
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in runs.items()}

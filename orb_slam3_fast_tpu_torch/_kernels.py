@@ -94,6 +94,9 @@ SIGNATURES = {
     # vertices, edge_i, edge_j, meas, w, fixed, vptr, vlist, K, E, iters,
     # cg_iters, damping, vertices_out, jac, blk, dinv, vec, cg_run, fail, stream
     "sim3_pcg_launch": [_P] * 8 + [_I] * 4 + [_D] + [_P] * 8,
+    # vertices, edge_i, edge_j, meas, w, fixed, vptr, vlist, K, E, iters, pcg, cg_iters, damping,
+    # vertices_out, jac, H, vec, cg_run, fail, stream
+    "pose_graph4_launch": [_P] * 8 + [_I] * 5 + [_D] + [_P] * 7,
     # Hpp, Hll, bp, bl, W, w_lm, pose_fixed, lm_valid, obs_kf, obs_lm,
     # lm_ptr, lm_obs, kf_ptr, kf_obs, lam, K, M, O, cg_iters, scratch, dp,
     # dl, stream
@@ -111,6 +114,10 @@ SIGNATURES = {
     # is_stereo, obs_valid, edge_i, edge_j, edge_valid, pk, lm_ptr, lm_obs, kf_ptr, kf_obs, ke_ptr, ke_edge,
     # free_ids, free_pos, nf, iters1, iters2, scratch, state_out, xw_out, inlier, stream
     "vi_ba_launch": [_P, _I, _P] + [_I] * 4 + [_P] * 25 + [_I] * 3 + [_P] * 5,
+    # cam10, dist, tcb, K, M, O, E, R, p, v, bias, fixed, xw, lm_valid, obs_kf, obs_lm, uv, inv_sigma2,
+    # is_stereo, obs_valid, edge_i, edge_j, edge_valid, pk, lm_ptr, lm_obs, kf_ptr, kf_obs, ke_ptr, ke_edge,
+    # inlier, n_iters, cg_iters, scratch, lam_io, state_out, xw_out, inlier_out, stream
+    "vi_pcg_launch": [_P, _I, _P] + [_I] * 4 + [_P] * 24 + [_I] * 2 + [_P] * 6,
 }
 
 

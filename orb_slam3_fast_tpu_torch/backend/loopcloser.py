@@ -16,17 +16,21 @@ LoopClosing thread, run synchronously per keyframe):
 * CorrectLoop (:1063-1345) -> :meth:`_correct`: Sim3 propagation over the
   covisible window, ``correct_landmarks``, the duplicate fusion, the
   essential graph (``optimize_sim3_graph``: kernel S, kernel U above 128
-  keyframes) and the global BA (``Mapper._run_gba``: kernels E and T);
+  keyframes; an inertial map's 4-DoF graph, ``optimize_4dof_graph``:
+  kernel Z, OptimizeEssentialGraph4DoF) and the global BA
+  (``Mapper._run_gba``: kernels E and T; an inertial map's FullInertialBA,
+  ``inertial_gba``: kernel AA);
 * MergeLocal (:1347-1930) -> :meth:`_merge`: ``Atlas.merge_into``, the
-  welding-window fusion and a local BA (kernels E and F).
+  welding-window fusion, a local BA (kernels E and F) and, for an inertial
+  map, MergeInertialBA (``merge_inertial_ba``, falling back to
+  ``inertial_ba`` when it finds no window: kernel Y).
 
 The map stays on the host; matching and the solvers run on ``device`` (the
 mapper's).  On the async backend (``backend/pipeline.py``) this runs on
 its worker thread after the mapper, and ``gba_hook``, set by the backend,
 hands the global BA to its GBA thread; without a backend the global BA
-runs inline.  Not ported yet: the inertial hooks (``inertial_ba``,
-``inertial_gba``, ``merge_inertial_ba``) stay None and an inertial map's
-4-DoF essential graph raises (ROADMAP §A item 10, second part).
+runs inline.  The inertial hooks (``inertial_ba``, ``inertial_gba``,
+``merge_inertial_ba``) are the inertial tracker's, wired by the System.
 """
 from __future__ import annotations
 
@@ -101,8 +105,10 @@ class LoopCloser:
         self.last_verified_kf = -1
         self.n_loops_closed = 0
         self.n_maps_merged = 0
-        # the inertial hooks (MergeInertialBA, FullInertialBA), wired by the
-        # inertial System; nothing reads them before ROADMAP §A item 10's second part
+        # the inertial hooks, wired by the inertial System: the tracker's windowed
+        # VI-BA ``inertial_ba(world, k, window=None)``, FullInertialBA
+        # ``inertial_gba(world, fixed_ids, map_lock=, abort_flag=) -> bool`` and
+        # MergeInertialBA ``merge_inertial_ba(world, k_new, c2)`` (None: no window)
         self.inertial_ba = None
         self.inertial_gba = None
         self.merge_inertial_ba = None
@@ -211,8 +217,6 @@ class LoopCloser:
         """Weld the active map into the matched stored map (MergeLocal,
         LoopClosing.cc:1347-1930): transplant the arrays by the world-to-world
         Sim3, fuse duplicates in the welding window, local BA of the weld."""
-        if world2.imu_initialized:
-            raise NotImplementedError("MergeInertialBA waits for ROADMAP §A item 10, second part")
         # x_dst = T_c2w2^-1 o S_kc^-1 o T_c1w1 (x_src)
         S_kc = _host_sim3(S_kc)
         T_c1w1 = _sim3_of(world.kf_R[k], world.kf_t[k])
@@ -225,6 +229,14 @@ class LoopCloser:
         touched = np.unique(dst.kf_obs[k_new][dst.kf_obs[k_new] >= 0])
         dst.update_landmark_stats(touched)
         self.mapper._local_ba(dst, k_new)
+        # MergeLocal2 / MergeInertialBA (LoopClosing.cc:1932, Optimizer.cc:3996): an inertial map's weld is
+        # rigid (_verify fixed the scale) and the 6+6 welding window is re-optimised with each side's chain;
+        # where that finds no window the newest keyframes' temporal window is (the JAX package skips the
+        # fallback once merge_inertial_ba is set, and so leaves such a weld without an inertial BA)
+        if dst.imu_initialized:
+            done = self.merge_inertial_ba(dst, k_new, c2) if self.merge_inertial_ba is not None else None
+            if done is None and self.inertial_ba is not None:
+                self.inertial_ba(dst, k_new)
         info["S_dst_src"] = S_w2w1
         info["dst_id"] = dst_id
         info["src_id"] = src_id
@@ -479,12 +491,26 @@ class LoopCloser:
             self._essential_graph(world, k, c, K, R_old, t_old, s_old, R_init, t_init, s_init)
         if not cfg.run_gba:
             return
-        # global BA (:1327-1334) over every live keyframe, landmark and observation
-        kf_ids = np.nonzero(world.kf_valid[:K])[0]
+        # global BA (:1327-1334) over every live keyframe, landmark and observation; an inertial map's is
+        # FullInertialBA over the whole chain too (RunGlobalBundleAdjustment, LoopClosing.cc:2065 ->
+        # Optimizer.cc:1276), or, without that hook, the tracker's windowed VI-BA over every keyframe
+        if world.imu_initialized and self.inertial_gba is not None:
+            ig = self.inertial_gba
 
-        def gba_thunk(abort_flag=None, map_lock=None, _ids=kf_ids, _c=c):
-            return self.mapper._run_gba(world, _ids, fixed=np.asarray([_c]), iters=cfg.gba_iters, map_lock=map_lock,
-                                        abort_flag=abort_flag, distributed=True)
+            def gba_thunk(abort_flag=None, map_lock=None, _c=c):
+                return ig(world, fixed_ids=np.asarray([_c]), map_lock=map_lock, abort_flag=abort_flag)
+        elif world.imu_initialized and self.inertial_ba is not None:
+            ib = self.inertial_ba
+
+            def gba_thunk(abort_flag=None, map_lock=None, _K=K):
+                ib(world, _K - 1, window=_K)
+                return True
+        else:
+            kf_ids = np.nonzero(world.kf_valid[:K])[0]
+
+            def gba_thunk(abort_flag=None, map_lock=None, _ids=kf_ids, _c=c):
+                return self.mapper._run_gba(world, _ids, fixed=np.asarray([_c]), iters=cfg.gba_iters,
+                                            map_lock=map_lock, abort_flag=abort_flag, distributed=True)
 
         with self.timers.span("loop_gba"):
             if self.gba_hook is not None:
@@ -526,10 +552,10 @@ class LoopCloser:
         before the correction, initial values after it, the loop candidate
         fixed.  The graph is not padded (the JAX package pads the vertices and
         edges to powers of two against recompiles; a padded vertex is fixed
-        and touched by no edge, so the solution is the same)."""
-        if world.imu_initialized:
-            raise NotImplementedError("the 4-DoF essential graph of an inertial map waits for ROADMAP §A item 10, "
-                                      "second part")
+        and touched by no edge, so the solution is the same).  An inertial
+        map takes the 4-DoF graph (yaw and translation; LoopClosing.cc:
+        1288-1306 routes to OptimizeEssentialGraph4DoF, Optimizer.cc:1830):
+        gravity's direction and the scale are the IMU's."""
         cfg = self.cfg
         pairs = [(i, i - 1) for i in range(1, K)]
         C = native.covis_matrix(world.kf_obs[:K], world.max_lm)
@@ -561,10 +587,15 @@ class LoopCloser:
         fixed = np.zeros(K, bool)
         fixed[c] = True
         d = self._dev
-        g = pg.Sim3Graph(R=d(R_init[:K]), t=d(t_init[:K]), s=d(s_init[:K]), edge_i=d(ei), edge_j=d(ej), meas_R=d(mR),
-                         meas_t=d(mt), meas_s=d(ms), edge_valid=d(np.ones(E, bool)), fixed=d(fixed),
-                         edge_w=d(np.ones(E, np.float32)))
-        Rn, tn, sn = (x.cpu().numpy() for x in pg.optimize_sim3_graph(g, iters=cfg.pose_graph_iters)[:3])
+        common = dict(edge_i=d(ei), edge_j=d(ej), meas_R=d(mR), meas_t=d(mt), edge_valid=d(np.ones(E, bool)),
+                      fixed=d(fixed), edge_w=d(np.ones(E, np.float32)))
+        if world.imu_initialized:
+            g4 = pg.SE3Graph(R=d(R_init[:K]), t=d(t_init[:K]), **common)
+            Rn, tn = (x.cpu().numpy() for x in pg.optimize_4dof_graph(g4, iters=cfg.pose_graph_iters)[:2])
+            sn = np.ones(K, np.float32)
+        else:
+            g = pg.Sim3Graph(R=d(R_init[:K]), t=d(t_init[:K]), s=d(s_init[:K]), meas_s=d(ms), **common)
+            Rn, tn, sn = (x.cpu().numpy() for x in pg.optimize_sim3_graph(g, iters=cfg.pose_graph_iters)[:3])
         Rn = lie.normalize_rotation_np(Rn)
         # every landmark moves with its reference keyframe's Sim3 change (:1780)
         lm_ids = np.nonzero(world.lm_valid[: world.n_lm])[0]

@@ -873,6 +873,8 @@ class Tracker:
             self.world.add_observations(k, slots, last.obs_lm[slots])
             if last.depth is not None:
                 self._create_stereo_landmarks(k, last)
+            if self.backend is not None:
+                self._keyframe_state(k)  # what a subclass keeps per keyframe, in the map before the worker sees k
         self._index_kf(k, last.kp)  # KeyFrameDatabase::add, at insertion
         self.ref_kf = k
         self.frames_since_kf = 0
@@ -897,6 +899,10 @@ class Tracker:
             # tracking goes on from the (BA- or loop-) adjusted keyframe pose
             self.last.R = self.world.kf_R[k].copy()
             self.last.t = self.world.kf_t[k].copy()
+
+    def _keyframe_state(self, k: int) -> None:
+        """Store a subclass's per-keyframe state for keyframe k (nothing
+        here; the inertial tracker's window, velocity and bias)."""
 
     def _create_stereo_landmarks(self, k: int, last: FrameState):
         """Landmarks for the closest unmatched points with depth (at most

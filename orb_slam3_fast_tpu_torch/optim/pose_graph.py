@@ -10,7 +10,8 @@ evaluates all edge residuals and both 7x7 Jacobians at once, and
 ``DENSE_MAX_K`` vertices and by block-Jacobi PCG on the implicit edge
 operator above (``_FORCE_CG`` takes the PCG branch at any size).  The
 yaw-only 4-DoF graph of inertial maps (``SE3Graph``,
-``optimize_4dof_graph``) waits for ROADMAP §A item 10's second part.
+``optimize_4dof_graph``; OptimizeEssentialGraph4DoF, Optimizer.cc:
+5358-5686) takes the same solve with 4x4 blocks and 6-row residuals.
 
 The JAX package takes both Jacobians with ``jax.jacfwd``; the plain
 version here takes them in forward mode too: one ``torch.func.jvp`` over
@@ -48,6 +49,34 @@ Kernel S -- source note.
   a flag.  (3) One thread per vertex: ``S <- sim3_exp(dx) S`` in float64
   and R re-orthonormalised by the 3x3 SVD.  Every sum has a fixed order,
   so a run repeats bit for bit.
+
+Kernel Z -- source note.
+  Replaces: ``optimize_4dof_graph`` with both branches of
+  ``_solve_normal_eqs`` at D = 4 (``orb_slam3_fast_tpu/optim/
+  pose_graph.py:224`` and ``:41-123``, K20's 4-DoF form): 12 Gauss-Newton
+  iterations of a vmapped ``jax.jacfwd`` through ``_yaw_update``, compose
+  and ``se3_log`` per edge (a 6-D residual, two 6x4 Jacobians), then a
+  float32 LU of the (4K)^2 system for K <= 128, block-Jacobi PCG with
+  ``max(64, min(512, K // 4))`` CG iterations above.
+  Bound on the card: latency.  Per iteration a few hundred edges of ~5000
+  flops each with their derivatives, a (4K)^2 Cholesky (4K = 280 at K =
+  70: 7e6 flops in 280 dependent column steps) or the dependent CG
+  iterations of 4x4 block mat-vecs.
+  Design: one C entry point for the 12 iterations.  (1) One warp per edge:
+  lane d < 8 evaluates ``log_SE3(T_ij T_jw' T_iw'^-1)`` at 0 in float64
+  dual numbers along direction d (dx_i's for d < 4, dx_j's after), so its
+  branches follow ``jacfwd``'s, as kernel S's lanes do (``csrc/
+  sim3.cuh``'s so3_exp / so3_log, the Jacobian inverse of ``lie.
+  so3_right_jacobian_inv`` with its Taylor branch).  (2) Dense (K <= 128,
+  not ``_FORCE_CG``): kernel S's solve at 4x4 blocks, one CTA: the normal
+  matrix in global memory, the edges added in order, the gauge, a float64
+  Cholesky and two substitutions.  PCG: kernel U's at 4x4 blocks: per-edge
+  blocks, per-vertex sums over ``vertex_csr`` and Gauss-Jordan inverses,
+  the CG loop in one CTA with the vectors in L2.  (3) One thread per
+  vertex: ``_yaw_update`` in float64 and R re-orthonormalised by the 3x3
+  SVD.  Kernels S and U are untouched (Z keeps its own solve, so their
+  readings stay bit-equal).  Every sum has a fixed order: a run repeats
+  bit for bit.
 
 Kernel U -- source note.
   Replaces: the PCG branch of ``_solve_normal_eqs``
@@ -318,6 +347,131 @@ def optimize_sim3_graph(g: Sim3Graph, iters: int = 12, damping: float = 1e-6) ->
 
 
 optimize_sim3_graph.launches = _kernels.LaunchCounter()  # by mode: "dense" (kernel S), "pcg" (kernel U)
+
+
+# ---------------------------------------------------------------------------
+# 4-DoF variant (yaw + translation; inertial maps, gravity-aligned gauge)
+# ---------------------------------------------------------------------------
+
+
+class SE3Graph(NamedTuple):
+    """4-DoF pose-graph problem: K vertices T_iw, E edges T_ij."""
+
+    R: torch.Tensor  # (K,3,3) T_iw
+    t: torch.Tensor  # (K,3)
+    edge_i: torch.Tensor  # (E,) int
+    edge_j: torch.Tensor  # (E,) int
+    meas_R: torch.Tensor  # (E,3,3) T_ij, mapping the j frame into the i frame
+    meas_t: torch.Tensor  # (E,3)
+    edge_valid: torch.Tensor  # (E,) bool
+    fixed: torch.Tensor  # (K,) bool
+    edge_w: torch.Tensor  # (E,) float32
+
+
+def _yaw_update(dx, R, t):
+    """VertexPose4DoF::oplusImpl (G2oTypes.h:155-183), batched: the world
+    frame turned by the yaw dx[3] about gravity (z) and shifted by dx[:3]:
+    R' = R Rz^T, t' = t - R' dx[:3]."""
+    cy, sy = torch.cos(dx[..., 3]), torch.sin(dx[..., 3])
+    zero, one = torch.zeros_like(cy), torch.ones_like(cy)
+    RzT = torch.stack([torch.stack([cy, sy, zero], -1), torch.stack([-sy, cy, zero], -1),
+                       torch.stack([zero, zero, one], -1)], -2)
+    Rn = R @ RzT
+    return Rn, t - torch.einsum("...ij,...j->...i", Rn, dx[..., :3])
+
+
+def _edge_residual_4dof(dxi, dxj, Ri, ti, Rj, tj, mR, mt) -> torch.Tensor:
+    """Edge4DoF (G2oTypes.h:783-818): e = log_SE3(T_ij T_jw T_iw^-1)."""
+    Ti = lie.SE3(*_yaw_update(dxi, Ri, ti))
+    Tj = lie.SE3(*_yaw_update(dxj, Rj, tj))
+    return lie.se3_log(lie.SE3(mR, mt).compose(Tj).compose(Ti.inverse()))
+
+
+def edge_jacobians_4dof(R, t, g: SE3Graph):
+    """Residuals (E,6) and Jacobians J_i, J_j (E,6,4) of every 4-DoF edge at
+    the vertices (R, t), in forward mode over 8 copies of the edge list
+    (copy d carries direction d: dx_i's for d < 4, dx_j's after)."""
+    E = g.edge_i.shape[0]
+    ei, ej = g.edge_i.long().repeat(8), g.edge_j.long().repeat(8)
+    mR, mt = g.meas_R.repeat(8, 1, 1), g.meas_t.repeat(8, 1)
+    zero = torch.zeros((8 * E, 4), dtype=t.dtype, device=t.device)
+    eye = torch.eye(4, dtype=t.dtype, device=t.device).repeat_interleave(E, dim=0)  # (4E,4): row d*E+e is e_d
+    tan_i = torch.cat([eye, torch.zeros_like(eye)])
+    tan_j = torch.cat([torch.zeros_like(eye), eye])
+    r, dr = torch.func.jvp(lambda dxi, dxj: _edge_residual_4dof(dxi, dxj, R[ei], t[ei], R[ej], t[ej], mR, mt),
+                           (zero, zero), (tan_i, tan_j))
+    dr = dr.view(2, 4, E, 6).permute(0, 2, 3, 1)  # (end, edge, residual row, direction)
+    return r[:E], dr[0], dr[1]
+
+
+def optimize_4dof_graph_plain(g: SE3Graph, iters: int = 12, damping: float = 1e-6):
+    """Plain version of kernel Z: Gauss-Newton on the 4-DoF pose graph, the
+    solve dense or PCG as ``_solve_normal_eqs`` picks.  Returns (R, t)."""
+    R, t = g.R, g.t
+    w = g.edge_valid.to(t.dtype) * g.edge_w
+    for _ in range(iters):
+        r, Ji, Jj = edge_jacobians_4dof(R, t, g)
+        dx = _solve_normal_eqs(r, Ji, Jj, g.edge_i, g.edge_j, w, g.fixed, damping).to(t.dtype)
+        Rn, t = _yaw_update(dx, R, t)
+        R = lie.normalize_rotation(Rn)
+    return R, t
+
+
+class SE3GraphResult(NamedTuple):
+    R: torch.Tensor  # (K,3,3)
+    t: torch.Tensor  # (K,3)
+    ok: torch.Tensor  # () bool: False where a solve failed (as Sim3GraphResult.ok)
+    cg_run: torch.Tensor | None  # (iters,) int32: the CG iterations each step of the PCG branch ran; None elsewhere
+
+
+def optimize_4dof_graph(g: SE3Graph, iters: int = 12, damping: float = 1e-6) -> SE3GraphResult:
+    """Gauss-Newton on the 4-DoF pose graph.  Returns the updated (R, t),
+    ``ok`` and, on the PCG branch of the card, the CG iterations each step
+    ran.  Kernel Z on CUDA tensors (its dense solve for at most
+    ``DENSE_MAX_K`` vertices unless ``_FORCE_CG``, its PCG above); the
+    plain version on CPU ones."""
+    if g.R.device.type == "cpu":
+        R, t = optimize_4dof_graph_plain(g, iters, damping)
+        return SE3GraphResult(R, t, torch.isfinite(R).all() & torch.isfinite(t).all(), None)
+    return _kernel_4dof(g, iters, damping)
+
+
+def _kernel_4dof(g: SE3Graph, iters: int, damping: float) -> SE3GraphResult:
+    K, E = g.R.shape[0], g.edge_i.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    w = (g.edge_valid.to(f32) * g.edge_w.to(f32)).contiguous()
+    ei, ej = g.edge_i.to(i32).contiguous(), g.edge_j.to(i32).contiguous()
+    meas = torch.cat([g.meas_R.reshape(E, 9), g.meas_t.reshape(E, 3)], 1).to(f32).contiguous()
+    verts = torch.cat([g.R.reshape(K, 9), g.t.reshape(K, 3)], 1).to(f32).contiguous()
+    _kernels.require_cuda("optimize_4dof_graph", vertices=(verts, f32), edge_i=(ei, i32), edge_j=(ej, i32),
+                          meas=(meas, f32), w=(w, f32), fixed=(g.fixed, torch.bool))
+    if g.fixed.shape != (K,) or ej.shape != (E,) or w.shape != (E,):
+        raise ValueError("optimize_4dof_graph: needs (K,) fixed flags and (E,) edges and weights")
+    dev = g.R.device
+    pcg = K > DENSE_MAX_K or _FORCE_CG
+    out = torch.empty_like(verts)
+    jac = torch.empty((E, 54), dtype=torch.float64, device=dev)  # r (6) | J_i^T (4x6) | J_j^T (4x6) per edge
+    fail = torch.zeros((), dtype=i32, device=dev)
+    n = 4 * K
+    vptr, vlist = vertex_csr(ei, ej, K) if pcg else (ei, ei)  # the dense solve reads no vertex lists
+    if pcg:
+        H = torch.empty((E, 3 * 16 + 8), dtype=torch.float64, device=dev)  # per edge H_ii | H_jj | H_ij | b_i | b_j
+        vec = torch.empty(6 * n + 16 * K, dtype=torch.float64, device=dev)  # b | x | r | z | p | Ap | D^-1
+    else:
+        H = torch.empty((n, n), dtype=torch.float64, device=dev)
+        vec = torch.empty(2 * n, dtype=torch.float64, device=dev)  # b | dx
+    cg_run = torch.zeros(iters, dtype=i32, device=dev)
+    _kernels.launch(
+        "pose_graph4_launch", dev, verts.data_ptr(), ei.data_ptr(), ej.data_ptr(), meas.data_ptr(), w.data_ptr(),
+        g.fixed.data_ptr(), vptr.data_ptr(), vlist.data_ptr(), K, E, iters, int(pcg), cg_iterations(K),
+        float(damping), out.data_ptr(), jac.data_ptr(), H.data_ptr(), vec.data_ptr(), cg_run.data_ptr(),
+        fail.data_ptr(),
+    )
+    optimize_4dof_graph.launches.add("pcg" if pcg else "dense")
+    return SE3GraphResult(out[:, :9].view(K, 3, 3), out[:, 9:12], fail == 0, cg_run if pcg else None)
+
+
+optimize_4dof_graph.launches = _kernels.LaunchCounter()  # kernel Z, by mode: "dense", "pcg"
 
 
 def correct_landmarks(lm_pos, ref_kf, R_old, t_old, s_old, R_new, t_new, s_new):

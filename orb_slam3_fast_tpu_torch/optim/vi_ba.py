@@ -104,7 +104,11 @@ def _chi2_delta2(r, prob: VIBAProblem):
     return chi2, delta2
 
 
-def _visual_blocks(cam, bf, T_cb, R_wb, p_wb, xw, prob: VIBAProblem, inlier, with_blocks=True):
+def _visual_blocks(cam, bf, T_cb, R_wb, p_wb, xw, prob: VIBAProblem, inlier, with_blocks=True, per_obs=False):
+    """The reprojection factors' normal-equation pieces (Hpp, Hll, bp, bl,
+    the coupling, w_lm, cost): the coupling as the dense Z (M,K,6,3), or
+    with ``per_obs`` as each observation's W (O,6,3) (the CG form's); with
+    ``with_blocks`` False the robust cost alone."""
     K, M = R_wb.shape[0], xw.shape[0]
     R_cw, t_cw = inr.camera_pose(T_cb, R_wb, p_wb)
     xo = xw[prob.obs_lm]
@@ -131,9 +135,11 @@ def _visual_blocks(cam, bf, T_cb, R_wb, p_wb, xw, prob: VIBAProblem, inlier, wit
     bp = torch.zeros((K, 6), dtype=f32, device=dev).index_add_(0, prob.obs_kf, -torch.einsum("oij,o,oi->oj", Jp, w, r))
     bl = torch.zeros((M, 3), dtype=f32, device=dev).index_add_(0, prob.obs_lm, -torch.einsum("oij,o,oi->oj", Jl, w, r))
     Wob = torch.einsum("oij,o,oik->ojk", Jp, w, Jl)
+    w_lm = torch.zeros(M, dtype=f32, device=dev).index_add_(0, prob.obs_lm, w)
+    if per_obs:
+        return Hpp, Hll, bp, bl, Wob, w_lm, cost
     Z = torch.zeros((M, K, 6, 3), dtype=f32, device=dev).index_put_((prob.obs_lm.long(), prob.obs_kf.long()), Wob,
                                                                    accumulate=True)
-    w_lm = torch.zeros(M, dtype=f32, device=dev).index_add_(0, prob.obs_lm, w)
     return Hpp, Hll, bp, bl, Z, w_lm, cost
 
 
@@ -147,10 +153,12 @@ def _edge_factors(prob: VIBAProblem, R_wb, p_wb, v_w, bias, D=None):
     return torch.cat([inr.inertial_residual(si, sj, prob.preint), sj.bias - si.bias], -1)
 
 
-def _inertial_blocks(prob: VIBAProblem, R_wb, p_wb, v_w, bias, with_blocks=True):
-    """The dense (K,S,K,S) terms, gradient and cost of the inertial and bias
-    random-walk chain."""
-    K, E = R_wb.shape[0], prob.edge_i.shape[0]
+def _inertial_edge_terms(prob: VIBAProblem, R_wb, p_wb, v_w, bias, with_blocks=True):
+    """Per edge of the inertial and bias random-walk chain the 15x15 blocks
+    H_ii, H_jj, H_ij and the gradient pieces g_i, g_j (forward-mode
+    Jacobians, a fixed state's columns zeroed), and the chain's cost; with
+    ``with_blocks`` False the cost alone."""
+    E = prob.edge_i.shape[0]
     dev = R_wb.device
     f32 = torch.float32
     info9 = inr.inertial_information(prob.preint)
@@ -173,8 +181,6 @@ def _inertial_blocks(prob: VIBAProblem, R_wb, p_wb, v_w, bias, with_blocks=True)
     mj = (ev * free[j])[:, None, None]
     J_i, J_j = J[:, :9, :S] * mi, J[:, :9, S:] * mj
     Jb_i, Jb_j = J[:, 9:, :S] * mi, J[:, 9:, S:] * mj
-    H = torch.zeros((K, S, K, S), dtype=f32, device=dev)
-    g = torch.zeros((K, S), dtype=f32, device=dev)
     Hii = torch.einsum("eap,eab,ebq->epq", J_i, info9, J_i) + torch.einsum("eap,eab,ebq->epq", Jb_i, walk, Jb_i)
     Hjj = torch.einsum("eap,eab,ebq->epq", J_j, info9, J_j) + torch.einsum("eap,eab,ebq->epq", Jb_j, walk, Jb_j)
     Hij = torch.einsum("eap,eab,ebq->epq", J_i, info9, J_j) + torch.einsum("eap,eab,ebq->epq", Jb_i, walk, Jb_j)
@@ -182,7 +188,20 @@ def _inertial_blocks(prob: VIBAProblem, R_wb, p_wb, v_w, bias, with_blocks=True)
         "eap,eab,eb->ep", Jb_i, walk, rb * ev[:, None])
     gj = -torch.einsum("eap,eab,eb->ep", J_j, info9, r9 * ev[:, None]) - torch.einsum(
         "eap,eab,eb->ep", Jb_j, walk, rb * ev[:, None])
-    for e in range(E):
+    return Hii, Hjj, Hij, gi, gj, cost
+
+
+def _inertial_blocks(prob: VIBAProblem, R_wb, p_wb, v_w, bias, with_blocks=True):
+    """The dense (K,S,K,S) terms, gradient and cost of the inertial and bias
+    random-walk chain."""
+    if not with_blocks:
+        return _inertial_edge_terms(prob, R_wb, p_wb, v_w, bias, with_blocks=False)
+    K, dev = R_wb.shape[0], R_wb.device
+    Hii, Hjj, Hij, gi, gj, cost = _inertial_edge_terms(prob, R_wb, p_wb, v_w, bias)
+    i, j = prob.edge_i.long(), prob.edge_j.long()
+    H = torch.zeros((K, S, K, S), dtype=torch.float32, device=dev)
+    g = torch.zeros((K, S), dtype=torch.float32, device=dev)
+    for e in range(prob.edge_i.shape[0]):
         a, b = int(i[e]), int(j[e])
         H[a, :, a, :] += Hii[e]
         H[b, :, b, :] += Hjj[e]

@@ -25,13 +25,13 @@ the inertial tracker (``frontend/vi_tracker.py``) built from the settings'
 IMU block as the JAX package builds it (System.cc:203, Tracking.cc:567-654):
 the discrete noise from the continuous densities, an IMU bucket from the
 IMU and camera rates, the scale fixed for stereo and RGB-D, ``T_b_c1``;
-``track_*`` take each frame's samples as ``imu=``.  They run the
-synchronous System without loop closing.
+``track_*`` take each frame's samples as ``imu=``.  With loop closing the
+loop closer gets the inertial tracker's hooks (System.cc:150-167 of the
+JAX package): the windowed VI-BA, MergeInertialBA and FullInertialBA; an
+inertial map's loop runs the 4-DoF essential graph.
 
-Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
-§A item: an inertial System with loop closing or the async backend (item
-10's second part), fisheye two-camera stereo (11).  The failure comes at
-construction.
+Not ported yet, raising ``NotImplementedError`` that names ROADMAP §A item
+11: fisheye two-camera stereo.  The failure comes at construction.
 """
 from __future__ import annotations
 
@@ -61,8 +61,6 @@ IMU_MONOCULAR = "monocular-inertial"
 IMU_STEREO = "stereo-inertial"
 IMU_RGBD = "rgbd-inertial"
 
-INERTIAL_WAITING = "ROADMAP §A item 10, second part (inertial loop closing and the async inertial System)"
-
 
 class System:
     def __init__(
@@ -87,9 +85,6 @@ class System:
         if sensor not in (MONOCULAR, STEREO, RGBD, IMU_MONOCULAR, IMU_STEREO, IMU_RGBD):
             raise ValueError(f"unknown sensor {sensor!r}")
         self.inertial = "inertial" in sensor
-        if self.inertial and (enable_loop_closing or async_backend):
-            raise NotImplementedError(f"an inertial System with loop closing or the async backend waits for "
-                                      f"{INERTIAL_WAITING}; pass enable_loop_closing=False, async_backend=False")
         if isinstance(settings, str):
             settings = Settings.from_yaml(settings, sensor=sensor)
         if settings.camera_type == "KannalaBrandt8" and settings.cam2 is not None:
@@ -136,6 +131,14 @@ class System:
                                                                imu_bucket=n_bucket), **common)
         else:
             self.tracker = trk.Tracker(settings.cam, tcfg, **common)
+        if self.inertial and self.loopcloser is not None:
+            # the loop closer's inertial hooks (MergeInertialBA, FullInertialBA, the windowed VI-BA of a map
+            # other than the tracker's, which leaves the tracker's state alone)
+            tracker = self.tracker
+            self.loopcloser.inertial_ba = (
+                lambda w, kn, window=None: tracker._local_inertial_ba(kn, window=window, world=w, sync_tracker=False))
+            self.loopcloser.inertial_gba = tracker._full_inertial_ba
+            self.loopcloser.merge_inertial_ba = tracker._merge_inertial_ba
         self._finished = False
 
     # ------------------------------------------------------------------

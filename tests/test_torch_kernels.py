@@ -265,22 +265,23 @@ def mono_inputs(rng, device):
 def test_build_flags_and_sources():
     srcs = sorted(p.name for p in _kernels.SRC_DIR.glob("*.cu"))
     assert srcs == ["ba_blocks.cu", "ba_pcg.cu", "ba_schur.cu", "common.cu", "fast_nms.cu", "hamming_best2.cu",
-                    "imu_init.cu", "imu_preint.cu", "orb_describe.cu", "pnp_ransac.cu", "pose_inertial.cu", "pose_lm.cu",
-                    "pyramid_blur.cu", "sad_refine.cu", "select_subpixel.cu", "sim3_graph.cu", "sim3_pcg.cu",
-                    "sim3_ransac.cu", "sim3_refine.cu", "triangulate_dlt.cu", "twoview_ransac.cu", "vi_ba.cu",
-                    "visible_landmarks.cu", "vocab_transform.cu"]
-    # the one Jacobi eigen-solver, shared by G, M, P, Q, R, S, T and V; the Sim3 maps and dual numbers, shared by
-    # R, S and U and (through inertial.cuh) W, X and Y; the distorted pin-hole camera, shared by D, E, Q, R, W, Y;
-    # the inertial factors, shared by V, W, X and Y
+                    "imu_init.cu", "imu_preint.cu", "orb_describe.cu", "pnp_ransac.cu", "pose_graph4.cu",
+                    "pose_inertial.cu", "pose_lm.cu", "pyramid_blur.cu", "sad_refine.cu", "select_subpixel.cu",
+                    "sim3_graph.cu", "sim3_pcg.cu", "sim3_ransac.cu", "sim3_refine.cu", "triangulate_dlt.cu",
+                    "twoview_ransac.cu", "vi_ba.cu", "vi_pcg.cu", "visible_landmarks.cu", "vocab_transform.cu"]
+    # the one Jacobi eigen-solver, shared by G, M, P, Q, R, S, T, V and Z; the Sim3 maps and dual numbers, shared by
+    # R, S, U and Z and (through inertial.cuh) W, X, Y and AA; the distorted pin-hole camera, shared by D, E, Q, R,
+    # W, Y and AA; the inertial factors, shared by V, W, X, Y and AA
     assert sorted(p.name for p in _kernels.SRC_DIR.glob("*.cuh")) == ["camera.cuh", "inertial.cuh", "jacobi.cuh",
                                                                       "sim3.cuh"]
-    for name in ("imu_preint.cu", "pose_inertial.cu", "imu_init.cu", "vi_ba.cu"):
+    for name in ("imu_preint.cu", "pose_inertial.cu", "imu_init.cu", "vi_ba.cu", "vi_pcg.cu"):
         assert '#include "inertial.cuh"' in (_kernels.SRC_DIR / name).read_text()
-    for name in ("pose_inertial.cu", "vi_ba.cu"):
+    for name in ("pose_inertial.cu", "vi_ba.cu", "vi_pcg.cu"):
         assert '#include "camera.cuh"' in (_kernels.SRC_DIR / name).read_text()
-    for name in ("triangulate_dlt.cu", "twoview_ransac.cu", "pnp_ransac.cu", "sim3_ransac.cu", "ba_pcg.cu"):
+    for name in ("triangulate_dlt.cu", "twoview_ransac.cu", "pnp_ransac.cu", "sim3_ransac.cu", "ba_pcg.cu",
+                 "pose_graph4.cu"):
         assert '#include "jacobi.cuh"' in (_kernels.SRC_DIR / name).read_text()
-    for name in ("sim3_refine.cu", "sim3_graph.cu", "sim3_pcg.cu"):
+    for name in ("sim3_refine.cu", "sim3_graph.cu", "sim3_pcg.cu", "pose_graph4.cu"):
         assert '#include "sim3.cuh"' in (_kernels.SRC_DIR / name).read_text()
     for name in ("pose_lm.cu", "ba_blocks.cu", "sim3_ransac.cu", "sim3_refine.cu"):
         assert '#include "camera.cuh"' in (_kernels.SRC_DIR / name).read_text()
@@ -290,7 +291,7 @@ def test_build_flags_and_sources():
         "sad_refine_launch", "visible_landmarks_launch", "twoview_ransac_launch", "vocab_transform_launch",
         "pnp_ransac_launch", "sim3_ransac_launch", "sim3_refine_launch", "sim3_graph_launch", "sim3_pcg_launch",
         "ba_pcg_launch", "imu_preint_launch", "imu_compose_launch", "pose_inertial_launch", "imu_init_launch",
-        "vi_ba_launch",
+        "vi_ba_launch", "pose_graph4_launch", "vi_pcg_launch",
     }
     assert "arch=compute_90a,code=sm_90a" in _kernels.NVCC_FLAGS
     assert _kernels.LIB_PATH.parent.name == "_build"
@@ -780,3 +781,35 @@ def test_vi_kernels_at_long_chains_on_card(cuda):
     for name, tol, a, b in zip(("R", "p", "v", "bias", "xw"), (2e-4, 2e-3, 1e-2, 1e-3, 1e-2), yk[:5], yp[:5]):
         assert float((a - b).abs().max()) <= tol, name
     assert float((yk[5] != yp[5]).float().mean()) <= 0.01
+
+
+@pytest.mark.cuda
+def test_inertial_loop_kernels_match_plain_on_card(cuda):
+    """Kernel Z on chip_smoke.py's yaw-drifted circles (K = 30, the dense
+    branch; K = 200, the PCG branch) and kernel AA (a 2-step segment and
+    the classification) on its build_vi_problem-sized problem, against
+    their plain versions on the same CUDA tensors: Z within 1e-3 in
+    rotation entries and camera centres, AA's states within 1e-3 and the
+    same inlier flags; each launch counted in its mode."""
+    import chip_smoke
+    from orb_slam3_fast_tpu_torch.optim import vi_ba_cg
+
+    for K, mode in ((30, "dense"), (200, "pcg")):
+        arrays, _ = chip_smoke.drift_graph(K, 1, rot_noise=0.015, s_drift=1.0, yaw_only=True, pad_e=4)
+        g = pg.SE3Graph(**{k: torch.as_tensor(arrays[k]).to(cuda) for k in pg.SE3Graph._fields})
+        before = pg.optimize_4dof_graph.launches.total(mode=mode)
+        rk, rp = pg.optimize_4dof_graph(g), pg.optimize_4dof_graph_plain(g)
+        assert bool(rk.ok) and chip_smoke.graph4_dist(rk, rp) <= 1e-3
+        assert pg.optimize_4dof_graph.launches.total(mode=mode) == before + 1
+    prob, _ = chip_smoke.vi_cg_problem(np.random.default_rng(12), cuda)
+    cam, T_id = cm.Camera.pinhole(400.0, 400.0, 320.0, 240.0), lie.SE3.identity(cuda)
+    inl = torch.ones(prob.obs_uv.shape[0], dtype=torch.bool, device=cuda)
+    lam = torch.tensor(1e-4, device=cuda)
+    args = (cam, 0.0, T_id, prob, prob.R_wb, prob.p_wb, prob.v_w, prob.bias, prob.xw, inl, lam, 2, 40)
+    before = vi_ba_cg.lm_segment_vi.launches.total(mode="segment")
+    sk, sp = vi_ba_cg.lm_segment_vi(*args), vi_ba_cg.lm_segment_vi_plain(*args)
+    assert max(float((a - b).abs().max()) for a, b in zip(sk[:4], sp[:4])) <= 1e-3
+    assert vi_ba_cg.lm_segment_vi.launches.total(mode="segment") == before + 1
+    ck = vi_ba_cg.classify_vi(cam, 0.0, T_id, prob, sk[0], sk[1], sk[4])
+    cp = vi_ba_cg.classify_vi_plain(cam, 0.0, T_id, prob, sk[0], sk[1], sk[4])
+    assert torch.equal(ck, cp) and vi_ba_cg.classify_vi.launches.total(mode="classify") >= 1

@@ -47,13 +47,13 @@ def test_numpy_scene_matches_synthetic():
 
 
 def test_not_ported_options_raise():
-    """The inertial sensors construct without loop closing and the async
-    backend, and raise with either, naming ROADMAP §A item 10's second
-    part, as the inertial tracker's MergeInertialBA and FullInertialBA do;
-    fisheye two-camera stereo, the database on a device mesh and an
-    inertial map's 4-DoF essential graph raise, naming their ROADMAP items;
-    the async backend, loop closing and the Atlas are built (fix_scale for
-    stereo)."""
+    """Fisheye two-camera stereo and the database on a device mesh raise,
+    naming ROADMAP §A items 11 and 12.  The three inertial sensors build
+    with loop closing and with the async backend (the default
+    constructor), the loop closer wired to the inertial tracker's windowed
+    VI-BA, MergeInertialBA and FullInertialBA, which run (on an empty map:
+    no welding window, nothing to solve) instead of raising; the async
+    backend, loop closing and the Atlas are built (fix_scale for stereo)."""
     slam = tsys.System(CONFIG, "stereo", **dict(OPTS, async_backend=True))
     assert slam.backend is not None and slam.tracker.backend is slam.backend
     slam.shutdown()
@@ -64,20 +64,22 @@ def test_not_ported_options_raise():
         slam = tsys.System(CONFIG, sensor, **dict(OPTS, multi_map=True))
         assert slam.tracker.icfg.fix_scale == (sensor != "monocular-inertial")
         assert slam.tracker.icfg.imu_bucket == 32  # 200 Hz IMU, 20 fps camera
+        assert slam.loopcloser is None and slam.backend is None
         for opts in (dict(enable_loop_closing=True), dict(async_backend=True)):
-            with pytest.raises(NotImplementedError, match="ROADMAP §A item 10, second part"):
-                tsys.System(CONFIG, sensor, **dict(OPTS, **opts))
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 10, second part"):
-        slam.tracker._full_inertial_ba(slam.world, [0])
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 10, second part"):
-        slam.tracker._merge_inertial_ba(slam.world, 1, 0)
+            slam = tsys.System(CONFIG, sensor, **dict(OPTS, **opts))
+            lc = slam.loopcloser
+            if "enable_loop_closing" in opts:
+                assert lc.inertial_gba == slam.tracker._full_inertial_ba
+                assert lc.merge_inertial_ba == slam.tracker._merge_inertial_ba and callable(lc.inertial_ba)
+            else:
+                assert slam.backend is not None and slam.tracker.backend is slam.backend
+            assert slam.tracker._full_inertial_ba(slam.world, [0]) is False
+            assert slam.tracker._merge_inertial_ba(slam.world, 1, 0) is None
+            slam.shutdown()
     with pytest.raises(NotImplementedError, match="ROADMAP §A item 12"):
         tsys.System(CONFIG, "stereo", **OPTS).kfdb.attach_mesh(None)
     slam = tsys.System(CONFIG, "stereo", **dict(OPTS, enable_loop_closing=True, multi_map=True))
     assert slam.loopcloser.cfg.fix_scale and slam.atlas.current is slam.world
-    slam.world.imu_initialized = True
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 10"):
-        slam.loopcloser._essential_graph(slam.world, 0, 0, *([None] * 7))
 
 
 def _jax_tum(tracker, path):
