@@ -2,11 +2,11 @@
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It imports only
-the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs twelve phases:
+the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs thirteen phases:
 
 1. device: fails without CUDA; prints the card's name and power limit;
-2. build: compiles the twenty-five kernels (A-Y, no K or O, then Z and
-   AA) from the 26 sources of ``orb_slam3_fast_tpu_torch/csrc``, one nvcc
+2. build: compiles the twenty-six kernels (A-Y, no K or O, then Z, AA and
+   AB) from the 27 sources of ``orb_slam3_fast_tpu_torch/csrc``, one nvcc
    per source in parallel, and the map's host C++ library, so that no timed
    frame pays for g++;
 3. each kernel against its plain PyTorch version on the same CUDA tensors,
@@ -37,7 +37,11 @@ the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs twelve phases:
    yaw-drifted circles of 30 (dense), 200 and 512 (PCG) vertices; AA
    (FullInertialBA's LM segment) on tests/test_vi_ba.py's problem and on
    tests/test_vi_ba_cg.py's 200-keyframe inertial world, a segment and a
-   whole solve each, the latter moving every state toward the truth;
+   whole solve each, the latter moving every state toward the truth; AB
+   (the fisheye match's gates and triangulation) on phase 13's frame 1
+   (both 512x512 KB8 images, 1000 slots each, kernel C's mutual best-2)
+   and the KB8 instances of D, E, L, P, W and Y at their paths' shapes
+   through TUM-VI's cam0;
 4. the stereo tracking step at 640x480 and 1280x720, 12 frames each, chained
    through the pose with constant-velocity prediction over a textured plane
    of known depth; every frame must match >= 30 landmarks, keep >= 30
@@ -112,6 +116,17 @@ the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs twelve phases:
    at 20 fps: drained, no worker error, the IMU initialised, V-Y launched
    on the tracker thread; (d) MergeInertialBA on tests/test_vi_ba_cg.py's
    welded map with that test's gates, Y launched;
+13. (also before phase 8) the fisheye two-camera rig
+   (configs/TUMVI_fisheye_stereo_inertial.yaml: two 512x512 KB8 cameras,
+   Stereo.T_c1_c2 with its 0.047 rad roll, 1000 features), synchronous,
+   without loop closing, on tests/test_fisheye.py's corridor: (a)
+   ``System(..., "stereo")`` on its 25 frames with that test's gates
+   (final OK, > 20 tracked, unscaled ATE < 0.3 m, scale within 0.12);
+   (c) on (a)'s map, 3 blank pairs -> RECENTLY_LOST, frame 15 again ->
+   OK within 0.3 m; (b) ``"stereo-inertial"`` on 45 frames of the arc with
+   the body's IMU stream through IMU.T_b_c1, at the JAX package's own level
+   (``FISHEYE_VI_GATES``); AB, C's mutual mode and the KB8 instances of L,
+   D, E (and P in (c), W and Y in (b)) launched, J, M, Q-U, Z and AA not;
 8. one frame of the plain (CPU) step, and the stereo, RGB-D and mono
    Systems, the relocalisation run, the loop scenario (all 150 frames) and
    the distorted mono System with the plain versions on the host, against
@@ -119,7 +134,8 @@ the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs twelve phases:
    frames on the host against the card: the same states, keyframes and
    IMU-initialisation frame, poses within each path's own bound
    (``VI_BOUNDS``: the inertial plain paths alone do not repeat across
-   host CPUs to 2e-3, ``track_spread.py --save-host``); the total time, a
+   host CPUs to 2e-3, ``track_spread.py --save-host``), and (13 a) the
+   fisheye stereo System's 25 frames at ``FISHEYE_BOUNDS``; the total time, a
    JSON line of the kernels, then ``{"ok":
    true, "device": {...}}`` last.  The loop path is held to its own bound
    (``LOOP_DT`` / ``LOOP_DR``: two host CPUs running the plain path alone
@@ -128,7 +144,7 @@ the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs twelve phases:
    against the host: what the worker has done by the time a frame is
    tracked depends on the host's speed, so they do not repeat.
 
-Launch counts are zeroed just before each path of phases 4-7 and 9-12 and
+Launch counts are zeroed just before each path of phases 4-7 and 9-13 and
 read just after; a run on the async backend also reads them per thread.
 No path's host comparison is cut in depth but the stereo-inertial one (a
 prefix: past frame 40 its card run and its host run end in other
@@ -555,18 +571,24 @@ def arc_trajectory(n_frames, step=0.08, yaw_rate=0.004, lateral=0.0):
 
 def arc_trajectory_with_imu(n_frames, dt_frame=0.05, imu_rate=200.0, step=0.08, yaw_rate=0.004, lateral=0.0,
                             g_world=(0.0, 9.81, 0.0), gyro_bias=(0.0, 0.0, 0.0), acc_bias=(0.0, 0.0, 0.0),
-                            noise_gyro=0.0, noise_acc=0.0, seed=0, accel_amp=0.6, accel_freq=0.9):
+                            noise_gyro=0.0, noise_acc=0.0, seed=0, accel_amp=0.6, accel_freq=0.9, T_bc=None):
     """An arc whose speed is modulated sinusoidally and the IMU stream a
     body-mounted sensor measures on it (synthetic.arc_trajectory_with_imu,
-    the same draws from ``seed``); the camera is the body.  Returns (T_cw
-    per frame as (R, t) numpy float32 pairs, IMU rows (ts, ax, ay, az, wx,
-    wy, wz))."""
+    the same draws from ``seed``); the camera is the body, unless ``T_bc``
+    (the (4,4) pose of the camera in the body, IMU.T_b_c1) puts the IMU
+    elsewhere on the rig: it then measures the body's rotation rate and its
+    specific force, the lever arm's centripetal term included.  Returns
+    (T_cw per frame as (R, t) numpy float32 pairs, IMU rows (ts, ax, ay,
+    az, wx, wy, wz))."""
     from orb_slam3_fast_tpu_torch.utils import lie
 
     rng = np.random.default_rng(seed)
     xi0 = np.array([step * 0.3, lateral, step, 0.0, yaw_rate, 0.0], np.float64) / dt_frame
     v0, w_b = xi0[:3], xi0[3:]
     g_w = np.asarray(g_world, np.float64)
+    if T_bc is not None:  # the body's rotation from the camera, and its origin in the camera frame
+        R_bc = np.asarray(T_bc, np.float64)[:3, :3]
+        t_cb = -R_bc.T @ np.asarray(T_bc, np.float64)[:3, 3]
     dt_imu = 1.0 / imu_rate
     two_pi_f = 2.0 * np.pi * accel_freq
     poses, imu = [], []
@@ -580,8 +602,10 @@ def arc_trajectory_with_imu(n_frames, dt_frame=0.05, imu_rate=200.0, step=0.08, 
             dm = accel_amp * two_pi_f * np.cos(two_pi_f * t0)
             R_wb = T_wb.R.numpy().astype(np.float64)
             f_b = v0 * dm + np.cross(w_b, v0 * m) - R_wb.T @ g_w
+            if T_bc is not None:  # the IMU on the body: the rig's rotation and the lever arm's centripetal term
+                f_b = R_bc @ (f_b + np.cross(w_b, np.cross(w_b, t_cb)))
             a_meas = f_b + np.asarray(acc_bias) + rng.normal(0, noise_acc, 3)
-            w_meas = w_b + np.asarray(gyro_bias) + rng.normal(0, noise_gyro, 3)
+            w_meas = (w_b if T_bc is None else R_bc @ w_b) + np.asarray(gyro_bias) + rng.normal(0, noise_gyro, 3)
             imu.append([t0 + dt_imu, *a_meas, *w_meas])
             m_mid = 1.0 + accel_amp * np.sin(two_pi_f * (t0 + 0.5 * dt_imu))
             xi = np.concatenate([v0 * m_mid, w_b]) * dt_imu
@@ -3361,6 +3385,362 @@ def run_merge_inertial(device):
     return summary
 
 
+# --- phase 13: the fisheye two-camera rig (TUM-VI) ------------------------------------------------------------
+
+FISHEYE_CONFIG = "configs/TUMVI_fisheye_stereo_inertial.yaml"
+FISHEYE_FRAMES = 25  # tests/test_fisheye.py's end-to-end scene
+FISHEYE_VI_FRAMES = 45  # the stereo-inertial arc: phase 11's length
+FISHEYE_REVISIT = 15  # the relocalisation's revisited frame
+FISHEYE_WH = (512, 512)
+FISHEYE_MAX_ATE, FISHEYE_MAX_SCALE_ERR = 0.3, 0.12  # tests/test_fisheye.py's gates
+# Phase 13 (b)'s gates.  The JAX package's own stereo-inertial System on that scene (CPU, python -m
+# tests.fisheye_reference --sensor stereo-inertial) initialises the IMU at frame 25, tracks 4 frames after it and is
+# RECENTLY_LOST from frame 30 on (unscaled ATE 0.0164 m over those 4 frames): short of a final OK, as on phase 12's
+# scene with the EuRoC noise (ROADMAP §C).  The gates are where the reference stands: the IMU initialised, >=
+# FISHEYE_VI_MIN_AFTER frames OK after the init frame, the unscaled ATE after it < FISHEYE_MAX_ATE; the final state
+# is reported.
+FISHEYE_VI_MIN_AFTER = 4
+FISHEYE_VI_GATES = (f"IMU initialised, >= {FISHEYE_VI_MIN_AFTER} frames OK after the init frame, unscaled ATE after it "
+                    f"< {FISHEYE_MAX_ATE} m, V-Y and W, Y in KB8 launched")
+# 13 (a)'s card run against its host run: t, rotation entries
+FISHEYE_BOUNDS = (TRACK_DT, TRACK_DR)
+FISHEYE_KERNELS = ("fast_nms", "orb_describe", "hamming_best2", "pose_lm", "ba_blocks", "ba_schur", "triangulate_dlt",
+                   "pyramid_blur", "select_subpixel", "visible_landmarks", "vocab_transform", "fisheye_stereo")
+# kernels whose camera instance phase 13 reads, and those that never run on the fisheye rig
+KB8_KERNELS = ("pose_lm", "ba_blocks", "visible_landmarks", "pnp_ransac", "pose_inertial", "vi_ba")
+NOT_FISHEYE = ("stereo_subpixel_refine", "twoview_ransac", "sim3_ransac", "sim3_refine", "sim3_graph", "ba_pcg",
+               "sim3_pcg", "pose_graph4", "vi_pcg")
+
+
+def stereo_pair_cams(world, cam_l, cam_r, R, t, T_c1_c2, wh):
+    """The two cameras of a rig whose camera 2 sits at ``T_c1_c2`` (4,4) in
+    camera 1 (synthetic.stereo_pair_cams): (left image, right image)."""
+    T = np.asarray(T_c1_c2, np.float64)
+    R12, t12 = T[:3, :3], T[:3, 3]
+    R, t = np.asarray(R, np.float64), np.asarray(t, np.float64)
+    return render(world, cam_l, R, t, wh), render(world, cam_r, R12.T @ R, R12.T @ (t - t12), wh)
+
+
+def fisheye_settings(sensor: str):
+    from orb_slam3_fast_tpu_torch.slam.settings import Settings
+
+    return Settings.from_yaml(FISHEYE_CONFIG, sensor=sensor)
+
+
+def fisheye_frames(n_frames: int = FISHEYE_FRAMES, imu: bool = False):
+    """Phase 13's input: tests/test_fisheye.py's corridor (seed 4, 900
+    splats, half-width 2 m, 12 m long) seen by the TUM-VI rig (both KB8
+    cameras at 512x512, Stereo.T_c1_c2 with its 0.047 rad roll) along its
+    arc (step 0.06, lateral 0.05), rendered on the host.  With
+    ``imu`` the arc's speed is modulated and the IMU stream is the body's,
+    through IMU.T_b_c1, with phase 11's biases and the configuration's
+    noise densities.  Returns (frames, true T_cw per frame, IMU rows or
+    None)."""
+    s = fisheye_settings("stereo-inertial")
+    rows = None
+    if imu:
+        hz = s.imu_frequency
+        poses, rows = arc_trajectory_with_imu(n_frames, step=0.06, lateral=0.05, gyro_bias=VI_GYRO_BIAS,
+                                              acc_bias=VI_ACC_BIAS, noise_gyro=s.imu_noise_gyro * np.sqrt(hz),
+                                              noise_acc=s.imu_noise_acc * np.sqrt(hz), seed=0, T_bc=s.T_b_c1)
+    else:
+        poses = arc_trajectory(n_frames, step=0.06, lateral=0.05)
+    world = make_corridor_world(np.random.default_rng(4), n=900, half_w=2.0, half_h=2.0, length=12.0)
+    return [stereo_pair_cams(world, s.cam, s.cam2, R, t, s.T_c1_c2, FISHEYE_WH) for R, t in poses], poses, rows
+
+
+def _fisheye_system(sensor: str, device):
+    from orb_slam3_fast_tpu_torch.slam.system import System
+
+    slam = System(fisheye_settings(sensor), sensor, enable_loop_closing=False, multi_map=False, async_backend=False,
+                  device=device)
+    if sensor == "stereo-inertial":
+        slam.tracker.icfg = slam.tracker.icfg._replace(init_min_kfs=8, init_min_time=1.0)  # phase 11's
+    return slam
+
+
+def run_fisheye(frames, poses, device, imu=None):
+    """Phase 13 (a) / (b): ``System(TUM-VI config, "stereo")`` (or
+    ``"stereo-inertial"`` with ``imu``, phase 11's initialisation window),
+    synchronous, without loop closing, on :func:`fisheye_frames`.  Returns
+    the System, a summary (state, frames tracked, keyframes and their
+    frames, landmarks, local BAs, the unscaled ATE and the fitted scale
+    over the frames tracked, or after the IMU initialisation with
+    ``imu``) and the per-frame (state, R, t)."""
+    from orb_slam3_fast_tpu_torch.eval import ate
+
+    slam = _fisheye_system("stereo" if imu is None else "stereo-inertial", device)
+    samples = imu_slices(imu, len(frames)) if imu is not None else [None] * len(frames)
+    est, gt, ts, track, kf_frames, init_frame = [], [], [], [], [], None
+    for i, ((img_l, img_r), (R, t), smp) in enumerate(zip(frames, poses, samples)):
+        n_kf = slam.world.n_kf
+        state, pose = slam.track_stereo(img_l, img_r, i * 0.05, **({} if smp is None else {"imu": smp}))
+        if pose is None:
+            pose = (np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
+        track.append((state, *pose))
+        if slam.world.n_kf > n_kf:
+            kf_frames.append(i)
+        if imu is not None and slam.world.imu_initialized and init_frame is None:
+            init_frame = i
+        if state == "OK" and (imu is None or (init_frame is not None and i > init_frame)):
+            est.append(-pose[0].T @ pose[1])
+            gt.append(-R.T @ t)
+            ts.append(i * 0.05)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    summary = dict(state=slam.get_tracking_state(), tracked=sum(s == "OK" for s, _, _ in track), n_kf=slam.world.n_kf,
+                   kf_frames=kf_frames, landmarks=int(slam.world.lm_valid.sum()), local_ba=slam.mapper.n_local_ba)
+    if imu is not None:
+        summary.update(init_frame=init_frame, after_init=len(est))
+    if len(est) >= 3:
+        est, gt, ts = np.asarray(est), np.asarray(gt), np.asarray(ts)
+        summary["ate_m"] = ate.ate_rmse(ts, est, ts, gt, with_scale=False)[0]
+        summary["scale"] = ate.ate_rmse(ts, est, ts, gt, with_scale=True)[2]
+    return slam, summary, track
+
+
+def check_fisheye(summary, launches, inertial: bool = False) -> None:
+    """Phase 13 (a)'s gates (tests/test_fisheye.py's: final OK, > 20 of 25
+    frames tracked, unscaled ATE < 0.3 m, the fitted scale within 0.12 of
+    1) or (b)'s (``FISHEYE_VI_GATES``); AB, C's mutual mode and the KB8
+    instances of D, E and L (and W and Y with the IMU) launched; the
+    kernels no fisheye path runs not."""
+    kb8 = ("pose_lm", "ba_blocks", "visible_landmarks") + (("pose_inertial", "vi_ba") if inertial else ())
+    missing = [n for n in (*FISHEYE_KERNELS, "hamming_best2[mutual]") if launches[n] < 1]
+    missing += [f"{n}[kb8]" for n in kb8 if launches[f"{n}[kb8]"] < 1]
+    stray = [n for n in NOT_FISHEYE if launches[n]]
+    ok = summary.get("ate_m", 1.0) < FISHEYE_MAX_ATE
+    if inertial:
+        ok = ok and summary["init_frame"] is not None and summary["after_init"] >= FISHEYE_VI_MIN_AFTER
+    else:
+        ok = (ok and summary["state"] == "OK" and summary["tracked"] > 20
+              and abs(summary.get("scale", 0.0) - 1.0) < FISHEYE_MAX_SCALE_ERR)
+    if not ok or missing or stray:
+        raise RuntimeError(f"fisheye System gates failed: {summary}; never launched {missing}; launched {stray}")
+
+
+def run_fisheye_reloc(slam, frames, poses, device):
+    """Phase 13 (c), on phase 13 (a)'s System after its last frame: 3 blank
+    pairs -> RECENTLY_LOST, then frame ``FISHEYE_REVISIT`` again -> OK, its
+    camera centre within 0.3 m of the truth (the rig's scale is metric).
+    Returns (per-frame (state, R, t), the relocalised frame's track_total
+    ms, summary)."""
+    n = len(frames)
+    blank = np.full((FISHEYE_WH[1], FISHEYE_WH[0]), 25.0, np.float32)
+    track = []
+    for j in range(3):
+        state, pose = slam.track_stereo(blank, blank, (n + j) * 0.05)
+        track.append((state, pose))
+    if slam.get_tracking_state() != "RECENTLY_LOST":
+        raise RuntimeError(f"fisheye reloc: {slam.get_tracking_state()} after the blank frames")
+    state, pose = slam.track_stereo(*frames[FISHEYE_REVISIT], (n + 4) * 0.05)
+    track.append((state, pose))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    reloc_ms = slam.timers.spans["track_total"][-1]
+    if state != "OK":
+        raise RuntimeError("fisheye reloc: relocalisation failed")
+    R, t = poses[FISHEYE_REVISIT]
+    err = float(np.linalg.norm(-pose[0].T @ pose[1] - (-R.T @ t)))
+    if err >= 0.3:
+        raise RuntimeError(f"fisheye reloc: relocalised pose off by {err:.3f} m (bound 0.3)")
+    track = [(s, *(p if p is not None else (np.eye(3, dtype=np.float32), np.zeros(3, np.float32))))
+             for s, p in track]
+    return track, reloc_ms, dict(n_kf=slam.world.n_kf, err=err, ref_kf=slam.tracker.ref_kf)
+
+
+def kb8_pixels(cam, uv: np.ndarray) -> np.ndarray:
+    """The pixels of KB8 camera ``cam`` on the rays that the synthetic 400 px
+    pin-hole camera (640x480) sees at ``uv`` (N,2): a pin-hole problem's
+    geometry seen through the fisheye."""
+    from orb_slam3_fast_tpu_torch.cameras import models as cm
+
+    ray = cm.unproject(cm.Camera.pinhole(400.0, 400.0, 320.0, 240.0), torch.as_tensor(np.asarray(uv, np.float32)))
+    return cm.project(cam, ray).numpy()
+
+
+def kb8_mono(uv: torch.Tensor, cam) -> torch.Tensor:
+    """(N,3) pin-hole [u, v, u_r] -> the KB8 [u, v, -1]: every edge monocular, as on a fisheye frame."""
+    uvk = torch.as_tensor(kb8_pixels(cam, uv[:, :2].cpu().numpy())).to(uv.device)
+    return torch.cat([uvk, -torch.ones_like(uvk[:, :1])], 1).contiguous()
+
+
+def compare_fisheye_kernels(device) -> tuple[list[dict], dict]:
+    """Phase 3 for the fisheye rig: kernel AB against its plain version on
+    phase 13's frame 1 (the card's extraction of both 512x512 KB8 images at
+    the configuration's 1000 features, kernel C's mutual best-2), and the
+    KB8 instances of D, E, L, P, W and Y against their plain versions at
+    their paths' shapes (the pin-hole problems of this phase seen through
+    TUM-VI's cam0).  Returns (AB's entry, {kernel: its KB8 instance's
+    numbers})."""
+    from orb_slam3_fast_tpu_torch.cameras import models as cm
+    from orb_slam3_fast_tpu_torch.frontend import tracker as trk
+    from orb_slam3_fast_tpu_torch.ops import extractor as ext
+    from orb_slam3_fast_tpu_torch.ops import hamming as ham
+    from orb_slam3_fast_tpu_torch.ops import matching as mat
+    from orb_slam3_fast_tpu_torch.optim import ba, inertial, pnp, pose_opt, vi_ba
+    from orb_slam3_fast_tpu_torch.utils import lie
+
+    rng = np.random.default_rng(21)
+    s = fisheye_settings("stereo")
+    cam = s.cam
+    f32 = torch.float32
+    # AB on frame 1 of phase 13's scene
+    frames, _, _ = fisheye_frames(2)
+    cfg = ext.ExtractorConfig(n_features=s.n_features, n_levels=s.n_levels, scale_factor=s.scale_factor)
+    kp_l, kp_r = (ext.extract(torch.as_tensor(im).to(device), cfg) for im in frames[1])
+    T = np.asarray(s.T_c1_c2, np.float64)
+    R_rl = torch.as_tensor(T[:3, :3].T, dtype=f32)
+    t_rl = torch.as_tensor(-T[:3, :3].T @ T[:3, 3], dtype=f32)
+    sigma2 = torch.as_tensor(ext.level_sigma2(cfg), dtype=f32).to(device)
+    b, col = ham.hamming_best2(kp_l.desc, kp_r.desc, ham.MutualGate(kp_l.valid.to(f32), kp_r.valid.to(f32)))
+    args = (s.cam, s.cam2, kp_l, kp_r, b, col)
+    k = mat.fisheye_stereo_gate(*args, R_rl, t_rl, sigma2)
+    p = mat.fisheye_stereo_gate_plain(*args, R_rl.to(device), t_rl.to(device), sigma2)
+    torch.cuda.synchronize()
+    both = k.valid & p.valid
+    flips = int((k.valid != p.valid).sum())
+    err = max(float((k.x3d[both] - p.x3d[both]).abs().max()), float((k.depth[both] - p.depth[both]).abs().max()))
+    n, m = kp_l.n, kp_r.n
+    # tolerance: the float64 Jacobi DLT against the float32 SVD one: points within 1e-3 m where both accept, at
+    # most 1% of the slots flipped across a cut, the indices equal
+    if err > 1e-3 or flips > 0.01 * n or not torch.equal(k.idx, p.idx) or int(p.valid.sum()) < 100:
+        raise RuntimeError(f"kernel AB disagrees with its plain version: {err}, {flips} flips, {int(p.valid.sum())} "
+                           "accepted")
+    ab_ms = cuda_ms(lambda: mat.fisheye_stereo_gate(*args, R_rl, t_rl, sigma2), 50)
+    ab_pms = cuda_ms(lambda: mat.fisheye_stereo_gate_plain(*args, R_rl.to(device), t_rl.to(device), sigma2), 10)
+    # bytes: per left slot xy, level, idx, the two distances in, depth, the point and the flag out; per right slot
+    # xy, level and its best row.  Operations per left slot: two 10-step Newton unprojections (~25 each step),
+    # two KB8 projections (~45), the 4x4 normal matrix and its null vector, the gates (~60)
+    ab = dict(name="fisheye_stereo", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/fisheye_stereo.cu",
+              replaces="orb_slam3_fast_tpu/ops/matching.py:305", max_abs_err=err, ms=ab_ms, plain_ms=ab_pms,
+              **bound(n * (8 + 8 + 8 + 8 + 4 + 12 + 1) + m * 24, n * (2 * 250 + 2 * 45 + normal_flops(4, 4) +
+                                                                     null_flops(4) + 60)),
+              library_ms=None,
+              shapes=f"phase 13's frame 1: {n} left x {m} right slots, {int(p.valid.sum())} accepted by the plain "
+                     f"version, {int(k.valid.sum())} by the kernel, {flips} flipped; tolerances: points 1e-3 m, 1% "
+                     "flips, indices equal; library: none (no one PyTorch call unprojects, triangulates and gates)")
+    kb8 = {}
+
+    def entry(name, err, fk, fp, nbytes, ops, note, reps=20):
+        kb8[name] = dict(max_abs_err=err, ms=cuda_ms(fk, reps), plain_ms=timed(fp)[1], **bound(nbytes, ops),
+                         shapes=note)
+
+    # D: a frame's capacity of mono edges, 40% observing
+    cap = ext.total_capacity(cfg)
+    T_gt = lie.se3_exp(torch.tensor([0.1, -0.05, 0.1, 0.02, -0.01, 0.03]))
+    xw = np.stack([rng.uniform(-3, 3, cap), rng.uniform(-2, 2, cap), rng.uniform(1, 8, cap)], -1).astype(np.float32)
+    uv = cm.project(cam, T_gt.apply(torch.as_tensor(xw))).numpy().astype(np.float64) + rng.normal(0, 0.3, (cap, 2))
+    out_ = rng.uniform(size=cap) < 0.1
+    uv[out_] += 25.0
+    obs = pose_opt.PoseObs(*(torch.as_tensor(a).to(device) for a in (
+        xw, np.concatenate([uv, -np.ones((cap, 1))], 1).astype(np.float32), np.ones(cap, np.float32),
+        np.zeros(cap, bool), rng.uniform(size=cap) < 0.4)))
+    T0 = lie.SE3.identity(device)
+    (Tk, ik, nk), (Tp, ip, np_) = pose_opt.pose_optimization(cam, 0.0, T0, obs), \
+        pose_opt.pose_optimization_plain(cam, 0.0, T0, obs)
+    torch.cuda.synchronize()
+    e = max(float((Tk.t - Tp.t).abs().max()), float((Tk.R - Tp.R).abs().max()))
+    if e > 1e-3 or abs(int(nk) - int(np_)) > 2:
+        raise RuntimeError(f"kernel D (KB8) disagrees with its plain version: {e}, inliers {int(nk)} / {int(np_)}")
+    nv = int(obs.valid.sum())
+    entry("pose_lm", e, lambda: pose_opt.pose_optimization(cam, 0.0, T0, obs),
+          lambda: pose_opt.pose_optimization_plain(cam, 0.0, T0, obs), cap * 30 + 96, 80 * nv * 260 + 40 * 400,
+          f"{cap} slots ({nv} observing, mono, 10% outliers); pose err {e:.2g}, inliers {int(nk)} / {int(np_)}; "
+          "tolerances 1e-3, 2 inliers")
+    # E: the local BA's caps
+    prob = ba_problem(rng, device, cam=cam)
+    inl = torch.ones_like(prob.obs_valid)
+    bk = ba.build_normal_blocks(cam, 48.0, prob.R, prob.t, prob.xw, prob, inl)
+    bp = ba.build_normal_blocks_plain(cam, 48.0, prob.R, prob.t, prob.xw, prob, inl)
+    torch.cuda.synchronize()
+    e = max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-12)
+            for x, y in zip((*bk[:4], ba.coupling_to_dense(bk[4], prob), *bk[5:]), bp))
+    if e > 1e-4:
+        raise RuntimeError(f"kernel E (KB8) disagrees with its plain version: {e}")
+    K, M, O = prob.R.shape[0], prob.xw.shape[0], prob.obs_kf.shape[0]
+    entry("ba_blocks", e, lambda: ba.build_normal_blocks(cam, 48.0, prob.R, prob.t, prob.xw, prob, inl),
+          lambda: ba.build_normal_blocks_plain(cam, 48.0, prob.R, prob.t, prob.xw, prob, inl),
+          O * 27 + M * 13 + K * 48 + (42 * K + 13 * M) * 4 + O * 72, O * 700,
+          f"K={K}, M={M}, O={O} (60% stereo rows); relative err {e:.2g}, tolerance 1e-4 of each block's largest")
+    # L: 4096 landmark slots around the frame
+    mm = N_LM
+    pos = torch.as_tensor(np.stack([rng.uniform(-6, 6, mm), rng.uniform(-6, 6, mm), rng.uniform(-2, 10, mm)], -1),
+                          dtype=f32).to(device)
+    normal = torch.nn.functional.normalize(torch.as_tensor(rng.normal(size=(mm, 3)), dtype=f32).to(device) +
+                                           torch.tensor([0.0, 0.0, 1.5], device=device), dim=-1)
+    dmin = torch.as_tensor(rng.uniform(0.2, 2.0, mm), dtype=f32).to(device)
+    mask = torch.as_tensor(rng.uniform(size=mm) < 0.9).to(device)
+    Tl = lie.se3_exp(torch.tensor([0.05, 0.02, -0.1, 0.01, 0.02, -0.01], device=device))
+    largs = (cam, Tl.R, Tl.t, pos, mask, normal, dmin, dmin * 8.0, FISHEYE_WH)
+    (uk, lk, vk), (up, lp, vp) = trk.visible_landmarks(*largs), trk.visible_landmarks_plain(*largs)
+    torch.cuda.synchronize()
+    front = Tl.apply(pos)[:, 2] > 0.05
+    e = float((uk[front] - up[front]).abs().max())
+    border = ((up.abs() < 1e-3) | ((up - 512.0).abs() < 1e-3)).any(-1)
+    if e > 1e-3 or not torch.equal(vk[~border], vp[~border]) or not torch.equal(lk[front], lp[front]):
+        raise RuntimeError(f"kernel L (KB8) disagrees with its plain version: uv {e}")
+    entry("visible_landmarks", e, lambda: trk.visible_landmarks(*largs), lambda: trk.visible_landmarks_plain(*largs),
+          50 * mm + 48, 130 * mm, f"{mm} slots ({int(vp.sum())} visible); uv err {e:.2g} px; tolerances uv 1e-3 px, "
+          "level and visible equal off the image border")
+    # P: the relocalisation problem through the fisheye
+    xw_p, uv_p, inv_s2, valid, _, _ = pnp_problem(rng)
+    xw_p, inv_s2, valid = (torch.as_tensor(a).to(device) for a in (xw_p, inv_s2, valid))
+    uv_p = torch.as_tensor(kb8_pixels(cam, uv_p)).to(device)
+    subsets = pnp._sample_subsets(3, valid, pnp.N_HYP)
+    rk = pnp.pnp_ransac(cam, xw_p, uv_p, inv_s2, valid, 0, subsets=subsets)
+    rp = pnp.pnp_ransac_plain(cam, xw_p, uv_p, inv_s2, valid, subsets)
+    torch.cuda.synchronize()
+    e = max(float((rk.R - rp.R).abs().max()), float((rk.t - rp.t).abs().max()))
+    if int(rk.n_inliers) != int(rp.n_inliers) or bool(rk.ok) != bool(rp.ok) or not bool(rp.ok) or e > 1e-3:
+        raise RuntimeError(f"kernel P (KB8) disagrees with its plain version: {int(rk.n_inliers)} / "
+                           f"{int(rp.n_inliers)} inliers, pose {e}")
+    h, nvp = subsets.shape[0], int(valid.sum())
+    gn = 6 * 54 + normal_flops(12, 6) + 144 + 150 + 60 + SVD3_FLOPS
+    entry("pnp_ransac", e, lambda: pnp.pnp_ransac(cam, xw_p, uv_p, inv_s2, valid, 0, subsets=subsets),
+          lambda: pnp.pnp_ransac_plain(cam, xw_p, uv_p, inv_s2, valid, subsets), len(valid) * 25 + h * 24 + 48,
+          6 * nvp + h * (normal_flops(12, 12) + null_flops(12) + 2 * (SVD3_FLOPS + 100 + 4 * gn)) +
+          (2 * h + 1) * nvp * 75,
+          f"{len(valid)} slots ({nvp} valid, 20% outliers), {h} subsets: {int(rp.n_inliers)} inliers on both; pose "
+          "err {:.2g}; tolerances: count and ok equal, pose 1e-3".format(e))
+    # W: the frame's capacity, the last-frame form, every edge monocular
+    _, T_cb, preint, s_prev, s0, obs_w, prior = w_problem(rng, device, cap)
+    obs_w = obs_w._replace(uv=kb8_mono(obs_w.uv, cam), is_stereo=torch.zeros_like(obs_w.is_stereo))
+    wk = lambda: inertial.pose_inertial_optimization_last_frame(cam, 0.0, T_cb, s_prev, prior, preint, s0, obs_w)
+    wp = lambda: inertial.pose_inertial_optimization_last_frame_plain(cam, 0.0, T_cb, s_prev, prior, preint, s0,
+                                                                      obs_w)
+    (sk, ik, nk, Hk), (sp, ip, np_, Hp) = wk(), wp()
+    torch.cuda.synchronize()
+    e = max(float((a - b).abs().max()) for a, b in zip(sk, sp))
+    hrel = float((Hk - Hp).abs().max() / Hp.abs().max())
+    if e > 5e-3 or hrel > 5e-3 or int((ik != ip).sum()) > 2:
+        raise RuntimeError(f"kernel W (KB8) disagrees with its plain version: state {e}, H {hrel}")
+    nvw = int(obs_w.valid.sum())
+    entry("pose_inertial", e, wk, wp, cap * 30 + 3 * 21 * 4 + 246 * 4, 40 * (nvw * 320 + 60_000) + 4 * cap * 40,
+          f"the last-frame form, {cap} slots ({nvw} observing, mono); state err {e:.2g}, H rel err {hrel:.2g}; "
+          "tolerances: state 5e-3, H 5e-3 of its largest entry, 2 edges", reps=10)
+    # Y: K = 16, M = 2048, O = 8192
+    _, prob_y = y_problem(rng, device)
+    prob_y = prob_y._replace(obs_uv=kb8_mono(prob_y.obs_uv, cam))
+    T_id = lie.SE3.identity(device)
+    yk = lambda: vi_ba.vi_bundle_adjust(cam, 0.0, T_id, prob_y)
+    yp = lambda: vi_ba.vi_bundle_adjust_plain(cam, 0.0, T_id, prob_y)
+    ok_, op_ = yk(), yp()
+    torch.cuda.synchronize()
+    errs = [float((a - b).abs().max()) for a, b in zip(ok_[:5], op_[:5])]
+    mism = float((ok_[5] != op_[5]).float().mean())
+    if errs[1] > 2e-3 or errs[4] > 1e-2 or errs[0] > 2e-4 or mism > 0.01:
+        raise RuntimeError(f"kernel Y (KB8) disagrees with its plain version: {errs}, {mism:.3%} otherwise")
+    Ky, My, Oy = prob_y.R_wb.shape[0], prob_y.xw.shape[0], prob_y.obs_kf.shape[0]
+    ny = 15 * Ky
+    pairs = int(sum(c * c for c in torch.bincount(prob_y.obs_lm.long()).tolist()))
+    entry("vi_ba", max(errs), yk, yp, Oy * 27 + My * 13 + Ky * 21 * 8,
+          12 * (Oy * 560 + pairs * 216 + 15 * 30 * 3000 + ny * ny * 60 + 2 * ny ** 3 // 3),
+          f"K={Ky}, M={My}, O={Oy} (mono); errors R {errs[0]:.2g} p {errs[1]:.2g} xw {errs[4]:.2g}, {mism:.2%} "
+          "classified otherwise; tolerances as the pin-hole case", reps=3)
+    return [ab], kb8
+
+
 def stage_split(rig: Rig, device) -> dict:
     """Per-stage CUDA-event times of the step on one frame."""
     from orb_slam3_fast_tpu_torch.ops import extractor as ext
@@ -3385,7 +3765,7 @@ def stage_split(rig: Rig, device) -> dict:
 WRAPPER_NAMES = ("fast_nms", "orb_describe", "hamming_best2", "pose_lm", "ba_blocks", "ba_schur", "triangulate_dlt",
                  "pyramid_blur", "select_subpixel", "stereo_subpixel_refine", "visible_landmarks", "twoview_ransac",
                  "vocab_transform", "pnp_ransac", "sim3_ransac", "sim3_refine", "sim3_graph", "ba_pcg", "sim3_pcg",
-                 "imu_preint", "pose_inertial", "imu_init", "vi_ba", "pose_graph4", "vi_pcg")
+                 "imu_preint", "pose_inertial", "imu_init", "vi_ba", "pose_graph4", "vi_pcg", "fisheye_stereo")
 VI_KERNELS = ("imu_preint", "pose_inertial", "imu_init", "vi_ba")  # V, W, X, Y: the inertial path
 SYSTEM_KERNELS = WRAPPER_NAMES[:11]  # the stereo System runs A-L, N to index its keyframes, and not M or P
 STEP_KERNELS = ("fast_nms", "orb_describe", "hamming_best2", "pose_lm", "pyramid_blur", "select_subpixel",
@@ -3426,7 +3806,8 @@ def wrappers() -> dict:
                                     pnp.pnp_ransac, sim3.sim3_ransac, sim3.optimize_sim3, pg.optimize_sim3_graph,
                                     ba_cg.implicit_schur_solve, pg.optimize_sim3_graph, pre.preintegrate,
                                     inertial.pose_inertial_optimization, imu_init.inertial_only_optimization,
-                                    vi_ba.vi_bundle_adjust, pg.optimize_4dof_graph, vi_ba_cg.lm_segment_vi)))
+                                    vi_ba.vi_bundle_adjust, pg.optimize_4dof_graph, vi_ba_cg.lm_segment_vi,
+                                    mat.fisheye_stereo_gate)))
 
 
 def reset_counts() -> None:
@@ -3436,14 +3817,16 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     """Launches since the last reset, by kernel, by kernel C's mode, of D,
-    E, Q and R with a distorted camera, and by thread where a run launched
-    from more than the main thread."""
+    E, Q and R with a distorted camera, of D, E, L, P, W and Y with a KB8
+    camera, and by thread where a run launched from more than the main
+    thread."""
     from orb_slam3_fast_tpu_torch.ops import hamming as ham
 
     ws = wrappers()
     counts = {name: w.launches.total(mode=MODES.get(name)) for name, w in ws.items()}
     counts.update({f"hamming_best2[{m}]": ham.hamming_best2.launches.total(mode=m) for m in ham.MODE_NAMES})
-    counts.update({f"{n}[radtan]": ws[n].launches.total(mode="radtan") for n in RADTAN_KERNELS})
+    counts.update({f"{n}[radtan]": ws[n].launches.total(camera="radtan") for n in RADTAN_KERNELS})
+    counts.update({f"{n}[kb8]": ws[n].launches.total(camera="kb8") for n in KB8_KERNELS})
     for name, w in ws.items():
         by_thread = w.launches.by_thread()
         if set(by_thread) - {"MainThread"}:
@@ -3488,6 +3871,11 @@ def main() -> int:
     system_kernels, c_modes = compare_system_kernels(device)
     kernels += system_kernels + compare_mono_kernels(device) + compare_loop_kernels(device) + compare_vi_kernels(device)
     kernels += compare_inertial_loop_kernels(device)
+    fisheye_kernels, kb8 = compare_fisheye_kernels(device)
+    kernels += fisheye_kernels
+    for k in kernels:
+        if k["name"] in kb8:
+            k["kb8"] = kb8[k["name"]]
     e_entry, t_entry = (next(k for k in kernels if k["name"] == name) for name in ("ba_blocks", "ba_pcg"))
     e_entry["shapes"] += t_entry.pop("e_gba")
     c = next(k for k in kernels if k["name"] == "hamming_best2")
@@ -3502,6 +3890,10 @@ def main() -> int:
         log(f"kernel {k['name']}: max_abs_err {k['max_abs_err']:.3g}, {k['ms']:.4f} ms vs plain "
             f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.5f} ms ({k['bound_by']}), library call {lib} "
             f"({k['shapes']})")
+        if "kb8" in k:
+            q = k["kb8"]
+            log(f"kernel {k['name']} [kb8]: max_abs_err {q['max_abs_err']:.3g}, {q['ms']:.4f} ms vs plain "
+                f"{q['plain_ms']:.4f} ms, bound {q['bound_ms']:.5f} ms ({q['bound_by']}) ({q['shapes']})")
     log(f"phase 3: {time.perf_counter() - t0:.1f} s")
 
     # 4. the tracking step at both sizes: its path, with the launch counts
@@ -3782,6 +4174,47 @@ def main() -> int:
         "halved, velocities < 0.06 m/s, biases < 0.02, the weld's velocity < 0.15 m/s)")
     log(f"phase 12: {time.perf_counter() - t0:.1f} s")
 
+    # 13. the fisheye rig (before phase 8 too): (a) the stereo System on the TUM-VI configuration, (c) relocalisation
+    # on (a)'s map, (b) the stereo-inertial System with the body's IMU stream
+    t0 = time.perf_counter()
+    fe_in, fe_poses, _ = fisheye_frames(FISHEYE_FRAMES)
+    log(f"13 fisheye scene: {FISHEYE_FRAMES} 512x512 KB8 stereo pairs rendered on the host in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reset_counts()
+    t1 = time.perf_counter()
+    fe_run = run_fisheye(fe_in, fe_poses, device)
+    slam_f, summary_f, _ = fe_run
+    fe_s = time.perf_counter() - t1
+    launches_fe = read_counts()
+    check_fisheye(summary_f, launches_fe)
+    log(f"13 (a) fisheye stereo System (TUM-VI configuration): {summary_f}, {fe_s:.2f} s for {FISHEYE_FRAMES} frames "
+        f"(gates: final OK, > 20 tracked, unscaled ATE < {FISHEYE_MAX_ATE} m, |scale - 1| < {FISHEYE_MAX_SCALE_ERR}; "
+        "AB, C mutual, D, E and L in KB8 launched; J, M, Q-U, Z and AA not)")
+    log(f"13 (a) track_total ms per frame: {[round(x, 3) for x in slam_f.timers.spans['track_total']]}")
+    log(f"13 (a) map_local_ba ms per keyframe: {[round(x, 3) for x in slam_f.mapper.timers.spans['map_local_ba']]}")
+    log("13 (a) stage means:\n" + slam_f.print_time_stats())
+    log(f"launches in 13 (a): {launches_fe}")
+    reset_counts()
+    fe_reloc_track, fe_reloc_ms, fe_reloc_sum = run_fisheye_reloc(slam_f, fe_in, fe_poses, device)
+    launches_fr = read_counts()
+    if launches_fr["pnp_ransac[kb8]"] < 1 or launches_fr["fisheye_stereo"] < 1:
+        raise RuntimeError(f"13 (c): P in KB8 or AB never launched ({launches_fr})")
+    log(f"13 (c) fisheye relocalisation on (a)'s map: {fe_reloc_sum}, the revisit of frame {FISHEYE_REVISIT} "
+        f"relocalised in {fe_reloc_ms:.3f} ms (track_total; gates: RECENTLY_LOST after 3 blank pairs, OK on the "
+        "revisit within 0.3 m, P in KB8 launched)")
+    log(f"launches in 13 (c): {launches_fr}")
+    t1 = time.perf_counter()
+    fv_in, fv_poses, fv_imu = fisheye_frames(FISHEYE_VI_FRAMES, imu=True)
+    reset_counts()
+    t2 = time.perf_counter()
+    _, summary_fv, _ = run_fisheye(fv_in, fv_poses, device, imu=fv_imu)
+    launches_fv = read_counts()
+    check_fisheye(summary_fv, launches_fv, inertial=True)
+    log(f"13 (b) fisheye stereo-inertial System: {summary_fv}, {time.perf_counter() - t2:.2f} s for "
+        f"{FISHEYE_VI_FRAMES} frames ({t2 - t1:.1f} s to render; gates: {FISHEYE_VI_GATES})")
+    log(f"launches in 13 (b): {launches_fv}")
+    log(f"phase 13: {time.perf_counter() - t0:.1f} s")
+
     # 8. the plain (CPU) step, which the tests hold against the JAX package,
     # agrees with the card on frame 1 at 640x480.  Last, because the host
     # threads it starts would slow the timed phases above.
@@ -3820,6 +4253,11 @@ def main() -> int:
     log(f"12 (b) the loop correction from the snapshot, the host's plain path against the card: {summary} (bounds "
         f"{VI_CORRECTION_BOUNDS}), {len(bad)} failing ({time.perf_counter() - t0:.1f} s)")
     failures += [f"12 (b) loop correction {b}" for b in bad]
+    t0 = time.perf_counter()  # 13 (a): the fisheye stereo System on the host
+    bad, summary = check_system_against_plain(fe_run, run_fisheye(fe_in, fe_poses, cpu), *FISHEYE_BOUNDS)
+    log(f"13 (a) plain fisheye stereo System on the host against the card: {summary}, {len(bad)} failing "
+        f"({time.perf_counter() - t0:.1f} s)")
+    failures += [f"fisheye stereo System {b}" for b in bad]
     t0 = time.perf_counter()
     plain_reloc, _, plain_reloc_sum = run_reloc(mono_in, mono_poses, cpu)
     bad, summary = compare_tracks(reloc_track, plain_reloc)
@@ -3839,18 +4277,23 @@ def main() -> int:
             "atlas": atlas_launches, "default_stereo": launches_a10, "default_loop": launches_b10,
             "loop_pcg": launches_c10, "distorted_mono": launches_d10, "gba_thread": launches_e10,
             "vi_mono": vi_runs["monocular"][2], "vi_stereo": vi_runs["stereo"][2], "vi_rgbd": launches_r,
-            "vi_loop": launches_vil, "default_vi": launches_vic, "merge_inertial": launches_vid}
+            "vi_loop": launches_vil, "default_vi": launches_vic, "merge_inertial": launches_vid,
+            "fisheye": launches_fe, "fisheye_reloc": launches_fr, "fisheye_vi": launches_fv}
     main_run = {"twoview_ransac": "mono_system", "vocab_transform": "mono_system", "pnp_ransac": "relocalisation",
                 "sim3_ransac": "loop", "sim3_refine": "loop", "sim3_graph": "loop", "ba_pcg": "loop",
                 "sim3_pcg": "loop_pcg", **{name: "vi_mono" for name in VI_KERNELS}, "pose_graph4": "vi_loop",
-                "vi_pcg": "vi_loop"}
+                "vi_pcg": "vi_loop", "fisheye_stereo": "fisheye"}
+    kb8_run = {"pnp_ransac": "fisheye_reloc", "pose_inertial": "fisheye_vi", "vi_ba": "fisheye_vi"}
     for k in kernels:
         k["launches"] = runs[main_run.get(k["name"], "stereo_system")][k["name"]]
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in runs.items()}
+        if "kb8" in k:  # the KB8 instance's launches on its fisheye path
+            k["kb8"]["launches"] = runs[kb8_run.get(k["name"], "fisheye")][f"{k['name']}[kb8]"]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"kernels": [{key: k[key] for key in ("name", "route", "source", "replaces", "launches",
                                                          "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                                         "library_ms", "launches_by_path", "shapes")}
+                                                         "library_ms", "launches_by_path", "shapes", "kb8")
+                                              if key in k}
                                 for k in kernels]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

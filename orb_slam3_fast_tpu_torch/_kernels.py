@@ -50,10 +50,10 @@ SIGNATURES = {
     # desc_a, desc_b, n, m, mode, row_f, col_f, max_disp, idx, dist, dist2,
     # idx2, col_key, stream
     "hamming_best2_launch": [_P, _P, _I, _I, _I, _P, _P, _F, _P, _P, _P, _P, _P, _P],
-    # xw, uv, inv_sigma2, is_stereo, valid, n, cam (fx,fy,cx,cy,bf,k1,k2,p1,p2,k3),
-    # dist, R0, t0, n_rounds, iters, R_out, t_out, inlier_out, n_inl_out, stream
+    # xw, uv, inv_sigma2, is_stereo, valid, n, cam10 (optim/pose_opt.kernel_camera),
+    # kind (0 pin-hole, 1 radtan, 2 KB8), R0, t0, n_rounds, iters, R_out, t_out, inlier_out, n_inl_out, stream
     "pose_lm_launch": [_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P],
-    # cam10, dist, R, t, xw, pose_fixed, lm_valid, obs_kf, obs_lm, obs_uv,
+    # cam10, kind, R, t, xw, pose_fixed, lm_valid, obs_kf, obs_lm, obs_uv,
     # inv_sigma2, is_stereo, obs_valid, inlier, n_obs, n_kf, n_lm, W, acc
     # (float64 sums), out (Hpp | Hll | bp | bl | w_lm | cost), stream
     "ba_blocks_launch": [_P, _I] + [_P] * 12 + [_I] * 3 + [_P] * 4,
@@ -70,18 +70,18 @@ SIGNATURES = {
     "select_subpixel_launch": [_P] * 6 + [_I] * 4 + [_P] * 7,
     # img_l, img_r, h, w, xy_l, right_u, valid, n, u_out, ok_out, stream
     "sad_refine_launch": [_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P],
-    # R, t, pos, mask, normal, dmin, dmax, m, cam_params (host), width,
+    # R, t, pos, mask, normal, dmin, dmax, m, cam_params (host), kind, width,
     # height, log_sf, n_lvl, uv, level, visible, stream
-    "visible_landmarks_launch": [_P] * 7 + [_I, _P, _F, _F, _F, _I, _P, _P, _P, _P],
+    "visible_landmarks_launch": [_P] * 7 + [_I, _P, _I, _F, _F, _F, _I, _P, _P, _P, _P],
     # x0, x1, valid, samples, n, n_hyp, sigma2, hyp, hyp_score, model,
     # model_score, inl, Rall, tall, X, tri, n_good, parallax, qual, stream
     "twoview_ransac_launch": [_P] * 4 + [_I, _I, _F] + [_P] * 13,
     # centroids, alive, weights, B, depth, node_lvl, desc, valid, n, n_words,
     # words, nodes, bow, total, stream
     "vocab_transform_launch": [_P] * 3 + [_I] * 3 + [_P, _P, _I, _I] + [_P] * 5,
-    # xw, uv, xn, inv_sigma2, valid, subsets, n, n_hyp, cam9 (host),
+    # xw, uv, xn, inv_sigma2, valid, subsets, n, n_hyp, cam9 (host), kind,
     # min_inliers, hyp_R, hyp_t, counts, R, t, inliers, n_inl, ok, stream
-    "pnp_ransac_launch": [_P] * 6 + [_I, _I, _P, _I] + [_P] * 9,
+    "pnp_ransac_launch": [_P] * 6 + [_I, _I, _P, _I, _I] + [_P] * 9,
     # xc1, xc2, uv1, uv2, is1, is2, valid, subsets, n, n_hyp, cams18 (host),
     # fix_scale, min_inliers, hyp, counts, S, inliers, n_inl, ok, stream
     "sim3_ransac_launch": [_P] * 8 + [_I, _I, _P, _I, _I] + [_P] * 7,
@@ -105,12 +105,12 @@ SIGNATURES = {
     "imu_preint_launch": [_P] * 6 + [_I, _P, _P, _P],
     # a, b (packed windows), out, stream
     "imu_compose_launch": [_P] * 4,
-    # cam10, dist, tcb, s_prev, pk, s0, prior, last, xw, uv, inv_sigma2, is_stereo, valid, n, n_rounds, iters,
+    # cam10, kind, tcb, s_prev, pk, s0, prior, last, xw, uv, inv_sigma2, is_stereo, valid, n, n_rounds, iters,
     # state_out, inlier, n_inl, H_out, stream
     "pose_inertial_launch": [_P, _I] + [_P] * 5 + [_I] + [_P] * 5 + [_I] * 3 + [_P] * 5,
     # R, p, pk, edge_valid, vel, bias, K, prior (host), iters, fix_scale, refine, work, out, stream
     "imu_init_launch": [_P] * 6 + [_I, _P, _I, _I, _I, _P, _P, _P],
-    # cam10, dist, tcb, K, M, O, E, R, p, v, bias, fixed, xw, lm_valid, obs_kf, obs_lm, uv, inv_sigma2,
+    # cam10, kind, tcb, K, M, O, E, R, p, v, bias, fixed, xw, lm_valid, obs_kf, obs_lm, uv, inv_sigma2,
     # is_stereo, obs_valid, edge_i, edge_j, edge_valid, pk, lm_ptr, lm_obs, kf_ptr, kf_obs, ke_ptr, ke_edge,
     # free_ids, free_pos, nf, iters1, iters2, scratch, state_out, xw_out, inlier, stream
     "vi_ba_launch": [_P, _I, _P] + [_I] * 4 + [_P] * 25 + [_I] * 3 + [_P] * 5,
@@ -118,6 +118,9 @@ SIGNATURES = {
     # is_stereo, obs_valid, edge_i, edge_j, edge_valid, pk, lm_ptr, lm_obs, kf_ptr, kf_obs, ke_ptr, ke_edge,
     # inlier, n_iters, cg_iters, scratch, lam_io, state_out, xw_out, inlier_out, stream
     "vi_pcg_launch": [_P, _I, _P] + [_I] * 4 + [_P] * 24 + [_I] * 2 + [_P] * 6,
+    # xy_l, level_l, xy_r, level_r, idx, dist, dist2, col, sigma2, n, cams16 (host), Rt (host), ratio, th,
+    # min_cos, depth, x3d, valid, stream
+    "fisheye_stereo_launch": [_P] * 9 + [_I, _P, _P, _F, _I, _F] + [_P] * 4,
 }
 
 
@@ -208,16 +211,18 @@ def launch(name: str, device: torch.device, *args) -> None:
 
 
 class LaunchCounter:
-    """The launches of one kernel's wrapper, counted per (thread name, mode)
-    under a lock so that concurrent threads lose no count.  The wrapper
-    calls :meth:`add` where it launches its kernel and nowhere else."""
+    """The launches of one kernel's wrapper, counted per (thread name, mode,
+    camera instance) under a lock so that concurrent threads lose no count.
+    The wrapper calls :meth:`add` where it launches its kernel and nowhere
+    else; a kernel with camera instances (``csrc/camera.cuh``) names the
+    one it launched: "" (pin-hole), "radtan" or "kb8"."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._counts: collections.Counter = collections.Counter()
 
-    def add(self, mode: str = "") -> None:
-        key = (threading.current_thread().name, mode)
+    def add(self, mode: str = "", camera: str = "") -> None:
+        key = (threading.current_thread().name, mode, camera)
         with self._lock:
             self._counts[key] += 1
 
@@ -225,16 +230,18 @@ class LaunchCounter:
         with self._lock:
             self._counts.clear()
 
-    def total(self, thread: str | None = None, mode: str | None = None) -> int:
-        """Launches in all, or those of one thread name and / or mode."""
+    def total(self, thread: str | None = None, mode: str | None = None, camera: str | None = None) -> int:
+        """Launches in all, or those of one thread name, mode and / or
+        camera instance."""
         with self._lock:
-            return sum(n for (t, m), n in self._counts.items()
-                       if (thread is None or t == thread) and (mode is None or m == mode))
+            return sum(n for (t, m, c), n in self._counts.items()
+                       if (thread is None or t == thread) and (mode is None or m == mode)
+                       and (camera is None or c == camera))
 
     def by_thread(self) -> dict[str, int]:
         with self._lock:
             out: dict[str, int] = {}
-            for (t, _), n in self._counts.items():
+            for (t, _, _), n in self._counts.items():
                 out[t] = out.get(t, 0) + n
             return out
 

@@ -68,7 +68,11 @@ def _unproject_np(cam, uv: np.ndarray) -> np.ndarray:
 def compute_f12(world: WorldMap, cam, k1: int, k2: int) -> np.ndarray:
     """Fundamental matrix between two keyframes (GeometricTools::ComputeF12,
     GeometricTools.cc:28-47), pin-hole K: x_k1^T F x_k2 = 0, so F maps
-    points of keyframe k2 to epipolar lines in k1."""
+    points of keyframe k2 to epipolar lines in k1.  A KB8 camera gets the
+    pin-hole F of its K on the distorted pixels, as in the JAX package
+    (its mapper.py:39-55): the epipolar search then misses true matches far
+    off the optical axis, kept so that the fisheye rig's readings stay the
+    JAX package's (ROADMAP §C)."""
     R1, t1 = world.kf_R[k1], world.kf_t[k1]
     R2, t2 = world.kf_R[k2], world.kf_t[k2]
     R12 = R1 @ R2.T

@@ -79,7 +79,8 @@ def project_jac(cam: Camera, xc: torch.Tensor) -> torch.Tensor:
     if cam.kind == KB8:
         flat = xc.reshape(-1, 3)
         J = torch.func.vmap(torch.func.jacfwd(lambda v: project(cam, v)))(flat)
-        return J.reshape(*xc.shape[:-1], 2, 3)
+        # forward-mode AD promotes the tangent of ``x * x + EPS**2`` (a Python float) to float64: back to xc's type
+        return J.reshape(*xc.shape[:-1], 2, 3).to(xc.dtype)
     if cam.kind != PINHOLE:
         raise ValueError(f"unknown camera kind {cam.kind}")
     p = cam.params

@@ -5,8 +5,9 @@
 // order in which the atomics land moves a float64 sum of float32 terms by
 // ~1e-16 of its size, which the rounding hides: a run repeats bit for bit,
 // where float32 atomics would round each run differently and a System's
-// runs on the card would drift apart.  A camera with radial-tangential
-// distortion takes the kDist instance (camera.cuh); one without, the code it
+// runs on the card would drift apart.  The camera's kind is a template
+// parameter (camera.cuh): a radial-tangential camera takes the kRadtan
+// instance, a Kannala-Brandt one kKB8, one without distortion the code it
 // always ran.  See the source note in optim/ba.py; build_normal_blocks_plain
 // there is the JAX form with the dense Z.
 #include <cuda_runtime.h>
@@ -22,7 +23,7 @@ constexpr float kChi2Mono = 5.991f;
 constexpr float kChi2Stereo = 7.815f;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
-template <bool kDist>
+template <int kCam>
 __global__ void __launch_bounds__(kThreads)
 ba_blocks_kernel(const float* __restrict__ cam10, const float* __restrict__ R,
                  const float* __restrict__ t, const float* __restrict__ xw,
@@ -53,7 +54,9 @@ ba_blocks_kernel(const float* __restrict__ cam10, const float* __restrict__ R,
     const float iz = 1.f / z;
     float u, v;
     cam::Radtan dist = {};
-    if constexpr (kDist) {
+    if constexpr (kCam == cam::kKB8) {
+      cam::kb8_project(cam::kb8_from10(cam10), xc[0], xc[1], xc[2], u, v);
+    } else if constexpr (kCam == cam::kRadtan) {
       dist = {cam10[5], cam10[6], cam10[7], cam10[8], cam10[9]};
       float xd, yd;
       cam::distort(dist, xc[0] / z, xc[1] / z, xd, yd);
@@ -83,9 +86,12 @@ ba_blocks_kernel(const float* __restrict__ cam10, const float* __restrict__ R,
     float A[3][3] = {{fx * iz, 0.f, -fx * xn * iz},
                      {0.f, fy * iz, -fy * yn * iz},
                      {fx * iz, 0.f, -fx * xn * iz + bf * iz * iz}};
-    if constexpr (kDist) {  // rows of models.stereo_project_jac with the distortion's Jacobian
+    if constexpr (kCam != cam::kPinhole) {  // rows of models.stereo_project_jac with the camera's Jacobian
       float J[2][3];
-      cam::pixel_jac(fx, fy, dist, xn, yn, iz, J);
+      if constexpr (kCam == cam::kKB8)
+        cam::kb8_jac(cam::kb8_from10(cam10), xc[0], xc[1], xc[2], J);
+      else
+        cam::pixel_jac(fx, fy, dist, xn, yn, iz, J);
       for (int k = 0; k < 3; ++k) {
         A[0][k] = A[2][k] = J[0][k];
         A[1][k] = J[1][k];
@@ -158,8 +164,8 @@ __global__ void round_kernel(const double* __restrict__ acc, float* __restrict__
 
 }  // namespace
 
-// cam10: fx fy cx cy bf k1 k2 p1 p2 k3 on the device; dist: whether any coefficient is not 0
-extern "C" int ba_blocks_launch(const float* cam10, int dist, const float* R, const float* t, const float* xw,
+// cam10: the camera's (10,) slots on the device (camera.cuh); kind: cam::Kind (0 pin-hole, 1 radtan, 2 KB8)
+extern "C" int ba_blocks_launch(const float* cam10, int kind, const float* R, const float* t, const float* xw,
                                 const uint8_t* pose_fixed, const uint8_t* lm_valid,
                                 const int* obs_kf, const int* obs_lm, const float* obs_uv,
                                 const float* inv_s2, const uint8_t* is_stereo,
@@ -170,14 +176,18 @@ extern "C" int ba_blocks_launch(const float* cam10, int dist, const float* R, co
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_obs > 0) {
     const int grid = (n_obs + kThreads - 1) / kThreads;
-    if (dist)
-      ba_blocks_kernel<true><<<grid, kThreads, 0, st>>>(cam10, R, t, xw, pose_fixed, lm_valid, obs_kf, obs_lm,
-                                                         obs_uv, inv_s2, is_stereo, obs_valid, inlier, n_obs,
-                                                         n_kf, n_lm, W, acc);
+    if (kind == cam::kKB8)
+      ba_blocks_kernel<cam::kKB8><<<grid, kThreads, 0, st>>>(cam10, R, t, xw, pose_fixed, lm_valid, obs_kf, obs_lm,
+                                                             obs_uv, inv_s2, is_stereo, obs_valid, inlier, n_obs,
+                                                             n_kf, n_lm, W, acc);
+    else if (kind == cam::kRadtan)
+      ba_blocks_kernel<cam::kRadtan><<<grid, kThreads, 0, st>>>(cam10, R, t, xw, pose_fixed, lm_valid, obs_kf,
+                                                                obs_lm, obs_uv, inv_s2, is_stereo, obs_valid, inlier,
+                                                                n_obs, n_kf, n_lm, W, acc);
     else
-      ba_blocks_kernel<false><<<grid, kThreads, 0, st>>>(cam10, R, t, xw, pose_fixed, lm_valid, obs_kf, obs_lm,
-                                                          obs_uv, inv_s2, is_stereo, obs_valid, inlier, n_obs,
-                                                          n_kf, n_lm, W, acc);
+      ba_blocks_kernel<cam::kPinhole><<<grid, kThreads, 0, st>>>(cam10, R, t, xw, pose_fixed, lm_valid, obs_kf,
+                                                                 obs_lm, obs_uv, inv_s2, is_stereo, obs_valid, inlier,
+                                                                 n_obs, n_kf, n_lm, W, acc);
   }
   const int n = 42 * n_kf + 13 * n_lm + 1;
   const int grid = (n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024;

@@ -8,7 +8,9 @@
 //     the closed-form Jacobian, a 6x6 Cholesky, the so3_exp update and the
 //     SVD re-orthonormalisation; every thread scores both poses on its
 //     points (pin-hole + radtan, chi2 < 5.991 with 1 / sigma^2, z > 0),
-//     block-reduced.
+//     block-reduced.  A Kannala-Brandt camera scores through the kKB8
+//     instance's projection (camera.cuh); a pin-hole one runs the code it
+//     always ran.
 //  2. One CTA: the first maximum of the counts, its inlier mask, and
 //     ok = n >= min_inliers with a finite pose.
 // See the source note in optim/pnp.py; pnp_ransac_plain there is the same
@@ -16,6 +18,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "camera.cuh"
 #include "jacobi.cuh"
 
 namespace {
@@ -25,15 +28,23 @@ constexpr float kChi2 = 5.991f;
 
 struct Cam {
   float fx, fy, cx, cy, k1, k2, p1, p2, k3;
+  cam::KB8 kb;  // the kKB8 instance's camera
 };
 
 // Inlier test of world point x at pose (R, t): cameras/models.project with
-// its |z| < 1e-9 guard, radial-tangential distortion.
+// its |z| < 1e-9 guard, radial-tangential distortion, or KB8's projection.
+template <int kCam>
 __device__ __forceinline__ bool is_inlier(const float* R, const float* t, const Cam& c, const float* x, float u,
                                           float v, float inv_s2) {
   const float xc = R[0] * x[0] + R[1] * x[1] + R[2] * x[2] + t[0];
   const float yc = R[3] * x[0] + R[4] * x[1] + R[5] * x[2] + t[1];
   const float zc = R[6] * x[0] + R[7] * x[1] + R[8] * x[2] + t[2];
+  if constexpr (kCam == cam::kKB8) {
+    float pu, pv;
+    cam::kb8_project(c.kb, xc, yc, zc, pu, pv);
+    const float du = pu - u, dv = pv - v;
+    return (du * du + dv * dv) * inv_s2 < kChi2 && zc > 0.f;
+  }
   const float z = fabsf(zc) < 1e-9f ? 1e-9f : zc;
   const float mx = xc / z, my = yc / z;
   const float r2 = mx * mx + my * my;
@@ -99,6 +110,7 @@ __device__ void refine_gn(double (&R)[3][3], double (&t)[3], const float (&xw)[6
   }
 }
 
+template <int kCam>
 __global__ void __launch_bounds__(kThreads)
 hypotheses_kernel(const float* __restrict__ xw, const float* __restrict__ uv, const float* __restrict__ xn,
                   const float* __restrict__ inv_s2, const bool* __restrict__ valid, const int* __restrict__ subsets,
@@ -185,8 +197,8 @@ hypotheses_kernel(const float* __restrict__ xw, const float* __restrict__ uv, co
   double n0 = 0.0, n1 = 0.0;
   for (int i = threadIdx.x; i < n; i += blockDim.x)
     if (valid[i]) {
-      n0 += is_inlier(sR[0], st[0], cam, xw + 3 * i, uv[2 * i], uv[2 * i + 1], inv_s2[i]);
-      n1 += is_inlier(sR[1], st[1], cam, xw + 3 * i, uv[2 * i], uv[2 * i + 1], inv_s2[i]);
+      n0 += is_inlier<kCam>(sR[0], st[0], cam, xw + 3 * i, uv[2 * i], uv[2 * i + 1], inv_s2[i]);
+      n1 += is_inlier<kCam>(sR[1], st[1], cam, xw + 3 * i, uv[2 * i], uv[2 * i + 1], inv_s2[i]);
     }
   n0 = jacobi::block_sum(n0, red);
   n1 = jacobi::block_sum(n1, red);
@@ -204,6 +216,7 @@ hypotheses_kernel(const float* __restrict__ xw, const float* __restrict__ uv, co
   }
 }
 
+template <int kCam>
 __global__ void __launch_bounds__(kThreads)
 select_kernel(const float* __restrict__ xw, const float* __restrict__ uv, const float* __restrict__ inv_s2,
               const bool* __restrict__ valid, int n, int n_pose, Cam cam, int min_inliers,
@@ -234,20 +247,36 @@ select_kernel(const float* __restrict__ xw, const float* __restrict__ uv, const 
   }
   __syncthreads();
   for (int i = threadIdx.x; i < n; i += blockDim.x)
-    inliers[i] = valid[i] && is_inlier(sR, st, cam, xw + 3 * i, uv[2 * i], uv[2 * i + 1], inv_s2[i]);
+    inliers[i] = valid[i] && is_inlier<kCam>(sR, st, cam, xw + 3 * i, uv[2 * i], uv[2 * i + 1], inv_s2[i]);
+}
+
+template <int kCam>
+void launch_cam(const float* xw, const float* uv, const float* xn, const float* inv_s2, const bool* valid,
+                const int* subsets, int n, int n_hyp, const Cam& cam, int min_inliers, float* hyp_R, float* hyp_t,
+                float* counts, float* R, float* t, bool* inliers, int* n_inl, bool* ok, cudaStream_t s) {
+  hypotheses_kernel<kCam><<<n_hyp, kThreads, 0, s>>>(xw, uv, xn, inv_s2, valid, subsets, n, cam, hyp_R, hyp_t,
+                                                     counts);
+  select_kernel<kCam><<<1, kThreads, 0, s>>>(xw, uv, inv_s2, valid, n, 2 * n_hyp, cam, min_inliers, hyp_R, hyp_t,
+                                             counts, R, t, inliers, n_inl, ok);
 }
 
 }  // namespace
 
+// cam9: the camera's host (9,) parameters, pin-hole + radial-tangential [fx, fy, cx, cy, k1, k2, p1, p2, k3] or
+// KB8 [fx, fy, cx, cy, k1, k2, k3, k4, 0]; kind: cam::Kind (a pin-hole camera runs the radial-tangential code).
 extern "C" int pnp_ransac_launch(const float* xw, const float* uv, const float* xn, const float* inv_s2,
-                                 const bool* valid, const int* subsets, int n, int n_hyp, const float* cam9,
+                                 const bool* valid, const int* subsets, int n, int n_hyp, const float* cam9, int kind,
                                  int min_inliers, float* hyp_R, float* hyp_t, float* counts, float* R, float* t,
                                  bool* inliers, int* n_inl, bool* ok, void* stream) {
   if (n < 1 || n_hyp < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Cam cam = {cam9[0], cam9[1], cam9[2], cam9[3], cam9[4], cam9[5], cam9[6], cam9[7], cam9[8]};  // host copy
-  hypotheses_kernel<<<n_hyp, kThreads, 0, s>>>(xw, uv, xn, inv_s2, valid, subsets, n, cam, hyp_R, hyp_t, counts);
-  select_kernel<<<1, kThreads, 0, s>>>(xw, uv, inv_s2, valid, n, 2 * n_hyp, cam, min_inliers, hyp_R, hyp_t, counts,
-                                       R, t, inliers, n_inl, ok);
+  const cam::KB8 kb = {cam9[0], cam9[1], cam9[2], cam9[3], cam9[4], cam9[5], cam9[6], cam9[7]};
+  const Cam cam = {cam9[0], cam9[1], cam9[2], cam9[3], cam9[4], cam9[5], cam9[6], cam9[7], cam9[8], kb};  // host copy
+  if (kind == cam::kKB8)
+    launch_cam<cam::kKB8>(xw, uv, xn, inv_s2, valid, subsets, n, n_hyp, cam, min_inliers, hyp_R, hyp_t, counts, R, t,
+                          inliers, n_inl, ok, s);
+  else
+    launch_cam<cam::kRadtan>(xw, uv, xn, inv_s2, valid, subsets, n, n_hyp, cam, min_inliers, hyp_R, hyp_t, counts, R,
+                             t, inliers, n_inl, ok, s);
   return cudaGetLastError();
 }

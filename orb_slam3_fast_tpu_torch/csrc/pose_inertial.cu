@@ -7,8 +7,8 @@
 // entry by entry and solved by the block's Gaussian elimination.  The
 // prior-less call (kPrior false), the prior on the current state, and the
 // last-frame form (kLast: the previous state free under its prior, then
-// marginalised) are template instances; a distorted pin-hole camera takes
-// kDist.  See the source note in optim/inertial.py.
+// marginalised) are template instances, and so is the camera's kind
+// (camera.cuh: pin-hole, radial-tangential or KB8).  See the source note in optim/inertial.py.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -31,7 +31,7 @@ struct Edges {
 };
 
 // Residual, camera point and d(u, v, u_r)/d(xc) rows of edge i at the pose (Rcw, tcw), float32 as kernel D.
-template <bool kDist>
+template <int kCam>
 __device__ __forceinline__ void project(const float* cam, const float (&Rcw)[3][3], const float (&tcw)[3],
                                         const Edges& e, int i, float (&r)[3], float (&xc)[3], float (&A)[3][3]) {
   const float fx = cam[0], fy = cam[1], cx = cam[2], cy = cam[3], bf = cam[4];
@@ -40,7 +40,9 @@ __device__ __forceinline__ void project(const float* cam, const float (&Rcw)[3][
   const float z = fabsf(xc[2]) < 1e-9f ? 1e-9f : xc[2];
   const float iz = 1.f / z, xn = xc[0] * iz, yn = xc[1] * iz;
   float u, v;
-  if constexpr (kDist) {
+  if constexpr (kCam == cam::kKB8) {
+    cam::kb8_rows(cam::kb8_from10(cam), bf, xc, iz, u, v, A);
+  } else if constexpr (kCam == cam::kRadtan) {
     const cam::Radtan d = {cam[5], cam[6], cam[7], cam[8], cam[9]};
     float xd, yd;
     cam::distort(d, xc[0] / z, xc[1] / z, xd, yd);
@@ -80,7 +82,7 @@ struct Shared {
 
 // The visual pose block at state s (21 upper of H6, g6, the IRLS cost) or, with
 // only_cost, the cost alone; inlier is the mask of this round.
-template <bool kDist>
+template <int kCam>
 __device__ void visual_pass(const float* cam, const float* tcb, const double* s, const Edges& e, const uint8_t* inlier,
                             bool only_cost, Shared& sh) {
   inr::State st;
@@ -95,7 +97,7 @@ __device__ void visual_pass(const float* cam, const float* tcb, const double* s,
   double acc[28] = {};
   for (int i = threadIdx.x; i < e.n; i += blockDim.x) {
     float r[3], xc[3], A[3][3];
-    project<kDist>(cam, Rcw, tcw, e, i, r, xc, A);
+    project<kCam>(cam, Rcw, tcw, e, i, r, xc, A);
     const bool st_i = e.is_stereo[i];
     const float s2 = e.inv_s2[i];
     const float chi2 = (r[0] * r[0] + r[1] * r[1] + r[2] * r[2]) * s2;
@@ -129,7 +131,7 @@ __device__ void visual_pass(const float* cam, const float* tcb, const double* s,
 }
 
 // Chi2 classification of every edge at state s into inlier.
-template <bool kDist>
+template <int kCam>
 __device__ void classify(const float* cam, const float* tcb, const double* s, const Edges& e, uint8_t* inlier) {
   inr::State st;
   inr::load_state(s, st);
@@ -142,7 +144,7 @@ __device__ void classify(const float* cam, const float* tcb, const double* s, co
   }
   for (int i = threadIdx.x; i < e.n; i += blockDim.x) {
     float r[3], xc[3], A[3][3];
-    project<kDist>(cam, Rcw, tcw, e, i, r, xc, A);
+    project<kCam>(cam, Rcw, tcw, e, i, r, xc, A);
     const float chi2 = (r[0] * r[0] + r[1] * r[1] + r[2] * r[2]) * e.inv_s2[i];
     inlier[i] = e.valid[i] && chi2 <= (e.is_stereo[i] ? kChi2Stereo : kChi2Mono) && xc[2] > 0.05f;
   }
@@ -194,11 +196,11 @@ __device__ double factor_cost(const Dual (&F)[30], const Shared& sh) {
 // The full normal equations H (n x n) into sh.A (and g into column n) at the
 // current states: the factor Jacobian by dual numbers, the visual pose
 // block at offset ``off``; returns through sh.cost0 the GN cost.
-template <bool kDist, bool kLast, bool kPrior>
+template <int kCam, bool kLast, bool kPrior>
 __device__ void normal_equations(const float* cam, const float* tcb, const inr::Delta& dl, const Edges& e,
                                  const uint8_t* inlier, Shared& sh) {
   constexpr int nd = kLast ? 30 : 15, nf = (kLast || kPrior) ? 30 : 15, off = kLast ? 15 : 0;
-  visual_pass<kDist>(cam, tcb, sh.st[1], e, inlier, false, sh);
+  visual_pass<kCam>(cam, tcb, sh.st[1], e, inlier, false, sh);
   if (threadIdx.x < nd) {
     Dual F[30];
     factors<kLast, kPrior>(sh.st[0], sh.st[1], sh.prior, dl, threadIdx.x, F);
@@ -260,7 +262,7 @@ __device__ void retract_store(const double* s, const double* d, double* out) {
   for (int k = 0; k < 6; ++k) out[15 + k] = (float)o.b[k];
 }
 
-template <bool kDist, bool kLast, bool kPrior>
+template <int kCam, bool kLast, bool kPrior>
 __global__ void __launch_bounds__(kThreads)
 pose_inertial_kernel(const float* __restrict__ cam, const float* __restrict__ tcb, const float* __restrict__ s_prev,
                      const float* __restrict__ pk, const float* __restrict__ s0, const float* __restrict__ prior,
@@ -285,7 +287,7 @@ pose_inertial_kernel(const float* __restrict__ cam, const float* __restrict__ tc
     if (threadIdx.x == 0) sh.lam = 1e-2;
     __syncthreads();
     for (int it = 0; it < iters; ++it) {
-      normal_equations<kDist, kLast, kPrior>(cam, tcb, dl, e, inlier, sh);
+      normal_equations<kCam, kLast, kPrior>(cam, tcb, dl, e, inlier, sh);
       for (int p = threadIdx.x; p < nd; p += blockDim.x)  // damping: lam * max(diag, 1e-6) + 1e-8
         sh.A[p][p] += sh.lam * fmax(sh.A[p][p], 1e-6) + 1e-8;
       __syncthreads();
@@ -297,7 +299,7 @@ pose_inertial_kernel(const float* __restrict__ cam, const float* __restrict__ tc
         retract_store(sh.st[1], sh.x + off, sh.cand[1]);
       }
       __syncthreads();
-      visual_pass<kDist>(cam, tcb, sh.cand[1], e, inlier, true, sh);
+      visual_pass<kCam>(cam, tcb, sh.cand[1], e, inlier, true, sh);
       if (threadIdx.x == 0) {
         Dual F[30];
         factors<kLast, kPrior>(sh.cand[0], sh.cand[1], sh.prior, dl, -1, F);
@@ -309,10 +311,10 @@ pose_inertial_kernel(const float* __restrict__ cam, const float* __restrict__ tc
       }
       __syncthreads();
     }
-    classify<kDist>(cam, tcb, sh.st[1], e, inlier);
+    classify<kCam>(cam, tcb, sh.st[1], e, inlier);
   }
   // the information at the solution with the final inliers
-  normal_equations<kDist, kLast, kPrior>(cam, tcb, dl, e, inlier, sh);
+  normal_equations<kCam, kLast, kPrior>(cam, tcb, dl, e, inlier, sh);
   double cnt[1] = {0.0};
   for (int i = threadIdx.x; i < e.n; i += blockDim.x) cnt[0] += inlier[i] ? 1.0 : 0.0;
   inr::block_sums(cnt, 1, sh.red, sh.vis);
@@ -352,27 +354,28 @@ pose_inertial_kernel(const float* __restrict__ cam, const float* __restrict__ tc
   }
 }
 
-template <bool kDist>
-int launch_dist(const float* cam, const float* tcb, const float* sp, const float* pk, const float* s0,
+template <int kCam>
+int launch_cam(const float* cam, const float* tcb, const float* sp, const float* pk, const float* s0,
                 const float* prior, int last, const Edges& e, int n_rounds, int iters, float* state_out,
                 uint8_t* inlier, int* n_inl, float* H_out, cudaStream_t st) {
   if (last)
-    pose_inertial_kernel<kDist, true, true><<<1, kThreads, 0, st>>>(cam, tcb, sp, pk, s0, prior, e, n_rounds, iters,
+    pose_inertial_kernel<kCam, true, true><<<1, kThreads, 0, st>>>(cam, tcb, sp, pk, s0, prior, e, n_rounds, iters,
                                                                    state_out, inlier, n_inl, H_out);
   else if (prior)
-    pose_inertial_kernel<kDist, false, true><<<1, kThreads, 0, st>>>(cam, tcb, sp, pk, s0, prior, e, n_rounds, iters,
+    pose_inertial_kernel<kCam, false, true><<<1, kThreads, 0, st>>>(cam, tcb, sp, pk, s0, prior, e, n_rounds, iters,
                                                                     state_out, inlier, n_inl, H_out);
   else
-    pose_inertial_kernel<kDist, false, false><<<1, kThreads, 0, st>>>(cam, tcb, sp, pk, s0, prior, e, n_rounds,
+    pose_inertial_kernel<kCam, false, false><<<1, kThreads, 0, st>>>(cam, tcb, sp, pk, s0, prior, e, n_rounds,
                                                                      iters, state_out, inlier, n_inl, H_out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// cam10: fx fy cx cy bf k1 k2 p1 p2 k3 on the device; tcb: R_cb (9) | t_cb; states R | p | v | bias (21);
+// cam10: the camera's (10,) slots on the device (camera.cuh); kind: cam::Kind (0 pin-hole, 1 radtan, 2 KB8);
+// tcb: R_cb (9) | t_cb; states R | p | v | bias (21);
 // pk: the packed window; prior: state (21) | H (225), or null; last: the last-frame form (needs the prior).
-extern "C" int pose_inertial_launch(const float* cam10, int dist, const float* tcb, const float* s_prev,
+extern "C" int pose_inertial_launch(const float* cam10, int kind, const float* tcb, const float* s_prev,
                                     const float* pk, const float* s0, const float* prior, int last,
                                     const float* xw, const float* uv, const float* inv_s2,
                                     const uint8_t* is_stereo, const uint8_t* valid, int n, int n_rounds, int iters,
@@ -380,9 +383,12 @@ extern "C" int pose_inertial_launch(const float* cam10, int dist, const float* t
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (last && prior == nullptr) return cudaErrorInvalidValue;
   const Edges e = {xw, uv, inv_s2, is_stereo, valid, n};
-  if (dist)
-    return launch_dist<true>(cam10, tcb, s_prev, pk, s0, prior, last, e, n_rounds, iters, state_out, inlier, n_inl,
-                             H_out, st);
-  return launch_dist<false>(cam10, tcb, s_prev, pk, s0, prior, last, e, n_rounds, iters, state_out, inlier, n_inl,
-                            H_out, st);
+  if (kind == cam::kKB8)
+    return launch_cam<cam::kKB8>(cam10, tcb, s_prev, pk, s0, prior, last, e, n_rounds, iters, state_out, inlier,
+                                 n_inl, H_out, st);
+  if (kind == cam::kRadtan)
+    return launch_cam<cam::kRadtan>(cam10, tcb, s_prev, pk, s0, prior, last, e, n_rounds, iters, state_out, inlier,
+                                    n_inl, H_out, st);
+  return launch_cam<cam::kPinhole>(cam10, tcb, s_prev, pk, s0, prior, last, e, n_rounds, iters, state_out, inlier,
+                                   n_inl, H_out, st);
 }

@@ -1,8 +1,9 @@
 // Kernel D: 4 x 10 Levenberg-Marquardt pose optimisation with Huber IRLS and
 // the final chi2 classification, all in one CTA.  Every round optimises with
-// the round-0 mask, as the reference does.  A camera with radial-tangential
-// distortion takes the kDist instance (camera.cuh); one without, the code
-// it always ran.  See the source note in optim/pose_opt.py;
+// the round-0 mask, as the reference does.  The camera's kind is a template
+// parameter (camera.cuh): a radial-tangential camera takes the kRadtan
+// instance, a Kannala-Brandt one the kKB8 instance, and one without
+// distortion the code it always ran.  See the source note in optim/pose_opt.py;
 // pose_optimization_plain there is the same algorithm.
 #include <cuda_runtime.h>
 #include <math.h>
@@ -31,8 +32,9 @@ struct Edge {
 };
 
 // T = [R (row-major 9), t (3)]
-template <bool kDist>
+template <int kCam>
 __device__ __forceinline__ Edge eval_edge(const float* __restrict__ T, const Cam& c, const cam::Radtan& dist,
+                                          const cam::KB8& kb,
                                           const float* __restrict__ xw,
                                           const float* __restrict__ uv, float inv_s2,
                                           bool stereo, bool valid) {
@@ -42,7 +44,9 @@ __device__ __forceinline__ Edge eval_edge(const float* __restrict__ T, const Cam
   for (int i = 0; i < 3; ++i) e.xc[i] = T[3 * i] * X + T[3 * i + 1] * Y + T[3 * i + 2] * Z + T[9 + i];
   const float z = fabsf(e.xc[2]) < 1e-9f ? 1e-9f : e.xc[2];
   float u, v;
-  if constexpr (kDist) {
+  if constexpr (kCam == cam::kKB8) {
+    cam::kb8_project(kb, e.xc[0], e.xc[1], e.xc[2], u, v);
+  } else if constexpr (kCam == cam::kRadtan) {
     float xd, yd;
     cam::distort(dist, e.xc[0] / z, e.xc[1] / z, xd, yd);
     u = c.fx * xd + c.cx;
@@ -139,7 +143,7 @@ __device__ void exp_compose(const double (&dx)[6], const float* T, float* T_out)
   }
 }
 
-template <bool kDist>
+template <int kCam>
 __global__ void __launch_bounds__(kThreads)
 pose_lm_kernel(const float* __restrict__ xw, const float* __restrict__ uv,
                const float* __restrict__ inv_s2, const uint8_t* __restrict__ is_stereo,
@@ -153,7 +157,9 @@ pose_lm_kernel(const float* __restrict__ xw, const float* __restrict__ uv,
   const int tid = threadIdx.x;
   const Cam c = {cam10[0], cam10[1], cam10[2], cam10[3], cam10[4]};
   cam::Radtan dist = {};
-  if constexpr (kDist) dist = {cam10[5], cam10[6], cam10[7], cam10[8], cam10[9]};
+  if constexpr (kCam == cam::kRadtan) dist = {cam10[5], cam10[6], cam10[7], cam10[8], cam10[9]};
+  cam::KB8 kb = {};
+  if constexpr (kCam == cam::kKB8) kb = cam::kb8_from10(cam10);
   if (tid < 9) sT[tid] = R0[tid];
   if (tid < 3) sT[9 + tid] = t0[tid];
   __syncthreads();
@@ -167,7 +173,7 @@ pose_lm_kernel(const float* __restrict__ xw, const float* __restrict__ uv,
 #pragma unroll
       for (int k = 0; k < kSums; ++k) acc[k] = 0.f;
       for (int e = tid; e < n; e += kThreads) {
-        const Edge ed = eval_edge<kDist>(sT, c, dist, xw + 3 * e, uv + 3 * e, inv_s2[e], is_stereo[e], valid[e]);
+        const Edge ed = eval_edge<kCam>(sT, c, dist, kb, xw + 3 * e, uv + 3 * e, inv_s2[e], is_stereo[e], valid[e]);
         if (!ed.active) continue;
         const float w = ed.w_huber * inv_s2[e];
         const float X = ed.xc[0], Y = ed.xc[1], Z = ed.xc[2];
@@ -178,9 +184,12 @@ pose_lm_kernel(const float* __restrict__ xw, const float* __restrict__ uv,
         float A[3][3] = {{c.fx * iz, 0.f, -c.fx * xn * iz},
                          {0.f, c.fy * iz, -c.fy * yn * iz},
                          {c.fx * iz, 0.f, -c.fx * xn * iz + c.bf * iz * iz}};
-        if constexpr (kDist) {  // rows of models.stereo_project_jac with the distortion's Jacobian
+        if constexpr (kCam != cam::kPinhole) {  // rows of models.stereo_project_jac with the camera's Jacobian
           float J[2][3];
-          cam::pixel_jac(c.fx, c.fy, dist, xn, yn, iz, J);
+          if constexpr (kCam == cam::kKB8)
+            cam::kb8_jac(kb, X, Y, Z, J);
+          else
+            cam::pixel_jac(c.fx, c.fy, dist, xn, yn, iz, J);
           for (int k = 0; k < 3; ++k) {
             A[0][k] = A[2][k] = J[0][k];
             A[1][k] = J[1][k];
@@ -221,7 +230,7 @@ pose_lm_kernel(const float* __restrict__ xw, const float* __restrict__ uv,
       // pass 2: cost at the candidate pose
       float cn[1] = {0.f};
       for (int e = tid; e < n; e += kThreads) {
-        const Edge ed = eval_edge<kDist>(sTn, c, dist, xw + 3 * e, uv + 3 * e, inv_s2[e], is_stereo[e], valid[e]);
+        const Edge ed = eval_edge<kCam>(sTn, c, dist, kb, xw + 3 * e, uv + 3 * e, inv_s2[e], is_stereo[e], valid[e]);
         if (ed.active) cn[0] += ed.w_huber * ed.chi2;
       }
       const float cost = tot[27];
@@ -241,7 +250,7 @@ pose_lm_kernel(const float* __restrict__ xw, const float* __restrict__ uv,
   // chi2 classification at the final pose
   float cnt[1] = {0.f};
   for (int e = tid; e < n; e += kThreads) {
-    const Edge ed = eval_edge<kDist>(sT, c, dist, xw + 3 * e, uv + 3 * e, inv_s2[e], is_stereo[e], valid[e]);
+    const Edge ed = eval_edge<kCam>(sT, c, dist, kb, xw + 3 * e, uv + 3 * e, inv_s2[e], is_stereo[e], valid[e]);
     const float delta2 = ed.stereo ? kChi2Stereo : kChi2Mono;
     const bool in = ed.active && ed.chi2 <= delta2;
     inlier[e] = in;
@@ -255,18 +264,21 @@ pose_lm_kernel(const float* __restrict__ xw, const float* __restrict__ uv,
 
 }  // namespace
 
-// cam10: fx fy cx cy bf k1 k2 p1 p2 k3 on the device; dist: whether any coefficient is not 0
+// cam10: the camera's (10,) slots on the device (camera.cuh); kind: cam::Kind (0 pin-hole, 1 radtan, 2 KB8)
 extern "C" int pose_lm_launch(const float* xw, const float* uv, const float* inv_s2,
                               const uint8_t* is_stereo, const uint8_t* valid, int n,
-                              const float* cam10, int dist, const float* R0, const float* t0, int n_rounds,
+                              const float* cam10, int kind, const float* R0, const float* t0, int n_rounds,
                               int iters, float* R_out, float* t_out, uint8_t* inlier,
                               int* n_inl_out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dist)
-    pose_lm_kernel<true><<<1, kThreads, 0, st>>>(xw, uv, inv_s2, is_stereo, valid, n, cam10, R0, t0, n_rounds,
-                                                  iters, R_out, t_out, inlier, n_inl_out);
+  if (kind == cam::kKB8)
+    pose_lm_kernel<cam::kKB8><<<1, kThreads, 0, st>>>(xw, uv, inv_s2, is_stereo, valid, n, cam10, R0, t0, n_rounds,
+                                                      iters, R_out, t_out, inlier, n_inl_out);
+  else if (kind == cam::kRadtan)
+    pose_lm_kernel<cam::kRadtan><<<1, kThreads, 0, st>>>(xw, uv, inv_s2, is_stereo, valid, n, cam10, R0, t0,
+                                                         n_rounds, iters, R_out, t_out, inlier, n_inl_out);
   else
-    pose_lm_kernel<false><<<1, kThreads, 0, st>>>(xw, uv, inv_s2, is_stereo, valid, n, cam10, R0, t0, n_rounds,
-                                                   iters, R_out, t_out, inlier, n_inl_out);
+    pose_lm_kernel<cam::kPinhole><<<1, kThreads, 0, st>>>(xw, uv, inv_s2, is_stereo, valid, n, cam10, R0, t0,
+                                                          n_rounds, iters, R_out, t_out, inlier, n_inl_out);
   return cudaGetLastError();
 }

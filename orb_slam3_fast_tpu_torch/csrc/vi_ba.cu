@@ -11,8 +11,9 @@
 // state's observations in landmark order, the Schur coupling of a pair of
 // states by a merge of their two landmark-sorted lists); the block's
 // Gaussian elimination; the landmarks' back-substitution; the candidate's
-// robust cost and the accept on the device.  See the source note in
-// optim/vi_ba.py.
+// robust cost and the accept on the device.  The camera's kind (camera.cuh:
+// pin-hole, radial-tangential or KB8) is a template parameter.  See the
+// source note in optim/vi_ba.py.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -71,7 +72,7 @@ __device__ Work carve(double* s, const Prob& P) {
 }
 
 // The observation's residual, camera point and d(u, v, u_r)/d(xc) rows at state st (float32, as kernel W).
-template <bool kDist>
+template <int kCam>
 __device__ void project(const Prob& P, int o, const double* st, const double* xw_m, float (&r)[3], float (&xc)[3],
                         float (&A)[3][3], float (&y)[3]) {
   inr::State S;
@@ -87,7 +88,9 @@ __device__ void project(const Prob& P, int o, const double* st, const double* xw
   const float z = fabsf(xc[2]) < 1e-9f ? 1e-9f : xc[2];
   const float iz = 1.f / z, xn = xc[0] * iz, yn = xc[1] * iz;
   float u, v;
-  if constexpr (kDist) {
+  if constexpr (kCam == cam::kKB8) {
+    cam::kb8_rows(cam::kb8_from10(cam), bf, xc, iz, u, v, A);
+  } else if constexpr (kCam == cam::kRadtan) {
     const cam::Radtan d = {cam[5], cam[6], cam[7], cam[8], cam[9]};
     float xd, yd;
     cam::distort(d, xc[0] / z, xc[1] / z, xd, yd);
@@ -111,14 +114,14 @@ __device__ void project(const Prob& P, int o, const double* st, const double* xw
 
 // Per observation at the states ``st`` and landmarks (offset ``xoff`` in the landmark rows): robust cost, and
 // unless only_cost the residual, Jacobians, weight and W = Jp^T w Jl.
-template <bool kDist>
+template <int kCam>
 __device__ double obs_pass(const Prob& P, const Work& w, const double* st, int xoff, const uint8_t* inlier,
                            bool only_cost) {
   double cost = 0.0;
   for (int o = threadIdx.x; o < P.O; o += blockDim.x) {
     const int k = P.obs_kf[o], m = P.obs_lm[o];
     float r[3], xc[3], A[3][3], y[3];
-    project<kDist>(P, o, st + 21 * k, w.lm + (size_t)kLm * m + xoff, r, xc, A, y);
+    project<kCam>(P, o, st + 21 * k, w.lm + (size_t)kLm * m + xoff, r, xc, A, y);
     const float s2 = P.inv_s2[o];
     const float chi2 = (r[0] * r[0] + r[1] * r[1] + r[2] * r[2]) * s2;
     const float delta2 = P.is_stereo[o] ? kChi2Stereo : kChi2Mono;
@@ -220,18 +223,18 @@ __device__ double edge_cost(const Prob& P, const Work& w, const double* st, int 
   return c;
 }
 
-template <bool kDist>
+template <int kCam>
 __device__ void classify(const Prob& P, const Work& w, uint8_t* inlier) {
   for (int o = threadIdx.x; o < P.O; o += blockDim.x) {
     float r[3], xc[3], A[3][3], y[3];
-    project<kDist>(P, o, w.st + 21 * P.obs_kf[o], w.lm + (size_t)kLm * P.obs_lm[o] + 25, r, xc, A, y);
+    project<kCam>(P, o, w.st + 21 * P.obs_kf[o], w.lm + (size_t)kLm * P.obs_lm[o] + 25, r, xc, A, y);
     const float chi2 = (r[0] * r[0] + r[1] * r[1] + r[2] * r[2]) * P.inv_s2[o];
     inlier[o] = P.obs_valid[o] && chi2 <= (P.is_stereo[o] ? kChi2Stereo : kChi2Mono) && xc[2] > 0.05f;
   }
   __syncthreads();
 }
 
-template <bool kDist>
+template <int kCam>
 __global__ void __launch_bounds__(kThreads) vi_ba_kernel(Prob P, double* scratch, float* state_out, float* xw_out,
                                                          uint8_t* inlier) {
   __shared__ double red[16 * 2];
@@ -261,7 +264,7 @@ __global__ void __launch_bounds__(kThreads) vi_ba_kernel(Prob P, double* scratch
     for (int it = 0; it < iters; ++it) {
       const double lam = w.misc[0];
       // (1) observations and inertial edges at the current state; the current cost
-      double c[2] = {obs_pass<kDist>(P, w, w.st, 25, inlier, false), 0.0};
+      double c[2] = {obs_pass<kCam>(P, w, w.st, 25, inlier, false), 0.0};
       edge_pass(P, w, w.st);
       for (int e = threadIdx.x; e < P.E; e += blockDim.x) {
         if (!P.edge_valid[e]) continue;
@@ -432,7 +435,7 @@ __global__ void __launch_bounds__(kThreads) vi_ba_kernel(Prob P, double* scratch
       }
       __syncthreads();
       // (8) the candidate's cost; (9) accept
-      double c1[2] = {obs_pass<kDist>(P, w, w.cand, 28, inlier, true), 0.0};
+      double c1[2] = {obs_pass<kCam>(P, w, w.cand, 28, inlier, true), 0.0};
       for (int e = threadIdx.x; e < P.E; e += blockDim.x) c1[1] += edge_cost(P, w, w.cand, e);
       inr::block_sums(c1, 2, red, sums);
       const bool accept = sums[0] + sums[1] < w.misc[1];
@@ -447,7 +450,7 @@ __global__ void __launch_bounds__(kThreads) vi_ba_kernel(Prob P, double* scratch
       if (threadIdx.x == 0) w.misc[0] = accept ? fmax(lam * 0.5, 1e-8) : fmin(lam * 5.0, 1e6);
       __syncthreads();
     }
-    classify<kDist>(P, w, inlier);
+    classify<kCam>(P, w, inlier);
   }
   for (int t = threadIdx.x; t < 21 * K; t += blockDim.x) state_out[t] = (float)w.st[t];
   for (int t = threadIdx.x; t < 3 * P.M; t += blockDim.x) xw_out[t] = (float)w.lm[(size_t)kLm * (t / 3) + 25 + t % 3];
@@ -459,7 +462,7 @@ __global__ void __launch_bounds__(kThreads) vi_ba_kernel(Prob P, double* scratch
 // (15 nf) x (15 nf + 1), its solution, the step of every state (15K), two sets of states (21 per state) and 8 more
 // (optim/vi_ba.py vi_ba_scratch_doubles).  free_ids: the nf free states in order; free_pos (K): each state's place
 // among them, -1 for a fixed one.
-extern "C" int vi_ba_launch(const float* cam10, int dist, const float* tcb, int K, int M, int O, int E,
+extern "C" int vi_ba_launch(const float* cam10, int kind, const float* tcb, int K, int M, int O, int E,
                             const float* R, const float* p, const float* v, const float* b, const uint8_t* fixed,
                             const float* xw, const uint8_t* lm_valid, const int* obs_kf, const int* obs_lm,
                             const float* uv, const float* inv_s2, const uint8_t* is_stereo, const uint8_t* obs_valid,
@@ -472,9 +475,11 @@ extern "C" int vi_ba_launch(const float* cam10, int dist, const float* tcb, int 
                   obs_valid, edge_i, edge_j, edge_valid, pk, lm_ptr, lm_obs, kf_ptr, kf_obs, ke_ptr, ke_edge,
                   free_ids, free_pos, nf, iters1, iters2};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dist)
-    vi_ba_kernel<true><<<1, kThreads, 0, st>>>(P, scratch, state_out, xw_out, inlier);
+  if (kind == cam::kKB8)
+    vi_ba_kernel<cam::kKB8><<<1, kThreads, 0, st>>>(P, scratch, state_out, xw_out, inlier);
+  else if (kind == cam::kRadtan)
+    vi_ba_kernel<cam::kRadtan><<<1, kThreads, 0, st>>>(P, scratch, state_out, xw_out, inlier);
   else
-    vi_ba_kernel<false><<<1, kThreads, 0, st>>>(P, scratch, state_out, xw_out, inlier);
+    vi_ba_kernel<cam::kPinhole><<<1, kThreads, 0, st>>>(P, scratch, state_out, xw_out, inlier);
   return cudaGetLastError();
 }

@@ -1,15 +1,20 @@
 // Kernel L: frustum, distance-band and view-angle test of the local map's
 // landmark slots and their predicted pyramid level (Frame::isInFrustum and
 // MapPoint::PredictScale).  See the source note in frontend/tracker.py;
-// visible_landmarks_plain there is the same function in PyTorch.
+// visible_landmarks_plain there is the same function in PyTorch.  A
+// Kannala-Brandt camera takes the kKB8 instance (camera.cuh); a pin-hole one
+// the code it always ran.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "camera.cuh"
 
 namespace {
 
 struct Cam {
   float fx, fy, cx, cy, k1, k2, p1, p2, k3;  // pin-hole + radial-tangential
+  cam::KB8 kb;                               // or Kannala-Brandt (kKB8)
   float width, height;                       // image bounds
   float log_sf;                              // log(scale factor)
   int n_lvl;
@@ -17,6 +22,7 @@ struct Cam {
 
 // One thread per landmark slot; R (3,3) and t (3,) are read from device
 // memory, so the tracker's pose estimate never comes to the host for this.
+template <int kCam>
 __global__ void __launch_bounds__(256)
 visible_kernel(const float* __restrict__ R, const float* __restrict__ t, const float* __restrict__ pos,
                const bool* __restrict__ mask, const float* __restrict__ normal, const float* __restrict__ dmin,
@@ -33,14 +39,19 @@ visible_kernel(const float* __restrict__ R, const float* __restrict__ t, const f
   const float xc = r[0] * px + r[1] * py + r[2] * pz + tt[0];
   const float yc = r[3] * px + r[4] * py + r[5] * pz + tt[1];
   const float zc = r[6] * px + r[7] * py + r[8] * pz + tt[2];
-  // cameras.models.project, pin-hole: safe z, normalise, distort
-  const float zs = fabsf(zc) < 1e-9f ? 1e-9f : zc;
-  const float x = xc / zs, y = yc / zs;
-  const float r2 = x * x + y * y;
-  const float radial = 1.0f + r2 * (cam.k1 + r2 * (cam.k2 + r2 * cam.k3));
-  const float xd = x * radial + 2.0f * cam.p1 * x * y + cam.p2 * (r2 + 2.0f * x * x);
-  const float yd = y * radial + cam.p1 * (r2 + 2.0f * y * y) + 2.0f * cam.p2 * x * y;
-  const float u = cam.fx * xd + cam.cx, v = cam.fy * yd + cam.cy;
+  float u, v;
+  if constexpr (kCam == cam::kKB8) {
+    cam::kb8_project(cam.kb, xc, yc, zc, u, v);
+  } else {
+    // cameras.models.project, pin-hole: safe z, normalise, distort
+    const float zs = fabsf(zc) < 1e-9f ? 1e-9f : zc;
+    const float x = xc / zs, y = yc / zs;
+    const float r2 = x * x + y * y;
+    const float radial = 1.0f + r2 * (cam.k1 + r2 * (cam.k2 + r2 * cam.k3));
+    const float xd = x * radial + 2.0f * cam.p1 * x * y + cam.p2 * (r2 + 2.0f * x * x);
+    const float yd = y * radial + cam.p1 * (r2 + 2.0f * y * y) + 2.0f * cam.p2 * x * y;
+    u = cam.fx * xd + cam.cx, v = cam.fy * yd + cam.cy;
+  }
   const bool z_ok = zc > 0.05f;
   const bool in_img = u >= 0.f && u < cam.width && v >= 0.f && v < cam.height;
   // camera centre -R^T t, the viewing ray from it, its length
@@ -63,17 +74,25 @@ visible_kernel(const float* __restrict__ R, const float* __restrict__ t, const f
 }  // namespace
 
 // R: (3,3) row-major T_cw rotation and t: (3,) on the device; pos, normal:
-// (m,3); mask, dmin, dmax: (m,); cam_params: host (9,) pin-hole +
-// radial-tangential [fx, fy, cx, cy, k1, k2, p1, p2, k3].  Outputs: uv
-// (m,2), level (m,) int64, visible (m,).
+// (m,3); mask, dmin, dmax: (m,); cam_params: the camera's host (9,)
+// parameters, pin-hole + radial-tangential [fx, fy, cx, cy, k1, k2, p1, p2,
+// k3] or KB8 [fx, fy, cx, cy, k1, k2, k3, k4, 0]; kind: cam::Kind (a pin-hole
+// camera runs the radial-tangential code with or without distortion).
+// Outputs: uv (m,2), level (m,) int64, visible (m,).
 extern "C" int visible_landmarks_launch(const float* R, const float* t, const float* pos, const bool* mask,
                                         const float* normal, const float* dmin, const float* dmax, int m,
-                                        const float* cam_params, float width, float height, float log_sf,
+                                        const float* cam_params, int kind, float width, float height, float log_sf,
                                         int n_lvl, float* uv, long long* level, bool* visible, void* stream) {
   if (m <= 0) return cudaSuccess;
   const float* p = cam_params;
-  const Cam cam{p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], width, height, log_sf, n_lvl};
-  visible_kernel<<<(m + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(R, t, pos, mask, normal, dmin, dmax,
-                                                                                 m, cam, uv, level, visible);
+  const cam::KB8 kb = {p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7]};
+  const Cam cam{p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], kb, width, height, log_sf, n_lvl};
+  const int grid = (m + 255) / 256;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kind == cam::kKB8)
+    visible_kernel<cam::kKB8><<<grid, 256, 0, st>>>(R, t, pos, mask, normal, dmin, dmax, m, cam, uv, level, visible);
+  else
+    visible_kernel<cam::kRadtan><<<grid, 256, 0, st>>>(R, t, pos, mask, normal, dmin, dmax, m, cam, uv, level,
+                                                       visible);
   return cudaGetLastError();
 }

@@ -5,8 +5,11 @@ Counterpart of ``orb_slam3_fast_tpu/frontend/tracker.py`` (Tracking::Track,
 Tracking.cc:1798-2292): the state machine runs on the host, the keypoints
 stay on ``device``, the map is the host ``WorldMap``.  Per frame:
 one extraction (mono), ``stereo_front`` (dual extraction, banded stereo
-match, SAD refine) or, for RGB-D, one extraction and the depth map sampled
-at the keypoints -> motion-model match + pose opt, with the
+match, SAD refine), ``fisheye_front`` for a two-camera Kannala-Brandt rig
+(dual extraction, the fisheye match and triangulation: a depth per left
+keypoint and no right-u, so every pose edge is monocular) or, for RGB-D,
+one extraction and the depth map sampled at the keypoints -> motion-model
+match + pose opt, with the
 reference-keyframe fallback, or relocalisation when lost -> local-map match
 + pose opt -> keyframe decision -> keyframe indexing and local mapping.
 Mono initialisation matches a reference frame (``search_for_initialization``)
@@ -31,8 +34,7 @@ mapped inline, and before each tracked frame ``_sync_backend`` takes the
 worker's loop and merge events and, when the worker changed the map,
 rebases the last pose through its reference keyframe (Tracking.cc:
 1884-1891).  ``_predict_lost_pose`` and ``_lost_state`` are the hooks the
-inertial tracker (``frontend/vi_tracker.py``) overrides.  Not ported yet:
-fisheye two-camera stereo (ROADMAP §A item 11).  With no vocabulary,
+inertial tracker (``frontend/vi_tracker.py``) overrides.  With no vocabulary,
 ``_index_kf`` does nothing and ``_relocalize`` fails, as in the JAX
 package.
 
@@ -45,7 +47,8 @@ Kernel L -- source note.
   slot.
   Design: one thread per landmark slot, R and t read from device memory
   (no host read of the pose), intrinsics and distortion passed as floats
-  from the host Camera; it computes what the plain version computes, in
+  from the host Camera (a KB8 camera takes the kernel's KB8 instance,
+  ``csrc/camera.cuh``); it computes what the plain version computes, in
   float32, with the compiler's FMA contraction, so uv agrees to float
   rounding and a level or flag differs only where a quantity lies within
   rounding of its threshold.  It stays a kernel of its own rather than a
@@ -127,6 +130,15 @@ def stereo_front(il, ir, cfg: ext.ExtractorConfig, bf: float, min_z: float, scal
     return kp_l, kp_r, sm, ur_ref, ok
 
 
+def fisheye_front(il, ir, cfg: ext.ExtractorConfig, cam, cam2, R_rl, t_rl, sigma2):
+    """Two-camera (KB8) front half: dual ORB extraction, then the fisheye
+    match and triangulation of the overlap.  Returns (kp_l, kp_r, fisheye
+    matches)."""
+    kp_l = ext.extract(il, cfg)
+    kp_r = ext.extract(ir, cfg)
+    return kp_l, kp_r, mat.fisheye_stereo_match(cam, cam2, kp_l, kp_r, R_rl, t_rl, sigma2)
+
+
 def visible_landmarks_plain(cam, R, t, lm_pos, lm_mask, lm_normal, lm_dmin, lm_dmax, wh,
                             log_sf: float = math.log(1.2), n_lvl: int = 8):
     """Plain version of kernel L: (uv, pred_level, visible)."""
@@ -149,11 +161,14 @@ def visible_landmarks(cam, R, t, lm_pos, lm_mask, lm_normal, lm_dmin, lm_dmax, w
     """Frustum, distance-band and view-angle test (Frame::isInFrustum) and
     PredictScale for a padded landmark block.  Returns (uv (M,2), pred_level
     (M,) int64, visible (M,) bool).  Kernel L on CUDA tensors (``cam`` a host
-    pin-hole Camera, read as scalars), its plain version on CPU ones."""
+    pin-hole or KB8 Camera, read as scalars), its plain version on CPU ones."""
     if lm_pos.device.type == "cpu":
         return visible_landmarks_plain(cam, R, t, lm_pos, lm_mask, lm_normal, lm_dmin, lm_dmax, wh, log_sf, n_lvl)
-    if cam.kind != cam_models.PINHOLE:
-        raise NotImplementedError("kernel L takes pin-hole cameras; KB8 waits for ROADMAP §A item 11 (fisheye)")
+    return _visible_kernel(cam, R, t, lm_pos, lm_mask, lm_normal, lm_dmin, lm_dmax, wh, log_sf, n_lvl)
+
+
+def _visible_kernel(cam, R, t, lm_pos, lm_mask, lm_normal, lm_dmin, lm_dmax, wh, log_sf, n_lvl):
+    """Kernel L's launch."""
     f32 = torch.float32
     R, t = R.to(f32).contiguous(), t.to(f32).contiguous()
     _kernels.require_cuda(
@@ -165,21 +180,23 @@ def visible_landmarks(cam, R, t, lm_pos, lm_mask, lm_normal, lm_dmin, lm_dmax, w
             lm_mask.shape != (m,) or lm_dmin.shape != (m,) or lm_dmax.shape != (m,):
         raise ValueError("visible_landmarks: needs R (3,3), t (3,), (M,3) positions and normals, (M,) mask and band")
     dev = lm_pos.device
-    params = np.asarray(cam.params.tolist(), np.float32)
+    params = np.zeros(9, np.float32)  # pin-hole [fx fy cx cy k1 k2 p1 p2 k3] or KB8 [fx fy cx cy k1 k2 k3 k4 0]
+    params[:len(cam.params)] = cam.params.tolist()
+    kind = pose_opt.KB8_KIND if cam.kind == cam_models.KB8 else pose_opt.RADTAN_KIND
     uv = torch.empty((m, 2), dtype=f32, device=dev)
     level = torch.empty(m, dtype=torch.int64, device=dev)
     visible = torch.empty(m, dtype=torch.bool, device=dev)
     _kernels.launch(
         "visible_landmarks_launch", dev,
         R.data_ptr(), t.data_ptr(), lm_pos.data_ptr(), lm_mask.data_ptr(), lm_normal.data_ptr(), lm_dmin.data_ptr(),
-        lm_dmax.data_ptr(), m, params.ctypes.data, float(wh[0]), float(wh[1]), float(log_sf), int(n_lvl),
+        lm_dmax.data_ptr(), m, params.ctypes.data, kind, float(wh[0]), float(wh[1]), float(log_sf), int(n_lvl),
         uv.data_ptr(), level.data_ptr(), visible.data_ptr(),
     )
-    visible_landmarks.launches.add()
+    visible_landmarks.launches.add(camera="kb8" if kind == pose_opt.KB8_KIND else "")
     return uv, level, visible
 
 
-visible_landmarks.launches = _kernels.LaunchCounter()
+visible_landmarks.launches = _kernels.LaunchCounter()  # camera instance "kb8" for a KB8 camera
 
 
 class LocalMap(NamedTuple):
@@ -274,11 +291,12 @@ class StereoTrackingStep(nn.Module):
 
 
 class Tracker:
-    """Host orchestrator of a mono camera or a rectified stereo / RGB-D rig
-    (Tracking)."""
+    """Host orchestrator of a mono camera, a rectified stereo / RGB-D rig or
+    a two-camera fisheye rig (Tracking)."""
 
     def __init__(self, cam: cam_models.Camera, cfg: TrackerConfig = TrackerConfig(), bf: float = 0.0,
-                 image_wh: tuple = (640, 480), world: Optional[WorldMap] = None, mapper=None, voc=None,
+                 image_wh: tuple = (640, 480), cam2: cam_models.Camera | None = None,
+                 T_c1_c2: np.ndarray | None = None, world: Optional[WorldMap] = None, mapper=None, voc=None,
                  kfdb=None, loopcloser=None, map_id: int = 0, atlas=None, backend=None, timers=None,
                  device: torch.device | str = "cuda"):
         """``cam`` stays on the host (a CPU Camera); keypoints, matching and
@@ -288,8 +306,18 @@ class Tracker:
         relocalisation, ``loopcloser`` (a LoopCloser) loop closing, ``atlas``
         (an Atlas, whose current map replaces ``world``) several maps,
         ``backend`` (an AsyncBackend) local mapping and loop closing on its
-        threads."""
+        threads.  ``cam2`` (a host Camera) and ``T_c1_c2`` (the (4,4) pose of
+        camera 2 in camera 1) make ``process_stereo`` match and triangulate
+        across two non-rectified cameras (the fisheye rig)."""
         self.cam = cam
+        self.cam2 = cam2
+        # the two-camera rig: R_rl, t_rl map LEFT-camera points to the RIGHT camera (T_c1_c2 inverted), on the host
+        self.T_rl = None
+        if T_c1_c2 is not None:
+            T = np.asarray(T_c1_c2, np.float64)
+            R_lr, t_lr = T[:3, :3], T[:3, 3]
+            self.T_rl = (torch.as_tensor(R_lr.T, dtype=torch.float32),
+                         torch.as_tensor(-R_lr.T @ t_lr, dtype=torch.float32))
         self.cfg = cfg
         self.bf = float(bf)
         self.device = _kernels.resolve_device(device)
@@ -316,6 +344,7 @@ class Tracker:
             cfg.extractor.scale_factor ** np.arange(cfg.extractor.n_levels), dtype=torch.float32
         ).to(self.device)
         self.sigma2 = ext.level_sigma2(cfg.extractor)
+        self.sigma2_t = torch.as_tensor(self.sigma2, dtype=torch.float32).to(self.device)
         self.slot_scales = torch.as_tensor(ext.slot_scales(cfg.extractor)).to(self.device)
         self.last: Optional[FrameState] = None
         self.velocity = lie.SE3.identity(self.device)  # T_cur_last
@@ -354,6 +383,16 @@ class Tracker:
     def process_stereo(self, img_l: np.ndarray, img_r: np.ndarray, ts: float):
         il = torch.as_tensor(np.asarray(img_l, dtype=np.float32)).to(self.device)
         ir = torch.as_tensor(np.asarray(img_r, dtype=np.float32)).to(self.device)
+        if self.cam2 is not None and self.T_rl is not None:
+            # the non-rectified two-camera rig (Frame::ComputeStereoFishEyeMatches + TriangulateMatches)
+            with self.timers.span("orb_extract"):
+                kp_l, _, fm = fisheye_front(il, ir, self.cfg.extractor, self.cam, self.cam2, *self.T_rl,
+                                            self.sigma2_t)
+            with self.timers.span("stereo_match"):
+                depth = host(fm.depth)
+            # no rectified right-u exists: the pose optimisation takes mono edges, and the metric scale comes
+            # through the triangulated landmark depths (the JAX package's tracker.py:252)
+            return self._track(kp_l, ts, depth=depth, right_u=np.full(depth.shape, -1.0, np.float32))
         base = self.bf / float(self.cam.params[0])
         with self.timers.span("orb_extract"):
             kp_l, _, _, ur_ref, ok = stereo_front(

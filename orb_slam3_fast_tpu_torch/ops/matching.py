@@ -1,17 +1,22 @@
 """Matchers of the Systems: rectified stereo matching, SAD subpixel
-disparity refinement, the windowed match of mono initialisation, projection
+disparity refinement, the fisheye two-camera stereo match with its
+triangulation, the windowed match of mono initialisation, projection
 matching against the local map and from the last frame, the unconstrained
 mutual match, and the epipolar search for triangulation.
 
 Counterpart of ``stereo_match``, ``stereo_subpixel_refine``,
-``search_for_initialization``, ``search_by_projection``, ``search_frame_to_frame``,
+``fisheye_stereo_match``, ``search_for_initialization``,
+``search_by_projection``, ``search_frame_to_frame``,
 ``search_descriptors_mutual``, ``search_for_triangulation`` and
 ``_pow_level`` of ``orb_slam3_fast_tpu/ops/matching.py``.  The gated best-2
 searches run in kernel C (``ops.hamming.hamming_best2``); their epilogues
 (ratio, dedup, rotation histogram, mutual check, median prune) are plain
-PyTorch.  ``stereo_subpixel_refine`` is the wrapper of kernel J
+PyTorch, but for the fisheye match, whose gates and triangulation run in
+kernel AB.  ``stereo_subpixel_refine`` is the wrapper of kernel J
 (``csrc/sad_refine.cu``); ``stereo_subpixel_refine_plain`` computes the same
-from ``sad_table``.
+from ``sad_table``.  ``fisheye_stereo_gate`` is the wrapper of kernel AB
+(``csrc/fisheye_stereo.cu``), ``fisheye_stereo_gate_plain`` its plain
+version.
 
 Kernel J -- source note.
   Replaces: ``stereo_subpixel_refine``
@@ -29,14 +34,36 @@ Kernel J -- source note.
   the plain version's operation order; rounding is ``rintf`` (half to even,
   as ``torch.round``).  The plain SAD's summation order on the card is
   PyTorch's, so the two agree to float rounding, not bit for bit.
+
+Kernel AB -- source note.
+  Replaces: ``fisheye_stereo_match`` (``orb_slam3_fast_tpu/ops/
+  matching.py:305``, K26) after its Hamming stage: the ratio and mutual
+  gates, the KB8 unprojection of both keypoint sets, the parallax gate, the
+  batched SVD DLT and the depth and two-view chi2 gates, ~80 elementwise
+  XLA operations over the left keypoint slots.  The Hamming stage (the
+  full matrix, best-2 both ways) is kernel C's mutual mode (K6).
+  Bound on the card: latency.  Per left slot it reads ~60 bytes and writes
+  17, and does ~2k flops (two 10-step Newton unprojections, two KB8
+  projections, a 4x4 float64 Jacobi eigensolve): ~1000 slots are 80 KB
+  and 2 Mflop, well under a microsecond of either.
+  Design: one thread per left keypoint slot, the rig (both KB8 cameras,
+  P1 = [I | 0], P2 = [R_rl | t_rl], the gates' constants) passed by value;
+  the unprojection and projection are ``csrc/camera.cuh``'s KB8 functions,
+  the DLT kernel G's ``jacobi::dlt_triangulate``; the products and sums
+  that decide a gate round one by one (``__f*_rn``), as the plain version
+  computes them, so a slot flips only where its value lies within float
+  rounding of a cut.  It launches once per fisheye frame, beside one
+  kernel C launch in mutual mode.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from orb_slam3_fast_tpu_torch import _kernels
+from orb_slam3_fast_tpu_torch.cameras import models as cam_models
 from orb_slam3_fast_tpu_torch.ops import hamming as ham
 from orb_slam3_fast_tpu_torch.ops.extractor import Keypoints
 
@@ -311,3 +338,116 @@ def stereo_subpixel_refine(
 
 
 stereo_subpixel_refine.launches = _kernels.LaunchCounter()
+
+
+# --- fisheye (KB8) two-camera stereo -------------------------------------------------------------------------
+
+
+class FisheyeStereoMatches(NamedTuple):
+    depth: torch.Tensor  # (Nl,) left-camera z of the triangulated point (-1 invalid)
+    x3d: torch.Tensor  # (Nl,3) triangulated point in the LEFT camera frame
+    idx: torch.Tensor  # (Nl,) matched right keypoint index
+    valid: torch.Tensor  # (Nl,) bool
+
+
+def fisheye_stereo_gate_plain(cam_l, cam_r, kp_l: Keypoints, kp_r: Keypoints, b: ham.Best2, col: torch.Tensor,
+                              R_rl: torch.Tensor, t_rl: torch.Tensor, level_sigma2: torch.Tensor,
+                              ratio: float = 0.7, th_dist: int = ham.TH_HIGH,
+                              min_parallax_cos: float = 0.9998) -> FisheyeStereoMatches:
+    """Plain version of kernel AB: the gates and triangulation of
+    ``fisheye_stereo_match`` given the left rows' best-2 ``b`` and the right
+    columns' best left row ``col``."""
+    from orb_slam3_fast_tpu_torch.ops import twoview
+
+    accept = ham.ratio_gate(b, ratio, th_dist) & ham.mutual_consistency(b.idx, col)
+    # bearings (unit-z rays) in each camera
+    r1 = cam_models.unproject(cam_l, kp_l.xy)
+    r2 = cam_models.unproject(cam_r, kp_r.xy)[b.idx]
+    # parallax between the rays expressed in the LEFT frame (R_lr = R_rl^T)
+    r2_in_l = torch.einsum("ji,nj->ni", R_rl, r2)
+    cosp = torch.sum(r1 * r2_in_l, dim=-1) / (torch.linalg.vector_norm(r1, dim=-1) *
+                                              torch.linalg.vector_norm(r2_in_l, dim=-1))
+    accept = accept & (cosp < min_parallax_cos)
+    # batched DLT: P1 = [I|0], P2 = [R_rl|t_rl], normalised coordinates = the rays' xy
+    P1 = torch.cat([torch.eye(3, device=R_rl.device), torch.zeros((3, 1), device=R_rl.device)], dim=1)
+    P2 = torch.cat([R_rl, t_rl[:, None]], dim=1)
+    X = twoview.triangulate_dlt_plain(P1, P2, r1[:, :2], r2[:, :2])  # (Nl,3) left frame
+    z1 = X[:, 2]
+    xc2 = torch.einsum("ij,nj->ni", R_rl, X) + t_rl
+    uv1 = cam_models.project(cam_l, X)
+    uv2 = cam_models.project(cam_r, xc2)
+    s2_l = level_sigma2[kp_l.level]
+    s2_r = level_sigma2[kp_r.level][b.idx]
+    e1 = torch.sum((uv1 - kp_l.xy) ** 2, dim=-1)
+    e2 = torch.sum((uv2 - kp_r.xy[b.idx]) ** 2, dim=-1)
+    accept = (accept & (z1 > 0.05) & (xc2[:, 2] > 0.05) & (e1 <= 5.991 * s2_l) & (e2 <= 5.991 * s2_r)
+              & torch.isfinite(X).all(dim=-1))
+    return FisheyeStereoMatches(torch.where(accept, z1, torch.full_like(z1, -1.0)), X, b.idx, accept)
+
+
+def fisheye_stereo_gate(cam_l, cam_r, kp_l: Keypoints, kp_r: Keypoints, b: ham.Best2, col: torch.Tensor,
+                        R_rl: torch.Tensor, t_rl: torch.Tensor, level_sigma2: torch.Tensor,
+                        ratio: float = 0.7, th_dist: int = ham.TH_HIGH,
+                        min_parallax_cos: float = 0.9998) -> FisheyeStereoMatches:
+    """Kernel AB on CUDA tensors, its plain version on CPU ones.  ``cam_l``,
+    ``cam_r`` (KB8), ``R_rl`` and ``t_rl`` stay on the host and are read as
+    scalars."""
+    if kp_l.xy.device.type == "cpu":
+        return fisheye_stereo_gate_plain(cam_l, cam_r, kp_l, kp_r, b, col, R_rl, t_rl, level_sigma2, ratio, th_dist,
+                                         min_parallax_cos)
+    return _fisheye_kernel(cam_l, cam_r, kp_l, kp_r, b, col, R_rl, t_rl, level_sigma2, ratio, th_dist,
+                           min_parallax_cos)
+
+
+def _fisheye_kernel(cam_l, cam_r, kp_l, kp_r, b, col, R_rl, t_rl, level_sigma2, ratio, th_dist, min_parallax_cos):
+    """Kernel AB's launch."""
+    if cam_l.kind != cam_models.KB8 or cam_r.kind != cam_models.KB8:
+        raise ValueError("fisheye_stereo_gate: kernel AB takes two KB8 cameras")
+    f32, i64 = torch.float32, torch.int64
+    dev = kp_l.xy.device
+    idx = b.idx.to(i64).contiguous()
+    dist, dist2 = b.dist.to(torch.int32).contiguous(), b.dist2.to(torch.int32).contiguous()
+    col = col.to(i64).contiguous()
+    sigma2 = level_sigma2.to(device=dev, dtype=f32).contiguous()
+    _kernels.require_cuda(
+        "fisheye_stereo_gate", xy_l=(kp_l.xy, f32), level_l=(kp_l.level, i64), xy_r=(kp_r.xy, f32),
+        level_r=(kp_r.level, i64), idx=(idx, i64), dist=(dist, torch.int32), dist2=(dist2, torch.int32),
+        col=(col, i64), sigma2=(sigma2, f32),
+    )
+    n, m = kp_l.xy.shape[0], kp_r.xy.shape[0]
+    if kp_l.xy.shape != (n, 2) or kp_r.xy.shape != (m, 2) or idx.shape != (n,) or col.shape != (m,):
+        raise ValueError("fisheye_stereo_gate: needs (N,2) and (M,2) keypoints, (N,) best-2 and (M,) column argmin")
+    cams16 = np.asarray(cam_l.params.tolist() + cam_r.params.tolist(), np.float32)
+    Rt = np.asarray(torch.cat([R_rl.reshape(9), t_rl.reshape(3)]).tolist(), np.float32)
+    depth = torch.empty(n, dtype=f32, device=dev)
+    x3d = torch.empty((n, 3), dtype=f32, device=dev)
+    valid = torch.empty(n, dtype=torch.bool, device=dev)
+    _kernels.launch(
+        "fisheye_stereo_launch", dev, kp_l.xy.data_ptr(), kp_l.level.data_ptr(), kp_r.xy.data_ptr(),
+        kp_r.level.data_ptr(), idx.data_ptr(), dist.data_ptr(), dist2.data_ptr(), col.data_ptr(), sigma2.data_ptr(),
+        n, cams16.ctypes.data, Rt.ctypes.data, float(ratio), int(th_dist), float(min_parallax_cos),
+        depth.data_ptr(), x3d.data_ptr(), valid.data_ptr(),
+    )
+    fisheye_stereo_gate.launches.add()
+    return FisheyeStereoMatches(depth, x3d, idx, valid)
+
+
+fisheye_stereo_gate.launches = _kernels.LaunchCounter()
+
+
+def fisheye_stereo_match(cam_l, cam_r, kp_l: Keypoints, kp_r: Keypoints, R_rl: torch.Tensor, t_rl: torch.Tensor,
+                         level_sigma2: torch.Tensor, ratio: float = 0.7, th_dist: int = ham.TH_HIGH,
+                         min_parallax_cos: float = 0.9998) -> FisheyeStereoMatches:
+    """Non-rectified two-camera (fisheye) stereo matching and triangulation
+    (Frame::ComputeStereoFishEyeMatches + KannalaBrandt8::TriangulateMatches):
+    the Hamming best-2 both ways (kernel C, mutual mode), then the ratio and
+    mutual gates, the parallax gate (cos < ``min_parallax_cos``), the DLT of
+    the two rays and the depth and chi2 gates in both views (kernel AB).
+    ``R_rl, t_rl`` map left-camera points to the right camera (Stereo.T_c1_c2
+    inverted).  Returns per-LEFT-keypoint results."""
+    f32 = torch.float32
+    gate = ham.MutualGate(kp_l.valid.to(f32).contiguous(), kp_r.valid.to(f32).contiguous())
+    b, col = ham.hamming_best2(kp_l.desc, kp_r.desc, gate)
+    return fisheye_stereo_gate(cam_l, cam_r, kp_l, kp_r, b, col, R_rl, t_rl, level_sigma2, ratio, th_dist,
+                               min_parallax_cos)
+

@@ -411,7 +411,8 @@ def reconstruct(cam: cam_models.Camera, uv0: torch.Tensor, uv1: torch.Tensor, va
     if uv0.device.type == "cpu":
         return reconstruct_plain(cam, uv0, uv1, valid, samples, min_triangulated, min_parallax_deg)
     if cam.kind != cam_models.PINHOLE:
-        raise NotImplementedError("kernel M takes pin-hole cameras; KB8 waits for ROADMAP §A item 11 (fisheye)")
+        raise NotImplementedError("kernel M takes pin-hole cameras; KB8 waits for ROADMAP §A item 15 (the monocular "
+                                  "fisheye rig)")
     x0, x1, sigma2 = _camera_plane(cam, uv0, uv1)
     samples = samples.to(torch.int32).contiguous()
     f32 = torch.float32

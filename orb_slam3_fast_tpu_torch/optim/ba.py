@@ -40,10 +40,10 @@ Kernel E -- source note.
   differently, and a System's runs would drift apart (3.3e-3 m over 30
   frames of the stereo corridor, PERF.md).  A pin-hole camera with
   radial-tangential distortion takes a second instance of the kernel, with
-  the distortion's closed-form Jacobian (``csrc/camera.cuh``), which kernels
-  F and T then take their blocks from; one without distortion runs the
-  instructions it always ran.  KB8 cameras raise (ROADMAP §A item 11); the
-  plain version handles them.
+  the distortion's closed-form Jacobian (``csrc/camera.cuh``), and a
+  Kannala-Brandt (KB8) camera a third, with the KB8 projection and its
+  closed-form Jacobian; kernels F and T take their blocks from either. One
+  without distortion runs the instructions it always ran.
 
 Kernel F -- source note.
   Replaces: ``schur_solve`` (``orb_slam3_fast_tpu/optim/ba.py:108``, K12):
@@ -82,7 +82,7 @@ import torch
 
 from orb_slam3_fast_tpu_torch import _kernels
 from orb_slam3_fast_tpu_torch.cameras import models as cam_models
-from orb_slam3_fast_tpu_torch.optim.pose_opt import CHI2_MONO, CHI2_STEREO, _huber_weight, kernel_camera
+from orb_slam3_fast_tpu_torch.optim.pose_opt import CAMERA_NAMES, CHI2_MONO, CHI2_STEREO, _huber_weight, kernel_camera
 from orb_slam3_fast_tpu_torch.utils import lie
 
 MAX_POSES = 32  # kernel F's shared-memory bound: 6K <= 192
@@ -256,6 +256,11 @@ def build_normal_blocks(cam, bf, R, t, xw, prob: BAProblem, inlier):
     (M,K,6,3) on the CPU and the per-observation W (O,6,3) on the card."""
     if R.device.type == "cpu":
         return build_normal_blocks_plain(cam, bf, R, t, xw, prob, inlier)
+    return _blocks_kernel(cam, bf, R, t, xw, prob, inlier)
+
+
+def _blocks_kernel(cam, bf, R, t, xw, prob, inlier):
+    """Kernel E's launch."""
     f32, i32, b = torch.float32, torch.int32, torch.bool
     _kernels.require_cuda(
         "build_normal_blocks", R=(R, f32), t=(t, f32), xw=(xw, f32), pose_fixed=(prob.pose_fixed, b),
@@ -265,24 +270,24 @@ def build_normal_blocks(cam, bf, R, t, xw, prob: BAProblem, inlier):
     )
     dev = R.device
     K, M, O = R.shape[0], xw.shape[0], prob.obs_kf.shape[0]
-    cam10, dist = kernel_camera(cam, bf, "kernel E")
+    cam10, kind = kernel_camera(cam, bf, "kernel E")
     cam10 = cam10.to(dev)
     sizes = (K * 36, M * 9, K * 6, M * 3, M, 1)  # Hpp, Hll, bp, bl, w_lm, cost in one buffer
     acc = torch.zeros(sum(sizes), dtype=torch.float64, device=dev)
     out = torch.empty(sum(sizes), dtype=f32, device=dev)
     W = torch.empty((O, 6, 3), dtype=f32, device=dev)
     _kernels.launch(
-        "ba_blocks_launch", dev, cam10.data_ptr(), int(dist), R.data_ptr(), t.data_ptr(), xw.data_ptr(),
+        "ba_blocks_launch", dev, cam10.data_ptr(), kind, R.data_ptr(), t.data_ptr(), xw.data_ptr(),
         prob.pose_fixed.data_ptr(), prob.lm_valid.data_ptr(), prob.obs_kf.data_ptr(), prob.obs_lm.data_ptr(),
         prob.obs_uv.data_ptr(), prob.obs_inv_sigma2.data_ptr(), prob.obs_is_stereo.data_ptr(),
         prob.obs_valid.data_ptr(), inlier.data_ptr(), O, K, M, W.data_ptr(), acc.data_ptr(), out.data_ptr(),
     )
-    build_normal_blocks.launches.add("radtan" if dist else "")
+    build_normal_blocks.launches.add(camera=CAMERA_NAMES[kind])
     Hpp, Hll, bp, bl, w_lm, cost = torch.split(out, sizes)
     return Hpp.view(K, 6, 6), Hll.view(M, 3, 3), bp.view(K, 6), bl.view(M, 3), W, w_lm, cost.view(())
 
 
-build_normal_blocks.launches = _kernels.LaunchCounter()  # mode "radtan" for a distorted camera
+build_normal_blocks.launches = _kernels.LaunchCounter()  # by camera instance: "", "radtan", "kb8"
 
 
 def _solve_plain(Hpp, Hll, bp, bl, Z, w_lm, prob, lam):

@@ -49,7 +49,8 @@ Kernel W -- source note.
   reclassified by chi2; at the end the information of the solved state is
   formed (and, for the last-frame form, the previous state marginalised
   out).  The prior-less call and the last-frame form are template
-  instances.  KB8 cameras raise (ROADMAP §A item 11).
+  instances, and so is the camera's kind (pin-hole, radial-tangential or
+  KB8, ``csrc/camera.cuh``).
 """
 from __future__ import annotations
 
@@ -60,7 +61,7 @@ import torch
 from orb_slam3_fast_tpu_torch import _kernels
 from orb_slam3_fast_tpu_torch.cameras import models as cam_models
 from orb_slam3_fast_tpu_torch.imu import preintegration as pre
-from orb_slam3_fast_tpu_torch.optim.pose_opt import CHI2_MONO, CHI2_STEREO, _huber_weight, kernel_camera
+from orb_slam3_fast_tpu_torch.optim.pose_opt import CAMERA_NAMES, CHI2_MONO, CHI2_STEREO, _huber_weight, kernel_camera
 from orb_slam3_fast_tpu_torch.utils import lie
 
 
@@ -342,7 +343,7 @@ def pose_inertial_optimization_last_frame_plain(cam, bf, T_cb: lie.SE3, s_prev: 
 def _launch(cam, bf, T_cb, s_prev, prior, preint, s0, obs: VIObs, last: bool, n_rounds, iters):
     f32 = torch.float32
     dev = obs.xw.device
-    cam10, dist = kernel_camera(cam, bf, "kernel W")
+    cam10, kind = kernel_camera(cam, bf, "kernel W")
     _kernels.require_cuda(
         "pose_inertial_optimization", xw=(obs.xw, f32), uv=(obs.uv, f32), inv_sigma2=(obs.inv_sigma2, f32),
         is_stereo=(obs.is_stereo, torch.bool), valid=(obs.valid, torch.bool),
@@ -360,12 +361,13 @@ def _launch(cam, bf, T_cb, s_prev, prior, preint, s0, obs: VIObs, last: bool, n_
     n_inl = torch.empty((), dtype=torch.int32, device=dev)
     H = torch.empty((15, 15), dtype=f32, device=dev)
     _kernels.launch(
-        "pose_inertial_launch", dev, cam10.to(dev).data_ptr(), int(dist), tcb.data_ptr(), sp.data_ptr(),
+        "pose_inertial_launch", dev, cam10.to(dev).data_ptr(), kind, tcb.data_ptr(), sp.data_ptr(),
         pre_p.data_ptr(), s0p.data_ptr(), 0 if prior_p is None else prior_p.data_ptr(), int(last),
         obs.xw.data_ptr(), obs.uv.data_ptr(), obs.inv_sigma2.data_ptr(), obs.is_stereo.data_ptr(),
         obs.valid.data_ptr(), n, n_rounds, iters, state.data_ptr(), inlier.data_ptr(), n_inl.data_ptr(), H.data_ptr(),
     )
-    pose_inertial_optimization.launches.add("last_frame" if last else ("prior" if prior is not None else ""))
+    pose_inertial_optimization.launches.add("last_frame" if last else ("prior" if prior is not None else ""),
+                                            camera=CAMERA_NAMES[kind])
     return unpack_state(state), inlier, n_inl, H
 
 
@@ -389,5 +391,5 @@ def pose_inertial_optimization_last_frame(cam, bf, T_cb: lie.SE3, s_prev: BodySt
     return _launch(cam, bf, T_cb, s_prev, prior_prev, preint, s0, obs, True, n_rounds, iters)
 
 
-# modes: "" (no prior), "prior", "last_frame"
+# modes: "" (no prior), "prior", "last_frame"; camera instances "", "radtan", "kb8"
 pose_inertial_optimization.launches = _kernels.LaunchCounter()

@@ -31,7 +31,9 @@ Kernel P -- source note.
   Jacobian of (x/z, y/z) for a left increment [w, v], ``J^T J + 1e-8 I``
   solved by a 6x6 Cholesky, the so3_exp update and ``normalize_rotation``.
   All threads then score both poses on all points (pin-hole + radtan
-  projection, err^2 * inv_sigma2 < 5.991, z > 0, valid), block-reduced.
+  projection, or a KB8 camera's in the kernel's KB8 instance,
+  ``csrc/camera.cuh``; err^2 * inv_sigma2 < 5.991, z > 0, valid),
+  block-reduced.
   A second launch takes the first maximum of the 512 counts, writes its
   inlier mask and ``ok = n >= min_inliers & finite``.  The null vector's
   sign is the eigen-solver's, so the two candidates of a subset may come
@@ -46,6 +48,7 @@ import torch
 
 from orb_slam3_fast_tpu_torch import _kernels
 from orb_slam3_fast_tpu_torch.cameras import models as cam_models
+from orb_slam3_fast_tpu_torch.optim.pose_opt import KB8_KIND, RADTAN_KIND
 from orb_slam3_fast_tpu_torch.utils import lie
 
 CHI2_MONO = 5.991  # MLPnPsolver.h RansacParameters th2 (2-DoF 95%)
@@ -179,14 +182,17 @@ def pnp_ransac(cam: cam_models.Camera, xw: torch.Tensor, uv: torch.Tensor, inv_s
     """All-hypotheses PnP RANSAC: xw (N,3) world points, uv (N,2) pixels,
     inv_sigma2 (N,) per-point information, valid (N,) candidates; the
     subsets are ``subsets`` or ``_sample_subsets(seed, valid, n_hyp)``.
-    Kernel P on CUDA tensors (``cam`` a host pin-hole Camera), the plain
-    version on CPU ones."""
+    Kernel P on CUDA tensors (``cam`` a host pin-hole or KB8 Camera), the
+    plain version on CPU ones."""
     if subsets is None:
         subsets = _sample_subsets(seed, valid, n_hyp)
     if xw.device.type == "cpu":
         return pnp_ransac_plain(cam, xw, uv, inv_sigma2, valid, subsets, min_inliers)
-    if cam.kind != cam_models.PINHOLE:
-        raise NotImplementedError("kernel P takes pin-hole cameras; KB8 waits for ROADMAP §A item 11 (fisheye)")
+    return _kernel(cam, xw, uv, inv_sigma2, valid, subsets, min_inliers)
+
+
+def _kernel(cam, xw, uv, inv_sigma2, valid, subsets: torch.Tensor, min_inliers: int) -> PnPResult:
+    """Kernel P's launch."""
     f32 = torch.float32
     subsets = subsets.to(torch.int32).contiguous()
     xn = cam_models.unproject(cam, uv)[:, :2].contiguous()
@@ -198,7 +204,10 @@ def pnp_ransac(cam: cam_models.Camera, xw: torch.Tensor, uv: torch.Tensor, inv_s
         raise ValueError("pnp_ransac: needs (N,3) xw, (N,2) uv, (N,) inv_sigma2 and valid, (H,6) subsets")
     dev = xw.device
     params = cam.params.tolist()
-    cam9 = torch.tensor(params + [0.0] * (9 - len(params)), dtype=f32)  # fx fy cx cy k1 k2 p1 p2 k3, on the host
+    # fx fy cx cy k1 k2 p1 p2 k3 (pin-hole) or fx fy cx cy k1 k2 k3 k4 0 (KB8), on the host
+    cam9 = torch.tensor(params + [0.0] * (9 - len(params)), dtype=f32)
+    kb8 = cam.kind == cam_models.KB8
+    kind = KB8_KIND if kb8 else RADTAN_KIND  # a pin-hole camera runs the radial-tangential code
     hyp_R, hyp_t, counts = (torch.empty(s, dtype=f32, device=dev) for s in ((2 * h, 9), (2 * h, 3), (2 * h,)))
     R, t = torch.empty((3, 3), dtype=f32, device=dev), torch.empty(3, dtype=f32, device=dev)
     inliers = torch.empty(n, dtype=torch.bool, device=dev)
@@ -206,12 +215,12 @@ def pnp_ransac(cam: cam_models.Camera, xw: torch.Tensor, uv: torch.Tensor, inv_s
     ok = torch.empty((), dtype=torch.bool, device=dev)
     _kernels.launch(
         "pnp_ransac_launch", dev, xw.data_ptr(), uv.data_ptr(), xn.data_ptr(), inv_sigma2.data_ptr(),
-        valid.data_ptr(), subsets.data_ptr(), n, h, cam9.numpy().ctypes.data, min_inliers, hyp_R.data_ptr(),
+        valid.data_ptr(), subsets.data_ptr(), n, h, cam9.numpy().ctypes.data, kind, min_inliers, hyp_R.data_ptr(),
         hyp_t.data_ptr(), counts.data_ptr(), R.data_ptr(), t.data_ptr(), inliers.data_ptr(), n_inl.data_ptr(),
         ok.data_ptr(),
     )
-    pnp_ransac.launches.add()
+    pnp_ransac.launches.add(camera="kb8" if kb8 else "")
     return PnPResult(R, t, inliers, n_inl, ok)
 
 
-pnp_ransac.launches = _kernels.LaunchCounter()
+pnp_ransac.launches = _kernels.LaunchCounter()  # camera instance "kb8" for a KB8 camera

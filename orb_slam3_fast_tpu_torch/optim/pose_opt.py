@@ -31,12 +31,13 @@ Kernel D -- source note.
   it by a 6x6 Cholesky in double, applies se3_exp on the left and, after a
   second pass for the cost at the candidate pose, accepts or rejects
   (lam * 0.5 / lam * 4, clamped to [1e-7, 1e4]).  A last pass classifies
-  the edges by chi2.  A pin-hole camera with radial-tangential distortion
-  takes a second instance of the kernel, which distorts the normalised
-  point and chains the distortion's closed-form 2x2 Jacobian
-  (``csrc/camera.cuh``); one without distortion runs the instructions it
-  always ran.  KB8 cameras raise (ROADMAP §A item 11); the plain version
-  handles them.
+  the edges by chi2.  The camera's kind is a template parameter
+  (``csrc/camera.cuh``): a pin-hole camera with radial-tangential
+  distortion takes an instance that distorts the normalised point and
+  chains the distortion's closed-form 2x2 Jacobian, a Kannala-Brandt
+  (KB8) camera one that projects through the KB8 polynomial and chains its
+  closed-form 2x3 Jacobian (the plain version's ``torch.func.jacfwd``), and
+  one without distortion runs the instructions it always ran.
 """
 from __future__ import annotations
 
@@ -132,15 +133,28 @@ def pose_optimization_plain(cam, bf: float, T0: lie.SE3, obs: PoseObs, n_rounds:
     return T, inlier, inlier.sum()
 
 
-def kernel_camera(cam, bf: float, name: str):
-    """The host (10,) float32 [fx, fy, cx, cy, bf, k1, k2, p1, p2, k3] of a
-    pin-hole camera for kernels D and E, and whether it has distortion;
-    KB8 raises (ROADMAP §A item 11)."""
-    if cam.kind != cam_models.PINHOLE:
-        raise NotImplementedError(f"{name} takes pin-hole cameras; KB8 waits for ROADMAP §A item 11 (fisheye)")
+PINHOLE_KIND, RADTAN_KIND, KB8_KIND = 0, 1, 2  # csrc/camera.cuh cam::Kind
+CAMERA_NAMES = ("", "radtan", "kb8")  # the launch counters' camera instance, by kind
+
+
+def kernel_camera(cam, bf: float, name: str, kb8: bool = True):
+    """The host (10,) float32 camera slots of kernels D, E, W, Y and AA
+    (``csrc/camera.cuh``) and the camera's kind: [fx, fy, cx, cy, bf, k1,
+    k2, p1, p2, k3] and 1 for a pin-hole camera with radial-tangential
+    distortion (0 without), [fx, fy, cx, cy, bf, k1, k2, k3, k4, 0] and 2
+    for KB8.  A kernel without a KB8 instance passes ``kb8=False`` and
+    raises on one (ROADMAP §A item 14, fisheye loop closing)."""
     params = cam.params.tolist()  # free when the camera lives on the host
+    if cam.kind == cam_models.KB8:
+        if not kb8:
+            raise NotImplementedError(f"{name} has no KB8 instance; it waits for ROADMAP §A item 14 "
+                                      "(fisheye loop closing)")
+        return torch.tensor([*params[:4], float(bf), *params[4:8], 0.0], dtype=torch.float32), KB8_KIND
+    if cam.kind != cam_models.PINHOLE:
+        raise ValueError(f"{name}: unknown camera kind {cam.kind!r}")
     dist = [float(x) for x in params[4:9]] + [0.0] * (9 - len(params))
-    return torch.tensor([*params[:4], float(bf), *dist], dtype=torch.float32), any(dist)
+    kind = RADTAN_KIND if any(dist) else PINHOLE_KIND
+    return torch.tensor([*params[:4], float(bf), *dist], dtype=torch.float32), kind
 
 
 def pose_optimization(cam, bf: float, T0: lie.SE3, obs: PoseObs, n_rounds: int = 4, iters_per_round: int = 10):
@@ -148,7 +162,12 @@ def pose_optimization(cam, bf: float, T0: lie.SE3, obs: PoseObs, n_rounds: int =
     Returns (T, inlier (N,) bool, n_inliers () int)."""
     if obs.xw.device.type == "cpu":
         return pose_optimization_plain(cam, bf, T0, obs, n_rounds, iters_per_round)
-    cam10, dist = kernel_camera(cam, bf, "kernel D")
+    return _kernel(cam, bf, T0, obs, n_rounds, iters_per_round)
+
+
+def _kernel(cam, bf: float, T0: lie.SE3, obs: PoseObs, n_rounds: int, iters_per_round: int):
+    """Kernel D's launch."""
+    cam10, kind = kernel_camera(cam, bf, "kernel D")
     f32 = torch.float32
     dev = obs.xw.device
     R0 = T0.R.to(f32).contiguous()
@@ -166,11 +185,11 @@ def pose_optimization(cam, bf: float, T0: lie.SE3, obs: PoseObs, n_rounds: int =
     _kernels.launch(
         "pose_lm_launch", dev,
         obs.xw.data_ptr(), obs.uv.data_ptr(), obs.inv_sigma2.data_ptr(), obs.is_stereo.data_ptr(),
-        obs.valid.data_ptr(), n, cam10.data_ptr(), int(dist), R0.data_ptr(), t0.data_ptr(), n_rounds, iters_per_round,
+        obs.valid.data_ptr(), n, cam10.data_ptr(), kind, R0.data_ptr(), t0.data_ptr(), n_rounds, iters_per_round,
         R.data_ptr(), t.data_ptr(), inlier.data_ptr(), n_inl.data_ptr(),
     )
-    pose_optimization.launches.add("radtan" if dist else "")
+    pose_optimization.launches.add(camera=CAMERA_NAMES[kind])
     return lie.SE3(R, t), inlier, n_inl
 
 
-pose_optimization.launches = _kernels.LaunchCounter()  # mode "radtan" for a distorted camera
+pose_optimization.launches = _kernels.LaunchCounter()  # by camera instance: "", "radtan", "kb8"

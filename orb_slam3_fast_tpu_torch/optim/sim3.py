@@ -16,8 +16,8 @@ as ``subsets``.
 their plain versions on CPU ones.  Both kernels take pin-hole cameras
 with or without radial-tangential distortion (a camera with distortion
 takes a second instance of each, ``csrc/camera.cuh``; one without runs the
-instructions it always ran); KB8 cameras raise (ROADMAP §A item 11) and the
-plain versions take any camera.
+instructions it always ran); KB8 cameras raise (ROADMAP §A item 14,
+fisheye loop closing) and the plain versions take any camera.
 
 Kernel Q -- source note.
   Replaces: ``sim3_ransac`` (``orb_slam3_fast_tpu/optim/sim3.py:62``,
@@ -146,7 +146,8 @@ def sim3_ransac_plain(cam1, cam2, xc1, xc2, uv1, uv2, inv_sigma2_1, inv_sigma2_2
 
 def _pinhole9(cam, name: str) -> list:
     if cam.kind != cam_models.PINHOLE:
-        raise NotImplementedError(f"{name} takes pin-hole cameras; KB8 waits for ROADMAP §A item 11 (fisheye)")
+        raise NotImplementedError(f"{name} takes pin-hole cameras; KB8 waits for ROADMAP §A item 14 "
+                                  "(fisheye loop closing)")
     params = [float(x) for x in cam.params.tolist()]  # free when the camera lives on the host
     return params + [0.0] * (9 - len(params))
 
@@ -212,11 +213,11 @@ def sim3_ransac(cam1: cam_models.Camera, cam2: cam_models.Camera, xc1: torch.Ten
         cams.numpy().ctypes.data, int(fix_scale), min_inliers, hyp.data_ptr(), counts.data_ptr(), S.data_ptr(),
         inliers.data_ptr(), n_inl.data_ptr(), ok.data_ptr(),
     )
-    sim3_ransac.launches.add("radtan" if dist else "")
+    sim3_ransac.launches.add(camera="radtan" if dist else "")
     return Sim3Result(_unpack_sim3(S), inliers, n_inl, ok)
 
 
-sim3_ransac.launches = _kernels.LaunchCounter()  # mode "radtan" for distorted cameras
+sim3_ransac.launches = _kernels.LaunchCounter()  # camera instance "radtan" for distorted cameras
 
 
 # ---------------------------------------------------------------------------
@@ -322,8 +323,8 @@ def optimize_sim3(cam1: cam_models.Camera, cam2: cam_models.Camera, S0: lie.Sim3
         cams.numpy().ctypes.data, int(fix_scale), iters, float(chi2_th), S.data_ptr(), inliers.data_ptr(),
         n_inl.data_ptr(),
     )
-    optimize_sim3.launches.add("radtan" if dist else "")
+    optimize_sim3.launches.add(camera="radtan" if dist else "")
     return _unpack_sim3(S), inliers, n_inl
 
 
-optimize_sim3.launches = _kernels.LaunchCounter()  # mode "radtan" for distorted cameras
+optimize_sim3.launches = _kernels.LaunchCounter()  # camera instance "radtan" for distorted cameras

@@ -52,8 +52,8 @@ Kernel Y -- source note.
   (5) back-substitution of the landmarks, the candidate's robust cost, the
   accept and the damping on the device.  Kernels E and F are not called:
   their Jacobians are with respect to a camera-frame SE3.  A distorted
-  pin-hole camera takes its own instance (``csrc/camera.cuh``); KB8
-  cameras raise (ROADMAP §A item 11).
+  pin-hole camera and a KB8 camera each take their own instance
+  (``csrc/camera.cuh``).
 """
 from __future__ import annotations
 
@@ -65,7 +65,7 @@ from orb_slam3_fast_tpu_torch import _kernels
 from orb_slam3_fast_tpu_torch.cameras import models as cam_models
 from orb_slam3_fast_tpu_torch.imu import preintegration as pre
 from orb_slam3_fast_tpu_torch.optim import inertial as inr
-from orb_slam3_fast_tpu_torch.optim.pose_opt import _huber_weight, kernel_camera
+from orb_slam3_fast_tpu_torch.optim.pose_opt import CAMERA_NAMES, _huber_weight, kernel_camera
 from orb_slam3_fast_tpu_torch.utils import lie
 
 S = 15  # per-keyframe state [theta, p, v, bg, ba]
@@ -312,7 +312,7 @@ def vi_bundle_adjust(cam, bf, T_cb: lie.SE3, prob: VIBAProblem, iters1: int = 4,
 def _kernel(cam, bf, T_cb, prob: VIBAProblem, iters1: int, iters2: int):
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
     dev = prob.xw.device
-    cam10, dist = kernel_camera(cam, bf, "kernel Y")
+    cam10, kind = kernel_camera(cam, bf, "kernel Y")
     K, M, O, E = prob.R_wb.shape[0], prob.xw.shape[0], prob.obs_kf.shape[0], prob.edge_i.shape[0]
     c = {name: getattr(prob, name).contiguous() for name in VIBAProblem._fields if name != "preint"}
     for name in ("obs_kf", "obs_lm", "edge_i", "edge_j"):
@@ -337,7 +337,7 @@ def _kernel(cam, bf, T_cb, prob: VIBAProblem, iters1: int, iters2: int):
     xw = torch.empty((M, 3), dtype=f32, device=dev)
     inlier = torch.empty(O, dtype=b8, device=dev)
     _kernels.launch(
-        "vi_ba_launch", dev, cam10.to(dev).data_ptr(), int(dist), tcb.data_ptr(), K, M, O, E,
+        "vi_ba_launch", dev, cam10.to(dev).data_ptr(), kind, tcb.data_ptr(), K, M, O, E,
         c["R_wb"].data_ptr(), c["p_wb"].data_ptr(), c["v_w"].data_ptr(), c["bias"].data_ptr(),
         c["state_fixed"].data_ptr(), c["xw"].data_ptr(), c["lm_valid"].data_ptr(), c["obs_kf"].data_ptr(),
         c["obs_lm"].data_ptr(), c["obs_uv"].data_ptr(), c["obs_inv_sigma2"].data_ptr(), c["obs_is_stereo"].data_ptr(),
@@ -346,7 +346,7 @@ def _kernel(cam, bf, T_cb, prob: VIBAProblem, iters1: int, iters2: int):
         ke_edge.data_ptr(), free_ids.data_ptr(), free_pos.data_ptr(), nf, iters1, iters2, scratch.data_ptr(),
         state.data_ptr(), xw.data_ptr(), inlier.data_ptr(),
     )
-    vi_bundle_adjust.launches.add("radtan" if dist else "")
+    vi_bundle_adjust.launches.add(camera=CAMERA_NAMES[kind])
     s = inr.unpack_state(state)
     return s.R, s.p, s.v, s.bias, xw, inlier
 
@@ -363,4 +363,4 @@ def vi_ba_scratch_doubles(K: int, M: int, O: int, E: int, nf: int | None = None)
     return O * 68 + M * 31 + E * 1032 + n * (n + 1) + n + 15 * K + K * 42 + 8
 
 
-vi_bundle_adjust.launches = _kernels.LaunchCounter()  # mode "radtan" for a distorted camera
+vi_bundle_adjust.launches = _kernels.LaunchCounter()  # by camera instance: "", "radtan", "kb8"

@@ -281,7 +281,7 @@ def _kernel(cam, bf, T_cb, prob: VIBAProblem, state, xw, inlier, lam, n_iters: i
     dict ``info`` receives the CG iterations the segment ran (a host read)."""
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
     dev = xw.device
-    cam10, dist = kernel_camera(cam, bf, "kernel AA")
+    cam10, kind = kernel_camera(cam, bf, "kernel AA", kb8=False)
     K, M, O, E = prob.R_wb.shape[0], xw.shape[0], prob.obs_kf.shape[0], prob.edge_i.shape[0]
     classify = n_iters == 0
     R, p, v, b = state
@@ -312,7 +312,7 @@ def _kernel(cam, bf, T_cb, prob: VIBAProblem, state, xw, inlier, lam, n_iters: i
     xw_out = torch.empty((M, 3), dtype=f32, device=dev)
     inlier_out = torch.empty(O, dtype=b8, device=dev)
     _kernels.launch(
-        "vi_pcg_launch", dev, cam10.to(dev).data_ptr(), int(dist), tcb.data_ptr(), K, M, O, E, R.data_ptr(),
+        "vi_pcg_launch", dev, cam10.to(dev).data_ptr(), kind, tcb.data_ptr(), K, M, O, E, R.data_ptr(),
         p.data_ptr(), v.data_ptr(), b.data_ptr(), c["state_fixed"].data_ptr(), xw.data_ptr(),
         c["lm_valid"].data_ptr(), c["obs_kf"].data_ptr(), c["obs_lm"].data_ptr(), c["obs_uv"].data_ptr(),
         c["obs_inv_sigma2"].data_ptr(), c["obs_is_stereo"].data_ptr(), c["obs_valid"].data_ptr(),

@@ -30,8 +30,16 @@ loop closer gets the inertial tracker's hooks (System.cc:150-167 of the
 JAX package): the windowed VI-BA, MergeInertialBA and FullInertialBA; an
 inertial map's loop runs the 4-DoF essential graph.
 
-Not ported yet, raising ``NotImplementedError`` that names ROADMAP §A item
-11: fisheye two-camera stereo.  The failure comes at construction.
+A Kannala-Brandt two-camera rig (TUM-VI: ``Camera.type:
+"KannalaBrandt8"`` with a ``Camera2`` block and ``Stereo.T_c1_c2``) gets the
+tracker's fisheye branch (``cam2`` and ``T_c1_c2`` routed as the JAX
+package's System.cc wiring does) for ``STEREO`` and ``IMU_STEREO``.
+
+Not ported yet, raising ``NotImplementedError`` at construction: loop
+closing on a KB8 camera (ROADMAP §A item 14, fisheye loop closing: kernels
+Q, R and AA have no KB8 instance yet), so the fisheye rig runs with
+``enable_loop_closing=False``; a monocular KB8 camera (ROADMAP §A item 15:
+kernel M has no KB8 instance yet).
 """
 from __future__ import annotations
 
@@ -44,6 +52,7 @@ from orb_slam3_fast_tpu_torch import _kernels
 from orb_slam3_fast_tpu_torch.backend.loopcloser import LoopCloser, LoopCloserConfig
 from orb_slam3_fast_tpu_torch.backend.mapper import Mapper
 from orb_slam3_fast_tpu_torch.backend.pipeline import AsyncBackend
+from orb_slam3_fast_tpu_torch.cameras import models as cam_models
 from orb_slam3_fast_tpu_torch.frontend import tracker as trk
 from orb_slam3_fast_tpu_torch.map.atlas import Atlas
 from orb_slam3_fast_tpu_torch.map.worldmap import WorldMap
@@ -87,8 +96,12 @@ class System:
         self.inertial = "inertial" in sensor
         if isinstance(settings, str):
             settings = Settings.from_yaml(settings, sensor=sensor)
-        if settings.camera_type == "KannalaBrandt8" and settings.cam2 is not None:
-            raise NotImplementedError("fisheye two-camera stereo waits for ROADMAP §A item 11")
+        if settings.cam.kind == cam_models.KB8 and enable_loop_closing:
+            raise NotImplementedError("loop closing on a Kannala-Brandt camera waits for ROADMAP §A item 14 "
+                                      "(fisheye loop closing); pass enable_loop_closing=False")
+        if settings.cam.kind == cam_models.KB8 and sensor in (MONOCULAR, IMU_MONOCULAR):
+            raise NotImplementedError("the monocular Kannala-Brandt rig waits for ROADMAP §A item 15 (kernel M "
+                                      "in KB8)")
         self.settings = settings
         self.sensor = sensor
         self.device = _kernels.resolve_device(device)
@@ -118,6 +131,9 @@ class System:
         common = dict(bf=settings.bf, image_wh=wh, world=self.world, mapper=self.mapper, voc=self.voc,
                       kfdb=self.kfdb, loopcloser=self.loopcloser, atlas=self.atlas, backend=self.backend,
                       timers=self.timers, device=self.device)
+        if settings.camera_type == "KannalaBrandt8" and settings.cam2 is not None:
+            # the non-rectified fisheye rig (TUM-VI): the tracker matches and triangulates across the two cameras
+            common.update(cam2=settings.cam2, T_c1_c2=settings.T_c1_c2)
         if self.inertial:
             from orb_slam3_fast_tpu_torch.frontend.vi_tracker import InertialConfig, InertialTracker
             from orb_slam3_fast_tpu_torch.imu import preintegration as pre

@@ -1,7 +1,7 @@
 """Carry state and constants between the JAX package's layout and the port.
 
-The system has no learned weights; what crosses over is the camera, the
-keypoints of a frame, the local-map arrays as ``WorldMap`` holds them and a
+The system has no learned weights; what crosses over is the settings and
+their cameras, the keypoints of a frame, the local-map arrays as ``WorldMap`` holds them and a
 pose, and the inertial path's state (``inertial_to_torch`` /
 ``inertial_to_numpy``).  Each ``*_to_torch`` takes numpy arrays in the JAX
 package's layout (descriptors unpacked as (N, 256) int8) and returns the port's tensors on
@@ -48,6 +48,25 @@ def camera_to_torch(kind: str, params, device="cpu") -> Camera:
 
 def camera_to_numpy(cam: Camera) -> tuple[str, np.ndarray]:
     return cam.kind, cam.params.cpu().numpy()
+
+
+def settings_to_torch(settings):
+    """The JAX package's ``Settings`` -> the port's, field by field: the
+    cameras (pin-hole or KB8, ``cam2`` of a two-camera rig) as the port's
+    host Cameras, the extrinsics (``T_c1_c2``, ``T_b_c1``) and every other
+    field as they are."""
+    import dataclasses
+
+    from orb_slam3_fast_tpu_torch.slam.settings import Settings
+
+    out = {f.name: getattr(settings, f.name) for f in dataclasses.fields(Settings)}
+    for name in ("cam", "cam2"):
+        if out[name] is not None:
+            out[name] = camera_to_torch(out[name].kind, np.asarray(out[name].params))
+    for name in ("T_c1_c2", "T_b_c1"):
+        if out[name] is not None:
+            out[name] = np.asarray(out[name], np.float64)
+    return Settings(**out)
 
 
 def keypoints_to_torch(xy, level, angle, response, desc, valid, device) -> Keypoints:

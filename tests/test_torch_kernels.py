@@ -1,4 +1,4 @@
-"""The kernel wrappers (A-T, no K or O): CPU tensors take the plain version, other
+"""The kernel wrappers (A-AB, no K or O; the KB8 instances): CPU tensors take the plain version, other
 devices launch the kernel or raise (no fallback); on a CUDA card each
 kernel agrees with its plain version (``cuda`` marker; these skip without a
 card and run there, where JAX is absent, with
@@ -222,7 +222,7 @@ def test_other_devices_raise_without_fallback():
         mat.stereo_subpixel_refine(*[meta(x) for x in sad_in])
     with pytest.raises(ValueError, match="CUDA"):
         trk.visible_landmarks(cam, meta(T.R), meta(T.t), *[meta(x) for x in lm], (320, 240))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="CUDA"):
         trk.visible_landmarks(cm.Camera.kb8(300.0, 300.0, 160.0, 120.0, 0, 0, 0, 0), meta(T.R), meta(T.t),
                               *[meta(x) for x in lm], (320, 240))
     cam, tv, samples, voc, desc, valid, pnp_in, subsets = mono_inputs(rng, "cpu")
@@ -233,9 +233,9 @@ def test_other_devices_raise_without_fallback():
     with pytest.raises(ValueError, match="CUDA"):
         pnp.pnp_ransac(cam, *[meta(x) for x in pnp_in], 0, subsets=meta(subsets))
     kb8 = cm.Camera.kb8(300.0, 300.0, 160.0, 120.0, 0, 0, 0, 0)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 15"):
         twoview.reconstruct(kb8, *[meta(x) for x in tv[0]], 0, samples=meta(samples))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="CUDA"):
         pnp.pnp_ransac(kb8, *[meta(x) for x in pnp_in], 0, subsets=meta(subsets))
 
 
@@ -264,14 +264,15 @@ def mono_inputs(rng, device):
 
 def test_build_flags_and_sources():
     srcs = sorted(p.name for p in _kernels.SRC_DIR.glob("*.cu"))
-    assert srcs == ["ba_blocks.cu", "ba_pcg.cu", "ba_schur.cu", "common.cu", "fast_nms.cu", "hamming_best2.cu",
+    assert srcs == ["ba_blocks.cu", "ba_pcg.cu", "ba_schur.cu", "common.cu", "fast_nms.cu", "fisheye_stereo.cu",
+                    "hamming_best2.cu",
                     "imu_init.cu", "imu_preint.cu", "orb_describe.cu", "pnp_ransac.cu", "pose_graph4.cu",
                     "pose_inertial.cu", "pose_lm.cu", "pyramid_blur.cu", "sad_refine.cu", "select_subpixel.cu",
                     "sim3_graph.cu", "sim3_pcg.cu", "sim3_ransac.cu", "sim3_refine.cu", "triangulate_dlt.cu",
                     "twoview_ransac.cu", "vi_ba.cu", "vi_pcg.cu", "visible_landmarks.cu", "vocab_transform.cu"]
     # the one Jacobi eigen-solver, shared by G, M, P, Q, R, S, T, V and Z; the Sim3 maps and dual numbers, shared by
-    # R, S, U and Z and (through inertial.cuh) W, X, Y and AA; the distorted pin-hole camera, shared by D, E, Q, R,
-    # W, Y and AA; the inertial factors, shared by V, W, X, Y and AA
+    # R, S, U and Z and (through inertial.cuh) W, X, Y and AA; the distorted pin-hole and the KB8 camera, shared by D,
+    # E, L, P, Q, R, W, Y, AA and AB; the inertial factors, shared by V, W, X, Y and AA
     assert sorted(p.name for p in _kernels.SRC_DIR.glob("*.cuh")) == ["camera.cuh", "inertial.cuh", "jacobi.cuh",
                                                                       "sim3.cuh"]
     for name in ("imu_preint.cu", "pose_inertial.cu", "imu_init.cu", "vi_ba.cu", "vi_pcg.cu"):
@@ -279,11 +280,12 @@ def test_build_flags_and_sources():
     for name in ("pose_inertial.cu", "vi_ba.cu", "vi_pcg.cu"):
         assert '#include "camera.cuh"' in (_kernels.SRC_DIR / name).read_text()
     for name in ("triangulate_dlt.cu", "twoview_ransac.cu", "pnp_ransac.cu", "sim3_ransac.cu", "ba_pcg.cu",
-                 "pose_graph4.cu"):
+                 "pose_graph4.cu", "fisheye_stereo.cu"):
         assert '#include "jacobi.cuh"' in (_kernels.SRC_DIR / name).read_text()
     for name in ("sim3_refine.cu", "sim3_graph.cu", "sim3_pcg.cu", "pose_graph4.cu"):
         assert '#include "sim3.cuh"' in (_kernels.SRC_DIR / name).read_text()
-    for name in ("pose_lm.cu", "ba_blocks.cu", "sim3_ransac.cu", "sim3_refine.cu"):
+    for name in ("pose_lm.cu", "ba_blocks.cu", "sim3_ransac.cu", "sim3_refine.cu", "visible_landmarks.cu",
+                 "pnp_ransac.cu", "fisheye_stereo.cu"):
         assert '#include "camera.cuh"' in (_kernels.SRC_DIR / name).read_text()
     assert set(_kernels.SIGNATURES) == {
         "fast_nms_launch", "orb_describe_launch", "hamming_best2_launch", "pose_lm_launch", "ba_blocks_launch",
@@ -291,7 +293,7 @@ def test_build_flags_and_sources():
         "sad_refine_launch", "visible_landmarks_launch", "twoview_ransac_launch", "vocab_transform_launch",
         "pnp_ransac_launch", "sim3_ransac_launch", "sim3_refine_launch", "sim3_graph_launch", "sim3_pcg_launch",
         "ba_pcg_launch", "imu_preint_launch", "imu_compose_launch", "pose_inertial_launch", "imu_init_launch",
-        "vi_ba_launch", "pose_graph4_launch", "vi_pcg_launch",
+        "vi_ba_launch", "pose_graph4_launch", "vi_pcg_launch", "fisheye_stereo_launch",
     }
     assert "arch=compute_90a,code=sm_90a" in _kernels.NVCC_FLAGS
     assert _kernels.LIB_PATH.parent.name == "_build"
@@ -501,7 +503,7 @@ def loop_inputs(rng, device):
 def test_loop_wrappers_cpu_plain_and_other_devices_raise():
     """Q, R, S and T: CPU tensors take the plain version (no launch); a
     tensor on another device (meta) gets no plain path; a KB8 camera is
-    refused by Q and R, naming ROADMAP §A item 11."""
+    refused by Q and R, naming ROADMAP §A item 14 (fisheye loop closing)."""
     rng = np.random.default_rng(5)
     cam, pairs, subsets, graph, prob, blocks = loop_inputs(rng, "cpu")
     before = [w.launches.total() for w in LOOP_WRAPPERS]
@@ -527,9 +529,9 @@ def test_loop_wrappers_cpu_plain_and_other_devices_raise():
     with pytest.raises(ValueError, match="CUDA"):
         ba_cg.implicit_schur_solve(*map(meta, blocks[:5]), ba.BAProblem(*map(meta, prob)), meta(blocks[5]), meta(lam))
     kb8 = cm.Camera.kb8(400.0, 400.0, 320.0, 240.0, 0.0, 0.0, 0.0, 0.0)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 14"):
         sim3.sim3_ransac(kb8, kb8, *mpairs, 0, subsets=meta(subsets))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 14"):
         sim3.optimize_sim3(kb8, kb8, lie.Sim3(*map(meta, S0)), *mpairs)
 
 
@@ -610,7 +612,7 @@ def test_distorted_camera_kernels_match_plain_on_card(cuda):
     T_gt = lie.se3_exp(torch.tensor([0.1, -0.05, 0.1, 0.02, -0.01, 0.03], device=cuda))
     uvr = cm.stereo_project(cam_d, T_gt.apply(obs.xw), 30.0) + 0.3 * (torch.rand(obs.xw.shape[0], 3, device=cuda) - 0.5)
     obs = obs._replace(uv=uvr.contiguous())
-    counts = [w.launches.total(mode="radtan") for w in (pose_opt.pose_optimization, ba.build_normal_blocks,
+    counts = [w.launches.total(camera="radtan") for w in (pose_opt.pose_optimization, ba.build_normal_blocks,
                                                           sim3.sim3_ransac, sim3.optimize_sim3)]
     T0 = lie.SE3.identity(cuda)
     Tk, _, nk = pose_opt.pose_optimization(cam_d, 30.0, T0, obs)
@@ -635,7 +637,7 @@ def test_distorted_camera_kernels_match_plain_on_card(cuda):
     Sk, _, nk = sim3.optimize_sim3(cam_q, cam_q, rp.S12, *pairs)
     Sp, _, np_ = sim3.optimize_sim3_plain(cam_q, cam_q, rp.S12, *pairs)
     assert abs(int(nk) - int(np_)) <= 1 and sim3_rel_err(Sk, Sp) <= 2e-4
-    after = [w.launches.total(mode="radtan") for w in (pose_opt.pose_optimization, ba.build_normal_blocks,
+    after = [w.launches.total(camera="radtan") for w in (pose_opt.pose_optimization, ba.build_normal_blocks,
                                                          sim3.sim3_ransac, sim3.optimize_sim3)]
     assert all(a == b + 1 for a, b in zip(after, counts))
 
@@ -664,8 +666,8 @@ def _vi_noise():
 
 def test_vi_wrappers_cpu_plain_and_other_devices_raise():
     """V, W, X and Y: CPU tensors take the plain version (no launch); a
-    tensor on another device (meta) gets no plain path; a KB8 camera is
-    refused by W and Y, naming ROADMAP §A item 11."""
+    tensor on another device (meta) gets no plain path, a KB8 camera's
+    either (W and Y have KB8 instances)."""
     from orb_slam3_fast_tpu_torch.imu import preintegration as pre
     from orb_slam3_fast_tpu_torch.optim import imu_init, inertial, vi_ba
 
@@ -698,9 +700,9 @@ def test_vi_wrappers_cpu_plain_and_other_devices_raise():
     with pytest.raises(ValueError, match="CUDA"):
         vi_ba.vi_bundle_adjust(cam_y, 0.0, T_id, mprob)
     kb8 = cm.Camera.kb8(400.0, 400.0, 320.0, 240.0, 0.0, 0.0, 0.0, 0.0)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="CUDA"):
         inertial.pose_inertial_optimization(kb8, 48.0, T_cb, s_prev, preint, s0, mobs)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="CUDA"):
         vi_ba.vi_bundle_adjust(kb8, 0.0, T_id, mprob)
 
 
@@ -813,3 +815,37 @@ def test_inertial_loop_kernels_match_plain_on_card(cuda):
     ck = vi_ba_cg.classify_vi(cam, 0.0, T_id, prob, sk[0], sk[1], sk[4])
     cp = vi_ba_cg.classify_vi_plain(cam, 0.0, T_id, prob, sk[0], sk[1], sk[4])
     assert torch.equal(ck, cp) and vi_ba_cg.classify_vi.launches.total(mode="classify") >= 1
+
+
+@pytest.fixture(scope="module")
+def fisheye_checks():
+    """chip_smoke.py phase 3's fisheye comparisons on the card, run once for
+    the module: kernel AB on phase 13's frame 1 and the KB8 instances of D,
+    E, L, P, W and Y at their paths' shapes, each held against its plain
+    version there (chip_smoke.compare_fisheye_kernels raises on a kernel
+    beyond its tolerance); and the KB8 launches they counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import chip_smoke
+
+    chip_smoke.reset_counts()
+    ab, kb8 = chip_smoke.compare_fisheye_kernels(torch.device("cuda"))
+    return {"fisheye_stereo": ab[0], **kb8}, chip_smoke.read_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fisheye_stereo", "pose_lm", "ba_blocks", "visible_landmarks", "pnp_ransac",
+                                  "pose_inertial", "vi_ba"])
+def test_fisheye_kernels_match_plain_on_card(fisheye_checks, name):
+    """Kernel AB, and the KB8 instance of D, E, L, P, W and Y, against its
+    plain version on the same CUDA tensors at chip_smoke.py's tolerances
+    (AB: points within 1e-3 m, 1% of the slots flipped; D 1e-3; E 1e-4 of
+    each block's largest; L 1e-3 px; P 1e-3 and the same count; W 5e-3; Y
+    p 2e-3 m, xw 1e-2 m), timed, and counted: AB as a launch, the others
+    as launches of their KB8 instance."""
+    entries, counts = fisheye_checks
+    e = entries[name]
+    assert e["ms"] > 0 and e["plain_ms"] > 0 and e["bound_ms"] > 0
+    assert e["max_abs_err"] <= {"visible_landmarks": 1e-3, "pose_inertial": 5e-3, "vi_ba": 1e-2,
+                                "ba_blocks": 1e-4}.get(name, 1e-3)
+    assert counts[name if name == "fisheye_stereo" else f"{name}[kb8]"] >= 1

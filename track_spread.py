@@ -9,7 +9,9 @@ DIR (for example a parent commit unpacked with ``git archive``), whose
 async async-loop`` chooses the Systems (mono, loop and the async ones need
 a checkout that has them; ``vi-mono`` and ``vi-stereo`` are chip_smoke's
 phase 11 (a) and (b), the mono- and stereo-inertial Systems on their 45
-frames) and ``--runs`` the card runs of each.  For each sensor it renders
+frames; ``fisheye`` and ``vi-fisheye`` its phase 13 (a) and (b), the
+TUM-VI rig's stereo System on 25 frames and its stereo-inertial System on
+45) and ``--runs`` the card runs of each.  For each sensor it renders
 chip_smoke.py's sequence (the 30-frame stereo corridor, the 25-frame RGB-D
 one, the 40-frame mono one, the 150-frame circle of the loop scenario: the
 mono System with loop closing and the Atlas; ``async``: the stereo
@@ -206,7 +208,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", type=Path, default=HERE)
     parser.add_argument("--sensor", nargs="+", choices=("stereo", "rgbd", "mono", "loop", "async", "async-loop",
-                                                        *VI), default=["stereo", "rgbd"])
+                                                        *VI, "fisheye", "vi-fisheye"), default=["stereo", "rgbd"])
     parser.add_argument("--runs", type=int, default=5)
     parser.add_argument("--save-host", type=Path, default=None)
     parser.add_argument("--tag", default=platform.node() or "host")
@@ -227,6 +229,8 @@ def main() -> int:
     here = importlib.import_module("chip_smoke")
     bounds = {"loop": (here.LOOP_DT, here.LOOP_DR),  # this checkout's bounds; the rest TRACK_DT / TRACK_DR
               **{s: here.VI_BOUNDS[v] for s, v in VI.items()}}
+    if hasattr(here, "FISHEYE_BOUNDS"):
+        bounds.update({"fisheye": here.FISHEYE_BOUNDS, "vi-fisheye": here.VI_BOUNDS["stereo"]})
     root = args.root.resolve()
     if root != HERE:  # the measured checkout's chip_smoke and port, its configs by relative path
         del sys.modules["chip_smoke"]
@@ -268,6 +272,16 @@ def main() -> int:
 
             def run(dev):
                 _, summary, track = cs.run_vi(*vi_in, dev, VI[sensor])
+                print(f"{sensor} run on {dev.type}: {summary}", flush=True)
+                return track
+        elif sensor == "fisheye":
+            frames, poses, _ = cs.fisheye_frames(cs.FISHEYE_FRAMES)
+            run = lambda dev: cs.run_fisheye(frames, poses, dev)[2]  # noqa: E731
+        elif sensor == "vi-fisheye":
+            frames, poses, imu = cs.fisheye_frames(cs.FISHEYE_VI_FRAMES, imu=True)
+
+            def run(dev):
+                _, summary, track = cs.run_fisheye(frames, poses, dev, imu=imu)
                 print(f"{sensor} run on {dev.type}: {summary}", flush=True)
                 return track
         else:
