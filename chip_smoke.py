@@ -6,8 +6,9 @@ the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs thirteen phases:
 
 1. device: fails without CUDA; prints the card's name and power limit;
 2. build: compiles the twenty-six kernels (A-Y, no K or O, then Z, AA and
-   AB) from the 27 sources of ``orb_slam3_fast_tpu_torch/csrc``, one nvcc
-   per source in parallel, and the map's host C++ library, so that no timed
+   AB) from the 29 sources of ``orb_slam3_fast_tpu_torch/csrc`` (kernel W's
+   camera kinds in three), one nvcc per source in parallel, each source's
+   finishing time logged, and the map's host C++ library, so that no timed
    frame pays for g++;
 3. each kernel against its plain PyTorch version on the same CUDA tensors,
    with CUDA-event times, the least time the card could take for the same
@@ -40,8 +41,10 @@ the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs thirteen phases:
    whole solve each, the latter moving every state toward the truth; AB
    (the fisheye match's gates and triangulation) on phase 13's frame 1
    (both 512x512 KB8 images, 1000 slots each, kernel C's mutual best-2)
-   and the KB8 instances of D, E, L, P, W and Y at their paths' shapes
-   through TUM-VI's cam0;
+   and the KB8 instances of D, E, L, P, W, Y, Q, R and AA at their paths'
+   shapes through TUM-VI's cam0 (Q and R on the loop verification's 768
+   pair slots, AA on the two problems of its pin-hole row), each timed
+   beside its pin-hole time;
 4. the stereo tracking step at 640x480 and 1280x720, 12 frames each, chained
    through the pose with constant-velocity prediction over a textured plane
    of known depth; every frame must match >= 30 landmarks, keep >= 30
@@ -127,11 +130,27 @@ the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs thirteen phases:
    the body's IMU stream through IMU.T_b_c1, at the JAX package's own level
    (``FISHEYE_VI_GATES``); AB, C's mutual mode and the KB8 instances of L,
    D, E (and P in (c), W and Y in (b)) launched, J, M, Q-U, Z and AA not;
+14. (also before phase 8) loop closing on the fisheye rig: phase 12's ring
+   world along its circle seen by the TUM-VI rig, rendered once, and the
+   body's IMU stream through IMU.T_b_c1 (``fisheye_loop_frames``):
+   (a) ``System(..., "stereo")`` with loop closing and the Atlas,
+   synchronous, at the JAX package's own level
+   (``FISHEYE_LOOP_GATES``; python -m tests.fisheye_loop_reference), Q and
+   R in KB8, S or U and T launched; (b) ``"stereo-inertial"``, the IMU
+   initialised and the loop closed through the inertial branch (Z and AA
+   in KB8); each first loop correction rerun on the card from a snapshot
+   and, in phase 8's host section, on the host (``VI_CORRECTION_BOUNDS``);
+   (c) the default constructors ``System(TUM-VI config, "stereo" |
+   "stereo-inertial")`` fed the circle at 20 fps: drained, no worker error,
+   the IMU initialised (loops and tracking reported);
 8. one frame of the plain (CPU) step, and the stereo, RGB-D and mono
-   Systems, the relocalisation run, the loop scenario (all 150 frames) and
-   the distorted mono System with the plain versions on the host, against
-   the card; (11 c) the inertial Systems' 45 (mono) and first 41 (stereo)
-   frames on the host against the card: the same states, keyframes and
+   Systems, the relocalisation run, the loop scenario's first
+   ``LOOP_HOST_PREFIX`` frames and the distorted mono System with the
+   plain versions on the host, against the card; the loop scenario's first
+   correction (its snapshot taken in 10 (c), whose run repeats phase 9's up
+   to there) rerun on the card and on the host; (11 c) the inertial
+   Systems' first 37 (mono) and 41 (stereo) frames on the host against
+   the card: the same states, keyframes and
    IMU-initialisation frame, poses within each path's own bound
    (``VI_BOUNDS``: the inertial plain paths alone do not repeat across
    host CPUs to 2e-3, ``track_spread.py --save-host``), and (13 a) the
@@ -139,20 +158,22 @@ the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs thirteen phases:
    JSON line of the kernels, then ``{"ok":
    true, "device": {...}}`` last.  The loop path is held to its own bound
    (``LOOP_DT`` / ``LOOP_DR``: two host CPUs running the plain path alone
-   land 6.1e-3 apart over its 150 frames) and to closing its loop at the
-   same frame as the host run.  The async runs of phase 10 are not held
+   land 6.1e-3 apart over its 150 frames), its correction too.  The async runs of phase 10 are not held
    against the host: what the worker has done by the time a frame is
    tracked depends on the host's speed, so they do not repeat.
 
-Launch counts are zeroed just before each path of phases 4-7 and 9-13 and
+Launch counts are zeroed just before each path of phases 4-7 and 9-14 and
 read just after; a run on the async backend also reads them per thread.
 No path's host comparison is cut in depth but the stereo-inertial one (a
 prefix: past frame 40 its card run and its host run end in other
-states).  Any failure raises, so the
+states), the mono-inertial one (up to the frame before it is lost) and
+the loop scenario's (a prefix and its correction), the last two for the
+time limit.  Any failure raises, so the
 script exits nonzero without the last line.
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -191,7 +212,9 @@ VI_MONO_MIN_AFTER = 5
 # last before the tracker is lost; beyond 2e-3 from frame 34), so the whole mono run is held to 2e-2 in t and the
 # sync paths' 1e-3 in rotation entries; the stereo-inertial runs land within 5e-2 / 5e-3 of each other over frames
 # 0-42 and its card run in another state than the host's at 41-42, so its first 41 frames are held to 5e-2 / 5e-3.
-VI_HOST_PREFIX = {"monocular": VI_FRAMES, "stereo": 41}
+# The mono-inertial run is held over its first 37 frames, up to the last before the tracker is lost: from there both
+# runs are RECENTLY_LOST on the IMU's prediction, and those frames' host run is left out for the time limit (PR 11).
+VI_HOST_PREFIX = {"monocular": 37, "stereo": 41}
 VI_BOUNDS = {"monocular": (2e-2, 1e-3), "stereo": (5e-2, 5e-3)}
 VI_STEREO_MAX_ATE = 0.10
 VI_GATES = {"monocular": f"IMU initialised, >= {VI_MONO_MIN_AFTER} frames OK after the init frame, scale-aligned ATE "
@@ -201,6 +224,11 @@ VI_GATES = {"monocular": f"IMU initialised, >= {VI_MONO_MIN_AFTER} frames OK aft
 VI_GYRO_BIAS, VI_ACC_BIAS = (0.002, -0.001, 0.0015), (0.03, -0.02, 0.04)
 RELOC_FRAMES, RELOC_REVISIT = 30, 20  # test_reloc.py: 30 frames, 3 blank ones, frame 20 again
 LOOP_FRAMES = 150  # tests/test_loop_closing.py's circle
+# Phase 8 holds the loop scenario's card run to its host run over the first LOOP_HOST_PREFIX frames and its first loop
+# correction rerun on the host from a snapshot of the card's map (as phases 12 (b) and 14 do): the whole 150 frames on
+# the host took 152.5-209.0 s of chip_smoke.py's 1200 s (PERF.md, PR 11); the first 60 are those the card and the host
+# run keep within TRACK_DT / TRACK_DR of each other, before the circle's drifting middle
+LOOP_HOST_PREFIX = 60
 ATLAS_BLACKOUT = range(55, 68)  # tests/test_atlas.py's sensor dropout
 TRACK_DT, TRACK_DR = 2e-3, 1e-3  # a System's card run against its host run: t, rotation entries
 # The loop path's own bound (150 frames of mono SLAM, map units of ~7.8 m): the plain path alone,
@@ -448,6 +476,24 @@ def make_corridor_world(rng, n=800, half_w=4.0, half_h=3.0, length=40.0, tile=6)
     }
 
 
+_PIXEL_RAYS: dict = {}
+
+
+def pixel_rays(cam, wh) -> np.ndarray:
+    """The unit-z ray of every pixel of a ``wh`` image of ``cam`` (h, w, 3),
+    float64, computed once per camera and size: a KB8 camera's 10-step
+    Newton unprojection of the whole grid costs seconds on the host."""
+    from orb_slam3_fast_tpu_torch.cameras import models as cm
+
+    key = (cam.kind, tuple(cam.params.tolist()), tuple(wh))
+    if key not in _PIXEL_RAYS:
+        w, h = wh
+        uu, vv = np.meshgrid(np.arange(w, dtype=np.float64), np.arange(h, dtype=np.float64))
+        grid = torch.as_tensor(np.stack([uu, vv], -1).reshape(-1, 2), dtype=torch.float32)
+        _PIXEL_RAYS[key] = cm.unproject(cam, grid).numpy().reshape(h, w, 3).astype(np.float64)
+    return _PIXEL_RAYS[key]
+
+
 def render(world, cam, R, t, wh=(640, 480), bg=30.0) -> np.ndarray:
     """Perspective render of the world-anchored textured quads seen from
     T_cw = (R, t) (synthetic.render): per pixel, the ray-plane hit of the
@@ -463,9 +509,7 @@ def render(world, cam, R, t, wh=(640, 480), bg=30.0) -> np.ndarray:
     tile = world["tex"].shape[1]
     e1, e2 = world["e1"].astype(np.float64), world["e2"].astype(np.float64)
     sizes = world["sizes"].astype(np.float64)
-    uu, vv = np.meshgrid(np.arange(w, dtype=np.float64), np.arange(h, dtype=np.float64))
-    grid = torch.as_tensor(np.stack([uu, vv], -1).reshape(-1, 2), dtype=torch.float32)
-    all_dirs = cm.unproject(cam, grid).numpy().reshape(h, w, 3).astype(np.float64)
+    all_dirs = pixel_rays(cam, wh)
     half = 0.5 * sizes
     quad = np.array([[-1, -1], [1, -1], [1, 1], [-1, 1]], np.float64)
     corners_w = centers[:, None, :] + np.einsum("qa,iad->iqd", quad, np.stack([e1 * half[:, None], e2 * half[:, None]], 1))
@@ -1966,7 +2010,24 @@ def loop_frames():
     return frames, circle_trajectory(LOOP_FRAMES, radius=4.0, frac=1.12)
 
 
-def run_loop(frames, poses, device, blackout=()):
+def loop_system(device, blackout: bool = False):
+    """The monocular System of the loop scenario (configs/synthetic_mono.yaml,
+    min_init_matches 60, motion_radius 25, 256 keyframes, loop closing and
+    the Atlas, LoopCloserConfig(min_covis_edge=30, temporal_gap=15)); with
+    ``blackout`` max_recently_lost 6 (tests/test_atlas.py)."""
+    from orb_slam3_fast_tpu_torch.backend.loopcloser import LoopCloserConfig
+    from orb_slam3_fast_tpu_torch.slam.system import System
+
+    overrides = dict(min_init_matches=60, motion_radius=25.0)
+    if blackout:
+        overrides["max_recently_lost"] = 6
+    slam = System(MONO_CONFIG, "monocular", tracker_overrides=overrides, max_keyframes=256, enable_loop_closing=True,
+                  multi_map=True, async_backend=False, device=device)
+    slam.loopcloser.cfg = LoopCloserConfig(**LOOP_CONFIG)
+    return slam
+
+
+def run_loop(frames, poses, device, blackout=(), snapshot=None, check: bool = True):
     """The monocular System with loop closing and the Atlas
     (configs/synthetic_mono.yaml, min_init_matches 60, motion_radius 25,
     256 keyframes, LoopCloserConfig(min_covis_edge=30, temporal_gap=15)) on
@@ -1975,20 +2036,27 @@ def run_loop(frames, poses, device, blackout=()):
     scale-aligned ATE < 0.20 m.  With it (black frames there and
     max_recently_lost 6, tests/test_atlas.py:34-79), that test's gates: >= 2
     maps, >= 1 merge, final state OK, > 100 frames OK, the scale-aligned ATE
-    of ``trajectory_world()`` < 0.5.  The global BAs are wrapped to count the
-    launches of kernels F and T inside them.  Returns the System, a summary
-    and the per-frame (state, R, t)."""
-    from orb_slam3_fast_tpu_torch.backend.loopcloser import LoopCloserConfig
+    of ``trajectory_world()`` < 0.5 (``check`` False: no gates, for a
+    prefix of the frames).  The global BAs are wrapped to count the
+    launches of kernels F and T inside them; a dict ``snapshot`` receives
+    the first loop correction's map (a deep copy, just before it) and
+    arguments.  Returns the System, a summary (the keyframes after each
+    frame in ``kf_at``) and the per-frame (state, R, t)."""
+    import copy
+
     from orb_slam3_fast_tpu_torch.eval import ate
     from orb_slam3_fast_tpu_torch.optim import ba, ba_cg
-    from orb_slam3_fast_tpu_torch.slam.system import System
 
-    overrides = dict(min_init_matches=60, motion_radius=25.0)
-    if len(blackout):
-        overrides["max_recently_lost"] = 6
-    slam = System(MONO_CONFIG, "monocular", tracker_overrides=overrides, max_keyframes=256, enable_loop_closing=True,
-                  multi_map=True, async_backend=False, device=device)
-    slam.loopcloser.cfg = LoopCloserConfig(**LOOP_CONFIG)
+    slam = loop_system(device, blackout=bool(len(blackout)))
+    if snapshot is not None:
+        correct = slam.loopcloser._correct
+
+        def kept(world, k, c, S_kc):
+            if not snapshot:
+                snapshot.update(world=copy.deepcopy(world), args=(k, c, S_kc))
+            return correct(world, k, c, S_kc)
+
+        slam.loopcloser._correct = kept
     gba_launches = {"F": 0, "T": 0, "gba": 0}
     run_gba = slam.mapper._run_gba
 
@@ -2002,10 +2070,11 @@ def run_loop(frames, poses, device, blackout=()):
 
     slam.mapper._run_gba = counted_gba
     black = np.zeros((480, 640), np.float32)
-    est, gt, ts, track, max_maps, gt_by_ts, closed_at = [], [], [], [], 1, {}, []
+    est, gt, ts, track, max_maps, gt_by_ts, closed_at, kf_at = [], [], [], [], 1, {}, [], []
     for i, (img, (R, t)) in enumerate(zip(frames, poses)):
         n_closed = slam.loopcloser.n_loops_closed + slam.loopcloser.n_maps_merged
         state, pose = slam.track_monocular(black if i in blackout else img, i * 0.05)
+        kf_at.append(slam.tracker.world.n_kf)
         if slam.loopcloser.n_loops_closed + slam.loopcloser.n_maps_merged > n_closed:
             closed_at.append(i)
         if pose is None:
@@ -2033,7 +2102,9 @@ def run_loop(frames, poses, device, blackout=()):
                    n_kf=slam.tracker.world.n_kf, landmarks=int(slam.tracker.world.lm_valid.sum()),
                    loops=lc.n_loops_closed, merges=lc.n_maps_merged, closed_at=closed_at, maps=max_maps,
                    gba=gba_launches["gba"],
-                   gba_launches_F=gba_launches["F"], gba_launches_T=gba_launches["T"])
+                   gba_launches_F=gba_launches["F"], gba_launches_T=gba_launches["T"], kf_at=kf_at)
+    if not check:
+        return slam, summary, track
     if len(blackout):
         ok = summary["maps"] >= 2 and summary["merges"] >= 1 and summary["tracked"] > 100 and rmse < 0.5
     else:
@@ -3137,7 +3208,7 @@ VI_CORRECTION_BOUNDS = (LOOP_DT, LOOP_DR, 2e-2)
 
 
 def circle_trajectory_with_imu(n_frames, radius=4.0, frac=1.12, dt_frame=0.05, imu_rate=200.0,
-                               speed=VI_LOOP_SPEED):
+                               speed=VI_LOOP_SPEED, T_bc=None):
     """The loop scenario's circle (circle_trajectory's camera, looking along
     the tangent, radius 4, ``frac`` turns over ``n_frames``) flown at a
     speed modulated as arc_trajectory_with_imu's (``speed`` = (amplitude,
@@ -3149,8 +3220,12 @@ def circle_trajectory_with_imu(n_frames, radius=4.0, frac=1.12, dt_frame=0.05, i
     first-order step (the rotation at the interval's start carrying the
     sample): the specific force at the interval's middle in the body frame
     at its start, and the interval's mean rate (the turn is about a fixed
-    axis).  Returns (T_cw per frame as (R, t) numpy float32 pairs, IMU rows
-    (ts, ax, ay, az, wx, wy, wz))."""
+    axis).  The camera is the body, unless ``T_bc`` (the (4,4) pose of the
+    camera in the body, IMU.T_b_c1) puts the IMU elsewhere on the rig: it
+    then measures the rig's rate in its own axes and the specific force at
+    its own origin, the lever arm's centripetal and tangential terms at the
+    interval's middle included.  Returns (T_cw per frame as (R, t) numpy
+    float32 pairs, IMU rows (ts, ax, ay, az, wx, wy, wz))."""
     amp, freq = speed
     w0 = 2 * np.pi * frac / (n_frames * dt_frame)
     om = 2 * np.pi * freq
@@ -3171,6 +3246,9 @@ def circle_trajectory_with_imu(n_frames, radius=4.0, frac=1.12, dt_frame=0.05, i
     def angle(t):
         return w0 * (t + amp / om * np.sin(om * t))
 
+    if T_bc is not None:  # the body's rotation from the camera, and its origin in the camera frame
+        R_bc = np.asarray(T_bc, np.float64)[:3, :3]
+        t_cb = -R_bc.T @ np.asarray(T_bc, np.float64)[:3, 3]
     for j in range(int(round((n_frames - 1) * dt_frame * imu_rate))):
         tm = (j + 0.5) * dt_imu
         a = angle(tm)
@@ -3180,7 +3258,13 @@ def circle_trajectory_with_imu(n_frames, radius=4.0, frac=1.12, dt_frame=0.05, i
         acc_w = radius * (add * np.array([-s, c, 0.0]) + ad * ad * np.array([-c, -s, 0.0]))
         R_wc, _ = frame_of(angle(j * dt_imu))
         rate = (angle((j + 1) * dt_imu) - angle(j * dt_imu)) / dt_imu
-        imu.append([(j + 1) * dt_imu, *(R_wc.T @ (acc_w - g_w)), 0.0, -rate, 0.0])
+        if T_bc is None:
+            imu.append([(j + 1) * dt_imu, *(R_wc.T @ (acc_w - g_w)), 0.0, -rate, 0.0])
+            continue
+        # the turn is about the world's z, the camera's -y: rate and angular acceleration there at the middle
+        w_c, dw_c = np.array([0.0, -ad, 0.0]), np.array([0.0, -add, 0.0])
+        f_c = R_wc.T @ (acc_w - g_w) + np.cross(w_c, np.cross(w_c, t_cb)) + np.cross(dw_c, t_cb)
+        imu.append([(j + 1) * dt_imu, *(R_bc @ f_c), *(R_bc @ np.array([0.0, -rate, 0.0]))])
     return poses, np.asarray(imu)
 
 
@@ -3244,11 +3328,18 @@ def run_vi_loop(frames, poses, imu, device):
     and their frames, keyframes, the unscaled ATE of the frames tracked
     after the initialisation, in the gravity-aligned world) and the
     snapshot."""
+    return _run_loop_with_snapshot(vi_loop_system(device), frames, poses, imu, device)
+
+
+def _run_loop_with_snapshot(slam, frames, poses, imu, device):
+    """Phases 12 (a) and 14: a synchronous System with loop closing on a
+    stereo sequence (with its IMU stream, or ``imu`` None), the first loop
+    correction's map and arguments kept.  The ATE is over the frames
+    tracked, after the IMU initialisation with the IMU."""
     import copy
 
     from orb_slam3_fast_tpu_torch.eval import ate
 
-    slam = vi_loop_system(device)
     lc = slam.loopcloser
     snapshot = {}
     correct = lc._correct
@@ -3260,15 +3351,17 @@ def run_vi_loop(frames, poses, imu, device):
 
     lc._correct = kept
     est, gt, ts, closed_at, init_frame, track = [], [], [], [], None, []
-    for i, ((img_l, img_r), (R, t), samples) in enumerate(zip(frames, poses, imu_slices(imu, len(frames)))):
+    samples = imu_slices(imu, len(frames)) if imu is not None else [()] * len(frames)
+    for i, ((img_l, img_r), (R, t), smp) in enumerate(zip(frames, poses, samples)):
         n_closed = lc.n_loops_closed
-        state, pose = slam.track_stereo(img_l, img_r, i * 0.05, imu=samples)
+        state, pose = slam.track_stereo(img_l, img_r, i * 0.05, imu=smp)
         if lc.n_loops_closed > n_closed:
             closed_at.append(i)
         if slam.world.imu_initialized and init_frame is None:
             init_frame = i
         track.append((state, *(pose if pose is not None else (np.eye(3, dtype=np.float32), np.zeros(3, np.float32)))))
-        if state == "OK" and init_frame is not None and i > init_frame:  # the world is gravity-aligned from here
+        # with the IMU, from the initialisation on: the world is gravity-aligned from there
+        if state == "OK" and (imu is None or (init_frame is not None and i > init_frame)):
             est.append(-pose[0].T @ pose[1])
             gt.append(-R.T @ t)
             ts.append(i * 0.05)
@@ -3295,10 +3388,12 @@ def check_vi_loop(summary, launches) -> None:
         raise RuntimeError(f"stereo-inertial loop System gates failed: {summary}, launches {launches}")
 
 
-def correct_from_snapshot(snapshot, device):
-    """Phase 12 (b): the loop correction (window propagation, fusion, the
-    4-DoF essential graph, FullInertialBA) run on a copy of the snapshot by a
-    stereo-inertial System on ``device``.  Returns the corrected map."""
+def correct_from_snapshot(snapshot, device, make_system=None):
+    """Phases 12 (b) and 14: the loop correction (window propagation,
+    fusion, the essential graph, the global BA or FullInertialBA) run on a
+    copy of the snapshot by the System ``make_system(device)`` makes
+    (phase 12's stereo-inertial one by default) on ``device``.  Returns the
+    corrected map."""
     import copy
 
     from orb_slam3_fast_tpu_torch.utils import lie
@@ -3306,7 +3401,7 @@ def correct_from_snapshot(snapshot, device):
     w = copy.deepcopy(snapshot["world"])
     w.kf_preint = {k: p.to(device) for k, p in w.kf_preint.items()}
     k, c, S_kc = snapshot["args"]
-    slam = vi_loop_system(device)
+    slam = (make_system or vi_loop_system)(device)
     slam.tracker.world = slam.world = w
     slam.loopcloser._correct(w, k, c, lie.Sim3(*(x.to(device) for x in S_kc)))
     if device.type == "cuda":
@@ -3407,7 +3502,8 @@ FISHEYE_BOUNDS = (TRACK_DT, TRACK_DR)
 FISHEYE_KERNELS = ("fast_nms", "orb_describe", "hamming_best2", "pose_lm", "ba_blocks", "ba_schur", "triangulate_dlt",
                    "pyramid_blur", "select_subpixel", "visible_landmarks", "vocab_transform", "fisheye_stereo")
 # kernels whose camera instance phase 13 reads, and those that never run on the fisheye rig
-KB8_KERNELS = ("pose_lm", "ba_blocks", "visible_landmarks", "pnp_ransac", "pose_inertial", "vi_ba")
+KB8_KERNELS = ("pose_lm", "ba_blocks", "visible_landmarks", "pnp_ransac", "pose_inertial", "vi_ba", "sim3_ransac",
+               "sim3_refine", "vi_pcg")
 NOT_FISHEYE = ("stereo_subpixel_refine", "twoview_ransac", "sim3_ransac", "sim3_refine", "sim3_graph", "ba_pcg",
                "sim3_pcg", "pose_graph4", "vi_pcg")
 
@@ -3738,7 +3834,251 @@ def compare_fisheye_kernels(device) -> tuple[list[dict], dict]:
           12 * (Oy * 560 + pairs * 216 + 15 * 30 * 3000 + ny * ny * 60 + 2 * ny ** 3 // 3),
           f"K={Ky}, M={My}, O={Oy} (mono); errors R {errs[0]:.2g} p {errs[1]:.2g} xw {errs[4]:.2g}, {mism:.2%} "
           "classified otherwise; tolerances as the pin-hole case", reps=3)
+    kb8.update(compare_fisheye_loop_kernels(device, cam))
     return [ab], kb8
+
+
+def compare_fisheye_loop_kernels(device, cam) -> dict:
+    """Phase 3's KB8 instances of Q, R and AA (TUM-VI's cam0 ``cam``), each
+    against its plain version on the same CUDA tensors at the shapes and
+    tolerances of the pin-hole rows (compare_loop_kernels,
+    compare_inertial_loop_kernels), timed with CUDA events beside them:
+    Q and R on the loop verification's 768 pair slots seen through the
+    fisheye, with and without the scale; AA's 2-step segment on
+    build_vi_problem's size and on the 200-keyframe world, every edge
+    monocular through the fisheye.  Returns {name: entry}."""
+    from orb_slam3_fast_tpu_torch.optim import sim3, vi_ba_cg
+    from orb_slam3_fast_tpu_torch.utils import lie
+
+    out = {}
+    # Q and R: the pin-hole rows' pairs (seed 9, s = 1.3 and 1) with their pixels through the fisheye
+    cases = {}
+    for fix, s_true in ((False, 1.3), (True, 1.0)):
+        arrays, xi_true = sim3_pairs(np.random.default_rng(9), s=s_true, cam=cam)
+        cases[fix] = ([torch.as_tensor(a).to(device) for a in arrays], xi_true)
+    valid = cases[False][0][-1]
+    n, nv = valid.shape[0], int(valid.sum())
+    subsets = sim3._sample_subsets(sim3.jax_seed(30 * 2654435761 + 5), valid)
+    h = subsets.shape[0]
+    q_err, q_ms, q_pms, r_err, r_ms, r_pms, n_act, notes = 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0, []
+    for fix in (False, True):
+        pairs, xi_true = cases[fix]
+        rk = sim3.sim3_ransac(cam, cam, *pairs, 0, fix_scale=fix, subsets=subsets)
+        rp = sim3.sim3_ransac_plain(cam, cam, *pairs, subsets, fix_scale=fix)
+        Sk, ik, nk = sim3.optimize_sim3(cam, cam, rp.S12, *pairs, fix_scale=fix)
+        Sp, ip, np_ = sim3.optimize_sim3_plain(cam, cam, rp.S12, *pairs, fix_scale=fix)
+        torch.cuda.synchronize()
+        qe, re_ = sim3_rel_err(rk.S12, rp.S12), sim3_rel_err(Sk, Sp)
+        q_flips, r_flips = int((rk.inliers != rp.inliers).sum()), int((ik != ip).sum())
+        # the pin-hole rows' tolerances: a pair within float rounding of the chi2 threshold counts on one side only
+        if not (abs(int(rk.n_inliers) - int(rp.n_inliers)) <= 1 and bool(rk.ok) == bool(rp.ok) and bool(rp.ok)
+                and qe <= 1e-4 and q_flips <= 1):
+            raise RuntimeError(f"kernel Q (KB8) fix_scale={fix}: inliers {int(rk.n_inliers)}/{int(rp.n_inliers)}, ok "
+                               f"{bool(rk.ok)}/{bool(rp.ok)}, Sim3 {qe:.3g}, masks differ on {q_flips}")
+        if not (abs(int(nk) - int(np_)) <= 1 and re_ <= 2e-4 and r_flips <= 1):
+            raise RuntimeError(f"kernel R (KB8) fix_scale={fix}: inliers {int(nk)}/{int(np_)}, Sim3 {re_:.3g}, masks "
+                               f"differ on {r_flips}")
+        qm = cuda_ms(lambda: sim3.sim3_ransac(cam, cam, *pairs, 0, fix_scale=fix, subsets=subsets), 50)
+        qp = cuda_ms(lambda: sim3.sim3_ransac_plain(cam, cam, *pairs, subsets, fix_scale=fix), 10)
+        rm = cuda_ms(lambda: sim3.optimize_sim3(cam, cam, rp.S12, *pairs, fix_scale=fix), 20)
+        rpm = cuda_ms(lambda: sim3.optimize_sim3_plain(cam, cam, rp.S12, *pairs, fix_scale=fix), 3)
+        q_err, q_ms, q_pms = max(q_err, qe), q_ms + qm, q_pms + qp
+        r_err, r_ms, r_pms = max(r_err, re_), r_ms + rm, r_pms + rpm
+        n_act += int(np_)
+        truth = sim3_rel_err(Sp, lie.sim3_exp(torch.as_tensor(xi_true).to(device)))
+        notes.append(f"fix_scale={fix}: Q {int(rp.n_inliers)} inliers, Sim3 {qe:.2e}, {qm:.4f} ms (plain {qp:.4f}); "
+                     f"R {int(np_)} inliers, Sim3 {re_:.2e}, truth within {truth:.2e}, {rm:.4f} ms (plain {rpm:.4f})")
+    # compare_loop_kernels' counts, with a KB8 projection (an atan2, a division, the degree-9 polynomial and
+    # its derivative: ~40 flops more than the pin-hole's) where the pin-hole projects
+    q_ops = 2 * (h * (90 + SVD3_FLOPS + 80 + 140 * nv) + 140 * nv)
+    out["sim3_ransac"] = dict(max_abs_err=q_err, ms=q_ms, plain_ms=q_pms, **bound(2 * (n * 49 + h * 12 + 52 + n + 5),
+                                                                                  q_ops),
+                              shapes=f"{n} slots ({nv} valid, 25% outliers), {h} subsets, both cases; " +
+                                     "; ".join(notes) + "; tolerances as the pin-hole row")
+    step = 140 + 210 + 20 + 280
+    r_ops = 15 * (step * (nv + n_act) // 2) + 2 * 15 * (250 + 300 + SVD3_FLOPS) + 2 * 2 * 140 * nv
+    out["sim3_refine"] = dict(max_abs_err=r_err, ms=r_ms, plain_ms=r_pms, **bound(2 * (n * 49 + 52 + 52 + n + 4),
+                                                                                  r_ops),
+                              shapes=f"{n} slots ({nv} valid), 5 + 10 steps, both cases, from the plain RANSAC's "
+                                     "Sim3; tolerances as the pin-hole row")
+    # AA: the pin-hole row's two problems, their observations through the fisheye
+    T_id = lie.SE3.identity(device)
+    a_err, a_ms, a_pms, a_ops, a_bytes, a_notes = 0.0, 0.0, 0.0, 0.0, 0, []
+    prob, _ = vi_cg_problem(np.random.default_rng(12), device)
+    big_w, _, _, _ = inertial_world(np.random.default_rng(13), n_kf=200, device=device)
+    big = inertial_tracker(big_w, device).full_inertial_problem(big_w, [0])[0]
+    for label, pr in (("build_vi_problem", prob), ("200-keyframe world", big)):
+        pr = pr._replace(obs_uv=kb8_mono(pr.obs_uv, cam), obs_is_stereo=torch.zeros_like(pr.obs_is_stereo))
+        K, M, O, E = pr.R_wb.shape[0], pr.xw.shape[0], pr.obs_kf.shape[0], pr.edge_i.shape[0]
+        inl = torch.ones(O, dtype=torch.bool, device=device)
+        lam = torch.tensor(1e-4, device=device)
+        state = (pr.R_wb, pr.p_wb, pr.v_w, pr.bias)
+        info = {}
+        sk = vi_ba_cg._kernel(cam, 0.0, T_id, pr, state, pr.xw, inl, lam, 2, 40, info)
+        sp = vi_ba_cg.lm_segment_vi_plain(cam, 0.0, T_id, pr, *state, pr.xw, inl, lam, 2, 40)
+        ck = vi_ba_cg._kernel(cam, 0.0, T_id, pr, state[:2] + (None, None), pr.xw, None, None, 0, 0)
+        cp = vi_ba_cg.classify_vi_plain(cam, 0.0, T_id, pr, pr.R_wb, pr.p_wb, pr.xw)
+        torch.cuda.synchronize()
+        seg_err = max(float((a - b).abs().max()) for a, b in zip(sk[:4], sp[:4]))
+        xw_err = float((sk[4] - sp[4]).abs().max())
+        flips = int((ck != cp).sum())
+        if not (bool(torch.isfinite(sk[0]).all()) and seg_err <= 1e-3 and xw_err <= 1e-2 and flips <= 2):
+            raise RuntimeError(f"kernel AA (KB8) on {label}: segment {seg_err:.3g}, landmarks {xw_err:.3g} from the "
+                               f"plain version, {flips} observations classified otherwise")
+        ms = cuda_ms(lambda: vi_ba_cg._kernel(cam, 0.0, T_id, pr, state, pr.xw, inl, lam, 2, 40), 5)
+        pms = cuda_ms(lambda: vi_ba_cg.lm_segment_vi_plain(cam, 0.0, T_id, pr, *state, pr.xw, inl, lam, 2, 40), 1)
+        a_err, a_ms, a_pms = max(a_err, seg_err), a_ms + ms, a_pms + pms
+        a_ops += vi_pcg_ops(K, M, O, E, 2, info["cg_run"])
+        a_bytes += vi_pcg_bytes(K, M, O, E)
+        a_notes.append(f"{label} (K={K}, M={M}, O={O}, E={E}): a segment {ms:.3f} ms (plain {pms:.3f}, "
+                       f"{info['cg_run']} CG iterations), {seg_err:.2e} from the plain version (landmarks "
+                       f"{xw_err:.2e}), classification {flips} flipped")
+    out["vi_pcg"] = dict(max_abs_err=a_err, ms=a_ms, plain_ms=a_pms, **bound(a_bytes, a_ops),
+                         shapes="; ".join(a_notes) + "; every edge monocular through the fisheye; tolerances: states "
+                                "1e-3 after a segment, landmarks 1e-2 m, 2 observations classified otherwise")
+    return out
+
+
+# --- phase 14: loop closing on the fisheye rig (TUM-VI) ---------------------------------------------------------
+
+# Phase 14 (b)'s IMU noise densities, as multiples of the configuration file's (TUM-VI's): with TUM-VI's own the
+# JAX package's stereo-inertial System initialises the IMU at frame 41 and is RECENTLY_LOST from frame 42 to the end,
+# closing no loop (python -m tests.fisheye_loop_reference --sensor stereo-inertial --noise-scale 1), as phase 12 (a)
+# with EuRoC's; phase 12's low-grade IMU (VI_LOOP_IMU_NOISE) keeps the track
+FISHEYE_LOOP_IMU_NOISE = VI_LOOP_IMU_NOISE
+# Phase 14's gates, at the JAX package's own runs on the scene (python -m tests.fisheye_loop_reference, CPU): (a)
+# stereo: 150 tracked, the loop closed at frame 133, 97 keyframes, unscaled ATE 0.0585 m; the loop is gated at that
+# frame +- 5 (three keyframes either side: the port draws the Sim3 RANSAC's hypotheses from another generator, so
+# the verification may pass a keyframe earlier or later) and the ATE at tests/test_loop_closing.py's 0.20 m; (b)
+# stereo-inertial (FISHEYE_LOOP_IMU_NOISE): 150 tracked, the IMU initialised at frame 41, the loop closed at frame
+# 133, 92 keyframes, unscaled ATE after the initialisation 0.0492 m; gated alike (phase 12's VI_LOOP_MAX_ATE)
+FISHEYE_LOOP_FRAMES = {"stereo": (128, 138), "stereo-inertial": (128, 138)}
+FISHEYE_LOOP_MAX_ATE = {"stereo": 0.20, "stereo-inertial": VI_LOOP_MAX_ATE}
+FISHEYE_LOOP_GATES = {
+    "stereo": f"the loop closed within frames {FISHEYE_LOOP_FRAMES['stereo']}, unscaled ATE < "
+              f"{FISHEYE_LOOP_MAX_ATE['stereo']} m; Q and R in KB8, S or U, and T launched",
+    "stereo-inertial": f"the IMU initialised, the loop closed within frames {FISHEYE_LOOP_FRAMES['stereo-inertial']}, "
+                       f"unscaled ATE after the initialisation < {FISHEYE_LOOP_MAX_ATE['stereo-inertial']} m; Q and R "
+                       "in KB8, Z, AA in KB8 launched, S, U and T not"}
+
+
+def _render_fisheye_circle(i: int):
+    """Frame i of phase 14's circle through the TUM-VI rig (run in a worker process)."""
+    world = make_ring_world(np.random.default_rng(0))
+    s = fisheye_settings("stereo-inertial")
+    R, t = circle_trajectory_with_imu(LOOP_FRAMES)[0][i]
+    return stereo_pair_cams(world, s.cam, s.cam2, R, t, s.T_c1_c2, FISHEYE_WH)
+
+
+def fisheye_loop_frames():
+    """Phase 14's input: phase 12's scene, the loop scenario's ring world
+    (make_ring_world, seed 0) along circle_trajectory_with_imu(150), seen by
+    the TUM-VI rig (both 512x512 KB8 cameras through Stereo.T_c1_c2),
+    rendered by one worker process per core, and the exact IMU stream of
+    the body through IMU.T_b_c1.  Returns (stereo pairs, true T_cw of the
+    left camera per frame, IMU rows)."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    # one torch thread a worker: the workers fill the cores, and the KB8 pixel rays are elementwise (the same bits)
+    with ProcessPoolExecutor(max(1, min(8, os.cpu_count() or 1)), mp_context=multiprocessing.get_context("spawn"),
+                             initializer=torch.set_num_threads, initargs=(1,)) as ex:
+        frames = list(ex.map(_render_fisheye_circle, range(LOOP_FRAMES)))
+    poses, imu = circle_trajectory_with_imu(LOOP_FRAMES, T_bc=fisheye_settings("stereo-inertial").T_b_c1)
+    return frames, poses, imu
+
+
+def fisheye_loop_settings(sensor: str, noise_scale: float = FISHEYE_LOOP_IMU_NOISE):
+    """The TUM-VI configuration loaded for ``sensor``; for the inertial one
+    its IMU noise densities (gyro, accelerometer and both walks) scaled by
+    ``noise_scale``."""
+    import dataclasses
+
+    s = fisheye_settings(sensor)
+    if sensor != "stereo-inertial":
+        return s
+    k = noise_scale
+    return dataclasses.replace(s, imu_noise_gyro=k * s.imu_noise_gyro, imu_noise_acc=k * s.imu_noise_acc,
+                               imu_gyro_walk=k * s.imu_gyro_walk, imu_acc_walk=k * s.imu_acc_walk)
+
+
+def fisheye_loop_system(sensor: str, device):
+    """``System(TUM-VI config, sensor)`` with loop closing, the Atlas and 256
+    keyframes, synchronous, the loop closer at phase 9's LoopCloserConfig
+    (the scale fixed): phase 14 (a) and (b)."""
+    from orb_slam3_fast_tpu_torch.backend.loopcloser import LoopCloserConfig
+    from orb_slam3_fast_tpu_torch.slam.system import System
+
+    slam = System(fisheye_loop_settings(sensor), sensor, max_keyframes=256, enable_loop_closing=True, multi_map=True,
+                  async_backend=False, device=device)
+    slam.loopcloser.cfg = LoopCloserConfig(**LOOP_CONFIG, fix_scale=True)
+    return slam
+
+
+def run_fisheye_loop(frames, poses, imu, device, sensor: str):
+    """Phase 14 (a) (``"stereo"``) and (b) (``"stereo-inertial"``, with the
+    IMU stream): :func:`fisheye_loop_system` on the circle, the first loop
+    correction's inputs kept for a rerun from its snapshot.  Returns the
+    System, a summary (run_vi_loop's: the ATE over the frames tracked, after
+    the IMU initialisation with the IMU) and the snapshot."""
+    return _run_loop_with_snapshot(fisheye_loop_system(sensor, device), frames, poses,
+                                   imu if sensor == "stereo-inertial" else None, device)
+
+
+def check_fisheye_loop(sensor: str, summary, launches) -> None:
+    """Phase 14 (a) / (b)'s gates (FISHEYE_LOOP_GATES): the loop closed
+    within FISHEYE_LOOP_FRAMES[sensor], the ATE under FISHEYE_LOOP_MAX_ATE
+    (and for (b) the IMU initialised); Q and R launched in their KB8
+    instances, the Sim3 graph (S or U) and T for (a), Z and AA in KB8 for
+    (b)."""
+    lo, hi = FISHEYE_LOOP_FRAMES[sensor]
+    ok = (bool(summary["closed_at"]) and lo <= summary["closed_at"][0] <= hi
+          and summary.get("ate_unscaled_m", 1e9) < FISHEYE_LOOP_MAX_ATE[sensor])
+    need = ["sim3_ransac[kb8]", "sim3_refine[kb8]"]
+    if sensor == "stereo-inertial":
+        ok = ok and summary["init_frame"] is not None
+        need += ["pose_graph4", "vi_pcg[kb8]"]
+        stray = [n for n in ("sim3_graph", "sim3_pcg", "ba_pcg") if launches[n]]
+    else:
+        need += ["ba_pcg"]
+        stray = [n for n in ("pose_graph4", "vi_pcg") if launches[n]]
+        if launches["sim3_graph"] + launches["sim3_pcg"] < 1:
+            stray.append("no Sim3 graph (S or U)")
+    missing = [n for n in need if launches[n] < 1]
+    if not ok or missing or stray:
+        raise RuntimeError(f"fisheye loop System ({sensor}) gates failed: {summary}; never launched {missing}; "
+                           f"{stray}")
+
+
+def run_default_fisheye(frames, imu, device, sensor: str):
+    """Phase 14 (c): the default constructor ``System(TUM-VI config,
+    sensor)``, every default (the async backend, loop closing, the Atlas),
+    fed the circle at 20 fps.  Gates: the backend drains within 120 s, no
+    worker error, for the inertial sensor the IMU initialised.  Returns a
+    summary (the loops closed reported, not gated)."""
+    from orb_slam3_fast_tpu_torch.slam.system import System
+
+    slam = System(FISHEYE_CONFIG, sensor, device=device)
+    b = slam.backend
+    inertial = sensor == "stereo-inertial"
+    samples = imu_slices(imu, len(frames)) if inertial else [()] * len(frames)
+    states, t0 = [], time.perf_counter()
+    for i, ((img_l, img_r), smp) in enumerate(zip(frames, samples)):
+        wait = t0 + i * 0.05 - time.perf_counter()
+        if wait > 0:
+            time.sleep(wait)
+        states.append(slam.track_stereo(img_l, img_r, i * 0.05, imu=smp)[0])
+    drained = b.wait_idle(timeout=120)
+    slam.shutdown()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    summary = dict(sensor=sensor, state=slam.get_tracking_state(), tracked=sum(s == "OK" for s in states),
+                   drained=drained, errors=len(b.errors), imu_initialized=bool(slam.world.imu_initialized),
+                   n_kf=slam.world.n_kf, loops=slam.loopcloser.n_loops_closed, error=b.errors[0] if b.errors else None)
+    if not (drained and not b.errors and (summary["imu_initialized"] or not inertial)):
+        raise RuntimeError(f"default fisheye System ({sensor}) gates failed: {summary}")
+    return summary
 
 
 def stage_split(rig: Rig, device) -> dict:
@@ -4007,6 +4347,7 @@ def main() -> int:
     t1 = time.perf_counter()
     loop_run = run_loop(loop_in, loop_poses, device)
     slam_l, summary_l, _ = loop_run
+    loop_kf_at = summary_l.pop("kf_at")
     loop_s = time.perf_counter() - t1
     loop_launches = read_counts()
     missing = [n for n in LOOP_KERNELS if loop_launches[n] < 1]
@@ -4027,6 +4368,7 @@ def main() -> int:
     reset_counts()
     t1 = time.perf_counter()
     _, summary_a, _ = run_loop(loop_in, loop_poses, device, blackout=ATLAS_BLACKOUT)
+    summary_a.pop("kf_at")
     atlas_launches = read_counts()
     log(f"Atlas scenario: {summary_a}, {time.perf_counter() - t1:.2f} s (gates: >= 2 maps, >= 1 merge, final OK, > 100 "
         "frames OK, ATE of trajectory_world < 0.5)")
@@ -4067,10 +4409,12 @@ def main() -> int:
     check_default_loop(summary_b10)
     reset_counts()
     pg._FORCE_CG = True
+    loop_snap = {}  # the map just before the first loop correction (phase 9's: the runs repeat up to there)
     try:
-        slam_c, summary_c10, _ = run_loop(loop_in, loop_poses, device)
+        slam_c, summary_c10, _ = run_loop(loop_in, loop_poses, device, snapshot=loop_snap)
     finally:
         pg._FORCE_CG = False
+    summary_c10.pop("kf_at")
     launches_c10 = read_counts()
     graph_ms = slam_c.loopcloser.timers.spans["loop_essential_graph"]
     if launches_c10["sim3_pcg"] < 1 or launches_c10["sim3_graph"] or summary_c10["closed_at"] != summary_l["closed_at"]:
@@ -4081,6 +4425,9 @@ def main() -> int:
         f"{[round(x, 3) for x in graph_ms]} ms (phase 9, kernel S: "
         f"{[round(x, 3) for x in lspans['loop_essential_graph']]})")
     log(f"launches in 10 (c): {launches_c10}")
+    loop_fix = correct_from_snapshot(loop_snap, device, loop_system)
+    log(f"9 the loop scenario's first correction (keyframe {loop_snap['args'][0]} <-> {loop_snap['args'][1]}) rerun "
+        f"on the card from its snapshot (kernel S): {loop_fix.n_kf} keyframes")
     dist_settings = distorted_mono_settings()
     dist_in, _ = mono_frames(MONO_FRAMES, cam=dist_settings.cam)
     reset_counts()
@@ -4215,6 +4562,45 @@ def main() -> int:
     log(f"launches in 13 (b): {launches_fv}")
     log(f"phase 13: {time.perf_counter() - t0:.1f} s")
 
+    # 14. loop closing on the fisheye rig (before phase 8 too): (a) the stereo System with loop closing on the circle
+    # seen by the TUM-VI rig, (b) the stereo-inertial one, each first correction rerun on the card from its snapshot,
+    # (c) the default constructors at 20 fps; the frames rendered once for all three
+    t0 = time.perf_counter()
+    fl_in, fl_poses, fl_imu = fisheye_loop_frames()
+    log(f"14 fisheye circle: {LOOP_FRAMES} 512x512 KB8 stereo pairs rendered on the host in "
+        f"{time.perf_counter() - t0:.1f} s")
+    fl_runs = {}
+    for sensor, part in (("stereo", "a"), ("stereo-inertial", "b")):
+        reset_counts()
+        t1 = time.perf_counter()
+        slam_fl, summary_fl, snap_fl = run_fisheye_loop(fl_in, fl_poses, fl_imu, device, sensor)
+        fl_s = time.perf_counter() - t1
+        launches_fl = read_counts()
+        check_fisheye_loop(sensor, summary_fl, launches_fl)
+        spans, lspans = slam_fl.timers.spans, slam_fl.loopcloser.timers.spans
+        closing = int(np.argmax(spans["track_total"]))
+        log(f"14 ({part}) fisheye {sensor} System with loop closing: {summary_fl}, {fl_s:.2f} s for {LOOP_FRAMES} "
+            f"frames (gates: {FISHEYE_LOOP_GATES[sensor]})")
+        log(f"14 ({part}) track_total ms per frame: {[round(x, 3) for x in spans['track_total']]}")
+        log(f"14 ({part}) slowest frame {closing}: {spans['track_total'][closing]:.3f} ms; loop spans: " +
+            ", ".join(f"{k} {[round(x, 3) for x in v]}" for k, v in lspans.items()
+                      if k not in ("loop_detect", "loop_verify")))
+        log(f"launches in 14 ({part}): {launches_fl}")
+        make = functools.partial(fisheye_loop_system, sensor)
+        card_fl = correct_from_snapshot(snap_fl, device, make)
+        log(f"14 ({part}) the first loop correction (keyframe {snap_fl['args'][0]} <-> {snap_fl['args'][1]}) rerun "
+            f"on the card from its snapshot: {card_fl.n_kf} keyframes")
+        fl_runs[sensor] = (launches_fl, snap_fl, card_fl, make)
+    for sensor, part in (("stereo", "c"), ("stereo-inertial", "c")):
+        reset_counts()
+        t1 = time.perf_counter()
+        summary_flc = run_default_fisheye(fl_in, fl_imu, device, sensor)
+        log(f"14 (c) default fisheye {sensor} System (async) on the circle at 20 fps: {summary_flc}, "
+            f"{time.perf_counter() - t1:.1f} s (gates: drained in 120 s, no error" +
+            (", IMU initialised" if sensor == "stereo-inertial" else "") + "; loops reported)")
+        log(f"launches in 14 (c) {sensor}: {read_counts()}")
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s")
+
     # 8. the plain (CPU) step, which the tests hold against the JAX package,
     # agrees with the card on frame 1 at 640x480.  Last, because the host
     # threads it starts would slow the timed phases above.
@@ -4231,7 +4617,6 @@ def main() -> int:
         ("stereo System", card_run, lambda: run_system(frames, poses, cpu), ()),
         ("RGB-D System", rgbd_run, lambda: run_system(rgbd_in, rgbd_poses, cpu, "rgbd"), ()),
         ("mono System", mono_run, lambda: run_mono(mono_in, mono_poses, cpu), ()),
-        ("loop scenario", loop_run, lambda: run_loop(loop_in, loop_poses, cpu), (LOOP_DT, LOOP_DR)),
         ("distorted mono System", dist_run, lambda: run_mono(dist_in, mono_poses, cpu, settings=dist_settings), ()),
     ):
         t0 = time.perf_counter()
@@ -4239,6 +4624,21 @@ def main() -> int:
         log(f"plain {label} on the host against the card: {summary}, {len(bad)} failing "
             f"({time.perf_counter() - t0:.1f} s)")
         failures += [f"{label} {b}" for b in bad]
+    t0 = time.perf_counter()  # 9: the loop scenario's first LOOP_HOST_PREFIX frames, then its first correction
+    n = LOOP_HOST_PREFIX
+    _, sum_p, track_p = run_loop(loop_in[:n], loop_poses[:n], cpu, check=False)
+    bad, summary = compare_tracks(loop_run[2][:n], track_p, LOOP_DT, LOOP_DR)
+    if loop_kf_at[n - 1] != sum_p["n_kf"]:
+        bad.append(f"keyframes after frame {n - 1}: card {loop_kf_at[n - 1]} vs plain {sum_p['n_kf']}")
+    log(f"plain loop scenario on the host against the card, its first {n} frames: {summary}; keyframes "
+        f"{loop_kf_at[n - 1]} / {sum_p['n_kf']}, {len(bad)} failing ({time.perf_counter() - t0:.1f} s)")
+    failures += [f"loop scenario {b}" for b in bad]
+    t0 = time.perf_counter()
+    bad, summary = compare_corrections(loop_fix, correct_from_snapshot(loop_snap, cpu, loop_system),
+                                       (LOOP_DT, LOOP_DR, VI_CORRECTION_BOUNDS[2]))
+    log(f"9 the loop scenario's first correction from the snapshot, the host's plain path against the card: {summary}"
+        f" (bounds {LOOP_DT, LOOP_DR}), {len(bad)} failing ({time.perf_counter() - t0:.1f} s)")
+    failures += [f"loop correction {b}" for b in bad]
     for sensor, (vi_in, run, _) in vi_runs.items():  # 11 (c): the inertial Systems against their host runs
         t0 = time.perf_counter()
         n = VI_HOST_PREFIX[sensor]
@@ -4253,6 +4653,13 @@ def main() -> int:
     log(f"12 (b) the loop correction from the snapshot, the host's plain path against the card: {summary} (bounds "
         f"{VI_CORRECTION_BOUNDS}), {len(bad)} failing ({time.perf_counter() - t0:.1f} s)")
     failures += [f"12 (b) loop correction {b}" for b in bad]
+    for sensor, (_, snap_fl, card_fl, make) in fl_runs.items():  # 14 (a), (b): the corrections on the host
+        t0 = time.perf_counter()
+        bad, summary = compare_corrections(card_fl, correct_from_snapshot(snap_fl, cpu, make))
+        log(f"14 ({'a' if sensor == 'stereo' else 'b'}) the fisheye {sensor} loop correction from the snapshot, the "
+            f"host's plain path against the card: {summary} (bounds {VI_CORRECTION_BOUNDS}), {len(bad)} failing "
+            f"({time.perf_counter() - t0:.1f} s)")
+        failures += [f"14 fisheye {sensor} loop correction {b}" for b in bad]
     t0 = time.perf_counter()  # 13 (a): the fisheye stereo System on the host
     bad, summary = check_system_against_plain(fe_run, run_fisheye(fe_in, fe_poses, cpu), *FISHEYE_BOUNDS)
     log(f"13 (a) plain fisheye stereo System on the host against the card: {summary}, {len(bad)} failing "
@@ -4278,12 +4685,14 @@ def main() -> int:
             "loop_pcg": launches_c10, "distorted_mono": launches_d10, "gba_thread": launches_e10,
             "vi_mono": vi_runs["monocular"][2], "vi_stereo": vi_runs["stereo"][2], "vi_rgbd": launches_r,
             "vi_loop": launches_vil, "default_vi": launches_vic, "merge_inertial": launches_vid,
-            "fisheye": launches_fe, "fisheye_reloc": launches_fr, "fisheye_vi": launches_fv}
+            "fisheye": launches_fe, "fisheye_reloc": launches_fr, "fisheye_vi": launches_fv,
+            "fisheye_loop": fl_runs["stereo"][0], "fisheye_vi_loop": fl_runs["stereo-inertial"][0]}
     main_run = {"twoview_ransac": "mono_system", "vocab_transform": "mono_system", "pnp_ransac": "relocalisation",
                 "sim3_ransac": "loop", "sim3_refine": "loop", "sim3_graph": "loop", "ba_pcg": "loop",
                 "sim3_pcg": "loop_pcg", **{name: "vi_mono" for name in VI_KERNELS}, "pose_graph4": "vi_loop",
                 "vi_pcg": "vi_loop", "fisheye_stereo": "fisheye"}
-    kb8_run = {"pnp_ransac": "fisheye_reloc", "pose_inertial": "fisheye_vi", "vi_ba": "fisheye_vi"}
+    kb8_run = {"pnp_ransac": "fisheye_reloc", "pose_inertial": "fisheye_vi", "vi_ba": "fisheye_vi",
+               "sim3_ransac": "fisheye_loop", "sim3_refine": "fisheye_loop", "vi_pcg": "fisheye_vi_loop"}
     for k in kernels:
         k["launches"] = runs[main_run.get(k["name"], "stereo_system")][k["name"]]
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in runs.items()}

@@ -18,6 +18,7 @@ or the tracker's) launched which kernel.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import ctypes
 import functools
 import os
@@ -82,12 +83,13 @@ SIGNATURES = {
     # xw, uv, xn, inv_sigma2, valid, subsets, n, n_hyp, cam9 (host), kind,
     # min_inliers, hyp_R, hyp_t, counts, R, t, inliers, n_inl, ok, stream
     "pnp_ransac_launch": [_P] * 6 + [_I, _I, _P, _I, _I] + [_P] * 9,
-    # xc1, xc2, uv1, uv2, is1, is2, valid, subsets, n, n_hyp, cams18 (host),
-    # fix_scale, min_inliers, hyp, counts, S, inliers, n_inl, ok, stream
-    "sim3_ransac_launch": [_P] * 8 + [_I, _I, _P, _I, _I] + [_P] * 7,
-    # xc1, xc2, uv1, uv2, is1, is2, valid, S0, n, cams18 (host), fix_scale,
-    # iters, chi2, S, inliers, n_inl, stream
-    "sim3_refine_launch": [_P] * 8 + [_I, _P, _I, _I, _F] + [_P] * 4,
+    # xc1, xc2, uv1, uv2, is1, is2, valid, subsets, n, n_hyp, cams18 (host,
+    # optim/sim3._cams18), kind, fix_scale, min_inliers, hyp, counts, S,
+    # inliers, n_inl, ok, stream
+    "sim3_ransac_launch": [_P] * 8 + [_I, _I, _P, _I, _I, _I] + [_P] * 7,
+    # xc1, xc2, uv1, uv2, is1, is2, valid, S0, n, cams18 (host), kind,
+    # fix_scale, iters, chi2, S, inliers, n_inl, stream
+    "sim3_refine_launch": [_P] * 8 + [_I, _P, _I, _I, _I, _F] + [_P] * 4,
     # vertices, edge_i, edge_j, meas, w, fixed, K, E, iters, damping,
     # vertices_out, jac, H, vec, fail, stream
     "sim3_graph_launch": [_P] * 6 + [_I] * 3 + [_D] + [_P] * 6,
@@ -114,7 +116,7 @@ SIGNATURES = {
     # is_stereo, obs_valid, edge_i, edge_j, edge_valid, pk, lm_ptr, lm_obs, kf_ptr, kf_obs, ke_ptr, ke_edge,
     # free_ids, free_pos, nf, iters1, iters2, scratch, state_out, xw_out, inlier, stream
     "vi_ba_launch": [_P, _I, _P] + [_I] * 4 + [_P] * 25 + [_I] * 3 + [_P] * 5,
-    # cam10, dist, tcb, K, M, O, E, R, p, v, bias, fixed, xw, lm_valid, obs_kf, obs_lm, uv, inv_sigma2,
+    # cam10, kind, tcb, K, M, O, E, R, p, v, bias, fixed, xw, lm_valid, obs_kf, obs_lm, uv, inv_sigma2,
     # is_stereo, obs_valid, edge_i, edge_j, edge_valid, pk, lm_ptr, lm_obs, kf_ptr, kf_obs, ke_ptr, ke_edge,
     # inlier, n_iters, cg_iters, scratch, lam_io, state_out, xw_out, inlier_out, stream
     "vi_pcg_launch": [_P, _I, _P] + [_I] * 4 + [_P] * 24 + [_I] * 2 + [_P] * 6,
@@ -156,10 +158,14 @@ def build() -> tuple[float, str]:
                          stderr=subprocess.STDOUT, text=True)
         for p, o in zip(srcs, objs)
     ]
+    def finish(proc):  # each compiler's output and the seconds until it finished (a thread each: no pipe fills)
+        return proc.communicate()[0], time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(procs)) as pool:
+        results = list(pool.map(finish, procs))
     out, failed = [], []
-    for p, proc in zip(srcs, procs):
-        text = proc.communicate()[0]
-        out.append(f"== {p.name}\n{text}")
+    for p, proc, (text, secs) in zip(srcs, procs, results):
+        out.append(f"== {p.name} ({secs:.1f} s)\n{text}")
         if proc.returncode != 0:
             failed.append(p.name)
     try:

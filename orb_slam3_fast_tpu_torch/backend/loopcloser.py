@@ -25,6 +25,12 @@ LoopClosing thread, run synchronously per keyframe):
   map, MergeInertialBA (``merge_inertial_ba``, falling back to
   ``inertial_ba`` when it finds no window: kernel Y).
 
+The loop closer works on one camera, the System's left one (``cam``): its
+projections (the Sim3 search, the guided projection gate, SearchAndFuse)
+go through ``cameras.project`` and Q and R take their instance of its
+kind, so a KB8 camera (the TUM-VI rig, whose keyframes observe through
+the left camera alone) closes loops as a pin-hole one does.
+
 The map stays on the host; matching and the solvers run on ``device`` (the
 mapper's).  On the async backend (``backend/pipeline.py``) this runs on
 its worker thread after the mapper, and ``gba_hook``, set by the backend,

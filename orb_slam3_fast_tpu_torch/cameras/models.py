@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import torch
 
+from orb_slam3_fast_tpu_torch.utils import forward_ad
+
 PINHOLE = "pinhole"
 KB8 = "kb8"
 
@@ -78,7 +80,8 @@ def project_jac(cam: Camera, xc: torch.Tensor) -> torch.Tensor:
     """Jacobian d(uv)/d(xc): (...,3) -> (...,2,3)."""
     if cam.kind == KB8:
         flat = xc.reshape(-1, 3)
-        J = torch.func.vmap(torch.func.jacfwd(lambda v: project(cam, v)))(flat)
+        with forward_ad.LOCK:
+            J = torch.func.vmap(torch.func.jacfwd(lambda v: project(cam, v)))(flat)
         # forward-mode AD promotes the tangent of ``x * x + EPS**2`` (a Python float) to float64: back to xc's type
         return J.reshape(*xc.shape[:-1], 2, 3).to(xc.dtype)
     if cam.kind != PINHOLE:

@@ -7,9 +7,10 @@
 // butterflies, then the warps in turn), so a run repeats bit for bit;
 // thread 0 pins the scale under fix_scale, adds 1e-6 I, solves by a float64
 // Cholesky and applies sim3_exp(dx) on the left with R re-orthonormalised
-// (sim3.cuh).  The pair mask lives in the inlier output.  Cameras with
-// radial-tangential distortion take the kDist instance (camera.cuh);
-// cameras without, the code they always ran.  See the source note in
+// (sim3.cuh).  The pair mask lives in the inlier output.  The cameras'
+// kind picks the instance (camera.cuh): pin-hole cameras run the code they
+// always ran, radial-tangential ones the distorted projection and its
+// Jacobian, KB8 ones cam::kb8_project and cam::kb8_jac.  See the source note in
 // optim/sim3.py; optimize_sim3_plain there is the same function in PyTorch.
 #include <cuda_runtime.h>
 #include <math.h>
@@ -33,6 +34,10 @@ struct Dist {
   cam::Radtan d1, d2;
 };
 
+struct Fisheye {
+  cam::KB8 k1, k2;
+};
+
 // y = S x2 and q = S^-1 x1 (float32, as the plain version maps them).
 __device__ __forceinline__ void map_pair(const float* S, const float* x1, const float* x2, float (&y)[3],
                                          float (&q)[3]) {
@@ -46,11 +51,15 @@ __device__ __forceinline__ void map_pair(const float* S, const float* x1, const 
   for (int r = 0; r < 3; ++r) q[r] = si * (R[r] * x1[0] + R[3 + r] * x1[1] + R[6 + r] * x1[2]) + ti[r];
 }
 
-template <bool kDist>
+template <int kCam>
 __device__ __forceinline__ void project(float fx, float fy, float cx, float cy, const cam::Radtan& d,
-                                        const float (&p)[3], float& u, float& v) {
+                                        const cam::KB8& kb, const float (&p)[3], float& u, float& v) {
+  if constexpr (kCam == cam::kKB8) {
+    cam::kb8_project(kb, p[0], p[1], p[2], u, v);
+    return;
+  }
   const float z = fabsf(p[2]) < 1e-9f ? 1e-9f : p[2];
-  if constexpr (kDist) {
+  if constexpr (kCam == cam::kRadtan) {
     float xd, yd;
     cam::distort(d, p[0] / z, p[1] / z, xd, yd);
     u = fx * xd + cx;
@@ -61,25 +70,30 @@ __device__ __forceinline__ void project(float fx, float fy, float cx, float cy, 
   }
 }
 
-template <bool kDist>
-__device__ __forceinline__ bool gate(const float* S, const Cams& c, const Dist& dc, const float* x1, const float* x2,
-                                     const float* uv1, const float* uv2, float is1, float is2, float chi2) {
+template <int kCam>
+__device__ __forceinline__ bool gate(const float* S, const Cams& c, const Dist& dc, const Fisheye& kb,
+                                     const float* x1, const float* x2, const float* uv1, const float* uv2, float is1,
+                                     float is2, float chi2) {
   float y[3], q[3], u1, v1, u2, v2;
   map_pair(S, x1, x2, y, q);
-  project<kDist>(c.fx1, c.fy1, c.cx1, c.cy1, dc.d1, y, u1, v1);
-  project<kDist>(c.fx2, c.fy2, c.cx2, c.cy2, dc.d2, q, u2, v2);
+  project<kCam>(c.fx1, c.fy1, c.cx1, c.cy1, dc.d1, kb.k1, y, u1, v1);
+  project<kCam>(c.fx2, c.fy2, c.cx2, c.cy2, dc.d2, kb.k2, q, u2, v2);
   const float e1 = ((u1 - uv1[0]) * (u1 - uv1[0]) + (v1 - uv1[1]) * (v1 - uv1[1])) * is1;
   const float e2 = ((u2 - uv2[0]) * (u2 - uv2[0]) + (v2 - uv2[1]) * (v2 - uv2[1])) * is2;
   return e1 < chi2 && e2 < chi2 && y[2] > 0.f && q[2] > 0.f;
 }
 
-// d proj / d p (2x3) of the pin-hole camera (cameras.project_jac).
-template <bool kDist>
-__device__ __forceinline__ void proj_jac(float fx, float fy, const cam::Radtan& d, const float (&p)[3],
-                                         float (&D)[2][3]) {
+// d proj / d p (2x3) of the camera (cameras.project_jac).
+template <int kCam>
+__device__ __forceinline__ void proj_jac(float fx, float fy, const cam::Radtan& d, const cam::KB8& kb,
+                                         const float (&p)[3], float (&D)[2][3]) {
+  if constexpr (kCam == cam::kKB8) {
+    cam::kb8_jac(kb, p[0], p[1], p[2], D);
+    return;
+  }
   const float z = fabsf(p[2]) < 1e-9f ? 1e-9f : p[2];
   const float iz = 1.f / z, xn = p[0] / z, yn = p[1] / z;
-  if constexpr (kDist) {
+  if constexpr (kCam == cam::kRadtan) {
     cam::pixel_jac(fx, fy, d, xn, yn, iz, D);
   } else {
     D[0][0] = fx * iz, D[0][1] = 0.f, D[0][2] = -fx * xn * iz;
@@ -96,11 +110,11 @@ __device__ __forceinline__ void accumulate(const float (&J)[2][7], const float (
   for (int i = 0; i < 7; ++i) acc[28 + i] += (double)w * ((double)J[0][i] * r[0] + (double)J[1][i] * r[1]);
 }
 
-template <bool kDist>
+template <int kCam>
 __global__ void __launch_bounds__(kThreads)
 refine_kernel(const float* __restrict__ xc1, const float* __restrict__ xc2, const float* __restrict__ uv1,
               const float* __restrict__ uv2, const float* __restrict__ is1, const float* __restrict__ is2,
-              const bool* __restrict__ valid, const float* __restrict__ S0, int n, Cams c, Dist dc, int fix_scale,
+              const bool* __restrict__ valid, const float* __restrict__ S0, int n, Cams c, Dist dc, Fisheye kb, int fix_scale,
               int iters,
               float chi2, float* __restrict__ S_out, bool* __restrict__ mask, int* __restrict__ n_inl) {
   __shared__ float S[13];
@@ -115,7 +129,7 @@ refine_kernel(const float* __restrict__ xc1, const float* __restrict__ xc2, cons
     if (it == half) {  // drop the pairs beyond chi2 (Optimizer.cc:2340-2400)
       for (int i = threadIdx.x; i < n; i += kThreads)
         mask[i] =
-            mask[i] && gate<kDist>(S, c, dc, xc1 + 3 * i, xc2 + 3 * i, uv1 + 2 * i, uv2 + 2 * i, is1[i], is2[i], chi2);
+            mask[i] && gate<kCam>(S, c, dc, kb, xc1 + 3 * i, xc2 + 3 * i, uv1 + 2 * i, uv2 + 2 * i, is1[i], is2[i], chi2);
       __syncthreads();
     }
     double acc[kSums];
@@ -128,9 +142,9 @@ refine_kernel(const float* __restrict__ xc1, const float* __restrict__ xc2, cons
       map_pair(S, x1, xc2 + 3 * i, y, q);
       float D[2][3], J[2][7], r[2];
       // forward edge: d proj(y) [I | -hat(y) | y]
-      project<kDist>(c.fx1, c.fy1, c.cx1, c.cy1, dc.d1, y, u, v);
+      project<kCam>(c.fx1, c.fy1, c.cx1, c.cy1, dc.d1, kb.k1, y, u, v);
       r[0] = u - uv1[2 * i], r[1] = v - uv1[2 * i + 1];
-      proj_jac<kDist>(c.fx1, c.fy1, dc.d1, y, D);
+      proj_jac<kCam>(c.fx1, c.fy1, dc.d1, kb.k1, y, D);
       for (int a = 0; a < 2; ++a) {
         J[a][0] = D[a][0], J[a][1] = D[a][1], J[a][2] = D[a][2];
         J[a][3] = D[a][2] * y[1] - D[a][1] * y[2];
@@ -141,9 +155,9 @@ refine_kernel(const float* __restrict__ xc1, const float* __restrict__ xc2, cons
       float c1 = sqrtf((r[0] * r[0] + r[1] * r[1]) * is1[i]);
       accumulate(J, r, fminf(kHuber / fmaxf(c1, 1e-9f), 1.f) * is1[i], acc);
       // inverse edge: -d proj(q) (R^T / s) [I | -hat(x1) | x1]
-      project<kDist>(c.fx2, c.fy2, c.cx2, c.cy2, dc.d2, q, u, v);
+      project<kCam>(c.fx2, c.fy2, c.cx2, c.cy2, dc.d2, kb.k2, q, u, v);
       r[0] = u - uv2[2 * i], r[1] = v - uv2[2 * i + 1];
-      proj_jac<kDist>(c.fx2, c.fy2, dc.d2, q, D);
+      proj_jac<kCam>(c.fx2, c.fy2, dc.d2, kb.k2, q, D);
       float P[3][7];  // -(R^T / s) [I | -hat(x1) | x1]
       for (int row = 0; row < 3; ++row) {
         const float g0 = -S[row] * si, g1 = -S[3 + row] * si, g2 = -S[6 + row] * si;  // row of -(R^T / s)
@@ -221,7 +235,7 @@ refine_kernel(const float* __restrict__ xc1, const float* __restrict__ xc2, cons
   int cnt = 0;
   for (int i = threadIdx.x; i < n; i += kThreads) {
     const bool in =
-        mask[i] && gate<kDist>(S, c, dc, xc1 + 3 * i, xc2 + 3 * i, uv1 + 2 * i, uv2 + 2 * i, is1[i], is2[i], chi2);
+        mask[i] && gate<kCam>(S, c, dc, kb, xc1 + 3 * i, xc2 + 3 * i, uv1 + 2 * i, uv2 + 2 * i, is1[i], is2[i], chi2);
     mask[i] = in;
     cnt += in;
   }
@@ -238,22 +252,28 @@ refine_kernel(const float* __restrict__ xc1, const float* __restrict__ xc2, cons
 
 }  // namespace
 
-// cams18 (host): fx fy cx cy k1 k2 p1 p2 k3 of camera 1, then of camera 2
+// cams18 (host): per camera fx fy cx cy and k1 k2 p1 p2 k3 (kind 0 pin-hole, 1 radial-tangential) or k1 k2 k3 k4 0
+// (kind 2, KB8), camera 1 then camera 2; both cameras are of the one kind
 extern "C" int sim3_refine_launch(const float* xc1, const float* xc2, const float* uv1, const float* uv2,
                                   const float* is1, const float* is2, const bool* valid, const float* S0, int n,
-                                  const float* cams18, int fix_scale, int iters, float chi2, float* S, bool* inliers,
-                                  int* n_inl, void* stream) {
-  if (n < 1 || iters < 0) return cudaErrorInvalidValue;
+                                  const float* cams18, int kind, int fix_scale, int iters, float chi2, float* S,
+                                  bool* inliers, int* n_inl, void* stream) {
+  if (n < 1 || iters < 0 || kind < cam::kPinhole || kind > cam::kKB8) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* c1 = cams18;
   const float* c2 = cams18 + 9;
   const Cams cams = {c1[0], c1[1], c1[2], c1[3], c2[0], c2[1], c2[2], c2[3]};  // host copies
   const Dist dist = {cam::from(c1 + 4), cam::from(c2 + 4)};
-  if (cam::any(dist.d1) || cam::any(dist.d2))
-    refine_kernel<true><<<1, kThreads, 0, st>>>(xc1, xc2, uv1, uv2, is1, is2, valid, S0, n, cams, dist, fix_scale,
-                                                 iters, chi2, S, inliers, n_inl);
+  const Fisheye kb = {{c1[0], c1[1], c1[2], c1[3], c1[4], c1[5], c1[6], c1[7]},
+                      {c2[0], c2[1], c2[2], c2[3], c2[4], c2[5], c2[6], c2[7]}};
+  if (kind == cam::kKB8)
+    refine_kernel<cam::kKB8><<<1, kThreads, 0, st>>>(xc1, xc2, uv1, uv2, is1, is2, valid, S0, n, cams, dist, kb,
+                                                     fix_scale, iters, chi2, S, inliers, n_inl);
+  else if (kind == cam::kRadtan)
+    refine_kernel<cam::kRadtan><<<1, kThreads, 0, st>>>(xc1, xc2, uv1, uv2, is1, is2, valid, S0, n, cams, dist, kb,
+                                                        fix_scale, iters, chi2, S, inliers, n_inl);
   else
-    refine_kernel<false><<<1, kThreads, 0, st>>>(xc1, xc2, uv1, uv2, is1, is2, valid, S0, n, cams, dist, fix_scale,
-                                                  iters, chi2, S, inliers, n_inl);
+    refine_kernel<cam::kPinhole><<<1, kThreads, 0, st>>>(xc1, xc2, uv1, uv2, is1, is2, valid, S0, n, cams, dist, kb,
+                                                         fix_scale, iters, chi2, S, inliers, n_inl);
   return cudaGetLastError();
 }

@@ -13,7 +13,10 @@
 // dot products as fixed-order block sums; the landmarks' back-substitution,
 // the candidate's robust cost and the accept on the device.  The second
 // entry classifies the observations (chi2 gate), one thread each.  Every
-// loop strides by blockDim, so the CTA's width is free.  See the source
+// loop strides by blockDim, so the CTA's width is free.  The camera's kind
+// is a template parameter (camera.cuh): pin-hole cameras run the code they
+// always ran, radial-tangential and KB8 ones their projection and Jacobian
+// rows, as kernel Y's instances.  See the source
 // note in optim/vi_ba_cg.py; lm_segment_vi_plain there is the same
 // function in PyTorch.
 #include <cuda_runtime.h>
@@ -80,8 +83,9 @@ __device__ Work carve(double* s, const Prob& P) {
   return w;
 }
 
-// The observation's residual, camera point and d(u, v, u_r)/d(xc) rows at state st (float32, as kernel Y).
-template <bool kDist>
+// The observation's residual, camera point and d(u, v, u_r)/d(xc) rows at state st (float32, as kernel Y; the
+// camera's kind picks the projection, camera.cuh).
+template <int kCam>
 __device__ void project(const Prob& P, int o, const double* st, const double* xw_m, float (&r)[3], float (&xc)[3],
                         float (&A)[3][3], float (&y)[3]) {
   inr::State S;
@@ -97,7 +101,9 @@ __device__ void project(const Prob& P, int o, const double* st, const double* xw
   const float z = fabsf(xc[2]) < 1e-9f ? 1e-9f : xc[2];
   const float iz = 1.f / z, xn = xc[0] * iz, yn = xc[1] * iz;
   float u, v;
-  if constexpr (kDist) {
+  if constexpr (kCam == cam::kKB8) {
+    cam::kb8_rows(cam::kb8_from10(cam), bf, xc, iz, u, v, A);
+  } else if constexpr (kCam == cam::kRadtan) {
     const cam::Radtan d = {cam[5], cam[6], cam[7], cam[8], cam[9]};
     float xd, yd;
     cam::distort(d, xc[0] / z, xc[1] / z, xd, yd);
@@ -121,13 +127,13 @@ __device__ void project(const Prob& P, int o, const double* st, const double* xw
 
 // Per observation at the states ``st`` and landmark positions (offset ``xoff`` in the landmark rows): this
 // thread's share of the robust cost, and unless only_cost the residual, Jacobians, weight and W = Jp^T w Jl.
-template <bool kDist>
+template <int kCam>
 __device__ double obs_pass(const Prob& P, const Work& w, const double* st, int xoff, bool only_cost) {
   double cost = 0.0;
   for (int o = threadIdx.x; o < P.O; o += blockDim.x) {
     const int k = P.obs_kf[o], m = P.obs_lm[o];
     float r[3], xc[3], A[3][3], y[3];
-    project<kDist>(P, o, st + 21 * k, w.lm + (size_t)kLm * m + xoff, r, xc, A, y);
+    project<kCam>(P, o, st + 21 * k, w.lm + (size_t)kLm * m + xoff, r, xc, A, y);
     const float s2 = P.inv_s2[o];
     const float chi2 = (r[0] * r[0] + r[1] * r[1] + r[2] * r[2]) * s2;
     const float delta2 = P.is_stereo[o] ? kChi2Stereo : kChi2Mono;
@@ -298,7 +304,7 @@ __device__ void landmark_y(const Prob& P, const Work& w, const double* v) {
   __syncthreads();
 }
 
-template <bool kDist>
+template <int kCam>
 __global__ void __launch_bounds__(kThreads) vi_pcg_kernel(Prob P, double* scratch, float* lam_io, float* state_out,
                                                           float* xw_out) {
   __shared__ double red[32 * 2];
@@ -323,7 +329,7 @@ __global__ void __launch_bounds__(kThreads) vi_pcg_kernel(Prob P, double* scratc
   for (int it = 0; it < P.n_iters; ++it) {
     const double lam = w.misc[0];
     // (1) observations and the chain at the current state; the current cost
-    double c[2] = {obs_pass<kDist>(P, w, w.st, 25, false), 0.0};
+    double c[2] = {obs_pass<kCam>(P, w, w.st, 25, false), 0.0};
     edge_pass(P, w, w.st);
     for (int e = threadIdx.x; e < P.E; e += blockDim.x) {
       if (!P.edge_valid[e]) continue;
@@ -513,7 +519,7 @@ __global__ void __launch_bounds__(kThreads) vi_pcg_kernel(Prob P, double* scratc
     }
     __syncthreads();
     // (6) the candidate's cost, the accept, the damping
-    double c1[2] = {obs_pass<kDist>(P, w, w.cand, 28, true), 0.0};
+    double c1[2] = {obs_pass<kCam>(P, w, w.cand, 28, true), 0.0};
     for (int e = threadIdx.x; e < P.E; e += blockDim.x) c1[1] += edge_cost(P, w, w.cand, e);
     inr::block_sums(c1, 2, red, sums);
     const bool accept = sums[0] + sums[1] < w.misc[1];
@@ -534,7 +540,7 @@ __global__ void __launch_bounds__(kThreads) vi_pcg_kernel(Prob P, double* scratc
 }
 
 // classify_vi: obs_valid & chi2 <= delta2 & in front, one thread per observation, at the input state.
-template <bool kDist>
+template <int kCam>
 __global__ void classify_kernel(Prob P, uint8_t* inlier) {
   const int o = blockIdx.x * blockDim.x + threadIdx.x;
   if (o >= P.O) return;
@@ -543,7 +549,7 @@ __global__ void classify_kernel(Prob P, uint8_t* inlier) {
   for (int f = 0; f < 9; ++f) st[f] = P.R[9 * k + f];
   for (int f = 0; f < 3; ++f) st[9 + f] = P.p[3 * k + f], xw[f] = P.xw[3 * m + f];
   float r[3], xc[3], A[3][3], y[3];
-  project<kDist>(P, o, st, xw, r, xc, A, y);
+  project<kCam>(P, o, st, xw, r, xc, A, y);
   const float chi2 = (r[0] * r[0] + r[1] * r[1] + r[2] * r[2]) * P.inv_s2[o];
   inlier[o] = P.obs_valid[o] && chi2 <= (P.is_stereo[o] ? kChi2Stereo : kChi2Mono) && xc[2] > 0.05f;
 }
@@ -554,7 +560,7 @@ __global__ void classify_kernel(Prob P, uint8_t* inlier) {
 // the damping in; out: the state, xw, lam_io = (damping, the last step's starting cost, the CG iterations run).  The scratch holds
 // optim/vi_ba_cg.py vi_pcg_scratch_doubles(K, M, O, E) doubles.  n_iters = 0: classify_vi at (R, p, xw) into
 // inlier_out (the CSR, edge and scratch pointers unread).
-extern "C" int vi_pcg_launch(const float* cam10, int dist, const float* tcb, int K, int M, int O, int E,
+extern "C" int vi_pcg_launch(const float* cam10, int kind, const float* tcb, int K, int M, int O, int E,
                              const float* R, const float* p, const float* v, const float* b, const uint8_t* fixed,
                              const float* xw, const uint8_t* lm_valid, const int* obs_kf, const int* obs_lm,
                              const float* uv, const float* inv_s2, const uint8_t* is_stereo,
@@ -568,17 +574,22 @@ extern "C" int vi_pcg_launch(const float* cam10, int dist, const float* tcb, int
                   obs_valid, edge_i, edge_j, edge_valid, pk, lm_ptr, lm_obs, kf_ptr, kf_obs, ke_ptr, ke_edge,
                   inlier_in, n_iters, cg_iters};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kind < cam::kPinhole || kind > cam::kKB8) return cudaErrorInvalidValue;
   if (n_iters == 0) {
     if (O > 0) {
-      if (dist)
-        classify_kernel<true><<<(O + 255) / 256, 256, 0, st>>>(P, inlier_out);
+      if (kind == cam::kKB8)
+        classify_kernel<cam::kKB8><<<(O + 255) / 256, 256, 0, st>>>(P, inlier_out);
+      else if (kind == cam::kRadtan)
+        classify_kernel<cam::kRadtan><<<(O + 255) / 256, 256, 0, st>>>(P, inlier_out);
       else
-        classify_kernel<false><<<(O + 255) / 256, 256, 0, st>>>(P, inlier_out);
+        classify_kernel<cam::kPinhole><<<(O + 255) / 256, 256, 0, st>>>(P, inlier_out);
     }
-  } else if (dist) {
-    vi_pcg_kernel<true><<<1, kThreads, 0, st>>>(P, scratch, lam_io, state_out, xw_out);
+  } else if (kind == cam::kKB8) {
+    vi_pcg_kernel<cam::kKB8><<<1, kThreads, 0, st>>>(P, scratch, lam_io, state_out, xw_out);
+  } else if (kind == cam::kRadtan) {
+    vi_pcg_kernel<cam::kRadtan><<<1, kThreads, 0, st>>>(P, scratch, lam_io, state_out, xw_out);
   } else {
-    vi_pcg_kernel<false><<<1, kThreads, 0, st>>>(P, scratch, lam_io, state_out, xw_out);
+    vi_pcg_kernel<cam::kPinhole><<<1, kThreads, 0, st>>>(P, scratch, lam_io, state_out, xw_out);
   }
   return cudaGetLastError();
 }

@@ -54,6 +54,7 @@ import torch
 from orb_slam3_fast_tpu_torch import _kernels
 from orb_slam3_fast_tpu_torch.imu import preintegration as pre
 from orb_slam3_fast_tpu_torch.optim.inertial import inertial_information
+from orb_slam3_fast_tpu_torch.utils import forward_ad
 
 
 class InertialInit(NamedTuple):
@@ -144,7 +145,8 @@ def inertial_only_optimization_plain(R_wb, p_wb, preints: pre.Preintegrated, pri
     lam = torch.tensor(1e-3, dtype=torch.float32, device=dev)
     for _ in range(iters):
         r = residuals(x)
-        J = torch.func.jacfwd(residuals)(x)  # (K-1, 9, P)
+        with forward_ad.LOCK:
+            J = torch.func.jacfwd(residuals)(x)  # (K-1, 9, P)
         H = torch.einsum("eip,eij,ejq->pq", J, infos, J) + torch.diag(2.0 * prior_diag)
         g = -torch.einsum("eip,eij,ej->p", J, infos, r) - 2.0 * prior_diag * x
         Hd = H + lam * torch.diag(torch.clamp(torch.diag(H), min=1e-6)) + 1e-9 * eye
@@ -176,7 +178,8 @@ def scale_gravity_refinement_plain(R_wb, p_wb, vel, bias, preints: pre.Preintegr
     lam = torch.tensor(1e-3, dtype=torch.float32, device=dev)
     for _ in range(iters):
         r = residuals(x)
-        J = torch.func.jacfwd(residuals)(x)
+        with forward_ad.LOCK:
+            J = torch.func.jacfwd(residuals)(x)
         H = torch.einsum("eip,eij,ejq->pq", J, infos, J)
         g = -torch.einsum("eip,eij,ej->p", J, infos, r)
         Hd = H + lam * torch.diag(torch.clamp(torch.diag(H), min=1e-6)) + 1e-9 * eye

@@ -62,7 +62,7 @@ from orb_slam3_fast_tpu_torch import _kernels
 from orb_slam3_fast_tpu_torch.cameras import models as cam_models
 from orb_slam3_fast_tpu_torch.imu import preintegration as pre
 from orb_slam3_fast_tpu_torch.optim.pose_opt import CAMERA_NAMES, CHI2_MONO, CHI2_STEREO, _huber_weight, kernel_camera
-from orb_slam3_fast_tpu_torch.utils import lie
+from orb_slam3_fast_tpu_torch.utils import forward_ad, lie
 
 
 class BodyState(NamedTuple):
@@ -251,7 +251,8 @@ def pose_inertial_optimization_plain(cam, bf, T_cb: lie.SE3, s_prev: BodyState, 
             cost = cost + _quad(f[15:30], prior.H)
         if not with_jac:
             return cost, None, None
-        J = torch.func.jacfwd(lambda d: factors(d, s))(zero)
+        with forward_ad.LOCK:
+            J = torch.func.jacfwd(lambda d: factors(d, s))(zero)
         Ji, Jb = J[:9], J[9:15]
         H = Ji.T @ info9 @ Ji + Jb.T @ walk @ Jb
         g = -(Ji.T @ info9 @ ri) - Jb.T @ walk @ rb
@@ -311,7 +312,8 @@ def pose_inertial_optimization_last_frame_plain(cam, bf, T_cb: lie.SE3, s_prev: 
     def normal_eqs(sp, sc, inlier):
         Hv, gv, cv = _visual_blocks(cam, bf, T_cb, sc, obs, inlier)
         f = factors(zero, sp, sc)
-        J = torch.func.jacfwd(lambda d: factors(d, sp, sc))(zero)
+        with forward_ad.LOCK:
+            J = torch.func.jacfwd(lambda d: factors(d, sp, sc))(zero)
         Ji, Jb, Jp = J[:9], J[9:15], J[15:30]
         H = Ji.T @ info9 @ Ji + Jb.T @ walk @ Jb + Jp.T @ prior_prev.H @ Jp
         g = -(Ji.T @ info9 @ f[:9]) - Jb.T @ walk @ f[9:15] - Jp.T @ prior_prev.H @ f[15:30]

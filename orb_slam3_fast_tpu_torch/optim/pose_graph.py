@@ -115,7 +115,7 @@ from typing import NamedTuple
 import torch
 
 from orb_slam3_fast_tpu_torch import _kernels
-from orb_slam3_fast_tpu_torch.utils import lie
+from orb_slam3_fast_tpu_torch.utils import forward_ad, lie
 
 DENSE_MAX_K = 128  # above this vertex count the step takes the edge-operator PCG branch
 _FORCE_CG = False  # test hook: the PCG branch at any size
@@ -166,7 +166,9 @@ def edge_jacobians(R, t, s, g: Sim3Graph):
     eye = torch.eye(7, dtype=t.dtype, device=t.device).repeat_interleave(E, dim=0)  # (7E,7): row d*E+e is e_d
     tan_i = torch.cat([eye, torch.zeros_like(eye)])
     tan_j = torch.cat([torch.zeros_like(eye), eye])
-    r, dr = torch.func.jvp(lambda dxi, dxj: _edge_residual_sim3(dxi, dxj, Si, Sj, Sij), (zero, zero), (tan_i, tan_j))
+    with forward_ad.LOCK:
+        r, dr = torch.func.jvp(lambda dxi, dxj: _edge_residual_sim3(dxi, dxj, Si, Sj, Sij), (zero, zero),
+                               (tan_i, tan_j))
     dr = dr.view(2, 7, E, 7).permute(0, 2, 3, 1)  # (end, edge, residual row, direction)
     return r[:E], dr[0], dr[1]
 
@@ -398,8 +400,9 @@ def edge_jacobians_4dof(R, t, g: SE3Graph):
     eye = torch.eye(4, dtype=t.dtype, device=t.device).repeat_interleave(E, dim=0)  # (4E,4): row d*E+e is e_d
     tan_i = torch.cat([eye, torch.zeros_like(eye)])
     tan_j = torch.cat([torch.zeros_like(eye), eye])
-    r, dr = torch.func.jvp(lambda dxi, dxj: _edge_residual_4dof(dxi, dxj, R[ei], t[ei], R[ej], t[ej], mR, mt),
-                           (zero, zero), (tan_i, tan_j))
+    with forward_ad.LOCK:
+        r, dr = torch.func.jvp(lambda dxi, dxj: _edge_residual_4dof(dxi, dxj, R[ei], t[ei], R[ej], t[ej], mR, mt),
+                               (zero, zero), (tan_i, tan_j))
     dr = dr.view(2, 4, E, 6).permute(0, 2, 3, 1)  # (end, edge, residual row, direction)
     return r[:E], dr[0], dr[1]
 

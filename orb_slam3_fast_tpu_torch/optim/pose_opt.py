@@ -137,18 +137,14 @@ PINHOLE_KIND, RADTAN_KIND, KB8_KIND = 0, 1, 2  # csrc/camera.cuh cam::Kind
 CAMERA_NAMES = ("", "radtan", "kb8")  # the launch counters' camera instance, by kind
 
 
-def kernel_camera(cam, bf: float, name: str, kb8: bool = True):
+def kernel_camera(cam, bf: float, name: str):
     """The host (10,) float32 camera slots of kernels D, E, W, Y and AA
     (``csrc/camera.cuh``) and the camera's kind: [fx, fy, cx, cy, bf, k1,
     k2, p1, p2, k3] and 1 for a pin-hole camera with radial-tangential
     distortion (0 without), [fx, fy, cx, cy, bf, k1, k2, k3, k4, 0] and 2
-    for KB8.  A kernel without a KB8 instance passes ``kb8=False`` and
-    raises on one (ROADMAP §A item 14, fisheye loop closing)."""
+    for KB8."""
     params = cam.params.tolist()  # free when the camera lives on the host
     if cam.kind == cam_models.KB8:
-        if not kb8:
-            raise NotImplementedError(f"{name} has no KB8 instance; it waits for ROADMAP §A item 14 "
-                                      "(fisheye loop closing)")
         return torch.tensor([*params[:4], float(bf), *params[4:8], 0.0], dtype=torch.float32), KB8_KIND
     if cam.kind != cam_models.PINHOLE:
         raise ValueError(f"{name}: unknown camera kind {cam.kind!r}")

@@ -13,11 +13,12 @@ as ``subsets``.
 
 ``sim3_ransac`` runs kernel Q (``csrc/sim3_ransac.cu``) and
 ``optimize_sim3`` kernel R (``csrc/sim3_refine.cu``) on CUDA tensors, and
-their plain versions on CPU ones.  Both kernels take pin-hole cameras
-with or without radial-tangential distortion (a camera with distortion
-takes a second instance of each, ``csrc/camera.cuh``; one without runs the
-instructions it always ran); KB8 cameras raise (ROADMAP §A item 14,
-fisheye loop closing) and the plain versions take any camera.
+their plain versions on CPU ones.  Both kernels take a template instance
+per camera kind (``csrc/camera.cuh``): pin-hole cameras run the
+instructions they always ran, radial-tangential ones the distorted
+projection, KB8 ones (the TUM-VI rig's loop closing) the Kannala-Brandt
+projection and its closed-form Jacobian; the two cameras are of one kind,
+as the loop closer's always are.
 
 Kernel Q -- source note.
   Replaces: ``sim3_ransac`` (``orb_slam3_fast_tpu/optim/sim3.py:62``,
@@ -25,13 +26,14 @@ Kernel Q -- source note.
   and a (128, N) two-sided reprojection score.
   Bound on the card: latency.  It reads ~30 bytes per pair (~23 KB at
   N = 768) and does ~100 flops per hypothesis and pair (~10 Mflop); 128
-  CTAs cover the card's 132 SMs once.
+  CTAs cover the card's 132 SMs once.  A KB8 pair adds two ``atan2f``,
+  two divisions and two degree-9 polynomials to the ~100 flops.
   Design: two launches.  One CTA per hypothesis: thread 0 runs Horn on
   its three pairs in float64 (centroids, M = yc^T xc, the 3x3 SVD of
   ``csrc/jacobi.cuh``, the determinant sign on the least singular
   direction, the symmetric scale, 1 under ``fix_scale``) and writes the
   float32 Sim3 to shared memory; every thread then maps its pairs both
-  ways, projects them through the pin-hole cameras and counts the
+  ways, projects them through the cameras (their kind's instance) and counts the
   chi2 < 9.210, z > 0, valid pairs; the count is a fixed-order block
   reduction.  A selection CTA takes the first maximum (``argmax``'s
   choice), writes its Sim3, its inlier mask and ``ok``: count >=
@@ -65,6 +67,7 @@ import torch
 
 from orb_slam3_fast_tpu_torch import _kernels
 from orb_slam3_fast_tpu_torch.cameras import models as cam_models
+from orb_slam3_fast_tpu_torch.optim.pose_opt import CAMERA_NAMES, KB8_KIND, PINHOLE_KIND, RADTAN_KIND
 from orb_slam3_fast_tpu_torch.utils import lie
 
 CHI2_SIM3 = 9.210  # Sim3Solver.cc mvnMaxError scale (2-DoF 99%)
@@ -144,19 +147,23 @@ def sim3_ransac_plain(cam1, cam2, xc1, xc2, uv1, uv2, inv_sigma2_1, inv_sigma2_2
     return Sim3Result(S, inl[best], scores[best], (scores[best] >= min_inliers) & finite)
 
 
-def _pinhole9(cam, name: str) -> list:
-    if cam.kind != cam_models.PINHOLE:
-        raise NotImplementedError(f"{name} takes pin-hole cameras; KB8 waits for ROADMAP §A item 14 "
-                                  "(fisheye loop closing)")
-    params = [float(x) for x in cam.params.tolist()]  # free when the camera lives on the host
-    return params + [0.0] * (9 - len(params))
-
-
-def _cams18(cam1, cam2, name: str) -> tuple[torch.Tensor, bool]:
-    """fx fy cx cy k1 k2 p1 p2 k3 of both cameras, on the host, and whether
-    either has distortion."""
-    c = _pinhole9(cam1, name) + _pinhole9(cam2, name)
-    return torch.tensor(c, dtype=torch.float32), any(c[4:9] + c[13:18])
+def _cams18(cam1, cam2, name: str) -> tuple[torch.Tensor, int]:
+    """Kernels Q's and R's 18 host camera slots and the cameras' kind
+    (``csrc/camera.cuh``): per camera fx fy cx cy and k1 k2 p1 p2 k3 (1,
+    radial-tangential, where either camera has distortion, else 0) or k1 k2
+    k3 k4 0 (2, KB8)."""
+    kinds = {cam1.kind, cam2.kind}
+    if len(kinds) != 1 or not kinds <= {cam_models.PINHOLE, cam_models.KB8}:
+        raise ValueError(f"{name}: needs two pin-hole or two KB8 cameras, got {cam1.kind} and {cam2.kind}")
+    c = []
+    for cam in (cam1, cam2):
+        params = [float(x) for x in cam.params.tolist()]  # free when the camera lives on the host
+        c += params + [0.0] * (9 - len(params))
+    if cam1.kind == cam_models.KB8:
+        kind = KB8_KIND
+    else:
+        kind = RADTAN_KIND if any(c[4:9] + c[13:18]) else PINHOLE_KIND
+    return torch.tensor(c, dtype=torch.float32), kind
 
 
 def _check_pairs(name, xc1, xc2, uv1, uv2, is1, is2, valid, **more):
@@ -187,13 +194,20 @@ def sim3_ransac(cam1: cam_models.Camera, cam2: cam_models.Camera, xc1: torch.Ten
     each keyframe's camera frame (N,3) and their pixels (N,2), per-pair
     information and validity; the subsets are ``subsets`` or
     ``_sample_subsets(seed, valid, n_hyp)``.  Kernel Q on CUDA tensors
-    (host pin-hole cameras), the plain version on CPU ones."""
+    (host cameras of one kind), the plain version on CPU ones."""
     if subsets is None:
         subsets = _sample_subsets(seed, valid, n_hyp)
     if xc1.device.type == "cpu":
         return sim3_ransac_plain(cam1, cam2, xc1, xc2, uv1, uv2, inv_sigma2_1, inv_sigma2_2, valid, subsets,
                                  fix_scale, min_inliers)
-    cams, dist = _cams18(cam1, cam2, "kernel Q")
+    return _ransac_kernel(cam1, cam2, xc1, xc2, uv1, uv2, inv_sigma2_1, inv_sigma2_2, valid, subsets, fix_scale,
+                          min_inliers)
+
+
+def _ransac_kernel(cam1, cam2, xc1, xc2, uv1, uv2, inv_sigma2_1, inv_sigma2_2, valid, subsets, fix_scale: bool,
+                   min_inliers: int) -> Sim3Result:
+    """Kernel Q's launch."""
+    cams, kind = _cams18(cam1, cam2, "kernel Q")
     subsets = subsets.to(torch.int32).contiguous()
     n = _check_pairs("sim3_ransac", xc1, xc2, uv1, uv2, inv_sigma2_1, inv_sigma2_2, valid,
                      subsets=(subsets, torch.int32))
@@ -210,14 +224,14 @@ def sim3_ransac(cam1: cam_models.Camera, cam2: cam_models.Camera, xc1: torch.Ten
     _kernels.launch(
         "sim3_ransac_launch", dev, xc1.data_ptr(), xc2.data_ptr(), uv1.data_ptr(), uv2.data_ptr(),
         inv_sigma2_1.data_ptr(), inv_sigma2_2.data_ptr(), valid.data_ptr(), subsets.data_ptr(), n, h,
-        cams.numpy().ctypes.data, int(fix_scale), min_inliers, hyp.data_ptr(), counts.data_ptr(), S.data_ptr(),
-        inliers.data_ptr(), n_inl.data_ptr(), ok.data_ptr(),
+        cams.numpy().ctypes.data, kind, int(fix_scale), min_inliers, hyp.data_ptr(), counts.data_ptr(),
+        S.data_ptr(), inliers.data_ptr(), n_inl.data_ptr(), ok.data_ptr(),
     )
-    sim3_ransac.launches.add(camera="radtan" if dist else "")
+    sim3_ransac.launches.add(camera=CAMERA_NAMES[kind])
     return Sim3Result(_unpack_sim3(S), inliers, n_inl, ok)
 
 
-sim3_ransac.launches = _kernels.LaunchCounter()  # camera instance "radtan" for distorted cameras
+sim3_ransac.launches = _kernels.LaunchCounter()  # camera instance "radtan" or "kb8" (CAMERA_NAMES)
 
 
 # ---------------------------------------------------------------------------
@@ -304,12 +318,19 @@ def optimize_sim3(cam1: cam_models.Camera, cam2: cam_models.Camera, S0: lie.Sim3
                   chi2_th: float = CHI2_SIM3):
     """OptimizeSim3 (Optimizer.cc:2164-2425): ``iters // 3`` steps, the
     chi2 re-gate of the pairs, the rest, and the final gate.  Returns (S12,
-    inliers (N,), n_inliers ()).  Kernel R on CUDA tensors (host pin-hole
-    cameras, S0 on the card), the plain version on CPU ones."""
+    inliers (N,), n_inliers ()).  Kernel R on CUDA tensors (host cameras of
+    one kind, S0 on the card), the plain version on CPU ones."""
     if xc1.device.type == "cpu":
         return optimize_sim3_plain(cam1, cam2, S0, xc1, xc2, uv1, uv2, inv_sigma2_1, inv_sigma2_2, valid,
                                    fix_scale, iters, chi2_th)
-    cams, dist = _cams18(cam1, cam2, "kernel R")
+    return _refine_kernel(cam1, cam2, S0, xc1, xc2, uv1, uv2, inv_sigma2_1, inv_sigma2_2, valid, fix_scale, iters,
+                          chi2_th)
+
+
+def _refine_kernel(cam1, cam2, S0: lie.Sim3, xc1, xc2, uv1, uv2, inv_sigma2_1, inv_sigma2_2, valid, fix_scale: bool,
+                   iters: int, chi2_th: float):
+    """Kernel R's launch."""
+    cams, kind = _cams18(cam1, cam2, "kernel R")
     s0 = _pack_sim3(S0)
     n = _check_pairs("optimize_sim3", xc1, xc2, uv1, uv2, inv_sigma2_1, inv_sigma2_2, valid,
                      S0=(s0, torch.float32))
@@ -320,11 +341,11 @@ def optimize_sim3(cam1: cam_models.Camera, cam2: cam_models.Camera, S0: lie.Sim3
     _kernels.launch(
         "sim3_refine_launch", dev, xc1.data_ptr(), xc2.data_ptr(), uv1.data_ptr(), uv2.data_ptr(),
         inv_sigma2_1.data_ptr(), inv_sigma2_2.data_ptr(), valid.data_ptr(), s0.data_ptr(), n,
-        cams.numpy().ctypes.data, int(fix_scale), iters, float(chi2_th), S.data_ptr(), inliers.data_ptr(),
+        cams.numpy().ctypes.data, kind, int(fix_scale), iters, float(chi2_th), S.data_ptr(), inliers.data_ptr(),
         n_inl.data_ptr(),
     )
-    optimize_sim3.launches.add(camera="radtan" if dist else "")
+    optimize_sim3.launches.add(camera=CAMERA_NAMES[kind])
     return _unpack_sim3(S), inliers, n_inl
 
 
-optimize_sim3.launches = _kernels.LaunchCounter()  # camera instance "radtan" for distorted cameras
+optimize_sim3.launches = _kernels.LaunchCounter()  # camera instance "radtan" or "kb8" (CAMERA_NAMES)

@@ -66,7 +66,7 @@ from orb_slam3_fast_tpu_torch.cameras import models as cam_models
 from orb_slam3_fast_tpu_torch.imu import preintegration as pre
 from orb_slam3_fast_tpu_torch.optim import inertial as inr
 from orb_slam3_fast_tpu_torch.optim.pose_opt import CAMERA_NAMES, _huber_weight, kernel_camera
-from orb_slam3_fast_tpu_torch.utils import lie
+from orb_slam3_fast_tpu_torch.utils import forward_ad, lie
 
 S = 15  # per-keyframe state [theta, p, v, bg, ba]
 
@@ -172,8 +172,9 @@ def _inertial_edge_terms(prob: VIBAProblem, R_wb, p_wb, v_w, bias, with_blocks=T
         return cost
     zero = torch.zeros((E, 2 * S), dtype=f32, device=dev)
     basis = torch.eye(2 * S, dtype=f32, device=dev)[:, None, :].expand(2 * S, E, 2 * S)
-    cols = torch.func.vmap(lambda t: torch.func.jvp(lambda D: _edge_factors(prob, R_wb, p_wb, v_w, bias, D),
-                                                    (zero,), (t,))[1])(basis)  # (30, E, 15)
+    with forward_ad.LOCK:
+        cols = torch.func.vmap(lambda t: torch.func.jvp(lambda D: _edge_factors(prob, R_wb, p_wb, v_w, bias, D),
+                                                        (zero,), (t,))[1])(basis)  # (30, E, 15)
     J = cols.permute(1, 2, 0)  # (E, 15, 30)
     free = (~prob.state_fixed).to(f32)
     i, j = prob.edge_i.long(), prob.edge_j.long()

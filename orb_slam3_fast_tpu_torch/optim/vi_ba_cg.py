@@ -15,7 +15,9 @@ applied, never formed.  The LM schedule is host-segmented
 its abort flag between segments (mbStopGBA, LoopClosing.cc:1072-1086).
 
 ``lm_segment_vi`` and ``classify_vi`` run kernel AA (``csrc/vi_pcg.cu``)
-on CUDA tensors and their plain versions on CPU ones.  The plain versions
+on CUDA tensors, a template instance per camera kind (pin-hole,
+radial-tangential, KB8: ``csrc/camera.cuh``, as kernel Y's), and their
+plain versions on CPU ones.  The plain versions
 take the chain's Jacobians in forward mode (``optim/vi_ba.py``) and solve
 in float64, as the kernel does (the JAX package's solve is float32).
 
@@ -65,7 +67,7 @@ from orb_slam3_fast_tpu_torch import _kernels
 from orb_slam3_fast_tpu_torch.imu import preintegration as pre
 from orb_slam3_fast_tpu_torch.optim import inertial as inr
 from orb_slam3_fast_tpu_torch.optim import vi_ba as vb
-from orb_slam3_fast_tpu_torch.optim.pose_opt import kernel_camera
+from orb_slam3_fast_tpu_torch.optim.pose_opt import CAMERA_NAMES, kernel_camera
 from orb_slam3_fast_tpu_torch.optim.vi_ba import S, VIBAProblem
 from orb_slam3_fast_tpu_torch.utils import lie
 
@@ -281,7 +283,7 @@ def _kernel(cam, bf, T_cb, prob: VIBAProblem, state, xw, inlier, lam, n_iters: i
     dict ``info`` receives the CG iterations the segment ran (a host read)."""
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
     dev = xw.device
-    cam10, kind = kernel_camera(cam, bf, "kernel AA", kb8=False)
+    cam10, kind = kernel_camera(cam, bf, "kernel AA")
     K, M, O, E = prob.R_wb.shape[0], xw.shape[0], prob.obs_kf.shape[0], prob.edge_i.shape[0]
     classify = n_iters == 0
     R, p, v, b = state
@@ -321,7 +323,7 @@ def _kernel(cam, bf, T_cb, prob: VIBAProblem, state, xw, inlier, lam, n_iters: i
         inl.data_ptr(), n_iters, cg_iters, scratch.data_ptr(), lam_io.data_ptr(), state_out.data_ptr(),
         xw_out.data_ptr(), inlier_out.data_ptr(),
     )
-    lm_segment_vi.launches.add("classify" if classify else "segment")
+    lm_segment_vi.launches.add("classify" if classify else "segment", camera=CAMERA_NAMES[kind])
     if classify:
         return inlier_out
     if info is not None:
@@ -330,5 +332,5 @@ def _kernel(cam, bf, T_cb, prob: VIBAProblem, state, xw, inlier, lam, n_iters: i
     return s.R, s.p, s.v, s.bias, xw_out, lam_io[0], lam_io[1]
 
 
-lm_segment_vi.launches = _kernels.LaunchCounter()  # kernel AA, by mode: "segment", "classify" (classify_vi)
+lm_segment_vi.launches = _kernels.LaunchCounter()  # kernel AA, by mode ("segment", "classify") and camera instance
 classify_vi.launches = lm_segment_vi.launches

@@ -33,13 +33,13 @@ inertial map's loop runs the 4-DoF essential graph.
 A Kannala-Brandt two-camera rig (TUM-VI: ``Camera.type:
 "KannalaBrandt8"`` with a ``Camera2`` block and ``Stereo.T_c1_c2``) gets the
 tracker's fisheye branch (``cam2`` and ``T_c1_c2`` routed as the JAX
-package's System.cc wiring does) for ``STEREO`` and ``IMU_STEREO``.
+package's System.cc wiring does) for ``STEREO`` and ``IMU_STEREO``, its
+loop closer the left camera (``settings.cam``, KB8: kernels Q, R and AA in
+their KB8 instances), as the JAX package's does.
 
-Not ported yet, raising ``NotImplementedError`` at construction: loop
-closing on a KB8 camera (ROADMAP §A item 14, fisheye loop closing: kernels
-Q, R and AA have no KB8 instance yet), so the fisheye rig runs with
-``enable_loop_closing=False``; a monocular KB8 camera (ROADMAP §A item 15:
-kernel M has no KB8 instance yet).
+Not ported yet, raising ``NotImplementedError`` at construction: a
+monocular KB8 camera (ROADMAP §A item 15: kernel M has no KB8 instance
+yet).
 """
 from __future__ import annotations
 
@@ -96,9 +96,6 @@ class System:
         self.inertial = "inertial" in sensor
         if isinstance(settings, str):
             settings = Settings.from_yaml(settings, sensor=sensor)
-        if settings.cam.kind == cam_models.KB8 and enable_loop_closing:
-            raise NotImplementedError("loop closing on a Kannala-Brandt camera waits for ROADMAP §A item 14 "
-                                      "(fisheye loop closing); pass enable_loop_closing=False")
         if settings.cam.kind == cam_models.KB8 and sensor in (MONOCULAR, IMU_MONOCULAR):
             raise NotImplementedError("the monocular Kannala-Brandt rig waits for ROADMAP §A item 15 (kernel M "
                                       "in KB8)")

@@ -157,8 +157,10 @@ def test_system_wires_the_fisheye_rig():
     the JAX package's tracker keeps them), for stereo and stereo-inertial,
     and the JAX package's settings convert to the same rig
     (``convert.settings_to_torch``);
-    with loop closing it raises at construction naming ROADMAP §A item 14,
-    and a monocular KB8 System naming item 15."""
+    with loop closing it builds its loop closer on the left KB8 camera
+    (settings.cam, as the JAX System does), the Atlas and, for
+    stereo-inertial, the inertial hooks; a monocular KB8 System raises
+    naming ROADMAP §A item 15."""
     for sensor in ("stereo", "stereo-inertial"):
         slam = tsys.System(CONFIG, sensor, **OPTS)
         s = slam.settings
@@ -177,8 +179,10 @@ def test_system_wires_the_fisheye_rig():
                           cam2=JSettings.from_yaml(CONFIG, sensor).cam2)
         np.testing.assert_allclose(slam.tracker.T_rl[0].numpy(), np.asarray(jt.T_rl[0]), atol=1e-7)
         np.testing.assert_allclose(slam.tracker.T_rl[1].numpy(), np.asarray(jt.T_rl[1]), atol=1e-7)
-        with pytest.raises(NotImplementedError, match="ROADMAP §A item 14"):
-            tsys.System(CONFIG, sensor, **dict(OPTS, enable_loop_closing=True))
+        slam = tsys.System(CONFIG, sensor, **dict(OPTS, enable_loop_closing=True, multi_map=True))
+        assert slam.loopcloser.cam is slam.settings.cam and slam.loopcloser.cam.kind == tcam.KB8
+        assert slam.atlas is not None and slam.loopcloser.bf == slam.settings.bf
+        assert (slam.loopcloser.inertial_gba is not None) == (sensor == "stereo-inertial")
     with pytest.raises(NotImplementedError, match="ROADMAP §A item 15"):
         tsys.System(CONFIG, "monocular", **OPTS)
 

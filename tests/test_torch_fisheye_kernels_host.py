@@ -6,7 +6,8 @@ threads, its loops striding by the block's width), and held against the
 plain versions on the same inputs: csrc/camera.cuh's KB8 projection,
 closed-form Jacobian and Newton unprojection; kernel AB
 (csrc/fisheye_stereo.cu) through its wrapper's marshalling; and the KB8
-instances of kernels D, E, L, P, W and Y.  The card runs the same sources
+instances of kernels D, E, L, P, W and Y, and of the loop closer's Q, R
+and AA.  The card runs the same sources
 (tests/test_torch_kernels.py's cuda cases, chip_smoke.py phase 3)."""
 import ctypes
 import shutil
@@ -26,7 +27,9 @@ from orb_slam3_fast_tpu_torch.optim import ba as tba
 from orb_slam3_fast_tpu_torch.optim import inertial as tinr
 from orb_slam3_fast_tpu_torch.optim import pnp as tpnp
 from orb_slam3_fast_tpu_torch.optim import pose_opt as tpo
+from orb_slam3_fast_tpu_torch.optim import sim3 as tsim3
 from orb_slam3_fast_tpu_torch.optim import vi_ba as tvb
+from orb_slam3_fast_tpu_torch.optim import vi_ba_cg as tcg
 from orb_slam3_fast_tpu_torch.utils import convert
 from orb_slam3_fast_tpu_torch.utils import lie as tlie
 from tests.test_torch_loop_kernels_host import _GRID_STUB, _host_source
@@ -35,7 +38,8 @@ from tests.test_torch_vi_kernels_host import EMULATED_THREADS
 torch.set_num_threads(1)
 
 SOURCES = ("fisheye_stereo.cu", "pose_lm.cu", "ba_blocks.cu", "visible_landmarks.cu", "pnp_ransac.cu",
-           "pose_inertial.cu", "vi_ba.cu")
+           "pose_inertial.cu", "pose_inertial_radtan.cu", "pose_inertial_kb8.cu", "vi_ba.cu", "sim3_ransac.cu",
+           "sim3_refine.cu", "vi_pcg.cu")
 # TUM-VI's cam0 (configs/TUMVI_fisheye_stereo_inertial.yaml)
 KB8 = cm.Camera.kb8(190.97847715128717, 190.9733070521226, 254.93170605935475, 256.8974428996504,
                     0.0034823894022493434, 0.0007150348452162257, -0.0020532361418706202, 0.00020293673591811182)
@@ -84,8 +88,11 @@ def host_kernels(tmp_path_factory):
     d = tmp_path_factory.mktemp("fisheye_kernels")
     (d / "cuda_runtime.h").write_text(_FISHEYE_STUB)
     units = {name[:-3]: _host_source((_kernels.SRC_DIR / name).read_text()) for name in SOURCES}
-    # kernel D strides its edges by its full width (512), so its one CTA runs at that width
+    # kernels D, Q (its selection) and R stride by their full width (512, 256, 256), so a one-CTA launch of theirs
+    # runs at that width
     units["pose_lm"] = units["pose_lm"].replace(f"{EMULATED_THREADS}u", "512u")
+    for stem in ("sim3_ransac", "sim3_refine"):
+        units[stem] = units[stem].replace(f"{EMULATED_THREADS}u", "256u")
     units["camera_probe"] = _CAMERA_PROBE
     objs, procs = [], []
     for stem, text_ in units.items():
@@ -358,3 +365,75 @@ def test_kernel_y_kb8_matches_plain(host_kernels):
     for name, tol, a, b in zip(("R", "p", "v", "bias", "xw"), (2e-4, 2e-3, 1e-2, 1e-3, 1e-2), out_k[:5], out_p[:5]):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=tol, err_msg=name)
     assert float((out_k[5] != out_p[5]).float().mean()) <= 0.01
+
+
+def kb8_pairs(fix_scale: bool):
+    """chip_smoke.py's loop-verification pairs at a small size (256 slots,
+    150 valid, 25% outliers) seen through the TUM-VI camera, the scale 1.3
+    or fixed at 1, and 32 subsets."""
+    import chip_smoke
+
+    arrays, xi = chip_smoke.sim3_pairs(np.random.default_rng(9), n=256, n_valid=150, s=1.0 if fix_scale else 1.3,
+                                       cam=KB8)
+    pairs = [torch.as_tensor(a) for a in arrays]
+    return pairs, xi, tsim3._sample_subsets(5, pairs[-1], 32)
+
+
+@pytest.mark.parametrize("fix_scale", [False, True])
+def test_kernels_q_r_kb8_match_plain(host_kernels, fix_scale):
+    """Kernels Q's and R's KB8 instances against sim3_ransac_plain and
+    optimize_sim3_plain on the same pairs, at the pin-hole cases'
+    tolerances (chip_smoke.py phase 3): Q's count within 1, ok equal, its
+    Sim3 within 1e-4 and its mask otherwise on at most 1 pair; R, from
+    the plain RANSAC's Sim3, its count within 1 and its Sim3 within 2e-4
+    (float32 residuals summed in float64 in another order), within 5e-2
+    of the truth (0.5 px of noise on a ~190 px fisheye focal length); each
+    counted as a launch of its KB8 instance."""
+    from chip_smoke import sim3_rel_err
+
+    pairs, xi, subsets = kb8_pairs(fix_scale)
+    q0, r0 = tsim3.sim3_ransac.launches.total(camera="kb8"), tsim3.optimize_sim3.launches.total(camera="kb8")
+    rk = tsim3._ransac_kernel(KB8, KB8, *pairs, subsets, fix_scale, 20)
+    rp = tsim3.sim3_ransac_plain(KB8, KB8, *pairs, subsets, fix_scale)
+    assert abs(int(rk.n_inliers) - int(rp.n_inliers)) <= 1 and bool(rk.ok) == bool(rp.ok) and bool(rp.ok)
+    assert sim3_rel_err(rk.S12, rp.S12) <= 1e-4 and int((rk.inliers != rp.inliers).sum()) <= 1
+    Sk, ik, nk = tsim3._refine_kernel(KB8, KB8, rp.S12, *pairs, fix_scale, 15, tsim3.CHI2_SIM3)
+    Sp, ip, np_ = tsim3.optimize_sim3_plain(KB8, KB8, rp.S12, *pairs, fix_scale)
+    assert abs(int(nk) - int(np_)) <= 1 and sim3_rel_err(Sk, Sp) <= 2e-4 and int((ik != ip).sum()) <= 1
+    assert sim3_rel_err(Sp, tlie.sim3_exp(torch.as_tensor(xi))) <= 5e-2
+    if fix_scale:
+        assert float(Sk.s) == 1.0
+    assert tsim3.sim3_ransac.launches.total(camera="kb8") == q0 + 1
+    assert tsim3.optimize_sim3.launches.total(camera="kb8") == r0 + 1
+
+
+def test_kernel_aa_kb8_matches_plain(host_kernels):
+    """Kernel AA's KB8 instance (a 3-step segment of 24 CG iterations and
+    the classification) against its plain versions on
+    tests/test_torch_loop_kernels_host.py's tracker-shaped problem seen
+    through the TUM-VI camera, every edge monocular: at that file's
+    tolerances (rotation entries 2e-4, positions 2e-3 m, velocities 1e-2
+    m/s, biases 1e-3, landmarks 1e-2 m, the damping equal, the starting
+    cost within 1e-4 relative; at most 2 observations classified
+    otherwise); counted as KB8 launches."""
+    import chip_smoke
+    from tests.test_torch_loop_kernels_host import _aa_problem
+
+    pt, T_cb = _aa_problem()
+    pt = pt._replace(obs_uv=chip_smoke.kb8_mono(pt.obs_uv, KB8), obs_is_stereo=torch.zeros_like(pt.obs_is_stereo))
+    inl = torch.ones(pt.obs_uv.shape[0], dtype=torch.bool)
+    inl[::17] = False
+    args = (KB8, 0.0, T_cb, pt)
+    tcg.lm_segment_vi.launches.reset()
+    out_k = tcg._kernel(*args, (pt.R_wb, pt.p_wb, pt.v_w, pt.bias), pt.xw, inl, torch.tensor(1e-4), 3, 24)
+    out_p = tcg.lm_segment_vi_plain(*args, pt.R_wb, pt.p_wb, pt.v_w, pt.bias, pt.xw, inl, torch.tensor(1e-4), 3, 24)
+    for name, tol, a, b in zip(("R", "p", "v", "bias", "xw"), (2e-4, 2e-3, 1e-2, 1e-3, 1e-2), out_k[:5], out_p[:5]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=tol, err_msg=name)
+    assert float(out_k[5]) == float(out_p[5])
+    assert float(out_k[6]) == pytest.approx(float(out_p[6]), rel=1e-4)
+    xw = pt.xw + 0.02 * torch.sin(torch.arange(pt.xw.numel(), dtype=torch.float32)).view(-1, 3)
+    ck = tcg._kernel(*args, (pt.R_wb, pt.p_wb, None, None), xw, None, None, 0, 0)
+    cp = tcg.classify_vi_plain(*args, pt.R_wb, pt.p_wb, xw)
+    assert 0 < int(cp.sum()) < len(cp) and int((ck != cp).sum()) <= 2
+    assert tcg.lm_segment_vi.launches.total(mode="segment", camera="kb8") == 1
+    assert tcg.lm_segment_vi.launches.total(mode="classify", camera="kb8") == 1

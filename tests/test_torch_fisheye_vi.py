@@ -6,46 +6,174 @@ corridor along the arc whose speed is modulated, the IMU stream the body's
 through IMU.T_b_c1, phase 11's initialisation window (init_min_kfs 8,
 init_min_time 1.0), on the frames up to and just past the IMU
 initialisation (frame 25 in both): the same state and keyframes every
-frame, the IMU initialised at the same frame, poses close.
-The whole 45 frames: ``python -m tests.fisheye_reference --sensor
-stereo-inertial`` (the JAX package) and chip_smoke.py phase 13 (b)."""
+frame, the IMU initialised at the same frame, poses close; and each
+inertial stage of those frames (the IMU prediction, both forms of the
+inertial pose optimisation, the local VI-BA) rerun on the port from the
+JAX package's own inputs.
+
+The whole 45 frames of both packages are ``-m slow``: there the two part
+after the IMU initialisation (at frame 29-31, with the host's CPU and
+thread count), and the test shows why: every stage still agrees from the
+same inputs, and the parting is a tracking decision taken at the local
+map's inlier cut.  ``python -m tests.fisheye_reference --sensor
+stereo-inertial`` is the JAX package's own run; chip_smoke.py phase 13 (b)
+the port's on the card."""
+import contextlib
 from pathlib import Path
 
+import jax
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
+from orb_slam3_fast_tpu.imu import preintegration as jpre
+from orb_slam3_fast_tpu.optim import inertial as jinr
+from orb_slam3_fast_tpu.optim import vi_ba as jvb
 from orb_slam3_fast_tpu.slam.settings import Settings as JSettings
 from orb_slam3_fast_tpu.slam.system import System as JSystem
+from orb_slam3_fast_tpu_torch.frontend.tracker import TrackerConfig
+from orb_slam3_fast_tpu_torch.imu import preintegration as tpre
+from orb_slam3_fast_tpu_torch.optim import inertial as tinr
+from orb_slam3_fast_tpu_torch.optim import vi_ba as tvb
 from orb_slam3_fast_tpu_torch.slam import system as tsys
 from orb_slam3_fast_tpu_torch.utils import convert
+from orb_slam3_fast_tpu_torch.utils import lie as tlie
 
 torch.set_num_threads(1)
 
 CONFIG = str(Path(__file__).resolve().parents[1] / "configs" / "TUMVI_fisheye_stereo_inertial.yaml")
 N_FRAMES = 28
 INIT_WINDOW = dict(init_min_kfs=8, init_min_time=1.0)  # chip_smoke._fisheye_system's
+STAGES = ((jinr, "pose_inertial_optimization"), (jinr, "pose_inertial_optimization_last_frame"),
+          (jpre, "predict_state"), (jvb, "vi_bundle_adjust"))
 
 
-@pytest.fixture(scope="module")
-def both_runs():
-    """Both Systems on the first N_FRAMES frames, run once for the module.
-    Per frame (state_j, state_t, pose_j, pose_t, initialised_j,
-    initialised_t, keyframes_j, keyframes_t)."""
-    frames, _, imu = chip_smoke.fisheye_frames(N_FRAMES, imu=True)
+@contextlib.contextmanager
+def recording(calls: list, frame: list):
+    """The JAX package's inertial stages, each call's (frame, name, inputs,
+    outputs) appended to ``calls`` while the context lasts."""
+    saved = [getattr(mod, name) for mod, name in STAGES]
+
+    def held(tree):  # host copies: a jitted call may donate (and overwrite) the buffer a plain view would share
+        return jax.tree_util.tree_map(lambda x: np.array(x) if hasattr(x, "shape") else x, jax.device_get(tree))
+
+    def wrap(fn, name):
+        def recorded(*args):
+            out = fn(*args)
+            calls.append((frame[0], name, held(args), held(out)))
+            return out
+        return recorded
+
+    for (mod, name), fn in zip(STAGES, saved):
+        setattr(mod, name, wrap(fn, name))
+    try:
+        yield
+    finally:
+        for (mod, name), fn in zip(STAGES, saved):
+            setattr(mod, name, fn)
+
+
+def local_map_counts(tracker, counts: dict, frame: list):
+    """Record the local-map stage's inlier count per frame (the count
+    TrackLocalMap holds against min_map_inliers)."""
+    stage = tracker._track_local_map
+
+    def counted(*args):
+        out = stage(*args)
+        counts[frame[0]] = int(out[3])
+        return out
+
+    tracker._track_local_map = counted
+
+
+def run_both(n_frames: int):
+    """Both Systems on the first ``n_frames`` frames of phase 13 (b), the
+    JAX package's inertial stages recorded from the IMU initialisation
+    on.  Per frame (state_j, state_t, pose_j, pose_t, initialised_j,
+    initialised_t, keyframes_j, keyframes_t), the two Systems, the stage
+    calls, and each package's local-map inlier counts by frame."""
+    frames, _, imu = chip_smoke.fisheye_frames(n_frames, imu=True)
     opts = dict(enable_loop_closing=False, multi_map=False, async_backend=False)
     settings = JSettings.from_yaml(CONFIG, sensor="stereo-inertial")  # one settings object for both
     js = JSystem(settings, "stereo-inertial", **opts)
     ts = tsys.System(convert.settings_to_torch(settings), "stereo-inertial", device="cpu", **opts)
-    for s in (js, ts):
+    frame, calls, counts = [0], [], ({}, {})
+    for s, c in zip((js, ts), counts):
         s.tracker.icfg = s.tracker.icfg._replace(**INIT_WINDOW)
+        local_map_counts(s.tracker, c, frame)
     rows = []
-    for i, ((img_l, img_r), samples) in enumerate(zip(frames, chip_smoke.imu_slices(imu, N_FRAMES))):
-        sj, pj = js.track_stereo(img_l, img_r, i * 0.05, imu=samples)
+    for i, ((img_l, img_r), samples) in enumerate(zip(frames, chip_smoke.imu_slices(imu, n_frames))):
+        frame[0] = i
+        with recording(calls, frame) if js.world.imu_initialized else contextlib.nullcontext():
+            sj, pj = js.track_stereo(img_l, img_r, i * 0.05, imu=samples)
         st, pt = ts.track_stereo(img_l, img_r, i * 0.05, imu=samples)
         rows.append((sj, st, pj, pt, js.world.imu_initialized, ts.world.imu_initialized, js.world.n_kf, ts.world.n_kf))
-    return rows, js, ts
+    return rows, js, ts, calls, counts
+
+
+def _se3(T) -> tlie.SE3:
+    return tlie.SE3(torch.as_tensor(np.array(T.R, np.float32)), torch.as_tensor(np.array(T.t, np.float32)))
+
+
+def rerun_on_port(call):
+    """One recorded JAX stage call rerun by the port's plain version on the
+    same inputs.  Returns {quantity: max |port - JAX|} and, for the pose
+    optimisations, the two inlier counts and the edges classified
+    otherwise."""
+    _, name, args, out = call
+    conv = convert.inertial_to_torch
+    if name == "predict_state":
+        R, p, v, preint, bias = args
+        port = tpre.predict_state(*(torch.as_tensor(np.asarray(x, np.float32)) for x in (R, p, v)), conv(preint),
+                                  torch.as_tensor(np.asarray(bias, np.float32)))
+        return {q: float(np.abs(np.asarray(a) - b.numpy()).max()) for q, a, b in zip("Rpv", out, port)}
+    cam = convert.camera_to_torch(args[0].kind, np.asarray(args[0].params))
+    if name == "vi_bundle_adjust":
+        prob = args[3]
+        port = tvb.vi_bundle_adjust_plain(cam, float(args[1]), _se3(args[2]), conv(prob), *args[4:])
+        diff = {q: float(np.abs(np.asarray(a) - b.numpy()).max()) for q, a, b in zip(("R", "p", "v", "bias"), out, port)}
+        # a landmark seen under a small parallax is fixed across its rays only: the two positions compared as
+        # bearings from the keyframes that observe it (the sine of the angle between them, in float64), and the
+        # share of the observed landmarks beyond 1e-3 rad
+        obs = np.asarray(prob.obs_valid)
+        m, k = np.asarray(prob.obs_lm)[obs], np.asarray(prob.obs_kf)[obs]
+        p_wb = np.asarray(out[1], np.float64)[k]
+        u, v = np.asarray(out[4], np.float64)[m] - p_wb, port[4].numpy().astype(np.float64)[m] - p_wb
+        sin = np.linalg.norm(np.cross(u, v), axis=1) / (np.linalg.norm(u, axis=1) * np.linalg.norm(v, axis=1))
+        diff["bearing_off"] = len(np.unique(m[sin > 1e-3])) / len(np.unique(m))
+        diff["flips"] = int((np.asarray(out[5]) != port[5].numpy()).sum())
+        return diff
+    head = (cam, float(args[1]), _se3(args[2]))
+    if name == "pose_inertial_optimization":
+        port = tinr.pose_inertial_optimization_plain(*head, *map(conv, args[3:7]))
+    else:
+        port = tinr.pose_inertial_optimization_last_frame_plain(*head, *map(conv, args[3:8]))
+    (sj, ij, nj, _), (st, it, nt, _) = out, port
+    diff = {q: float(np.abs(np.asarray(a) - b.numpy()).max()) for q, a, b in zip(("R", "p", "v", "bias"), sj, st)}
+    diff.update(n=(int(nj), int(nt)), flips=int((np.asarray(ij) != it.numpy()).sum()))
+    return diff
+
+
+# a stage rerun from the same inputs: float32 against float32 in other orders of summation
+STAGE_TOL = {"R": 1e-5, "p": 1e-4, "v": 1e-4, "bias": 1e-5, "bearing_off": 5e-3}
+
+
+def check_stage(call) -> dict:
+    diff = rerun_on_port(call)
+    for q, tol in STAGE_TOL.items():
+        if q in diff:
+            assert diff[q] <= tol, (call[:2], q, diff)
+    assert diff.get("flips", 0) == 0, (call[:2], diff)
+    if "n" in diff:
+        assert diff["n"][0] == diff["n"][1], (call[:2], diff)
+    return diff
+
+
+@pytest.fixture(scope="module")
+def both_runs():
+    """Both Systems on the first N_FRAMES frames, run once for the module."""
+    return run_both(N_FRAMES)
 
 
 def test_states_keyframes_and_init_frame_match_jax(both_runs):
@@ -53,7 +181,7 @@ def test_states_keyframes_and_init_frame_match_jax(both_runs):
     IMU-initialised flag; the IMU initialised within the run, with at least
     two inertial frames after it; both built the fisheye rig's tracker
     (cam2 routed, every pose edge monocular)."""
-    rows, js, ts = both_runs
+    rows, js, ts, _, _ = both_runs
     for i, (sj, st, _, _, ij, it, kj, kt) in enumerate(rows):
         assert (sj, ij, kj) == (st, it, kt), (i, rows[i][:2], rows[i][4:])
     init = [i for i, r in enumerate(rows) if r[5]]
@@ -66,10 +194,62 @@ def test_poses_match_jax(both_runs):
     the IMU initialisation, and within phase 11's stereo-inertial bounds
     (chip_smoke.VI_BOUNDS: 5e-2 m, 5e-3) from it on, where both solve the
     inertial problem in float32 with other summation orders."""
-    rows, _, _ = both_runs
+    rows, _, _, _, _ = both_runs
     for i, (sj, st, pj, pt, ij, it, _, _) in enumerate(rows):
         if pj is None:
             continue
         dt, dr = (2e-3, 1e-3) if not it else chip_smoke.VI_BOUNDS["stereo"]
         np.testing.assert_allclose(pt[1], np.asarray(pj[1]), atol=dt, err_msg=f"frame {i}")
         np.testing.assert_allclose(pt[0], np.asarray(pj[0]), atol=dr, err_msg=f"frame {i}")
+
+
+def test_inertial_stages_match_jax_on_the_same_inputs(both_runs):
+    """Each inertial stage of the frames after the IMU initialisation (the
+    IMU prediction; the inertial pose optimisation of the motion-model
+    stage and of the local map's, KF-anchored and last-frame; the local
+    VI-BA of each keyframe), rerun by the port's plain version from the
+    JAX package's own inputs of that call: the same inlier count and not
+    one edge classified otherwise; rotation entries and biases within
+    1e-5, positions and velocities within 1e-4 (m, m/s); the VI-BA's
+    landmarks, as bearings from the keyframes observing them, within 1e-3
+    rad but for at most 0.5% of them (a landmark of small parallax moves
+    along its rays by metres on a float32 rounding; the states do not feel
+    it).  A single frame stepped from one shared state: what the two
+    packages do with the same numbers agrees."""
+    _, _, _, calls, _ = both_runs
+    names = {c[1] for c in calls}
+    assert {"predict_state", "pose_inertial_optimization_last_frame", "vi_bundle_adjust"} <= names, names
+    for call in calls:
+        check_stage(call)
+
+
+@pytest.mark.slow
+def test_45_frames_part_only_at_the_local_map_inlier_cut():
+    """Phase 13 (b)'s 45 frames in both packages (~4 min).  Every inertial
+    stage of frames 25-44 still agrees from the JAX package's inputs (the
+    tolerances of the single-frame test); up to the first frame whose state
+    or keyframes differ, the poses are within chip_smoke.VI_BOUNDS
+    ["stereo"]; and that frame's tracking decision is taken at the local
+    map's inlier cut (TrackerConfig.min_map_inliers, 30): one package's
+    count lies within 6 of it.  There the inertial pose optimisation keeps
+    20-40% of its candidates, so a float32 spread of the inputs
+    (chip_smoke.VI_BOUNDS: the port's own plain path lands 5.49e-2 m apart
+    on two host CPUs) moves the count across the cut; the port is not held
+    to the JAX package's states past that frame."""
+    rows, _, _, calls, (n_j, n_t) = run_both(chip_smoke.FISHEYE_VI_FRAMES)
+    for call in calls:
+        check_stage(call)
+    part = next((i for i, r in enumerate(rows) if (r[0], r[4], r[6]) != (r[1], r[5], r[7])), None)
+    cut = TrackerConfig().min_map_inliers
+    gap = [float(np.abs(np.asarray(r[2][1]) - r[3][1]).max()) if r[2] is not None and r[3] is not None else None
+           for r in rows]
+    table = [(i, r[0], r[1], r[6], r[7], n_j.get(i), n_t.get(i), gap[i]) for i, r in enumerate(rows)]
+    print("frame, state JAX / port, keyframes JAX / port, local-map inliers JAX / port, max |t_port - t_JAX|:",
+          table[20:])
+    assert part is not None and part > 25, table
+    for i, (sj, st, pj, pt, ij, it, _, _) in enumerate(rows[:part]):
+        dt, dr = (2e-3, 1e-3) if not it else chip_smoke.VI_BOUNDS["stereo"]
+        np.testing.assert_allclose(pt[1], np.asarray(pj[1]), atol=dt, err_msg=f"frame {i}")
+        np.testing.assert_allclose(pt[0], np.asarray(pj[0]), atol=dr, err_msg=f"frame {i}")
+    near = [abs(n - cut) for n in (n_j.get(part), n_t.get(part)) if n is not None]
+    assert near and min(near) <= 6, table[part]

@@ -267,18 +267,22 @@ def test_build_flags_and_sources():
     assert srcs == ["ba_blocks.cu", "ba_pcg.cu", "ba_schur.cu", "common.cu", "fast_nms.cu", "fisheye_stereo.cu",
                     "hamming_best2.cu",
                     "imu_init.cu", "imu_preint.cu", "orb_describe.cu", "pnp_ransac.cu", "pose_graph4.cu",
-                    "pose_inertial.cu", "pose_lm.cu", "pyramid_blur.cu", "sad_refine.cu", "select_subpixel.cu",
+                    "pose_inertial.cu", "pose_inertial_kb8.cu", "pose_inertial_radtan.cu", "pose_lm.cu",
+                    "pyramid_blur.cu", "sad_refine.cu", "select_subpixel.cu",
                     "sim3_graph.cu", "sim3_pcg.cu", "sim3_ransac.cu", "sim3_refine.cu", "triangulate_dlt.cu",
                     "twoview_ransac.cu", "vi_ba.cu", "vi_pcg.cu", "visible_landmarks.cu", "vocab_transform.cu"]
     # the one Jacobi eigen-solver, shared by G, M, P, Q, R, S, T, V and Z; the Sim3 maps and dual numbers, shared by
     # R, S, U and Z and (through inertial.cuh) W, X, Y and AA; the distorted pin-hole and the KB8 camera, shared by D,
-    # E, L, P, Q, R, W, Y, AA and AB; the inertial factors, shared by V, W, X, Y and AA
+    # E, L, P, Q, R, W, Y, AA and AB; the inertial factors, shared by V, W, X, Y and AA; kernel W's code, shared by
+    # its three camera kinds' translation units
     assert sorted(p.name for p in _kernels.SRC_DIR.glob("*.cuh")) == ["camera.cuh", "inertial.cuh", "jacobi.cuh",
-                                                                      "sim3.cuh"]
-    for name in ("imu_preint.cu", "pose_inertial.cu", "imu_init.cu", "vi_ba.cu", "vi_pcg.cu"):
+                                                                      "pose_inertial.cuh", "sim3.cuh"]
+    for name in ("imu_preint.cu", "pose_inertial.cuh", "imu_init.cu", "vi_ba.cu", "vi_pcg.cu"):
         assert '#include "inertial.cuh"' in (_kernels.SRC_DIR / name).read_text()
-    for name in ("pose_inertial.cu", "vi_ba.cu", "vi_pcg.cu"):
+    for name in ("pose_inertial.cuh", "vi_ba.cu", "vi_pcg.cu"):
         assert '#include "camera.cuh"' in (_kernels.SRC_DIR / name).read_text()
+    for name in ("pose_inertial.cu", "pose_inertial_radtan.cu", "pose_inertial_kb8.cu"):
+        assert '#include "pose_inertial.cuh"' in (_kernels.SRC_DIR / name).read_text()
     for name in ("triangulate_dlt.cu", "twoview_ransac.cu", "pnp_ransac.cu", "sim3_ransac.cu", "ba_pcg.cu",
                  "pose_graph4.cu", "fisheye_stereo.cu"):
         assert '#include "jacobi.cuh"' in (_kernels.SRC_DIR / name).read_text()
@@ -502,8 +506,9 @@ def loop_inputs(rng, device):
 
 def test_loop_wrappers_cpu_plain_and_other_devices_raise():
     """Q, R, S and T: CPU tensors take the plain version (no launch); a
-    tensor on another device (meta) gets no plain path; a KB8 camera is
-    refused by Q and R, naming ROADMAP §A item 14 (fisheye loop closing)."""
+    tensor on another device (meta) gets no plain path; a KB8 camera goes
+    to Q's and R's KB8 instance, so on a meta tensor it meets the same
+    CUDA check; a KB8 camera beside a pin-hole one is refused."""
     rng = np.random.default_rng(5)
     cam, pairs, subsets, graph, prob, blocks = loop_inputs(rng, "cpu")
     before = [w.launches.total() for w in LOOP_WRAPPERS]
@@ -529,10 +534,12 @@ def test_loop_wrappers_cpu_plain_and_other_devices_raise():
     with pytest.raises(ValueError, match="CUDA"):
         ba_cg.implicit_schur_solve(*map(meta, blocks[:5]), ba.BAProblem(*map(meta, prob)), meta(blocks[5]), meta(lam))
     kb8 = cm.Camera.kb8(400.0, 400.0, 320.0, 240.0, 0.0, 0.0, 0.0, 0.0)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="CUDA"):
         sim3.sim3_ransac(kb8, kb8, *mpairs, 0, subsets=meta(subsets))
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="CUDA"):
         sim3.optimize_sim3(kb8, kb8, lie.Sim3(*map(meta, S0)), *mpairs)
+    with pytest.raises(ValueError, match="pin-hole or two KB8"):
+        sim3.sim3_ransac(kb8, cam, *mpairs, 0, subsets=meta(subsets))
 
 
 @pytest.mark.cuda
@@ -821,7 +828,7 @@ def test_inertial_loop_kernels_match_plain_on_card(cuda):
 def fisheye_checks():
     """chip_smoke.py phase 3's fisheye comparisons on the card, run once for
     the module: kernel AB on phase 13's frame 1 and the KB8 instances of D,
-    E, L, P, W and Y at their paths' shapes, each held against its plain
+    E, L, P, W, Y, Q, R and AA at their paths' shapes, each held against its plain
     version there (chip_smoke.compare_fisheye_kernels raises on a kernel
     beyond its tolerance); and the KB8 launches they counted."""
     if not torch.cuda.is_available():
@@ -835,17 +842,18 @@ def fisheye_checks():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["fisheye_stereo", "pose_lm", "ba_blocks", "visible_landmarks", "pnp_ransac",
-                                  "pose_inertial", "vi_ba"])
+                                  "pose_inertial", "vi_ba", "sim3_ransac", "sim3_refine", "vi_pcg"])
 def test_fisheye_kernels_match_plain_on_card(fisheye_checks, name):
-    """Kernel AB, and the KB8 instance of D, E, L, P, W and Y, against its
-    plain version on the same CUDA tensors at chip_smoke.py's tolerances
-    (AB: points within 1e-3 m, 1% of the slots flipped; D 1e-3; E 1e-4 of
-    each block's largest; L 1e-3 px; P 1e-3 and the same count; W 5e-3; Y
-    p 2e-3 m, xw 1e-2 m), timed, and counted: AB as a launch, the others
-    as launches of their KB8 instance."""
+    """Kernel AB, and the KB8 instance of D, E, L, P, W, Y, Q, R and AA,
+    against its plain version on the same CUDA tensors at chip_smoke.py's
+    tolerances (AB: points within 1e-3 m, 1% of the slots flipped; D 1e-3;
+    E 1e-4 of each block's largest; L 1e-3 px; P 1e-3 and the same count;
+    W 5e-3; Y p 2e-3 m, xw 1e-2 m; Q 1e-4 and R 2e-4 of the Sim3; AA 1e-3
+    of the states), timed, and counted: AB as a launch, the others as
+    launches of their KB8 instance."""
     entries, counts = fisheye_checks
     e = entries[name]
     assert e["ms"] > 0 and e["plain_ms"] > 0 and e["bound_ms"] > 0
     assert e["max_abs_err"] <= {"visible_landmarks": 1e-3, "pose_inertial": 5e-3, "vi_ba": 1e-2,
-                                "ba_blocks": 1e-4}.get(name, 1e-3)
+                                "ba_blocks": 1e-4, "sim3_ransac": 1e-4, "sim3_refine": 2e-4}.get(name, 1e-3)
     assert counts[name if name == "fisheye_stereo" else f"{name}[kb8]"] >= 1

@@ -63,14 +63,16 @@ def _drift(k):
     return S.R.numpy(), S.t.numpy(), float(S.s)
 
 
-def loop_keyframes(seed=0):
+def loop_keyframes(seed=0, cam=None, box=(8, 8, 632, 472)):
     """Per keyframe: the estimated pose (T_cw, drifted) and its observations
     (slot, world point id, pixel, level, descriptor bits), and the world
     points' true positions and base descriptors.  Keyframe k sits at angle
     2 pi k / 21 of the radius-4 circle, half a step further from 21 on, so
     keyframes 21-23 revisit 0-3 between their places (with no baseline to
     the loop candidate, reprojection errors would not fix the Sim3's
-    scale)."""
+    scale).  The pixels are the 400 px pin-hole camera's, or those of the
+    port's camera ``cam``; a keyframe observes points whose pixel lies
+    inside ``box`` (x0, y0, x1, y1)."""
     rng = np.random.default_rng(seed)
     world = chip_smoke.make_ring_world(np.random.default_rng(0), n=1200)
     pts = world["centers"].astype(np.float64)
@@ -83,8 +85,12 @@ def loop_keyframes(seed=0):
         R_true = Rwc.T
         t_true = -R_true @ np.array([4.0 * c, 4.0 * s, 0.0])
         xc = pts @ R_true.T + t_true
-        uv = 400.0 * xc[:, :2] / np.maximum(xc[:, 2:], 1e-9) + [320.0, 240.0]
-        vis = np.nonzero((xc[:, 2] > 0.5) & (uv[:, 0] > 8) & (uv[:, 0] < 632) & (uv[:, 1] > 8) & (uv[:, 1] < 472))[0]
+        if cam is None:
+            uv = 400.0 * xc[:, :2] / np.maximum(xc[:, 2:], 1e-9) + [320.0, 240.0]
+        else:
+            uv = tcam.project(cam, torch.as_tensor(xc, dtype=torch.float32)).numpy().astype(np.float64)
+        vis = np.nonzero((xc[:, 2] > 0.5) & (uv[:, 0] > box[0]) & (uv[:, 0] < box[2]) & (uv[:, 1] > box[1])
+                         & (uv[:, 1] < box[3]))[0]
         vis = np.sort(rng.permutation(vis)[:MAX_OBS])
         RG, tG, sG = _drift(k)
         R_est = R_true @ RG

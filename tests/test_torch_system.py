@@ -47,8 +47,9 @@ def test_numpy_scene_matches_synthetic():
 
 
 def test_not_ported_options_raise():
-    """Loop closing on the fisheye two-camera rig and the database on a
-    device mesh raise, naming ROADMAP §A items 14 and 12.  The three inertial sensors build
+    """The database on a device mesh raises, naming ROADMAP §A item 12;
+    loop closing on the fisheye two-camera rig builds, its loop closer on
+    the left KB8 camera (item 14 is ported).  The three inertial sensors build
     with loop closing and with the async backend (the default
     constructor), the loop closer wired to the inertial tracker's windowed
     VI-BA, MergeInertialBA and FullInertialBA, which run (on an empty map:
@@ -58,8 +59,8 @@ def test_not_ported_options_raise():
     assert slam.backend is not None and slam.tracker.backend is slam.backend
     slam.shutdown()
     fisheye = tsys.Settings.from_yaml(str(Path(CONFIG).parents[0] / "TUMVI_fisheye_stereo_inertial.yaml"), "stereo")
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 14"):
-        tsys.System(fisheye, "stereo", **dict(OPTS, enable_loop_closing=True))
+    slam = tsys.System(fisheye, "stereo", **dict(OPTS, enable_loop_closing=True))
+    assert slam.loopcloser.cam is fisheye.cam and slam.loopcloser.cam.kind == "kb8"
     for sensor in ("monocular-inertial", "rgbd-inertial", "stereo-inertial"):
         slam = tsys.System(CONFIG, sensor, **dict(OPTS, multi_map=True))
         assert slam.tracker.icfg.fix_scale == (sensor != "monocular-inertial")

@@ -25,7 +25,8 @@ from orb_slam3_fast_tpu_torch.utils import lie as tlie
 
 torch.set_num_threads(1)
 
-SOURCES = ("imu_preint.cu", "pose_inertial.cu", "imu_init.cu", "vi_ba.cu")
+SOURCES = ("imu_preint.cu", "pose_inertial.cu", "pose_inertial_radtan.cu", "pose_inertial_kb8.cu", "imu_init.cu",
+           "vi_ba.cu")
 # The emulated CTA's width: the kernels stride every loop over the block, so 64 threads compute what the card's
 # 256 or 512 do (with more items a thread); V runs as its one warp.
 EMULATED_THREADS = 64

@@ -42,7 +42,10 @@ cannot meet TRACK_DT / TRACK_DR (chip_smoke's LOOP_DT, VI_BOUNDS).  With
 ``--runs 0`` it needs no card, so a host without one adds its file:
 ``python3 track_spread.py --sensor vi-mono vi-stereo --runs 0 --save-host
 DIR`` there, then the same with ``--runs 2`` on the card's machine, DIR
-copied along.  ``--trace`` prints, for each card run of the async sensors, every
+copied along; ``--threads N`` sets the host run's torch threads, so two
+host runs of one CPU at two thread counts, saved under two ``--tag``s,
+show how far the plain path moves with its summation order alone.
+``--trace`` prints, for each card run of the async sensors, every
 frame's state, the backend's queue length after it (the keyframes queued
 or in the worker), the keyframe count, the frame's inliers and its
 ``track_total``; ``--no-host`` skips the host run (and the distances from
@@ -215,7 +218,10 @@ def main() -> int:
     parser.add_argument("--per-call", action="store_true")
     parser.add_argument("--trace", action="store_true")
     parser.add_argument("--no-host", action="store_true")
+    parser.add_argument("--threads", type=int, default=None, help="the host run's torch threads")
     args = parser.parse_args()
+    if args.threads:
+        torch.set_num_threads(args.threads)
     if args.runs > 0 and not torch.cuda.is_available():
         raise SystemExit("track_spread: torch.cuda.is_available() is False; card runs need a CUDA card")
     smi = "no card (host runs only)"
