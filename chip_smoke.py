@@ -2,14 +2,14 @@
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It imports only
-the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs thirteen phases:
+the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs fourteen phases:
 
 1. device: fails without CUDA; prints the card's name and power limit;
-2. build: compiles the twenty-six kernels (A-Y, no K or O, then Z, AA and
-   AB) from the 29 sources of ``orb_slam3_fast_tpu_torch/csrc`` (kernel W's
-   camera kinds in three), one nvcc per source in parallel, each source's
-   finishing time logged, and the map's host C++ library, so that no timed
-   frame pays for g++;
+2. build: compiles the twenty-seven kernels (A-Y, no K or O, then Z, AA,
+   AB and AC) from the 30 sources of ``orb_slam3_fast_tpu_torch/csrc``
+   (kernel W's camera kinds in three), one nvcc per source in parallel,
+   each source's finishing time logged, and the map's host C++ library,
+   so that no timed frame pays for g++;
 3. each kernel against its plain PyTorch version on the same CUDA tensors,
    with CUDA-event times, the least time the card could take for the same
    work (bytes or operations at the H100's published peaks) and, where one
@@ -44,7 +44,15 @@ the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs thirteen phases:
    and the KB8 instances of D, E, L, P, W, Y, Q, R and AA at their paths'
    shapes through TUM-VI's cam0 (Q and R on the loop verification's 768
    pair slots, AA on the two problems of its pin-hole row), each timed
-   beside its pin-hole time;
+   beside its pin-hole time; AC (the LM iteration's update, cost, accept
+   and damping after E and F or T, and the chi2 gate) at the local BA's
+   caps (from F's step) and at the global BA's size (from T's) in its
+   three camera instances: the step accepted, its negative rejected, a
+   zero step rejected with AC's cost E's bit for bit, the state within
+   1e-5 of the plain version's with the same accepts and damping, two
+   runs bit for bit, the gate's mask equal off the chi2 bound; E's
+   outputs bit for bit the parent commit's (``E_DIGESTS``); both BA forms
+   timed whole with every plain LM function made to raise;
 4. the stereo tracking step at 640x480 and 1280x720, 12 frames each, chained
    through the pose with constant-velocity prediction over a textured plane
    of known depth; every frame must match >= 30 landmarks, keep >= 30
@@ -164,6 +172,10 @@ the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs thirteen phases:
 
 Launch counts are zeroed just before each path of phases 4-7 and 9-14 and
 read just after; a run on the async backend also reads them per thread.
+Every such read (``path_counts``) fails unless AC's update launched once
+for each launch of E,
+in each camera instance and on each thread, and its gate wherever E
+launched: every BA iteration on every path is E -> F (or T) -> AC.
 No path's host comparison is cut in depth but the stereo-inertial one (a
 prefix: past frame 40 its card run and its host run end in other
 states), the mono-inertial one (up to the frame before it is lost) and
@@ -1531,14 +1543,16 @@ def sim3_graph_problem(rng, K: int = 70):
     return g, -np.einsum("kji,kj->ki", Rg, tg)
 
 
-def gba_problem(rng, device, K_live: int = 70, M_live: int = 3000, obs_per_lm: int = 10):
+def gba_problem(rng, device, K_live: int = 70, M_live: int = 3000, obs_per_lm: int = 10, cam=None):
     """Kernels E and T's input at the circle's global-BA size: K_live
     keyframes on a circle of radius 4 looking along the tangent (padded to
     K = 128 pose slots, as the mapper pads), keyframe 0 fixed; M_live
     landmarks on the ring's wall and floor (padded to M = 4096), each seen
     from ``obs_per_lm`` keyframes that face it (~30k observations, padded
     to 32768); mono edges, 0.5 px noise, 5% outliers; poses and landmarks
-    perturbed from the truth."""
+    perturbed from the truth.  The pixels are those of the synthetic
+    pin-hole camera, or of ``cam`` (the port's projection) where it is
+    given."""
     from orb_slam3_fast_tpu_torch.optim import ba
 
     K, M = 128, 4096
@@ -1563,6 +1577,10 @@ def gba_problem(rng, device, K_live: int = 70, M_live: int = 3000, obs_per_lm: i
     O = int(2 ** np.ceil(np.log2(n)))
     xc = np.einsum("oij,oj->oi", R[kf], X[lm]) + t[kf]
     uv = np.stack([400.0 * xc[:, 0] / xc[:, 2] + 320.0, 400.0 * xc[:, 1] / xc[:, 2] + 240.0, np.full(n, -1.0)], -1)
+    if cam is not None:
+        from orb_slam3_fast_tpu_torch.cameras.models import project
+
+        uv[:, :2] = project(cam, torch.as_tensor(xc.astype(np.float32))).numpy()
     uv[:, :2] += rng.normal(0, 0.5, (n, 2))
     out = rng.uniform(size=n) < 0.05
     uv[out, :2] += rng.uniform(15, 40, (out.sum(), 2)) * rng.choice([-1, 1], (out.sum(), 2))
@@ -2808,8 +2826,8 @@ def run_gba_thread(slam):
     it, for a global BA over that System's map (every live keyframe, all
     their landmarks and observations, the first keyframe fixed).  Gates: it
     drains within 120 s and completes, unaborted, with no worker error;
-    kernel T launches on the ``slam-gba`` thread and on no other, kernel F
-    not at all.  Returns a summary."""
+    kernels T and AC launch on the ``slam-gba`` thread and on no other,
+    kernel F not at all.  Returns a summary."""
     from orb_slam3_fast_tpu_torch.backend.pipeline import AsyncBackend
     from orb_slam3_fast_tpu_torch.optim import ba, ba_cg
 
@@ -2826,11 +2844,13 @@ def run_gba_thread(slam):
     seconds = time.perf_counter() - t0
     backend.shutdown()
     t_threads = ba_cg.implicit_schur_solve.launches.by_thread()
+    ac_threads = {n: w.launches.by_thread() for n, w in (("update", ba.lm_update), ("classify", ba.classify))}
     summary = dict(drained=drained, seconds=seconds, keyframes=len(kf_ids), completed=backend.gba_completed,
                    aborted=backend.gba_aborted, errors=len(backend.errors), T_by_thread=t_threads,
-                   F=ba.schur_solve.launches.total())
+                   AC_by_thread=ac_threads, F=ba.schur_solve.launches.total())
     if not (drained and backend.gba_completed == 1 and not backend.gba_aborted and not backend.errors
-            and set(t_threads) == {"slam-gba"} and summary["F"] == 0):
+            and set(t_threads) == {"slam-gba"} and all(set(a) == {"slam-gba"} for a in ac_threads.values())
+            and summary["F"] == 0):
         raise RuntimeError(f"the GBA thread on the card: {summary}" + (f"\n{backend.errors[0]}" if backend.errors else ""))
     return summary
 
@@ -3500,10 +3520,11 @@ FISHEYE_VI_GATES = (f"IMU initialised, >= {FISHEYE_VI_MIN_AFTER} frames OK after
 # 13 (a)'s card run against its host run: t, rotation entries
 FISHEYE_BOUNDS = (TRACK_DT, TRACK_DR)
 FISHEYE_KERNELS = ("fast_nms", "orb_describe", "hamming_best2", "pose_lm", "ba_blocks", "ba_schur", "triangulate_dlt",
-                   "pyramid_blur", "select_subpixel", "visible_landmarks", "vocab_transform", "fisheye_stereo")
+                   "pyramid_blur", "select_subpixel", "visible_landmarks", "vocab_transform", "fisheye_stereo",
+                   "ba_lm_update", "ba_classify")
 # kernels whose camera instance phase 13 reads, and those that never run on the fisheye rig
 KB8_KERNELS = ("pose_lm", "ba_blocks", "visible_landmarks", "pnp_ransac", "pose_inertial", "vi_ba", "sim3_ransac",
-               "sim3_refine", "vi_pcg")
+               "sim3_refine", "vi_pcg", "ba_lm_update", "ba_classify")
 NOT_FISHEYE = ("stereo_subpixel_refine", "twoview_ransac", "sim3_ransac", "sim3_refine", "sim3_graph", "ba_pcg",
                "sim3_pcg", "pose_graph4", "vi_pcg")
 
@@ -3599,9 +3620,10 @@ def check_fisheye(summary, launches, inertial: bool = False) -> None:
     """Phase 13 (a)'s gates (tests/test_fisheye.py's: final OK, > 20 of 25
     frames tracked, unscaled ATE < 0.3 m, the fitted scale within 0.12 of
     1) or (b)'s (``FISHEYE_VI_GATES``); AB, C's mutual mode and the KB8
-    instances of D, E and L (and W and Y with the IMU) launched; the
+    instances of D, E, AC and L (and W and Y with the IMU) launched; the
     kernels no fisheye path runs not."""
-    kb8 = ("pose_lm", "ba_blocks", "visible_landmarks") + (("pose_inertial", "vi_ba") if inertial else ())
+    kb8 = ("pose_lm", "ba_blocks", "ba_lm_update", "ba_classify", "visible_landmarks") + \
+        (("pose_inertial", "vi_ba") if inertial else ())
     missing = [n for n in (*FISHEYE_KERNELS, "hamming_best2[mutual]") if launches[n] < 1]
     missing += [f"{n}[kb8]" for n in kb8 if launches[f"{n}[kb8]"] < 1]
     stray = [n for n in NOT_FISHEYE if launches[n]]
@@ -4081,6 +4103,245 @@ def run_default_fisheye(frames, imu, device, sensor: str):
     return summary
 
 
+# Kernel E's outputs on phase 3's local-BA problem (ba_problem(default_rng(3))) through the pin-hole camera, EuRoC
+# cam0's distortion and TUM-VI's cam0 (``e_digests``), as the parent of the commit that moved E's residual and
+# robust cost into csrc/ba_obs.cuh computes them on an H100 (``track_spread.py --e-digest --root <parent>``): phase 3
+# holds E to them bit for bit (recorded from commit fc1a711 on an NVIDIA H100 80GB HBM3, CUDA 12.8)
+E_DIGESTS = {"pinhole": "50d4839b138e60af", "radtan": "adec1a69cd130040", "kb8": "29bfef4090596071"}
+
+
+def lm_cameras() -> dict:
+    """The three camera instances of kernels E and AC: the synthetic
+    pin-hole camera, the same with EuRoC cam0's distortion, TUM-VI's cam0
+    (KB8)."""
+    from orb_slam3_fast_tpu_torch.cameras.models import Camera
+
+    return {"pinhole": Camera.pinhole(400.0, 400.0, 320.0, 240.0),
+            "radtan": Camera.pinhole(400.0, 400.0, 320.0, 240.0, EUROC_DIST), "kb8": fisheye_settings("stereo").cam}
+
+
+def e_digests(device) -> dict:
+    """Kernel E's outputs (Hpp, Hll, bp, bl, W, w_lm, cost) on phase 3's
+    local-BA problem in each camera instance (``lm_cameras``; the pin-hole
+    problem's pixels computed in numpy, the others' through the camera):
+    the first 16 hex digits of the SHA-256 of their bytes, by instance."""
+    import hashlib
+
+    from orb_slam3_fast_tpu_torch.optim import ba
+
+    out = {}
+    for kind, cam in lm_cameras().items():
+        prob = ba_problem(np.random.default_rng(3), device, cam=None if kind == "pinhole" else cam)
+        blocks = ba.build_normal_blocks(cam, 48.0, prob.R, prob.t, prob.xw, prob, torch.ones_like(prob.obs_valid))
+        h = hashlib.sha256()
+        for x in blocks:
+            h.update(x.contiguous().cpu().numpy().tobytes())
+        out[kind] = h.hexdigest()[:16]
+    return out
+
+
+BA_REPS = (10, 5)  # timed runs of the whole local and global BA (after 2 warm-up runs each)
+
+
+def ba_times(device) -> dict:
+    """Milliseconds of one whole local BA (5 + 10 LM iterations on phase 3's
+    problem at the mapper's caps) and one global BA (8 + 12 on the circle's
+    problem, 32 CG iterations), by CUDA events over ``BA_REPS`` runs."""
+    from orb_slam3_fast_tpu_torch.cameras.models import Camera
+    from orb_slam3_fast_tpu_torch.optim import ba, ba_cg
+
+    cam = Camera.pinhole(400.0, 400.0, 320.0, 240.0)
+    prob, gprob = ba_problem(np.random.default_rng(3), device), gba_problem(np.random.default_rng(11), device)
+    return {"bundle_adjust": cuda_ms(lambda: ba.bundle_adjust(cam, 48.0, prob), BA_REPS[0]),
+            "bundle_adjust_cg": cuda_ms(lambda: ba_cg.bundle_adjust_cg(cam, 0.0, gprob, iters1=8, iters2=12),
+                                        BA_REPS[1])}
+
+
+def check_lm_update(cam, bf: float, prob, local: bool) -> tuple[float, list]:
+    """Kernel AC's update against lm_update_plain on the card from E's blocks
+    and F's step (``local``; T's step otherwise, with no flag) at the
+    problem's state: the step accepted, its negative rejected, each state
+    within 1e-5 (absolute), the accept and the damping equal, the cost
+    within 1e-5 relative; a zero step rejected, AC's cost E's bit for bit
+    (the plain version's cost sums in another order than E's, so on the
+    card its zero step may pass the test); two runs of AC bit for bit.  Returns (the largest state
+    difference, the step's arguments of lm_update)."""
+    from orb_slam3_fast_tpu_torch.optim import ba, ba_cg
+
+    inl = torch.ones_like(prob.obs_valid)
+    blocks = (ba.build_normal_blocks if local else ba_cg.build_blocks)(cam, bf, prob.R, prob.t, prob.xw, prob, inl)
+    lam = torch.full((), 1e-4, dtype=torch.float32, device=prob.R.device)
+    if local:
+        dp, dl, ok = ba.schur_solve(*blocks[:6], prob, lam)
+    else:
+        (dp, dl), ok = ba_cg.implicit_schur_solve(*blocks[:5], prob, blocks[5], lam), None
+    err = 0.0
+    for label, f, accepted in (("the step", 1.0, True), ("its negative", -1.0, False), ("a zero step", 0.0, False)):
+        args = (cam, bf, prob, prob.R, prob.t, prob.xw, f * dp if f else torch.zeros_like(dp),
+                f * dl if f else torch.zeros_like(dl), inl, blocks[6], ok, lam)
+        k, k2, p = ba.lm_update(*args), ba.lm_update(*args), ba.lm_update_plain(*args)
+        torch.cuda.synchronize()
+        bad = [] if all(torch.equal(a, b) for a, b in zip(k, k2)) else ["two runs differ"]
+        if f == 0.0:  # the plain cost sums in another order than E's: AC alone is held to E's cost
+            same = all(torch.equal(a, b) for a, b in zip(k[:3], args[3:6]))
+            lam5 = float(torch.clamp(lam * 5.0, max=1e6))
+            if bool(k[4]) or not same or float(k[3]) != lam5 or float(k[5]) != float(blocks[6]):
+                bad.append(f"accept {bool(k[4])}, state kept {same}, damping {float(k[3])} (want {lam5}), cost "
+                           f"{float(k[5])!r} (E's {float(blocks[6])!r})")
+        else:
+            e = max(float((a - b).abs().max()) for a, b in zip(k[:3], p[:3]))
+            err = max(err, e)
+            if not (e <= 1e-5 and bool(k[4]) == bool(p[4]) == accepted and float(k[3]) == float(p[3])):
+                bad.append(f"state err {e:.3g}, accept {bool(k[4])} / plain {bool(p[4])} (want {accepted}), "
+                           f"damping {float(k[3])} / {float(p[3])}")
+            if abs(float(k[5]) - float(p[5])) > 1e-5 * abs(float(p[5])):
+                bad.append(f"cost {float(k[5])} / plain {float(p[5])}")
+        if bad:
+            raise RuntimeError(f"kernel AC, {'local' if local else 'global'} BA, {label}: " + "; ".join(bad))
+        if f == 1.0:
+            step_args = args
+    return err, step_args
+
+
+def check_costs_per_observation(cam, bf: float, prob, n: int = 48) -> int:
+    """AC's cost at a zero step against E's cost with one observation valid
+    at a time, for ``n`` observations spread over the valid ones (stereo,
+    mono and outlier rows): a one-observation cost is that observation's
+    Huber cost, with no sum to hide a difference of its last bit.  Raises
+    unless every pair is the same bits and every zero step is rejected.
+    Returns the number of observations compared."""
+    from orb_slam3_fast_tpu_torch.optim import ba
+
+    ids = torch.nonzero(prob.obs_valid).flatten()
+    ids = ids[:: max(1, len(ids) // n)][:n].tolist()
+    inl = torch.ones_like(prob.obs_valid)
+    zeros = prob.t.new_zeros(prob.R.shape[0], 6), torch.zeros_like(prob.xw)
+    lam = torch.full((), 1e-4, dtype=torch.float32, device=prob.R.device)
+    e_cost, ac_cost, accepts = [], [], []
+    for o in ids:
+        one = torch.zeros_like(prob.obs_valid)
+        one[o] = True
+        p1 = prob._replace(obs_valid=one)
+        e_cost.append(ba.build_normal_blocks(cam, bf, p1.R, p1.t, p1.xw, p1, inl)[6])
+        k = ba.lm_update(cam, bf, p1, p1.R, p1.t, p1.xw, *zeros, inl, e_cost[-1], None, lam)
+        ac_cost.append(k[5])
+        accepts.append(k[4])
+    e_cost, ac_cost = torch.stack(e_cost), torch.stack(ac_cost)
+    differ = [ids[i] for i in torch.nonzero(e_cost != ac_cost).flatten().tolist()]
+    if differ or bool(torch.stack(accepts).any()):
+        raise RuntimeError(f"kernel AC's cost is not E's for observations {differ} of {ids}, or a zero step passed")
+    return len(ids)
+
+
+def check_classify(cam, bf: float, prob, R, t, xw) -> tuple[int, int]:
+    """Kernel AC's gate against classify_plain on the card: the masks equal
+    off the observations whose chi2 lies within 1e-4 of its bound.
+    Returns (observations classified otherwise, those near the bound)."""
+    from orb_slam3_fast_tpu_torch.optim import ba
+
+    k, p = ba.classify(cam, bf, prob, R, t, xw), ba.classify_plain(cam, bf, prob, R, t, xw)
+    r, _, _ = ba._obs_residuals(cam, bf, R, t, xw, prob)
+    edge = ((r * r).sum(-1) * prob.obs_inv_sigma2 / ba._delta2(prob) - 1.0).abs() < 1e-4
+    off = int(((k != p) & ~edge).sum())
+    if off:
+        raise RuntimeError(f"kernel AC's gate: {off} observations off the chi2 bound classified otherwise")
+    return int((k != p).sum()), int(edge.sum())
+
+
+def lm_bytes_ops(K: int, M: int, O: int, obs_flops: int) -> tuple[float, float]:
+    """Kernel AC's update: the observation table (27 bytes a slot) and the
+    state, step and landmark flags in (72 bytes a pose, 25 a landmark),
+    the state out (48, 12), the scalars; ``obs_flops`` a slot for the
+    projection, residual and Huber cost, ~160 a pose for exp and compose."""
+    return O * 27 + K * (72 + 48) + M * (25 + 12) + 16, obs_flops * O + 160 * K + 3 * M
+
+
+def compare_lm_kernels(device) -> list[dict]:
+    """Phase 3 for kernel AC: E's outputs bit for bit against the parent's
+    (``E_DIGESTS``); both entries against their plain versions at the local
+    BA's caps (phase 3's problem, F's step) and at the global BA's size
+    (the circle's problem, T's step) in the three camera instances
+    (``check_lm_update``, ``check_classify``); both BA forms with every
+    plain LM function made to raise, AC launched once per E launch, and
+    timed whole.  Returns (the update's entry, the gate's entry)."""
+    from orb_slam3_fast_tpu_torch.optim import ba, ba_cg
+
+    t0 = time.perf_counter()
+    digests = e_digests(device)
+    if digests != E_DIGESTS:
+        raise RuntimeError(f"kernel E's outputs moved: {digests}, the parent's {E_DIGESTS}")
+    cams = lm_cameras()
+    obs_flops = {"pinhole": 60, "radtan": 80, "kb8": 120}
+    rows = {}
+    for shape in ("local", "global"):
+        for kind, cam in cams.items():
+            pc = None if kind == "pinhole" else cam
+            if shape == "local":
+                prob, bf = ba_problem(np.random.default_rng(3), device, cam=pc), 48.0
+            else:
+                prob, bf = gba_problem(np.random.default_rng(11), device, cam=pc), 0.0
+            err, args = check_lm_update(cam, bf, prob, shape == "local")
+            n_one = check_costs_per_observation(cam, bf, prob)
+            R, t, xw = ba.lm_update(*args)[:3]
+            flips, edge = check_classify(cam, bf, prob, R, t, xw)
+            K, M, O = prob.R.shape[0], prob.xw.shape[0], prob.obs_kf.shape[0]
+            u_bytes, u_ops = lm_bytes_ops(K, M, O, obs_flops[kind])
+            c_bytes, c_ops = O * 27 + K * 48 + M * 12, obs_flops[kind] * O
+            rows[shape, kind] = dict(
+                K=K, M=M, O=O, err=err, flips=flips, edge=edge, n_one=n_one,
+                update=dict(ms=cuda_ms(lambda: ba.lm_update(*args), 20), plain_ms=cuda_ms(
+                    lambda: ba.lm_update_plain(*args), 5), **bound(u_bytes, u_ops)),
+                classify=dict(ms=cuda_ms(lambda: ba.classify(cam, bf, prob, R, t, xw), 20), plain_ms=cuda_ms(
+                    lambda: ba.classify_plain(cam, bf, prob, R, t, xw), 5), **bound(c_bytes, c_ops)))
+    # both BA forms on the card with the plain LM functions refusing: E -> F (T) -> AC and nothing else
+    names = ("lm_update_plain", "classify_plain", "apply_update", "_obs_residuals", "_robust_cost")
+    saved = {n: getattr(ba, n) for n in names}
+
+    def refuse(*a, **kw):
+        raise RuntimeError("a plain LM function was called on the card")
+
+    for w in (ba.build_normal_blocks, ba.lm_update, ba.classify):
+        w.launches.reset()
+    try:
+        for n in names:
+            setattr(ba, n, refuse)
+        times = ba_times(device)
+    finally:
+        for n, f in saved.items():
+            setattr(ba, n, f)
+    n_e, n_u, n_c = (w.launches.total() for w in (ba.build_normal_blocks, ba.lm_update, ba.classify))
+    runs = [2 + n for n in BA_REPS]
+    if not (n_e == n_u == 15 * runs[0] + 20 * runs[1] and n_c == 2 * sum(runs)):
+        raise RuntimeError(f"the BA forms on the card: E {n_e}, AC's update {n_u}, its gate {n_c} launches")
+    whole = (f"; E's outputs bit for bit the parent's ({digests}); with every plain LM function refusing, "
+             f"bundle_adjust 5+10 via E -> F -> AC {times['bundle_adjust']:.3f} ms and bundle_adjust_cg 8+12 via "
+             f"E -> T -> AC {times['bundle_adjust_cg']:.3f} ms, AC launched once per E launch; "
+             f"{time.perf_counter() - t0:.1f} s for AC's rows")
+
+    def entry(name, key, replaces, what, err, tolerance, tail=""):
+        base, kb8 = rows["local", "pinhole"], rows["local", "kb8"]
+        each = "; ".join(f"{shape} BA {kind} (K={r['K']}, M={r['M']}, O={r['O']}) {r[key]['ms']:.4f} ms (plain "
+                         f"{r[key]['plain_ms']:.4f}, bound {r[key]['bound_ms']:.5f}), {what(r)}"
+                         for (shape, kind), r in rows.items())
+        return dict(name=name, route="cuda", source="orb_slam3_fast_tpu_torch/csrc/ba_lm.cu", replaces=replaces,
+                    max_abs_err=max(err(r) for r in rows.values()), library_ms=None,
+                    **{k: base[key][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                    shapes=f"{tolerance}; {each}{tail}; no single library call",
+                    kb8=dict(max_abs_err=err(kb8), shapes="the local BA's caps through TUM-VI's cam0",
+                             **{k: kb8[key][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}))
+
+    return [entry("ba_lm_update", "update", "orb_slam3_fast_tpu/optim/ba.py:151",
+                  lambda r: f"state err {r['err']:.2g}, {r['n_one']} one-observation costs E's bit for bit",
+                  lambda r: r["err"], "max_abs_err: the state against lm_update_plain's after the step (accepted), "
+                  "its negative (rejected) and a zero step (rejected, the cost E's bit for bit, also with one "
+                  "observation valid at a time), tolerance 1e-5; accepts and damping equal, two runs bit for bit",
+                  whole),
+            entry("ba_classify", "classify", "orb_slam3_fast_tpu/optim/ba_cg.py:205",
+                  lambda r: f"{r['flips']} flags otherwise, {r['edge']} within 1e-4 of the bound",
+                  lambda r: float(r["flips"]), "max_abs_err: inlier flags otherwise than classify_plain's, all of "
+                  "them within 1e-4 of the chi2 bound (none allowed off it)")]
+
+
 def stage_split(rig: Rig, device) -> dict:
     """Per-stage CUDA-event times of the step on one frame."""
     from orb_slam3_fast_tpu_torch.ops import extractor as ext
@@ -4105,25 +4366,29 @@ def stage_split(rig: Rig, device) -> dict:
 WRAPPER_NAMES = ("fast_nms", "orb_describe", "hamming_best2", "pose_lm", "ba_blocks", "ba_schur", "triangulate_dlt",
                  "pyramid_blur", "select_subpixel", "stereo_subpixel_refine", "visible_landmarks", "twoview_ransac",
                  "vocab_transform", "pnp_ransac", "sim3_ransac", "sim3_refine", "sim3_graph", "ba_pcg", "sim3_pcg",
-                 "imu_preint", "pose_inertial", "imu_init", "vi_ba", "pose_graph4", "vi_pcg", "fisheye_stereo")
+                 "imu_preint", "pose_inertial", "imu_init", "vi_ba", "pose_graph4", "vi_pcg", "fisheye_stereo",
+                 "ba_lm_update", "ba_classify")
 VI_KERNELS = ("imu_preint", "pose_inertial", "imu_init", "vi_ba")  # V, W, X, Y: the inertial path
-SYSTEM_KERNELS = WRAPPER_NAMES[:11]  # the stereo System runs A-L, N to index its keyframes, and not M or P
+LM_KERNELS = ("ba_lm_update", "ba_classify")  # AC's two entries: wherever a BA runs
+# the stereo System runs A-L and AC, N to index its keyframes, and not M or P
+SYSTEM_KERNELS = WRAPPER_NAMES[:11] + LM_KERNELS
 STEP_KERNELS = ("fast_nms", "orb_describe", "hamming_best2", "pose_lm", "pyramid_blur", "select_subpixel",
                 "stereo_subpixel_refine", "visible_landmarks")
 # the RGB-D path runs every kernel but J; G only where triangulation finds
 # matches, which the RGB-D gates do not require
 RGBD_KERNELS = ("fast_nms", "orb_describe", "hamming_best2", "pose_lm", "ba_blocks", "ba_schur", "pyramid_blur",
-                "select_subpixel", "visible_landmarks", "vocab_transform")
+                "select_subpixel", "visible_landmarks", "vocab_transform", *LM_KERNELS)
 # mono: no stereo match (J) and no PnP unless lost; relocalisation: PnP and the BoW of the lost frame
 MONO_KERNELS = ("fast_nms", "orb_describe", "hamming_best2", "pose_lm", "ba_blocks", "ba_schur", "triangulate_dlt",
-                "pyramid_blur", "select_subpixel", "visible_landmarks", "twoview_ransac", "vocab_transform")
+                "pyramid_blur", "select_subpixel", "visible_landmarks", "twoview_ransac", "vocab_transform",
+                *LM_KERNELS)
 RELOC_KERNELS = MONO_KERNELS + ("pnp_ransac",)
 # loop closing: Q, R, S, T on top of the mono path (E in every BA, N for the queries and the keyframes)
 LOOP_KERNELS = MONO_KERNELS + ("sim3_ransac", "sim3_refine", "sim3_graph", "ba_pcg")
 # the wrappers that count a mode: kernel C's four, kernels S and U behind one wrapper, and the distorted camera's
-# instances of D, E, Q and R
+# instances of D, E, Q, R and AC
 MODES = {"sim3_graph": "dense", "sim3_pcg": "pcg"}
-RADTAN_KERNELS = ("pose_lm", "ba_blocks", "sim3_ransac", "sim3_refine")
+RADTAN_KERNELS = ("pose_lm", "ba_blocks", "sim3_ransac", "sim3_refine", *LM_KERNELS)
 
 
 def wrappers() -> dict:
@@ -4147,7 +4412,7 @@ def wrappers() -> dict:
                                     ba_cg.implicit_schur_solve, pg.optimize_sim3_graph, pre.preintegrate,
                                     inertial.pose_inertial_optimization, imu_init.inertial_only_optimization,
                                     vi_ba.vi_bundle_adjust, pg.optimize_4dof_graph, vi_ba_cg.lm_segment_vi,
-                                    mat.fisheye_stereo_gate)))
+                                    mat.fisheye_stereo_gate, ba.lm_update, ba.classify)))
 
 
 def reset_counts() -> None:
@@ -4157,9 +4422,9 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     """Launches since the last reset, by kernel, by kernel C's mode, of D,
-    E, Q and R with a distorted camera, of D, E, L, P, W and Y with a KB8
-    camera, and by thread where a run launched from more than the main
-    thread."""
+    E, Q, R and AC with a distorted camera, of D, E, L, P, W, Y and AC with
+    a KB8 camera, and by thread where a run launched from more than the
+    main thread."""
     from orb_slam3_fast_tpu_torch.ops import hamming as ham
 
     ws = wrappers()
@@ -4171,6 +4436,19 @@ def read_counts() -> dict:
         by_thread = w.launches.by_thread()
         if set(by_thread) - {"MainThread"}:
             counts[f"{name}[threads]"] = by_thread
+    return counts
+
+
+def path_counts() -> dict:
+    """``read_counts`` after a path's run.  Raises unless kernel AC's update
+    launched once for every launch of kernel E, in each camera instance and
+    on each thread (every LM iteration of both BA forms is E -> F or T ->
+    AC), and its gate at least once where E launched."""
+    counts = read_counts()
+    paired = [f"ba_lm_update{k}" for k in ("", "[radtan]", "[kb8]", "[threads]")
+              if counts.get(f"ba_lm_update{k}") != counts.get(f"ba_blocks{k}")]
+    if paired or (counts["ba_blocks"] and not counts["ba_classify"]):
+        raise RuntimeError(f"kernel AC not launched wherever kernel E was: {paired or 'ba_classify'} ({counts})")
     return counts
 
 
@@ -4212,7 +4490,7 @@ def main() -> int:
     kernels += system_kernels + compare_mono_kernels(device) + compare_loop_kernels(device) + compare_vi_kernels(device)
     kernels += compare_inertial_loop_kernels(device)
     fisheye_kernels, kb8 = compare_fisheye_kernels(device)
-    kernels += fisheye_kernels
+    kernels += fisheye_kernels + compare_lm_kernels(device)
     for k in kernels:
         if k["name"] in kb8:
             k["kb8"] = kb8[k["name"]]
@@ -4242,7 +4520,7 @@ def main() -> int:
     scenes = [setup(rig, device) for rig in rigs]
     reset_counts()
     results = {(rig.w, rig.h): track(rig, *scene, device) for rig, scene in zip(rigs, scenes)}
-    step_launches = read_counts()
+    step_launches = path_counts()
     for rig in rigs:
         check_sequence(rig, results[(rig.w, rig.h)])
     missing = [n for n in STEP_KERNELS if step_launches[n] < 1]
@@ -4270,7 +4548,7 @@ def main() -> int:
     card_run = run_system(frames, poses, device)
     slam, summary, _ = card_run
     sys_s = time.perf_counter() - t1
-    sys_launches = read_counts()
+    sys_launches = path_counts()
     missing = [n for n in (*SYSTEM_KERNELS, "vocab_transform", "hamming_best2[epipolar]") if sys_launches[n] < 1]
     if missing or sys_launches["twoview_ransac"] or sys_launches["pnp_ransac"]:
         raise RuntimeError(f"the System's path: kernels never launched {missing}, or M or P launched ({sys_launches})")
@@ -4291,7 +4569,7 @@ def main() -> int:
     rgbd_run = run_system(rgbd_in, rgbd_poses, device, "rgbd")
     slam_d, summary_d, _ = rgbd_run
     rgbd_s = time.perf_counter() - t1
-    rgbd_launches = read_counts()
+    rgbd_launches = path_counts()
     missing = [n for n in RGBD_KERNELS if rgbd_launches[n] < 1]
     if missing or any(rgbd_launches[n] for n in ("stereo_subpixel_refine", "twoview_ransac", "pnp_ransac")):
         raise RuntimeError(f"the RGB-D path: kernels never launched {missing}, or J, M or P launched ({rgbd_launches})")
@@ -4313,7 +4591,7 @@ def main() -> int:
     mono_run = run_mono(mono_in, mono_poses, device)
     slam_m, summary_m, _ = mono_run
     mono_s = time.perf_counter() - t1
-    mono_launches = read_counts()
+    mono_launches = path_counts()
     missing = [n for n in (*MONO_KERNELS, "hamming_best2[window]") if mono_launches[n] < 1]
     if missing or mono_launches["vocab_transform"] < summary_m["n_kf"] or mono_launches["pnp_ransac"]:
         raise RuntimeError(f"the mono path: kernels never launched {missing}, N fewer times than keyframes, or P "
@@ -4329,7 +4607,7 @@ def main() -> int:
     reset_counts()
     t1 = time.perf_counter()
     reloc_track, reloc_ms, reloc_sum = run_reloc(mono_in, mono_poses, device)
-    reloc_launches = read_counts()
+    reloc_launches = path_counts()
     missing = [n for n in RELOC_KERNELS if reloc_launches[n] < 1]
     if missing:
         raise RuntimeError(f"the relocalisation path: kernels never launched {missing} ({reloc_launches})")
@@ -4349,7 +4627,7 @@ def main() -> int:
     slam_l, summary_l, _ = loop_run
     loop_kf_at = summary_l.pop("kf_at")
     loop_s = time.perf_counter() - t1
-    loop_launches = read_counts()
+    loop_launches = path_counts()
     missing = [n for n in LOOP_KERNELS if loop_launches[n] < 1]
     if missing or summary_l["gba_launches_F"] or summary_l["gba_launches_T"] < 1:
         raise RuntimeError(f"the loop path: kernels never launched {missing}, or F launched inside the global BA, or "
@@ -4369,7 +4647,7 @@ def main() -> int:
     t1 = time.perf_counter()
     _, summary_a, _ = run_loop(loop_in, loop_poses, device, blackout=ATLAS_BLACKOUT)
     summary_a.pop("kf_at")
-    atlas_launches = read_counts()
+    atlas_launches = path_counts()
     log(f"Atlas scenario: {summary_a}, {time.perf_counter() - t1:.2f} s (gates: >= 2 maps, >= 1 merge, final OK, > 100 "
         "frames OK, ATE of trajectory_world < 0.5)")
     log(f"launches in the Atlas run: {atlas_launches}")
@@ -4383,7 +4661,7 @@ def main() -> int:
 
     reset_counts()
     slam_a, summary_a10, _ = run_default_stereo(frames, poses, device)
-    launches_a10 = read_counts()
+    launches_a10 = path_counts()
     kinds = {"keyframe": [ms for i, ms in enumerate(slam_a.timers.spans["track_total"]) if i in summary_a10["kf_frames"]],
              "ordinary": [ms for i, ms in enumerate(slam_a.timers.spans["track_total"])
                           if i not in summary_a10["kf_frames"]]}
@@ -4394,7 +4672,7 @@ def main() -> int:
     log(f"launches in 10 (a): {launches_a10}")
     reset_counts()
     slam_b, summary_b10, _ = run_default_loop(loop_in, loop_poses, device)
-    launches_b10 = read_counts()
+    launches_b10 = path_counts()
     spans_b = slam_b.timers.spans["track_total"]
     kinds = {"keyframe": [ms for i, ms in enumerate(spans_b) if i in summary_b10["kf_frames"]],
              "ordinary": [ms for i, ms in enumerate(spans_b) if i not in summary_b10["kf_frames"]]}
@@ -4415,7 +4693,7 @@ def main() -> int:
     finally:
         pg._FORCE_CG = False
     summary_c10.pop("kf_at")
-    launches_c10 = read_counts()
+    launches_c10 = path_counts()
     graph_ms = slam_c.loopcloser.timers.spans["loop_essential_graph"]
     if launches_c10["sim3_pcg"] < 1 or launches_c10["sim3_graph"] or summary_c10["closed_at"] != summary_l["closed_at"]:
         raise RuntimeError(f"10 (c): U launched {launches_c10['sim3_pcg']}, S {launches_c10['sim3_graph']}, loop closed "
@@ -4432,15 +4710,16 @@ def main() -> int:
     dist_in, _ = mono_frames(MONO_FRAMES, cam=dist_settings.cam)
     reset_counts()
     dist_run = run_mono(dist_in, mono_poses, device, settings=dist_settings)
-    launches_d10 = read_counts()
-    missing = [n for n in (*MONO_KERNELS, "pose_lm[radtan]", "ba_blocks[radtan]") if launches_d10[n] < 1]
+    launches_d10 = path_counts()
+    missing = [n for n in (*MONO_KERNELS, "pose_lm[radtan]", "ba_blocks[radtan]", "ba_lm_update[radtan]",
+                           "ba_classify[radtan]") if launches_d10[n] < 1]
     if missing:
         raise RuntimeError(f"10 (d): the distorted mono path never launched {missing} ({launches_d10})")
     log(f"10 (d) mono System with EuRoC cam0's distortion: {dist_run[1]} (phase 7's gates)")
     log(f"launches in 10 (d): {launches_d10}")
     reset_counts()
     summary_e10 = run_gba_thread(slam_l)
-    launches_e10 = read_counts()
+    launches_e10 = path_counts()
     log(f"10 (e) the GBA thread: a global BA over phase 9's loop map on slam-gba: {summary_e10} (gates: drained in 120 "
         "s, completed, not aborted, no error, T on slam-gba alone, F not)")
     log(f"phase 10: {time.perf_counter() - t0:.1f} s")
@@ -4456,7 +4735,7 @@ def main() -> int:
         reset_counts()
         t1 = time.perf_counter()
         run = run_vi(*vi_in, device, sensor)
-        launches = read_counts()
+        launches = path_counts()
         vi_runs[sensor] = (vi_in, run, launches)
         check_vi(sensor, run[1], launches)
         spans = run[0].timers.spans
@@ -4470,7 +4749,7 @@ def main() -> int:
     vi_in = vi_frames("rgbd", VI_RGBD_FRAMES)
     reset_counts()
     _, summary_r, _ = run_vi(*vi_in, device, "rgbd")
-    launches_r = read_counts()
+    launches_r = path_counts()
     if not (summary_r["state"] == "OK" and summary_r["tracked"] == VI_RGBD_FRAMES
             and launches_r["imu_preint"] >= VI_RGBD_FRAMES - 1):
         raise RuntimeError(f"rgbd-inertial System: {summary_r}, V launched {launches_r['imu_preint']} times")
@@ -4488,7 +4767,7 @@ def main() -> int:
     t1 = time.perf_counter()
     slam_v, summary_v, snapshot = run_vi_loop(*vil_in, device)
     vil_s = time.perf_counter() - t1
-    launches_vil = read_counts()
+    launches_vil = path_counts()
     check_vi_loop(summary_v, launches_vil)
     spans, lspans = slam_v.timers.spans, slam_v.loopcloser.timers.spans
     closing = int(np.argmax(spans["track_total"]))
@@ -4505,7 +4784,7 @@ def main() -> int:
         f"from its snapshot: {card_fix.n_kf} keyframes")
     reset_counts()
     slam_c, summary_c = run_default_vi(*vi_runs["stereo"][0], device)
-    launches_vic = read_counts()
+    launches_vic = path_counts()
     on_tracker = {n: wrappers()[n].launches.total(thread="MainThread") for n in VI_KERNELS}
     if min(on_tracker.values()) < 1:
         raise RuntimeError(f"12 (c): V-Y on the tracker thread {on_tracker}")
@@ -4514,7 +4793,7 @@ def main() -> int:
     log(f"launches in 12 (c): {launches_vic}")
     reset_counts()
     summary_d = run_merge_inertial(device)
-    launches_vid = read_counts()
+    launches_vid = path_counts()
     if launches_vid["vi_ba"] < 1:
         raise RuntimeError(f"12 (d): Y never launched ({launches_vid})")
     log(f"12 (d) MergeInertialBA on the welded map: {summary_d} (gates: the window over both sides, position error "
@@ -4532,7 +4811,7 @@ def main() -> int:
     fe_run = run_fisheye(fe_in, fe_poses, device)
     slam_f, summary_f, _ = fe_run
     fe_s = time.perf_counter() - t1
-    launches_fe = read_counts()
+    launches_fe = path_counts()
     check_fisheye(summary_f, launches_fe)
     log(f"13 (a) fisheye stereo System (TUM-VI configuration): {summary_f}, {fe_s:.2f} s for {FISHEYE_FRAMES} frames "
         f"(gates: final OK, > 20 tracked, unscaled ATE < {FISHEYE_MAX_ATE} m, |scale - 1| < {FISHEYE_MAX_SCALE_ERR}; "
@@ -4543,7 +4822,7 @@ def main() -> int:
     log(f"launches in 13 (a): {launches_fe}")
     reset_counts()
     fe_reloc_track, fe_reloc_ms, fe_reloc_sum = run_fisheye_reloc(slam_f, fe_in, fe_poses, device)
-    launches_fr = read_counts()
+    launches_fr = path_counts()
     if launches_fr["pnp_ransac[kb8]"] < 1 or launches_fr["fisheye_stereo"] < 1:
         raise RuntimeError(f"13 (c): P in KB8 or AB never launched ({launches_fr})")
     log(f"13 (c) fisheye relocalisation on (a)'s map: {fe_reloc_sum}, the revisit of frame {FISHEYE_REVISIT} "
@@ -4555,7 +4834,7 @@ def main() -> int:
     reset_counts()
     t2 = time.perf_counter()
     _, summary_fv, _ = run_fisheye(fv_in, fv_poses, device, imu=fv_imu)
-    launches_fv = read_counts()
+    launches_fv = path_counts()
     check_fisheye(summary_fv, launches_fv, inertial=True)
     log(f"13 (b) fisheye stereo-inertial System: {summary_fv}, {time.perf_counter() - t2:.2f} s for "
         f"{FISHEYE_VI_FRAMES} frames ({t2 - t1:.1f} s to render; gates: {FISHEYE_VI_GATES})")
@@ -4575,7 +4854,7 @@ def main() -> int:
         t1 = time.perf_counter()
         slam_fl, summary_fl, snap_fl = run_fisheye_loop(fl_in, fl_poses, fl_imu, device, sensor)
         fl_s = time.perf_counter() - t1
-        launches_fl = read_counts()
+        launches_fl = path_counts()
         check_fisheye_loop(sensor, summary_fl, launches_fl)
         spans, lspans = slam_fl.timers.spans, slam_fl.loopcloser.timers.spans
         closing = int(np.argmax(spans["track_total"]))
@@ -4598,7 +4877,7 @@ def main() -> int:
         log(f"14 (c) default fisheye {sensor} System (async) on the circle at 20 fps: {summary_flc}, "
             f"{time.perf_counter() - t1:.1f} s (gates: drained in 120 s, no error" +
             (", IMU initialised" if sensor == "stereo-inertial" else "") + "; loops reported)")
-        log(f"launches in 14 (c) {sensor}: {read_counts()}")
+        log(f"launches in 14 (c) {sensor}: {path_counts()}")
     log(f"phase 14: {time.perf_counter() - t0:.1f} s")
 
     # 8. the plain (CPU) step, which the tests hold against the JAX package,

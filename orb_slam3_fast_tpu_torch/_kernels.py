@@ -59,8 +59,14 @@ SIGNATURES = {
     # (float64 sums), out (Hpp | Hll | bp | bl | w_lm | cost), stream
     "ba_blocks_launch": [_P, _I] + [_P] * 12 + [_I] * 3 + [_P] * 4,
     # Hpp, Hll, bp, bl, W, w_lm, pose_fixed, lm_valid, obs_kf, lm_ptr,
-    # lm_obs, lam, n_poses, n_lm, n_obs, S, bs, dp, dl, fail, stream
+    # lm_obs, lam, n_poses, n_lm, n_obs, S, bs, dp, dl, ok, stream
     "ba_schur_launch": [_P] * 12 + [_I] * 3 + [_P] * 6,
+    # cam10, kind, R, t, xw, dp, dl, lm_valid, obs_kf, obs_lm, obs_uv, inv_sigma2, is_stereo, obs_valid, inlier,
+    # cost_old, ok (kernel F's byte, or null), lam, n_obs, n_kf, n_lm, R_out, t_out, xw_out, lam_out, accept_out,
+    # cost_out, acc (one float64), stream
+    "ba_lm_update_launch": [_P, _I] + [_P] * 16 + [_I] * 3 + [_P] * 8,
+    # cam10, kind, R, t, xw, obs_kf, obs_lm, obs_uv, inv_sigma2, is_stereo, obs_valid, n_obs, inlier_out, stream
+    "ba_classify_launch": [_P, _I] + [_P] * 9 + [_I] + [_P] * 2,
     # P0, P1, x0, x1, n, X, stream
     "triangulate_dlt_launch": [_P, _P, _P, _P, _I, _P, _P],
     # img, shapes (host), offs (host), n_levels, taps (host), img_flat,

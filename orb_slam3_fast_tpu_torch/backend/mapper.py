@@ -6,9 +6,9 @@ Counterpart of ``orb_slam3_fast_tpu/backend/mapper.py`` (LocalMapping::Run,
 LocalMapping.cc:82-326), one synchronous pass per keyframe.  The map is the
 host ``WorldMap``; the device work goes to the port's kernels: kernel C's
 epipolar mode (``search_for_triangulation``) and window mode
-(``search_by_projection``), kernel G (``triangulate_dlt``) and kernels E
-and F (``bundle_adjust``), and for the global BA of loop closing
-(``_run_gba``) kernels E and T (``optim/ba_cg.bundle_adjust_cg``).  Shapes
+(``search_by_projection``), kernel G (``triangulate_dlt``) and kernels E,
+F and AC (``bundle_adjust``), and for the global BA of loop closing
+(``_run_gba``) kernels E, T and AC (``optim/ba_cg.bundle_adjust_cg``).  Shapes
 are padded as the JAX package pads them (``_bucket``, powers of two in
 ``_gather_problem``), so both packages see the same arrays.
 
@@ -23,7 +23,10 @@ and the global BA's problems are gathered and written back under the lock
 and solved outside it; the local BA is skipped when a newer keyframe
 waits (``abort_flag``), and the global BA polls its abort flag between LM
 segments, keyframes and landmarks made while it ran being carried along
-by ``correct_new_since_snapshot``.  Not ported yet: the distributed BA
+by ``correct_new_since_snapshot``.  A solve whose map was turned and
+scaled meanwhile (the tracker's IMU initialisation or scale refinement,
+``WorldMap.frame_epoch``) is discarded, not written back in the old frame
+(``n_ba_discarded``).  Not ported yet: the distributed BA
 (ROADMAP §A item 12).
 """
 from __future__ import annotations
@@ -159,6 +162,7 @@ class Mapper:
         self.recent_lm: list[np.ndarray] = []  # per recent keyframe: the landmark ids it created
         self.n_local_ba = 0
         self.n_ba_skipped = 0  # local BAs skipped because a newer keyframe waited
+        self.n_ba_discarded = 0  # local and global BAs whose map changed frame while they were solved
         self.n_triangulated = 0
 
     def initial_ba(self, world: WorldMap, kf_ids):
@@ -471,9 +475,10 @@ class Mapper:
     def _gather_problem(self, world: WorldMap, kf_ids, fixed, lm_cap=None, obs_cap=None, lock=None):
         """COO observation gather (under ``lock``) and power-of-two padding,
         as the JAX package pads; ``lm_cap`` / ``obs_cap`` None gather all.
-        Returns (prob, lm_ids, obs_kf, obs_lm, slots, pose_fixed, n_o) or
-        None."""
+        Returns (prob, lm_ids, obs_kf, obs_lm, slots, pose_fixed, n_o, the
+        map's frame epoch at the gather) or None."""
         with lock if lock is not None else contextlib.nullcontext():
+            epoch = world.frame_epoch
             lm_ids = world.local_landmarks(kf_ids)
             if len(lm_ids) == 0:
                 return None
@@ -519,7 +524,7 @@ class Mapper:
             world.kf_R[kf_pad], world.kf_t[kf_pad], pose_fixed, world.lm_pos[lm_pad], lm_valid, o_kf, o_lm, o_uv,
             o_is2, o_stereo, o_valid, device=self.device,
         )
-        return prob, lm_ids, obs_kf, obs_lm, slots, pose_fixed, n_o
+        return prob, lm_ids, obs_kf, obs_lm, slots, pose_fixed, n_o, epoch
 
     @staticmethod
     def _read_back(kf_ids, lm_ids, n_o, R, t, xw, inlier):
@@ -541,18 +546,29 @@ class Mapper:
         np.subtract.at(world.lm_n_obs, lm_ids[obs_lm][bad], 1)
         world.change_index += 1  # Map::IncreaseChangeIndex (Map.cc:306)
 
+    def _stale(self, world: WorldMap, epoch: int) -> bool:
+        """Whether the map changed frame since a gather at ``epoch`` (the
+        caller holds the lock); such a solve is counted and discarded."""
+        if world.frame_epoch == epoch:
+            return False
+        self.n_ba_discarded += 1
+        return True
+
     def _run_ba(self, world: WorldMap, kf_ids: np.ndarray, fixed: np.ndarray, iters=(5, 10), map_lock=None):
         """The problem gathered and written back under ``map_lock``, solved
-        (kernels E and F) outside it."""
+        (kernels E, F and AC) outside it; discarded where the map changed
+        frame meanwhile."""
         lock = map_lock if map_lock is not None else contextlib.nullcontext()
         got = self._gather_problem(world, kf_ids, fixed, lm_cap=self.cfg.ba_lm_cap, obs_cap=self.cfg.ba_obs_cap,
                                    lock=lock)
         if got is None:
             return
-        prob, lm_ids, obs_kf, obs_lm, slots, pose_fixed, n_o = got
+        prob, lm_ids, obs_kf, obs_lm, slots, pose_fixed, n_o, epoch = got
         R, t, xw, inlier = ba.bundle_adjust(self.cam, self.bf, prob, iters1=iters[0], iters2=iters[1])
         solved = self._read_back(kf_ids, lm_ids, n_o, R, t, xw, inlier)
         with lock:
+            if self._stale(world, epoch):
+                return
             self._write_back(world, kf_ids, lm_ids, obs_kf, obs_lm, slots, pose_fixed, *solved)
         self.n_local_ba += 1
 
@@ -560,7 +576,7 @@ class Mapper:
                  abort_flag=None, distributed: bool = False, cg_iters: int = 32) -> bool:
         """Global BA over every given keyframe, all their landmarks and every
         observation, with no cap (Optimizer::GlobalBundleAdjustemnt,
-        Optimizer.cc:47-373), through kernels E and T
+        Optimizer.cc:47-373), through kernels E, T and AC
         (``ba_cg.bundle_adjust_cg``, host segments with ``abort_flag`` polled
         between them); never through kernel F, whose reduced system holds at
         most ``ba.MAX_POSES`` poses.  ``map_lock`` is held while the problem
@@ -568,8 +584,9 @@ class Mapper:
         landmarks made meanwhile follow through ``correct_new_since_snapshot``.
         ``distributed`` shards the observations over the devices where there
         are several (ROADMAP §A item 12); on one device it changes nothing.
-        Returns True when the BA ran to its end (an aborted one is
-        discarded, LoopClosing.cc:2412-2422)."""
+        Returns True when the BA ran to its end and was written back (an
+        aborted one is discarded, LoopClosing.cc:2412-2422, and so is one
+        whose map changed frame meanwhile)."""
         if distributed and self.device.type == "cuda" and torch.cuda.device_count() > 1:
             raise NotImplementedError("the global BA over several devices waits for ROADMAP §A item 12 "
                                       "(multi-device)")
@@ -577,7 +594,7 @@ class Mapper:
         got = self._gather_problem(world, kf_ids, fixed, lock=lock)
         if got is None:
             return False
-        prob, lm_ids, obs_kf, obs_lm, slots, pose_fixed, n_o = got
+        prob, lm_ids, obs_kf, obs_lm, slots, pose_fixed, n_o, epoch = got
         with lock:
             K_snap, M_snap = world.n_kf, world.n_lm
             R_before, t_before = world.kf_R[:K_snap].copy(), world.kf_t[:K_snap].copy()
@@ -587,6 +604,8 @@ class Mapper:
             return False
         solved = self._read_back(kf_ids, lm_ids, n_o, R, t, xw, inlier)
         with lock:
+            if self._stale(world, epoch):
+                return False
             self._write_back(world, kf_ids, lm_ids, obs_kf, obs_lm, slots, pose_fixed, *solved)
             correct_new_since_snapshot(world, K_snap, M_snap, R_before, t_before)
         return True

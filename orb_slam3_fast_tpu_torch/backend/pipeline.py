@@ -23,7 +23,11 @@ reference keyframe when the map changed under it):
 * one re-entrant map lock bounds the sections that touch the shared host
   map (the tracker's keyframe insertion, the workers' problem gathers and
   write-backs); ``map_version`` counts the workers' map updates, which the
-  tracker compares with what it saw last.
+  tracker compares with what it saw last;
+* a worker's BA whose map the tracker turned and scaled between its
+  gather and its write-back (the IMU initialisation, the scale
+  refinement: ``WorldMap.frame_epoch``) is discarded and counted
+  (``Mapper.n_ba_discarded``, ``InertialTracker.n_ba_discarded``).
 
 Device work: each thread launches its kernels on a CUDA stream of its own,
 entered for the thread's whole life, so that the tracker's frames, the

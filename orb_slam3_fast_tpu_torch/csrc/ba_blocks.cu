@@ -8,19 +8,19 @@
 // runs on the card would drift apart.  The camera's kind is a template
 // parameter (camera.cuh): a radial-tangential camera takes the kRadtan
 // instance, a Kannala-Brandt one kKB8, one without distortion the code it
-// always ran.  See the source note in optim/ba.py; build_normal_blocks_plain
-// there is the JAX form with the dense Z.
+// always ran.  The residual and the robust cost are ba_obs.cuh's, which
+// kernel AC (ba_lm.cu) shares.  See the source note in optim/ba.py;
+// build_normal_blocks_plain there is the JAX form with the dense Z.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "ba_obs.cuh"
 #include "camera.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr float kChi2Mono = 5.991f;
-constexpr float kChi2Stereo = 7.815f;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 template <int kCam>
@@ -43,42 +43,20 @@ ba_blocks_kernel(const float* __restrict__ cam10, const float* __restrict__ R,
   const int o = blockIdx.x * kThreads + threadIdx.x;
   float rho = 0.f;
   if (o < n_obs) {
-    const float fx = cam10[0], fy = cam10[1], cx = cam10[2], cy = cam10[3], bf = cam10[4];
+    const float fx = cam10[0], fy = cam10[1], bf = cam10[4];
     const int k = obs_kf[o], m = obs_lm[o];
     const float* Rk = R + 9 * k;
-    const float X = xw[3 * m], Y = xw[3 * m + 1], Z = xw[3 * m + 2];
-    float xc[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) xc[i] = Rk[3 * i] * X + Rk[3 * i + 1] * Y + Rk[3 * i + 2] * Z + t[3 * k + i];
-    const float z = fabsf(xc[2]) < 1e-9f ? 1e-9f : xc[2];
-    const float iz = 1.f / z;
-    float u, v;
-    cam::Radtan dist = {};
-    if constexpr (kCam == cam::kKB8) {
-      cam::kb8_project(cam::kb8_from10(cam10), xc[0], xc[1], xc[2], u, v);
-    } else if constexpr (kCam == cam::kRadtan) {
-      dist = {cam10[5], cam10[6], cam10[7], cam10[8], cam10[9]};
-      float xd, yd;
-      cam::distort(dist, xc[0] / z, xc[1] / z, xd, yd);
-      u = fx * xd + cx;
-      v = fy * yd + cy;
-    } else {
-      u = fx * (xc[0] * iz) + cx;
-      v = fy * (xc[1] * iz) + cy;
-    }
     const bool stereo = is_stereo[o];
-    float r[3];
-    r[0] = obs_uv[3 * o] - u;
-    r[1] = obs_uv[3 * o + 1] - v;
-    r[2] = stereo ? obs_uv[3 * o + 2] - (u - bf * iz) : 0.f;
     const float s2 = inv_s2[o];
-    const float chi2 = (r[0] * r[0] + r[1] * r[1] + r[2] * r[2]) * s2;
-    const float delta2 = stereo ? kChi2Stereo : kChi2Mono;
+    const ba_obs::Residual ob =
+        ba_obs::residual<kCam, false>(cam10, Rk, t + 3 * k, xw + 3 * m, obs_uv + 3 * o, stereo, s2);
+    const float(&xc)[3] = ob.xc;
+    const float(&r)[3] = ob.r;
+    const float iz = ob.iz, chi2 = ob.chi2, delta2 = ob.delta2;
     const bool active = obs_valid[o] && inlier[o] && xc[2] > 0.05f && lm_valid[m];
     const float w_h = chi2 <= delta2 ? 1.f : sqrtf(delta2 / fmaxf(chi2, 1e-12f));
     const float w = active ? w_h * s2 : 0.f;
-    if (active)
-      rho = chi2 <= delta2 ? chi2 : 2.f * sqrtf(delta2 * fmaxf(chi2, 1e-12f)) - delta2;
+    if (active) rho = ba_obs::huber_rho(chi2, delta2);
     const bool free_pose = !pose_fixed[k];
     // rows a of d(u, v, u_r)/d(xc); Jp row = -(a [I | -hat(xc)]), Jl row = -(a R);
     // the signs cancel in every product below except b = -J^T w r
@@ -91,7 +69,7 @@ ba_blocks_kernel(const float* __restrict__ cam10, const float* __restrict__ R,
       if constexpr (kCam == cam::kKB8)
         cam::kb8_jac(cam::kb8_from10(cam10), xc[0], xc[1], xc[2], J);
       else
-        cam::pixel_jac(fx, fy, dist, xn, yn, iz, J);
+        cam::pixel_jac(fx, fy, ob.dist, xn, yn, iz, J);
       for (int k = 0; k < 3; ++k) {
         A[0][k] = A[2][k] = J[0][k];
         A[1][k] = J[1][k];
@@ -172,8 +150,11 @@ extern "C" int ba_blocks_launch(const float* cam10, int kind, const float* R, co
                                 const uint8_t* obs_valid, const uint8_t* inlier, int n_obs,
                                 int n_kf, int n_lm, float* W, double* acc, float* out,
                                 void* stream) {
-  // acc: the zeroed float64 sums; out: the same layout in float32
+  // acc: the float64 sums, zeroed here; out: the same layout in float32
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n = 42 * n_kf + 13 * n_lm + 1;
+  cudaError_t err = cudaMemsetAsync(acc, 0, sizeof(double) * n, st);
+  if (err != cudaSuccess) return err;
   if (n_obs > 0) {
     const int grid = (n_obs + kThreads - 1) / kThreads;
     if (kind == cam::kKB8)
@@ -189,7 +170,6 @@ extern "C" int ba_blocks_launch(const float* cam10, int kind, const float* R, co
                                                                  obs_lm, obs_uv, inv_s2, is_stereo, obs_valid, inlier,
                                                                  n_obs, n_kf, n_lm, W, acc);
   }
-  const int n = 42 * n_kf + 13 * n_lm + 1;
   const int grid = (n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024;
   round_kernel<<<grid, 256, 0, st>>>(acc, out, n);
   return cudaGetLastError();

@@ -7,10 +7,10 @@
 // adds the damped pose blocks and the gauge terms and solves the (6K)^2
 // system by Cholesky in float64 shared memory; (3) per landmark, the
 // back-substitution of dl.  A Cholesky pivot <= 0 (an indefinite reduced
-// system) sets the flag ``fail`` in device memory; dp and dl are then zero
-// and the wrapper reports the solve as failed, so that the LM step is
-// rejected.  See the source note in optim/ba.py; schur_solve_plain there is
-// the JAX form.
+// system) clears the byte ``ok`` in device memory; dp and dl are then zero,
+// and kernel AC (ba_lm.cu) reads the byte and rejects the LM step.  The entry
+// zeroes S and b_s itself.  See the source note in optim/ba.py;
+// schur_solve_plain there is the JAX form.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -154,7 +154,7 @@ __global__ void __launch_bounds__(kSolveThreads)
 schur_solve_kernel(const float* __restrict__ Hpp, const float* __restrict__ bp,
                    const uint8_t* __restrict__ pose_fixed, const float* __restrict__ lam_p, int n6,
                    const double* __restrict__ S, const double* __restrict__ bs,
-                   float* __restrict__ dp, int* __restrict__ fail_out) {
+                   float* __restrict__ dp, uint8_t* __restrict__ ok_out) {
   extern __shared__ double sm[];
   double* L = sm;                       // packed lower triangle, n6 (n6 + 1) / 2
   double* y = sm + n6 * (n6 + 1) / 2;   // right-hand side, then the solution
@@ -223,7 +223,7 @@ schur_solve_kernel(const float* __restrict__ Hpp, const float* __restrict__ bp,
   __syncthreads();
   for (int i = tid; i < n6; i += kSolveThreads)
     dp[i] = (fail || pose_fixed[i / 6]) ? 0.f : (float)y[i];
-  if (tid == 0) *fail_out = fail;
+  if (tid == 0) *ok_out = fail ? 0 : 1;
 }
 
 __global__ void __launch_bounds__(kBacksubThreads)
@@ -232,11 +232,11 @@ schur_backsub_kernel(const float* __restrict__ Hll, const float* __restrict__ bl
                      const uint8_t* __restrict__ lm_valid, const int* __restrict__ obs_kf,
                      const int* __restrict__ lm_ptr, const int* __restrict__ lm_obs,
                      const float* __restrict__ lam_p, const float* __restrict__ dp,
-                     const int* __restrict__ fail, int n_lm, float* __restrict__ dl) {
+                     const uint8_t* __restrict__ ok, int n_lm, float* __restrict__ dl) {
   const int m = blockIdx.x * kBacksubThreads + threadIdx.x;
   if (m >= n_lm) return;
   const bool seen = w_lm[m] > 0.f;
-  if (!(seen && lm_valid[m]) || *fail) {
+  if (!(seen && lm_valid[m]) || !*ok) {
     dl[3 * m] = dl[3 * m + 1] = dl[3 * m + 2] = 0.f;
     return;
   }
@@ -262,26 +262,29 @@ extern "C" int ba_schur_launch(const float* Hpp, const float* Hll, const float* 
                                const float* W, const float* w_lm, const uint8_t* pose_fixed,
                                const uint8_t* lm_valid, const int* obs_kf, const int* lm_ptr,
                                const int* lm_obs, const float* lam, int n_poses, int n_lm, int n_obs,
-                               double* S, double* bs, float* dp, float* dl, int* fail,
+                               double* S, double* bs, float* dp, float* dl, uint8_t* ok,
                                void* stream) {
   (void)n_obs;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n6 = 6 * n_poses;
+  cudaError_t err = cudaMemsetAsync(S, 0, sizeof(double) * n6 * n6, st);
+  if (err == cudaSuccess) err = cudaMemsetAsync(bs, 0, sizeof(double) * n6, st);
+  if (err != cudaSuccess) return err;
   if (n_lm > 0) {
     schur_reduce_kernel<<<n_poses * (n_poses + 1) / 2, kReduceThreads, 0, st>>>(
         Hll, bl, W, w_lm, pose_fixed, obs_kf, lm_ptr, lm_obs, lam, n_lm, n_poses, S, bs);
-    cudaError_t err = cudaGetLastError();
+    err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   const size_t smem = ((size_t)n6 * (n6 + 1) / 2 + n6) * sizeof(double);
-  cudaError_t err = cudaFuncSetAttribute(schur_solve_kernel,
+  err = cudaFuncSetAttribute(schur_solve_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  schur_solve_kernel<<<1, kSolveThreads, smem, st>>>(Hpp, bp, pose_fixed, lam, n6, S, bs, dp, fail);
+  schur_solve_kernel<<<1, kSolveThreads, smem, st>>>(Hpp, bp, pose_fixed, lam, n6, S, bs, dp, ok);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (n_lm > 0)
     schur_backsub_kernel<<<(n_lm + kBacksubThreads - 1) / kBacksubThreads, kBacksubThreads, 0, st>>>(
-        Hll, bl, W, w_lm, lm_valid, obs_kf, lm_ptr, lm_obs, lam, dp, fail, n_lm, dl);
+        Hll, bl, W, w_lm, lm_valid, obs_kf, lm_ptr, lm_obs, lam, dp, ok, n_lm, dl);
   return cudaGetLastError();
 }

@@ -107,6 +107,7 @@ class InertialTracker(Tracker):
         self._pred_vel = None
         self._imu_init_ts = 0.0
         self._last_scale_refine: float | None = None
+        self.n_ba_discarded = 0  # inertial BAs of a worker whose map changed frame while they were solved
 
     def _t(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, dtype=np.float32)).to(self.device)
@@ -456,8 +457,11 @@ class InertialTracker(Tracker):
         gather and the write-back under the map lock.  The states are padded
         to the JAX package's power-of-2 bucket with repeats of the newest
         keyframe, fixed; the padded edges are invalid.  Returns the real
-        keyframe ids, or None."""
+        keyframe ids, or None (also where the map changed frame while the
+        solve ran: a loop closer's call on the worker, discarded and
+        counted in ``n_ba_discarded``)."""
         with self._map_lock():
+            epoch = w.frame_epoch
             gathered = self._gather_windowed_viba(w, real_ids, edges, fixed_real, min_bucket)
         if gathered is None:
             return None
@@ -468,6 +472,9 @@ class InertialTracker(Tracker):
         real = kf_ids[:n_real]
         free_r = free[:n_real]
         with self._map_lock():
+            if w.frame_epoch != epoch:  # turned and scaled meanwhile (a loop closer's call on the worker)
+                self.n_ba_discarded += 1
+                return None
             w.kf_R[kf_ids[free]] = lie.normalize_rotation_np(host(Rc)[free])
             w.kf_t[kf_ids[free]] = host(tc)[free]
             w.kf_vel[real[free_r]] = host(v2)[:n_real][free_r]
@@ -625,10 +632,12 @@ class InertialTracker(Tracker):
         correction (``correct_new_since_snapshot``), their velocities turned
         with their poses, and an outlier observation is erased only where
         its slot still holds the landmark that was gathered.  Returns True
-        when the solve completed (False: aborted, or nothing to solve)."""
+        when the solve completed (False: aborted, nothing to solve, or the
+        map changed frame while it ran, ``n_ba_discarded``)."""
         w = world
         lock = map_lock if map_lock is not None else contextlib.nullcontext()
         with lock:
+            epoch = w.frame_epoch
             gathered = self.full_inertial_problem(w, fixed_ids)
             if gathered is None:
                 return False
@@ -643,6 +652,9 @@ class InertialTracker(Tracker):
         Rc, tc = camera_from_body(self.T_cb, R2, p2)
         Rc, tc, v2, b2, xw2, inl = (host(x) for x in (Rc, tc, v2, b2, xw2, inlier))
         with lock:
+            if w.frame_epoch != epoch:  # the tracker turned and scaled the map while the solve ran
+                self.n_ba_discarded += 1
+                return False
             free = ~fixed
             w.kf_R[kf_ids[free]] = lie.normalize_rotation_np(Rc[free])
             w.kf_t[kf_ids[free]] = tc[free]

@@ -62,6 +62,8 @@ class WorldMap:
         K, N, M = self.max_kf, self.kp_cap, self.max_lm
         self.n_kf = 0
         self.change_index = 0  # Map::IncreaseChangeIndex (Map.cc:306-324)
+        # the map's frame: apply_scaled_rotation moves it; a BA gathered in one frame is not written back in another
+        self.frame_epoch = 0
         # gauge anchors fixed in every local BA (GetInitKFid, Optimizer.cc:1224)
         self.init_kf_ids: list = []
         self.kf_valid = np.zeros(K, dtype=bool)
@@ -274,9 +276,11 @@ class WorldMap:
     def apply_scaled_rotation(self, R_yw: np.ndarray, s: float):
         """The gauge transform after IMU initialisation (Map::
         ApplyScaledRotation, Map.cc:231-265): landmarks x <- s R_yw x; poses
-        R_cw <- R_cw R_yw^T, t_cw <- s t_cw; velocities s R_yw v."""
+        R_cw <- R_cw R_yw^T, t_cw <- s t_cw; velocities s R_yw v.  Moves
+        ``frame_epoch``."""
         K = self.n_kf
         self.change_index += 1
+        self.frame_epoch += 1
         R_yw = np.asarray(R_yw, dtype=np.float32)
         s = float(s)
         self.kf_R[:K] = normalize_rotation_np(self.kf_R[:K] @ R_yw.T)

@@ -8,8 +8,9 @@ the landmarks back-substituted.  The schedule is the reference's: ``iters1``
 LM iterations, chi2 reclassification of the observations (5.991 / 7.815),
 ``iters2`` more, and a final classification.  An LM step is accepted when
 the robust cost drops (``cost_new < cost_old``); the decision and the
-damping update stay on the device (``torch.where``), with no host read per
-iteration.
+damping update stay on the device, with no host read per iteration.  On
+the card an iteration is kernels E -> F -> AC on the caller's stream and
+launches no other operation.
 
 ``build_normal_blocks`` and ``schur_solve`` are the wrappers of kernels E
 (``csrc/ba_blocks.cu``) and F (``csrc/ba_schur.cu``).  Their plain versions
@@ -68,13 +69,41 @@ Kernel F -- source note.
   solves by two warp-parallel substitutions.  (3) One thread per landmark
   back-substitutes ``dl = V^-1 (bl - sum W_o^T dp)``.  The damping ``lam``
   is read from device memory.  6K <= 192 (K <= 32 padded poses).  A
-  Cholesky pivot <= 0 sets a flag in device memory and zeroes dp and dl;
-  the wrapper returns the flag as ``ok``, which the LM step folds into its
-  accept with no host read.  Where the reduced system is indefinite but
-  not singular, the reference's LU solve still gives a step; F rejects it.
+  Cholesky pivot <= 0 clears a byte in device memory and zeroes dp and
+  dl; the wrapper returns the byte as ``ok``, which kernel AC folds into
+  its accept with no host read.  The entry zeroes its own sums.  Where the
+  reduced system is indefinite but not singular, the reference's LU solve
+  still gives a step; F rejects it.
+
+Kernel AC -- source note.
+  Replaces: the rest of the LM iteration of ``bundle_adjust``
+  (``orb_slam3_fast_tpu/optim/ba.py:151-203``, K12: ``apply_update``, the
+  residuals and robust cost at the candidate, the accept and the damping
+  under ``jnp.where``, and the chi2 reclassification) and of the global
+  BA's ``lm_segment`` and ``classify`` (``orb_slam3_fast_tpu/optim/
+  ba_cg.py:190, 205``, K21), which the JAX package compiles into the same
+  XLA programs as E's and F's (T's) work.  ``lm_update`` and ``classify``
+  are its two entries; ``lm_update_plain`` and ``classify_plain`` the JAX
+  code in PyTorch.
+  Bound on the card: launch latency.  An update reads the observation
+  table and the state (~0.6 MB at the mapper's caps, ~0.2 us at the HBM
+  rate) and does ~100 flops per observation.
+  Design: three launches on the caller's stream: (1) one thread per pose
+  forms exp(dp) T in float32 (``lie.se3_exp``'s branches), one per
+  landmark xw + dl, into the outputs; (2) one thread per observation, the
+  residual and Huber cost of ``csrc/ba_obs.cuh`` at the candidate, kernel
+  E's code (the products E's Jacobian reuses, which the compiler leaves
+  unfused there, pinned unfused here), reduced as E reduces its cost (a
+  warp shuffle, float64 atomics, rounded to float32), so that at one state
+  the two costs are the same bits and a zero step is rejected; (3) accept =
+  ok & (cost_new < cost_old), the damping halved or multiplied by 5, and
+  the old state copied back where the step is rejected.  ``ok`` is kernel
+  F's byte; T has none.  The classification is one launch, one thread per
+  observation.  The camera's kind is a template parameter, as for E.
 """
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -250,6 +279,21 @@ def coupling_to_dense(coupling, prob: BAProblem) -> torch.Tensor:
     return Z.reshape(M, K, 6, 3)
 
 
+_DEVICE_CAMERAS = threading.local()
+
+
+def _device_camera(cam, bf, dev, name: str):
+    """``kernel_camera``'s slots on ``dev`` and the camera's kind, uploaded
+    once per thread and camera: an upload from pageable host memory waits
+    for the stream, which would stall every LM iteration."""
+    cam10, kind = kernel_camera(cam, bf, name)
+    key = (tuple(cam10.tolist()), str(dev))
+    cache = _DEVICE_CAMERAS.__dict__.setdefault("slots", {})
+    if key not in cache:
+        cache[key] = cam10.to(dev)
+    return cache[key], kind
+
+
 def build_normal_blocks(cam, bf, R, t, xw, prob: BAProblem, inlier):
     """Kernel E on CUDA tensors, its plain version on CPU ones.  Returns
     (Hpp, Hll, bp, bl, coupling, w_lm, cost): the coupling is the dense Z
@@ -270,10 +314,9 @@ def _blocks_kernel(cam, bf, R, t, xw, prob, inlier):
     )
     dev = R.device
     K, M, O = R.shape[0], xw.shape[0], prob.obs_kf.shape[0]
-    cam10, kind = kernel_camera(cam, bf, "kernel E")
-    cam10 = cam10.to(dev)
+    cam10, kind = _device_camera(cam, bf, dev, "kernel E")
     sizes = (K * 36, M * 9, K * 6, M * 3, M, 1)  # Hpp, Hll, bp, bl, w_lm, cost in one buffer
-    acc = torch.zeros(sum(sizes), dtype=torch.float64, device=dev)
+    acc = torch.empty(sum(sizes), dtype=torch.float64, device=dev)  # zeroed by the entry
     out = torch.empty(sum(sizes), dtype=f32, device=dev)
     W = torch.empty((O, 6, 3), dtype=f32, device=dev)
     _kernels.launch(
@@ -302,7 +345,8 @@ def schur_solve(Hpp, Hll, bp, bl, coupling, w_lm, prob: BAProblem, lam):
     is what ``build_normal_blocks`` returned, ``lam`` a () float32 tensor.
     Returns (dp (K,6), dl (M,3), ok ()): ``ok`` is a bool tensor on the
     device, False where the solve failed (kernel F: the reduced system was
-    not positive definite, and dp and dl are zero)."""
+    not positive definite, and dp and dl are zero; its byte, which kernel AC
+    reads)."""
     if Hpp.device.type == "cpu":
         return _solve_plain(Hpp, Hll, bp, bl, coupling, w_lm, prob, lam)
     f32, i32, b = torch.float32, torch.int32, torch.bool
@@ -316,19 +360,19 @@ def schur_solve(Hpp, Hll, bp, bl, coupling, w_lm, prob: BAProblem, lam):
     if K > MAX_POSES or coupling.shape[1:] != (6, 3) or prob.lm_ptr.shape[0] != M + 1:
         raise ValueError(f"schur_solve: needs K <= {MAX_POSES}, the per-observation W and an (M+1,) lm_ptr")
     dev = Hpp.device
-    S = torch.zeros((6 * K, 6 * K), dtype=torch.float64, device=dev)  # lower triangle of -S_coup
-    bs = torch.zeros(6 * K, dtype=torch.float64, device=dev)  # -Z V^-1 bl
+    S = torch.empty((6 * K, 6 * K), dtype=torch.float64, device=dev)  # lower triangle of -S_coup; the entry zeroes
+    bs = torch.empty(6 * K, dtype=torch.float64, device=dev)  # -Z V^-1 bl; the entry zeroes
     dp = torch.empty((K, 6), dtype=f32, device=dev)
     dl = torch.empty((M, 3), dtype=f32, device=dev)
-    fail = torch.empty((), dtype=i32, device=dev)
+    ok = torch.empty((), dtype=b, device=dev)
     _kernels.launch(
         "ba_schur_launch", dev, Hpp.data_ptr(), Hll.data_ptr(), bp.data_ptr(), bl.data_ptr(), coupling.data_ptr(),
         w_lm.data_ptr(), prob.pose_fixed.data_ptr(), prob.lm_valid.data_ptr(), prob.obs_kf.data_ptr(),
         prob.lm_ptr.data_ptr(), prob.lm_obs.data_ptr(), lam.data_ptr(), K, M, O, S.data_ptr(), bs.data_ptr(),
-        dp.data_ptr(), dl.data_ptr(), fail.data_ptr(),
+        dp.data_ptr(), dl.data_ptr(), ok.data_ptr(),
     )
     schur_solve.launches.add()
-    return dp, dl, fail == 0
+    return dp, dl, ok
 
 
 schur_solve.launches = _kernels.LaunchCounter()
@@ -339,40 +383,130 @@ def apply_update(R, t, xw, dp, dl):
     return dT.R @ R, torch.einsum("kij,kj->ki", dT.R, t) + dT.t, xw + dl
 
 
-def _bundle_adjust(cam, bf, prob: BAProblem, iters1: int, iters2: int, blocks, solve):
-    def lm_step(R, t, xw, inlier, lam):
-        Hpp, Hll, bp, bl, C, w_lm, cost_old = blocks(cam, bf, R, t, xw, prob, inlier)
-        dp, dl, ok = solve(Hpp, Hll, bp, bl, C, w_lm, prob, lam)
-        R_new, t_new, xw_new = apply_update(R, t, xw, dp, dl)
-        r_new, _, posd_new = _obs_residuals(cam, bf, R_new, t_new, xw_new, prob)
-        cost_new, _ = _robust_cost(r_new, prob, _active(prob, inlier, posd_new))
-        accept = ok & (cost_new < cost_old)
-        lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-8), torch.clamp(lam * 5.0, max=1e6))
-        return torch.where(accept, R_new, R), torch.where(accept, t_new, t), torch.where(accept, xw_new, xw), lam
+def lm_update_plain(cam, bf, prob: BAProblem, R, t, xw, dp, dl, inlier, cost_old, ok, lam):
+    """Plain version of kernel AC's first entry: the candidate state, its
+    robust cost, accept = ok & (cost_new < cost_old) (``ok`` None: the
+    cost test alone, as the global BA has it) and the damping halved or
+    multiplied by 5.  Returns (R, t, xw, lam, accept, cost_new)."""
+    R_new, t_new, xw_new = apply_update(R, t, xw, dp, dl)
+    r_new, _, posd_new = _obs_residuals(cam, bf, R_new, t_new, xw_new, prob)
+    cost_new, _ = _robust_cost(r_new, prob, _active(prob, inlier, posd_new))
+    accept = cost_new < cost_old
+    if ok is not None:
+        accept = ok & accept
+    lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-8), torch.clamp(lam * 5.0, max=1e6))
+    return (torch.where(accept, R_new, R), torch.where(accept, t_new, t), torch.where(accept, xw_new, xw), lam, accept,
+            cost_new)
 
+
+def lm_update(cam, bf, prob: BAProblem, R, t, xw, dp, dl, inlier, cost_old, ok, lam):
+    """Kernel AC's first entry on CUDA tensors, its plain version on CPU
+    ones: the LM iteration's update, cost, accept and damping after the
+    step (dp (K,6), dl (M,3)).  ``cost_old`` is the cost the blocks
+    returned, ``ok`` kernel F's flag (None after kernel T), ``lam`` a ()
+    float32 tensor.  Returns (R, t, xw, lam, accept, cost_new), all on the
+    device."""
+    if R.device.type == "cpu":
+        return lm_update_plain(cam, bf, prob, R, t, xw, dp, dl, inlier, cost_old, ok, lam)
+    return _lm_update_kernel(cam, bf, prob, R, t, xw, dp, dl, inlier, cost_old, ok, lam)
+
+
+def _lm_update_kernel(cam, bf, prob: BAProblem, R, t, xw, dp, dl, inlier, cost_old, ok, lam):
+    """Kernel AC's first entry: three launches."""
+    f32, i32, b = torch.float32, torch.int32, torch.bool
+    checked = dict(R=(R, f32), t=(t, f32), xw=(xw, f32), dp=(dp, f32), dl=(dl, f32), lm_valid=(prob.lm_valid, b),
+                   obs_kf=(prob.obs_kf, i32), obs_lm=(prob.obs_lm, i32), obs_uv=(prob.obs_uv, f32),
+                   obs_inv_sigma2=(prob.obs_inv_sigma2, f32), obs_is_stereo=(prob.obs_is_stereo, b),
+                   obs_valid=(prob.obs_valid, b), inlier=(inlier, b), cost_old=(cost_old, f32), lam=(lam, f32))
+    if ok is not None:
+        checked["ok"] = (ok, b)
+    _kernels.require_cuda("lm_update", **checked)
+    dev = R.device
+    K, M, O = R.shape[0], xw.shape[0], prob.obs_kf.shape[0]
+    cam10, kind = _device_camera(cam, bf, dev, "kernel AC")
+    R_out, t_out, xw_out = torch.empty_like(R), torch.empty_like(t), torch.empty_like(xw)
+    lam_out, cost = torch.empty((), dtype=f32, device=dev), torch.empty((), dtype=f32, device=dev)
+    accept = torch.empty((), dtype=b, device=dev)
+    acc = torch.empty(1, dtype=torch.float64, device=dev)
+    _kernels.launch(
+        "ba_lm_update_launch", dev, cam10.data_ptr(), kind, R.data_ptr(), t.data_ptr(), xw.data_ptr(), dp.data_ptr(),
+        dl.data_ptr(), prob.lm_valid.data_ptr(), prob.obs_kf.data_ptr(), prob.obs_lm.data_ptr(),
+        prob.obs_uv.data_ptr(), prob.obs_inv_sigma2.data_ptr(), prob.obs_is_stereo.data_ptr(),
+        prob.obs_valid.data_ptr(), inlier.data_ptr(), cost_old.data_ptr(), None if ok is None else ok.data_ptr(),
+        lam.data_ptr(), O, K, M, R_out.data_ptr(), t_out.data_ptr(), xw_out.data_ptr(), lam_out.data_ptr(),
+        accept.data_ptr(), cost.data_ptr(), acc.data_ptr(),
+    )
+    lm_update.launches.add(camera=CAMERA_NAMES[kind])
+    return R_out, t_out, xw_out, lam_out, accept, cost
+
+
+lm_update.launches = _kernels.LaunchCounter()  # by camera instance: "", "radtan", "kb8"
+
+
+def classify_plain(cam, bf, prob: BAProblem, R, t, xw):
+    """Plain version of kernel AC's second entry: the chi2 inlier gate
+    (Optimizer.cc:1347-1365, 1398-1420)."""
+    r, _, posd = _obs_residuals(cam, bf, R, t, xw, prob)
+    chi2 = torch.sum(r * r, dim=-1) * prob.obs_inv_sigma2
+    return (chi2 <= _delta2(prob)) & posd & prob.obs_valid
+
+
+def classify(cam, bf, prob: BAProblem, R, t, xw):
+    """Kernel AC's second entry on CUDA tensors, its plain version on CPU
+    ones: (O,) bool, the observations within their chi2 bound, in front of
+    the camera and valid."""
+    if R.device.type == "cpu":
+        return classify_plain(cam, bf, prob, R, t, xw)
+    return _classify_kernel(cam, bf, prob, R, t, xw)
+
+
+def _classify_kernel(cam, bf, prob: BAProblem, R, t, xw):
+    """Kernel AC's second entry: one launch."""
+    f32, i32, b = torch.float32, torch.int32, torch.bool
+    _kernels.require_cuda(
+        "classify", R=(R, f32), t=(t, f32), xw=(xw, f32), obs_kf=(prob.obs_kf, i32), obs_lm=(prob.obs_lm, i32),
+        obs_uv=(prob.obs_uv, f32), obs_inv_sigma2=(prob.obs_inv_sigma2, f32), obs_is_stereo=(prob.obs_is_stereo, b),
+        obs_valid=(prob.obs_valid, b),
+    )
+    dev = R.device
+    O = prob.obs_kf.shape[0]
+    cam10, kind = _device_camera(cam, bf, dev, "kernel AC")
+    inlier = torch.empty(O, dtype=b, device=dev)
+    _kernels.launch(
+        "ba_classify_launch", dev, cam10.data_ptr(), kind, R.data_ptr(), t.data_ptr(), xw.data_ptr(),
+        prob.obs_kf.data_ptr(), prob.obs_lm.data_ptr(), prob.obs_uv.data_ptr(), prob.obs_inv_sigma2.data_ptr(),
+        prob.obs_is_stereo.data_ptr(), prob.obs_valid.data_ptr(), O, inlier.data_ptr(),
+    )
+    classify.launches.add(camera=CAMERA_NAMES[kind])
+    return inlier
+
+
+classify.launches = _kernels.LaunchCounter()  # by camera instance: "", "radtan", "kb8"
+
+
+def _bundle_adjust(cam, bf, prob: BAProblem, iters1: int, iters2: int, blocks, solve, update=lm_update,
+                   gate=classify):
     def run_phase(R, t, xw, inlier, n_iters):
-        lam = torch.tensor(1e-4, dtype=torch.float32, device=R.device)
+        lam = torch.full((), 1e-4, dtype=torch.float32, device=R.device)
         for _ in range(n_iters):
-            R, t, xw, lam = lm_step(R, t, xw, inlier, lam)
+            Hpp, Hll, bp, bl, C, w_lm, cost_old = blocks(cam, bf, R, t, xw, prob, inlier)
+            dp, dl, ok = solve(Hpp, Hll, bp, bl, C, w_lm, prob, lam)
+            R, t, xw, lam, _, _ = update(cam, bf, prob, R, t, xw, dp, dl, inlier, cost_old, ok, lam)
         return R, t, xw
-
-    def classify(R, t, xw):
-        r, _, posd = _obs_residuals(cam, bf, R, t, xw, prob)
-        chi2 = torch.sum(r * r, dim=-1) * prob.obs_inv_sigma2
-        return (chi2 <= _delta2(prob)) & posd & prob.obs_valid
 
     inlier = torch.ones_like(prob.obs_valid)
     R, t, xw = run_phase(prob.R, prob.t, prob.xw, inlier, iters1)
-    R, t, xw = run_phase(R, t, xw, classify(R, t, xw), iters2)  # Optimizer.cc:1347-1365
-    return R, t, xw, classify(R, t, xw)  # Optimizer.cc:1398-1420
+    R, t, xw = run_phase(R, t, xw, gate(cam, bf, prob, R, t, xw), iters2)  # Optimizer.cc:1347-1365
+    return R, t, xw, gate(cam, bf, prob, R, t, xw)  # Optimizer.cc:1398-1420
 
 
 def bundle_adjust(cam, bf, prob: BAProblem, iters1: int = 5, iters2: int = 10):
-    """Two-phase robust BA through kernels E and F (their plain versions on
-    the CPU).  Returns (R, t, xw, observation inlier mask)."""
+    """Two-phase robust BA through kernels E, F and AC (their plain
+    versions on the CPU).  Returns (R, t, xw, observation inlier mask)."""
     return _bundle_adjust(cam, bf, prob, iters1, iters2, build_normal_blocks, schur_solve)
 
 
 def bundle_adjust_plain(cam, bf, prob: BAProblem, iters1: int = 5, iters2: int = 10):
     """The same schedule through the plain versions on any device."""
-    return _bundle_adjust(cam, bf, prob, iters1, iters2, build_normal_blocks_plain, _solve_plain)
+    return _bundle_adjust(cam, bf, prob, iters1, iters2, build_normal_blocks_plain, _solve_plain, lm_update_plain,
+                          classify_plain)

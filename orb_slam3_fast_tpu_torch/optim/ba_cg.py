@@ -13,8 +13,10 @@ can land between segments (LoopClosing.cc:1072-1086, mbStopGBA).
 ``build_blocks`` is kernel E (``optim/ba.build_normal_blocks``: its
 per-observation W is exactly what this solver needs) and its plain
 version; ``implicit_schur_solve`` runs kernel T (``csrc/ba_pcg.cu``) on
-CUDA tensors and its plain version on CPU ones.  The LM loop around them is
-plain PyTorch, as it is for local BA (ROADMAP §B queue 3).
+CUDA tensors and its plain version on CPU ones; the update, cost, accept
+and damping of each iteration and the chi2 gate are kernel AC's
+(``optim/ba.lm_update`` and ``classify``), as for local BA, with no
+solver flag.  On the card an iteration is E -> T -> AC.
 
 Kernel T -- source note.
   Replaces: ``implicit_schur_solve`` (``orb_slam3_fast_tpu/optim/
@@ -157,17 +159,12 @@ def implicit_schur_solve(Hpp, Hll, bp, bl, W, prob: BAProblem, w_lm, lam, cg_ite
 implicit_schur_solve.launches = _kernels.LaunchCounter()
 
 
-def _lm_step(cam, bf, prob: BAProblem, R, t, xw, inlier, lam, cg_iters: int, blocks, solve):
+def _lm_step(cam, bf, prob: BAProblem, R, t, xw, inlier, lam, cg_iters: int, blocks, solve, update):
     """One damped LM iteration, accepted when the robust cost drops; the
     decision stays on the device."""
     Hpp, Hll, bp, bl, W, w_lm, cost = blocks(cam, bf, R, t, xw, prob, inlier)
     dp, dl = solve(Hpp, Hll, bp, bl, W, prob, w_lm, lam, cg_iters)
-    R_new, t_new, xw_new = ba_mod.apply_update(R, t, xw, dp, dl)
-    r_new, _, posd_new = ba_mod._obs_residuals(cam, bf, R_new, t_new, xw_new, prob)
-    cost_new, _ = ba_mod._robust_cost(r_new, prob, ba_mod._active(prob, inlier, posd_new))
-    accept = cost_new < cost
-    R, t, xw = torch.where(accept, R_new, R), torch.where(accept, t_new, t), torch.where(accept, xw_new, xw)
-    lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-8), torch.clamp(lam * 5.0, max=1e6))
+    R, t, xw, lam, _, _ = update(cam, bf, prob, R, t, xw, dp, dl, inlier, cost, None, lam)
     return R, t, xw, lam, cost
 
 
@@ -181,33 +178,29 @@ def _blocks_plain(cam, bf, R, t, xw, prob, inlier):
 
 
 def lm_segment(cam, bf, prob: BAProblem, R, t, xw, inlier, lam, n_iters: int = 2, cg_iters: int = 32,
-               blocks=build_blocks, solve=implicit_schur_solve):
+               blocks=build_blocks, solve=implicit_schur_solve, update=ba_mod.lm_update):
     """``n_iters`` LM iterations; the host checks the abort flag between
     segments.  Returns (R, t, xw, lam, last cost)."""
     cost = None
     for _ in range(n_iters):
-        R, t, xw, lam, cost = _lm_step(cam, bf, prob, R, t, xw, inlier, lam, cg_iters, blocks, solve)
+        R, t, xw, lam, cost = _lm_step(cam, bf, prob, R, t, xw, inlier, lam, cg_iters, blocks, solve, update)
     return R, t, xw, lam, cost
 
 
-def classify(cam, bf, prob: BAProblem, R, t, xw):
-    """The chi2 inlier gate (Optimizer.cc:1347-1365)."""
-    r, _, posd = ba_mod._obs_residuals(cam, bf, R, t, xw, prob)
-    chi2 = torch.sum(r * r, dim=-1) * prob.obs_inv_sigma2
-    return (chi2 <= ba_mod._delta2(prob)) & posd & prob.obs_valid
+classify = ba_mod.classify  # the chi2 inlier gate (Optimizer.cc:1347-1365): kernel AC's second entry
 
 
 def _bundle_adjust_cg(cam, bf, prob: BAProblem, iters1: int, iters2: int, cg_iters: int, seg: int, abort_flag,
-                      blocks, solve):
+                      blocks, solve, update, gate):
     R, t, xw = prob.R, prob.t, prob.xw
     inlier = torch.ones_like(prob.obs_valid)
 
     def run_phase(R, t, xw, inlier, total):
-        lam = torch.tensor(1e-4, dtype=torch.float32, device=R.device)
+        lam = torch.full((), 1e-4, dtype=torch.float32, device=R.device)
         done = 0
         while done < total:
             n = min(seg, total - done)
-            R, t, xw, lam, _ = lm_segment(cam, bf, prob, R, t, xw, inlier, lam, n, cg_iters, blocks, solve)
+            R, t, xw, lam, _ = lm_segment(cam, bf, prob, R, t, xw, inlier, lam, n, cg_iters, blocks, solve, update)
             done += n
             if abort_flag is not None and abort_flag.is_set():
                 return R, t, xw, True
@@ -216,23 +209,24 @@ def _bundle_adjust_cg(cam, bf, prob: BAProblem, iters1: int, iters2: int, cg_ite
     R, t, xw, aborted = run_phase(R, t, xw, inlier, iters1)
     if aborted:
         return R, t, xw, inlier, True
-    inlier = classify(cam, bf, prob, R, t, xw)
+    inlier = gate(cam, bf, prob, R, t, xw)
     R, t, xw, aborted = run_phase(R, t, xw, inlier, iters2)
-    return R, t, xw, classify(cam, bf, prob, R, t, xw), aborted
+    return R, t, xw, gate(cam, bf, prob, R, t, xw), aborted
 
 
 def bundle_adjust_cg(cam, bf, prob: BAProblem, iters1: int = 5, iters2: int = 10, cg_iters: int = 32, seg: int = 5,
                      abort_flag=None):
-    """Two-phase robust BA through kernels E and T (their plain versions on
-    the CPU), in segments of ``seg`` LM iterations; ``abort_flag``
+    """Two-phase robust BA through kernels E, T and AC (their plain versions
+    on the CPU), in segments of ``seg`` LM iterations; ``abort_flag``
     (anything with ``is_set()``) is polled between segments.  Returns (R,
     t, xw, inlier, aborted); an aborted solve returns its state as it
     stands (the reference discards it, LoopClosing.cc:2412-2422)."""
     return _bundle_adjust_cg(cam, bf, prob, iters1, iters2, cg_iters, seg, abort_flag, build_blocks,
-                             implicit_schur_solve)
+                             implicit_schur_solve, ba_mod.lm_update, ba_mod.classify)
 
 
 def bundle_adjust_cg_plain(cam, bf, prob: BAProblem, iters1: int = 5, iters2: int = 10, cg_iters: int = 32,
                            seg: int = 5, abort_flag=None):
     """The same schedule through the plain versions on any device."""
-    return _bundle_adjust_cg(cam, bf, prob, iters1, iters2, cg_iters, seg, abort_flag, _blocks_plain, _solve_plain)
+    return _bundle_adjust_cg(cam, bf, prob, iters1, iters2, cg_iters, seg, abort_flag, _blocks_plain, _solve_plain,
+                             ba_mod.lm_update_plain, ba_mod.classify_plain)

@@ -1,4 +1,4 @@
-"""The kernel wrappers (A-AB, no K or O; the KB8 instances): CPU tensors take the plain version, other
+"""The kernel wrappers (A-AC, no K or O; the KB8 instances): CPU tensors take the plain version, other
 devices launch the kernel or raise (no fallback); on a CUDA card each
 kernel agrees with its plain version (``cuda`` marker; these skip without a
 card and run there, where JAX is absent, with
@@ -26,7 +26,7 @@ torch.set_num_threads(1)
 WRAPPERS = (fast.fast_nms, ext.orb_describe, ham.hamming_best2, pose_opt.pose_optimization,
             ba.build_normal_blocks, ba.schur_solve, twoview.triangulate_dlt, image.pyramid_blur,
             ext.select_subpixel, mat.stereo_subpixel_refine, trk.visible_landmarks, twoview.reconstruct,
-            voc_mod.transform, pnp.pnp_ransac)
+            voc_mod.transform, pnp.pnp_ransac, ba.lm_update, ba.classify)
 FRONT_CFG = ext.ExtractorConfig(n_features=256)
 
 
@@ -167,6 +167,10 @@ def test_cpu_tensors_take_the_plain_version():
     dp, dl, ok = ba.schur_solve(*blocks[:6], prob, lam)
     torch.testing.assert_close((dp, dl), ba.schur_solve_plain(*blocks[:6], prob.pose_fixed, prob.lm_valid, lam))
     assert bool(ok)
+    lm_args = (cam, 30.0, prob, prob.R, prob.t, prob.xw, dp, dl, inl, blocks[6], ok, lam)
+    torch.testing.assert_close(ba.lm_update(*lm_args), ba.lm_update_plain(*lm_args))
+    torch.testing.assert_close(ba.classify(cam, 30.0, prob, prob.R, prob.t, prob.xw),
+                               ba.classify_plain(cam, 30.0, prob, prob.R, prob.t, prob.xw))
     torch.testing.assert_close(twoview.triangulate_dlt(*dlt), twoview.triangulate_dlt_plain(*dlt))
     for gate in (epi, mutual):
         torch.testing.assert_close(ham.hamming_best2(da, db, gate), ham.hamming_best2_plain(da, db, gate))
@@ -208,6 +212,12 @@ def test_other_devices_raise_without_fallback():
     blocks = ba.build_normal_blocks_plain(cam, 30.0, prob.R, prob.t, prob.xw, prob, torch.ones_like(prob.obs_valid))
     with pytest.raises(ValueError, match="CUDA"):
         ba.schur_solve(*[meta(x) for x in blocks[:6]], mprob, meta(torch.tensor(1e-3)))
+    step = [meta(torch.zeros(4, 6)), meta(torch.zeros_like(prob.xw)), meta(prob.obs_valid), meta(blocks[6])]
+    for ok in (None, meta(torch.tensor(True))):
+        with pytest.raises(ValueError, match="CUDA"):
+            ba.lm_update(cam, 30.0, mprob, mprob.R, mprob.t, mprob.xw, *step, ok, meta(torch.tensor(1e-3)))
+    with pytest.raises(ValueError, match="CUDA"):
+        ba.classify(cam, 30.0, mprob, mprob.R, mprob.t, mprob.xw)
     with pytest.raises(ValueError, match="CUDA"):
         twoview.triangulate_dlt(*[meta(x) for x in dlt])
     for gate in (epi, mutual):
@@ -264,7 +274,8 @@ def mono_inputs(rng, device):
 
 def test_build_flags_and_sources():
     srcs = sorted(p.name for p in _kernels.SRC_DIR.glob("*.cu"))
-    assert srcs == ["ba_blocks.cu", "ba_pcg.cu", "ba_schur.cu", "common.cu", "fast_nms.cu", "fisheye_stereo.cu",
+    assert srcs == ["ba_blocks.cu", "ba_lm.cu", "ba_pcg.cu", "ba_schur.cu", "common.cu", "fast_nms.cu",
+                    "fisheye_stereo.cu",
                     "hamming_best2.cu",
                     "imu_init.cu", "imu_preint.cu", "orb_describe.cu", "pnp_ransac.cu", "pose_graph4.cu",
                     "pose_inertial.cu", "pose_inertial_kb8.cu", "pose_inertial_radtan.cu", "pose_lm.cu",
@@ -274,9 +285,11 @@ def test_build_flags_and_sources():
     # the one Jacobi eigen-solver, shared by G, M, P, Q, R, S, T, V and Z; the Sim3 maps and dual numbers, shared by
     # R, S, U and Z and (through inertial.cuh) W, X, Y and AA; the distorted pin-hole and the KB8 camera, shared by D,
     # E, L, P, Q, R, W, Y, AA and AB; the inertial factors, shared by V, W, X, Y and AA; kernel W's code, shared by
-    # its three camera kinds' translation units
-    assert sorted(p.name for p in _kernels.SRC_DIR.glob("*.cuh")) == ["camera.cuh", "inertial.cuh", "jacobi.cuh",
-                                                                      "pose_inertial.cuh", "sim3.cuh"]
+    # its three camera kinds' translation units; a BA observation's residual and robust cost, shared by E and AC
+    assert sorted(p.name for p in _kernels.SRC_DIR.glob("*.cuh")) == ["ba_obs.cuh", "camera.cuh", "inertial.cuh",
+                                                                      "jacobi.cuh", "pose_inertial.cuh", "sim3.cuh"]
+    for name in ("ba_blocks.cu", "ba_lm.cu"):
+        assert '#include "ba_obs.cuh"' in (_kernels.SRC_DIR / name).read_text()
     for name in ("imu_preint.cu", "pose_inertial.cuh", "imu_init.cu", "vi_ba.cu", "vi_pcg.cu"):
         assert '#include "inertial.cuh"' in (_kernels.SRC_DIR / name).read_text()
     for name in ("pose_inertial.cuh", "vi_ba.cu", "vi_pcg.cu"):
@@ -288,7 +301,7 @@ def test_build_flags_and_sources():
         assert '#include "jacobi.cuh"' in (_kernels.SRC_DIR / name).read_text()
     for name in ("sim3_refine.cu", "sim3_graph.cu", "sim3_pcg.cu", "pose_graph4.cu"):
         assert '#include "sim3.cuh"' in (_kernels.SRC_DIR / name).read_text()
-    for name in ("pose_lm.cu", "ba_blocks.cu", "sim3_ransac.cu", "sim3_refine.cu", "visible_landmarks.cu",
+    for name in ("pose_lm.cu", "ba_blocks.cu", "ba_lm.cu", "sim3_ransac.cu", "sim3_refine.cu", "visible_landmarks.cu",
                  "pnp_ransac.cu", "fisheye_stereo.cu"):
         assert '#include "camera.cuh"' in (_kernels.SRC_DIR / name).read_text()
     assert set(_kernels.SIGNATURES) == {
@@ -297,7 +310,8 @@ def test_build_flags_and_sources():
         "sad_refine_launch", "visible_landmarks_launch", "twoview_ransac_launch", "vocab_transform_launch",
         "pnp_ransac_launch", "sim3_ransac_launch", "sim3_refine_launch", "sim3_graph_launch", "sim3_pcg_launch",
         "ba_pcg_launch", "imu_preint_launch", "imu_compose_launch", "pose_inertial_launch", "imu_init_launch",
-        "vi_ba_launch", "pose_graph4_launch", "vi_pcg_launch", "fisheye_stereo_launch",
+        "vi_ba_launch", "pose_graph4_launch", "vi_pcg_launch", "fisheye_stereo_launch", "ba_lm_update_launch",
+        "ba_classify_launch",
     }
     assert "arch=compute_90a,code=sm_90a" in _kernels.NVCC_FLAGS
     assert _kernels.LIB_PATH.parent.name == "_build"
@@ -398,6 +412,48 @@ def test_schur_failure_rejects_the_step_on_card(cuda):
 
     R, t, xw, _ = ba._bundle_adjust(cam, 30.0, prob, 2, 1, indefinite, ba.schur_solve)
     assert torch.equal(R, prob.R) and torch.equal(t, prob.t) and torch.equal(xw, prob.xw)
+
+
+@pytest.mark.cuda
+def test_lm_kernel_matches_plain_on_card(cuda, monkeypatch):
+    """Kernel AC against its plain versions on the card: the update from E's
+    cost and F's step within 1e-5 with the same accept and damping, twice
+    bit for bit; a zero step rejected with AC's cost equal to E's bit for
+    bit; the gate's mask equal but for chi2 within 1e-4 of its bound.  Then
+    both BA forms on CUDA tensors with every plain LM function made to
+    raise: they run, and AC launches once per E launch."""
+    rng = np.random.default_rng(0)
+    cam, prob, _, _, _ = system_inputs(rng, cuda)
+    inl = torch.ones_like(prob.obs_valid)
+    blocks = ba.build_normal_blocks(cam, 30.0, prob.R, prob.t, prob.xw, prob, inl)
+    lam = torch.tensor(1e-3, device=cuda)
+    dp, dl, ok = ba.schur_solve(*blocks[:6], prob, lam)
+    args = (cam, 30.0, prob, prob.R, prob.t, prob.xw, dp, dl, inl, blocks[6], ok, lam)
+    k, k2, p = ba.lm_update(*args), ba.lm_update(*args), ba.lm_update_plain(*args)
+    assert all(torch.equal(a, b) for a, b in zip(k, k2))
+    for a, b in zip(k[:3], p[:3]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    assert bool(k[4]) == bool(p[4]) and float(k[3]) == float(p[3])
+    zero = ba.lm_update(cam, 30.0, prob, prob.R, prob.t, prob.xw, torch.zeros_like(dp), torch.zeros_like(dl), inl,
+                        blocks[6], ok, lam)
+    assert not bool(zero[4]) and float(zero[5]) == float(blocks[6])
+    xw = prob.xw + 0.03 * torch.sin(torch.arange(prob.xw.numel(), device=cuda, dtype=torch.float32)).view(-1, 3)
+    ck, cp = ba.classify(cam, 30.0, prob, prob.R, prob.t, xw), ba.classify_plain(cam, 30.0, prob, prob.R, prob.t, xw)
+    r, _, _ = ba._obs_residuals(cam, 30.0, prob.R, prob.t, xw, prob)
+    edge = near((r * r).sum(-1) * prob.obs_inv_sigma2 / ba._delta2(prob), 1.0, 1e-4)
+    assert torch.equal(ck[~edge], cp[~edge])
+
+    def refuse(*a, **kw):
+        raise AssertionError("a plain LM function was called")
+
+    for name in ("lm_update_plain", "classify_plain", "apply_update", "_obs_residuals", "_robust_cost"):
+        monkeypatch.setattr(ba, name, refuse)
+    for w in (ba.build_normal_blocks, ba.lm_update, ba.classify):
+        w.launches.reset()
+    ba.bundle_adjust(cam, 30.0, prob)
+    ba_cg.bundle_adjust_cg(cam, 30.0, prob, iters1=2, iters2=3)
+    assert ba.lm_update.launches.total() == ba.build_normal_blocks.launches.total() == 15 + 5
+    assert ba.classify.launches.total() == 4
 
 
 def near(x: torch.Tensor, threshold: float, tol: float = 1e-5) -> torch.Tensor:

@@ -33,6 +33,10 @@ inline int cudaMemcpyAsync(void* d, const void* s, std::size_t n, int, cudaStrea
   std::memcpy(d, s, n);
   return 0;
 }
+inline int cudaMemsetAsync(void* d, int v, std::size_t n, cudaStream_t) {
+  std::memset(d, v, n);
+  return 0;
+}
 // A launch of ``grid`` CTAs: one after another, each at its full width; a single CTA at most EMULATED threads.
 inline void host_launch_grid(unsigned grid, unsigned threads, unsigned cap, const std::function<void()>& body) {
   for (unsigned b = 0; b < grid; ++b) {

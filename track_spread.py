@@ -53,7 +53,14 @@ it), for readings of the async Systems alone.  ``--per-call`` (inertial sensors)
 of kernels W, X and Y in the first card run, the plain version on the
 same inputs on the card and prints how far the two land apart, frame by
 frame: where a card run departs from the host's, whether one call or the
-accumulation of many does it.
+accumulation of many does it.  ``--e-digest`` first prints the digest of
+kernel E's outputs on chip_smoke.py's phase-3 problems
+(``chip_smoke.e_digests`` of this checkout, run on the measured
+checkout's port: with ``--root`` at a parent commit, the numbers that
+``chip_smoke.E_DIGESTS`` holds E to); ``--ba-ms`` times a whole local
+and global BA on the same problems (``chip_smoke.ba_times``), so that two
+checkouts measured in one call compare; ``--sensor`` with no name then
+runs no System.
 
 The last line is one JSON object with these readings.  It exits nonzero
 without a CUDA device or if a run fails its gates.
@@ -210,7 +217,7 @@ def per_call(records: list):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", type=Path, default=HERE)
-    parser.add_argument("--sensor", nargs="+", choices=("stereo", "rgbd", "mono", "loop", "async", "async-loop",
+    parser.add_argument("--sensor", nargs="*", choices=("stereo", "rgbd", "mono", "loop", "async", "async-loop",
                                                         *VI, "fisheye", "vi-fisheye"), default=["stereo", "rgbd"])
     parser.add_argument("--runs", type=int, default=5)
     parser.add_argument("--save-host", type=Path, default=None)
@@ -219,6 +226,8 @@ def main() -> int:
     parser.add_argument("--trace", action="store_true")
     parser.add_argument("--no-host", action="store_true")
     parser.add_argument("--threads", type=int, default=None, help="the host run's torch threads")
+    parser.add_argument("--e-digest", action="store_true", help="print kernel E's output digests first")
+    parser.add_argument("--ba-ms", action="store_true", help="time a whole local and global BA first")
     args = parser.parse_args()
     if args.threads:
         torch.set_num_threads(args.threads)
@@ -249,6 +258,12 @@ def main() -> int:
         _kernels.build()
     card, cpu = torch.device("cuda", 0), torch.device("cpu")
     report = {"root": str(root), "gpu": smi, "runs": args.runs, "sensors": {}}
+    if args.e_digest:
+        report["e_digests"] = here.e_digests(card)
+        print(f"kernel E's output digests with the port at {root}: {report['e_digests']}", flush=True)
+    if args.ba_ms:
+        report["ba_ms"] = here.ba_times(card)
+        print(f"whole BAs with the port at {root}, ms: {report['ba_ms']}", flush=True)
     for sensor in args.sensor:
         if sensor == "mono":
             frames, poses = cs.mono_frames(cs.MONO_FRAMES)
