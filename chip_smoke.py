@@ -5,8 +5,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It imports only
 the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs fourteen phases:
 
 1. device: fails without CUDA; prints the card's name and power limit;
-2. build: compiles the twenty-seven kernels (A-Y, no K or O, then Z, AA,
-   AB and AC) from the 30 sources of ``orb_slam3_fast_tpu_torch/csrc``
+2. build: compiles the twenty-eight kernels (A-Y, no K or O, then Z, AA,
+   AB, AC and AD) from the 31 sources of ``orb_slam3_fast_tpu_torch/csrc``
    (kernel W's camera kinds in three), one nvcc per source in parallel,
    each source's finishing time logged, and the map's host C++ library,
    so that no timed frame pays for g++;
@@ -52,7 +52,12 @@ the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs fourteen phases:
    1e-5 of the plain version's with the same accepts and damping, two
    runs bit for bit, the gate's mask equal off the chi2 bound; E's
    outputs bit for bit the parent commit's (``E_DIGESTS``); both BA forms
-   timed whole with every plain LM function made to raise;
+   timed whole with every plain LM function made to raise; AD (the
+   searches' epilogues) at each search's stage set on kernel C's outputs
+   at its shapes (stereo 1024 x 1024, projection 4096 x 1024,
+   frame-to-frame 1024 x 1024, initialisation, mutual and epipolar 768 x
+   768) and on a seeded and a tie-heavy input each (``epilogue_case``), its
+   masks, right u and depth bit for bit the plain version's;
 4. the stereo tracking step at 640x480 and 1280x720, 12 frames each, chained
    through the pose with constant-velocity prediction over a textured plane
    of known depth; every frame must match >= 30 landmarks, keep >= 30
@@ -175,7 +180,11 @@ read just after; a run on the async backend also reads them per thread.
 Every such read (``path_counts``) fails unless AC's update launched once
 for each launch of E,
 in each camera instance and on each thread, and its gate wherever E
-launched: every BA iteration on every path is E -> F (or T) -> AC.
+launched: every BA iteration on every path is E -> F (or T) -> AC; unless
+AD launched once for each launch of C that AB does not follow, on each
+thread (every search but the fisheye match is C -> AD), and in the stage
+sets of the searches the path runs.  In phases 5-14 every plain epilogue
+function (``EPILOGUE_PLAIN``) raises on a CUDA tensor.
 No path's host comparison is cut in depth but the stereo-inertial one (a
 prefix: past frame 40 its card run and its host run end in other
 states), the mono-inertial one (up to the frame before it is lost) and
@@ -4342,6 +4351,294 @@ def compare_lm_kernels(device) -> list[dict]:
                   "them within 1e-4 of the chi2 bound (none allowed off it)")]
 
 
+# --- kernel AD: the searches' epilogues (phase 3), the plain epilogues refused on the card (phases 5-14) -------
+
+# each search's stage set after kernel C (ops/matching.py): the threshold (th, < or <=) and the stages
+EPILOGUES = {
+    "initialization": dict(th=50, ratio=0.9, dedup=True, rotation=True),
+    "projection": dict(th=100, ratio=0.8, dedup=True),
+    "frame_to_frame": dict(th=100, inclusive=True, dedup=True, rotation=True),
+    "mutual": dict(th=50, ratio=0.75, mutual=True),
+    "triangulation": dict(th=50, ratio=1.0, mutual=True),
+    "stereo": dict(th=75, inclusive=True, mutual=True, stereo=True),
+}
+EPILOGUE_BF = 40.0  # bf of the constructed stereo cases
+# the stage set that each search's AD launch counts under (ops/hamming.stage_set)
+STAGE_SETS = {"initialization": "lt+ratio+dedup+rotation", "projection": "lt+ratio+dedup",
+              "frame_to_frame": "le+dedup+rotation", "mutual": "lt+ratio+mutual", "triangulation": "lt+ratio+mutual",
+              "stereo": "le+mutual+stereo"}
+# the plain epilogue functions (ops/hamming.py), made to raise on a CUDA tensor in phases 5-14
+EPILOGUE_PLAIN = ("ratio_gate", "mutual_consistency", "resolve_duplicate_targets", "rotation_consistency",
+                  "median_prune", "_median", "match_epilogue_plain")
+
+
+def epilogue_call(kind: str, b, m: int, col=None, angles=None, stereo=None) -> tuple:
+    """(b, th, keyword arguments) of ``match_epilogue`` for a search of
+    ``kind`` over ``m`` columns."""
+    e = EPILOGUES[kind]
+    kw = dict(inclusive=e.get("inclusive", False), ratio=e.get("ratio"))
+    if e.get("mutual"):
+        kw["col"] = col
+    if e.get("dedup"):
+        kw["dedup_m"] = m
+    if e.get("rotation"):
+        kw["angles"] = angles
+    if e.get("stereo"):
+        kw["stereo"] = stereo
+    return b, e["th"], kw
+
+
+def epilogue_case(rng, kind: str, n: int, m: int, ties: bool = False) -> dict:
+    """Host inputs of kernel AD for a search of ``kind``: the best-2 (idx,
+    dist, dist2), the column argmin, the angles and the keypoints' x.
+
+    Seeded (``ties`` False): random best-2 over few columns (dedup
+    collisions), 10% of the rows without a candidate (INF_DIST, idx 0), every
+    7th row a copy of the previous row's target and distance, rows whose
+    distance is exactly the ratio times the second, half the rows mutual,
+    angle differences on bin centres, on bin edges and negative; stereo
+    distances with fractional penalties.
+
+    Tie-heavy (``ties`` True, even n >= 48): the dedup's equal distances and
+    a lower one on duplicated columns; rotation counts 10 and 10 (the tie
+    goes to the lower bin), then 1 and 1 (exactly 0.1x the first: the third
+    place's tie goes to the lower bin, which is kept); in stereo every slot
+    accepted, the middle pair 29.5 and 30.5 (median 30) and distances at
+    and beside the 2.1x cut, which float32 puts below 63."""
+    two_pi = 2.0 * np.pi
+    idx = rng.integers(0, m, n)
+    dist = rng.integers(0, 110, n).astype(np.float64)
+    dist2 = dist + rng.integers(0, 30, n)
+    edge = np.arange(n) % 11 == 5  # dist = ratio * dist2 in exact arithmetic; float32's product decides
+    dist2[edge] = 20.0 * rng.integers(1, 6, int(edge.sum()))
+    dist[edge] = np.round(EPILOGUES[kind].get("ratio", 0.8) * dist2[edge])
+    none = rng.uniform(size=n) < 0.1
+    dup = np.arange(1, n, 7)
+    idx[dup], dist[dup] = idx[dup - 1], dist[dup - 1]
+    col = rng.integers(0, n, m)
+    mutual = np.nonzero(rng.uniform(size=n) < 0.5)[0]
+    col[idx[mutual]] = mutual
+    bins = rng.choice([2, 3, 3, 3, 17, 17, 29], n) + rng.choice([0.0, 0.0, 0.5, -0.5, 0.49], n)
+    delta = bins * (two_pi / 30) - two_pi * (np.arange(n) % 3 == 0)
+    if ties:
+        idx = np.arange(n) % 40
+        dist = 10.0 + np.arange(n) % 5
+        dist[40:] = dist[idx[40:]]
+        dist[40:48] -= 1.0  # a lower distance takes columns 0-7 from rows 0-7
+        dist[idx >= 22] = 120.0  # rejected by every threshold
+        dist2 = np.full(n, 100.0)
+        col_bin = np.full(40, 25)
+        col_bin[:10], col_bin[10:20], col_bin[20], col_bin[21] = 3, 7, 12, 20
+        delta = col_bin[idx] * (two_pi / 30) - two_pi * (idx % 2)
+        none[:] = False
+        col = np.arange(m) % n
+        col[idx[:40]] = np.arange(40)
+    angle_b = rng.uniform(-np.pi, np.pi, m).astype(np.float32)
+    angle_a = (angle_b[idx] + delta).astype(np.float32)
+    if kind == "stereo":
+        dist = rng.integers(0, 90, n) + rng.choice([0.0, 0.25, 0.5, 3.0, 7.75], n)
+        if ties:  # every slot accepted: a permutation, mutual, below th
+            idx = rng.permutation(m)[:n]
+            col = rng.integers(0, n, m)
+            col[idx] = np.arange(n)
+            cut = float(np.float32(2.1) * np.float32(30.0))  # 62.99999619
+            low = [1.0, 2.5, 3.0, 5.25, 7.0, 9.0, 11.0, 29.5]
+            high = [30.5, 35.0, 40.0, 62.5, cut, 63.0, float(np.nextafter(np.float32(63), np.float32(99))), 70.0]
+            dist = rng.permutation(np.array(low + high + [29.0, 31.0] * ((n - 16) // 2)))  # middle pair 29.5, 30.5
+    xl = rng.uniform(100, 600, n)
+    xr = rng.uniform(50, 600, m)
+    xr[idx] = xl - rng.uniform(0.3, 40, n)  # disparities below 1 are clamped to 1
+    idx[none], dist[none], dist2[none] = 0, 10000.0, 10000.0
+    f32 = np.float32
+    return dict(idx=idx.astype(np.int64), dist=dist.astype(f32), dist2=np.maximum(dist2, dist).astype(f32),
+                col=col.astype(np.int64), angle_a=angle_a, angle_b=angle_b,
+                xy_l=np.stack([xl, rng.uniform(0, 480, n)], 1).astype(f32),
+                xy_r=np.stack([xr, rng.uniform(0, 480, m)], 1).astype(f32))
+
+
+def epilogue_inputs(case: dict, kind: str, device) -> tuple:
+    """``epilogue_call``'s (b, th, keyword arguments) from ``epilogue_case``'s
+    host inputs, on ``device``: int32 distances but in stereo, as kernel C
+    gives them."""
+    from orb_slam3_fast_tpu_torch.ops import hamming as ham
+
+    t = {k: torch.as_tensor(v).to(device) for k, v in case.items()}
+    dt = torch.float32 if kind == "stereo" else torch.int32
+    b = ham.Best2(t["idx"], t["dist"].to(dt), t["dist2"].to(dt), t["idx"])
+    return epilogue_call(kind, b, case["angle_b"].shape[0], col=t["col"], angles=(t["angle_a"], t["angle_b"]),
+                         stereo=(t["xy_l"], t["xy_r"], EPILOGUE_BF))
+
+
+def epilogue_bytes(kind: str, b, th: float, kw: dict) -> int:
+    """The bytes kernel AD must move for a search, counted on its inputs:
+    per row idx (8), dist (4), dist2 (4) only with the ratio test, and accept
+    written (1); the column argmin's low word (4) at each distinct target of
+    the rows that pass the threshold; the angles (4) of the rows left after
+    the dedup and of their distinct targets; in stereo the x (4) of the rows
+    left after the mutual check and of their distinct targets, and right u
+    and depth written (8 a row)."""
+    from orb_slam3_fast_tpu_torch.ops import hamming as ham
+
+    e = EPILOGUES[kind]
+    n = b.idx.shape[0]
+    nbytes = (17 if e.get("ratio") else 13) * n + (8 * n if e.get("stereo") else 0)
+    if e.get("ratio"):
+        live = ham.ratio_gate(b, kw["ratio"], th)
+    else:
+        live = b.dist <= th if kw["inclusive"] else b.dist < th
+    targets = lambda: int(torch.unique(b.idx[live]).numel())  # noqa: E731
+    if e.get("mutual"):
+        nbytes += 4 * targets()
+        live = live & ham.mutual_consistency(b.idx, kw["col"])
+    if e.get("dedup"):
+        live = ham.resolve_duplicate_targets(b.idx, b.dist, live, kw["dedup_m"])
+    if e.get("rotation") or e.get("stereo"):
+        nbytes += 4 * (int(live.sum()) + targets())
+    return nbytes
+
+
+def epilogues_equal(kernel, plain) -> bool:
+    """The kernel's outputs equal the plain version's, bit for bit."""
+    if isinstance(plain, torch.Tensor):
+        return torch.equal(kernel, plain)
+    return all(torch.equal(a, b) for a, b in zip(kernel, plain))
+
+
+def search_best2(device) -> dict:
+    """Kernel C's outputs at the searches' shapes, as ``epilogue_call``'s
+    arguments: stereo 1024 x 1024, projection 4096 x 1024, frame-to-frame
+    1024 x 1024 (frame 0's keypoints at their place one frame later, 15 px
+    times their scale), on the 640x480 step scene's frames 0 and 1;
+    initialisation (window 100 at level 0), mutual and epipolar 768 x 768 on
+    two corridor frames."""
+    from orb_slam3_fast_tpu_torch.frontend.tracker import visible_landmarks
+    from orb_slam3_fast_tpu_torch.ops import extractor as ext
+    from orb_slam3_fast_tpu_torch.ops import hamming as ham
+    from orb_slam3_fast_tpu_torch.ops import matching as mat
+
+    rig = Rig(640, 480)
+    cfg = ext.ExtractorConfig(n_features=1024)
+    step, lm, canvas = setup(rig, device, seed=1)
+    i0, _ = frame(canvas, rig, 0, device)
+    il, ir = frame(canvas, rig, 1, device)
+    kp0, kp, kp_r = ext.extract(i0, cfg), ext.extract(il, cfg), ext.extract(ir, cfg)
+    f32 = torch.float32
+    sgate = ham.StereoGate(
+        kp.xy[:, 0].contiguous(), kp.xy[:, 1].contiguous(), kp.level.to(f32), kp.valid.to(f32),
+        kp_r.xy[:, 0].contiguous(), kp_r.xy[:, 1].contiguous(), (2.0 * step.slot_scales).contiguous(),
+        kp_r.level.to(f32), kp_r.valid.to(f32), rig.bf / step.min_z)
+    uv, pred, vis = visible_landmarks(
+        step.cam, torch.eye(3, device=device), torch.as_tensor(rig.t_true(1), device=device), lm.pos, lm.mask,
+        lm.normal, lm.dmin, lm.dmax, (rig.w, rig.h))
+    wgate = ham.WindowGate(
+        uv[:, 0].contiguous(), uv[:, 1].contiguous(), 3.0 * mat._pow_level(pred, step.scales), pred.to(f32),
+        vis.to(f32), kp.xy[:, 0].contiguous(), kp.xy[:, 1].contiguous(), kp.level.to(f32), kp.valid.to(f32))
+    shifted = kp0.xy + torch.tensor([-float(SHIFT), 0.0], device=device)
+    fgate = ham.WindowGate(
+        shifted[:, 0].contiguous(), shifted[:, 1].contiguous(), 15.0 * mat._pow_level(kp0.level, step.scales),
+        kp0.level.to(f32), kp0.valid.to(f32), kp.xy[:, 0].contiguous(), kp.xy[:, 1].contiguous(), kp.level.to(f32),
+        kp.valid.to(f32))
+    (kp_a, kp_b), F_ab, sigma2 = corridor_keypoints(device)
+    xa = torch.cat([kp_a.xy, torch.ones_like(kp_a.xy[:, :1])], 1)
+    lines = xa @ F_ab.T
+    egate = ham.EpipolarGate(lines[:, 0].contiguous(), lines[:, 1].contiguous(), lines[:, 2].contiguous(),
+                             lines[:, 0] ** 2 + lines[:, 1] ** 2, kp_a.valid.to(f32), kp_b.xy[:, 0].contiguous(),
+                             kp_b.xy[:, 1].contiguous(), 3.84 * mat._pow_level(kp_b.level, sigma2), kp_b.valid.to(f32))
+    mgate = ham.MutualGate(kp_a.valid.to(f32), kp_b.valid.to(f32))
+    igate = ham.WindowGate(
+        kp_a.xy[:, 0].contiguous(), kp_a.xy[:, 1].contiguous(), torch.full_like(kp_a.xy[:, 0], 100.0),
+        torch.zeros_like(kp_a.xy[:, 0]), (kp_a.valid & (kp_a.level == 0)).to(f32), kp_b.xy[:, 0].contiguous(),
+        kp_b.xy[:, 1].contiguous(), kp_b.level.to(f32), (kp_b.valid & (kp_b.level == 0)).to(f32))
+    out = {}
+    b, col = ham.hamming_best2(kp.desc, kp_r.desc, sgate)
+    out["stereo"] = epilogue_call("stereo", b, kp_r.n, col=col, stereo=(kp.xy, kp_r.xy, rig.bf))
+    out["projection"] = epilogue_call("projection", ham.hamming_best2(lm.desc, kp.desc, wgate)[0], kp.n)
+    out["frame_to_frame"] = epilogue_call("frame_to_frame", ham.hamming_best2(kp0.desc, kp.desc, fgate)[0], kp.n,
+                                          angles=(kp0.angle, kp.angle))
+    out["initialization"] = epilogue_call("initialization", ham.hamming_best2(kp_a.desc, kp_b.desc, igate)[0],
+                                          kp_b.n, angles=(kp_a.angle, kp_b.angle))
+    for kind, gate in (("mutual", mgate), ("triangulation", egate)):
+        b, col = ham.hamming_best2(kp_a.desc, kp_b.desc, gate)
+        out[kind] = epilogue_call(kind, b, kp_b.n, col=col)
+    return out
+
+
+def compare_epilogue_kernel(device) -> list[dict]:
+    """Phase 3 for kernel AD: at every search's stage set, on kernel C's
+    outputs at the searches' shapes (``search_best2``) and on a seeded and a
+    tie-heavy constructed input (``epilogue_case``, 1024 rows; the
+    tie-heavy stereo one every slot accepted, so the median's sort runs),
+    the masks, right u and depth equal to ``match_epilogue_plain``'s bit for
+    bit; CUDA-event times of both, the bound (bytes at the memory rate) and
+    the launches of the timed loop.  Returns AD's entry."""
+    from orb_slam3_fast_tpu_torch.ops import hamming as ham
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(14)
+    rows, notes, nbytes = [], [], 0
+    for kind, (b, th, kw) in search_best2(device).items():
+        cases = [("search", b, th, kw)] + [
+            (label, *epilogue_inputs(epilogue_case(rng, kind, 1024, 1024, ties), kind, device))
+            for label, ties in (("seeded", False), ("tie-heavy", True))]
+        for label, bb, tt, kk in cases:
+            k, p = ham.match_epilogue(bb, tt, **kk), ham.match_epilogue_plain(bb, tt, **kk)
+            torch.cuda.synchronize()
+            if not epilogues_equal(k, p):
+                raise RuntimeError(f"match_epilogue {kind} ({label}) differs from its plain version")
+            acc = k[2] if isinstance(k, tuple) else k
+            notes.append(f"{kind} {label} {int(acc.sum())}/{acc.shape[0]} accepted")
+        n, m = b.idx.shape[0], kw.get("dedup_m") or (kw["col"].shape[0] if kw.get("col") is not None else n)
+        ham.match_epilogue.launches.reset()
+        ms = cuda_ms(lambda: ham.match_epilogue(b, th, **kw), 100)
+        launches = ham.match_epilogue.launches.total()
+        plain_ms = cuda_ms(lambda: ham.match_epilogue_plain(b, th, **kw), 20)
+        nb = epilogue_bytes(kind, b, th, kw)
+        nbytes += nb
+        rows.append(dict(kind=kind, n=n, m=m, ms=ms, plain_ms=plain_ms, launches=launches, **bound(nb, 20 * n)))
+    ham.match_epilogue.launches.reset()
+    each = "; ".join(f"{r['kind']} {r['n']}x{r['m']} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
+                     f"{r['bound_ms']:.3e} by {r['bound_by']}, {r['launches']} launches for 102 calls)" for r in rows)
+    log(f"kernel match_epilogue rows: {each}; {', '.join(notes)}; {time.perf_counter() - t0:.1f} s")
+    return [dict(name="match_epilogue", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/match_epilogue.cu",
+                 replaces="orb_slam3_fast_tpu/ops/hamming.py:72", max_abs_err=0.0,
+                 ms=sum(r["ms"] for r in rows), plain_ms=sum(r["plain_ms"] for r in rows),
+                 **bound(nbytes, 20 * sum(r["n"] for r in rows)), library_ms=None,
+                 shapes=f"the six searches' stage sets, summed, tolerance exact (masks, right u and depth bit for "
+                        f"bit, also on a seeded and a tie-heavy input each): {each}; no single library call")]
+
+
+def refuse_plain_epilogues():
+    """Make every plain epilogue function (``EPILOGUE_PLAIN``) raise on a
+    CUDA tensor, and pass CPU tensors through; returns (the refusals seen,
+    a function that restores them)."""
+    from orb_slam3_fast_tpu_torch.ops import hamming as ham
+
+    saved = {name: getattr(ham, name) for name in EPILOGUE_PLAIN}
+    refused: list = []
+
+    def on_cuda(x) -> bool:
+        if isinstance(x, torch.Tensor):
+            return x.device.type == "cuda"
+        return isinstance(x, (tuple, list)) and any(on_cuda(y) for y in x)
+
+    def refusing(name, fn):
+        def call(*args, **kw):
+            if on_cuda(args) or on_cuda(list(kw.values())):
+                refused.append(name)
+                raise RuntimeError(f"{name}, a plain epilogue function, ran on a CUDA tensor")
+            return fn(*args, **kw)
+        return call
+
+    for name, fn in saved.items():
+        setattr(ham, name, refusing(name, fn))
+
+    def restore():
+        for name, fn in saved.items():
+            setattr(ham, name, fn)
+
+    return refused, restore
+
+
 def stage_split(rig: Rig, device) -> dict:
     """Per-stage CUDA-event times of the step on one frame."""
     from orb_slam3_fast_tpu_torch.ops import extractor as ext
@@ -4367,7 +4664,7 @@ WRAPPER_NAMES = ("fast_nms", "orb_describe", "hamming_best2", "pose_lm", "ba_blo
                  "pyramid_blur", "select_subpixel", "stereo_subpixel_refine", "visible_landmarks", "twoview_ransac",
                  "vocab_transform", "pnp_ransac", "sim3_ransac", "sim3_refine", "sim3_graph", "ba_pcg", "sim3_pcg",
                  "imu_preint", "pose_inertial", "imu_init", "vi_ba", "pose_graph4", "vi_pcg", "fisheye_stereo",
-                 "ba_lm_update", "ba_classify")
+                 "ba_lm_update", "ba_classify", "match_epilogue")
 VI_KERNELS = ("imu_preint", "pose_inertial", "imu_init", "vi_ba")  # V, W, X, Y: the inertial path
 LM_KERNELS = ("ba_lm_update", "ba_classify")  # AC's two entries: wherever a BA runs
 # the stereo System runs A-L and AC, N to index its keyframes, and not M or P
@@ -4412,7 +4709,7 @@ def wrappers() -> dict:
                                     ba_cg.implicit_schur_solve, pg.optimize_sim3_graph, pre.preintegrate,
                                     inertial.pose_inertial_optimization, imu_init.inertial_only_optimization,
                                     vi_ba.vi_bundle_adjust, pg.optimize_4dof_graph, vi_ba_cg.lm_segment_vi,
-                                    mat.fisheye_stereo_gate, ba.lm_update, ba.classify)))
+                                    mat.fisheye_stereo_gate, ba.lm_update, ba.classify, ham.match_epilogue)))
 
 
 def reset_counts() -> None:
@@ -4421,15 +4718,16 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    """Launches since the last reset, by kernel, by kernel C's mode, of D,
-    E, Q, R and AC with a distorted camera, of D, E, L, P, W, Y and AC with
-    a KB8 camera, and by thread where a run launched from more than the
-    main thread."""
+    """Launches since the last reset, by kernel, by kernel C's mode and
+    kernel AD's stage set, of D, E, Q, R and AC with a distorted camera, of
+    D, E, L, P, W, Y and AC with a KB8 camera, and by thread where a run
+    launched from more than the main thread."""
     from orb_slam3_fast_tpu_torch.ops import hamming as ham
 
     ws = wrappers()
     counts = {name: w.launches.total(mode=MODES.get(name)) for name, w in ws.items()}
     counts.update({f"hamming_best2[{m}]": ham.hamming_best2.launches.total(mode=m) for m in ham.MODE_NAMES})
+    counts.update({f"match_epilogue[{s}]": ham.match_epilogue.launches.total(mode=s) for s in STAGE_SETS.values()})
     counts.update({f"{n}[radtan]": ws[n].launches.total(camera="radtan") for n in RADTAN_KERNELS})
     counts.update({f"{n}[kb8]": ws[n].launches.total(camera="kb8") for n in KB8_KERNELS})
     for name, w in ws.items():
@@ -4439,16 +4737,29 @@ def read_counts() -> dict:
     return counts
 
 
-def path_counts() -> dict:
+def path_counts(*searches: str) -> dict:
     """``read_counts`` after a path's run.  Raises unless kernel AC's update
     launched once for every launch of kernel E, in each camera instance and
     on each thread (every LM iteration of both BA forms is E -> F or T ->
-    AC), and its gate at least once where E launched."""
+    AC), and its gate at least once where E launched; unless kernel AD
+    launched once for every launch of kernel C that kernel AB does not
+    follow, on each thread (every search but the fisheye match is C -> AD);
+    and unless AD launched in the stage set of each of ``searches`` (keys of
+    ``STAGE_SETS``), the searches the path is known to run."""
+    from orb_slam3_fast_tpu_torch.ops import hamming as ham
+    from orb_slam3_fast_tpu_torch.ops import matching as mat
+
     counts = read_counts()
     paired = [f"ba_lm_update{k}" for k in ("", "[radtan]", "[kb8]", "[threads]")
               if counts.get(f"ba_lm_update{k}") != counts.get(f"ba_blocks{k}")]
     if paired or (counts["ba_blocks"] and not counts["ba_classify"]):
         raise RuntimeError(f"kernel AC not launched wherever kernel E was: {paired or 'ba_classify'} ({counts})")
+    c, ab, ad = (w.launches.by_thread() for w in (ham.hamming_best2, mat.fisheye_stereo_gate, ham.match_epilogue))
+    unpaired = {t: (n, ab.get(t, 0), ad.get(t, 0)) for t, n in c.items() if ad.get(t, 0) != n - ab.get(t, 0)}
+    missing = [s for s in searches if counts[f"match_epilogue[{STAGE_SETS[s]}]"] < 1]
+    if unpaired or set(ad) - set(c) or missing:
+        raise RuntimeError(f"kernel AD: not launched once per search (thread: C, AB, AD {unpaired}), or never in the "
+                           f"stage sets of {missing} ({counts})")
     return counts
 
 
@@ -4490,7 +4801,7 @@ def main() -> int:
     kernels += system_kernels + compare_mono_kernels(device) + compare_loop_kernels(device) + compare_vi_kernels(device)
     kernels += compare_inertial_loop_kernels(device)
     fisheye_kernels, kb8 = compare_fisheye_kernels(device)
-    kernels += fisheye_kernels + compare_lm_kernels(device)
+    kernels += fisheye_kernels + compare_lm_kernels(device) + compare_epilogue_kernel(device)
     for k in kernels:
         if k["name"] in kb8:
             k["kb8"] = kb8[k["name"]]
@@ -4520,7 +4831,7 @@ def main() -> int:
     scenes = [setup(rig, device) for rig in rigs]
     reset_counts()
     results = {(rig.w, rig.h): track(rig, *scene, device) for rig, scene in zip(rigs, scenes)}
-    step_launches = path_counts()
+    step_launches = path_counts("stereo", "projection")
     for rig in rigs:
         check_sequence(rig, results[(rig.w, rig.h)])
     missing = [n for n in STEP_KERNELS if step_launches[n] < 1]
@@ -4539,6 +4850,9 @@ def main() -> int:
         log(f"stages {w}x{h}: " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
     log(f"phase 4: {time.perf_counter() - t0:.1f} s")
 
+    # phases 5-14 on the card: every plain epilogue function refuses a CUDA tensor (each search is C -> AD)
+    refused, restore_epilogues = refuse_plain_epilogues()
+
     # 5. the stereo System with local mapping: its path, with the launch counts
     t0 = time.perf_counter()
     frames, poses = corridor_frames(SYS_FRAMES)
@@ -4548,7 +4862,7 @@ def main() -> int:
     card_run = run_system(frames, poses, device)
     slam, summary, _ = card_run
     sys_s = time.perf_counter() - t1
-    sys_launches = path_counts()
+    sys_launches = path_counts("stereo", "projection", "frame_to_frame", "triangulation")
     missing = [n for n in (*SYSTEM_KERNELS, "vocab_transform", "hamming_best2[epipolar]") if sys_launches[n] < 1]
     if missing or sys_launches["twoview_ransac"] or sys_launches["pnp_ransac"]:
         raise RuntimeError(f"the System's path: kernels never launched {missing}, or M or P launched ({sys_launches})")
@@ -4569,7 +4883,7 @@ def main() -> int:
     rgbd_run = run_system(rgbd_in, rgbd_poses, device, "rgbd")
     slam_d, summary_d, _ = rgbd_run
     rgbd_s = time.perf_counter() - t1
-    rgbd_launches = path_counts()
+    rgbd_launches = path_counts("projection", "frame_to_frame")
     missing = [n for n in RGBD_KERNELS if rgbd_launches[n] < 1]
     if missing or any(rgbd_launches[n] for n in ("stereo_subpixel_refine", "twoview_ransac", "pnp_ransac")):
         raise RuntimeError(f"the RGB-D path: kernels never launched {missing}, or J, M or P launched ({rgbd_launches})")
@@ -4591,7 +4905,7 @@ def main() -> int:
     mono_run = run_mono(mono_in, mono_poses, device)
     slam_m, summary_m, _ = mono_run
     mono_s = time.perf_counter() - t1
-    mono_launches = path_counts()
+    mono_launches = path_counts("initialization", "projection", "frame_to_frame", "triangulation")
     missing = [n for n in (*MONO_KERNELS, "hamming_best2[window]") if mono_launches[n] < 1]
     if missing or mono_launches["vocab_transform"] < summary_m["n_kf"] or mono_launches["pnp_ransac"]:
         raise RuntimeError(f"the mono path: kernels never launched {missing}, N fewer times than keyframes, or P "
@@ -4607,7 +4921,7 @@ def main() -> int:
     reset_counts()
     t1 = time.perf_counter()
     reloc_track, reloc_ms, reloc_sum = run_reloc(mono_in, mono_poses, device)
-    reloc_launches = path_counts()
+    reloc_launches = path_counts("mutual")
     missing = [n for n in RELOC_KERNELS if reloc_launches[n] < 1]
     if missing:
         raise RuntimeError(f"the relocalisation path: kernels never launched {missing} ({reloc_launches})")
@@ -4627,7 +4941,7 @@ def main() -> int:
     slam_l, summary_l, _ = loop_run
     loop_kf_at = summary_l.pop("kf_at")
     loop_s = time.perf_counter() - t1
-    loop_launches = path_counts()
+    loop_launches = path_counts("initialization", "projection", "frame_to_frame", "mutual")
     missing = [n for n in LOOP_KERNELS if loop_launches[n] < 1]
     if missing or summary_l["gba_launches_F"] or summary_l["gba_launches_T"] < 1:
         raise RuntimeError(f"the loop path: kernels never launched {missing}, or F launched inside the global BA, or "
@@ -4647,7 +4961,7 @@ def main() -> int:
     t1 = time.perf_counter()
     _, summary_a, _ = run_loop(loop_in, loop_poses, device, blackout=ATLAS_BLACKOUT)
     summary_a.pop("kf_at")
-    atlas_launches = path_counts()
+    atlas_launches = path_counts("projection", "frame_to_frame", "mutual")
     log(f"Atlas scenario: {summary_a}, {time.perf_counter() - t1:.2f} s (gates: >= 2 maps, >= 1 merge, final OK, > 100 "
         "frames OK, ATE of trajectory_world < 0.5)")
     log(f"launches in the Atlas run: {atlas_launches}")
@@ -4661,7 +4975,7 @@ def main() -> int:
 
     reset_counts()
     slam_a, summary_a10, _ = run_default_stereo(frames, poses, device)
-    launches_a10 = path_counts()
+    launches_a10 = path_counts("stereo", "projection", "frame_to_frame")
     kinds = {"keyframe": [ms for i, ms in enumerate(slam_a.timers.spans["track_total"]) if i in summary_a10["kf_frames"]],
              "ordinary": [ms for i, ms in enumerate(slam_a.timers.spans["track_total"])
                           if i not in summary_a10["kf_frames"]]}
@@ -4672,7 +4986,7 @@ def main() -> int:
     log(f"launches in 10 (a): {launches_a10}")
     reset_counts()
     slam_b, summary_b10, _ = run_default_loop(loop_in, loop_poses, device)
-    launches_b10 = path_counts()
+    launches_b10 = path_counts("initialization", "projection", "frame_to_frame")
     spans_b = slam_b.timers.spans["track_total"]
     kinds = {"keyframe": [ms for i, ms in enumerate(spans_b) if i in summary_b10["kf_frames"]],
              "ordinary": [ms for i, ms in enumerate(spans_b) if i not in summary_b10["kf_frames"]]}
@@ -4693,7 +5007,7 @@ def main() -> int:
     finally:
         pg._FORCE_CG = False
     summary_c10.pop("kf_at")
-    launches_c10 = path_counts()
+    launches_c10 = path_counts("projection", "mutual")
     graph_ms = slam_c.loopcloser.timers.spans["loop_essential_graph"]
     if launches_c10["sim3_pcg"] < 1 or launches_c10["sim3_graph"] or summary_c10["closed_at"] != summary_l["closed_at"]:
         raise RuntimeError(f"10 (c): U launched {launches_c10['sim3_pcg']}, S {launches_c10['sim3_graph']}, loop closed "
@@ -4710,7 +5024,7 @@ def main() -> int:
     dist_in, _ = mono_frames(MONO_FRAMES, cam=dist_settings.cam)
     reset_counts()
     dist_run = run_mono(dist_in, mono_poses, device, settings=dist_settings)
-    launches_d10 = path_counts()
+    launches_d10 = path_counts("initialization", "projection", "frame_to_frame")
     missing = [n for n in (*MONO_KERNELS, "pose_lm[radtan]", "ba_blocks[radtan]", "ba_lm_update[radtan]",
                            "ba_classify[radtan]") if launches_d10[n] < 1]
     if missing:
@@ -4735,7 +5049,7 @@ def main() -> int:
         reset_counts()
         t1 = time.perf_counter()
         run = run_vi(*vi_in, device, sensor)
-        launches = path_counts()
+        launches = path_counts("projection")
         vi_runs[sensor] = (vi_in, run, launches)
         check_vi(sensor, run[1], launches)
         spans = run[0].timers.spans
@@ -4749,7 +5063,7 @@ def main() -> int:
     vi_in = vi_frames("rgbd", VI_RGBD_FRAMES)
     reset_counts()
     _, summary_r, _ = run_vi(*vi_in, device, "rgbd")
-    launches_r = path_counts()
+    launches_r = path_counts("projection")
     if not (summary_r["state"] == "OK" and summary_r["tracked"] == VI_RGBD_FRAMES
             and launches_r["imu_preint"] >= VI_RGBD_FRAMES - 1):
         raise RuntimeError(f"rgbd-inertial System: {summary_r}, V launched {launches_r['imu_preint']} times")
@@ -4767,7 +5081,7 @@ def main() -> int:
     t1 = time.perf_counter()
     slam_v, summary_v, snapshot = run_vi_loop(*vil_in, device)
     vil_s = time.perf_counter() - t1
-    launches_vil = path_counts()
+    launches_vil = path_counts("projection", "mutual")
     check_vi_loop(summary_v, launches_vil)
     spans, lspans = slam_v.timers.spans, slam_v.loopcloser.timers.spans
     closing = int(np.argmax(spans["track_total"]))
@@ -4784,7 +5098,7 @@ def main() -> int:
         f"from its snapshot: {card_fix.n_kf} keyframes")
     reset_counts()
     slam_c, summary_c = run_default_vi(*vi_runs["stereo"][0], device)
-    launches_vic = path_counts()
+    launches_vic = path_counts("projection")
     on_tracker = {n: wrappers()[n].launches.total(thread="MainThread") for n in VI_KERNELS}
     if min(on_tracker.values()) < 1:
         raise RuntimeError(f"12 (c): V-Y on the tracker thread {on_tracker}")
@@ -4811,7 +5125,7 @@ def main() -> int:
     fe_run = run_fisheye(fe_in, fe_poses, device)
     slam_f, summary_f, _ = fe_run
     fe_s = time.perf_counter() - t1
-    launches_fe = path_counts()
+    launches_fe = path_counts("projection", "frame_to_frame")
     check_fisheye(summary_f, launches_fe)
     log(f"13 (a) fisheye stereo System (TUM-VI configuration): {summary_f}, {fe_s:.2f} s for {FISHEYE_FRAMES} frames "
         f"(gates: final OK, > 20 tracked, unscaled ATE < {FISHEYE_MAX_ATE} m, |scale - 1| < {FISHEYE_MAX_SCALE_ERR}; "
@@ -4822,7 +5136,7 @@ def main() -> int:
     log(f"launches in 13 (a): {launches_fe}")
     reset_counts()
     fe_reloc_track, fe_reloc_ms, fe_reloc_sum = run_fisheye_reloc(slam_f, fe_in, fe_poses, device)
-    launches_fr = path_counts()
+    launches_fr = path_counts("mutual")
     if launches_fr["pnp_ransac[kb8]"] < 1 or launches_fr["fisheye_stereo"] < 1:
         raise RuntimeError(f"13 (c): P in KB8 or AB never launched ({launches_fr})")
     log(f"13 (c) fisheye relocalisation on (a)'s map: {fe_reloc_sum}, the revisit of frame {FISHEYE_REVISIT} "
@@ -4834,7 +5148,7 @@ def main() -> int:
     reset_counts()
     t2 = time.perf_counter()
     _, summary_fv, _ = run_fisheye(fv_in, fv_poses, device, imu=fv_imu)
-    launches_fv = path_counts()
+    launches_fv = path_counts("projection")
     check_fisheye(summary_fv, launches_fv, inertial=True)
     log(f"13 (b) fisheye stereo-inertial System: {summary_fv}, {time.perf_counter() - t2:.2f} s for "
         f"{FISHEYE_VI_FRAMES} frames ({t2 - t1:.1f} s to render; gates: {FISHEYE_VI_GATES})")
@@ -4854,7 +5168,7 @@ def main() -> int:
         t1 = time.perf_counter()
         slam_fl, summary_fl, snap_fl = run_fisheye_loop(fl_in, fl_poses, fl_imu, device, sensor)
         fl_s = time.perf_counter() - t1
-        launches_fl = path_counts()
+        launches_fl = path_counts("projection", "mutual")
         check_fisheye_loop(sensor, summary_fl, launches_fl)
         spans, lspans = slam_fl.timers.spans, slam_fl.loopcloser.timers.spans
         closing = int(np.argmax(spans["track_total"]))
@@ -4877,8 +5191,12 @@ def main() -> int:
         log(f"14 (c) default fisheye {sensor} System (async) on the circle at 20 fps: {summary_flc}, "
             f"{time.perf_counter() - t1:.1f} s (gates: drained in 120 s, no error" +
             (", IMU initialised" if sensor == "stereo-inertial" else "") + "; loops reported)")
-        log(f"launches in 14 (c) {sensor}: {path_counts()}")
+        log(f"launches in 14 (c) {sensor}: {path_counts('projection')}")
     log(f"phase 14: {time.perf_counter() - t0:.1f} s")
+    restore_epilogues()
+    if refused:
+        raise RuntimeError(f"plain epilogue functions ran on CUDA tensors in phases 5-14: {sorted(set(refused))}")
+    log(f"phases 5-14: no plain epilogue function ({', '.join(EPILOGUE_PLAIN)}) ran on a CUDA tensor")
 
     # 8. the plain (CPU) step, which the tests hold against the JAX package,
     # agrees with the card on frame 1 at 640x480.  Last, because the host

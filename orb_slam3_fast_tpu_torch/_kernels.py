@@ -129,6 +129,9 @@ SIGNATURES = {
     # xy_l, level_l, xy_r, level_r, idx, dist, dist2, col, sigma2, n, cams16 (host), Rt (host), ratio, th,
     # min_cos, depth, x3d, valid, stream
     "fisheye_stereo_launch": [_P] * 9 + [_I, _P, _P, _F, _I, _F] + [_P] * 4,
+    # n, m, flags, idx (int64), dist, dist2, dist_f32, col (int64), angle_a, angle_b, xy_l, xy_r, th, ratio, bf,
+    # accept, right_u, depth, stream
+    "match_epilogue_launch": [_I] * 3 + [_P] * 3 + [_I] + [_P] * 5 + [_F] * 3 + [_P] * 4,
 }
 
 

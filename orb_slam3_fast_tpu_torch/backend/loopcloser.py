@@ -40,6 +40,7 @@ runs inline.  The inertial hooks (``inertial_ba``, ``inertial_gba``,
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -122,11 +123,20 @@ class LoopCloser:
         self.gba_hook = None
 
     # ------------------------------------------------------------------
-    def process_keyframe(self, world: WorldMap, k: int, map_id: int = 0, atlas=None):
+    def process_keyframe(self, world: WorldMap, k: int, map_id: int = 0, atlas=None, map_lock=None):
         """One LoopClosing::Run iteration for keyframe k.  Returns False,
         ("loop", None) when a loop in the active map was closed, or
         ("merge", info) when the active map was welded into a stored one
-        (info: the id offsets and the Sim3, for the tracker to rebase)."""
+        (info: the id offsets and the Sim3, for the tracker to rebase).
+
+        ``map_lock`` (the async backend's re-entrant map lock; None on the
+        synchronous path) is held across the whole loop correction and the
+        whole merge, as the reference holds mMutexMapUpdate across
+        CorrectLoop's and MergeLocal's changes to the map, so the tracker
+        inserts no keyframe while they run; detection and verification run
+        outside it.  The global BA that the correction hands to the GBA
+        thread gathers and writes back under the lock itself."""
+        lock = map_lock if map_lock is not None else contextlib.nullcontext()
         if world.n_kf < self.cfg.temporal_gap + 2:
             return False
 
@@ -188,7 +198,7 @@ class LoopCloser:
             self.last_S = S_kc
             self.last_verified_kf = k
             if self.consec_count >= self.cfg.consecutive_required:
-                with self.timers.span("loop_correct"):
+                with lock, self.timers.span("loop_correct"):
                     self._correct(world, k, c, S_kc)
                 self.consec_count = 0
                 self.last_group = set()
@@ -210,7 +220,7 @@ class LoopCloser:
                 if out is None:
                     continue
                 S_kc, n_inl = out
-                with self.timers.span("loop_merge"):
+                with lock, self.timers.span("loop_merge"):
                     info = self._merge(atlas, world, k, map_id, world2, c2, mid2, S_kc)
                 self.n_maps_merged += 1
                 verbose.print_mess(f"Map {map_id} merged into map {mid2} (weld KF {k} <-> {c2})",
@@ -445,8 +455,9 @@ class LoopCloser:
     # ------------------------------------------------------------------
     def _correct(self, world: WorldMap, k: int, c: int, S_kc):
         """CorrectLoop (LoopClosing.cc:1063-1345) over the K keyframes the
-        map holds when it starts.  On the async backend the tracker may add
-        keyframes meanwhile; they keep their poses, where the JAX package
+        map holds when it starts.  On the async backend it runs under the
+        map lock (``process_keyframe``), so K stays the map's count through
+        the essential graph; the JAX package's worker runs it unlocked,
         reads the count again in the essential graph and indexes past its
         K-row arrays (an IndexError of its own worker, on the CPU)."""
         cfg = self.cfg

@@ -22,7 +22,8 @@ reference keyframe when the map changed under it):
   map);
 * one re-entrant map lock bounds the sections that touch the shared host
   map (the tracker's keyframe insertion, the workers' problem gathers and
-  write-backs); ``map_version`` counts the workers' map updates, which the
+  write-backs, the loop closer's whole correction and merge);
+  ``map_version`` counts the workers' map updates, which the
   tracker compares with what it saw last;
 * a worker's BA whose map the tracker turned and scaled between its
   gather and its write-back (the IMU initialisation, the scale
@@ -159,7 +160,8 @@ class AsyncBackend:
                     self.mapper.process_new_keyframe(world, k, kfdb=self.kfdb, map_lock=self.lock,
                                                      abort_flag=self.abort_ba)
                     if self.loopcloser is not None:
-                        out = self.loopcloser.process_keyframe(world, k, map_id=map_id, atlas=atlas)
+                        out = self.loopcloser.process_keyframe(world, k, map_id=map_id, atlas=atlas,
+                                                               map_lock=self.lock)
                         if out:
                             self.results.append(out)
                     with self.lock:

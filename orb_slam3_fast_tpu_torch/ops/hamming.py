@@ -39,6 +39,45 @@ Kernel C -- source note.
   column and block in device memory; an all-masked column gives row 0, as
   ``argmin`` over a constant column does.  Those modes take at most 6144
   columns (48 KB of shared memory).
+
+``match_epilogue`` is the wrapper of kernel AD (``csrc/match_epilogue.cu``);
+``match_epilogue_plain`` composes ``ratio_gate``, ``mutual_consistency``,
+``resolve_duplicate_targets``, ``rotation_consistency`` and
+``median_prune``, the JAX package's gates.
+
+Kernel AD -- source note.
+  Replaces: the epilogues of the gated searches, ``ratio_gate``,
+  ``mutual_consistency``, ``resolve_duplicate_targets`` and
+  ``rotation_consistency`` (``orb_slam3_fast_tpu/ops/hamming.py:72-119``)
+  and the median prune of ``stereo_match`` (``ops/matching.py:249-258``),
+  inside K6 ``search_descriptors_mutual``, K7 ``stereo_match``, K9
+  ``search_by_projection`` / ``search_frame_to_frame`` /
+  ``search_for_initialization`` and K13 ``search_for_triangulation``: on the
+  TPU a handful of fused XLA operations over the (N,) best-2, as plain
+  PyTorch 20-45 launches per search.
+  Bound on the card: latency.  Per row it reads ~30 bytes (the best-2, an
+  angle, an x) and writes 1 (9 in stereo mode), and does ~20 operations: 4096
+  rows are 120 KB, a few hundredths of a microsecond of either; one launch
+  and its few barriers are the time.
+  Design: one CTA of 1024 threads per search, looping over the rows, so that
+  the per-column dedup, the 30-bin histogram and the median need no grid-wide
+  sync.  The stages run in the JAX package's order, each selected by a flag:
+  the threshold (``<`` or ``<=``) and the ratio in float32
+  (``__fmul_rn``); the mutual check on the column argmin's low word; the
+  dedup as a per-column ``atomicMin`` of the packed (distance bits, row) key,
+  so the lowest distance and then the lowest row wins, as the reference's two
+  scatter-min passes; the rotation histogram (``fmodf`` plus 2 pi where the
+  sign differs, as ``jnp.mod``; ``rintf``, half to even, as ``jnp.round``)
+  counted in shared memory, its top 3 bins by (count descending, bin
+  ascending) as ``lax.top_k``, the 0.1x and the ``> 0`` rules; the stereo
+  tail: where every slot is accepted, a bitonic sort of the distances for the
+  mean of the middle pair (``jnp.median``; else NaN, read as TH_HIGH), the
+  2.1x prune, then ``right_u`` and the depth ``bf / max(xl - ur, 1)``
+  (``__fdiv_rn``) within (0, 1e6).  Every product and quotient is one float32
+  rounding, as in the JAX package, so the masks and values are equal bit for
+  bit.  The dedup keys or the sort live in dynamic shared memory, opted in
+  past 48 KB up to 226 KB (28,928 columns, 32,768 rows; the feature caps
+  need at most ~16 KB); a larger search raises.
 """
 from __future__ import annotations
 
@@ -306,8 +345,8 @@ def rotation_consistency(angle_a: torch.Tensor, angle_b: torch.Tensor, accept: t
     """Rotation-histogram filter: keep matches in the 3 most populated of 30
     angle-difference bins (second and third only above 0.1x the first)."""
     two_pi = 2.0 * torch.pi
-    rot = torch.remainder(angle_a - angle_b, two_pi)
-    bins = torch.clamp(torch.round(rot * (HISTO_LENGTH / two_pi)).long(), 0, HISTO_LENGTH) % HISTO_LENGTH
+    bins = torch.clamp(torch.round(_mod_two_pi(angle_a - angle_b) * (HISTO_LENGTH / two_pi)).long(), 0,
+                       HISTO_LENGTH) % HISTO_LENGTH
     counts = torch.zeros(HISTO_LENGTH, dtype=torch.int64, device=accept.device).index_add_(
         0, bins, accept.long()
     )
@@ -319,3 +358,138 @@ def rotation_consistency(angle_a: torch.Tensor, angle_b: torch.Tensor, accept: t
     good |= (bins == top_idx[1]) & keep2 & (top_val[1] > 0)
     good |= (bins == top_idx[2]) & keep3 & (top_val[2] > 0)
     return accept & good
+
+
+def _mod_two_pi(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.mod(x, 2 pi)`` in float32: ``fmod``, plus 2 pi where the
+    remainder is non-zero and negative (``lax.rem`` with the sign fix)."""
+    two_pi = torch.full_like(x, 2.0 * torch.pi)
+    r = torch.fmod(x, two_pi)
+    return torch.where((r != 0) & (r < 0), r + two_pi, r)
+
+
+def _median(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.median``: NaN if any element is NaN, else the mean of the middle
+    pair for an even count (``torch.median`` returns the lower one)."""
+    s, _ = torch.sort(x)
+    n = x.shape[0]
+    med = (s[(n - 1) // 2] + s[n // 2]) * 0.5
+    return torch.where(torch.isnan(x).any(), torch.full_like(med, torch.nan), med)
+
+
+def median_prune(b: Best2, accept: torch.Tensor, xy_l: torch.Tensor, xy_r: torch.Tensor, bf: float):
+    """The tail of ``stereo_match``: the 2.1x median-distance prune (like
+    ``jnp.median``, any unaccepted slot makes the median NaN, which then
+    reads as TH_HIGH), the matched right u and the depth bf / max(xl - ur, 1)
+    within (0, 1e6).  Returns (right_u, depth, accept), -1 where rejected."""
+    dist_f = torch.where(accept, b.dist, torch.full_like(b.dist, INF_DIST))
+    med = torch.nan_to_num(_median(torch.where(accept, dist_f, torch.nan)), nan=float(TH_HIGH))
+    accept = accept & (dist_f <= 2.1 * med)
+    ur = xy_r[b.idx, 0]
+    disparity = torch.clamp(xy_l[:, 0] - ur, min=1.0)
+    neg = torch.full_like(ur, -1.0)
+    # one rounding, as the JAX package's bf / disparity (``bf / tensor`` is reciprocal() * bf in PyTorch: two)
+    depth = torch.where(accept, torch.full_like(disparity, bf) / disparity, neg)
+    accept = accept & (depth > 0) & (depth < 1e6)
+    return torch.where(accept, ur, neg), torch.where(accept, depth, neg), accept
+
+
+# --- kernel AD --------------------------------------------------------------
+
+# kernel AD's stage flags (csrc/match_epilogue.cu kLe ... kStereo), in the order the stages apply; the
+# threshold is dist < th unless _AD_LE
+_AD_LE, _AD_RATIO, _AD_MUTUAL, _AD_DEDUP, _AD_ROTATION, _AD_STEREO = 1, 2, 4, 8, 16, 32
+_STAGES = ((_AD_RATIO, "ratio"), (_AD_MUTUAL, "mutual"), (_AD_DEDUP, "dedup"), (_AD_ROTATION, "rotation"),
+           (_AD_STEREO, "stereo"))
+
+
+def stage_set(flags: int) -> str:
+    """The name of a stage set, as ``match_epilogue.launches`` counts it:
+    "lt" or "le" for the threshold, then each stage, joined by "+"."""
+    return "+".join(["le" if flags & _AD_LE else "lt"] + [name for bit, name in _STAGES if flags & bit])
+
+
+def _flags(inclusive, ratio, col, dedup_m, angles, stereo) -> int:
+    if inclusive and ratio is not None:
+        raise ValueError("match_epilogue: the ratio test goes with dist < th (ratio_gate), not <=")
+    return ((_AD_LE if inclusive else 0) | (_AD_RATIO if ratio is not None else 0)
+            | (_AD_MUTUAL if col is not None else 0) | (_AD_DEDUP if dedup_m is not None else 0)
+            | (_AD_ROTATION if angles is not None else 0) | (_AD_STEREO if stereo is not None else 0))
+
+
+def match_epilogue_plain(b: Best2, th: float, *, inclusive: bool = False, ratio: float | None = None,
+                         col: torch.Tensor | None = None, dedup_m: int | None = None, angles=None, stereo=None):
+    """Plain version of kernel AD: the gates that turn kernel C's best-2 into
+    a match mask, each where its argument is given, in this order:
+
+    * the threshold ``dist < th`` (``dist <= th`` if ``inclusive``), with
+      ``ratio`` the ratio test ``dist < ratio * dist2`` (``ratio_gate``);
+    * ``col`` (M,): the column argmin, the mutual check
+      ``col[idx[i]] == i``;
+    * ``dedup_m``: the lowest distance, then the lowest row, per target
+      column of ``dedup_m`` (``resolve_duplicate_targets``);
+    * ``angles = (angle_a (N,), angle_b (M,))``: the rotation histogram of
+      ``angle_a - angle_b[idx]``;
+    * ``stereo = (xy_l (N,2), xy_r (M,2), bf)``: the median prune and the
+      depth (``median_prune``).
+
+    Returns the accept mask, or (right_u, depth, accept) with ``stereo``."""
+    _flags(inclusive, ratio, col, dedup_m, angles, stereo)
+    if ratio is not None:
+        accept = ratio_gate(b, ratio, th)
+    else:
+        accept = b.dist <= th if inclusive else b.dist < th
+    if col is not None:
+        accept = accept & mutual_consistency(b.idx, col)
+    if dedup_m is not None:
+        accept = resolve_duplicate_targets(b.idx, b.dist, accept, dedup_m)
+    if angles is not None:
+        accept = rotation_consistency(angles[0], angles[1][b.idx], accept)
+    if stereo is not None:
+        return median_prune(b, accept, *stereo)
+    return accept
+
+
+def match_epilogue(b: Best2, th: float, *, inclusive: bool = False, ratio: float | None = None,
+                   col: torch.Tensor | None = None, dedup_m: int | None = None, angles=None, stereo=None):
+    """Kernel AD on CUDA tensors, its plain version on CPU ones (the same
+    contract as ``match_epilogue_plain``)."""
+    if b.idx.device.type == "cpu":
+        return match_epilogue_plain(b, th, inclusive=inclusive, ratio=ratio, col=col, dedup_m=dedup_m, angles=angles,
+                                    stereo=stereo)
+    return _epilogue_kernel(b, th, inclusive, ratio, col, dedup_m, angles, stereo)
+
+
+def _epilogue_kernel(b, th, inclusive, ratio, col, dedup_m, angles, stereo):
+    """Kernel AD's launch."""
+    flags = _flags(inclusive, ratio, col, dedup_m, angles, stereo)
+    n = b.idx.shape[0]
+    dev = b.idx.device
+    if b.dist.dtype not in (torch.float32, torch.int32):
+        raise ValueError(f"match_epilogue: distances must be float32 or int32, got {b.dist.dtype}")
+    angle_a, angle_b = angles if angles is not None else (None, None)
+    xy_l, xy_r, bf = stereo if stereo is not None else (None, None, 0.0)
+    tensors = dict(idx=(b.idx, torch.int64), dist=(b.dist, b.dist.dtype), dist2=(b.dist2, b.dist.dtype),
+                   col=(col, torch.int64), angle_a=(angle_a, torch.float32), angle_b=(angle_b, torch.float32),
+                   xy_l=(xy_l, torch.float32), xy_r=(xy_r, torch.float32))
+    _kernels.require_cuda("match_epilogue", **{k: v for k, v in tensors.items() if v[0] is not None})
+    if b.dist.shape != (n,) or b.dist2.shape != (n,) or (angle_a is not None and angle_a.shape != (n,)) or \
+            (stereo is not None and (xy_l.shape != (n, 2) or xy_r.dim() != 2 or xy_r.shape[1] != 2)):
+        raise ValueError("match_epilogue: needs (N,) best-2, (N,) row angles and (N,2) left keypoints")
+    accept = torch.empty(n, dtype=torch.bool, device=dev)
+    right_u = torch.empty(n, dtype=torch.float32, device=dev) if stereo is not None else None
+    depth = torch.empty_like(right_u) if stereo is not None else None
+    m = int(dedup_m) if dedup_m is not None else 0
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    _kernels.launch(
+        "match_epilogue_launch", dev, n, m, flags, b.idx.data_ptr(), b.dist.data_ptr(), b.dist2.data_ptr(),
+        int(b.dist.dtype == torch.float32), ptr(col), ptr(angle_a), ptr(angle_b), ptr(xy_l), ptr(xy_r), float(th),
+        float(ratio if ratio is not None else 0.0), float(bf), accept.data_ptr(), ptr(right_u), ptr(depth),
+    )
+    match_epilogue.launches.add(stage_set(flags))
+    if stereo is not None:
+        return right_u, depth, accept
+    return accept
+
+
+match_epilogue.launches = _kernels.LaunchCounter()  # counted per stage set (``stage_set``)

@@ -9,10 +9,11 @@ Counterpart of ``stereo_match``, ``stereo_subpixel_refine``,
 ``search_by_projection``, ``search_frame_to_frame``,
 ``search_descriptors_mutual``, ``search_for_triangulation`` and
 ``_pow_level`` of ``orb_slam3_fast_tpu/ops/matching.py``.  The gated best-2
-searches run in kernel C (``ops.hamming.hamming_best2``); their epilogues
-(ratio, dedup, rotation histogram, mutual check, median prune) are plain
-PyTorch, but for the fisheye match, whose gates and triangulation run in
-kernel AB.  ``stereo_subpixel_refine`` is the wrapper of kernel J
+searches run in kernel C (``ops.hamming.hamming_best2``) and their epilogues
+(threshold, ratio, mutual check, dedup, rotation histogram, median prune and
+depth) in one launch of kernel AD (``ops.hamming.match_epilogue``), but for
+the fisheye match, whose gates and triangulation run in kernel AB.
+``stereo_subpixel_refine`` is the wrapper of kernel J
 (``csrc/sad_refine.cu``); ``stereo_subpixel_refine_plain`` computes the same
 from ``sad_table``.  ``fisheye_stereo_gate`` is the wrapper of kernel AB
 (``csrc/fisheye_stereo.cu``), ``fisheye_stereo_gate_plain`` its plain
@@ -76,15 +77,6 @@ def _pow_level(level: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return table[0] * torch.exp(level.to(torch.float32) * ratio)
 
 
-def _median(x: torch.Tensor) -> torch.Tensor:
-    """``jnp.median``: NaN if any element is NaN, else the mean of the middle
-    pair for an even count (``torch.median`` returns the lower one)."""
-    s, _ = torch.sort(x)
-    n = x.shape[0]
-    med = (s[(n - 1) // 2] + s[n // 2]) * 0.5
-    return torch.where(torch.isnan(x).any(), torch.full_like(med, torch.nan), med)
-
-
 def search_for_initialization(kp0: Keypoints, kp1: Keypoints, window: float = 100.0, ratio: float = 0.9,
                               check_rotation: bool = True):
     """Monocular-initialisation matcher (SearchForInitialization,
@@ -101,11 +93,8 @@ def search_for_initialization(kp0: Keypoints, kp1: Keypoints, window: float = 10
         (kp1.valid & (kp1.level == 0)).to(f32),
     )
     b, _ = ham.hamming_best2(kp0.desc, kp1.desc, gate)
-    accept = ham.ratio_gate(b, ratio, ham.TH_LOW)
-    accept = ham.resolve_duplicate_targets(b.idx, b.dist, accept, kp1.n)
-    if check_rotation:
-        accept = ham.rotation_consistency(kp0.angle, kp1.angle[b.idx], accept)
-    return b.idx, accept
+    angles = (kp0.angle.contiguous(), kp1.angle.contiguous()) if check_rotation else None
+    return b.idx, ham.match_epilogue(b, ham.TH_LOW, ratio=ratio, dedup_m=kp1.n, angles=angles)
 
 
 def search_by_projection(
@@ -132,9 +121,7 @@ def search_by_projection(
         kp.level.to(f32), kp.valid.to(f32),
     )
     b, _ = ham.hamming_best2(proj_desc, kp.desc, gate)
-    accept = ham.ratio_gate(b, ratio, th_dist)
-    accept = ham.resolve_duplicate_targets(b.idx, b.dist, accept, kp.n)
-    return b.idx, accept
+    return b.idx, ham.match_epilogue(b, th_dist, ratio=ratio, dedup_m=kp.n)
 
 
 def search_frame_to_frame(
@@ -161,11 +148,8 @@ def search_frame_to_frame(
         kp_cur.level.to(f32), kp_cur.valid.to(f32),
     )
     b, _ = ham.hamming_best2(desc_last, kp_cur.desc, gate)
-    accept = b.dist <= ham.TH_HIGH
-    accept = ham.resolve_duplicate_targets(b.idx, b.dist, accept, kp_cur.n)
-    if check_rotation:
-        accept = ham.rotation_consistency(angle_last, kp_cur.angle[b.idx], accept)
-    return b.idx, accept
+    angles = (angle_last.contiguous(), kp_cur.angle.contiguous()) if check_rotation else None
+    return b.idx, ham.match_epilogue(b, ham.TH_HIGH, inclusive=True, dedup_m=kp_cur.n, angles=angles)
 
 
 def search_descriptors_mutual(desc_a, valid_a, desc_b, valid_b, th: int = ham.TH_LOW, ratio: float = 0.75):
@@ -175,8 +159,7 @@ def search_descriptors_mutual(desc_a, valid_a, desc_b, valid_b, th: int = ham.TH
     f32 = torch.float32
     gate = ham.MutualGate(valid_a.to(f32).contiguous(), valid_b.to(f32).contiguous())
     b_ab, ba_idx = ham.hamming_best2(desc_a, desc_b, gate)
-    accept = ham.ratio_gate(b_ab, ratio, th) & ham.mutual_consistency(b_ab.idx, ba_idx)
-    return b_ab.idx, accept
+    return b_ab.idx, ham.match_epilogue(b_ab, th, ratio=ratio, col=ba_idx)
 
 
 def search_for_triangulation(
@@ -205,8 +188,7 @@ def search_for_triangulation(
         3.84 * _pow_level(kp_b.level, level_sigma2), (free_b & kp_b.valid).to(f32),
     )
     b_ab, ba_idx = ham.hamming_best2(kp_a.desc, kp_b.desc, gate)
-    accept = ham.ratio_gate(b_ab, ratio, th) & ham.mutual_consistency(b_ab.idx, ba_idx)
-    return b_ab.idx, accept
+    return b_ab.idx, ham.match_epilogue(b_ab, th, ratio=ratio, col=ba_idx)
 
 
 class StereoMatches(NamedTuple):
@@ -230,7 +212,8 @@ def stereo_match(
 
     Soft row-band, disparity [1, bf/min_z] and level gates added to the
     Hamming distance as 10000 * excess, best-2, L->R / R->L mutual check,
-    then the 2.1x median-distance prune."""
+    then the 2.1x median-distance prune; like ``jnp.median``, any unaccepted
+    slot makes the median NaN, which then reads as TH_HIGH."""
     f32 = torch.float32
     max_d = bf / min_z
     if slot_scale_r is not None:
@@ -244,18 +227,8 @@ def stereo_match(
         kp_r.level.to(f32), kp_r.valid.to(f32), max_d * max_disp_frac,
     )
     b, rl_idx = ham.hamming_best2(kp_l.desc, kp_r.desc, gate)
-    accept = (b.dist <= th_dist) & ham.mutual_consistency(b.idx, rl_idx)
-    # median-distance prune; like jnp.median, any unaccepted slot makes the
-    # median NaN, which then reads as TH_HIGH
-    dist_f = torch.where(accept, b.dist, torch.full_like(b.dist, ham.INF_DIST))
-    med = torch.nan_to_num(_median(torch.where(accept, dist_f, torch.nan)), nan=float(ham.TH_HIGH))
-    accept = accept & (dist_f <= 2.1 * med)
-    ur = kp_r.xy[b.idx, 0]
-    disparity = torch.clamp(kp_l.xy[:, 0] - ur, min=1.0)
-    neg = torch.full_like(ur, -1.0)
-    depth = torch.where(accept, bf / disparity, neg)
-    accept = accept & (depth > 0) & (depth < 1e6)
-    return StereoMatches(torch.where(accept, ur, neg), torch.where(accept, depth, neg), accept)
+    return StereoMatches(*ham.match_epilogue(b, th_dist, inclusive=True, col=rl_idx,
+                                             stereo=(kp_l.xy.contiguous(), kp_r.xy.contiguous(), bf)))
 
 
 def sad_table(img_l: torch.Tensor, img_r: torch.Tensor, xy_l: torch.Tensor, right_u: torch.Tensor,

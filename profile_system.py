@@ -23,7 +23,15 @@ activity).  From the traced run alone it reports:
 - the device's idle share, 1 - busy / wall, and the number of device
   operations, in all and per frame;
 - the operations with the most device time, and every launch of the
-  port's hand-written kernels (``csrc/``) by name.
+  port's hand-written kernels (``csrc/``) by name;
+- by frame kind (ordinary: neither the first frame nor one that made a
+  keyframe; keyframe): ``track_total`` of the untraced run, and the CUDA
+  launches (the kernel launches, copies and sets of ``LAUNCHES``)
+  that the traced run made within each frame's ``track`` call.
+
+``--root DIR`` measures the checkout at DIR (for example a parent commit
+unpacked with ``git archive``), whose ``chip_smoke.py`` and port it
+imports, so that two checkouts measured in one call compare.
 
 The last line is one JSON object with these numbers.  It exits nonzero
 without a CUDA device, if the System loses track, or if the trace holds no
@@ -32,25 +40,33 @@ device operation.
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
+import importlib
 import json
+import os
 import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-import chip_smoke as cs
-
+HERE = Path(__file__).resolve().parent
 TOP = 15  # operations listed by device time
 OURS = re.compile(r"^(?:void )?\(anonymous namespace\)::(\w+(?:<[^>(]*>)?)")
+# the CUDA API calls that put work on the device: kernel launches, copies and sets
+LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx", "cudaMemcpyAsync",
+            "cudaMemsetAsync", "cudaMemcpy", "cudaMemset")
+cs = None  # the measured checkout's chip_smoke, imported in main
 
 
-def run_frames(frames, device, sensor: str, prof=None) -> float:
-    """Milliseconds of wall time for the System over ``frames``; traced by
-    ``prof`` when given."""
+def run_frames(frames, device, sensor: str, prof=None) -> tuple[float, list, list]:
+    """(milliseconds of wall time for the System over ``frames``, each
+    frame's ``track_total``, whether each frame made a keyframe); traced by
+    ``prof`` when given, each frame's call inside a ``frame <i>`` range."""
     from orb_slam3_fast_tpu_torch.slam.system import System
 
     opts = dict(enable_loop_closing=False, multi_map=False, async_backend=False, device=device)
@@ -77,8 +93,12 @@ def run_frames(frames, device, sensor: str, prof=None) -> float:
     if prof is not None:
         prof.start()
     t0 = time.perf_counter()
+    made_kf = []
     for i, f in enumerate(frames):
-        feed(*f, i * 0.05)
+        n_kf = slam.world.n_kf
+        with torch.profiler.record_function(f"frame {i}"):
+            feed(*f, i * 0.05)
+        made_kf.append(slam.world.n_kf != n_kf)
     if slam.backend is not None:
         if not slam.backend.wait_idle(timeout=120) or slam.backend.errors:
             raise RuntimeError(f"the backend did not drain, or failed: {slam.backend.errors[:1]}")
@@ -91,7 +111,22 @@ def run_frames(frames, device, sensor: str, prof=None) -> float:
         raise RuntimeError(f"the System ended in state {slam.get_tracking_state()}")
     if sensor == "loop" and slam.loopcloser.n_loops_closed < 1:
         raise RuntimeError("the loop scenario closed no loop")
-    return wall_ms
+    return wall_ms, list(slam.timers.spans["track_total"]), made_kf
+
+
+def per_frame_counts(events, n: int, keep) -> list[int]:
+    """The events that ``keep`` selects whose start lies inside each
+    ``frame <i>`` range of a trace (the trace's one clock)."""
+    frames = sorted((e.time_range.start, e.time_range.end, int(e.name.split()[1])) for e in events
+                    if e.name.startswith("frame ") and e.name.split()[1].isdigit())
+    starts = [f[0] for f in frames]
+    counts = [0] * n
+    for e in events:
+        if keep(e):
+            k = bisect.bisect_right(starts, e.time_range.start) - 1
+            if k >= 0 and e.time_range.start <= frames[k][1]:
+                counts[frames[k][2]] += 1
+    return counts
 
 
 def busy_us(intervals) -> float:
@@ -108,9 +143,15 @@ def busy_us(intervals) -> float:
 
 
 def main() -> int:
+    global cs
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--sensor", choices=("stereo", "rgbd", "mono", "reloc", "loop", "async"), default="stereo")
-    sensor = parser.parse_args().sensor
+    parser.add_argument("--root", type=Path, default=HERE)
+    args = parser.parse_args()
+    sensor, root = args.sensor, args.root.resolve()
+    sys.path.insert(0, str(root))  # the measured checkout's chip_smoke and port, its configs by relative path
+    os.chdir(root)
+    cs = importlib.import_module("chip_smoke")
     if not torch.cuda.is_available():
         raise SystemExit("profile_system: torch.cuda.is_available() is False; this script needs a CUDA card")
     from torch.autograd import DeviceType
@@ -134,11 +175,12 @@ def main() -> int:
     else:
         frames, _ = cs.rgbd_frames(cs.RGBD_FRAMES) if sensor == "rgbd" else cs.corridor_frames(cs.SYS_FRAMES)
     run_frames(frames, device, sensor)  # warm-up: kernel loading, allocator, library handles
-    untraced_ms = run_frames(frames, device, sensor)
+    untraced_ms, frame_ms, made_kf = run_frames(frames, device, sensor)
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    traced_ms = run_frames(frames, device, sensor, prof)
+    traced_ms, _, traced_kf = run_frames(frames, device, sensor, prof)
 
-    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = prof.events()
+    ops = [e for e in events if e.device_type == DeviceType.CUDA]
     if not ops:
         raise RuntimeError("the trace holds no device operation: time with CUDA events instead")
     busy_ms = busy_us((e.time_range.start, e.time_range.end) for e in ops) / 1e3
@@ -159,7 +201,25 @@ def main() -> int:
     for name, (count, ms) in top:
         print(f"  {ms:10.3f} ms {count:7d}x  {name[:100]}")
     print("hand-written kernels: " + ", ".join(f"{name} {ms:.3f} ms / {count}" for name, count, ms in ours))
+    per_frame = per_frame_counts(events, n, lambda e: e.name in LAUNCHES)
+    ops_frame = per_frame_counts(events, n, lambda e: e.device_type == DeviceType.CUDA)
+    ordinary = [i for i in range(1, n) if not made_kf[i] and not traced_kf[i]]
+    kinds = {"ordinary": ordinary, "keyframe": [i for i in range(n) if made_kf[i]]}
+    by_kind = {kind: dict(frames=ids, track_total_ms=[frame_ms[i] for i in ids],
+                          mean_ms=float(np.mean([frame_ms[i] for i in ids])) if ids else None,
+                          median_ms=float(np.median([frame_ms[i] for i in ids])) if ids else None,
+                          launches=[per_frame[i] for i in ids],
+                          mean_launches=float(np.mean([per_frame[i] for i in ids])) if ids else None,
+                          mean_device_ops=float(np.mean([ops_frame[i] for i in ids])) if ids else None)
+               for kind, ids in kinds.items()}
+    for kind, r in by_kind.items():
+        if r["frames"]:
+            print(f"{kind} frames ({len(r['frames'])}): track_total mean {r['mean_ms']:.3f} ms, median "
+                  f"{r['median_ms']:.3f} ms (untraced run); CUDA launches per frame mean {r['mean_launches']:.1f}, "
+                  f"device operations starting within the frame mean {r['mean_device_ops']:.1f} (traced run); "
+                  f"launches each {r['launches']}")
     print(json.dumps({
+        "root": str(root), "by_kind": by_kind,
         "sensor": sensor, "frames": n, "traced_wall_ms": traced_ms, "untraced_wall_ms": untraced_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1 - busy_ms / traced_ms, "device_ops": len(ops), "device_ops_per_frame": len(ops) / n,
         "top": [{"name": name, "count": count, "ms": ms} for name, (count, ms) in top],

@@ -1,4 +1,4 @@
-"""The kernel wrappers (A-AC, no K or O; the KB8 instances): CPU tensors take the plain version, other
+"""The kernel wrappers (A-AD, no K or O; the KB8 instances): CPU tensors take the plain version, other
 devices launch the kernel or raise (no fallback); on a CUDA card each
 kernel agrees with its plain version (``cuda`` marker; these skip without a
 card and run there, where JAX is absent, with
@@ -277,7 +277,7 @@ def test_build_flags_and_sources():
     assert srcs == ["ba_blocks.cu", "ba_lm.cu", "ba_pcg.cu", "ba_schur.cu", "common.cu", "fast_nms.cu",
                     "fisheye_stereo.cu",
                     "hamming_best2.cu",
-                    "imu_init.cu", "imu_preint.cu", "orb_describe.cu", "pnp_ransac.cu", "pose_graph4.cu",
+                    "imu_init.cu", "imu_preint.cu", "match_epilogue.cu", "orb_describe.cu", "pnp_ransac.cu", "pose_graph4.cu",
                     "pose_inertial.cu", "pose_inertial_kb8.cu", "pose_inertial_radtan.cu", "pose_lm.cu",
                     "pyramid_blur.cu", "sad_refine.cu", "select_subpixel.cu",
                     "sim3_graph.cu", "sim3_pcg.cu", "sim3_ransac.cu", "sim3_refine.cu", "triangulate_dlt.cu",
@@ -311,7 +311,7 @@ def test_build_flags_and_sources():
         "pnp_ransac_launch", "sim3_ransac_launch", "sim3_refine_launch", "sim3_graph_launch", "sim3_pcg_launch",
         "ba_pcg_launch", "imu_preint_launch", "imu_compose_launch", "pose_inertial_launch", "imu_init_launch",
         "vi_ba_launch", "pose_graph4_launch", "vi_pcg_launch", "fisheye_stereo_launch", "ba_lm_update_launch",
-        "ba_classify_launch",
+        "ba_classify_launch", "match_epilogue_launch",
     }
     assert "arch=compute_90a,code=sm_90a" in _kernels.NVCC_FLAGS
     assert _kernels.LIB_PATH.parent.name == "_build"
@@ -343,6 +343,24 @@ def test_kernels_match_plain_on_card(cuda):
     torch.testing.assert_close(Tk.R, Tp.R, rtol=0, atol=1e-4)
     torch.testing.assert_close(Tk.t, Tp.t, rtol=0, atol=1e-3)
     assert abs(int(nk) - int(np_)) <= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True], ids=["seeded", "tie-heavy"])
+def test_match_epilogue_matches_plain_on_card(cuda, ties):
+    """Kernel AD against match_epilogue_plain on the card at every search's
+    stage set, on chip_smoke's seeded and tie-heavy inputs at 96 and 1024
+    rows, and past 48 KB of shared memory (the dedup over 7000 columns, the
+    sort of 16384 stereo rows): masks, right u and depth bit for bit."""
+    import chip_smoke
+
+    rng = np.random.default_rng(1)
+    shapes = [(kind, n, m) for kind in chip_smoke.EPILOGUES for n, m in ((96, 96), (1024, 1024))]
+    shapes += [("projection", 1024, 7000), ("stereo", 16384, 16384)]
+    for kind, n, m in shapes:
+        b, th, kw = chip_smoke.epilogue_inputs(chip_smoke.epilogue_case(rng, kind, n, m, ties), kind, cuda)
+        k, p = ham.match_epilogue(b, th, **kw), ham.match_epilogue_plain(b, th, **kw)
+        assert chip_smoke.epilogues_equal(k, p), (kind, n, m)
 
 
 @pytest.mark.cuda

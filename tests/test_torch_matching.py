@@ -132,9 +132,9 @@ def test_stereo_match_soft_gate_and_median(rng):
     valid = st.valid.numpy()
     np.testing.assert_array_equal(valid, [True, True, True, True, True, True, False, False])
     assert st.right_u.numpy()[0] == right[0][8, 0]  # the decoy won row 0
-    m = tmat._median(torch.tensor([1.0, 2.0, 3.0, 4.0]))
+    m = tham._median(torch.tensor([1.0, 2.0, 3.0, 4.0]))
     assert float(m) == 2.5 and float(torch.median(torch.tensor([1.0, 2.0, 3.0, 4.0]))) == 2.0
-    assert torch.isnan(tmat._median(torch.tensor([1.0, float("nan"), 3.0, 4.0])))
+    assert torch.isnan(tham._median(torch.tensor([1.0, float("nan"), 3.0, 4.0])))
 
 
 def test_stereo_match_random(rng):

@@ -180,7 +180,7 @@ def test_worker_drops_keyframes_of_a_retired_map():
     seen = []
     mapper = Mapper(cm.Camera.pinhole(400.0, 400.0, 320.0, 240.0), bf=0.0, device="cpu")
     mapper.process_new_keyframe = lambda world, k, **kw: seen.append(("map", k))
-    closer = type("Closer", (), {"process_keyframe": lambda self, world, k, map_id=0, atlas=None:
+    closer = type("Closer", (), {"process_keyframe": lambda self, world, k, map_id=0, atlas=None, map_lock=None:
                                  seen.append(("close", k)) and False})()
     backend = AsyncBackend(mapper, closer)
     atlas = Atlas(lambda: WorldMap(kp_cap=8, max_kf=8))
