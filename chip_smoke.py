@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It imports only
-the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs fourteen phases:
+the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs fifteen phases:
 
 1. device: fails without CUDA; prints the card's name and power limit;
 2. build: compiles the twenty-eight kernels (A-Y, no K or O, then Z, AA,
@@ -11,9 +11,13 @@ the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs fourteen phases:
    each source's finishing time logged, and the map's host C++ library,
    so that no timed frame pays for g++;
 3. each kernel against its plain PyTorch version on the same CUDA tensors,
-   with CUDA-event times, the least time the card could take for the same
-   work (bytes or operations at the H100's published peaks) and, where one
-   PyTorch call computes the same function, that call's time: A-D at the
+   with CUDA-event times (a plain version that takes over ~50 ms a call,
+   as D's, R's, S's, U's, Z's, AA's and the whole BAs' do, timed on its one
+   comparison call, its first-call costs included, after one call of each
+   torch.linalg function: ``warm_library``), the least time the card could
+   take for the same work (bytes or operations at the H100's published
+   peaks) and, where one PyTorch call computes the same function, that
+   call's time: A-D at the
    step's shapes (640x480 pyramid, 1024 keypoint slots, 1024 x 1024
    stereo, 4096 x 1024 window, 1024 edges); E and F on a local-BA problem
    at the mapper's caps (32 pose slots, 4096 landmarks, 16384
@@ -23,7 +27,11 @@ the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs fourteen phases:
    pyramids and on a tie-heavy map; J on 1024 stereo matches; L on 4096
    landmarks; the whole extraction on the card against the plain one; M on
    the 768 two-view matches of the mono corridor's frames 0 and 5 and on a
-   planar pair (its F and H branches); N on a corridor frame's 768
+   planar pair (its F and H branches), through the pin-hole camera, EuRoC
+   cam0's distortion and TUM-VI's cam0 (its three camera instances), its
+   first stage (the unprojection) and its last (the 12-motion verdict) each
+   bit for bit its plain version, the verdict on crafted motions reaching
+   every branch too (``verdict_cases``); N on a corridor frame's 768
    descriptors with the 10^4- and the 10^6-word vocabulary; P on 768 slots
    with 256 subsets and 20% outliers; Q (128 hypotheses) and R on the 768
    pair slots of a keyframe pair, with and without the scale; S on a
@@ -156,18 +164,37 @@ the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs fourteen phases:
    (c) the default constructors ``System(TUM-VI config, "stereo" |
    "stereo-inertial")`` fed the circle at 20 fps: drained, no worker error,
    the IMU initialised (loops and tracking reported);
-8. one frame of the plain (CPU) step, and the stereo, RGB-D and mono
-   Systems, the relocalisation run, the loop scenario's first
-   ``LOOP_HOST_PREFIX`` frames and the distorted mono System with the
-   plain versions on the host, against the card; the loop scenario's first
+15. (also before phase 8) the monocular KB8 rig: TUM-VI's cam0 alone, on
+   the left images phases 13 and 14 rendered: (a) ``System(TUM-VI config,
+   "monocular")``, synchronous, without loop closing, on 13 (a)'s 25
+   frames; (b) ``"monocular-inertial"`` on 13 (b)'s 45 frames with the
+   body's IMU stream; (c) ``"monocular"`` with loop closing and the Atlas,
+   synchronous, on 14's circle, its first loop correction rerun on the card
+   from a snapshot; each at the JAX package's own level
+   (``FISHEYE_MONO_GATES``; python -m tests.fisheye_mono_reference), M, D,
+   E, L and AC in KB8 and N launched on (a), V, X, W and Y in KB8 on (b),
+   Q and R in KB8 with the scale free, S or U, and T on (c), AB and J on
+   none; (d) the default constructors ``System(TUM-VI config, "monocular" |
+   "monocular-inertial")`` fed the circle at 20 fps: drained, no worker
+   error;
+8. one frame of the plain (CPU) step, and the stereo and mono Systems, the
+   relocalisation run (from the host mono run's state after frame 29), the
+   RGB-D and the distorted mono Systems' first ``HOST_PREFIX`` frames and
+   the loop scenario's first ``LOOP_HOST_PREFIX`` with the plain versions
+   on the host, against the card; the loop scenario's first
    correction (its snapshot taken in 10 (c), whose run repeats phase 9's up
    to there) rerun on the card and on the host; (11 c) the inertial
-   Systems' first 37 (mono) and 41 (stereo) frames on the host against
+   Systems' first 31 (mono) and 38 (stereo) frames on the host against
    the card: the same states, keyframes and
    IMU-initialisation frame, poses within each path's own bound
    (``VI_BOUNDS``: the inertial plain paths alone do not repeat across
-   host CPUs to 2e-3, ``track_spread.py --save-host``), and (13 a) the
-   fisheye stereo System's 25 frames at ``FISHEYE_BOUNDS``; the total time, a
+   host CPUs to 2e-3, ``track_spread.py --save-host``), (13 a) the
+   fisheye stereo System's first ``HOST_PREFIX`` frames and (15 a) the
+   fisheye monocular System's 25 at ``FISHEYE_BOUNDS``, (15 b) the fisheye
+   monocular-inertial System's frames up to its first loss at
+   ``VI_BOUNDS["monocular"]``, and (15 c) its loop correction from the
+   snapshot; the time of each part (the build, phase 3, each path, each
+   host run and phase 8 in all) and the total, a
    JSON line of the kernels, then ``{"ok":
    true, "device": {...}}`` last.  The loop path is held to its own bound
    (``LOOP_DT`` / ``LOOP_DR``: two host CPUs running the plain path alone
@@ -175,7 +202,7 @@ the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs fourteen phases:
    against the host: what the worker has done by the time a frame is
    tracked depends on the host's speed, so they do not repeat.
 
-Launch counts are zeroed just before each path of phases 4-7 and 9-14 and
+Launch counts are zeroed just before each path of phases 4-7 and 9-15 and
 read just after; a run on the async backend also reads them per thread.
 Every such read (``path_counts``) fails unless AC's update launched once
 for each launch of E,
@@ -183,17 +210,33 @@ in each camera instance and on each thread, and its gate wherever E
 launched: every BA iteration on every path is E -> F (or T) -> AC; unless
 AD launched once for each launch of C that AB does not follow, on each
 thread (every search but the fisheye match is C -> AD), and in the stage
-sets of the searches the path runs.  In phases 5-14 every plain epilogue
-function (``EPILOGUE_PLAIN``) raises on a CUDA tensor.
-No path's host comparison is cut in depth but the stereo-inertial one (a
-prefix: past frame 40 its card run and its host run end in other
-states), the mono-inertial one (up to the frame before it is lost) and
-the loop scenario's (a prefix and its correction), the last two for the
-time limit.  Any failure raises, so the
-script exits nonzero without the last line.
+sets of the searches the path runs.  In phases 5-15 every plain epilogue
+function (``EPILOGUE_PLAIN``) and kernel M's plain unprojection and
+verdict (``TWOVIEW_PLAIN``) raise on a CUDA tensor.
+No path's host comparison is cut in depth but these prefixes: the
+fisheye monocular-inertial one's frames up to its first loss (24
+frames); and, for the time limit, the stereo-inertial one's first 38
+frames and the mono-inertial one's first 31 (each through the frame
+after its IMU initialisation; past frame 40 the stereo-inertial card and
+host runs end in other states, and the mono-inertial one is lost from
+frame 37), the loop scenario's first 30 and its first correction, the RGB-D System's
+first 16 (its three keyframes and two local BAs; 22.0 s in full),
+the distorted mono System's first 14 (its initialisation at frame 4 and
+the local BAs of the keyframes of frames 6 and 13; 41.3 s in full), and
+the fisheye stereo System's first 15 (its first four keyframes and three
+local BAs; 40.2-48.3 s in full).
+The relocalisation run's host replica does not track its first 30
+frames again: it goes on from a copy of the host mono run's System
+after them (the same System on the same frames; 25.0 s in full).  Every
+scene is rendered on the host by one pool of worker processes
+(``render_pool``, a torch thread and a core each), which the script
+opens first and closes last; an image is the same rendered there or
+here.  The time of each part is printed beside the total.  Any failure
+raises, so the script exits nonzero without the last line.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import subprocess
@@ -233,9 +276,10 @@ VI_MONO_MIN_AFTER = 5
 # last before the tracker is lost; beyond 2e-3 from frame 34), so the whole mono run is held to 2e-2 in t and the
 # sync paths' 1e-3 in rotation entries; the stereo-inertial runs land within 5e-2 / 5e-3 of each other over frames
 # 0-42 and its card run in another state than the host's at 41-42, so its first 41 frames are held to 5e-2 / 5e-3.
-# The mono-inertial run is held over its first 37 frames, up to the last before the tracker is lost: from there both
-# runs are RECENTLY_LOST on the IMU's prediction, and those frames' host run is left out for the time limit (PR 11).
-VI_HOST_PREFIX = {"monocular": 37, "stereo": 41}
+# For the time limit (PERF.md §6) each inertial run is held over its frames up to the one after its IMU
+# initialisation (X, then Y over the chain) and so its first inertial pose optimisation (W): the mono-inertial run's
+# first 31 frames (the IMU at frame 29; it is lost at frame 37), the stereo-inertial one's first 38 (the IMU at 36).
+VI_HOST_PREFIX = {"monocular": 31, "stereo": 38}
 VI_BOUNDS = {"monocular": (2e-2, 1e-3), "stereo": (5e-2, 5e-3)}
 VI_STEREO_MAX_ATE = 0.10
 VI_GATES = {"monocular": f"IMU initialised, >= {VI_MONO_MIN_AFTER} frames OK after the init frame, scale-aligned ATE "
@@ -246,10 +290,18 @@ VI_GYRO_BIAS, VI_ACC_BIAS = (0.002, -0.001, 0.0015), (0.03, -0.02, 0.04)
 RELOC_FRAMES, RELOC_REVISIT = 30, 20  # test_reloc.py: 30 frames, 3 blank ones, frame 20 again
 LOOP_FRAMES = 150  # tests/test_loop_closing.py's circle
 # Phase 8 holds the loop scenario's card run to its host run over the first LOOP_HOST_PREFIX frames and its first loop
-# correction rerun on the host from a snapshot of the card's map (as phases 12 (b) and 14 do): the whole 150 frames on
-# the host took 152.5-209.0 s of chip_smoke.py's 1200 s (PERF.md, PR 11); the first 60 are those the card and the host
-# run keep within TRACK_DT / TRACK_DR of each other, before the circle's drifting middle
-LOOP_HOST_PREFIX = 60
+# correction rerun on the host from a snapshot of the card's map (as phases 12 (b) and 14 do), for the time limit:
+# the whole 150 frames on the host took 152.5-209.0 s of chip_smoke.py's 1200 s and the first 60 55.2-102.1 s
+# (PERF.md §6); the first 30 (the initialisation, tracking, local BAs and every keyframe's loop query, before the
+# circle's drifting middle from frame ~36) are those the card and the host run keep within TRACK_DT / TRACK_DR
+LOOP_HOST_PREFIX = 30
+# Phase 8's other prefixes, for the time limit (PERF.md §6: in full the three took 22.0, 41.3 and 40.2-48.3 s of
+# phase 8's ~490): the RGB-D System through its three keyframes (frames 0, 10, 15) and so its two local BAs; the
+# distorted mono System through its initialisation (frame 4) and the local BAs of its next two keyframes (frames 6
+# and 13); the fisheye stereo System of 13 (a) through its first four keyframes (frames 0, 4, 8, 14) and so its
+# first three local BAs.  The relocalisation run's host replica goes on from the host mono run's state after its
+# frame 29 (the same System on the same frames) instead of tracking frames 0-29 again.
+HOST_PREFIX = {"rgbd": 16, "distorted mono": 14, "fisheye": 15}
 ATLAS_BLACKOUT = range(55, 68)  # tests/test_atlas.py's sensor dropout
 TRACK_DT, TRACK_DR = 2e-3, 1e-3  # a System's card run against its host run: t, rotation entries
 # The loop path's own bound (150 frames of mono SLAM, map units of ~7.8 m): the plain path alone,
@@ -308,6 +360,20 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def warm_library(device) -> None:
+    """One call of each torch.linalg function the plain versions use, so
+    that no plain version's one timed call pays for creating the library's
+    handles and workspaces."""
+    a = torch.eye(6, device=device) + 0.1 * torch.ones(6, 6, device=device)
+    torch.linalg.solve(a, torch.ones(6, device=device))
+    torch.linalg.svd(a)
+    torch.linalg.inv(a)
+    torch.linalg.det(a)
+    torch.linalg.cholesky_ex(a)
+    torch.linalg.solve(a.double(), torch.ones(6, device=device, dtype=torch.float64))
+    torch.cuda.synchronize()
 
 
 def timed(fn):
@@ -710,6 +776,63 @@ def splat_depth(world, cam, R, t, wh=(640, 480)) -> np.ndarray:
 # --- phase 3: each kernel against its plain version ---------------------------
 
 
+_RENDER_POOL = None  # main()'s pool of render workers while it is open (render_pool)
+
+
+@contextlib.contextmanager
+def render_pool():
+    """One pool of spawn worker processes (a torch thread each, one a core,
+    at most 8) that renders every scene ``main`` draws while it is open;
+    its workers exit when it closes.  Each image is the same, rendered
+    here or there: ``render`` is numpy and elementwise torch."""
+    global _RENDER_POOL
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    with ProcessPoolExecutor(max(1, min(8, os.cpu_count() or 1)), mp_context=multiprocessing.get_context("spawn"),
+                             initializer=torch.set_num_threads, initargs=(1,)) as ex:
+        _RENDER_POOL = ex
+        try:
+            yield
+        finally:
+            _RENDER_POOL = None
+
+
+def render_map(fn, items, parallel: bool = False) -> list:
+    """``[fn(x) for x in items]``: on ``render_pool``'s workers while it is
+    open, else on a pool of its own with ``parallel`` (the 150-frame
+    circles), else in this process."""
+    if _RENDER_POOL is not None:
+        return list(_RENDER_POOL.map(fn, items))
+    if not parallel:
+        return [fn(x) for x in items]
+    with render_pool():
+        return list(_RENDER_POOL.map(fn, items))
+
+
+def _render_view(kind: str, world, cams, pose):
+    """One frame of a corridor scene from T_cw ``pose``: ``"mono"`` an
+    image, ``"mono1"`` a 1-tuple of it, ``"stereo"`` a 0.12 m stereo pair,
+    ``"rgbd"`` the image and its splat depth, ``"rig"`` the two cameras of
+    ``cams = (cam1, cam2, T_c1_c2)`` at ``FISHEYE_WH``."""
+    R, t = pose
+    if kind == "mono":
+        return render(world, cams[0], R, t)
+    if kind == "mono1":
+        return (render(world, cams[0], R, t),)
+    if kind == "stereo":
+        return stereo_pair(world, cams[0], R, t, 0.12)
+    if kind == "rgbd":
+        return render(world, cams[0], R, t), splat_depth(world, cams[0], R, t)
+    return stereo_pair_cams(world, cams[0], cams[1], R, t, cams[2], FISHEYE_WH)
+
+
+def render_views(kind: str, world, cams, poses) -> list:
+    """``_render_view`` at each pose, through :func:`render_map`."""
+    return render_map(functools.partial(_render_view, kind, world, tuple(cams)), list(poses))
+
+
 def compare_kernels(device) -> list[dict]:
     from orb_slam3_fast_tpu_torch.frontend.tracker import visible_landmarks
     from orb_slam3_fast_tpu_torch.ops import extractor as ext
@@ -818,15 +941,13 @@ def compare_kernels(device) -> list[dict]:
     idx, accept = step.match_map(kp_l, T0, lm)
     obs = step.pose_obs(kp_l, right_u, idx, accept, lm)
     Tk, ik, nk = pose_opt.pose_optimization(step.cam, rig.bf, T0, obs)
-    Tp, ip, np_ = pose_opt.pose_optimization_plain(step.cam, rig.bf, T0, obs)
-    torch.cuda.synchronize()
+    (Tp, ip, np_), plain_ms = timed(lambda: pose_opt.pose_optimization_plain(step.cam, rig.bf, T0, obs))
     err = max(float((Tk.t - Tp.t).abs().max()), float((Tk.R - Tp.R).abs().max()))
     # sums in another order can flip a borderline LM accept: pose within
     # 1e-3 (m, and rotation entries), inlier counts within 2
     if err > 1e-3 or abs(int(nk) - int(np_)) > 2:
         raise RuntimeError(f"pose_lm: pose err {err}, inliers {int(nk)} vs {int(np_)}")
     ms = cuda_ms(lambda: pose_opt.pose_optimization(step.cam, rig.bf, T0, obs), 50)
-    plain_ms = cuda_ms(lambda: pose_opt.pose_optimization_plain(step.cam, rig.bf, T0, obs), 5)
     n_edge = int(obs.valid.sum())
     # per active edge and LM iteration (4 x 10): residual, Jacobian and
     # normal-equation terms, ~150 flops; 30 bytes in and 1 out per slot
@@ -842,13 +963,11 @@ def compare_kernels(device) -> list[dict]:
     uvr = torch.where(obs.valid.cpu()[:, None], uvr, obs.uv.cpu())  # the empty slots as the tracker leaves them
     obs_d = obs._replace(uv=uvr.to(device).contiguous())
     Tk, ik, nk = pose_opt.pose_optimization(cam_d, rig.bf, T0, obs_d)
-    Tp, ip, np_ = pose_opt.pose_optimization_plain(cam_d, rig.bf, T0, obs_d)
-    torch.cuda.synchronize()
+    (Tp, ip, np_), plain_d = timed(lambda: pose_opt.pose_optimization_plain(cam_d, rig.bf, T0, obs_d))
     err_d = max(float((Tk.t - Tp.t).abs().max()), float((Tk.R - Tp.R).abs().max()))
     if err_d > 1e-3 or abs(int(nk) - int(np_)) > 2:
         raise RuntimeError(f"pose_lm with distortion: pose err {err_d}, inliers {int(nk)} vs {int(np_)}")
     ms_d = cuda_ms(lambda: pose_opt.pose_optimization(cam_d, rig.bf, T0, obs_d), 50)
-    plain_d = cuda_ms(lambda: pose_opt.pose_optimization_plain(cam_d, rig.bf, T0, obs_d), 5)
     out.append(dict(name="pose_lm", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/pose_lm.cu",
                     replaces="orb_slam3_fast_tpu/optim/pose_opt.py:117", max_abs_err=max(err, err_d), ms=ms,
                     plain_ms=plain_ms, **bound(obs.xw.shape[0] * 31 + 96, n_edge * 40 * 150), library_ms=None,
@@ -884,7 +1003,6 @@ def compare_front_kernels(device, cfg, step, lm, il, ir, kp, kp_r) -> list[dict]
     of those pyramids and on a tie-heavy map, J on the 1024 stereo matches
     of the step's frame, L on its 4096-slot local map at two poses."""
     from orb_slam3_fast_tpu_torch.frontend import tracker as trk
-    from orb_slam3_fast_tpu_torch.imu import preintegration as pre
     from orb_slam3_fast_tpu_torch.ops import extractor as ext
     from orb_slam3_fast_tpu_torch.ops import fast, image
     from orb_slam3_fast_tpu_torch.ops import matching as mat
@@ -1187,13 +1305,12 @@ def compare_system_kernels(device) -> tuple[list[dict], dict]:
 
     # E + F: a whole bundle_adjust against the plain one
     Rk, tk, _, ik = ba.bundle_adjust(cam, bf, prob)
-    Rp, tp, _, ip = ba.bundle_adjust_plain(cam, bf, prob)
+    (Rp, tp, _, ip), ba_plain_ms = timed(lambda: ba.bundle_adjust_plain(cam, bf, prob))
     err_ba = max(float((tk - tp).abs().max()), float((Rk - Rp).abs().max()))
     flips = float((ik != ip).float().mean())
     if not (err_ba <= 1e-3 and flips <= 0.005):
         raise RuntimeError(f"bundle_adjust: pose err {err_ba:.3g}, inlier flags differing {flips:.4f}")
     ba_ms = cuda_ms(lambda: ba.bundle_adjust(cam, bf, prob), 3)
-    ba_plain_ms = cuda_ms(lambda: ba.bundle_adjust_plain(cam, bf, prob), 2)
     out[-1]["shapes"] += (f"; bundle_adjust 5+10 LM via E+F {ba_ms:.3f} ms (plain {ba_plain_ms:.3f}), pose err "
                           f"{err_ba:.3g} (tolerance 1e-3), inlier flags differing {flips:.4f} (tolerance 0.005)")
 
@@ -1262,7 +1379,7 @@ def mono_frames(n_frames: int, seed: int = 0, cam=None):
     cam = cam or Camera.pinhole(400.0, 400.0, 320.0, 240.0)
     world = make_corridor_world(np.random.default_rng(seed), n=900)
     poses = arc_trajectory(n_frames, step=0.06, lateral=0.05)
-    return [render(world, cam, R, t) for R, t in poses], poses
+    return render_views("mono", world, (cam,), poses), poses
 
 
 def planar_matches(rng, n: int = 768, n_valid: int = 300):
@@ -1315,6 +1432,253 @@ def rot_angle(Ra, Rb) -> float:
     return float(np.arctan2(np.linalg.norm(w), (np.trace(M) - 1.0) / 2.0))
 
 
+# Crafted inputs of kernel M's verdict (``verdict_cases``): per case the two models' scores (SF, SH), and per motion
+# (4 from F, then 8 from H) its good count, parallax (degrees) and quality; the verdict the JAX package's rules give
+# them, (success, used_h, the chosen motion), with min_triangulated VERDICT_MIN_TRI.  Each model's inliers are 32 of
+# the 64 valid slots, so its count gate is max(20, int(0.9 * 32)) = 28.
+VERDICT_MIN_TRI = 20
+VERDICT_CASES = {
+    # F preferred (RH 0.09) and dominant on its count: F's first motion
+    "F preferred and ok": ((100.0, 10.0), [40, 5, 3, 2], [5, 1, 1, 1], [30, 2, 1, 0], [10] * 8, [2] * 8, [5] * 8,
+                           (True, False, 0)),
+    # H preferred (RH 0.91) but every H motion under the count gate: the fallback to F
+    "H preferred, H fails, F ok": ((10.0, 100.0), [40, 5, 3, 2], [5, 1, 1, 1], [30, 2, 1, 0], [10] * 8, [2] * 8,
+                                   [5] * 8, (True, False, 0)),
+    # H preferred, both under the count gate: H kept, no success
+    "both fail, H preferred": ((10.0, 100.0), [10, 5, 3, 2], [5, 1, 1, 1], [30, 2, 1, 0], [10] * 8, [2] * 8,
+                               [5] * 8, (False, True, 4)),
+    # F preferred, both fail: F kept, no success
+    "both fail, F preferred": ((100.0, 10.0), [10, 5, 3, 2], [5, 1, 1, 1], [30, 2, 1, 0], [10] * 8, [2] * 8,
+                               [5] * 8, (False, False, 0)),
+    # F preferred but failing, H's sixth motion dominant: the fallback to H
+    "F fails, H ok": ((100.0, 10.0), [10, 5, 3, 2], [5, 1, 1, 1], [30, 2, 1, 0], [3, 3, 3, 3, 3, 45, 3, 3],
+                      [2, 2, 2, 2, 2, 6, 2, 2], [1, 1, 1, 1, 1, 40, 1, 1], (True, True, 9)),
+    # a tie in quality goes to the first motion; neither count (35 of 40) nor quality dominates, parallax (2 under
+    # half of 5) does
+    "quality tie, parallax dominance": ((100.0, 10.0), [40, 35, 3, 2], [5, 2, 1, 1], [30, 30, 1, 0], [10] * 8,
+                                       [2] * 8, [5] * 8, (True, False, 0)),
+    # the same tie, the runner-up's parallax 4 over half of 5: no dominance
+    "quality tie, not dominant": ((100.0, 10.0), [40, 35, 3, 2], [5, 4, 1, 1], [30, 30, 1, 0], [10] * 8, [2] * 8,
+                                  [5] * 8, (False, False, 0)),
+    # counts close (38 of 40), the runner-up's quality under 0.6 of the best's: dominant
+    "quality dominance": ((100.0, 10.0), [40, 38, 3, 2], [5, 4, 1, 1], [30, 10, 1, 0], [10] * 8, [2] * 8, [5] * 8,
+                          (True, False, 0)),
+    # the best motion's parallax 0.8 under min_parallax_deg 1: no success
+    "parallax gate": ((100.0, 10.0), [40, 5, 3, 2], [0.8, 0.2, 0.1, 0.1], [30, 2, 1, 0], [10] * 8, [2] * 8, [5] * 8,
+                      (False, False, 0)),
+    # a tie in H's quality (motions 5 and 7) goes to the first, which dominates on count
+    "H quality tie": ((10.0, 100.0), [3, 3, 3, 3], [1, 1, 1, 1], [1, 1, 1, 1], [3, 45, 3, 30, 3, 3, 3, 3],
+                      [2, 6, 2, 3, 2, 2, 2, 2], [1, 40, 1, 40, 1, 1, 1, 1], (True, True, 5)),
+}
+
+
+def image_pixels(rng, cam, wh, n: int) -> torch.Tensor:
+    """(n, 2) host pixels over a ``wh`` image, its corners and ``cam``'s
+    principal point (KB8's d < EPS branch) among them."""
+    uv = rng.uniform([0.0, 0.0], wh, (n, 2))
+    uv[:4] = [[0.0, 0.0], [wh[0] - 1.0, 0.0], [0.0, wh[1] - 1.0], [wh[0] - 1.0, wh[1] - 1.0]]
+    uv[4] = [float(cam.params[2]), float(cam.params[3])]
+    return torch.as_tensor(uv.astype(np.float32))
+
+
+def two_view_scene(rng, cam, planar: bool, n: int = 256, n_valid: int = 180) -> tuple:
+    """Two views of points 3-9 m ahead (or of the plane z = 4 + 0.3 x)
+    through ``cam``, the second 0.3 m to the side with a small turn, 0.5 px
+    noise, 10% of the matches off by up to 40 px; the first ``n_valid`` of
+    ``n`` slots hold matches.  Returns host (uv0, uv1, valid)."""
+    from orb_slam3_fast_tpu_torch.cameras import models as cm
+    from orb_slam3_fast_tpu_torch.utils import lie
+
+    X = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n), rng.uniform(3, 9, n)], -1)
+    if planar:
+        X[:, 2] = 4.0 + 0.3 * X[:, 0]
+    T = lie.se3_exp(torch.tensor([0.3, 0.05, 0.1, 0.02, -0.05, 0.01], dtype=torch.float64)).inverse()
+    X1 = X @ T.R.numpy().T + T.t.numpy()
+    uv = [cm.project(cam, torch.as_tensor(Y, dtype=torch.float32)).numpy() + rng.normal(0, 0.5, (n, 2))
+          for Y in (X, X1)]
+    wrong = rng.uniform(size=n) < 0.1
+    uv[1][wrong] += rng.uniform(-40, 40, (int(wrong.sum()), 2))
+    return tuple(torch.as_tensor(a) for a in (uv[0].astype(np.float32), uv[1].astype(np.float32),
+                                              np.arange(n) < n_valid))
+
+
+def distinct_hypotheses(seed: int, valid: torch.Tensor, n_iters: int = 200) -> torch.Tensor:
+    """(n_iters, 8) int32 hypothesis samples of kernel M, each of 8 distinct
+    valid matches (drawn without replacement within a hypothesis, from a
+    seeded CPU generator), on ``valid``'s device.  ``_sample_hypotheses``
+    draws with replacement, as the JAX package does, and a hypothesis that
+    repeats a match has a two-dimensional null space, of which the kernel's
+    float64 Jacobi and the plain version's SVD may each return another
+    vector (on tests/test_torch_kernels.py's 3-D KB8 pair one such
+    hypothesis out-scored every other in the kernel): kernel-against-plain
+    checks on scenes other than phase 3's draw their hypotheses here."""
+    p = valid.detach().cpu().to(torch.float64).expand(n_iters, -1)
+    g = torch.Generator().manual_seed(int(seed))
+    return torch.multinomial(p, 8, replacement=False, generator=g).to(torch.int32).to(valid.device)
+
+
+def verdict_cases(device, n: int = 64, seed: int = 0) -> dict:
+    """``VERDICT_CASES`` as kernel M's verdict takes them: label -> ((Rall,
+    tall, ngood, goods, parallax, Xs, qual, SF, SH, valid, inl_f, inl_h) on
+    ``device``, the expected (success, used_h, motion)).  The motions'
+    rotations, translations, points and flags are seeded at random, so the
+    chosen motion's copy is checked; the first 64 of ``n`` slots are
+    valid, each model's inliers 32 of them."""
+    from orb_slam3_fast_tpu_torch.utils import lie
+
+    rng = np.random.default_rng(seed)
+    valid = np.arange(n) < 64
+    inl_f, inl_h = valid & (np.arange(n) % 2 == 0), valid & (np.arange(n) % 2 == 1)
+    out = {}
+    for label, ((sf, sh), ng_f, par_f, q_f, ng_h, par_h, q_h, expected) in VERDICT_CASES.items():
+        R = lie.so3_exp(torch.as_tensor(rng.normal(0, 0.3, (12, 3)), dtype=torch.float32))
+        t = rng.normal(size=(12, 3))
+        t /= np.linalg.norm(t, axis=1, keepdims=True)
+        arrays = (R, t.astype(np.float32), np.asarray(ng_f + ng_h, np.int32), rng.uniform(size=(12, n)) < 0.5,
+                  np.asarray(par_f + par_h, np.float32), rng.normal(0, 3, (12, n, 3)).astype(np.float32),
+                  np.asarray(q_f + q_h, np.float32), np.float32(sf), np.float32(sh), valid, inl_f, inl_h)
+        out[label] = (tuple(torch.as_tensor(a).to(device) for a in arrays), expected)
+    return out
+
+
+def verdicts_equal(a, b) -> bool:
+    """Two TwoViewResults bit for bit."""
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def through(cam, uv: torch.Tensor) -> torch.Tensor:
+    """The pixels of ``cam`` on the rays that the synthetic 400 px pin-hole
+    camera (640x480) sees at ``uv`` (N,2), on ``uv``'s device: a pin-hole
+    problem's geometry seen through a distorted or a KB8 camera."""
+    from orb_slam3_fast_tpu_torch.cameras import models as cm
+
+    ray = cm.unproject(cm.Camera.pinhole(400.0, 400.0, 320.0, 240.0), uv.cpu())
+    return cm.project(cam, ray).to(uv.device).contiguous()
+
+
+def twoview_ops(n: int, n_hyp: int, nv: int, n_good: int) -> tuple[int, int]:
+    """Kernel M's bound's (bytes, operations) on N slots, I hypotheses, the
+    valid matches and the chosen motion's good points.  Bytes: 17 per slot
+    and the samples in; the chosen motion, its X and good flags (13 per
+    slot) out.  Operations: the unprojection (counted by the stage's own
+    bound, ``unproject_ops``), the Hartley normalisation (6 per valid point
+    and view); per hypothesis the 8-point F and H (their normal matrices and
+    null vectors, F's rank-2 SVD, 4 3x3 products to denormalise, H's inverse
+    by the adjugate) and both transfer scores on every valid point (~90);
+    the refit of each model on its inliers (normal matrices, ~90 + 180, a
+    null vector, a rescore), the 4 + 8 motions (2 SVDs, ~60 each), and per
+    motion the triangulation (a 4x4 DLT) and CheckRT's tests (~60) of the
+    model's inliers; the inlier counts are at least the chosen motion's
+    good points."""
+    fit = normal_flops(8, 9) + normal_flops(16, 9) + 2 * null_flops(9) + SVD3_FLOPS + 4 * 45 + 45
+    ops = (2 * 6 * nv + n_hyp * (fit + 90 * nv) + 2 * null_flops(9) + SVD3_FLOPS + n_good * (12 + 90 + 180 + 90)
+           + 2 * SVD3_FLOPS + 12 * 60 + 12 * n_good * (16 + normal_flops(4, 4) + null_flops(4) + 60))
+    return n * 17 + n_hyp * 32 + n * 13 + 60, ops
+
+
+# per match and view: (u - c) / f (4 operations), then 10 fixed-point steps of the radial-tangential distortion
+# (~30 each) or 10 Newton steps on KB8's degree-9 polynomial and its derivative (~25 each) and the final tan and
+# scale (~25)
+UNPROJECT_OPS = {"pinhole": 4, "radtan": 4 + 10 * 30, "kb8": 4 + 10 * 25 + 25}
+
+
+def compare_twoview(device, cases: dict) -> dict:
+    """Phase 3 for kernel M in its three camera instances: the pin-hole
+    camera, EuRoC cam0's distortion on the same intrinsics and TUM-VI's cam0
+    (KB8), each on ``cases`` (label -> pin-hole (uv0, uv1, valid)) seen
+    through it (:func:`through`).  The whole kernel against
+    ``reconstruct_plain`` at the tolerances below; its first stage
+    (``unproject_pair``) bit for bit ``_camera_plane`` (both views and
+    sigma^2, the camera on the host as the tracker holds it); its last
+    stage (``verdict``) bit for bit ``_verdict``, on the plain version's
+    motions of every case and on ``verdict_cases``' crafted motions, which
+    reach every branch.  Times by CUDA events: the kernel and each stage
+    alone, the plain version and each plain stage, the batched library SVDs
+    of the F and H systems.  The pin-hole
+    instance is the row; "radtan" and "kb8" hold the other two, "stages"
+    each stage's times and bounds by instance."""
+    from orb_slam3_fast_tpu_torch.cameras.models import Camera
+    from orb_slam3_fast_tpu_torch.ops import twoview
+
+    cams = {"pinhole": Camera.pinhole(400.0, 400.0, 320.0, 240.0),
+            "radtan": Camera.pinhole(400.0, 400.0, 320.0, 240.0, EUROC_DIST), "kb8": fisheye_settings("monocular").cam}
+    crafted = verdict_cases(device)
+    for label, (args, _) in crafted.items():
+        if not verdicts_equal(twoview.verdict(*args, VERDICT_MIN_TRI, 1.0),
+                              twoview._verdict(*args, VERDICT_MIN_TRI, 1.0)):
+            raise RuntimeError(f"twoview_ransac's verdict differs from the plain verdict on the crafted case {label!r}")
+    rows, stages = {}, {"unproject": {}, "verdict": {}}
+    for kind, cam in cams.items():
+        err, notes, ms_k, ms_p, lib_k, nbytes, ops, branches = 0.0, [], 0.0, 0.0, 0.0, 0, 0, set()
+        st = dict(ms=0.0, plain_ms=0.0, nbytes=0, ops=0)
+        vd = dict(ms=0.0, plain_ms=0.0, nbytes=0, ops=0)
+        for label, (uv0p, uv1p, valid) in cases.items():
+            uv0, uv1 = (uv0p, uv1p) if kind == "pinhole" else (through(cam, uv0p), through(cam, uv1p))
+            samples = twoview._sample_hypotheses(5, valid)
+            # the first stage: bit for bit, and its times
+            xk0, xk1, s2k = twoview.unproject_pair(cam, uv0, uv1)
+            xp0, xp1, s2p = twoview._camera_plane(cam, uv0, uv1)
+            if not (torch.equal(xk0, xp0) and torch.equal(xk1, xp1) and s2k == float(np.float32(s2p))):
+                raise RuntimeError(f"twoview_ransac's unprojection ({kind}, {label}) is not the plain one bit for bit: "
+                                   f"x0 {float((xk0 - xp0).abs().max()):.3g}, x1 {float((xk1 - xp1).abs().max()):.3g}, "
+                                   f"sigma2 {s2k!r} / {s2p!r}")
+            st["ms"] += cuda_ms(lambda: twoview._unproject_kernel(cam, uv0, uv1), 50)
+            st["plain_ms"] += cuda_ms(lambda: twoview._camera_plane(cam, uv0, uv1), 10)
+            st["nbytes"] += uv0.shape[0] * 32 + 4
+            st["ops"] += 2 * uv0.shape[0] * UNPROJECT_OPS[kind]
+            # the whole kernel against the plain version
+            rk = twoview.reconstruct(cam, uv0, uv1, valid, 0, samples=samples)
+            motions = twoview.motions_plain(cam, uv0, uv1, valid, samples)
+            rp = twoview._verdict(*motions, 50, 1.0)
+            ang = rot_angle(rk.R, rp.R)
+            t_dir = float(1.0 - torch.abs(torch.dot(rk.t.double(), rp.t.double())))
+            good_eq = float((rk.good == rp.good).float().mean())
+            both = rk.good & rp.good
+            x_err = float(((rk.X - rp.X).norm(dim=1) / rp.X.norm(dim=1))[both].max()) if bool(both.any()) else 0.0
+            if not (bool(rk.success) == bool(rp.success) and bool(rk.used_h) == bool(rp.used_h) and ang <= 1e-3
+                    and t_dir <= 1e-3 and good_eq >= 0.99 and x_err <= 1e-3):
+                raise RuntimeError(f"twoview_ransac ({kind}) {label}: success {bool(rk.success)}/{bool(rp.success)}, "
+                                   f"used_h {bool(rk.used_h)}/{bool(rp.used_h)}, R {ang:.3g} rad, t direction "
+                                   f"{t_dir:.3g}, good equal {good_eq:.4f}, X {x_err:.3g}")
+            # the last stage on the plain motions: bit for bit, and its times
+            if not verdicts_equal(twoview.verdict(*motions, 50, 1.0), rp):
+                raise RuntimeError(f"twoview_ransac's verdict ({kind}, {label}) differs from the plain verdict")
+            vd["ms"] += cuda_ms(lambda: twoview.verdict(*motions, 50, 1.0), 50)
+            vd["plain_ms"] += cuda_ms(lambda: twoview._verdict(*motions, 50, 1.0), 10)
+            n, nv, n_good = uv0.shape[0], int(valid.sum()), int(rp.good.sum())
+            vd["nbytes"] += n * 3 + n * 13 + 12 * 4 * 3 + 8 + n * 13 + 56  # valid, inliers, the chosen X and flags in
+            vd["ops"] += 2 * n + 12 * 12
+            branches.add("H" if bool(rp.used_h) else "F")
+            err = max(err, ang, t_dir, x_err)
+            ms = cuda_ms(lambda: twoview.reconstruct(cam, uv0, uv1, valid, 0, samples=samples), 20)
+            pms = cuda_ms(lambda: twoview.reconstruct_plain(cam, uv0, uv1, valid, samples), 5)
+            # the library call: the batched SVDs of the (200,8,9) F and (200,16,9) H systems
+            x0, x1, _ = twoview._camera_plane(cam, uv0, uv1)
+            s0n, _ = twoview._normalize(x0, valid)
+            s1n, _ = twoview._normalize(x1, valid)
+            Af, Ah = twoview._f_rows(s0n[samples], s1n[samples]), twoview._h_rows(s0n[samples], s1n[samples])
+            lib = cuda_ms(lambda: (torch.linalg.svd(Af), torch.linalg.svd(Ah)), 20)
+            ms_k, ms_p, lib_k = ms_k + ms, ms_p + pms, lib_k + lib
+            b, o = twoview_ops(n, samples.shape[0], nv, n_good)
+            nbytes, ops = nbytes + b, ops + o + 2 * n * UNPROJECT_OPS[kind]
+            notes.append(f"{label}: {nv} valid of {n}, success {bool(rp.success)}, used_h {bool(rp.used_h)}, R "
+                         f"{ang:.2e} rad, t dir {t_dir:.2e}, good equal {good_eq:.4f}, X {x_err:.2e}; {ms:.4f} ms "
+                         f"(plain {pms:.4f}, svd {lib:.4f})")
+        if branches != {"F", "H"}:
+            raise RuntimeError(f"twoview_ransac ({kind}): the two cases took branches {branches}, not both F and H")
+        rows[kind] = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p, **bound(nbytes, ops), library_ms=lib_k,
+                          shapes="; ".join(notes))
+        for name, d in (("unproject", st), ("verdict", vd)):
+            stages[name][kind] = dict(ms=d["ms"], plain_ms=d["plain_ms"], **bound(d["nbytes"], d["ops"]))
+    row = rows.pop("pinhole")
+    row["shapes"] += ("; tolerances: success and used_h equal, R 1e-3 rad, t direction 1e-3, good equal on >= 99%, X "
+                      "1e-3 relative where both good; the unprojection (stage 0) and the verdict (stage 4) bit for bit "
+                      f"their plain versions, the verdict on {len(crafted)} crafted cases too; library = batched "
+                      "torch.linalg.svd of the F and H systems")
+    return dict(name="twoview_ransac", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/twoview_ransac.cu",
+                replaces="orb_slam3_fast_tpu/ops/twoview.py:304", **row, **rows, stages=stages)
+
+
 def compare_mono_kernels(device) -> list[dict]:
     """Phase 3 for kernels M, N and P against their plain versions on the
     same CUDA tensors: M on the 768 two-view matches of frames 0 and 5 of the
@@ -1324,7 +1688,6 @@ def compare_mono_kernels(device) -> list[dict]:
     from orb_slam3_fast_tpu_torch.cameras.models import Camera
     from orb_slam3_fast_tpu_torch.ops import extractor as ext
     from orb_slam3_fast_tpu_torch.ops import matching as mat
-    from orb_slam3_fast_tpu_torch.ops import twoview
     from orb_slam3_fast_tpu_torch.optim import pnp
     from orb_slam3_fast_tpu_torch.vocab import vocabulary as voc_mod
 
@@ -1334,61 +1697,12 @@ def compare_mono_kernels(device) -> list[dict]:
     kp0, kp5 = (ext.extract(torch.as_tensor(imgs[i]).to(device), cfg) for i in (0, 5))
     out = []
 
-    # M: the corridor pair (F) and a planar pair (H)
+    # M: the corridor pair (F) and a planar pair (H), in its three camera instances
     idx, acc = mat.search_for_initialization(kp0, kp5, 100.0)
     uvp0, uvp1, vp = planar_matches(np.random.default_rng(7))
     cases = {"corridor 0-5": (kp0.xy, kp5.xy[idx].contiguous(), acc),
              "plane": tuple(torch.as_tensor(a).to(device) for a in (uvp0, uvp1, vp))}
-    m_err, m_notes, m_ms, m_pms, m_lib, m_bytes, m_ops, branches = 0.0, [], 0.0, 0.0, 0.0, 0, 0, set()
-    for label, (uv0, uv1, valid) in cases.items():
-        samples = twoview._sample_hypotheses(5, valid)
-        rk = twoview.reconstruct(cam, uv0, uv1, valid, 0, samples=samples)
-        rp = twoview.reconstruct_plain(cam, uv0, uv1, valid, samples)
-        torch.cuda.synchronize()
-        ang = rot_angle(rk.R, rp.R)
-        t_dir = float(1.0 - torch.abs(torch.dot(rk.t.double(), rp.t.double())))
-        good_eq = float((rk.good == rp.good).float().mean())
-        both = rk.good & rp.good
-        x_err = float(((rk.X - rp.X).norm(dim=1) / rp.X.norm(dim=1))[both].max()) if bool(both.any()) else 0.0
-        if not (bool(rk.success) == bool(rp.success) and bool(rk.used_h) == bool(rp.used_h) and ang <= 1e-3
-                and t_dir <= 1e-3 and good_eq >= 0.99 and x_err <= 1e-3):
-            raise RuntimeError(f"twoview_ransac {label}: success {bool(rk.success)}/{bool(rp.success)}, used_h "
-                               f"{bool(rk.used_h)}/{bool(rp.used_h)}, R {ang:.3g} rad, t direction {t_dir:.3g}, "
-                               f"good equal {good_eq:.4f}, X {x_err:.3g}")
-        branches.add("H" if bool(rp.used_h) else "F")
-        m_err = max(m_err, ang, t_dir, x_err)
-        ms = cuda_ms(lambda: twoview.reconstruct(cam, uv0, uv1, valid, 0, samples=samples), 20)
-        pms = cuda_ms(lambda: twoview.reconstruct_plain(cam, uv0, uv1, valid, samples), 5)
-        # the library call: the batched SVDs of the (200,8,9) F and (200,16,9) H systems
-        x0, x1, _ = twoview._camera_plane(cam, uv0, uv1)
-        s0n, _ = twoview._normalize(x0, valid)
-        s1n, _ = twoview._normalize(x1, valid)
-        Af, Ah = twoview._f_rows(s0n[samples], s1n[samples]), twoview._h_rows(s0n[samples], s1n[samples])
-        lib = cuda_ms(lambda: (torch.linalg.svd(Af), torch.linalg.svd(Ah)), 20)
-        m_ms, m_pms, m_lib = m_ms + ms, m_pms + pms, m_lib + lib
-        n, n_hyp, nv, n_good = uv0.shape[0], samples.shape[0], int(valid.sum()), int(rp.good.sum())
-        # bytes: 17 per slot and the samples in; the chosen motion, its X and good flags (13 per slot) out.
-        # operations: the Hartley normalisation (6 per valid point and view); per hypothesis the 8-point F
-        # and H (their normal matrices and null vectors, F's rank-2 SVD, 4 3x3 products to denormalise,
-        # H's inverse by the adjugate) and both transfer scores on every valid point (~90); the refit of
-        # each model on its inliers (normal matrices, ~90 + 180, a null vector, a rescore), the 4 + 8
-        # motions (2 SVDs, ~60 each), and per motion the triangulation (a 4x4 DLT) and CheckRT's tests
-        # (~60) of the model's inliers; the inlier counts are at least the chosen motion's good points
-        m_bytes += n * 17 + n_hyp * 32 + n * 13 + 60
-        fit = normal_flops(8, 9) + normal_flops(16, 9) + 2 * null_flops(9) + SVD3_FLOPS + 4 * 45 + 45
-        m_ops += (2 * 6 * nv + n_hyp * (fit + 90 * nv) + 2 * null_flops(9) + SVD3_FLOPS + n_good * (12 + 90 + 180 + 90)
-                  + 2 * SVD3_FLOPS + 12 * 60 + 12 * n_good * (16 + normal_flops(4, 4) + null_flops(4) + 60))
-        m_notes.append(f"{label}: {int(valid.sum())} valid of {n}, success {bool(rp.success)}, used_h "
-                       f"{bool(rp.used_h)}, R {ang:.2e} rad, t dir {t_dir:.2e}, good equal {good_eq:.4f}, X "
-                       f"{x_err:.2e}; {ms:.4f} ms (plain {pms:.4f}, svd {lib:.4f})")
-    if branches != {"F", "H"}:
-        raise RuntimeError(f"twoview_ransac: the two cases took branches {branches}, not both F and H")
-    out.append(dict(name="twoview_ransac", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/twoview_ransac.cu",
-                    replaces="orb_slam3_fast_tpu/ops/twoview.py:304", max_abs_err=m_err, ms=m_ms, plain_ms=m_pms,
-                    **bound(m_bytes, m_ops), library_ms=m_lib,
-                    shapes="; ".join(m_notes) + "; tolerances: success and used_h equal, R 1e-3 rad, t direction "
-                           "1e-3, good equal on >= 99%, X 1e-3 relative where both good; library = batched "
-                           "torch.linalg.svd of the F and H systems"))
+    out.append(compare_twoview(device, cases))
 
     # N: the 768 descriptors of frame 5 with the default and the 10^6-word vocabulary
     n_err, n_notes, n_ms, n_pms, n_bytes, n_ops = 0.0, [], 0.0, 0.0, 0, 0
@@ -1729,8 +2043,7 @@ def compare_pcg(device, g70, dense70) -> dict:
         g_np, (R_gt, t_gt) = drift_graph(Ku, seed=3)
         gu = pg.Sim3Graph(**{k: torch.as_tensor(v).to(device) for k, v in g_np.items()})
         res = pg.optimize_sim3_graph(gu, iters=15)
-        plain = pg.optimize_sim3_graph_plain(gu, iters=15)
-        torch.cuda.synchronize()
+        plain, pms = timed(lambda: pg.optimize_sim3_graph_plain(gu, iters=15))
         err = graph_dist(res, plain)
         ate_b, ate_a = graph_ate(gu.R, gu.t, gu.s, R_gt, t_gt), graph_ate(*res[:3], R_gt, t_gt)
         s_last = float(res.s[-1])
@@ -1747,7 +2060,6 @@ def compare_pcg(device, g70, dense70) -> dict:
                                f"{s_last:.4f}")
         cg_run = res.cg_run.cpu().numpy()
         ms = cuda_ms(lambda: pg.optimize_sim3_graph(gu, iters=15), 5 if Ku == 200 else 2)
-        pms = cuda_ms(lambda: pg.optimize_sim3_graph_plain(gu, iters=15), 1, warmup=0 if Ku == 2048 else 1)
         Eu = int(gu.edge_i.shape[0])
         b = bound(Ku * 53 + Eu * 61 + Ku * 52, pcg_ops(Ku, Eu, cg_run))
         note = (f"K={Ku} ({Eu} edge slots, {int(g_np['edge_valid'].sum())} valid), 15 steps of up to "
@@ -1874,8 +2186,7 @@ def compare_loop_kernels(device) -> list[dict]:
         pairs, xi_true = cases[fix]
         S0 = sim3.sim3_ransac_plain(cam, cam, *pairs, subsets, fix_scale=fix).S12
         Sk, ik, nk = sim3.optimize_sim3(cam, cam, S0, *pairs, fix_scale=fix)
-        Sp, ip, np_ = sim3.optimize_sim3_plain(cam, cam, S0, *pairs, fix_scale=fix)
-        torch.cuda.synchronize()
+        (Sp, ip, np_), pms = timed(lambda: sim3.optimize_sim3_plain(cam, cam, S0, *pairs, fix_scale=fix))
         err = sim3_rel_err(Sk, Sp)
         flips = int((ik != ip).sum())
         if not (abs(int(nk) - int(np_)) <= 1 and err <= 2e-4 and flips <= 1):
@@ -1884,7 +2195,6 @@ def compare_loop_kernels(device) -> list[dict]:
         r_err = max(r_err, err)
         n_act += int(np_)
         ms = cuda_ms(lambda: sim3.optimize_sim3(cam, cam, S0, *pairs, fix_scale=fix), 20)
-        pms = cuda_ms(lambda: sim3.optimize_sim3_plain(cam, cam, S0, *pairs, fix_scale=fix), 3)
         r_ms, r_pms = r_ms + ms, r_pms + pms
         r_notes.append(f"fix_scale={fix}: {int(np_)} inliers on both, Sim3 {err:.2e}, truth within "
                        f"{sim3_rel_err(Sp, lie.sim3_exp(torch.as_tensor(xi_true).to(device))):.2e}; {ms:.4f} ms "
@@ -1904,15 +2214,13 @@ def compare_loop_kernels(device) -> list[dict]:
     # R with distorted cameras, from the distorted case's RANSAC
     S0 = sim3.sim3_ransac_plain(cam_d, cam_d, *pairs_d, subsets).S12
     Sk, ik, nk = sim3.optimize_sim3(cam_d, cam_d, S0, *pairs_d)
-    Sp, ip, np_ = sim3.optimize_sim3_plain(cam_d, cam_d, S0, *pairs_d)
-    torch.cuda.synchronize()
+    (Sp, ip, np_), pms = timed(lambda: sim3.optimize_sim3_plain(cam_d, cam_d, S0, *pairs_d))
     err = sim3_rel_err(Sk, Sp)
     flips = int((ik != ip).sum())
     if not (abs(int(nk) - int(np_)) <= 1 and err <= 2e-4 and flips <= 1):
         raise RuntimeError(f"optimize_sim3 with distortion: inliers {int(nk)}/{int(np_)}, Sim3 {err:.3g}, masks "
                            f"differ on {flips}")
     ms = cuda_ms(lambda: sim3.optimize_sim3(cam_d, cam_d, S0, *pairs_d), 20)
-    pms = cuda_ms(lambda: sim3.optimize_sim3_plain(cam_d, cam_d, S0, *pairs_d), 3)
     out[-1]["max_abs_err"] = max(out[-1]["max_abs_err"], err)
     out[-1]["shapes"] += (f"; with EuRoC cam0's distortion (fix_scale=False): {int(np_)} inliers on both, Sim3 "
                           f"{err:.2e}, truth within {sim3_rel_err(Sp, lie.sim3_exp(torch.as_tensor(xi_d).to(device))):.2e}"
@@ -1922,8 +2230,8 @@ def compare_loop_kernels(device) -> list[dict]:
     g_np, c_true = sim3_graph_problem(np.random.default_rng(10))
     g = pg.Sim3Graph(**{k: torch.as_tensor(v).to(device) for k, v in g_np.items()})
     Kg, Eg = g.R.shape[0], g.edge_i.shape[0]
-    gk, gp = pg.optimize_sim3_graph(g), pg.optimize_sim3_graph_plain(g)
-    torch.cuda.synchronize()
+    gk = pg.optimize_sim3_graph(g)
+    gp, s_pms = timed(lambda: pg.optimize_sim3_graph_plain(g))
     if not bool(gk.ok):
         raise RuntimeError("optimize_sim3_graph: the Cholesky failed on a positive definite system")
     s_err = max(float((gk[0] - gp[0]).abs().max()), float((gk[1] - gp[1]).abs().max()),
@@ -1948,7 +2256,7 @@ def compare_loop_kernels(device) -> list[dict]:
     out.append(dict(name="sim3_graph", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/sim3_graph.cu",
                     replaces="orb_slam3_fast_tpu/optim/pose_graph.py:152", max_abs_err=s_err,
                     ms=cuda_ms(lambda: pg.optimize_sim3_graph(g), 5),
-                    plain_ms=cuda_ms(lambda: pg.optimize_sim3_graph_plain(g), 2),
+                    plain_ms=s_pms,
                     **bound(Kg * (52 + 1) + Eg * 64 + Kg * 52, s_ops), library_ms=lib_s,
                     shapes=f"K={Kg} vertices (7K = {nK}), {Eg} edges, 12 iterations: {s_err:.2e} from the plain "
                            f"version (tolerance 1e-3: float64 dual numbers against float32 forward mode), camera "
@@ -1995,14 +2303,13 @@ def compare_loop_kernels(device) -> list[dict]:
                                                              gprob.pose_fixed, gprob.lm_valid, lam), 3)
     # E + T: a whole bundle_adjust_cg (8 + 12 LM iterations) against the plain one
     Rk, tk, xk, ik, _ = ba_cg.bundle_adjust_cg(cam, 0.0, gprob, iters1=8, iters2=12)
-    Rp, tp, xp, ip, _ = ba_cg.bundle_adjust_cg_plain(cam, 0.0, gprob, iters1=8, iters2=12)
-    torch.cuda.synchronize()
+    (Rp, tp, xp, ip, _), gba_plain_ms = timed(lambda: ba_cg.bundle_adjust_cg_plain(cam, 0.0, gprob, iters1=8,
+                                                                                   iters2=12))
     err_gba = max(float((tk - tp).abs().max()), float((Rk - Rp).abs().max()))
     flips = float((ik != ip).float().mean())
     if not (err_gba <= 1e-3 and flips <= 0.005):
         raise RuntimeError(f"bundle_adjust_cg: pose err {err_gba:.3g}, inlier flags differing {flips:.4f}")
     gba_ms = cuda_ms(lambda: ba_cg.bundle_adjust_cg(cam, 0.0, gprob, iters1=8, iters2=12), 2)
-    gba_plain_ms = cuda_ms(lambda: ba_cg.bundle_adjust_cg_plain(cam, 0.0, gprob, iters1=8, iters2=12), 1)
     out.append(dict(name="ba_pcg", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/ba_pcg.cu",
                     replaces="orb_slam3_fast_tpu/optim/ba_cg.py:81", max_abs_err=t_err, ms=ms_t, plain_ms=pms_t,
                     **bound(t_bytes, t_ops), library_ms=None,
@@ -2028,13 +2335,8 @@ def loop_frames():
     (make_ring_world(seed 0), circle_trajectory(150, radius=4.0,
     frac=1.12)), rendered on the host by one worker process per core;
     returns (images, true T_cw per frame)."""
-    import multiprocessing
-    import os
-    from concurrent.futures import ProcessPoolExecutor
-
-    with ProcessPoolExecutor(max(1, min(8, os.cpu_count() or 1)), mp_context=multiprocessing.get_context("spawn")) as ex:
-        frames = list(ex.map(_render_circle, range(LOOP_FRAMES)))
-    return frames, circle_trajectory(LOOP_FRAMES, radius=4.0, frac=1.12)
+    return render_map(_render_circle, range(LOOP_FRAMES), parallel=True), circle_trajectory(LOOP_FRAMES, radius=4.0,
+                                                                                             frac=1.12)
 
 
 def loop_system(device, blackout: bool = False):
@@ -2154,13 +2456,19 @@ def distorted_mono_settings():
     return dataclasses.replace(Settings.from_yaml(MONO_CONFIG, "monocular"), cam=cam)
 
 
-def run_mono(frames, poses, device, settings=None):
+def run_mono(frames, poses, device, settings=None, fork=None, check: bool = True):
     """The monocular System (configs/synthetic_mono.yaml, or ``settings``;
     min_init_matches 60 as tests/test_slam_e2e.py:17) on its corridor, and
     that test's gates (tests/test_slam_e2e.py:42-49): final state OK, > 30
     of 40 frames tracked, >= 3 keyframes, > 200 live landmarks,
-    scale-aligned ATE < 0.15 m.  Returns the System, a summary dict and the
-    per-frame (state, R, t), identity before initialisation."""
+    scale-aligned ATE < 0.15 m (``check`` False: no gates, for a prefix of
+    the frames).  A dict ``fork`` with ``"at"`` receives a deep copy of the
+    System after that many frames (``"slam"``) and their per-frame track
+    (``"track"``): :func:`run_reloc` goes on from it.  Returns the System, a
+    summary dict and the per-frame (state, R, t), identity before
+    initialisation."""
+    import copy
+
     from orb_slam3_fast_tpu_torch.eval import ate
     from orb_slam3_fast_tpu_torch.slam.system import System
 
@@ -2168,6 +2476,8 @@ def run_mono(frames, poses, device, settings=None):
                   enable_loop_closing=False, multi_map=False, async_backend=False, device=device)
     est, gt, ts, track, kf_frames, init_frame = [], [], [], [], [], None
     for i, (img, (R, t)) in enumerate(zip(frames, poses)):
+        if fork is not None and i == fork["at"]:
+            fork.update(slam=copy.deepcopy(slam), track=list(track))
         n_kf = slam.world.n_kf
         state, pose = slam.track_monocular(img, i * 0.05)
         if pose is None:
@@ -2187,25 +2497,29 @@ def run_mono(frames, poses, device, settings=None):
     summary = dict(state=slam.get_tracking_state(), tracked=len(est), ate_m=rmse, scale=s_fit, n_kf=slam.world.n_kf,
                    landmarks=int(slam.world.lm_valid.sum()), init_frame=init_frame, kf_frames=kf_frames,
                    local_ba=slam.mapper.n_local_ba, indexed=int(slam.kfdb.valid.sum()))
-    if not (summary["state"] == "OK" and summary["tracked"] > int(len(frames) * 30 / 40) and summary["n_kf"] >= 3
-            and summary["landmarks"] > 200 and rmse < 0.15):
+    if check and not (summary["state"] == "OK" and summary["tracked"] > int(len(frames) * 30 / 40)
+                      and summary["n_kf"] >= 3 and summary["landmarks"] > 200 and rmse < 0.15):
         raise RuntimeError(f"mono System gates failed: {summary}")
     return slam, summary, track
 
 
-def run_reloc(frames, poses, device):
+def run_reloc(frames, poses, device, fork=None):
     """tests/test_reloc.py's scenario on the mono System: 30 frames, every
     keyframe indexed, 3 blank frames -> RECENTLY_LOST, then frame 20 again
     -> OK, the camera centre within 0.5 of frame 20's (the test's scale
-    bound).  Returns (per-frame (state, R, t), the relocalised frame's
-    track_total ms, summary)."""
+    bound); with ``fork`` (:func:`run_mono`'s, at ``RELOC_FRAMES``: the
+    same System on the same first 30 frames) it goes on from there.
+    Returns (per-frame (state, R, t), the relocalised frame's track_total
+    ms, summary)."""
     from orb_slam3_fast_tpu_torch.slam.system import System
 
-    slam = System(MONO_CONFIG, "monocular", tracker_overrides=dict(min_init_matches=60), max_keyframes=256,
-                  enable_loop_closing=False, multi_map=False, async_backend=False, device=device)
-    track = []
-    for i in range(RELOC_FRAMES):
-        track.append(slam.track_monocular(frames[i], i * 0.05))
+    if fork is not None:
+        slam = fork["slam"]
+        track = [(st, (R, t)) for st, R, t in fork["track"]]
+    else:
+        slam = System(MONO_CONFIG, "monocular", tracker_overrides=dict(min_init_matches=60), max_keyframes=256,
+                      enable_loop_closing=False, multi_map=False, async_backend=False, device=device)
+        track = [slam.track_monocular(frames[i], i * 0.05) for i in range(RELOC_FRAMES)]
     if not (slam.get_tracking_state() == "OK" and int(slam.kfdb.valid.sum()) == slam.world.n_kf):
         raise RuntimeError(f"reloc: state {slam.get_tracking_state()}, {int(slam.kfdb.valid.sum())} indexed of "
                            f"{slam.world.n_kf} keyframes")
@@ -2242,7 +2556,7 @@ def corridor_frames(n_frames: int):
     cam = Camera.pinhole(400.0, 400.0, 320.0, 240.0)
     world = make_corridor_world(np.random.default_rng(1), n=900)
     poses = arc_trajectory(n_frames, step=0.06, lateral=0.05)
-    return [stereo_pair(world, cam, R, t, 0.12) for R, t in poses], poses
+    return render_views("stereo", world, (cam,), poses), poses
 
 
 def rgbd_settings():
@@ -2264,18 +2578,18 @@ def rgbd_frames(n_frames: int):
     cam = Camera.pinhole(400.0, 400.0, 320.0, 240.0)
     world = make_corridor_world(np.random.default_rng(2), n=900)
     poses = arc_trajectory(n_frames, step=0.06, lateral=0.05)
-    return [(render(world, cam, R, t), splat_depth(world, cam, R, t)) for R, t in poses], poses
+    return render_views("rgbd", world, (cam,), poses), poses
 
 
-def run_system(frames, poses, device, sensor: str = "stereo"):
+def run_system(frames, poses, device, sensor: str = "stereo", check: bool = True):
     """The stereo or RGB-D System on its corridor, as test_slam_e2e.py
     drives the JAX tracker, and that test's gates.  Stereo: final state OK,
     > 25 of 30 frames tracked, unscaled ATE < 0.10 m, |scale - 1| < 0.1,
     and mapping (>= 3 keyframes, a local BA, triangulated landmarks).
     RGB-D: final state OK, > 20 of 25 frames tracked, unscaled ATE < 0.40
     m, and at least the keyframes and local BAs of the JAX package on the
-    same frames.  Returns the System, a summary dict and the per-frame
-    (state, R, t)."""
+    same frames (``check`` False: no gates, for a prefix of the frames).
+    Returns the System, a summary dict and the per-frame (state, R, t)."""
     from orb_slam3_fast_tpu_torch.eval import ate
     from orb_slam3_fast_tpu_torch.slam.system import System
 
@@ -2311,7 +2625,7 @@ def run_system(frames, poses, device, sensor: str = "stereo"):
     else:
         ok = (summary["tracked"] > int(len(frames) * 20 / 25) and rmse < 0.40 and summary["n_kf"] >= RGBD_MIN_KF
               and summary["local_ba"] >= RGBD_MIN_BA)
-    if not (ok and summary["state"] == "OK"):
+    if check and not (ok and summary["state"] == "OK"):
         raise RuntimeError(f"{sensor} System gates failed: {summary}")
     return slam, summary, track
 
@@ -2331,12 +2645,7 @@ def vi_frames(sensor: str, n_frames: int = VI_FRAMES):
     poses, imu = arc_trajectory_with_imu(n_frames, step=0.06, lateral=0.05, gyro_bias=VI_GYRO_BIAS,
                                          acc_bias=VI_ACC_BIAS, noise_gyro=1.7e-4 * np.sqrt(200.0),
                                          noise_acc=2e-3 * np.sqrt(200.0), seed=0)
-    if sensor == "monocular":
-        frames = [(render(world, cam, R, t),) for R, t in poses]
-    elif sensor == "stereo":
-        frames = [stereo_pair(world, cam, R, t, 0.12) for R, t in poses]
-    else:
-        frames = [(render(world, cam, R, t), splat_depth(world, cam, R, t)) for R, t in poses]
+    frames = render_views({"monocular": "mono1", "stereo": "stereo", "rgbd": "rgbd"}[sensor], world, (cam,), poses)
     return frames, poses, imu
 
 
@@ -2877,18 +3186,20 @@ def check_vi(sensor: str, summary: dict, launches: dict) -> None:
         raise RuntimeError(f"{sensor}-inertial System gates failed: {summary}, never launched {missing}")
 
 
-def check_vi_against_plain(card, plain, n: int, bounds: tuple[float, float]) -> tuple[list[str], str]:
-    """Phase 11 (c): an inertial System on the card against its host run on
-    the first ``n`` frames: the frames as ``compare_tracks`` holds them at
-    ``bounds`` (``VI_BOUNDS``), the same keyframes and the same
-    IMU-initialisation frame."""
+def check_prefix_against_plain(card, plain, n: int, bounds: tuple[float, float] = (TRACK_DT, TRACK_DR)
+                               ) -> tuple[list[str], str]:
+    """A System on the card against its host run on its first ``n`` frames
+    (phase 8's prefixes, the inertial ones of 11 (c) among them): the
+    frames as ``compare_tracks`` holds them at ``bounds``, the same
+    keyframes and the same initialisation frame (of the map, or of the IMU
+    for an inertial run)."""
     (_, sum_c, track_c), (_, sum_p, track_p) = card, plain
     bad, summary = compare_tracks(track_c[:n], track_p, *bounds)
     kf_c = [k for k in sum_c["kf_frames"] if k < n]
-    if kf_c != sum_p["kf_frames"] or sum_c["init_frame"] != sum_p["init_frame"]:
-        bad.append(f"keyframes / IMU init: card {sum_c} vs plain {sum_p}")
-    return bad, (f"{summary}; keyframes at {kf_c} / {sum_p['kf_frames']}, IMU init at frame "
-                 f"{sum_c['init_frame']} / {sum_p['init_frame']}")
+    if kf_c != sum_p["kf_frames"] or sum_c.get("init_frame") != sum_p.get("init_frame"):
+        bad.append(f"keyframes / initialisation: card {sum_c} vs plain {sum_p}")
+    return bad, (f"{summary}; keyframes at {kf_c} / {sum_p['kf_frames']}, initialised at frame "
+                 f"{sum_c.get('init_frame')} / {sum_p.get('init_frame')}")
 
 
 def compare_tracks(track_c, track_p, bound_dt: float = TRACK_DT, bound_dr: float = TRACK_DR) -> tuple[list[str], str]:
@@ -3135,8 +3446,8 @@ def compare_inertial_loop_kernels(device) -> list[dict]:
         arrays, (R_gt, t_gt) = drift_graph(K, seed, rot_noise=0.015, s_drift=1.0, yaw_only=True, pad_e=4)
         g = pg.SE3Graph(**{k: torch.as_tensor(arrays[k]).to(device) for k in fields})
         E = g.edge_i.shape[0]
-        rk, rp = pg.optimize_4dof_graph(g), pg.optimize_4dof_graph_plain(g)
-        torch.cuda.synchronize()
+        rk = pg.optimize_4dof_graph(g)
+        rp, pms = timed(lambda: pg.optimize_4dof_graph_plain(g))
         err = graph4_dist(rk, rp)
         ones = np.ones(K)
         before, after = graph_ate(g.R, g.t, ones, R_gt, t_gt), graph_ate(rk.R, rk.t, ones, R_gt, t_gt)
@@ -3145,7 +3456,6 @@ def compare_inertial_loop_kernels(device) -> list[dict]:
             raise RuntimeError(f"optimize_4dof_graph K={K}: ok {bool(rk.ok)}, {err:.3g} from the plain version, "
                                f"centres {before:.3g} -> {after:.3g} m")
         ms = cuda_ms(lambda: pg.optimize_4dof_graph(g), 5)
-        pms = cuda_ms(lambda: pg.optimize_4dof_graph_plain(g), 1)
         ops = graph4_ops(K, E, pcg, None if not pcg else rk.cg_run.cpu().numpy())
         z_err, z_ms, z_pms, z_ops, z_bytes = max(z_err, err), z_ms + ms, z_pms + pms, z_ops + ops, \
             z_bytes + K * 48 * 2 + E * 57
@@ -3179,7 +3489,7 @@ def compare_inertial_loop_kernels(device) -> list[dict]:
         state = (pr.R_wb, pr.p_wb, pr.v_w, pr.bias)
         info = {}
         sk = vi_ba_cg._kernel(cam, 0.0, T_id, pr, state, pr.xw, inl, lam, 2, 40, info)
-        sp = vi_ba_cg.lm_segment_vi_plain(cam, 0.0, T_id, pr, *state, pr.xw, inl, lam, 2, 40)
+        sp, pms = timed(lambda: vi_ba_cg.lm_segment_vi_plain(cam, 0.0, T_id, pr, *state, pr.xw, inl, lam, 2, 40))
         fk = vi_ba_cg.full_inertial_ba_cg(cam, 0.0, T_id, pr)
         fp = vi_ba_cg.full_inertial_ba_cg_plain(cam, 0.0, T_id, pr)
         torch.cuda.synchronize()
@@ -3203,7 +3513,6 @@ def compare_inertial_loop_kernels(device) -> list[dict]:
             raise RuntimeError(f"lm_segment_vi on {label}: segment {seg_err:.3g}, whole solve {full_err:.3g} "
                                f"(landmarks {xw_err:.3g}, flags {flips:.4f}) from the plain version; {notes}")
         ms = cuda_ms(lambda: vi_ba_cg._kernel(cam, 0.0, T_id, pr, state, pr.xw, inl, lam, 2, 40), 5)
-        pms = cuda_ms(lambda: vi_ba_cg.lm_segment_vi_plain(cam, 0.0, T_id, pr, *state, pr.xw, inl, lam, 2, 40), 1)
         whole_ms = cuda_ms(lambda: vi_ba_cg.full_inertial_ba_cg(cam, 0.0, T_id, pr), 1, warmup=0)
         a_err, a_ms, a_pms = max(a_err, seg_err, full_err), a_ms + ms, a_pms + pms
         a_ops += vi_pcg_ops(K, M, O, E, 2, info["cg_run"])
@@ -3311,12 +3620,7 @@ def vi_loop_frames():
     seed 0) seen in stereo (0.12 m baseline) along
     circle_trajectory_with_imu(150), rendered by one worker process per
     core.  Returns (stereo pairs, true T_cw per frame, IMU rows)."""
-    import multiprocessing
-    import os
-    from concurrent.futures import ProcessPoolExecutor
-
-    with ProcessPoolExecutor(max(1, min(8, os.cpu_count() or 1)), mp_context=multiprocessing.get_context("spawn")) as ex:
-        frames = list(ex.map(_render_vi_circle, range(LOOP_FRAMES)))
+    frames = render_map(_render_vi_circle, range(LOOP_FRAMES), parallel=True)
     poses, imu = circle_trajectory_with_imu(LOOP_FRAMES)
     return frames, poses, imu
 
@@ -3361,10 +3665,12 @@ def run_vi_loop(frames, poses, imu, device):
 
 
 def _run_loop_with_snapshot(slam, frames, poses, imu, device):
-    """Phases 12 (a) and 14: a synchronous System with loop closing on a
-    stereo sequence (with its IMU stream, or ``imu`` None), the first loop
-    correction's map and arguments kept.  The ATE is over the frames
-    tracked, after the IMU initialisation with the IMU."""
+    """Phases 12 (a), 14 and 15 (c): a synchronous System with loop closing
+    on a stereo sequence (with its IMU stream, or ``imu`` None), or on the
+    images of a monocular one, the first loop correction's map and
+    arguments kept.  The ATE is over the frames tracked, after the IMU
+    initialisation with the IMU; a monocular run's also scale-aligned
+    (``ate_m``, ``scale``), and its first frame tracked (``first_ok``)."""
     import copy
 
     from orb_slam3_fast_tpu_torch.eval import ate
@@ -3381,9 +3687,10 @@ def _run_loop_with_snapshot(slam, frames, poses, imu, device):
     lc._correct = kept
     est, gt, ts, closed_at, init_frame, track = [], [], [], [], None, []
     samples = imu_slices(imu, len(frames)) if imu is not None else [()] * len(frames)
-    for i, ((img_l, img_r), (R, t), smp) in enumerate(zip(frames, poses, samples)):
+    mono = slam.sensor.startswith("monocular")
+    for i, (f, (R, t), smp) in enumerate(zip(frames, poses, samples)):
         n_closed = lc.n_loops_closed
-        state, pose = slam.track_stereo(img_l, img_r, i * 0.05, imu=smp)
+        state, pose = slam.track_monocular(f, i * 0.05, imu=smp) if mono else slam.track_stereo(*f, i * 0.05, imu=smp)
         if lc.n_loops_closed > n_closed:
             closed_at.append(i)
         if slam.world.imu_initialized and init_frame is None:
@@ -3399,9 +3706,13 @@ def _run_loop_with_snapshot(slam, frames, poses, imu, device):
     summary = dict(state=slam.get_tracking_state(), tracked=sum(s == "OK" for s, _, _ in track), init_frame=init_frame,
                    loops=lc.n_loops_closed, merges=lc.n_maps_merged, closed_at=closed_at, n_kf=slam.world.n_kf,
                    after_init=len(est))
+    if mono:
+        summary["first_ok"] = next((i for i, (s, _, _) in enumerate(track) if s == "OK"), None)
     if len(est) >= 3:
-        summary["ate_unscaled_m"] = ate.ate_rmse(np.asarray(ts), np.asarray(est), np.asarray(ts), np.asarray(gt),
-                                                 with_scale=False)[0]
+        est, gt, ts = np.asarray(est), np.asarray(gt), np.asarray(ts)
+        summary["ate_unscaled_m"] = ate.ate_rmse(ts, est, ts, gt, with_scale=False)[0]
+        if mono:
+            summary["ate_m"], _, summary["scale"] = ate.ate_rmse(ts, est, ts, gt, with_scale=True)
     return slam, summary, snapshot
 
 
@@ -3533,7 +3844,7 @@ FISHEYE_KERNELS = ("fast_nms", "orb_describe", "hamming_best2", "pose_lm", "ba_b
                    "ba_lm_update", "ba_classify")
 # kernels whose camera instance phase 13 reads, and those that never run on the fisheye rig
 KB8_KERNELS = ("pose_lm", "ba_blocks", "visible_landmarks", "pnp_ransac", "pose_inertial", "vi_ba", "sim3_ransac",
-               "sim3_refine", "vi_pcg", "ba_lm_update", "ba_classify")
+               "sim3_refine", "vi_pcg", "ba_lm_update", "ba_classify", "twoview_ransac")
 NOT_FISHEYE = ("stereo_subpixel_refine", "twoview_ransac", "sim3_ransac", "sim3_refine", "sim3_graph", "ba_pcg",
                "sim3_pcg", "pose_graph4", "vi_pcg")
 
@@ -3572,7 +3883,7 @@ def fisheye_frames(n_frames: int = FISHEYE_FRAMES, imu: bool = False):
     else:
         poses = arc_trajectory(n_frames, step=0.06, lateral=0.05)
     world = make_corridor_world(np.random.default_rng(4), n=900, half_w=2.0, half_h=2.0, length=12.0)
-    return [stereo_pair_cams(world, s.cam, s.cam2, R, t, s.T_c1_c2, FISHEYE_WH) for R, t in poses], poses, rows
+    return render_views("rig", world, (s.cam, s.cam2, s.T_c1_c2), poses), poses, rows
 
 
 def _fisheye_system(sensor: str, device):
@@ -3897,8 +4208,7 @@ def compare_fisheye_loop_kernels(device, cam) -> dict:
         rk = sim3.sim3_ransac(cam, cam, *pairs, 0, fix_scale=fix, subsets=subsets)
         rp = sim3.sim3_ransac_plain(cam, cam, *pairs, subsets, fix_scale=fix)
         Sk, ik, nk = sim3.optimize_sim3(cam, cam, rp.S12, *pairs, fix_scale=fix)
-        Sp, ip, np_ = sim3.optimize_sim3_plain(cam, cam, rp.S12, *pairs, fix_scale=fix)
-        torch.cuda.synchronize()
+        (Sp, ip, np_), rpm = timed(lambda: sim3.optimize_sim3_plain(cam, cam, rp.S12, *pairs, fix_scale=fix))
         qe, re_ = sim3_rel_err(rk.S12, rp.S12), sim3_rel_err(Sk, Sp)
         q_flips, r_flips = int((rk.inliers != rp.inliers).sum()), int((ik != ip).sum())
         # the pin-hole rows' tolerances: a pair within float rounding of the chi2 threshold counts on one side only
@@ -3912,7 +4222,6 @@ def compare_fisheye_loop_kernels(device, cam) -> dict:
         qm = cuda_ms(lambda: sim3.sim3_ransac(cam, cam, *pairs, 0, fix_scale=fix, subsets=subsets), 50)
         qp = cuda_ms(lambda: sim3.sim3_ransac_plain(cam, cam, *pairs, subsets, fix_scale=fix), 10)
         rm = cuda_ms(lambda: sim3.optimize_sim3(cam, cam, rp.S12, *pairs, fix_scale=fix), 20)
-        rpm = cuda_ms(lambda: sim3.optimize_sim3_plain(cam, cam, rp.S12, *pairs, fix_scale=fix), 3)
         q_err, q_ms, q_pms = max(q_err, qe), q_ms + qm, q_pms + qp
         r_err, r_ms, r_pms = max(r_err, re_), r_ms + rm, r_pms + rpm
         n_act += int(np_)
@@ -3946,7 +4255,7 @@ def compare_fisheye_loop_kernels(device, cam) -> dict:
         state = (pr.R_wb, pr.p_wb, pr.v_w, pr.bias)
         info = {}
         sk = vi_ba_cg._kernel(cam, 0.0, T_id, pr, state, pr.xw, inl, lam, 2, 40, info)
-        sp = vi_ba_cg.lm_segment_vi_plain(cam, 0.0, T_id, pr, *state, pr.xw, inl, lam, 2, 40)
+        sp, pms = timed(lambda: vi_ba_cg.lm_segment_vi_plain(cam, 0.0, T_id, pr, *state, pr.xw, inl, lam, 2, 40))
         ck = vi_ba_cg._kernel(cam, 0.0, T_id, pr, state[:2] + (None, None), pr.xw, None, None, 0, 0)
         cp = vi_ba_cg.classify_vi_plain(cam, 0.0, T_id, pr, pr.R_wb, pr.p_wb, pr.xw)
         torch.cuda.synchronize()
@@ -3957,7 +4266,6 @@ def compare_fisheye_loop_kernels(device, cam) -> dict:
             raise RuntimeError(f"kernel AA (KB8) on {label}: segment {seg_err:.3g}, landmarks {xw_err:.3g} from the "
                                f"plain version, {flips} observations classified otherwise")
         ms = cuda_ms(lambda: vi_ba_cg._kernel(cam, 0.0, T_id, pr, state, pr.xw, inl, lam, 2, 40), 5)
-        pms = cuda_ms(lambda: vi_ba_cg.lm_segment_vi_plain(cam, 0.0, T_id, pr, *state, pr.xw, inl, lam, 2, 40), 1)
         a_err, a_ms, a_pms = max(a_err, seg_err), a_ms + ms, a_pms + pms
         a_ops += vi_pcg_ops(K, M, O, E, 2, info["cg_run"])
         a_bytes += vi_pcg_bytes(K, M, O, E)
@@ -4008,14 +4316,7 @@ def fisheye_loop_frames():
     rendered by one worker process per core, and the exact IMU stream of
     the body through IMU.T_b_c1.  Returns (stereo pairs, true T_cw of the
     left camera per frame, IMU rows)."""
-    import multiprocessing
-    import os
-    from concurrent.futures import ProcessPoolExecutor
-
-    # one torch thread a worker: the workers fill the cores, and the KB8 pixel rays are elementwise (the same bits)
-    with ProcessPoolExecutor(max(1, min(8, os.cpu_count() or 1)), mp_context=multiprocessing.get_context("spawn"),
-                             initializer=torch.set_num_threads, initargs=(1,)) as ex:
-        frames = list(ex.map(_render_fisheye_circle, range(LOOP_FRAMES)))
+    frames = render_map(_render_fisheye_circle, range(LOOP_FRAMES), parallel=True)
     poses, imu = circle_trajectory_with_imu(LOOP_FRAMES, T_bc=fisheye_settings("stereo-inertial").T_b_c1)
     return frames, poses, imu
 
@@ -4083,23 +4384,26 @@ def check_fisheye_loop(sensor: str, summary, launches) -> None:
 
 
 def run_default_fisheye(frames, imu, device, sensor: str):
-    """Phase 14 (c): the default constructor ``System(TUM-VI config,
-    sensor)``, every default (the async backend, loop closing, the Atlas),
-    fed the circle at 20 fps.  Gates: the backend drains within 120 s, no
-    worker error, for the inertial sensor the IMU initialised.  Returns a
-    summary (the loops closed reported, not gated)."""
+    """Phases 14 (c) and 15 (d): the default constructor ``System(TUM-VI
+    config, sensor)``, every default (the async backend, loop closing, the
+    Atlas), fed the circle at 20 fps (stereo pairs, or the first camera's
+    images for a monocular sensor).  Gates: the backend drains within 120
+    s, no worker error, for the stereo-inertial sensor the IMU initialised.
+    Returns a summary (the loops closed, and the monocular-inertial IMU,
+    reported, not gated)."""
     from orb_slam3_fast_tpu_torch.slam.system import System
 
     slam = System(FISHEYE_CONFIG, sensor, device=device)
     b = slam.backend
-    inertial = sensor == "stereo-inertial"
+    inertial, mono = sensor.endswith("inertial"), sensor.startswith("monocular")
     samples = imu_slices(imu, len(frames)) if inertial else [()] * len(frames)
     states, t0 = [], time.perf_counter()
-    for i, ((img_l, img_r), smp) in enumerate(zip(frames, samples)):
+    for i, (f, smp) in enumerate(zip(frames, samples)):
         wait = t0 + i * 0.05 - time.perf_counter()
         if wait > 0:
             time.sleep(wait)
-        states.append(slam.track_stereo(img_l, img_r, i * 0.05, imu=smp)[0])
+        track = slam.track_monocular(f, i * 0.05, imu=smp) if mono else slam.track_stereo(*f, i * 0.05, imu=smp)
+        states.append(track[0])
     drained = b.wait_idle(timeout=120)
     slam.shutdown()
     if device.type == "cuda":
@@ -4107,9 +4411,149 @@ def run_default_fisheye(frames, imu, device, sensor: str):
     summary = dict(sensor=sensor, state=slam.get_tracking_state(), tracked=sum(s == "OK" for s in states),
                    drained=drained, errors=len(b.errors), imu_initialized=bool(slam.world.imu_initialized),
                    n_kf=slam.world.n_kf, loops=slam.loopcloser.n_loops_closed, error=b.errors[0] if b.errors else None)
-    if not (drained and not b.errors and (summary["imu_initialized"] or not inertial)):
+    if not (drained and not b.errors and (summary["imu_initialized"] or sensor != "stereo-inertial")):
         raise RuntimeError(f"default fisheye System ({sensor}) gates failed: {summary}")
     return summary
+
+
+# --- phase 15: the monocular KB8 rig (TUM-VI's cam0 alone) ---------------------------------------------------------
+
+def fisheye_mono_system(sensor: str, device, loop: bool = False):
+    """``System(TUM-VI config, sensor)`` for ``"monocular"`` or
+    ``"monocular-inertial"``, synchronous: without loop closing and the
+    Atlas (phase 15 (a), (b); phase 11's initialisation window for the
+    inertial one), or with ``loop`` loop closing, the Atlas and 256
+    keyframes, the loop closer at phase 9's LoopCloserConfig with the scale
+    free (phase 15 (c))."""
+    from orb_slam3_fast_tpu_torch.backend.loopcloser import LoopCloserConfig
+    from orb_slam3_fast_tpu_torch.slam.system import System
+
+    if loop:
+        slam = System(fisheye_settings(sensor), sensor, max_keyframes=256, enable_loop_closing=True, multi_map=True,
+                      async_backend=False, device=device)
+        slam.loopcloser.cfg = LoopCloserConfig(**LOOP_CONFIG, fix_scale=False)
+        return slam
+    slam = System(fisheye_settings(sensor), sensor, enable_loop_closing=False, multi_map=False, async_backend=False,
+                  device=device)
+    if sensor == "monocular-inertial":
+        slam.tracker.icfg = slam.tracker.icfg._replace(init_min_kfs=8, init_min_time=1.0)  # phase 11's
+    return slam
+
+
+def run_fisheye_mono(images, poses, device, imu=None):
+    """Phase 15 (a) / (b): :func:`fisheye_mono_system` (``"monocular"``, or
+    ``"monocular-inertial"`` with ``imu``) on the first camera's images of a
+    phase 13 scene.  Returns the System, a summary (state, frames tracked,
+    the first frame tracked, keyframes and their frames, landmarks, local
+    BAs, the scale-aligned ATE and the fitted scale over the frames tracked,
+    or after the IMU initialisation with ``imu``) and the per-frame (state,
+    R, t), identity before the first pose."""
+    from orb_slam3_fast_tpu_torch.eval import ate
+
+    slam = fisheye_mono_system("monocular" if imu is None else "monocular-inertial", device)
+    samples = imu_slices(imu, len(images)) if imu is not None else [()] * len(images)
+    est, gt, ts, track, kf_frames, init_frame = [], [], [], [], [], None
+    for i, (img, (R, t), smp) in enumerate(zip(images, poses, samples)):
+        n_kf = slam.world.n_kf
+        state, pose = slam.track_monocular(img, i * 0.05, imu=smp)
+        if pose is None:
+            pose = (np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
+        track.append((state, *pose))
+        if slam.world.n_kf > n_kf:
+            kf_frames.append(i)
+        if imu is not None and slam.world.imu_initialized and init_frame is None:
+            init_frame = i
+        if state == "OK" and (imu is None or (init_frame is not None and i > init_frame)):
+            est.append(-pose[0].T @ pose[1])
+            gt.append(-R.T @ t)
+            ts.append(i * 0.05)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    summary = dict(state=slam.get_tracking_state(), tracked=sum(s == "OK" for s, _, _ in track),
+                   first_ok=next((i for i, (s, _, _) in enumerate(track) if s == "OK"), None), n_kf=slam.world.n_kf,
+                   kf_frames=kf_frames, landmarks=int(slam.world.lm_valid.sum()), local_ba=slam.mapper.n_local_ba)
+    if imu is not None:
+        summary.update(init_frame=init_frame, after_init=len(est))
+    if len(est) >= 3:
+        est, gt, ts = np.asarray(est), np.asarray(gt), np.asarray(ts)
+        summary["ate_m"], _, summary["scale"] = ate.ate_rmse(ts, est, ts, gt, with_scale=True)
+    return slam, summary, track
+
+
+# Phase 15's gates, at the JAX package's own runs on the same frames (python -m tests.fisheye_mono_reference, CPU):
+# (a) the monocular System on 13 (a)'s 25 frames: the first frame tracked (the initialisation) 1, 24 tracked, 13
+# keyframes, final OK, scale-aligned ATE 0.0028 m (the port's plain path on the host: the same, ATE 0.0028);
+# (b) the monocular-inertial System on 13 (b)'s 45 frames: initialised at frame 1, the IMU at frame 22, 5 frames OK
+# after it, RECENTLY_LOST from frame 32 on, 14 keyframes, scale-aligned ATE after the IMU initialisation 0.060 m
+# (scale 0.97); (c) the monocular System with loop closing on 14's circle: initialised at frame 5, 145 tracked, the
+# loop closed at frame 138, 69 keyframes, final OK, scale-aligned ATE 0.219 m (over tests/test_loop_closing.py's
+# 0.20).  The gates: (a) the first frame tracked within FISHEYE_MONO_FIRST, >= FISHEYE_MONO_MIN_TRACKED tracked,
+# keyframes within FISHEYE_MONO_KF, final OK, ATE under tests/test_slam_e2e.py's mono 0.15 m; (b) the IMU
+# initialised within FISHEYE_MONO_VI_INIT, >= FISHEYE_MONO_VI_MIN_AFTER frames OK after it, the ATE after it under
+# phase 11's 0.25 m, the final state reported; (c) final OK, > 120 tracked (the loop test's), the loop closed within
+# FISHEYE_MONO_LOOP_FRAMES (three keyframes either side of the JAX package's), ATE < FISHEYE_MONO_LOOP_MAX_ATE.
+FISHEYE_MONO_FIRST, FISHEYE_MONO_MIN_TRACKED, FISHEYE_MONO_KF = (1, 3), 22, (10, 16)
+FISHEYE_MONO_VI_INIT, FISHEYE_MONO_VI_MIN_AFTER = (18, 26), 4
+FISHEYE_MONO_LOOP_FRAMES, FISHEYE_MONO_LOOP_MAX_ATE = (133, 143), 0.30
+FISHEYE_MONO_GATES = {
+    "a": f"first frame tracked within frames {FISHEYE_MONO_FIRST}, >= {FISHEYE_MONO_MIN_TRACKED} tracked, keyframes "
+         f"within {FISHEYE_MONO_KF}, final OK, scale-aligned ATE < 0.15 m; M, D, E, L and AC in KB8, N launched, AB "
+         "and J not",
+    "b": f"IMU initialised within frames {FISHEYE_MONO_VI_INIT}, >= {FISHEYE_MONO_VI_MIN_AFTER} frames OK after it, "
+         "scale-aligned ATE after it < 0.25 m; V, X, W and Y in KB8 launched, AB and J not",
+    "c": f"final OK, > 120 tracked, the loop closed within frames {FISHEYE_MONO_LOOP_FRAMES}, scale-aligned ATE < "
+         f"{FISHEYE_MONO_LOOP_MAX_ATE} m; Q and R in KB8 with the scale free, S or U, and T launched, AB and J not"}
+
+
+def check_fisheye_mono(part: str, summary, launches) -> None:
+    """Phase 15 (a), (b) or (c)'s gates (``FISHEYE_MONO_GATES``) and the
+    kernels each must launch; AB (the two-camera match) and J (the
+    rectified stereo refine) never launch on one camera."""
+    need = ["twoview_ransac[kb8]", "vocab_transform", "pose_lm[kb8]", "ba_blocks[kb8]", "ba_lm_update[kb8]",
+            "ba_classify[kb8]", "visible_landmarks[kb8]", "hamming_best2[window]", "triangulate_dlt"]
+    if part == "a":
+        lo, hi = FISHEYE_MONO_FIRST
+        ok = (summary["state"] == "OK" and summary["first_ok"] is not None and lo <= summary["first_ok"] <= hi
+              and summary["tracked"] >= FISHEYE_MONO_MIN_TRACKED
+              and FISHEYE_MONO_KF[0] <= summary["n_kf"] <= FISHEYE_MONO_KF[1] and summary.get("ate_m", 1.0) < 0.15)
+    elif part == "b":
+        lo, hi = FISHEYE_MONO_VI_INIT
+        need = ["imu_preint", "imu_init", "pose_inertial[kb8]", "vi_ba[kb8]"]
+        ok = (summary["init_frame"] is not None and lo <= summary["init_frame"] <= hi
+              and summary["after_init"] >= FISHEYE_MONO_VI_MIN_AFTER and summary.get("ate_m", 1.0) < 0.25)
+    else:
+        lo, hi = FISHEYE_MONO_LOOP_FRAMES
+        need = ["sim3_ransac[kb8, free scale]", "sim3_refine[kb8, free scale]", "ba_pcg"]
+        ok = (summary["state"] == "OK" and summary["tracked"] > 120 and bool(summary["closed_at"])
+              and lo <= summary["closed_at"][0] <= hi and summary.get("ate_m", 1e9) < FISHEYE_MONO_LOOP_MAX_ATE)
+    missing = [n for n in need if launches[n] < 1]
+    if part == "c" and launches["sim3_graph"] + launches["sim3_pcg"] < 1:
+        missing.append("S or U")
+    stray = [n for n in ("fisheye_stereo", "stereo_subpixel_refine") if launches[n]]
+    if not ok or missing or stray:
+        raise RuntimeError(f"fisheye monocular System ({part}) gates failed: {summary}; never launched {missing}; "
+                           f"launched {stray}")
+
+
+def run_fisheye_mono_loop(images, poses, device):
+    """Phase 15 (c): :func:`fisheye_mono_system` with loop closing on the
+    first camera's images of phase 14's circle, the first loop correction's
+    inputs kept.  Returns the System, a summary (the scale-aligned ATE over
+    the frames tracked) and the snapshot."""
+    return _run_loop_with_snapshot(fisheye_mono_system("monocular", device, loop=True), images, poses, None, device)
+
+
+def log_frame_kinds(label: str, slam, summary) -> None:
+    """A path's track_total by frame kind: the initialisation (the first
+    frame tracked), keyframes and ordinary frames (ms)."""
+    spans = slam.timers.spans["track_total"]
+    kf = set(summary["kf_frames"]) - {summary["first_ok"]}
+    kinds = {"init": [spans[summary["first_ok"]]] if summary["first_ok"] is not None else [],
+             "keyframe": [ms for i, ms in enumerate(spans) if i in kf],
+             "ordinary": [ms for i, ms in enumerate(spans) if i not in kf and i != summary["first_ok"]]}
+    log(f"{label} track_total ms by kind: " + "; ".join(
+        f"{k} n={len(v)} median {np.median(v):.3f} max {np.max(v):.3f}" for k, v in kinds.items() if v))
+    log(f"{label} track_total ms per frame: {[round(x, 3) for x in spans]}")
 
 
 # Kernel E's outputs on phase 3's local-BA problem (ba_problem(default_rng(3))) through the pin-hole camera, EuRoC
@@ -4273,7 +4717,7 @@ def compare_lm_kernels(device) -> list[dict]:
     (``check_lm_update``, ``check_classify``); both BA forms with every
     plain LM function made to raise, AC launched once per E launch, and
     timed whole.  Returns (the update's entry, the gate's entry)."""
-    from orb_slam3_fast_tpu_torch.optim import ba, ba_cg
+    from orb_slam3_fast_tpu_torch.optim import ba
 
     t0 = time.perf_counter()
     digests = e_digests(device)
@@ -4351,7 +4795,7 @@ def compare_lm_kernels(device) -> list[dict]:
                   "them within 1e-4 of the chi2 bound (none allowed off it)")]
 
 
-# --- kernel AD: the searches' epilogues (phase 3), the plain epilogues refused on the card (phases 5-14) -------
+# --- kernel AD: the searches' epilogues (phase 3), the plain epilogues refused on the card (phases 5-15) -------
 
 # each search's stage set after kernel C (ops/matching.py): the threshold (th, < or <=) and the stages
 EPILOGUES = {
@@ -4370,6 +4814,8 @@ STAGE_SETS = {"initialization": "lt+ratio+dedup+rotation", "projection": "lt+rat
 # the plain epilogue functions (ops/hamming.py), made to raise on a CUDA tensor in phases 5-14
 EPILOGUE_PLAIN = ("ratio_gate", "mutual_consistency", "resolve_duplicate_targets", "rotation_consistency",
                   "median_prune", "_median", "match_epilogue_plain")
+# kernel M's plain unprojection and verdict (ops/twoview.py), refused on the card in phases 5-15 as well
+TWOVIEW_PLAIN = ("_camera_plane", "_verdict")
 
 
 def epilogue_call(kind: str, b, m: int, col=None, angles=None, stereo=None) -> tuple:
@@ -4607,13 +5053,16 @@ def compare_epilogue_kernel(device) -> list[dict]:
                         f"bit, also on a seeded and a tie-heavy input each): {each}; no single library call")]
 
 
-def refuse_plain_epilogues():
-    """Make every plain epilogue function (``EPILOGUE_PLAIN``) raise on a
-    CUDA tensor, and pass CPU tensors through; returns (the refusals seen,
-    a function that restores them)."""
+def refuse_plain_functions():
+    """Make every plain epilogue function (``EPILOGUE_PLAIN``, ops/hamming.py)
+    and kernel M's plain unprojection and verdict (``TWOVIEW_PLAIN``,
+    ops/twoview.py) raise on a CUDA tensor, and pass CPU tensors through;
+    returns (the refusals seen, a function that restores them)."""
     from orb_slam3_fast_tpu_torch.ops import hamming as ham
+    from orb_slam3_fast_tpu_torch.ops import twoview
 
-    saved = {name: getattr(ham, name) for name in EPILOGUE_PLAIN}
+    saved = {(mod, name): getattr(mod, name) for mod, names in ((ham, EPILOGUE_PLAIN), (twoview, TWOVIEW_PLAIN))
+             for name in names}
     refused: list = []
 
     def on_cuda(x) -> bool:
@@ -4625,16 +5074,16 @@ def refuse_plain_epilogues():
         def call(*args, **kw):
             if on_cuda(args) or on_cuda(list(kw.values())):
                 refused.append(name)
-                raise RuntimeError(f"{name}, a plain epilogue function, ran on a CUDA tensor")
+                raise RuntimeError(f"{name}, a plain version, ran on a CUDA tensor")
             return fn(*args, **kw)
         return call
 
-    for name, fn in saved.items():
-        setattr(ham, name, refusing(name, fn))
+    for (mod, name), fn in saved.items():
+        setattr(mod, name, refusing(name, fn))
 
     def restore():
-        for name, fn in saved.items():
-            setattr(ham, name, fn)
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
 
     return refused, restore
 
@@ -4685,7 +5134,7 @@ LOOP_KERNELS = MONO_KERNELS + ("sim3_ransac", "sim3_refine", "sim3_graph", "ba_p
 # the wrappers that count a mode: kernel C's four, kernels S and U behind one wrapper, and the distorted camera's
 # instances of D, E, Q, R and AC
 MODES = {"sim3_graph": "dense", "sim3_pcg": "pcg"}
-RADTAN_KERNELS = ("pose_lm", "ba_blocks", "sim3_ransac", "sim3_refine", *LM_KERNELS)
+RADTAN_KERNELS = ("pose_lm", "ba_blocks", "sim3_ransac", "sim3_refine", "twoview_ransac", *LM_KERNELS)
 
 
 def wrappers() -> dict:
@@ -4724,12 +5173,16 @@ def read_counts() -> dict:
     launched from more than the main thread."""
     from orb_slam3_fast_tpu_torch.ops import hamming as ham
 
+    from orb_slam3_fast_tpu_torch.optim.sim3 import FREE_SCALE
+
     ws = wrappers()
     counts = {name: w.launches.total(mode=MODES.get(name)) for name, w in ws.items()}
     counts.update({f"hamming_best2[{m}]": ham.hamming_best2.launches.total(mode=m) for m in ham.MODE_NAMES})
     counts.update({f"match_epilogue[{s}]": ham.match_epilogue.launches.total(mode=s) for s in STAGE_SETS.values()})
     counts.update({f"{n}[radtan]": ws[n].launches.total(camera="radtan") for n in RADTAN_KERNELS})
     counts.update({f"{n}[kb8]": ws[n].launches.total(camera="kb8") for n in KB8_KERNELS})
+    counts.update({f"{n}[kb8, free scale]": ws[n].launches.total(mode=FREE_SCALE, camera="kb8")
+                   for n in ("sim3_ransac", "sim3_refine")})
     for name, w in ws.items():
         by_thread = w.launches.by_thread()
         if set(by_thread) - {"MainThread"}:
@@ -4764,6 +5217,13 @@ def path_counts(*searches: str) -> dict:
 
 
 def main() -> int:
+    """Every phase, the scenes rendered on a pool of worker processes
+    (``render_pool``), which exit with it."""
+    with render_pool():
+        return run_phases()
+
+
+def run_phases() -> int:
     t_start = time.perf_counter()
     # 1. device
     if not torch.cuda.is_available():
@@ -4783,7 +5243,8 @@ def main() -> int:
     t0 = time.perf_counter()
     _, nvcc_out = _kernels.build()  # a fresh checkout has no library yet: this compiles
     _kernels.lib()
-    log(f"build: {time.perf_counter() - t0:.1f} s (one nvcc per source, in parallel; {' '.join(_kernels.NVCC_FLAGS)})")
+    build_s = time.perf_counter() - t0
+    log(f"build: {build_s:.1f} s (one nvcc per source, in parallel; {' '.join(_kernels.NVCC_FLAGS)})")
     for line in nvcc_out.splitlines():
         if line.startswith("==") or "registers" in line or ("spill" in line and "0 bytes spill" not in line):
             log(f"  ptxas {line.strip()}")
@@ -4796,12 +5257,21 @@ def main() -> int:
 
     # 3. each kernel against its plain version
     t0 = time.perf_counter()
-    kernels = compare_kernels(device)
-    system_kernels, c_modes = compare_system_kernels(device)
-    kernels += system_kernels + compare_mono_kernels(device) + compare_loop_kernels(device) + compare_vi_kernels(device)
-    kernels += compare_inertial_loop_kernels(device)
-    fisheye_kernels, kb8 = compare_fisheye_kernels(device)
-    kernels += fisheye_kernels + compare_lm_kernels(device) + compare_epilogue_kernel(device)
+    warm_library(device)
+    part_s = {}  # each comparison's seconds
+
+    def part(fn):
+        t = time.perf_counter()
+        out = fn(device)
+        part_s[fn.__name__] = round(time.perf_counter() - t, 1)
+        return out
+
+    kernels = part(compare_kernels)
+    system_kernels, c_modes = part(compare_system_kernels)
+    kernels += system_kernels + part(compare_mono_kernels) + part(compare_loop_kernels) + part(compare_vi_kernels)
+    kernels += part(compare_inertial_loop_kernels)
+    fisheye_kernels, kb8 = part(compare_fisheye_kernels)
+    kernels += fisheye_kernels + part(compare_lm_kernels) + part(compare_epilogue_kernel)
     for k in kernels:
         if k["name"] in kb8:
             k["kb8"] = kb8[k["name"]]
@@ -4819,11 +5289,18 @@ def main() -> int:
         log(f"kernel {k['name']}: max_abs_err {k['max_abs_err']:.3g}, {k['ms']:.4f} ms vs plain "
             f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.5f} ms ({k['bound_by']}), library call {lib} "
             f"({k['shapes']})")
-        if "kb8" in k:
-            q = k["kb8"]
-            log(f"kernel {k['name']} [kb8]: max_abs_err {q['max_abs_err']:.3g}, {q['ms']:.4f} ms vs plain "
-                f"{q['plain_ms']:.4f} ms, bound {q['bound_ms']:.5f} ms ({q['bound_by']}) ({q['shapes']})")
-    log(f"phase 3: {time.perf_counter() - t0:.1f} s")
+        for inst in ("radtan", "kb8"):
+            if inst in k:
+                q = k[inst]
+                lib = "" if q.get("library_ms") is None else f", library call {q['library_ms']:.4f} ms"
+                log(f"kernel {k['name']} [{inst}]: max_abs_err {q['max_abs_err']:.3g}, {q['ms']:.4f} ms vs plain "
+                    f"{q['plain_ms']:.4f} ms, bound {q['bound_ms']:.5f} ms ({q['bound_by']}){lib} ({q['shapes']})")
+        for stage, by_kind in k.get("stages", {}).items():
+            log(f"kernel {k['name']} stage {stage}: " + "; ".join(
+                f"{inst} {q['ms']:.4f} ms vs plain {q['plain_ms']:.4f} ms, bound {q['bound_ms']:.3e} ms "
+                f"({q['bound_by']})" for inst, q in by_kind.items()))
+    phase3_s = time.perf_counter() - t0
+    log(f"phase 3: {phase3_s:.1f} s ({part_s})")
 
     # 4. the tracking step at both sizes: its path, with the launch counts
     t0 = time.perf_counter()
@@ -4850,8 +5327,9 @@ def main() -> int:
         log(f"stages {w}x{h}: " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
     log(f"phase 4: {time.perf_counter() - t0:.1f} s")
 
-    # phases 5-14 on the card: every plain epilogue function refuses a CUDA tensor (each search is C -> AD)
-    refused, restore_epilogues = refuse_plain_epilogues()
+    # phases 5-15 on the card: every plain epilogue function refuses a CUDA tensor (each search is C -> AD), and so
+    # do kernel M's plain unprojection and verdict
+    refused, restore_plain = refuse_plain_functions()
 
     # 5. the stereo System with local mapping: its path, with the launch counts
     t0 = time.perf_counter()
@@ -5026,7 +5504,7 @@ def main() -> int:
     dist_run = run_mono(dist_in, mono_poses, device, settings=dist_settings)
     launches_d10 = path_counts("initialization", "projection", "frame_to_frame")
     missing = [n for n in (*MONO_KERNELS, "pose_lm[radtan]", "ba_blocks[radtan]", "ba_lm_update[radtan]",
-                           "ba_classify[radtan]") if launches_d10[n] < 1]
+                           "ba_classify[radtan]", "twoview_ransac[radtan]") if launches_d10[n] < 1]
     if missing:
         raise RuntimeError(f"10 (d): the distorted mono path never launched {missing} ({launches_d10})")
     log(f"10 (d) mono System with EuRoC cam0's distortion: {dist_run[1]} (phase 7's gates)")
@@ -5193,14 +5671,68 @@ def main() -> int:
             (", IMU initialised" if sensor == "stereo-inertial" else "") + "; loops reported)")
         log(f"launches in 14 (c) {sensor}: {path_counts('projection')}")
     log(f"phase 14: {time.perf_counter() - t0:.1f} s")
-    restore_epilogues()
+
+    # 15. the monocular KB8 rig (before phase 8 too), TUM-VI's cam0 alone on the images phases 13 and 14 rendered:
+    # (a) the monocular System on 13 (a)'s corridor, (b) the monocular-inertial one on 13 (b)'s arc, (c) the
+    # monocular System with loop closing on 14's circle, its first correction rerun on the card from its snapshot,
+    # (d) the two default constructors at 20 fps on the circle
+    t0 = time.perf_counter()
+    fm_in, fmv_in, flm_in = ([pair[0] for pair in pairs] for pairs in (fe_in, fv_in, fl_in))
+    reset_counts()
+    t1 = time.perf_counter()
+    fm_run = run_fisheye_mono(fm_in, fe_poses, device)
+    fm_s = time.perf_counter() - t1
+    launches_fm = path_counts("initialization", "projection", "frame_to_frame", "triangulation")
+    check_fisheye_mono("a", fm_run[1], launches_fm)
+    log(f"15 (a) fisheye monocular System (TUM-VI cam0): {fm_run[1]}, {fm_s:.2f} s for {FISHEYE_FRAMES} frames (gates: "
+        f"{FISHEYE_MONO_GATES['a']})")
+    log_frame_kinds("15 (a)", fm_run[0], fm_run[1])
+    log(f"launches in 15 (a): {launches_fm}")
+    reset_counts()
+    t1 = time.perf_counter()
+    fmv_run = run_fisheye_mono(fmv_in, fv_poses, device, imu=fv_imu)
+    launches_fmv = path_counts("projection")
+    check_fisheye_mono("b", fmv_run[1], launches_fmv)
+    log(f"15 (b) fisheye monocular-inertial System: {fmv_run[1]}, {time.perf_counter() - t1:.2f} s for "
+        f"{FISHEYE_VI_FRAMES} frames (gates: {FISHEYE_MONO_GATES['b']})")
+    log_frame_kinds("15 (b)", fmv_run[0], fmv_run[1])
+    log(f"launches in 15 (b): {launches_fmv}")
+    reset_counts()
+    t1 = time.perf_counter()
+    slam_flm, summary_flm, snap_flm = run_fisheye_mono_loop(flm_in, fl_poses, device)
+    launches_flm = path_counts("initialization", "projection", "mutual")
+    check_fisheye_mono("c", summary_flm, launches_flm)
+    spans, lspans = slam_flm.timers.spans, slam_flm.loopcloser.timers.spans
+    closing = int(np.argmax(spans["track_total"]))
+    log(f"15 (c) fisheye monocular System with loop closing: {summary_flm}, {time.perf_counter() - t1:.2f} s for "
+        f"{LOOP_FRAMES} frames (gates: {FISHEYE_MONO_GATES['c']})")
+    log(f"15 (c) track_total ms per frame: {[round(x, 3) for x in spans['track_total']]}")
+    log(f"15 (c) slowest frame {closing}: {spans['track_total'][closing]:.3f} ms; loop spans: " +
+        ", ".join(f"{k} {[round(x, 3) for x in v]}" for k, v in lspans.items() if k not in ("loop_detect", "loop_verify")))
+    log(f"launches in 15 (c): {launches_flm}")
+    make_flm = functools.partial(fisheye_mono_system, "monocular", loop=True)
+    card_flm = correct_from_snapshot(snap_flm, device, make_flm)
+    log(f"15 (c) the first loop correction (keyframe {snap_flm['args'][0]} <-> {snap_flm['args'][1]}) rerun on the card "
+        f"from its snapshot: {card_flm.n_kf} keyframes")
+    for sensor in ("monocular", "monocular-inertial"):
+        reset_counts()
+        t1 = time.perf_counter()
+        summary_fmd = run_default_fisheye(flm_in, fl_imu, device, sensor)
+        log(f"15 (d) default fisheye {sensor} System (async) on the circle at 20 fps: {summary_fmd}, "
+            f"{time.perf_counter() - t1:.1f} s (gates: drained in 120 s, no error; loops and the IMU reported)")
+        log(f"launches in 15 (d) {sensor}: {path_counts('projection')}")
+    phase15_s = time.perf_counter() - t0
+    log(f"phase 15: {phase15_s:.1f} s")
+    restore_plain()
     if refused:
-        raise RuntimeError(f"plain epilogue functions ran on CUDA tensors in phases 5-14: {sorted(set(refused))}")
-    log(f"phases 5-14: no plain epilogue function ({', '.join(EPILOGUE_PLAIN)}) ran on a CUDA tensor")
+        raise RuntimeError(f"plain functions ran on CUDA tensors in phases 5-15: {sorted(set(refused))}")
+    log(f"phases 5-15: no plain epilogue function ({', '.join(EPILOGUE_PLAIN)}) and neither of kernel M's plain "
+        f"stages ({', '.join(TWOVIEW_PLAIN)}) ran on a CUDA tensor")
 
     # 8. the plain (CPU) step, which the tests hold against the JAX package,
     # agrees with the card on frame 1 at 640x480.  Last, because the host
     # threads it starts would slow the timed phases above.
+    t8 = time.perf_counter()
     rig, cpu = Rig(640, 480), torch.device("cpu")
     rows_cpu = track(rig, *setup(rig, cpu), cpu, n_frames=2)
     m_g, n_g = results[(640, 480)][1][:2]
@@ -5210,15 +5742,25 @@ def main() -> int:
     log(f"plain step on the host, frame 1 at 640x480: matches {m_c} (card {m_g}), inliers {n_c} (card {n_g})")
     # every path's plain host run against its card run; all are logged before any failure raises
     failures = []
-    for label, card, plain_run, bounds in (
-        ("stereo System", card_run, lambda: run_system(frames, poses, cpu), ()),
-        ("RGB-D System", rgbd_run, lambda: run_system(rgbd_in, rgbd_poses, cpu, "rgbd"), ()),
-        ("mono System", mono_run, lambda: run_mono(mono_in, mono_poses, cpu), ()),
-        ("distorted mono System", dist_run, lambda: run_mono(dist_in, mono_poses, cpu, settings=dist_settings), ()),
+    reloc_fork = {"at": RELOC_FRAMES}  # the relocalisation run goes on from the mono run's state after frame 29
+    for label, card, plain_run in (
+        ("stereo System", card_run, lambda: run_system(frames, poses, cpu)),
+        ("mono System", mono_run, lambda: run_mono(mono_in, mono_poses, cpu, fork=reloc_fork)),
     ):
         t0 = time.perf_counter()
-        bad, summary = check_system_against_plain(card, plain_run(), *bounds)
+        bad, summary = check_system_against_plain(card, plain_run())
         log(f"plain {label} on the host against the card: {summary}, {len(bad)} failing "
+            f"({time.perf_counter() - t0:.1f} s)")
+        failures += [f"{label} {b}" for b in bad]
+    for label, card, n, plain_run in (  # the prefixes of HOST_PREFIX
+        ("RGB-D System", rgbd_run, HOST_PREFIX["rgbd"],
+         lambda n: run_system(rgbd_in[:n], rgbd_poses[:n], cpu, "rgbd", check=False)),
+        ("distorted mono System", dist_run, HOST_PREFIX["distorted mono"],
+         lambda n: run_mono(dist_in[:n], mono_poses[:n], cpu, settings=dist_settings, check=False)),
+    ):
+        t0 = time.perf_counter()
+        bad, summary = check_prefix_against_plain(card, plain_run(n), n)
+        log(f"plain {label} on the host against the card, its first {n} frames: {summary}, {len(bad)} failing "
             f"({time.perf_counter() - t0:.1f} s)")
         failures += [f"{label} {b}" for b in bad]
     t0 = time.perf_counter()  # 9: the loop scenario's first LOOP_HOST_PREFIX frames, then its first correction
@@ -5240,7 +5782,7 @@ def main() -> int:
         t0 = time.perf_counter()
         n = VI_HOST_PREFIX[sensor]
         frames_n, poses_n, imu_n = vi_in[0][:n], vi_in[1][:n], vi_in[2]
-        bad, summary = check_vi_against_plain(run, run_vi(frames_n, poses_n, imu_n, cpu, sensor), n,
+        bad, summary = check_prefix_against_plain(run, run_vi(frames_n, poses_n, imu_n, cpu, sensor), n,
                                               VI_BOUNDS[sensor])
         log(f"11 (c) plain {sensor}-inertial System on the host against the card: {summary}, {len(bad)} failing "
             f"({time.perf_counter() - t0:.1f} s)")
@@ -5257,19 +5799,39 @@ def main() -> int:
             f"host's plain path against the card: {summary} (bounds {VI_CORRECTION_BOUNDS}), {len(bad)} failing "
             f"({time.perf_counter() - t0:.1f} s)")
         failures += [f"14 fisheye {sensor} loop correction {b}" for b in bad]
-    t0 = time.perf_counter()  # 13 (a): the fisheye stereo System on the host
-    bad, summary = check_system_against_plain(fe_run, run_fisheye(fe_in, fe_poses, cpu), *FISHEYE_BOUNDS)
-    log(f"13 (a) plain fisheye stereo System on the host against the card: {summary}, {len(bad)} failing "
-        f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()  # 13 (a): the fisheye stereo System's first HOST_PREFIX["fisheye"] frames on the host
+    n = HOST_PREFIX["fisheye"]
+    bad, summary = check_prefix_against_plain(fe_run, run_fisheye(fe_in[:n], fe_poses[:n], cpu), n, FISHEYE_BOUNDS)
+    log(f"13 (a) plain fisheye stereo System on the host against the card, its first {n} frames: {summary}, "
+        f"{len(bad)} failing ({time.perf_counter() - t0:.1f} s)")
     failures += [f"fisheye stereo System {b}" for b in bad]
+    t0 = time.perf_counter()  # 15 (a): the fisheye monocular System on the host
+    bad, summary = check_system_against_plain(fm_run, run_fisheye_mono(fm_in, fe_poses, cpu), *FISHEYE_BOUNDS)
+    log(f"15 (a) plain fisheye monocular System on the host against the card: {summary}, {len(bad)} failing "
+        f"({time.perf_counter() - t0:.1f} s)")
+    failures += [f"fisheye monocular System {b}" for b in bad]
+    t0 = time.perf_counter()  # 15 (b): the monocular-inertial one over its frames before the first loss
+    n = next((i for i, (st, _, _) in enumerate(fmv_run[2]) if st in ("RECENTLY_LOST", "LOST")), len(fmv_in))
+    bad, summary = check_prefix_against_plain(fmv_run, run_fisheye_mono(fmv_in[:n], fv_poses[:n], cpu, imu=fv_imu), n,
+                                          VI_BOUNDS["monocular"])
+    log(f"15 (b) plain fisheye monocular-inertial System on the host against the card, its first {n} frames (up to "
+        f"the first loss): {summary}, {len(bad)} failing ({time.perf_counter() - t0:.1f} s)")
+    failures += [f"fisheye monocular-inertial System {b}" for b in bad]
+    t0 = time.perf_counter()  # 15 (c): the loop correction from the snapshot on the host
+    bad, summary = compare_corrections(card_flm, correct_from_snapshot(snap_flm, cpu, make_flm))
+    log(f"15 (c) the fisheye monocular loop correction from the snapshot, the host's plain path against the card: "
+        f"{summary} (bounds {VI_CORRECTION_BOUNDS}), {len(bad)} failing ({time.perf_counter() - t0:.1f} s)")
+    failures += [f"15 (c) loop correction {b}" for b in bad]
     t0 = time.perf_counter()
-    plain_reloc, _, plain_reloc_sum = run_reloc(mono_in, mono_poses, cpu)
+    plain_reloc, _, plain_reloc_sum = run_reloc(mono_in, mono_poses, cpu, fork=reloc_fork)
     bad, summary = compare_tracks(reloc_track, plain_reloc)
     if plain_reloc_sum["ref_kf"] != reloc_sum["ref_kf"]:
         bad.append(f"card {reloc_sum} vs plain {plain_reloc_sum}")
     log(f"plain relocalisation on the host against the card: {summary}; relocalisation keyframe "
         f"{reloc_sum['ref_kf']} / {plain_reloc_sum['ref_kf']}, {len(bad)} failing ({time.perf_counter() - t0:.1f} s)")
     failures += [f"relocalisation {b}" for b in bad]
+    phase8_s = time.perf_counter() - t8
+    log(f"phase 8: {phase8_s:.1f} s")
     if failures:
         raise RuntimeError("card against the plain host runs:\n" + "\n".join(failures))
 
@@ -5283,22 +5845,29 @@ def main() -> int:
             "vi_mono": vi_runs["monocular"][2], "vi_stereo": vi_runs["stereo"][2], "vi_rgbd": launches_r,
             "vi_loop": launches_vil, "default_vi": launches_vic, "merge_inertial": launches_vid,
             "fisheye": launches_fe, "fisheye_reloc": launches_fr, "fisheye_vi": launches_fv,
-            "fisheye_loop": fl_runs["stereo"][0], "fisheye_vi_loop": fl_runs["stereo-inertial"][0]}
+            "fisheye_loop": fl_runs["stereo"][0], "fisheye_vi_loop": fl_runs["stereo-inertial"][0],
+            "fisheye_mono": launches_fm, "fisheye_mono_vi": launches_fmv, "fisheye_mono_loop": launches_flm}
     main_run = {"twoview_ransac": "mono_system", "vocab_transform": "mono_system", "pnp_ransac": "relocalisation",
                 "sim3_ransac": "loop", "sim3_refine": "loop", "sim3_graph": "loop", "ba_pcg": "loop",
                 "sim3_pcg": "loop_pcg", **{name: "vi_mono" for name in VI_KERNELS}, "pose_graph4": "vi_loop",
                 "vi_pcg": "vi_loop", "fisheye_stereo": "fisheye"}
     kb8_run = {"pnp_ransac": "fisheye_reloc", "pose_inertial": "fisheye_vi", "vi_ba": "fisheye_vi",
-               "sim3_ransac": "fisheye_loop", "sim3_refine": "fisheye_loop", "vi_pcg": "fisheye_vi_loop"}
+               "sim3_ransac": "fisheye_loop", "sim3_refine": "fisheye_loop", "vi_pcg": "fisheye_vi_loop",
+               "twoview_ransac": "fisheye_mono"}
     for k in kernels:
         k["launches"] = runs[main_run.get(k["name"], "stereo_system")][k["name"]]
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in runs.items()}
         if "kb8" in k:  # the KB8 instance's launches on its fisheye path
             k["kb8"]["launches"] = runs[kb8_run.get(k["name"], "fisheye")][f"{k['name']}[kb8]"]
-    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
+        if "radtan" in k:  # the distorted instance's, on the distorted mono System (10 (d))
+            k["radtan"]["launches"] = runs["distorted_mono"][f"{k['name']}[radtan]"]
+    total_s = time.perf_counter() - t_start
+    log(f"chip_smoke: {total_s:.1f} s in all: build {build_s:.1f} s, phase 3 {phase3_s:.1f} s, phase 15 "
+        f"{phase15_s:.1f} s, phase 8 {phase8_s:.1f} s, the rest {total_s - build_s - phase3_s - phase15_s - phase8_s:.1f} s")
     log(json.dumps({"kernels": [{key: k[key] for key in ("name", "route", "source", "replaces", "launches",
                                                          "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                                         "library_ms", "launches_by_path", "shapes", "kb8")
+                                                         "library_ms", "launches_by_path", "shapes", "radtan", "kb8",
+                                                         "stages")
                                               if key in k}
                                 for k in kernels]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

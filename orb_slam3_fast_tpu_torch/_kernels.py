@@ -80,9 +80,15 @@ SIGNATURES = {
     # R, t, pos, mask, normal, dmin, dmax, m, cam_params (host), kind, width,
     # height, log_sf, n_lvl, uv, level, visible, stream
     "visible_landmarks_launch": [_P] * 7 + [_I, _P, _I, _F, _F, _F, _I, _P, _P, _P, _P],
-    # x0, x1, valid, samples, n, n_hyp, sigma2, hyp, hyp_score, model,
-    # model_score, inl, Rall, tall, X, tri, n_good, parallax, qual, stream
-    "twoview_ransac_launch": [_P] * 4 + [_I, _I, _F] + [_P] * 13,
+    # uv0, uv1, valid, samples, n, n_hyp, cam10 (host; optim/pose_opt.kernel_camera), kind, min_triangulated,
+    # min_parallax_deg, x0, x1, sigma2, hyp, hyp_score, model, model_score, inl, Rall, tall, X, tri, n_good,
+    # parallax, qual, success, used_h, R, t, X_out, good, stream
+    "twoview_ransac_launch": [_P] * 4 + [_I, _I, _P, _I, _I, _F] + [_P] * 22,
+    # uv0, uv1, n, cam10 (host), kind, x0, x1, sigma2, stream
+    "twoview_unproject_launch": [_P, _P, _I, _P, _I] + [_P] * 4,
+    # Rall, tall, X, tri, n_good, parallax, qual, model_score, valid, inl, n, min_triangulated, min_parallax_deg,
+    # success, used_h, R, t, X_out, good, stream
+    "twoview_verdict_launch": [_P] * 10 + [_I, _I, _F] + [_P] * 7,
     # centroids, alive, weights, B, depth, node_lvl, desc, valid, n, n_words,
     # words, nodes, bow, total, stream
     "vocab_transform_launch": [_P] * 3 + [_I] * 3 + [_P, _P, _I, _I] + [_P] * 5,

@@ -1,4 +1,8 @@
-// Kernel M: two-view reconstruction for mono initialisation, three launches.
+// Kernel M: two-view reconstruction for mono initialisation, five launches.
+//  0. unproject, one thread per match: both views' pixels onto the normalised
+//     plane (models.unproject in the camera's kind: pin-hole, radial-tangential
+//     or KB8, the *_rn functions below, bit for bit the plain version's on
+//     the card) and, from block 0, sigma^2 in the plane's units.
 //  1. fit_score, one CTA per hypothesis: the Hartley normalisation
 //     block-reduced over the valid points; thread 0 solves the 8-point F and
 //     thread 32 the 8-point DLT H as the least eigenvector of A^T A (float64
@@ -12,12 +16,18 @@
 //     model's 3x3 SVD, every match triangulated and tested as CheckRT does,
 //     the count and quality block-reduced, the parallax from a bitonic sort
 //     of the counted cosines.
+//  4. verdict, one CTA: RH > 0.45 prefers H; per model the best motion by
+//     quality (the first on ties), gated by count, 90% dominance on count,
+//     quality or parallax, and parallax; the other model where the preferred
+//     one fails; the chosen motion's success, model, R, t, points and flags
+//     written out.
 // See the source note in ops/twoview.py; reconstruct_plain there is the same
 // function in PyTorch.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "camera.cuh"
 #include "jacobi.cuh"
 
 namespace {
@@ -28,6 +38,92 @@ constexpr float kThF = 3.841f;       // CheckFundamental per-direction chi2
 constexpr float kThScoreF = 5.991f;
 constexpr float kThH = 5.991f;       // CheckHomography chi2
 constexpr float kTh2 = 4.0f;         // CheckRT reprojection gate, in sigma^2
+constexpr int kMotions = 12;         // 4 from F, then 8 from H
+
+// Stage 0's unprojections: models.unproject as PyTorch computes it on a CUDA tensor, every operation rounded once,
+// in the plain version's order and with no contracted FMA (the __f*_rn intrinsics), so that the points are bit for
+// bit the plain version's on the card: the RANSAC's argmax and the 12-motion verdict are discrete choices.
+// (camera.cuh's kb8_unproject keeps the compiler's contraction: kernel AB is held to its plain version at a
+// tolerance.)  The pixel's normalised coordinates come in as m = (u - c) * (1 / f): PyTorch divides a CUDA tensor
+// by the host camera's fx as a product with its reciprocal.
+
+// models._distort_radtan: r2 = x^2 + y^2, the radial factor, the tangential terms, summed left to right.
+__device__ __forceinline__ void distort_rn(const cam::Radtan& d, float x, float y, float& xd, float& yd) {
+  const float r2 = __fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y));
+  const float radial =
+      __fadd_rn(__fmul_rn(r2, __fadd_rn(d.k1, __fmul_rn(r2, __fadd_rn(d.k2, __fmul_rn(r2, d.k3))))), 1.0f);
+  xd = __fadd_rn(__fadd_rn(__fmul_rn(x, radial), __fmul_rn(__fmul_rn(__fmul_rn(2.0f, d.p1), x), y)),
+                 __fmul_rn(d.p2, __fadd_rn(r2, __fmul_rn(__fmul_rn(2.0f, x), x))));
+  yd = __fadd_rn(__fadd_rn(__fmul_rn(y, radial), __fmul_rn(d.p1, __fadd_rn(r2, __fmul_rn(__fmul_rn(2.0f, y), y)))),
+                 __fmul_rn(__fmul_rn(__fmul_rn(2.0f, d.p2), x), y));
+}
+
+// models.unproject, pin-hole with distortion: 10 fixed-point steps x <- m - (distort(x) - x) from x = m.
+__device__ __forceinline__ void radtan_unproject_rn(const cam::Radtan& d, float mx, float my, float& x, float& y) {
+  x = mx;
+  y = my;
+  for (int it = 0; it < 10; ++it) {
+    float xd, yd;
+    distort_rn(d, x, y, xd, yd);
+    const float nx = __fsub_rn(mx, __fsub_rn(xd, x)), ny = __fsub_rn(my, __fsub_rn(yd, y));
+    x = nx;
+    y = ny;
+  }
+}
+
+// models.unproject, KB8: d = |m| clamped to [0, pi], 10 Newton steps on theta (1 + t2 (k1 + ...)) = d with
+// the derivative guarded by EPS, then m tan(theta) / max(d, EPS) (m where d < EPS).
+__device__ __forceinline__ void kb8_unproject_rn(const cam::KB8& c, float mx, float my, float& x, float& y) {
+  const float d = fminf(fmaxf(__fsqrt_rn(__fadd_rn(__fmul_rn(mx, mx), __fmul_rn(my, my))), 0.0f), cam::kPi);
+  const float k1_3 = __fmul_rn(3.0f, c.k1), k2_5 = __fmul_rn(5.0f, c.k2), k3_7 = __fmul_rn(7.0f, c.k3);
+  float theta = d;
+  for (int it = 0; it < 10; ++it) {
+    const float t2 = __fmul_rn(theta, theta);
+    const float poly = __fmul_rn(
+        theta, __fadd_rn(__fmul_rn(t2, __fadd_rn(c.k1, __fmul_rn(t2, __fadd_rn(c.k2, __fmul_rn(t2, __fadd_rn(
+                                       c.k3, __fmul_rn(t2, c.k4))))))), 1.0f));
+    const float dp = __fadd_rn(
+        __fmul_rn(t2, __fadd_rn(k1_3, __fmul_rn(t2, __fadd_rn(k2_5, __fmul_rn(t2, __fadd_rn(
+                          k3_7, __fmul_rn(__fmul_rn(t2, 9.0f), c.k4))))))), 1.0f);
+    theta = __fsub_rn(theta, __fdiv_rn(__fsub_rn(poly, d), fabsf(dp) < cam::kEps ? cam::kEps : dp));
+  }
+  const float scale = d < cam::kEps ? 1.0f : __fdiv_rn(tanf(theta), fmaxf(d, cam::kEps));
+  x = __fmul_rn(mx, scale);
+  y = __fmul_rn(my, scale);
+}
+
+// The camera of ops/twoview.reconstruct: its kind (optim/pose_opt.kernel_camera's: 0 pin-hole, 1 radial-
+// tangential, 2 KB8) and its (10,) slots fx fy cx cy bf k1 k2 p1 p2 k3 / fx fy cx cy bf k1 k2 k3 k4 0.
+struct Cam {
+  int kind;
+  float s[10];
+};
+
+// Stage 0: the pixel pair of match i on the normalised plane, as models.unproject computes it on a CUDA
+// tensor with the camera on the host: m = (u - c) * (1 / f), then the camera's undistortion.
+__device__ __forceinline__ float2 unproject(const Cam& c, float2 uv) {
+  const float mx = __fmul_rn(__fsub_rn(uv.x, c.s[2]), __fdiv_rn(1.0f, c.s[0]));
+  const float my = __fmul_rn(__fsub_rn(uv.y, c.s[3]), __fdiv_rn(1.0f, c.s[1]));
+  float x = mx, y = my;
+  if (c.kind == cam::kRadtan)
+    radtan_unproject_rn(cam::Radtan{c.s[5], c.s[6], c.s[7], c.s[8], c.s[9]}, mx, my, x, y);
+  else if (c.kind == cam::kKB8)
+    kb8_unproject_rn(cam::kb8_from10(c.s), mx, my, x, y);
+  return make_float2(x, y);
+}
+
+__global__ void __launch_bounds__(kThreads)
+unproject_kernel(const float2* __restrict__ uv0, const float2* __restrict__ uv1, int n, Cam c,
+                 float2* __restrict__ x0, float2* __restrict__ x1, float* __restrict__ sigma2) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    x0[i] = unproject(c, uv0[i]);
+    x1[i] = unproject(c, uv1[i]);
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {  // twoview._camera_plane: (SIGMA / f_mean)^2, f_mean the mean focal length, in float64
+    const double inv = 1.0 / (((double)c.s[0] + (double)c.s[1]) * 0.5);
+    *sigma2 = (float)(inv * inv);
+  }
+}
 
 struct Norm {
   float mx, my, sx, sy;  // x_n = (x - m) * s
@@ -171,9 +267,10 @@ __device__ __forceinline__ float score_h(const float* H, const float* Hi, float2
 
 __global__ void __launch_bounds__(kThreads)
 fit_score_kernel(const float2* __restrict__ x0, const float2* __restrict__ x1, const bool* __restrict__ valid,
-                 const int* __restrict__ samples, int n, int n_hyp, float sigma2, float* __restrict__ hyp,
-                 float* __restrict__ hyp_score) {
+                 const int* __restrict__ samples, int n, int n_hyp, const float* __restrict__ sigma2p,
+                 float* __restrict__ hyp, float* __restrict__ hyp_score) {
   __shared__ double red[33];
+  const float sigma2 = *sigma2p;
   __shared__ float sF[9], sH[9], sHi[9];
   const int h = blockIdx.x;
   auto is_valid = [&](int i) { return valid[i]; };
@@ -224,9 +321,11 @@ fit_score_kernel(const float2* __restrict__ x0, const float2* __restrict__ x1, c
 
 __global__ void __launch_bounds__(kThreads)
 refit_kernel(const float2* __restrict__ x0, const float2* __restrict__ x1, const bool* __restrict__ valid, int n,
-             int n_hyp, float sigma2, const float* __restrict__ hyp, const float* __restrict__ hyp_score,
-             float* __restrict__ model, float* __restrict__ model_score, bool* __restrict__ inl_out) {
+             int n_hyp, const float* __restrict__ sigma2p, const float* __restrict__ hyp,
+             const float* __restrict__ hyp_score, float* __restrict__ model, float* __restrict__ model_score,
+             bool* __restrict__ inl_out) {
   __shared__ double red[33];
+  const float sigma2 = *sigma2p;
   __shared__ double sAtA[45];
   __shared__ float sB[9], sBi[9], sR[9], sRi[9];
   __shared__ uint8_t s_inl[kMaxN];
@@ -377,11 +476,12 @@ __device__ void motion_h(const double (&U)[3][3], const double (&w)[3], const do
 
 __global__ void __launch_bounds__(kThreads)
 check_rt_kernel(const float2* __restrict__ x0, const float2* __restrict__ x1, const bool* __restrict__ valid,
-                int n, float sigma2, const float* __restrict__ model, const bool* __restrict__ inl,
-                float* __restrict__ Rall, float* __restrict__ tall, float* __restrict__ X,
-                bool* __restrict__ tri, int* __restrict__ n_good, float* __restrict__ parallax,
-                float* __restrict__ qual) {
+                int n, const float* __restrict__ sigma2p, const float* __restrict__ model,
+                const bool* __restrict__ inl, float* __restrict__ Rall, float* __restrict__ tall,
+                float* __restrict__ X, bool* __restrict__ tri, int* __restrict__ n_good,
+                float* __restrict__ parallax, float* __restrict__ qual) {
   __shared__ double red[33];
+  const float sigma2 = *sigma2p;
   __shared__ float sP1[12];  // [R | t], row-major 3x4
   __shared__ float keys[kMaxN];
   const int b = blockIdx.x;
@@ -477,19 +577,136 @@ check_rt_kernel(const float2* __restrict__ x0, const float2* __restrict__ x1, co
   }
 }
 
+// The larger of a and b as torch.max reduces: a NaN wins.
+__device__ __forceinline__ float max_nan(float a, float b) { return (isnan(a) || a >= b) ? a : b; }
+
+// twoview._verdict's model_verdict over the motions [lo, hi) of one model: the best by quality (argmax: the first
+// maximum, a NaN first), gated by its count against max(min_triangulated, int(0.9 #(valid & inliers))), by
+// dominance (the runner-up's count under dom times its count, its quality under 0.6 times, or the model's other
+// parallaxes under half of its) and by its parallax over min_parallax.  Every float operation rounds as PyTorch's.
+__device__ bool model_verdict(const int* n_good, const float* parallax, const float* qual, int lo, int hi,
+                              int n_inl, int min_tri, float min_par, float dom, int& best) {
+  float qq[kMotions];
+  int ng[kMotions];
+  for (int j = 0; j < kMotions; ++j) {
+    const bool sel = j >= lo && j < hi;
+    qq[j] = sel ? qual[j] : -1.0f;
+    ng[j] = sel ? n_good[j] : -1;
+  }
+  int b = 0;
+  for (int j = 1; j < kMotions; ++j)
+    if (!isnan(qq[b]) && (isnan(qq[j]) || qq[j] > qq[b])) b = j;
+  int ns = -1;
+  float qs = -1.0f, ps = -1.0f;
+  for (int j = 0; j < kMotions; ++j) {
+    const bool other = j != b;
+    ns = max(ns, other ? ng[j] : -1);
+    qs = max_nan(qs, other ? qq[j] : -1.0f);
+    ps = max_nan(ps, other && j >= lo && j < hi ? parallax[j] : -1.0f);
+  }
+  const int nb = ng[b];
+  const int nmin = max((int)__fmul_rn(0.9f, (float)n_inl), min_tri);
+  const bool dominant = (float)ns < __fmul_rn(dom, (float)nb) || qs < __fmul_rn(0.6f, qq[b]) ||
+                        ps < __fmul_rn(0.5f, parallax[b]);
+  best = b;
+  return nb >= nmin && dominant && parallax[b] > min_par;
+}
+
+// Stage 4, one CTA: the verdict over the 12 motions and the chosen motion's outputs.
+__global__ void __launch_bounds__(kThreads)
+verdict_kernel(const float* __restrict__ Rall, const float* __restrict__ tall, const float* __restrict__ X,
+               const bool* __restrict__ tri, const int* __restrict__ n_good, const float* __restrict__ parallax,
+               const float* __restrict__ qual, const float* __restrict__ model_score, const bool* __restrict__ valid,
+               const bool* __restrict__ inl, int n, int min_tri, float min_par, bool* __restrict__ success,
+               bool* __restrict__ used_h, float* __restrict__ R_out, float* __restrict__ t_out,
+               float* __restrict__ X_out, bool* __restrict__ good_out) {
+  __shared__ double red[33];
+  __shared__ int s_best;
+  double cf = 0.0, ch = 0.0;
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    if (valid[i]) {
+      cf += inl[i] ? 1.0 : 0.0;
+      ch += inl[n + i] ? 1.0 : 0.0;
+    }
+  const int n_f = (int)jacobi::block_sum(cf, red);
+  const int n_h = (int)jacobi::block_sum(ch, red);
+  if (threadIdx.x == 0) {
+    const float SF = model_score[0], SH = model_score[1];
+    const bool prefer_h = __fdiv_rn(SH, fmaxf(__fadd_rn(SH, SF), 1e-12f)) > 0.45f;
+    int bf, bh;
+    // dominance thresholds: ReconstructF 0.7 (:586), ReconstructH 0.75 (:805)
+    const bool ok_f = model_verdict(n_good, parallax, qual, 0, 4, n_f, min_tri, min_par, 0.7f, bf);
+    const bool ok_h = model_verdict(n_good, parallax, qual, 4, kMotions, n_h, min_tri, min_par, 0.75f, bh);
+    const bool use_h = prefer_h ? (ok_h || !ok_f) : (!ok_f && ok_h);
+    const int b = use_h ? bh : bf;
+    *success = use_h ? ok_h : ok_f;
+    *used_h = use_h;
+    for (int k = 0; k < 9; ++k) R_out[k] = Rall[9 * b + k];
+    for (int k = 0; k < 3; ++k) t_out[k] = tall[3 * b + k];
+    s_best = b;
+  }
+  __syncthreads();
+  const int b = s_best;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    for (int k = 0; k < 3; ++k) X_out[3 * i + k] = X[(size_t)3 * (b * n + i) + k];
+    good_out[i] = tri[b * n + i];
+  }
+}
+
+Cam make_cam(const float* cam10, int kind) {
+  Cam c;
+  c.kind = kind;
+  for (int k = 0; k < 10; ++k) c.s[k] = cam10[k];
+  return c;
+}
+
 }  // namespace
 
-extern "C" int twoview_ransac_launch(const float* x0, const float* x1, const bool* valid, const int* samples,
-                                     int n, int n_hyp, float sigma2, float* hyp, float* hyp_score, float* model,
+// The whole of kernel M: uv0, uv1 (n, 2) pixels, valid (n,), samples (n_hyp, 8) int32, cam10 the camera's slots
+// in host memory and its kind; x0, x1, sigma2, hyp, hyp_score, model, model_score, inl, Rall, tall, X, tri,
+// n_good, parallax and qual the stages' buffers (ops/twoview.reconstruct); success, used_h, R, t, X_out, good the
+// result.  Every launch is on ``stream``; nothing is read back.
+extern "C" int twoview_ransac_launch(const float* uv0, const float* uv1, const bool* valid, const int* samples,
+                                     int n, int n_hyp, const float* cam10, int kind, int min_tri, float min_par,
+                                     float* x0, float* x1, float* sigma2, float* hyp, float* hyp_score, float* model,
                                      float* model_score, bool* inl, float* Rall, float* tall, float* X, bool* tri,
-                                     int* n_good, float* parallax, float* qual, void* stream) {
-  if (n < 1 || n > kMaxN || n_hyp < 1) return cudaErrorInvalidValue;
+                                     int* n_good, float* parallax, float* qual, bool* success, bool* used_h, float* R,
+                                     float* t, float* X_out, bool* good, void* stream) {
+  if (n < 1 || n > kMaxN || n_hyp < 1 || kind < cam::kPinhole || kind > cam::kKB8) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float2* p0 = reinterpret_cast<const float2*>(x0);
-  const float2* p1 = reinterpret_cast<const float2*>(x1);
+  float2* p0 = reinterpret_cast<float2*>(x0);
+  float2* p1 = reinterpret_cast<float2*>(x1);
+  unproject_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      reinterpret_cast<const float2*>(uv0), reinterpret_cast<const float2*>(uv1), n, make_cam(cam10, kind), p0, p1,
+      sigma2);
   fit_score_kernel<<<n_hyp, kThreads, 0, st>>>(p0, p1, valid, samples, n, n_hyp, sigma2, hyp, hyp_score);
   refit_kernel<<<2, kThreads, 0, st>>>(p0, p1, valid, n, n_hyp, sigma2, hyp, hyp_score, model, model_score, inl);
-  check_rt_kernel<<<12, kThreads, 0, st>>>(p0, p1, valid, n, sigma2, model, inl, Rall, tall, X, tri, n_good,
-                                           parallax, qual);
+  check_rt_kernel<<<kMotions, kThreads, 0, st>>>(p0, p1, valid, n, sigma2, model, inl, Rall, tall, X, tri, n_good,
+                                                 parallax, qual);
+  verdict_kernel<<<1, kThreads, 0, st>>>(Rall, tall, X, tri, n_good, parallax, qual, model_score, valid, inl, n,
+                                         min_tri, min_par, success, used_h, R, t, X_out, good);
+  return cudaGetLastError();
+}
+
+// Stage 0 alone (ops/twoview.unproject_pair, for its checks against the plain unprojection).
+extern "C" int twoview_unproject_launch(const float* uv0, const float* uv1, int n, const float* cam10, int kind,
+                                        float* x0, float* x1, float* sigma2, void* stream) {
+  if (n < 1 || kind < cam::kPinhole || kind > cam::kKB8) return cudaErrorInvalidValue;
+  unproject_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float2*>(uv0), reinterpret_cast<const float2*>(uv1), n, make_cam(cam10, kind),
+      reinterpret_cast<float2*>(x0), reinterpret_cast<float2*>(x1), sigma2);
+  return cudaGetLastError();
+}
+
+// Stage 4 alone on given motions (ops/twoview.verdict, for its checks against the plain verdict).
+extern "C" int twoview_verdict_launch(const float* Rall, const float* tall, const float* X, const bool* tri,
+                                      const int* n_good, const float* parallax, const float* qual,
+                                      const float* model_score, const bool* valid, const bool* inl, int n,
+                                      int min_tri, float min_par, bool* success, bool* used_h, float* R, float* t,
+                                      float* X_out, bool* good, void* stream) {
+  if (n < 1) return cudaErrorInvalidValue;
+  verdict_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      Rall, tall, X, tri, n_good, parallax, qual, model_score, valid, inl, n, min_tri, min_par, success, used_h, R,
+      t, X_out, good);
   return cudaGetLastError();
 }

@@ -12,7 +12,8 @@ and dominance verdict with its fallback to the other model.
 ``triangulate_dlt`` is the wrapper of kernel G (``csrc/triangulate_dlt.cu``),
 ``triangulate_dlt_plain`` the JAX code, an SVD per match.
 ``reconstruct`` runs kernel M (``csrc/twoview_ransac.cu``) on CUDA tensors
-and ``reconstruct_plain`` on CPU ones; both take their (200, 8) sample
+and ``reconstruct_plain`` on CPU ones, in each of the cameras' kinds
+(pin-hole, radial-tangential, KB8); both take their (200, 8) sample
 indices from ``_sample_hypotheses``, drawn on the host, so the card and the
 host score the same hypotheses.
 
@@ -32,40 +33,52 @@ Kernel G -- source note.
 
 Kernel M -- source note.
   Replaces: ``reconstruct`` (``orb_slam3_fast_tpu/ops/twoview.py:304``, with
-  ``:36-291``, K15), one jitted program of vmapped float32 SVDs (200 x
-  (8,9) and (16,9), 200 x 3x3, 12 x (N,4,4)), (200, N) score matrices and
-  a sort per motion.
+  ``:36-291``, K15), one jitted program: the unprojection of both views
+  (``:322-325``), vmapped float32 SVDs (200 x (8,9) and (16,9), 200 x 3x3,
+  12 x (N,4,4)), (200, N) score matrices, a sort per motion and the
+  12-motion verdict (``:382-424``).
   Bound on the card: latency.  It reads ~20 KB and does ~10 Mflop (the
   (200, N) scores and 12 x N triangulations), microseconds at the card's
   rates; what limits it is the serial float64 Jacobi of one thread.
-  Design: three launches from one entry point.  ``fit_score``: one CTA per
-  hypothesis block-reduces the Hartley normalisation, thread 0 solves the
-  8x9 F system and thread 1 the 16x9 H system as the least eigenvector of
-  A^T A (float64 Jacobi), F loses its least right-singular direction
-  (``F - F v3 v3^T`` = u diag(s1, s2, 0) v^T), both are denormalised, and
-  all threads score all points against both (``Hinv`` by the adjugate),
-  block-reduced.  ``refit``: one CTA per model takes the first maximum, its
-  inliers, the normalisation and the 9x9 A^T A over them in float64,
-  solves, rescores, and keeps the refit or the sampled best by the rule of
-  ``twoview.py:357-362``.  ``check_rt``: one CTA per motion derives it
-  from the 3x3 SVD (Jacobi on M^T M, ``u = M v / s``, the third u of F as
-  u1 x u2), triangulates its points with the shared 4x4 DLT, applies
-  ``_check_rt``'s tests in order, block-reduces the count and the quality,
-  and takes the parallax from a bitonic sort of the counted cosines in
-  shared memory.  The verdict over the 12 motions stays a few tensor
-  operations.  The SVD's signs are its own, so F and H equal the plain
+  Design: five launches from one entry point, nothing read back.
+  ``unproject``: one thread per match puts both views' pixels on the
+  normalised plane in the camera's kind (pin-hole, radial-tangential: 10
+  fixed-point steps, KB8: 10 Newton steps; the source's ``*_rn``
+  functions) and block 0 writes sigma^2; every operation rounds once, in
+  ``cam_models.unproject``'s order, so the points are bit for bit what
+  ``_camera_plane`` computes on the card with the camera on the host (the
+  RANSAC's argmax and the verdict are discrete choices).  ``fit_score``:
+  one CTA per hypothesis block-reduces the Hartley normalisation, thread 0
+  solves the 8x9 F system and thread 32 the 16x9 H system as the least
+  eigenvector of A^T A (float64 Jacobi), F loses its least right-singular
+  direction (``F - F v3 v3^T`` = u diag(s1, s2, 0) v^T), both are
+  denormalised, and all threads score all points against both (``Hinv`` by
+  the adjugate), block-reduced.  ``refit``: one CTA per model takes the
+  first maximum, its inliers, the normalisation and the 9x9 A^T A over them
+  in float64, solves, rescores, and keeps the refit or the sampled best by
+  the rule of ``twoview.py:357-362``.  ``check_rt``: one CTA per motion
+  derives it from the 3x3 SVD (Jacobi on M^T M, ``u = M v / s``, the third
+  u of F as u1 x u2), triangulates its points with the shared 4x4 DLT,
+  applies ``_check_rt``'s tests in order, block-reduces the count and the
+  quality, and takes the parallax from a bitonic sort of the counted
+  cosines in shared memory.  ``verdict``: one CTA counts each model's
+  inliers and thread 0 takes ``_verdict``'s choice, rounding as PyTorch
+  does, then the CTA copies the chosen motion's points and flags into the
+  result.  The SVD's signs are its own, so F and H equal the plain
   version's up to sign (no score sees it) and the motions are equal as a
-  set; the choice is an argmax over distinct motions.
+  set; the choice is an argmax over distinct motions.  ``unproject_pair``
+  and ``verdict`` launch the first and the last stage alone, for their
+  checks against ``_camera_plane`` and ``_verdict``.
 """
 from __future__ import annotations
 
-import math
 from typing import NamedTuple
 
 import torch
 
 from orb_slam3_fast_tpu_torch import _kernels
 from orb_slam3_fast_tpu_torch.cameras import models as cam_models
+from orb_slam3_fast_tpu_torch.optim import pose_opt
 
 SIGMA = 1.0  # reference mSigma
 TH_F = 3.841  # CheckFundamental per-direction chi2 (1 DoF)
@@ -125,16 +138,16 @@ class TwoViewResult(NamedTuple):
 
 
 def _sample_hypotheses(seed: int, valid: torch.Tensor, n_iters: int = N_ITERS) -> torch.Tensor:
-    """(n_iters, 8) int64 indices drawn with replacement among the valid
+    """(n_iters, 8) int32 indices drawn with replacement among the valid
     matches, uniformly (the distribution of ``jax.random.choice(key, n,
     (n_iters, 8), p=valid / sum)``), from a CPU ``torch.Generator`` seeded
-    with ``seed``; returned on ``valid``'s device."""
+    with ``seed``; returned on ``valid``'s device (one copy)."""
     p = valid.detach().cpu().to(torch.float64)
     if not bool(p.any()):
-        return torch.zeros((n_iters, 8), dtype=torch.int64, device=valid.device)
+        return torch.zeros((n_iters, 8), dtype=torch.int32, device=valid.device)
     g = torch.Generator().manual_seed(int(seed))
     idx = torch.multinomial(p / p.sum(), n_iters * 8, replacement=True, generator=g)
-    return idx.reshape(n_iters, 8).to(valid.device)
+    return idx.reshape(n_iters, 8).to(torch.int32).to(valid.device)
 
 
 def _normalize(pts: torch.Tensor, valid: torch.Tensor):
@@ -324,7 +337,8 @@ def _motions_from_h(H: torch.Tensor):
 
 
 def _camera_plane(cam: cam_models.Camera, uv0: torch.Tensor, uv1: torch.Tensor):
-    """Both views' points on the normalised plane, and sigma^2 in its units."""
+    """Both views' points on the normalised plane, and sigma^2 in its units
+    (a Python float): the plain version of kernel M's first stage."""
     x0 = cam_models.unproject(cam, uv0)[:, :2].contiguous()
     x1 = cam_models.unproject(cam, uv1)[:, :2].contiguous()
     f_mean = (float(cam.params[0]) + float(cam.params[1])) * 0.5
@@ -337,7 +351,8 @@ def _verdict(Rall, tall, ngood, goods, parallax, Xs, qual, SF, SH, valid, inl_f,
     :44-130, with the JAX package's extensions, ``twoview.py:363-424``):
     RH > 0.45 prefers H; per model the best motion by quality, gated by
     count, 90%-dominance on count, quality or parallax, and parallax; the
-    other model where the preferred one fails."""
+    other model where the preferred one fails.  The plain version of kernel
+    M's last stage."""
     prefer_h = SH / torch.clamp(SH + SF, min=1e-12) > 0.45
     idx = torch.arange(12, device=Rall.device)
 
@@ -365,10 +380,10 @@ def _verdict(Rall, tall, ngood, goods, parallax, Xs, qual, SF, SH, valid, inl_f,
                          good=goods[best], used_h=use_h)
 
 
-def reconstruct_plain(cam, uv0, uv1, valid, samples: torch.Tensor, min_triangulated: int = 50,
-                      min_parallax_deg: float = 1.0) -> TwoViewResult:
-    """Plain version of kernel M: the JAX program in PyTorch, on the given
-    (I, 8) hypothesis samples."""
+def motions_plain(cam, uv0, uv1, valid, samples: torch.Tensor) -> tuple:
+    """``reconstruct_plain`` up to its verdict: the 12 motions scored by
+    CheckRT and what ``_verdict`` reads of them, (Rall, tall, ngood, goods,
+    parallax, Xs, qual, SF, SH, valid, inl_f, inl_h)."""
     x0, x1, sigma2 = _camera_plane(cam, uv0, uv1)
     s0n, T0 = _normalize(x0, valid)
     s1n, T1 = _normalize(x1, valid)
@@ -394,8 +409,14 @@ def reconstruct_plain(cam, uv0, uv1, valid, samples: torch.Tensor, min_triangula
     # CheckRT runs over each model's own RANSAC inliers
     inl_all = torch.where(torch.arange(12, device=x0.device)[:, None] >= 4, inl_h[None, :], inl_f[None, :])
     ngood, goods, parallax, Xs, qual = _check_rt(Rall, tall, x0, x1, valid & inl_all, sigma2)
-    return _verdict(Rall, tall, ngood, goods, parallax, Xs, qual, SF, SH, valid, inl_f, inl_h, min_triangulated,
-                    min_parallax_deg)
+    return Rall, tall, ngood, goods, parallax, Xs, qual, SF, SH, valid, inl_f, inl_h
+
+
+def reconstruct_plain(cam, uv0, uv1, valid, samples: torch.Tensor, min_triangulated: int = 50,
+                      min_parallax_deg: float = 1.0) -> TwoViewResult:
+    """Plain version of kernel M: the JAX program in PyTorch, on the given
+    (I, 8) hypothesis samples."""
+    return _verdict(*motions_plain(cam, uv0, uv1, valid, samples), min_triangulated, min_parallax_deg)
 
 
 def reconstruct(cam: cam_models.Camera, uv0: torch.Tensor, uv1: torch.Tensor, valid: torch.Tensor, seed: int,
@@ -404,38 +425,113 @@ def reconstruct(cam: cam_models.Camera, uv0: torch.Tensor, uv1: torch.Tensor, va
     """Two-view bootstrap from matched pixel keypoints (N slots, ``valid``
     marking the matches): TwoViewReconstruction::Reconstruct (:44-130).
     The hypotheses are ``samples`` or ``_sample_hypotheses(seed, valid,
-    n_iters)``.  Kernel M on CUDA tensors (``cam`` a host pin-hole Camera),
-    ``reconstruct_plain`` on CPU ones."""
+    n_iters)``.  Kernel M on CUDA tensors (``cam`` a host Camera of any
+    kind; on the card nothing runs but the samples' copy and M's five
+    launches, and nothing is read back), ``reconstruct_plain`` on CPU ones."""
     if samples is None:
         samples = _sample_hypotheses(seed, valid, n_iters)
     if uv0.device.type == "cpu":
         return reconstruct_plain(cam, uv0, uv1, valid, samples, min_triangulated, min_parallax_deg)
-    if cam.kind != cam_models.PINHOLE:
-        raise NotImplementedError("kernel M takes pin-hole cameras; KB8 waits for ROADMAP §A item 15 (the monocular "
-                                  "fisheye rig)")
-    x0, x1, sigma2 = _camera_plane(cam, uv0, uv1)
-    samples = samples.to(torch.int32).contiguous()
+    return _kernel(cam, uv0, uv1, valid, samples, min_triangulated, min_parallax_deg)
+
+
+def _kernel(cam, uv0, uv1, valid, samples, min_triangulated: int, min_parallax_deg: float) -> TwoViewResult:
+    """Kernel M's launch: its buffers allocated, no other operation."""
+    cam10, kind = pose_opt.kernel_camera(cam, 0.0, "kernel M")
     f32 = torch.float32
-    _kernels.require_cuda("reconstruct", x0=(x0, f32), x1=(x1, f32), valid=(valid, torch.bool),
+    uv0, uv1, valid = uv0.contiguous(), uv1.contiguous(), valid.contiguous()
+    samples = samples.to(torch.int32).contiguous()
+    _kernels.require_cuda("reconstruct", uv0=(uv0, f32), uv1=(uv1, f32), valid=(valid, torch.bool),
                           samples=(samples, torch.int32))
-    n, n_hyp = x0.shape[0], samples.shape[0]
-    if x1.shape != (n, 2) or valid.shape != (n,) or samples.shape != (n_hyp, 8) or not 1 <= n <= 2048:
+    n, n_hyp = uv0.shape[0], samples.shape[0]
+    if uv1.shape != (n, 2) or valid.shape != (n,) or samples.shape != (n_hyp, 8) or not 1 <= n <= 2048:
         raise ValueError("reconstruct: needs (N,2) points of both views, (N,) valid, (I,8) samples, 1 <= N <= 2048")
-    dev = x0.device
+    dev = uv0.device
     e = lambda *s, dtype=f32: torch.empty(s, dtype=dtype, device=dev)  # noqa: E731
+    x0, x1, sigma2 = e(n, 2), e(n, 2), e(1)
     hyp, hyp_score = e(2, n_hyp, 9), e(2, n_hyp)
     model, model_score, inl = e(2, 9), e(2), e(2, n, dtype=torch.bool)
     Rall, tall, Xs, goods = e(12, 3, 3), e(12, 3), e(12, n, 3), e(12, n, dtype=torch.bool)
     ngood, parallax, qual = e(12, dtype=torch.int32), e(12), e(12)
+    success, used_h, R, t, X, good = (e(dtype=torch.bool), e(dtype=torch.bool), e(3, 3), e(3), e(n, 3),
+                                      e(n, dtype=torch.bool))
     _kernels.launch(
-        "twoview_ransac_launch", dev, x0.data_ptr(), x1.data_ptr(), valid.data_ptr(), samples.data_ptr(), n, n_hyp,
-        float(sigma2), hyp.data_ptr(), hyp_score.data_ptr(), model.data_ptr(), model_score.data_ptr(), inl.data_ptr(),
-        Rall.data_ptr(), tall.data_ptr(), Xs.data_ptr(), goods.data_ptr(), ngood.data_ptr(), parallax.data_ptr(),
-        qual.data_ptr(),
+        "twoview_ransac_launch", dev, uv0.data_ptr(), uv1.data_ptr(), valid.data_ptr(), samples.data_ptr(), n, n_hyp,
+        cam10.data_ptr(), kind, int(min_triangulated), float(min_parallax_deg), x0.data_ptr(), x1.data_ptr(),
+        sigma2.data_ptr(), hyp.data_ptr(), hyp_score.data_ptr(), model.data_ptr(), model_score.data_ptr(),
+        inl.data_ptr(), Rall.data_ptr(), tall.data_ptr(), Xs.data_ptr(), goods.data_ptr(), ngood.data_ptr(),
+        parallax.data_ptr(), qual.data_ptr(), success.data_ptr(), used_h.data_ptr(), R.data_ptr(), t.data_ptr(),
+        X.data_ptr(), good.data_ptr(),
     )
-    reconstruct.launches.add()
-    return _verdict(Rall, tall, ngood, goods, parallax, Xs, qual, model_score[0], model_score[1], valid, inl[0],
-                    inl[1], min_triangulated, min_parallax_deg)
+    reconstruct.launches.add(camera=pose_opt.CAMERA_NAMES[kind])
+    return TwoViewResult(success=success, R=R, t=t, X=X, good=good, used_h=used_h)
 
 
-reconstruct.launches = _kernels.LaunchCounter()
+reconstruct.launches = _kernels.LaunchCounter()  # by camera instance: "", "radtan", "kb8"
+
+
+def unproject_pair(cam: cam_models.Camera, uv0: torch.Tensor, uv1: torch.Tensor):
+    """Kernel M's first stage alone on CUDA tensors, ``_camera_plane`` on CPU
+    ones: (x0, x1, sigma2 as a Python float).  For the stage's checks (bit
+    for bit ``_camera_plane`` on the card); ``reconstruct`` runs it inside M."""
+    if uv0.device.type == "cpu":
+        return _camera_plane(cam, uv0, uv1)
+    x0, x1, sigma2 = _unproject_kernel(cam, uv0, uv1)
+    return x0, x1, float(sigma2)
+
+
+def _unproject_kernel(cam, uv0, uv1):
+    """The first stage's launch: (x0, x1, sigma2 as a (1,) tensor)."""
+    cam10, kind = pose_opt.kernel_camera(cam, 0.0, "kernel M")
+    f32 = torch.float32
+    uv0, uv1 = uv0.contiguous(), uv1.contiguous()
+    _kernels.require_cuda("unproject_pair", uv0=(uv0, f32), uv1=(uv1, f32))
+    n = uv0.shape[0]
+    if uv1.shape != (n, 2) or n < 1:
+        raise ValueError("unproject_pair: needs (N,2) pixels of both views, N >= 1")
+    x0, x1, sigma2 = (torch.empty(s, dtype=f32, device=uv0.device) for s in ((n, 2), (n, 2), (1,)))
+    _kernels.launch("twoview_unproject_launch", uv0.device, uv0.data_ptr(), uv1.data_ptr(), n, cam10.data_ptr(), kind,
+                    x0.data_ptr(), x1.data_ptr(), sigma2.data_ptr())
+    unproject_pair.launches.add(camera=pose_opt.CAMERA_NAMES[kind])
+    return x0, x1, sigma2
+
+
+unproject_pair.launches = _kernels.LaunchCounter()
+
+
+def verdict(Rall, tall, ngood, goods, parallax, Xs, qual, SF, SH, valid, inl_f, inl_h, min_triangulated: int = 50,
+            min_parallax_deg: float = 1.0) -> TwoViewResult:
+    """Kernel M's last stage alone on CUDA tensors (``motions_plain``'s
+    outputs, or crafted ones), ``_verdict`` on CPU ones.  For the stage's
+    checks; ``reconstruct`` runs it inside M."""
+    args = (Rall, tall, ngood, goods, parallax, Xs, qual, SF, SH, valid, inl_f, inl_h, min_triangulated,
+            min_parallax_deg)
+    return _verdict(*args) if Rall.device.type == "cpu" else _verdict_kernel(*args)
+
+
+def _verdict_kernel(Rall, tall, ngood, goods, parallax, Xs, qual, SF, SH, valid, inl_f, inl_h, min_triangulated,
+                    min_parallax_deg) -> TwoViewResult:
+    f32, b8 = torch.float32, torch.bool
+    n = valid.shape[0]
+    Rall, tall, Xs, goods = (a.contiguous() for a in (Rall, tall, Xs, goods))
+    ngood, parallax, qual = ngood.to(torch.int32).contiguous(), parallax.contiguous(), qual.contiguous()
+    score = torch.stack([SF.reshape(()), SH.reshape(())]).to(f32)
+    inl = torch.stack([inl_f, inl_h]).contiguous()
+    _kernels.require_cuda("verdict", Rall=(Rall, f32), tall=(tall, f32), Xs=(Xs, f32), goods=(goods, b8),
+                          ngood=(ngood, torch.int32), parallax=(parallax, f32), qual=(qual, f32), valid=(valid, b8),
+                          inl=(inl, b8))
+    if Rall.shape != (12, 3, 3) or Xs.shape != (12, n, 3) or goods.shape != (12, n) or n < 1:
+        raise ValueError("verdict: needs 12 motions over N >= 1 matches")
+    dev = Rall.device
+    success, used_h = torch.empty((), dtype=b8, device=dev), torch.empty((), dtype=b8, device=dev)
+    R, t = torch.empty((3, 3), dtype=f32, device=dev), torch.empty(3, dtype=f32, device=dev)
+    X, good = torch.empty((n, 3), dtype=f32, device=dev), torch.empty(n, dtype=b8, device=dev)
+    _kernels.launch("twoview_verdict_launch", dev, Rall.data_ptr(), tall.data_ptr(), Xs.data_ptr(), goods.data_ptr(),
+                    ngood.data_ptr(), parallax.data_ptr(), qual.data_ptr(), score.data_ptr(), valid.data_ptr(),
+                    inl.data_ptr(), n, int(min_triangulated), float(min_parallax_deg), success.data_ptr(),
+                    used_h.data_ptr(), R.data_ptr(), t.data_ptr(), X.data_ptr(), good.data_ptr())
+    verdict.launches.add()
+    return TwoViewResult(success=success, R=R, t=t, X=X, good=good, used_h=used_h)
+
+
+verdict.launches = _kernels.LaunchCounter()

@@ -72,6 +72,7 @@ from orb_slam3_fast_tpu_torch.utils import lie
 
 CHI2_SIM3 = 9.210  # Sim3Solver.cc mvnMaxError scale (2-DoF 99%)
 HUBER_SIM3 = 10.0**0.5  # Optimizer.cc:2208 deltaHuber
+FREE_SCALE = "free_scale"  # the launch counters' mode of a solve with the scale free
 N_HYP = 128
 MIN_SET = 3
 
@@ -227,11 +228,12 @@ def _ransac_kernel(cam1, cam2, xc1, xc2, uv1, uv2, inv_sigma2_1, inv_sigma2_2, v
         cams.numpy().ctypes.data, kind, int(fix_scale), min_inliers, hyp.data_ptr(), counts.data_ptr(),
         S.data_ptr(), inliers.data_ptr(), n_inl.data_ptr(), ok.data_ptr(),
     )
-    sim3_ransac.launches.add(camera=CAMERA_NAMES[kind])
+    sim3_ransac.launches.add(mode="" if fix_scale else FREE_SCALE, camera=CAMERA_NAMES[kind])
     return Sim3Result(_unpack_sim3(S), inliers, n_inl, ok)
 
 
-sim3_ransac.launches = _kernels.LaunchCounter()  # camera instance "radtan" or "kb8" (CAMERA_NAMES)
+# camera instance "radtan" or "kb8" (CAMERA_NAMES); mode FREE_SCALE where the scale is free (monocular)
+sim3_ransac.launches = _kernels.LaunchCounter()
 
 
 # ---------------------------------------------------------------------------
@@ -344,8 +346,8 @@ def _refine_kernel(cam1, cam2, S0: lie.Sim3, xc1, xc2, uv1, uv2, inv_sigma2_1, i
         cams.numpy().ctypes.data, kind, int(fix_scale), iters, float(chi2_th), S.data_ptr(), inliers.data_ptr(),
         n_inl.data_ptr(),
     )
-    optimize_sim3.launches.add(camera=CAMERA_NAMES[kind])
+    optimize_sim3.launches.add(mode="" if fix_scale else FREE_SCALE, camera=CAMERA_NAMES[kind])
     return _unpack_sim3(S), inliers, n_inl
 
 
-optimize_sim3.launches = _kernels.LaunchCounter()  # camera instance "radtan" or "kb8" (CAMERA_NAMES)
+optimize_sim3.launches = _kernels.LaunchCounter()  # as sim3_ransac's

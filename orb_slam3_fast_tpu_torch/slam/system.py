@@ -33,13 +33,13 @@ inertial map's loop runs the 4-DoF essential graph.
 A Kannala-Brandt two-camera rig (TUM-VI: ``Camera.type:
 "KannalaBrandt8"`` with a ``Camera2`` block and ``Stereo.T_c1_c2``) gets the
 tracker's fisheye branch (``cam2`` and ``T_c1_c2`` routed as the JAX
-package's System.cc wiring does) for ``STEREO`` and ``IMU_STEREO``, its
-loop closer the left camera (``settings.cam``, KB8: kernels Q, R and AA in
-their KB8 instances), as the JAX package's does.
-
-Not ported yet, raising ``NotImplementedError`` at construction: a
-monocular KB8 camera (ROADMAP §A item 15: kernel M has no KB8 instance
-yet).
+package's System.cc wiring does, whatever the sensor: ``process_mono``
+ignores them) for ``STEREO`` and ``IMU_STEREO``, its loop closer the left
+camera (``settings.cam``, KB8: kernels Q, R and AA in their KB8 instances),
+as the JAX package's does.  ``MONOCULAR`` and ``IMU_MONOCULAR`` on that
+configuration track its first camera alone: kernel M initialises the map
+in its KB8 instance, and the monocular loop closer runs Q and R with the
+scale free.
 """
 from __future__ import annotations
 
@@ -52,7 +52,6 @@ from orb_slam3_fast_tpu_torch import _kernels
 from orb_slam3_fast_tpu_torch.backend.loopcloser import LoopCloser, LoopCloserConfig
 from orb_slam3_fast_tpu_torch.backend.mapper import Mapper
 from orb_slam3_fast_tpu_torch.backend.pipeline import AsyncBackend
-from orb_slam3_fast_tpu_torch.cameras import models as cam_models
 from orb_slam3_fast_tpu_torch.frontend import tracker as trk
 from orb_slam3_fast_tpu_torch.map.atlas import Atlas
 from orb_slam3_fast_tpu_torch.map.worldmap import WorldMap
@@ -96,9 +95,6 @@ class System:
         self.inertial = "inertial" in sensor
         if isinstance(settings, str):
             settings = Settings.from_yaml(settings, sensor=sensor)
-        if settings.cam.kind == cam_models.KB8 and sensor in (MONOCULAR, IMU_MONOCULAR):
-            raise NotImplementedError("the monocular Kannala-Brandt rig waits for ROADMAP §A item 15 (kernel M "
-                                      "in KB8)")
         self.settings = settings
         self.sensor = sensor
         self.device = _kernels.resolve_device(device)

@@ -10,7 +10,6 @@ from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 import chip_smoke
@@ -159,8 +158,9 @@ def test_system_wires_the_fisheye_rig():
     (``convert.settings_to_torch``);
     with loop closing it builds its loop closer on the left KB8 camera
     (settings.cam, as the JAX System does), the Atlas and, for
-    stereo-inertial, the inertial hooks; a monocular KB8 System raises
-    naming ROADMAP §A item 15."""
+    stereo-inertial, the inertial hooks; the monocular sensors construct
+    on the same file and route the rig the same way (their tracker reads
+    the first camera alone: tests/test_torch_fisheye_mono.py)."""
     for sensor in ("stereo", "stereo-inertial"):
         slam = tsys.System(CONFIG, sensor, **OPTS)
         s = slam.settings
@@ -183,8 +183,9 @@ def test_system_wires_the_fisheye_rig():
         assert slam.loopcloser.cam is slam.settings.cam and slam.loopcloser.cam.kind == tcam.KB8
         assert slam.atlas is not None and slam.loopcloser.bf == slam.settings.bf
         assert (slam.loopcloser.inertial_gba is not None) == (sensor == "stereo-inertial")
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 15"):
-        tsys.System(CONFIG, "monocular", **OPTS)
+    for sensor in ("monocular", "monocular-inertial"):
+        slam = tsys.System(CONFIG, sensor, **OPTS)
+        assert slam.tracker.cam.kind == tcam.KB8 and slam.tracker.cam2 is slam.settings.cam2
 
 
 def test_mapper_pinhole_f_on_kb8_pixels_kept():

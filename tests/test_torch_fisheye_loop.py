@@ -259,7 +259,9 @@ def test_kb8_system_with_loop_closing_constructs(sensor):
     """``System(TUM-VI config, sensor)`` with its defaults: loop closing on
     the left KB8 camera (settings.cam, as the JAX System builds it), the
     Atlas and the async backend, the inertial hooks for stereo-inertial;
-    the monocular KB8 rig still refuses, naming ROADMAP §A item 15."""
+    the monocular sensor on the same file builds its loop closer on that
+    camera too, the scale free (the JAX System's fix_scale=(sensor !=
+    MONOCULAR))."""
     slam = tsys.System(CONFIG, sensor, device="cpu")
     try:
         assert slam.loopcloser is not None and slam.loopcloser.cam is slam.settings.cam
@@ -269,8 +271,12 @@ def test_kb8_system_with_loop_closing_constructs(sensor):
         assert all(h is not None for h in hooks) == (sensor == "stereo-inertial")
     finally:
         slam.shutdown()
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tsys.System(CONFIG, "monocular", device="cpu")
+    slam = tsys.System(CONFIG, "monocular", device="cpu")
+    try:
+        assert slam.loopcloser.cam is slam.settings.cam and slam.loopcloser.cfg.fix_scale is False
+        assert slam.atlas is not None and slam.backend is not None
+    finally:
+        slam.shutdown()
 
 
 @pytest.mark.slow

@@ -243,8 +243,12 @@ def test_other_devices_raise_without_fallback():
     with pytest.raises(ValueError, match="CUDA"):
         pnp.pnp_ransac(cam, *[meta(x) for x in pnp_in], 0, subsets=meta(subsets))
     kb8 = cm.Camera.kb8(300.0, 300.0, 160.0, 120.0, 0, 0, 0, 0)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        twoview.reconstruct(kb8, *[meta(x) for x in tv[0]], 0, samples=meta(samples))
+    radtan = cm.Camera.pinhole(400.0, 400.0, 320.0, 240.0, (-0.28, 0.07, 2e-4, 2e-5))
+    for c in (kb8, radtan):  # kernel M takes every camera kind, and a non-CUDA tensor no plain path
+        with pytest.raises(ValueError, match="CUDA"):
+            twoview.reconstruct(c, *[meta(x) for x in tv[0]], 0, samples=meta(samples))
+        with pytest.raises(ValueError, match="CUDA"):
+            twoview.unproject_pair(c, meta(tv[0][0]), meta(tv[0][1]))
     with pytest.raises(ValueError, match="CUDA"):
         pnp.pnp_ransac(kb8, *[meta(x) for x in pnp_in], 0, subsets=meta(subsets))
 
@@ -284,7 +288,7 @@ def test_build_flags_and_sources():
                     "twoview_ransac.cu", "vi_ba.cu", "vi_pcg.cu", "visible_landmarks.cu", "vocab_transform.cu"]
     # the one Jacobi eigen-solver, shared by G, M, P, Q, R, S, T, V and Z; the Sim3 maps and dual numbers, shared by
     # R, S, U and Z and (through inertial.cuh) W, X, Y and AA; the distorted pin-hole and the KB8 camera, shared by D,
-    # E, L, P, Q, R, W, Y, AA and AB; the inertial factors, shared by V, W, X, Y and AA; kernel W's code, shared by
+    # E, L, M, P, Q, R, W, Y, AA and AB; the inertial factors, shared by V, W, X, Y and AA; kernel W's code, shared by
     # its three camera kinds' translation units; a BA observation's residual and robust cost, shared by E and AC
     assert sorted(p.name for p in _kernels.SRC_DIR.glob("*.cuh")) == ["ba_obs.cuh", "camera.cuh", "inertial.cuh",
                                                                       "jacobi.cuh", "pose_inertial.cuh", "sim3.cuh"]
@@ -302,7 +306,7 @@ def test_build_flags_and_sources():
     for name in ("sim3_refine.cu", "sim3_graph.cu", "sim3_pcg.cu", "pose_graph4.cu"):
         assert '#include "sim3.cuh"' in (_kernels.SRC_DIR / name).read_text()
     for name in ("pose_lm.cu", "ba_blocks.cu", "ba_lm.cu", "sim3_ransac.cu", "sim3_refine.cu", "visible_landmarks.cu",
-                 "pnp_ransac.cu", "fisheye_stereo.cu"):
+                 "pnp_ransac.cu", "fisheye_stereo.cu", "twoview_ransac.cu"):
         assert '#include "camera.cuh"' in (_kernels.SRC_DIR / name).read_text()
     assert set(_kernels.SIGNATURES) == {
         "fast_nms_launch", "orb_describe_launch", "hamming_best2_launch", "pose_lm_launch", "ba_blocks_launch",
@@ -311,7 +315,7 @@ def test_build_flags_and_sources():
         "pnp_ransac_launch", "sim3_ransac_launch", "sim3_refine_launch", "sim3_graph_launch", "sim3_pcg_launch",
         "ba_pcg_launch", "imu_preint_launch", "imu_compose_launch", "pose_inertial_launch", "imu_init_launch",
         "vi_ba_launch", "pose_graph4_launch", "vi_pcg_launch", "fisheye_stereo_launch", "ba_lm_update_launch",
-        "ba_classify_launch", "match_epilogue_launch",
+        "ba_classify_launch", "match_epilogue_launch", "twoview_unproject_launch", "twoview_verdict_launch",
     }
     assert "arch=compute_90a,code=sm_90a" in _kernels.NVCC_FLAGS
     assert _kernels.LIB_PATH.parent.name == "_build"
@@ -554,6 +558,81 @@ def test_mono_kernels_match_plain_on_card(cuda):
     assert int(rk.n_inliers) == int(rp.n_inliers) and bool(rk.ok) == bool(rp.ok) and bool(rp.ok)
     scale = float(pnp_in[0][pnp_in[3]].norm(dim=1).median())
     assert _angle(rk.R, rp.R) <= 1e-3 and float((rk.t - rp.t).norm()) <= 1e-3 * scale
+
+
+# kernel M's three camera instances: the synthetic pin-hole camera, EuRoC cam0's distortion on it, TUM-VI's cam0
+TWOVIEW_CAMERAS = {"pinhole": ((400.0, 400.0, 320.0, 240.0), (640, 480)),
+                   "radtan": ((400.0, 400.0, 320.0, 240.0, (-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05)),
+                              (640, 480)),
+                   "kb8": ((190.97847715128717, 190.9733070521226, 254.93170605935475, 256.8974428996504,
+                            0.0034823894022493434, 0.0007150348452162257, -0.0020532361418706202,
+                            0.00020293673591811182), (512, 512))}
+
+
+def twoview_camera(kind):
+    p, wh = TWOVIEW_CAMERAS[kind]
+    return (cm.Camera.kb8(*p) if kind == "kb8" else cm.Camera.pinhole(*p)), wh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(TWOVIEW_CAMERAS))
+def test_twoview_unprojection_bit_for_bit_on_card(cuda, kind):
+    """Kernel M's first stage bit for bit ``_camera_plane`` on the card (the
+    camera on the host, as the tracker holds it): both views over the whole
+    image, corners and principal point included, and sigma^2."""
+    import chip_smoke
+
+    cam, wh = twoview_camera(kind)
+    rng = np.random.default_rng(2)
+    uv0, uv1 = (chip_smoke.image_pixels(rng, cam, wh, 700).to(cuda) for _ in range(2))
+    xk0, xk1, s2k = twoview.unproject_pair(cam, uv0, uv1)
+    xp0, xp1, s2p = twoview._camera_plane(cam, uv0, uv1)
+    assert torch.equal(xk0, xp0) and torch.equal(xk1, xp1) and s2k == float(np.float32(s2p))
+
+
+@pytest.mark.cuda
+def test_twoview_verdict_matches_plain_on_card(cuda):
+    """Kernel M's last stage bit for bit ``_verdict`` on the card, on
+    chip_smoke's crafted motions (H preferred and failing, both failing,
+    quality ties, dominance by count, quality and parallax, the parallax
+    gate), each reaching the verdict it was built for."""
+    import chip_smoke
+
+    for label, (args, (success, used_h, best)) in chip_smoke.verdict_cases(cuda).items():
+        rk = twoview.verdict(*args, chip_smoke.VERDICT_MIN_TRI, 1.0)
+        assert chip_smoke.verdicts_equal(rk, twoview._verdict(*args, chip_smoke.VERDICT_MIN_TRI, 1.0)), label
+        assert (bool(rk.success), bool(rk.used_h)) == (success, used_h) and torch.equal(rk.R, args[0][best]), label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planar", [False, True])
+def test_twoview_kb8_matches_plain_on_card(cuda, planar):
+    """reconstruct on the card (kernel M in its KB8 instance) against
+    reconstruct_plain on the card, on a 3-D (F) and a planar (H) pair seen
+    through TUM-VI's cam0, each hypothesis of 8 distinct matches
+    (``chip_smoke.distinct_hypotheses``: with a repeated match the 8-point
+    system's null space is a plane, and the kernel and the plain version
+    each return a vector of it): success and used_h equal, R within 1e-3
+    rad, t's direction within 1e-3, good equal on >= 99%, X within 1e-3
+    relative where both good; its verdict bit for bit the plain verdict on
+    the plain motions; the launch counted in the KB8 instance."""
+    import chip_smoke
+
+    cam, _ = twoview_camera("kb8")
+    uv0, uv1, valid = (a.to(cuda) for a in chip_smoke.two_view_scene(np.random.default_rng(5), cam, planar))
+    samples = chip_smoke.distinct_hypotheses(3, valid)
+    before = twoview.reconstruct.launches.total(camera="kb8")
+    rk = twoview.reconstruct(cam, uv0, uv1, valid, 0, samples=samples)
+    assert twoview.reconstruct.launches.total(camera="kb8") == before + 1
+    motions = twoview.motions_plain(cam, uv0, uv1, valid, samples)
+    rp = twoview._verdict(*motions, 50, 1.0)
+    assert bool(rp.success) and bool(rp.used_h) == planar
+    assert bool(rk.success) == bool(rp.success) and bool(rk.used_h) == bool(rp.used_h)
+    assert chip_smoke.rot_angle(rk.R, rp.R) <= 1e-3 and 1.0 - abs(float(torch.dot(rk.t, rp.t))) <= 1e-3
+    assert float((rk.good == rp.good).float().mean()) >= 0.99
+    both = rk.good & rp.good
+    assert float(((rk.X - rp.X).norm(dim=1) / rp.X.norm(dim=1))[both].max()) <= 1e-3
+    assert chip_smoke.verdicts_equal(twoview.verdict(*motions, 50, 1.0), rp)
 
 
 LOOP_WRAPPERS = (sim3.sim3_ransac, sim3.optimize_sim3, pg.optimize_sim3_graph, ba_cg.implicit_schur_solve)

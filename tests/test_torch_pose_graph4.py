@@ -53,6 +53,7 @@ def test_dense_4dof_matches_jax():
     the JAX package (float32 LU of the 120 x 120 system) in every rotation
     entry and translation; the fixed vertex does not move."""
     arrays, (R_gt, t_gt) = graph4()
+    launches = tpg.optimize_4dof_graph.launches.total()  # other files' host-compiled kernels count on this worker too
     (R_t, t_t), (R_j, t_j) = _run_both(arrays)
     ones = np.ones(len(R_t))
     before = _ate(arrays["R"], arrays["t"], ones, R_gt, t_gt)
@@ -61,7 +62,7 @@ def test_dense_4dof_matches_jax():
     np.testing.assert_allclose(R_t, R_j, atol=2e-3)
     np.testing.assert_allclose(t_t, t_j, atol=2e-3)
     assert np.array_equal(R_t[0], arrays["R"][0]) and np.array_equal(t_t[0], arrays["t"][0])
-    assert tpg.optimize_4dof_graph.launches.total() == 0  # the CPU runs the plain version
+    assert tpg.optimize_4dof_graph.launches.total() == launches  # the CPU runs the plain version
 
 
 def test_pcg_4dof_matches_jax(monkeypatch):

@@ -83,6 +83,7 @@ def test_lm_segment_and_classify_match_jax(problem):
     relative; the classification of the result agrees on every
     observation."""
     jp, tp, _ = problem
+    launches = tcg.lm_segment_vi.launches.total()  # other files' host-compiled kernels count on this worker too
     inl = jnp.ones(jp.obs_uv.shape[0], bool)
     out_j = jcg.lm_segment_vi(J_CAM, jnp.float32(0.0), jlie.SE3.identity(), jp, jp.R_wb, jp.p_wb, jp.v_w, jp.bias,
                               jp.xw, inl, jnp.float32(1e-4), n_iters=2, cg_iters=32)
@@ -95,7 +96,7 @@ def test_lm_segment_and_classify_match_jax(problem):
     cj = jcg.classify_vi(J_CAM, jnp.float32(0.0), jlie.SE3.identity(), jp, out_j[0], out_j[1], out_j[4])
     ct = tcg.classify_vi(T_CAM, 0.0, T_ID, tp, out_t[0], out_t[1], out_t[4])
     np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
-    assert tcg.lm_segment_vi.launches.total() == 0  # the CPU runs the plain versions
+    assert tcg.lm_segment_vi.launches.total() == launches  # the CPU runs the plain versions
 
 
 def test_full_inertial_ba_cg_matches_jax(problem):
