@@ -2,11 +2,11 @@
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It imports only
-the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs fifteen phases:
+the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs sixteen phases:
 
 1. device: fails without CUDA; prints the card's name and power limit;
-2. build: compiles the twenty-eight kernels (A-Y, no K or O, then Z, AA,
-   AB, AC and AD) from the 31 sources of ``orb_slam3_fast_tpu_torch/csrc``
+2. build: compiles the thirty kernels (A-Y, no K or O, then Z, AA, AB,
+   AC, AD, AE and AF) from the 33 sources of ``orb_slam3_fast_tpu_torch/csrc``
    (kernel W's camera kinds in three), one nvcc per source in parallel,
    each source's finishing time logged, and the map's host C++ library,
    so that no timed frame pays for g++;
@@ -177,6 +177,20 @@ the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs fifteen phases:
    none; (d) the default constructors ``System(TUM-VI config, "monocular" |
    "monocular-inertial")`` fed the circle at 20 fps: drained, no worker
    error;
+16. (also before phase 8) several ranks (``parallel/``): (a) in this
+   process a NCCL world of one (a FileStore in a temporary directory):
+   kernel AE on 4096 rows x 1024 slots at 10^4 and 10^6 words bit for bit
+   its plain version, its counts the host database's and its scores within
+   1e-5; kernel AF's dense run at the local caps and its CG run at phase
+   3's global-BA size, one iteration's stages against their plain versions
+   (the state within 1e-5, the accepts equal), each whole run within 5e-4
+   (R) and 5e-3 (t) of the single-device BA and of its plain run; times
+   split into kernels and collectives; (b) two gloo ranks spawned on the
+   card (``run_ranks``): AE's scores bit for bit (a)'s, AF's runs in halves
+   within 5e-4 / 5e-3 of (a)'s and the ranks' states equal, then phase 9's
+   loop System run by both, synchronous: phase 9's gates, the loop at phase
+   9's frame +- 5, both ranks' keyframe poses and tracks bit for bit equal,
+   AE and AF launched on each rank, T not inside the global BA;
 8. one frame of the plain (CPU) step, and the stereo and mono Systems, the
    relocalisation run (from the host mono run's state after frame 29), the
    RGB-D and the distorted mono Systems' first ``HOST_PREFIX`` frames and
@@ -202,7 +216,7 @@ the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs fifteen phases:
    against the host: what the worker has done by the time a frame is
    tracked depends on the host's speed, so they do not repeat.
 
-Launch counts are zeroed just before each path of phases 4-7 and 9-15 and
+Launch counts are zeroed just before each path of phases 4-7 and 9-16 and
 read just after; a run on the async backend also reads them per thread.
 Every such read (``path_counts``) fails unless AC's update launched once
 for each launch of E,
@@ -1192,6 +1206,16 @@ def ba_problem(rng, device, cam=None):
     )
 
 
+def schur_bytes_ops(prob) -> tuple[float, float]:
+    """Kernel F's least work on ``prob``: per landmark with n observations
+    n^2 6x3x6 products (216 flops each) into S and a 3x3 inverse; the 6K
+    Cholesky (6K)^3 / 3; the blocks read once (E's outputs), dp and dl
+    written."""
+    K, M, O = prob.R.shape[0], prob.xw.shape[0], prob.obs_kf.shape[0]
+    n_obs = torch.bincount(prob.obs_lm[prob.obs_valid].long(), minlength=M).double()
+    return K * 168 + M * 52 + O * 72 + K * 24 + M * 12, 216 * float((n_obs**2).sum()) + 60 * M + (6 * K) ** 3 / 3
+
+
 def corridor_keypoints(device):
     """Keypoints (768 features) of two corridor frames 6 cm apart, with F
     from their true poses: the inputs of kernel C's epipolar and mutual
@@ -1288,12 +1312,7 @@ def compare_system_kernels(device) -> tuple[list[dict], dict]:
     # float64 reduced system, which the plain path forms first
     Sd, bs, *_ = ba.reduced_system_plain(*b64, prob.pose_fixed, lam.double())
     lib_f = cuda_ms(lambda: torch.cholesky_solve(bs[:, None], torch.linalg.cholesky_ex(Sd)[0]), 20)
-    # per landmark with n observations: n^2 6x3x6 products (216 flops each)
-    # into S and 3x3 inverses; the 6K Cholesky (6K)^3 / 3; the blocks read
-    # once (E's outputs), dp and dl written
-    n_obs = torch.bincount(prob.obs_lm[prob.obs_valid].long(), minlength=M).double()
-    f_ops = 216 * float((n_obs**2).sum()) + 60 * M + (6 * K) ** 3 / 3
-    f_bytes = K * 168 + M * 52 + O * 72 + K * 24 + M * 12
+    f_bytes, f_ops = schur_bytes_ops(prob)
     out.append(dict(name="ba_schur", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/ba_schur.cu",
                     replaces="orb_slam3_fast_tpu/optim/ba.py:108", max_abs_err=err_f, **bound(f_bytes, f_ops),
                     library_ms=lib_f,
@@ -2101,6 +2120,26 @@ def compare_pcg(device, g70, dense70) -> dict:
                        "= torch.linalg.solve of the formed float64 (7K)^2 system of the first step")
 
 
+def pcg_bytes_ops(prob, cg_iters: int) -> tuple:
+    """Kernel T's least work on ``prob``: (bytes, operations, free poses,
+    live landmarks, live observations of free poses).  Bytes: the blocks
+    (Hpp, Hll, bp, bl, w_lm), W (72 per observation), the observation and
+    CSR indices (16 per observation), the flags in once; dp and dl out.
+    Operations: setup per live observation W V^-1 W^T and W V^-1 bl (~330),
+    per landmark a 3x3 inverse (~60), per free pose a 6x6 inverse (~500);
+    per CG iteration two passes over the live observations (36 flops each)
+    and the pose blocks (72) and vector updates (~60 per pose entry); the
+    back-substitution (36 per observation)."""
+    K, M, O = prob.R.shape[0], prob.xw.shape[0], prob.obs_kf.shape[0]
+    live = prob.obs_valid & ~prob.pose_fixed[prob.obs_kf.long()]
+    n_live, n_lm = int(live.sum()), int(prob.lm_valid.sum())
+    n_free = int((~prob.pose_fixed).sum())
+    t_ops = 330 * n_live + 60 * n_lm + 500 * n_free + cg_iters * (72 * n_live + n_free * (72 + 360) + 15 * n_lm) \
+        + 36 * n_live + 15 * n_lm
+    t_bytes = K * 168 + M * 52 + O * (72 + 16) + 4 * (M + K + 2) + K + M + 4 + K * 24 + M * 12
+    return t_bytes, t_ops, n_free, n_lm, n_live
+
+
 def compare_loop_kernels(device) -> list[dict]:
     """Phase 3 for loop closing's kernels, each against its plain version on
     the same CUDA tensors, with CUDA-event times: Q (128 hypotheses over the
@@ -2287,17 +2326,7 @@ def compare_loop_kernels(device) -> list[dict]:
     t_err = max(float((dk - dp).abs().max() / dp.abs().max()), float((lk - lp).abs().max() / lp.abs().max()))
     if not t_err <= 1e-4:
         raise RuntimeError(f"implicit_schur_solve: dp / dl differ by {t_err:.3g} (relative) from the plain version")
-    live = gprob.obs_valid & ~gprob.pose_fixed[gprob.obs_kf.long()]
-    n_live, n_lm = int(live.sum()), int(gprob.lm_valid.sum())
-    n_free = int((~gprob.pose_fixed).sum())
-    # bytes: the blocks (Hpp, Hll, bp, bl, w_lm), W (72 per observation), the observation and CSR
-    # indices (16 per observation), the flags in once; dp and dl out.  Operations: setup per live
-    # observation W V^-1 W^T and W V^-1 bl (~330), per landmark a 3x3 inverse (~60), per free pose a 6x6
-    # inverse (~500); per CG iteration two passes over the live observations (36 flops each) and the
-    # pose blocks (72) and vector updates (~60 per pose entry); the back-substitution (36 per observation)
-    t_ops = 330 * n_live + 60 * n_lm + 500 * n_free + 32 * (72 * n_live + n_free * (72 + 360) + 15 * n_lm) \
-        + 36 * n_live + 15 * n_lm
-    t_bytes = K * 168 + M * 52 + O * (72 + 16) + 4 * (M + K + 2) + K + M + 4 + K * 24 + M * 12
+    t_bytes, t_ops, n_free, n_lm, n_live = pcg_bytes_ops(gprob, 32)
     ms_t = cuda_ms(lambda: ba_cg.implicit_schur_solve(*bk[:5], gprob, bk[5], lam), 20)
     pms_t = cuda_ms(lambda: ba_cg.implicit_schur_solve_plain(*bk[:5], gprob.obs_kf, gprob.obs_lm, bk[5],
                                                              gprob.pose_fixed, gprob.lm_valid, lam), 3)
@@ -4795,6 +4824,401 @@ def compare_lm_kernels(device) -> list[dict]:
                   "them within 1e-4 of the chi2 bound (none allowed off it)")]
 
 
+# --- phase 16: several ranks: kernel AE (the sharded keyframe database) and kernel AF (the sharded BAs) ---------
+
+KFDB_ROWS, KFDB_WORDS = 4096, 1024  # kernel AE's rows (a 4096-keyframe database) and a row's capacity (row_words)
+KFDB_VOCABS = (10_000, 1_000_000)  # the query table's sizes: the default vocabulary's order and ORBvoc's
+RANKS = 2  # phase 16 (b): ranks spawned on the one card, gloo
+RANK_TIMEOUT_S = 400
+AF_DENSE, AF_CG = (5, 10), (8, 12)  # the local BA's and the global BA's LM iterations; 32 CG iterations a solve
+AF_TOL = (5e-4, 5e-3)  # rotation entries and translations against the single-device BA (tests/test_dist_ba.py:37-38)
+
+
+def kfdb_case(rng, n_words: int, n_rows: int = KFDB_ROWS, row_words: int = KFDB_WORDS) -> tuple:
+    """A keyframe database's sparse rows as ``KeyFrameDatabase`` holds
+    them, and a query: each row 60-100% full of distinct word ids
+    (ascending, then -1), half of them drawn from 4096 common words (a
+    vocabulary's eighth, at most) and half from the whole vocabulary, its
+    tf-idf weights L1-normalised; the query alike, dense.  Returns (ids
+    (K,T) int32, w (K,T) float32, query (n_words,) float32)."""
+    common = rng.choice(n_words, min(4096, n_words // 8), replace=False)
+
+    def words():
+        n = int(rng.integers(int(0.6 * row_words), row_words + 1))
+        ids = np.unique(np.concatenate([rng.choice(common, n // 2), rng.integers(0, n_words, n - n // 2)]))
+        w = rng.uniform(0.1, 1.0, len(ids)).astype(np.float32)
+        return ids.astype(np.int32), w / w.sum()
+
+    ids = np.full((n_rows, row_words), -1, np.int32)
+    w = np.zeros((n_rows, row_words), np.float32)
+    for k in range(n_rows):
+        i, v = words()
+        ids[k, :len(i)], w[k, :len(i)] = i, v
+    qi, qv = words()
+    query = np.zeros(n_words, np.float32)
+    query[qi] = qv
+    return ids, w, query
+
+
+def host_scores(ids, w, query, n_words: int) -> tuple:
+    """The host database's ``_scores`` (numpy) of every row."""
+    from orb_slam3_fast_tpu_torch.vocab.database import KeyFrameDatabase
+
+    db = KeyFrameDatabase(n_words, max_kf=ids.shape[0], row_words=ids.shape[1])
+    db.ids, db.w = ids, w
+    db.valid[:] = True
+    common, score, _ = db._scores(query, np.zeros(0, np.int64))
+    return common, score
+
+
+def check_kfdb_kernel(device, mesh) -> tuple[dict, dict]:
+    """Phase 16 (a) for kernel AE at each ``KFDB_VOCABS`` size: the kernel
+    bit for bit its plain version, its counts the host's and its scores
+    within 1e-5 of them (the JAX package's bound, tests/test_dist_kfdb.py:34),
+    the world-of-one mirror (``ShardedKFDB``) the kernel's; times.  Returns
+    (AE's entry, the scores per size for (b))."""
+    from orb_slam3_fast_tpu_torch.parallel import dist_kfdb
+
+    rows, ref = [], {}
+    for n_words in KFDB_VOCABS:
+        ids, w, q = kfdb_case(np.random.default_rng(n_words), n_words)
+        c_host, s_host = host_scores(ids, w, q, n_words)
+        lut = torch.from_numpy(np.concatenate([q, np.zeros(1, np.float32)])).to(device)
+        ids_d, w_d = torch.from_numpy(ids).to(device), torch.from_numpy(w).to(device)
+        ck, sk = dist_kfdb.score_rows(ids_d, w_d, lut)
+        cp, sp = dist_kfdb.score_rows_plain(ids_d, w_d, lut)
+        c_mesh, s_mesh = dist_kfdb.ShardedKFDB.from_host(mesh, ids, w, n_words).scores(q)
+        ck_h, sk_h = ck.cpu().numpy(), sk.cpu().numpy()
+        err = float(np.abs(sk_h - s_host).max())
+        if not (torch.equal(ck, cp) and torch.equal(sk, sp) and np.array_equal(ck_h, c_host) and err <= 1e-5
+                and np.array_equal(c_mesh, ck_h) and np.array_equal(s_mesh, sk_h)):
+            raise RuntimeError(f"kfdb_score at {n_words} words: counts / scores off the plain version, the host's "
+                               f"(score err {err:.3g}) or the mirror's")
+        valid = ids >= 0
+        # bytes: each row's ids and weights (8 a slot), the table entries its valid slots read (4 each distinct
+        # word), common and score out (8 a row); operations: a lookup, the shared test, min and add (~4 a slot)
+        nbytes = ids.size * 8 + 4 * len(np.unique(ids[valid])) + ids.shape[0] * 8
+        rows.append(dict(n_words=n_words, err=err, shared=int(c_host.sum()), slots=int(valid.sum()),
+                         ms=cuda_ms(lambda: dist_kfdb.score_rows(ids_d, w_d, lut), 50),
+                         plain_ms=cuda_ms(lambda: dist_kfdb.score_rows_plain(ids_d, w_d, lut), 5),
+                         **bound(nbytes, 4 * ids.size)))
+        ref[n_words] = (ids, w, q, ck_h, sk_h)
+    base = rows[0]
+    entry = dict(name="kfdb_score", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/kfdb_score.cu",
+                 replaces="orb_slam3_fast_tpu/parallel/dist_kfdb.py:33", max_abs_err=max(r["err"] for r in rows),
+                 library_ms=None, **{k: base[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                 shapes="max_abs_err: scores against the host _scores (tolerance 1e-5), counts equal, bit for bit "
+                        "the plain version and the world-of-one mirror; " + "; ".join(
+                            f"{KFDB_ROWS} rows x {KFDB_WORDS} slots ({r['slots']} words), {r['n_words']} words: "
+                            f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.5f}), "
+                            f"{r['shared']} shared words" for r in rows) + "; no single library call")
+    return entry, ref
+
+
+def af_problems(device) -> dict:
+    """Phase 3's local-BA problem at the mapper's caps (bf 48) and the
+    circle's global-BA problem (bf 0), by form."""
+    return {"dense": (ba_problem(np.random.default_rng(3), device), 48.0),
+            "cg": (gba_problem(np.random.default_rng(11), device), 0.0)}
+
+
+def af_run(mesh, cam, form: str, prob, bf: float, plain: bool = False):
+    """The form's whole distributed BA on this rank's shard of ``prob``:
+    (run, shard)."""
+    from orb_slam3_fast_tpu_torch.parallel import dist_ba
+
+    if form == "dense":
+        return (dist_ba.make_distributed_ba(mesh, cam, bf, iters1=AF_DENSE[0], iters2=AF_DENSE[1], plain=plain),
+                dist_ba.shard_problem(prob, mesh, whole=True))
+    return (dist_ba.make_distributed_ba_cg(mesh, cam, bf, iters1=AF_CG[0], iters2=AF_CG[1], cg_iters=32,
+                                           plain=plain), dist_ba.shard_problem(prob, mesh))
+
+
+def af_stage_check(mesh, cam, bf: float, shard, form: str) -> dict:
+    """One LM iteration of AF's stages from the shard's problem against the
+    plain stages on the same inputs: the unrounded sums and W (relative to
+    each block's max), the CG solve (relative; the dense run's is kernel F's,
+    held in phase 3), and from the kernel's step, and from its negative, the
+    state after AC's cost and commit entries against the plain ones (the
+    tolerance 1e-5 of AC's), the accepts and the damping equal."""
+    from orb_slam3_fast_tpu_torch.parallel import dist_ba
+
+    loc = shard.local
+    K, M = loc.R.shape[0], loc.xw.shape[0]
+    inl = torch.ones_like(loc.obs_valid)
+    state = (loc.R, loc.t, loc.xw)
+    acc_k, W_k = dist_ba.blocks_partial(cam, bf, *state, loc, inl)
+    acc_p, W_p = dist_ba.blocks_partial_plain(cam, bf, *state, loc, inl)
+    parts = [(a, b) for a, b in zip(torch.split(acc_k, dist_ba._sizes(K, M)), torch.split(acc_p, dist_ba._sizes(K, M)))]
+    blk = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-12) for a, b in parts + [(W_k, W_p)])
+    Hpp, Hll, bp, bl, w_lm, cost = dist_ba.round_blocks(mesh.all_reduce(acc_k), K, M)
+    lam = torch.full((), 1e-4, dtype=torch.float32, device=loc.R.device)
+    solve = 0.0
+    if form == "cg":
+        dp, dl = dist_ba.cg_solve(mesh, Hpp, Hll, bp, bl, W_k, loc, w_lm, lam, 32)
+        pp, pl = dist_ba.cg_solve_plain(mesh, Hpp, Hll, bp, bl, W_k, loc, w_lm, lam, 32)
+        solve = max(float((dp - pp).abs().max() / pp.abs().max()), float((dl - pl).abs().max() / pl.abs().max()))
+        ok = None
+    else:
+        dp, dl, ok = dist_ba.dense_solve(Hpp, Hll, bp, bl, mesh.all_gather(W_k), shard.whole, w_lm, lam)
+    err, accepts = 0.0, []
+    for sign in (1.0, -1.0):
+        step = (sign * dp, sign * dl)
+        R_c, t_c, x_c, a_k = dist_ba.update_partial(cam, bf, loc, *state, *step, inl)
+        k = dist_ba.commit(*state, R_c, t_c, x_c, mesh.all_reduce(a_k), cost, ok, lam)
+        R_p, t_p, x_p, a_p = dist_ba.update_partial_plain(cam, bf, loc, *state, *step, inl)
+        p = dist_ba.commit_plain(*state, R_p, t_p, x_p, mesh.all_reduce(a_p), cost, ok, lam)
+        err = max(err, *(float((a - b).abs().max()) for a, b in zip(k[:3], p[:3])))
+        if bool(k[4]) != bool(p[4]) or float(k[3]) != float(p[3]):
+            raise RuntimeError(f"ba_shard {form}: accept / damping {bool(k[4])} {float(k[3])} against the plain "
+                               f"{bool(p[4])} {float(p[3])}")
+        accepts.append(bool(k[4]))
+    if not (blk <= 1e-4 and solve <= 1e-4 and err <= 1e-5):
+        raise RuntimeError(f"ba_shard {form}: sums {blk:.3g} (tolerance 1e-4), solve {solve:.3g} (1e-4), state "
+                           f"{err:.3g} (1e-5) off the plain stages")
+    return dict(blocks=blk, solve=solve, state=err, accepts=accepts)
+
+
+def af_errors(out, ref) -> tuple[float, float]:
+    """(rotation entries, translations) max abs differences of two runs."""
+    return float((out[0] - ref[0]).abs().max()), float((out[1] - ref[1]).abs().max())
+
+
+def af_timed(mesh, run, shard, reps: int) -> tuple[float, float]:
+    """(ms a run, ms of it in collectives): CUDA events around each run and
+    each collective on the current stream, or the host clock where the
+    collectives block the host (gloo)."""
+    run(shard)
+    torch.cuda.synchronize()
+    mesh.log.reset()
+    mesh.log.timed = True
+    t = time.perf_counter()
+    ms = cuda_ms(lambda: run(shard), reps, warmup=0)
+    host_ms = (time.perf_counter() - t) * 1e3 / reps
+    mesh.log.timed = False
+    if mesh.log.events and mesh.log.host_s * 1e3 / reps < 0.5 * host_ms:  # NCCL: device time of the collectives
+        return ms, mesh.log.ms() / reps
+    return host_ms, mesh.log.host_s * 1e3 / reps
+
+
+def check_af_world1(device, mesh) -> tuple[dict, dict]:
+    """Phase 16 (a) for kernel AF in a world of one: each form's stages
+    against their plain versions (``af_stage_check``), the whole run against
+    the single-device BA (E -> F -> AC, E -> T -> AC) within ``AF_TOL`` and
+    against the whole plain run; kernel and collective times.  Returns
+    (AF's entry, the runs' (R, t, xw) per form for (b))."""
+    from orb_slam3_fast_tpu_torch.cameras.models import Camera
+
+    cam = Camera.pinhole(400.0, 400.0, 320.0, 240.0)
+    rows, ref = {}, {}
+    for form, (prob, bf) in af_problems(device).items():
+        stages = af_stage_check(mesh, cam, bf, af_run(mesh, cam, form, prob, bf)[1], form)
+        run, shard = af_run(mesh, cam, form, prob, bf)
+        out = run(shard)
+        (plain, plain_ms) = timed(lambda: af_run(mesh, cam, form, prob, bf, plain=True)[0](shard))
+        single = single_run(cam, bf, prob, form)
+        e_single, e_plain = af_errors(out, single), af_errors(out, plain)
+        flips = int((out[3][: prob.obs_kf.shape[0]] != single[3]).sum())
+        if not (e_single[0] <= AF_TOL[0] and e_single[1] <= AF_TOL[1] and e_plain[0] <= AF_TOL[0]
+                and e_plain[1] <= AF_TOL[1]):
+            raise RuntimeError(f"ba_shard {form} run: R / t {e_single} from the single-device BA, {e_plain} from the "
+                               f"plain run (tolerance {AF_TOL})")
+        ms, coll_ms = af_timed(mesh, run, shard, 5 if form == "dense" else 3)
+        K, M, O = prob.R.shape[0], prob.xw.shape[0], prob.obs_kf.shape[0]
+        iters = sum(AF_DENSE if form == "dense" else AF_CG)
+        e_bytes, u = O * (28 + 72) + K * (48 + 168) + M * (13 + 52), lm_bytes_ops(K, M, O, 60)
+        s_bytes, s_ops = pcg_bytes_ops(prob, 32)[:2] if form == "cg" else schur_bytes_ops(prob)
+        rows[form] = dict(K=K, M=M, O=O, n_obs=int(prob.obs_valid.sum()), stages=stages, e_single=e_single,
+                          e_plain=e_plain, flips=flips, ms=ms, coll_ms=coll_ms, plain_ms=plain_ms,
+                          single_ms=cuda_ms(lambda: single_run(cam, bf, prob, form), 3, warmup=1),
+                          **bound(iters * (e_bytes + s_bytes + u[0]) + 2 * (O * 27 + K * 48 + M * 12),
+                                  iters * (600 * O + s_ops + u[1]) + 2 * 60 * O))
+        ref[form] = tuple(x.cpu().numpy() for x in out[:3])
+    c = rows["cg"]
+    each = "; ".join(
+        f"{form} {AF_DENSE if form == 'dense' else AF_CG} LM (K={r['K']}, M={r['M']}, O={r['O']}, {r['n_obs']} live) "
+        f"{r['ms']:.3f} ms a run, {r['coll_ms']:.3f} of it in collectives (plain run {r['plain_ms']:.3f}, the "
+        f"single-device BA {r['single_ms']:.3f}, bound {r['bound_ms']:.5f}), R / t {r['e_single'][0]:.2e} / "
+        f"{r['e_single'][1]:.2e} from the single-device BA, {r['flips']} inlier flags otherwise, "
+        f"{r['e_plain'][0]:.2e} / {r['e_plain'][1]:.2e} from the plain run; one iteration's stages: sums "
+        f"{r['stages']['blocks']:.2e}, solve {r['stages']['solve']:.2e}, state {r['stages']['state']:.2e}, accepts "
+        f"{r['stages']['accepts']}" for form, r in rows.items())
+    entry = dict(name="ba_shard", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/ba_shard.cu",
+                 replaces="orb_slam3_fast_tpu/parallel/dist_ba.py:210",
+                 max_abs_err=max(r["stages"]["state"] for r in rows.values()), library_ms=None,
+                 ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+                 collective_ms=c["coll_ms"], dense_ms=rows["dense"]["ms"],
+                 shapes="max_abs_err: the state after one iteration's cost and commit entries against the plain "
+                        "stages' (tolerance 1e-5, the accepts and damping equal); a world of one (NCCL); " + each +
+                        "; also dist_ba.py:140 (the dense run); no single library call")
+    return entry, ref
+
+
+def single_run(cam, bf: float, prob, form: str):
+    """The single-device BA of the form (E -> F -> AC or E -> T -> AC)."""
+    from orb_slam3_fast_tpu_torch.optim import ba, ba_cg
+
+    if form == "dense":
+        return ba.bundle_adjust(cam, bf, prob, *AF_DENSE)
+    return ba_cg.bundle_adjust_cg(cam, bf, prob, *AF_CG, cg_iters=32)
+
+
+def _rank_main(rank: int, world: int, tmp: str) -> None:
+    """Phase 16 (b), one rank: its shard of AE's rows and of AF's problems
+    (the times split into kernels and collectives), then phase 9's loop
+    System, synchronous, with every plain epilogue refused; the results
+    pickled to ``tmp/rank{rank}.pkl`` (a traceback where it failed)."""
+    import os
+    import pickle
+    import traceback
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    out: dict = {}
+    try:
+        from orb_slam3_fast_tpu_torch.cameras.models import Camera
+        from orb_slam3_fast_tpu_torch.parallel import dist_kfdb, multihost
+
+        multihost.initialize(f"file://{tmp}/gloo_store", world, rank)
+        mesh = multihost.global_mesh()
+        device = mesh.device
+        out["backend"] = multihost.backend()
+        with open(f"{tmp}/job.pkl", "rb") as f:
+            job = pickle.load(f)
+        out["kfdb"] = {n: dist_kfdb.ShardedKFDB.from_host(mesh, ids, w, n).scores(q)
+                       for n, (ids, w, q) in job["kfdb"].items()}
+        cam = Camera.pinhole(400.0, 400.0, 320.0, 240.0)
+        out["af"], out["af_ms"] = {}, {}
+        for form, (prob, bf) in af_problems(device).items():
+            run, shard = af_run(mesh, cam, form, prob, bf)
+            out["af"][form] = tuple(x.cpu().numpy() for x in run(shard)[:3])
+            out["af_ms"][form] = af_timed(mesh, run, shard, 2)
+        frames = np.load(f"{tmp}/frames.npy", mmap_mode="r")
+        poses = circle_trajectory(LOOP_FRAMES, radius=4.0, frac=1.12)
+        refused, restore_plain = refuse_plain_functions()
+        reset_counts()
+        t = time.perf_counter()
+        slam, summary, track = run_loop([np.array(f) for f in frames], poses, device)
+        out["loop_s"] = time.perf_counter() - t
+        summary.pop("kf_at")
+        out["counts"] = path_counts("initialization", "projection", "frame_to_frame", "mutual")
+        restore_plain()
+        if refused:
+            raise RuntimeError(f"plain functions ran on CUDA tensors: {sorted(set(refused))}")
+        w = slam.tracker.world
+        out["summary"] = summary
+        out["kf"] = (w.kf_R[: w.n_kf].copy(), w.kf_t[: w.n_kf].copy())
+        out["track"] = [(s, np.asarray(R), np.asarray(t)) for s, R, t in track]
+        out["collectives"] = mesh.log.calls
+    except BaseException:  # noqa: BLE001 -- reported by the parent, which fails the phase
+        out["error"] = traceback.format_exc()
+    with open(f"{tmp}/rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+
+
+def run_ranks(tmp: str) -> list[dict]:
+    """``RANKS`` spawned ranks of ``_rank_main`` on the one card; their
+    results, in rank order.  Raises where one failed, did not finish in
+    ``RANK_TIMEOUT_S`` (it is killed) or exited nonzero."""
+    import multiprocessing
+    import pickle
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main, args=(r, RANKS, tmp)) for r in range(RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + RANK_TIMEOUT_S
+    for p in procs:
+        p.join(max(1.0, deadline - time.perf_counter()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    outs = []
+    for r, p in enumerate(procs):
+        try:
+            with open(f"{tmp}/rank{r}.pkl", "rb") as f:
+                outs.append(pickle.load(f))
+        except FileNotFoundError:
+            raise RuntimeError(f"phase 16 (b): rank {r} left no result (exit code {p.exitcode})") from None
+        if "error" in outs[-1] or p.exitcode != 0:
+            raise RuntimeError(f"phase 16 (b): rank {r} failed (exit code {p.exitcode}):\n{outs[-1].get('error')}")
+    return outs
+
+
+def run_phase16(device, loop_in, loop_summary) -> tuple[list[dict], dict]:
+    """Phase 16: (a) a NCCL world of one in this process: AE and AF against
+    their plain versions, the host database and the single-device BAs;
+    (b) ``RANKS`` gloo ranks spawned on the card: AE's scores bit for bit
+    (a)'s, AF's runs in halves within ``AF_TOL`` of (a)'s, the ranks' states
+    bit for bit equal, and phase 9's loop System run by every rank
+    (phase 9's gates, the loop at phase 9's frame +- 5, the ranks'
+    keyframe poses and tracks bit for bit equal, AE and AF launched, T not
+    inside the global BA).  Returns (AE's and AF's entries, rank 0's
+    launch counts of the System run)."""
+    import pickle
+    import tempfile
+
+    from orb_slam3_fast_tpu_torch.parallel import multihost
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        multihost.initialize(f"file://{tmp}/nccl_store", 1, 0)
+        if multihost.backend() != "nccl":
+            raise RuntimeError(f"phase 16 (a): a world of one on one card brought up {multihost.backend()}")
+        mesh = multihost.global_mesh(device)
+        try:
+            ae, kfdb_ref = check_kfdb_kernel(device, mesh)
+            af, af_ref = check_af_world1(device, mesh)
+        finally:
+            torch.distributed.destroy_process_group()
+        log(f"16 (a) a NCCL world of one: {time.perf_counter() - t0:.1f} s")
+        t1 = time.perf_counter()
+        np.save(f"{tmp}/frames.npy", np.stack([np.asarray(f, np.float32) for f in loop_in]))
+        with open(f"{tmp}/job.pkl", "wb") as f:
+            pickle.dump({"kfdb": {n: v[:3] for n, v in kfdb_ref.items()}}, f)
+        outs = run_ranks(tmp)
+        log(f"16 (b) {RANKS} ranks on the card ({outs[0]['backend']}): {time.perf_counter() - t1:.1f} s, the loop "
+            f"System {', '.join('%.1f' % o['loop_s'] for o in outs)} s, {outs[0]['collectives']} collectives a rank")
+    failures = []
+    for n, (ids, w, q, ck, sk) in kfdb_ref.items():
+        for r, o in enumerate(outs):
+            c, s = o["kfdb"][n]
+            if not (np.array_equal(c, ck) and np.array_equal(s, sk)):
+                failures.append(f"AE at {n} words: rank {r}'s scores are not (a)'s bit for bit")
+    for form, ref in af_ref.items():
+        e = af_errors([torch.as_tensor(x) for x in outs[0]["af"][form]], [torch.as_tensor(x) for x in ref])
+        if not (e[0] <= AF_TOL[0] and e[1] <= AF_TOL[1]):
+            failures.append(f"AF {form} in halves: R / t {e} from (a)'s (tolerance {AF_TOL})")
+        if not all(np.array_equal(a, b) for o in outs[1:] for a, b in zip(o["af"][form], outs[0]["af"][form])):
+            failures.append(f"AF {form}: the ranks' states differ")
+        log(f"16 (b) AF {form} in halves: R / t {e[0]:.2e} / {e[1]:.2e} from (a)'s; a run "
+            + ", ".join(f"rank {r} {o['af_ms'][form][0]:.3f} ms ({o['af_ms'][form][1]:.3f} in collectives)"
+                        for r, o in enumerate(outs)))
+    s0, closed9 = outs[0]["summary"], loop_summary["closed_at"]
+    for r, o in enumerate(outs):
+        s = o["summary"]
+        if not (s["closed_at"] and closed9 and abs(s["closed_at"][0] - closed9[0]) <= 5):
+            failures.append(f"rank {r}: the loop closed at {s['closed_at']}, phase 9's at {closed9} (+- 5)")
+        if s["gba_launches_T"] or not o["counts"]["kfdb_score"] or not o["counts"]["ba_shard"]:
+            failures.append(f"rank {r}: T {s['gba_launches_T']} launches inside the global BA (none allowed), AE "
+                            f"{o['counts']['kfdb_score']}, AF {o['counts']['ba_shard']} (some needed)")
+        if r and not (all(np.array_equal(a, b) for a, b in zip(o["kf"], outs[0]["kf"])) and
+                      all(a[0] == b[0] and np.array_equal(a[1], b[1]) and np.array_equal(a[2], b[2])
+                          for a, b in zip(o["track"], outs[0]["track"]))):
+            failures.append(f"rank {r}: keyframe poses or track not bit for bit rank 0's")
+        log(f"16 (b) rank {r}: {s}")
+    log(f"launches in 16 (b), rank 0: {outs[0]['counts']}")
+    if failures:
+        raise RuntimeError("phase 16:\n" + "\n".join(failures))
+    af["shapes"] += "; in halves over 2 gloo ranks on the card: " + ", ".join(
+        f"{form} {outs[0]['af_ms'][form][0]:.3f} ms a run ({outs[0]['af_ms'][form][1]:.3f} in collectives)"
+        for form in af_ref)
+    return [ae, af], outs[0]["counts"]
+
+
 # --- kernel AD: the searches' epilogues (phase 3), the plain epilogues refused on the card (phases 5-15) -------
 
 # each search's stage set after kernel C (ops/matching.py): the threshold (th, < or <=) and the stages
@@ -5113,7 +5537,7 @@ WRAPPER_NAMES = ("fast_nms", "orb_describe", "hamming_best2", "pose_lm", "ba_blo
                  "pyramid_blur", "select_subpixel", "stereo_subpixel_refine", "visible_landmarks", "twoview_ransac",
                  "vocab_transform", "pnp_ransac", "sim3_ransac", "sim3_refine", "sim3_graph", "ba_pcg", "sim3_pcg",
                  "imu_preint", "pose_inertial", "imu_init", "vi_ba", "pose_graph4", "vi_pcg", "fisheye_stereo",
-                 "ba_lm_update", "ba_classify", "match_epilogue")
+                 "ba_lm_update", "ba_classify", "match_epilogue", "kfdb_score", "ba_shard")
 VI_KERNELS = ("imu_preint", "pose_inertial", "imu_init", "vi_ba")  # V, W, X, Y: the inertial path
 LM_KERNELS = ("ba_lm_update", "ba_classify")  # AC's two entries: wherever a BA runs
 # the stereo System runs A-L and AC, N to index its keyframes, and not M or P
@@ -5138,7 +5562,8 @@ RADTAN_KERNELS = ("pose_lm", "ba_blocks", "sim3_ransac", "sim3_refine", "twoview
 
 
 def wrappers() -> dict:
-    """Each kernel's wrapper, by the kernel's name (S and U share one)."""
+    """Each kernel's wrapper, by the kernel's name (S and U share one; AF's
+    entries share one counter)."""
     from orb_slam3_fast_tpu_torch.frontend import tracker as trk
     from orb_slam3_fast_tpu_torch.imu import preintegration as pre
     from orb_slam3_fast_tpu_torch.ops import extractor as ext
@@ -5148,6 +5573,7 @@ def wrappers() -> dict:
     from orb_slam3_fast_tpu_torch.ops import twoview
     from orb_slam3_fast_tpu_torch.optim import ba, ba_cg, imu_init, inertial, pnp, pose_opt, sim3, vi_ba, vi_ba_cg
     from orb_slam3_fast_tpu_torch.optim import pose_graph as pg
+    from orb_slam3_fast_tpu_torch.parallel import dist_ba, dist_kfdb
     from orb_slam3_fast_tpu_torch.vocab import vocabulary as voc_mod
 
     return dict(zip(WRAPPER_NAMES, (fast.fast_nms, ext.orb_describe, ham.hamming_best2, pose_opt.pose_optimization,
@@ -5158,7 +5584,8 @@ def wrappers() -> dict:
                                     ba_cg.implicit_schur_solve, pg.optimize_sim3_graph, pre.preintegrate,
                                     inertial.pose_inertial_optimization, imu_init.inertial_only_optimization,
                                     vi_ba.vi_bundle_adjust, pg.optimize_4dof_graph, vi_ba_cg.lm_segment_vi,
-                                    mat.fisheye_stereo_gate, ba.lm_update, ba.classify, ham.match_epilogue)))
+                                    mat.fisheye_stereo_gate, ba.lm_update, ba.classify, ham.match_epilogue,
+                                    dist_kfdb.score_rows, dist_ba.blocks_partial)))
 
 
 def reset_counts() -> None:
@@ -5729,6 +6156,18 @@ def run_phases() -> int:
     log(f"phases 5-15: no plain epilogue function ({', '.join(EPILOGUE_PLAIN)}) and neither of kernel M's plain "
         f"stages ({', '.join(TWOVIEW_PLAIN)}) ran on a CUDA tensor")
 
+    # 16. several ranks (before phase 8 too): (a) a NCCL world of one here, kernels AE and AF against their plain
+    # versions, the host database and the single-device BAs; (b) two gloo ranks spawned on the card: AE and AF in
+    # halves, then phase 9's loop System run by both
+    t0 = time.perf_counter()
+    ranks_kernels, ranks_launches = run_phase16(device, loop_in, summary_l)
+    for k in ranks_kernels:
+        log(f"kernel {k['name']}: max_abs_err {k['max_abs_err']:.3g}, {k['ms']:.4f} ms vs plain {k['plain_ms']:.4f} "
+            f"ms, bound {k['bound_ms']:.5f} ms ({k['bound_by']}) ({k['shapes']})")
+    kernels += ranks_kernels
+    phase16_s = time.perf_counter() - t0
+    log(f"phase 16: {phase16_s:.1f} s")
+
     # 8. the plain (CPU) step, which the tests hold against the JAX package,
     # agrees with the card on frame 1 at 640x480.  Last, because the host
     # threads it starts would slow the timed phases above.
@@ -5846,11 +6285,13 @@ def run_phases() -> int:
             "vi_loop": launches_vil, "default_vi": launches_vic, "merge_inertial": launches_vid,
             "fisheye": launches_fe, "fisheye_reloc": launches_fr, "fisheye_vi": launches_fv,
             "fisheye_loop": fl_runs["stereo"][0], "fisheye_vi_loop": fl_runs["stereo-inertial"][0],
-            "fisheye_mono": launches_fm, "fisheye_mono_vi": launches_fmv, "fisheye_mono_loop": launches_flm}
+            "fisheye_mono": launches_fm, "fisheye_mono_vi": launches_fmv, "fisheye_mono_loop": launches_flm,
+            "ranks_loop": ranks_launches}
     main_run = {"twoview_ransac": "mono_system", "vocab_transform": "mono_system", "pnp_ransac": "relocalisation",
                 "sim3_ransac": "loop", "sim3_refine": "loop", "sim3_graph": "loop", "ba_pcg": "loop",
                 "sim3_pcg": "loop_pcg", **{name: "vi_mono" for name in VI_KERNELS}, "pose_graph4": "vi_loop",
-                "vi_pcg": "vi_loop", "fisheye_stereo": "fisheye"}
+                "vi_pcg": "vi_loop", "fisheye_stereo": "fisheye", "kfdb_score": "ranks_loop",
+                "ba_shard": "ranks_loop"}
     kb8_run = {"pnp_ransac": "fisheye_reloc", "pose_inertial": "fisheye_vi", "vi_ba": "fisheye_vi",
                "sim3_ransac": "fisheye_loop", "sim3_refine": "fisheye_loop", "vi_pcg": "fisheye_vi_loop",
                "twoview_ransac": "fisheye_mono"}
@@ -5862,11 +6303,13 @@ def run_phases() -> int:
         if "radtan" in k:  # the distorted instance's, on the distorted mono System (10 (d))
             k["radtan"]["launches"] = runs["distorted_mono"][f"{k['name']}[radtan]"]
     total_s = time.perf_counter() - t_start
+    rest_s = total_s - build_s - phase3_s - phase15_s - phase16_s - phase8_s
     log(f"chip_smoke: {total_s:.1f} s in all: build {build_s:.1f} s, phase 3 {phase3_s:.1f} s, phase 15 "
-        f"{phase15_s:.1f} s, phase 8 {phase8_s:.1f} s, the rest {total_s - build_s - phase3_s - phase15_s - phase8_s:.1f} s")
+        f"{phase15_s:.1f} s, phase 16 {phase16_s:.1f} s, phase 8 {phase8_s:.1f} s, the rest {rest_s:.1f} s")
     log(json.dumps({"kernels": [{key: k[key] for key in ("name", "route", "source", "replaces", "launches",
                                                          "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                                         "library_ms", "launches_by_path", "shapes", "radtan", "kb8",
+                                                         "library_ms", "collective_ms", "dense_ms",
+                                                         "launches_by_path", "shapes", "radtan", "kb8",
                                                          "stages")
                                               if key in k}
                                 for k in kernels]}))

@@ -115,6 +115,31 @@ SIGNATURES = {
     # lm_ptr, lm_obs, kf_ptr, kf_obs, lam, K, M, O, cg_iters, scratch, dp,
     # dl, stream
     "ba_pcg_launch": [_P] * 15 + [_I] * 4 + [_P] * 4,
+    # kernel AF (csrc/ba_shard.cu): cam10, kind, R, t, xw, pose_fixed, lm_valid, obs_kf, obs_lm, obs_uv, inv_sigma2,
+    # is_stereo, obs_valid, inlier, n_obs, n_kf, n_lm, W, acc (float64, unrounded), stream
+    "ba_shard_blocks_launch": [_P, _I] + [_P] * 12 + [_I] * 3 + [_P] * 3,
+    # acc, out, n, stream
+    "ba_shard_round_launch": [_P, _P, _I, _P],
+    # cam10, kind, R, t, xw, dp, dl, lm_valid, obs_kf, obs_lm, obs_uv, inv_sigma2, is_stereo, obs_valid, inlier,
+    # n_obs, n_kf, n_lm, R_out, t_out, xw_out, acc (one float64), stream
+    "ba_shard_cost_launch": [_P, _I] + [_P] * 13 + [_I] * 3 + [_P] * 5,
+    # R, t, xw, n_kf, n_lm, acc, cost_old, ok (or null), lam, R_out, t_out, xw_out, lam_out, accept_out, cost_out,
+    # stream
+    "ba_shard_commit_launch": [_P] * 3 + [_I] * 2 + [_P] * 11,
+    # Hll, bl, w_lm, lam, W, obs_lm, kf_ptr, kf_obs, K, M, scratch, part (K,42), stream
+    "ba_shard_cg_setup_launch": [_P] * 8 + [_I] * 2 + [_P] * 3,
+    # Hpp, bp, pose_fixed, lam, part (K,42), K, M, scratch, stream
+    "ba_shard_cg_start_launch": [_P] * 5 + [_I] * 2 + [_P] * 2,
+    # W, obs_kf, lm_ptr, lm_obs, pose_fixed, which (0 p, 1 x), K, M, scratch, part (M,3), stream
+    "ba_shard_cg_lm_launch": [_P] * 5 + [_I] * 3 + [_P] * 3,
+    # W, obs_lm, kf_ptr, kf_obs, part_m (M,3), K, M, scratch, part_k (K,6), stream
+    "ba_shard_cg_pose_launch": [_P] * 5 + [_I] * 2 + [_P] * 3,
+    # pose_fixed, part_k (K,6), K, M, scratch, stream
+    "ba_shard_cg_update_launch": [_P] * 2 + [_I] * 2 + [_P] * 2,
+    # bl, w_lm, lm_valid, pose_fixed, part_m (M,3), K, M, scratch, dp, dl, stream
+    "ba_shard_cg_backsub_launch": [_P] * 5 + [_I] * 2 + [_P] * 4,
+    # kernel AE (csrc/kfdb_score.cu): ids, w, lut, n_rows, T, n_words, common, score, stream
+    "kfdb_score_launch": [_P] * 3 + [_I] * 3 + [_P] * 3,
     # start (packed window or null), bias, acc, gyro, dts, valid, n, noise (host), out, stream
     "imu_preint_launch": [_P] * 6 + [_I, _P, _P, _P],
     # a, b (packed windows), out, stream

@@ -26,8 +26,12 @@ segments, keyframes and landmarks made while it ran being carried along
 by ``correct_new_since_snapshot``.  A solve whose map was turned and
 scaled meanwhile (the tracker's IMU initialisation or scale refinement,
 ``WorldMap.frame_epoch``) is discarded, not written back in the old frame
-(``n_ba_discarded``).  Not ported yet: the distributed BA
-(ROADMAP §A item 12).
+(``n_ba_discarded``).  On a world of several ranks
+(``parallel/multihost.py``) ``_run_gba(distributed=True)``, the loop
+closer's global BA, shards the observations over the ranks and runs kernel
+AF's CG run (``parallel/dist_ba.py``), and ``_run_ba(distributed=True)``
+its dense run; each rank gathers the same problem and writes back the same
+state.
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ from orb_slam3_fast_tpu_torch.ops import matching as mat
 from orb_slam3_fast_tpu_torch.ops import twoview
 from orb_slam3_fast_tpu_torch.ops.extractor import Keypoints
 from orb_slam3_fast_tpu_torch.optim import ba, ba_cg
+from orb_slam3_fast_tpu_torch.parallel import dist_ba, multihost
 from orb_slam3_fast_tpu_torch.utils import lie, verbose
 from orb_slam3_fast_tpu_torch.utils.timers import StageTimers
 
@@ -554,17 +559,30 @@ class Mapper:
         self.n_ba_discarded += 1
         return True
 
-    def _run_ba(self, world: WorldMap, kf_ids: np.ndarray, fixed: np.ndarray, iters=(5, 10), map_lock=None):
+    def _mesh(self):
+        """The ranks' mesh on this mapper's device where the world has
+        several ranks, else None."""
+        return multihost.global_mesh(self.device) if multihost.process_info()[1] > 1 else None
+
+    def _run_ba(self, world: WorldMap, kf_ids: np.ndarray, fixed: np.ndarray, iters=(5, 10), map_lock=None,
+                distributed: bool = False):
         """The problem gathered and written back under ``map_lock``, solved
         (kernels E, F and AC) outside it; discarded where the map changed
-        frame meanwhile."""
+        frame meanwhile.  ``distributed`` on a world of several ranks shards
+        the observations over them (kernel AF's dense run, F on the
+        gathered W)."""
         lock = map_lock if map_lock is not None else contextlib.nullcontext()
         got = self._gather_problem(world, kf_ids, fixed, lm_cap=self.cfg.ba_lm_cap, obs_cap=self.cfg.ba_obs_cap,
                                    lock=lock)
         if got is None:
             return
         prob, lm_ids, obs_kf, obs_lm, slots, pose_fixed, n_o, epoch = got
-        R, t, xw, inlier = ba.bundle_adjust(self.cam, self.bf, prob, iters1=iters[0], iters2=iters[1])
+        mesh = self._mesh() if distributed else None
+        if mesh is not None:
+            run = dist_ba.get_distributed_ba(mesh, self.cam, self.bf, *iters)
+            R, t, xw, inlier, _ = run(dist_ba.shard_problem(prob, mesh, whole=True))
+        else:
+            R, t, xw, inlier = ba.bundle_adjust(self.cam, self.bf, prob, iters1=iters[0], iters2=iters[1])
         solved = self._read_back(kf_ids, lm_ids, n_o, R, t, xw, inlier)
         with lock:
             if self._stale(world, epoch):
@@ -582,14 +600,13 @@ class Mapper:
         most ``ba.MAX_POSES`` poses.  ``map_lock`` is held while the problem
         is gathered and written back, not while it is solved.  Keyframes and
         landmarks made meanwhile follow through ``correct_new_since_snapshot``.
-        ``distributed`` shards the observations over the devices where there
-        are several (ROADMAP §A item 12); on one device it changes nothing.
-        Returns True when the BA ran to its end and was written back (an
-        aborted one is discarded, LoopClosing.cc:2412-2422, and so is one
-        whose map changed frame meanwhile)."""
-        if distributed and self.device.type == "cuda" and torch.cuda.device_count() > 1:
-            raise NotImplementedError("the global BA over several devices waits for ROADMAP §A item 12 "
-                                      "(multi-device)")
+        ``distributed`` on a world of several ranks shards the observations
+        over them (kernel AF's CG run, ``parallel/dist_ba.py``), the abort
+        flag then read once after the solve (the JAX package's
+        ``mapper.py:674-675``); on one rank it changes nothing.  Returns
+        True when the BA ran to its end and was written back (an aborted
+        one is discarded, LoopClosing.cc:2412-2422, and so is one whose map
+        changed frame meanwhile)."""
         lock = map_lock if map_lock is not None else contextlib.nullcontext()
         got = self._gather_problem(world, kf_ids, fixed, lock=lock)
         if got is None:
@@ -598,8 +615,15 @@ class Mapper:
         with lock:
             K_snap, M_snap = world.n_kf, world.n_lm
             R_before, t_before = world.kf_R[:K_snap].copy(), world.kf_t[:K_snap].copy()
-        R, t, xw, inlier, aborted = ba_cg.bundle_adjust_cg(self.cam, self.bf, prob, iters1=iters[0], iters2=iters[1],
-                                                           cg_iters=cg_iters, abort_flag=abort_flag)
+        mesh = self._mesh() if distributed else None
+        if mesh is not None:
+            run = dist_ba.get_distributed_ba_cg(mesh, self.cam, self.bf, *iters, cg_iters=cg_iters)
+            R, t, xw, inlier, _ = run(dist_ba.shard_problem(prob, mesh))
+            aborted = abort_flag is not None and abort_flag.is_set()
+        else:
+            R, t, xw, inlier, aborted = ba_cg.bundle_adjust_cg(self.cam, self.bf, prob, iters1=iters[0],
+                                                               iters2=iters[1], cg_iters=cg_iters,
+                                                               abort_flag=abort_flag)
         if aborted:
             return False
         solved = self._read_back(kf_ids, lm_ids, n_o, R, t, xw, inlier)

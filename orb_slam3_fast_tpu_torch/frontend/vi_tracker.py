@@ -34,7 +34,10 @@ backend (``backend=``) every gather from the map and every write-back of
 the inertial tracker's solves (the IMU initialisation, the local VI-BA,
 the scale refinement, FullInertialBA) holds the backend's map lock, never
 around a kernel; the JAX package runs them on the tracker thread with no
-lock while the worker maps.
+lock while the worker maps.  On a world of several ranks
+(``parallel/multihost.py``) FullInertialBA raises: its form over
+observation shards (the JAX package's ``make_distributed_vi_ba_cg``) is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -49,6 +52,7 @@ from orb_slam3_fast_tpu_torch.imu import preintegration as pre
 from orb_slam3_fast_tpu_torch.map.worldmap import host
 from orb_slam3_fast_tpu_torch.backend.mapper import correct_new_since_snapshot
 from orb_slam3_fast_tpu_torch.optim import imu_init, inertial, vi_ba, vi_ba_cg
+from orb_slam3_fast_tpu_torch.parallel import multihost
 from orb_slam3_fast_tpu_torch.utils import lie, verbose
 
 
@@ -634,6 +638,10 @@ class InertialTracker(Tracker):
         its slot still holds the landmark that was gathered.  Returns True
         when the solve completed (False: aborted, nothing to solve, or the
         map changed frame while it ran, ``n_ba_discarded``)."""
+        if multihost.process_info()[1] > 1:
+            raise NotImplementedError("FullInertialBA over several ranks (the JAX package's make_distributed_vi_ba_cg) "
+                                      "waits for the remainder of ROADMAP §A item 12: kernel AA's segment split at "
+                                      "every CG matvec")
         w = world
         lock = map_lock if map_lock is not None else contextlib.nullcontext()
         with lock:

@@ -183,25 +183,29 @@ def _delta2(prob: BAProblem) -> torch.Tensor:
     )
 
 
-def _robust_cost(r, prob: BAProblem, active):
-    """Huber rho(chi2) summed over the active observations, and chi2."""
+def _robust_rho(r, prob: BAProblem, active):
+    """Huber rho(chi2) per observation, zero where not active, and chi2."""
     chi2 = torch.sum(r * r, dim=-1) * prob.obs_inv_sigma2
     delta2 = _delta2(prob)
     rho = torch.where(chi2 <= delta2, chi2, 2.0 * torch.sqrt(delta2 * torch.clamp(chi2, min=1e-12)) - delta2)
-    return torch.sum(torch.where(active, rho, torch.zeros_like(rho))), chi2
+    return torch.where(active, rho, torch.zeros_like(rho)), chi2
+
+
+def _robust_cost(r, prob: BAProblem, active):
+    """Huber rho(chi2) summed over the active observations, and chi2."""
+    rho, chi2 = _robust_rho(r, prob, active)
+    return torch.sum(rho), chi2
 
 
 def _active(prob: BAProblem, inlier, posd):
     return prob.obs_valid & inlier & posd & prob.lm_valid[prob.obs_lm.long()]
 
 
-def build_normal_blocks_plain(cam, bf, R, t, xw, prob: BAProblem, inlier, per_obs: bool = False):
-    """Plain version of kernel E: (Hpp (K,6,6), Hll (M,3,3), bp (K,6),
-    bl (M,3), Z (M,K,6,3), w_lm (M,), cost ()); with ``per_obs`` the
-    per-observation W (O,6,3) in Z's place, as the kernel returns it
-    (``optim/ba_cg.build_blocks``)."""
-    K, M = R.shape[0], xw.shape[0]
-    kf, lm = prob.obs_kf.long(), prob.obs_lm.long()
+def obs_terms_plain(cam, bf, R, t, xw, prob: BAProblem, inlier):
+    """Each observation's share of the normal equations: (Hpp_o (O,6,6),
+    Hll_o (O,3,3), bp_o (O,6), bl_o (O,3), W_o (O,6,3), w (O,), rho (O,)),
+    zero where the observation is not active."""
+    kf = prob.obs_kf.long()
     r, xc, posd = _obs_residuals(cam, bf, R, t, xw, prob)
     active = _active(prob, inlier, posd)
     chi2 = torch.sum(r * r, dim=-1) * prob.obs_inv_sigma2
@@ -213,14 +217,27 @@ def build_normal_blocks_plain(cam, bf, R, t, xw, prob: BAProblem, inlier, per_ob
     Jp = -(Jproj @ dxc_dxi)
     Jl = -(Jproj @ R[kf])
     Jp = Jp * (~prob.pose_fixed)[kf][:, None, None]
-    z = xc.new_zeros
-    Hpp = z((K, 6, 6)).index_add_(0, kf, torch.einsum("oij,o,oik->ojk", Jp, w, Jp))
-    Hll = z((M, 3, 3)).index_add_(0, lm, torch.einsum("oij,o,oik->ojk", Jl, w, Jl))
-    bp = z((K, 6)).index_add_(0, kf, -torch.einsum("oij,o,oi->oj", Jp, w, r))
-    bl = z((M, 3)).index_add_(0, lm, -torch.einsum("oij,o,oi->oj", Jl, w, r))
-    Wob = torch.einsum("oij,o,oik->ojk", Jp, w, Jl)  # (O,6,3)
+    rho, _ = _robust_rho(r, prob, active)
+    return (torch.einsum("oij,o,oik->ojk", Jp, w, Jp), torch.einsum("oij,o,oik->ojk", Jl, w, Jl),
+            -torch.einsum("oij,o,oi->oj", Jp, w, r), -torch.einsum("oij,o,oi->oj", Jl, w, r),
+            torch.einsum("oij,o,oik->ojk", Jp, w, Jl), w, rho)
+
+
+def build_normal_blocks_plain(cam, bf, R, t, xw, prob: BAProblem, inlier, per_obs: bool = False):
+    """Plain version of kernel E: (Hpp (K,6,6), Hll (M,3,3), bp (K,6),
+    bl (M,3), Z (M,K,6,3), w_lm (M,), cost ()); with ``per_obs`` the
+    per-observation W (O,6,3) in Z's place, as the kernel returns it
+    (``optim/ba_cg.build_blocks``)."""
+    K, M = R.shape[0], xw.shape[0]
+    kf, lm = prob.obs_kf.long(), prob.obs_lm.long()
+    hpp, hll, gp, gl, Wob, w, rho = obs_terms_plain(cam, bf, R, t, xw, prob, inlier)
+    z = R.new_zeros
+    Hpp = z((K, 6, 6)).index_add_(0, kf, hpp)
+    Hll = z((M, 3, 3)).index_add_(0, lm, hll)
+    bp = z((K, 6)).index_add_(0, kf, gp)
+    bl = z((M, 3)).index_add_(0, lm, gl)
     w_lm = z((M,)).index_add_(0, lm, w)
-    cost, _ = _robust_cost(r, prob, active)
+    cost = torch.sum(rho)
     if per_obs:
         return Hpp, Hll, bp, bl, Wob, w_lm, cost
     Z = z((M * K, 6, 3)).index_add_(0, lm * K + kf, Wob).reshape(M, K, 6, 3)

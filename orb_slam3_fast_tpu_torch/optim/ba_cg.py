@@ -64,11 +64,19 @@ def _damp(H: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
     return H + torch.diag_embed(lam * torch.clamp(d, min=1e-3))
 
 
+def _identity(x):
+    return x
+
+
 def implicit_schur_solve_plain(Hpp, Hll, bp, bl, W, obs_kf, obs_lm, w_lm, pose_fixed, lm_valid, lam,
-                               cg_iters: int = 32):
+                               cg_iters: int = 32, reduce_k=_identity, reduce_m=_identity):
     """Plain version of kernel T, in float64 as the kernel solves: PCG on the
     reduced camera system applied implicitly.  Returns (dp (K,6), dl (M,3))
-    in float32."""
+    in float32.  ``reduce_k`` / ``reduce_m`` sum a (K, ...) / (M, ...)
+    float64 tensor of partial sums over the ranks where ``W`` and the
+    observations are a shard (``parallel/dist_ba.py``; the JAX package's
+    ``psum``, ``optim/ba_cg.py:108, 112, 126``); Hpp, Hll, bp, bl and w_lm
+    are then the reduced ones."""
     f64 = torch.float64
     K, M = Hpp.shape[0], Hll.shape[0]
     dev = Hpp.device
@@ -81,10 +89,12 @@ def implicit_schur_solve_plain(Hpp, Hll, bp, bl, W, obs_kf, obs_lm, w_lm, pose_f
     free_f = (~pose_fixed).to(f64)
 
     def Zt_v(v):  # (K,6) -> (M,3)
-        return torch.zeros((M, 3), dtype=f64, device=dev).index_add_(0, lm, torch.einsum("oab,oa->ob", W, v[kf]))
+        part = torch.zeros((M, 3), dtype=f64, device=dev).index_add_(0, lm, torch.einsum("oab,oa->ob", W, v[kf]))
+        return reduce_m(part)
 
     def Z_y(y):  # (M,3) -> (K,6)
-        return torch.zeros((K, 6), dtype=f64, device=dev).index_add_(0, kf, torch.einsum("oab,ob->oa", W, y[lm]))
+        part = torch.zeros((K, 6), dtype=f64, device=dev).index_add_(0, kf, torch.einsum("oab,ob->oa", W, y[lm]))
+        return reduce_k(part)
 
     def S_mv(v):
         v = v * free_f[:, None]
@@ -93,7 +103,7 @@ def implicit_schur_solve_plain(Hpp, Hll, bp, bl, W, obs_kf, obs_lm, w_lm, pose_f
 
     b_s = (bp - Z_y(torch.einsum("mab,mb->ma", Vinv, bl))) * free_f[:, None]
     coup = torch.einsum("oab,obc,odc->oad", W, Vinv[lm], W)
-    D = Hpp_d - torch.zeros((K, 6, 6), dtype=f64, device=dev).index_add_(0, kf, coup)
+    D = Hpp_d - reduce_k(torch.zeros((K, 6, 6), dtype=f64, device=dev).index_add_(0, kf, coup))
     D = torch.where(pose_fixed[:, None, None], eye6, D)
     Dinv = torch.linalg.inv(D + 1e-5 * eye6)
 

@@ -40,6 +40,18 @@ as the JAX package's does.  ``MONOCULAR`` and ``IMU_MONOCULAR`` on that
 configuration track its first camera alone: kernel M initialises the map
 in its KB8 instance, and the monocular loop closer runs Q and R with the
 scale free.
+
+Several ranks (``parallel/multihost.py``; torchrun's variables, or a
+process group brought up before the constructor): the constructor brings
+the group up, and where the world has more than one rank and its size
+divides ``max_keyframes`` the keyframe database scores on the ranks
+(``attach_mesh``, kernel AE), as the JAX package's System.cc wiring does
+(``slam/system.py:65-76``); the loop closer's global BA then runs over
+observation shards (kernel AF).  Every rank runs the same program on the
+same frames and holds the same map.  Only the synchronous backend
+(``async_backend=False``) runs so: the worker threads of the async one
+would schedule differently on each rank and the ranks' collectives would
+not match, so it raises ``ValueError`` there.
 """
 from __future__ import annotations
 
@@ -56,6 +68,7 @@ from orb_slam3_fast_tpu_torch.frontend import tracker as trk
 from orb_slam3_fast_tpu_torch.map.atlas import Atlas
 from orb_slam3_fast_tpu_torch.map.worldmap import WorldMap
 from orb_slam3_fast_tpu_torch.ops import extractor as ext
+from orb_slam3_fast_tpu_torch.parallel import multihost
 from orb_slam3_fast_tpu_torch.slam.settings import Settings
 from orb_slam3_fast_tpu_torch.utils import lie
 from orb_slam3_fast_tpu_torch.utils.timers import StageTimers
@@ -98,8 +111,15 @@ class System:
         self.settings = settings
         self.sensor = sensor
         self.device = _kernels.resolve_device(device)
+        multihost.initialize(device=self.device)  # a no-op in a lone process
+        world_size = multihost.process_info()[1]
+        if world_size > 1 and async_backend:
+            raise ValueError(f"System: {world_size} ranks need async_backend=False: the async backend's worker threads "
+                             "would schedule differently on each rank, and the ranks' collectives would not match")
         self.voc = (vocabulary or voc_mod.default_vocabulary()).to(self.device)
         self.kfdb = db_mod.KeyFrameDatabase(self.voc.n_words, max_kf=max_keyframes)
+        if world_size > 1 and max_keyframes % world_size == 0:
+            self.kfdb.attach_mesh(multihost.global_mesh(self.device))
         ecfg = ext.ExtractorConfig(
             n_features=settings.n_features, n_levels=settings.n_levels, scale_factor=settings.scale_factor,
             ini_th_fast=settings.ini_th_fast, min_th_fast=settings.min_th_fast,

@@ -7,9 +7,11 @@ vocabulary's size.  The DBoW2 L1 score of two L1-normalised vectors is
 ``sum over shared words of min(v, w)``, one dense query table and one (K, T)
 gather per query.
 
-The JAX package scores on the device only when ``attach_mesh`` spreads the
-rows over more than one device (``parallel/dist_kfdb.py``); that waits for
-ROADMAP §A item 12, and ``attach_mesh`` raises.
+``attach_mesh`` mirrors the rows onto the ranks of a mesh
+(``parallel/dist_kfdb.ShardedKFDB``), as the JAX package's does on more than
+one device: ``_scores`` then scores on the devices (kernel AE) and a new
+row ships to the rank that owns it.  Detached, the default, it stays host
+numpy.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ class KeyFrameDatabase:
         self.w = np.zeros((max_kf, row_words), dtype=np.float32)
         self.valid = np.zeros(max_kf, dtype=bool)
         self.map_id = np.full(max_kf, -1, dtype=np.int32)
+        self.sharded = None  # the rows mirrored onto a mesh's ranks (attach_mesh)
 
     @property
     def bow(self) -> np.ndarray:
@@ -54,11 +57,17 @@ class KeyFrameDatabase:
         return ids, w
 
     def attach_mesh(self, mesh):
-        raise NotImplementedError("scoring the database on a device mesh waits for ROADMAP §A item 12 (multi-device)")
+        """Mirror the rows onto ``mesh``'s ranks (``parallel/multihost.Mesh``):
+        scoring runs there and a new row ships one row.  Detach by setting
+        ``self.sharded = None``."""
+        from orb_slam3_fast_tpu_torch.parallel.dist_kfdb import ShardedKFDB
+
+        self.sharded = ShardedKFDB.from_host(mesh, self.ids, self.w, self.n_words)
 
     def add(self, kf: int, bow: np.ndarray, map_id: int = 0):
         """KeyFrameDatabase::add (:37); the table doubles while ``kf`` lies
         beyond it."""
+        grew = kf >= self.max_kf
         while kf >= self.max_kf:
             pad = self.max_kf
             self.ids = np.concatenate([self.ids, np.full((pad, self.row_words), -1, np.int32)])
@@ -66,9 +75,15 @@ class KeyFrameDatabase:
             self.valid = np.concatenate([self.valid, np.zeros(pad, bool)])
             self.map_id = np.concatenate([self.map_id, np.full(pad, -1, np.int32)])
             self.max_kf *= 2
-        self.ids[kf], self.w[kf] = self._sparsify(np.asarray(bow))
+        ids, w = self._sparsify(np.asarray(bow))
+        self.ids[kf], self.w[kf] = ids, w
         self.valid[kf] = True
         self.map_id[kf] = map_id
+        if self.sharded is not None:
+            if grew:
+                self.attach_mesh(self.sharded.mesh)  # re-shard at the new size
+            else:
+                self.sharded.set_row(kf, ids, w)
 
     def erase(self, kf: int):
         """KeyFrameDatabase::erase (:47)."""
@@ -82,6 +97,9 @@ class KeyFrameDatabase:
         """(common words, L1 score, eligible mask) of every stored row."""
         elig = self.valid.copy()
         elig[exclude] = False
+        if self.sharded is not None:  # row-parallel on the mesh
+            common, score = self.sharded.scores(query_bow)
+            return common, score, elig
         lut = np.zeros(self.n_words + 1, dtype=np.float32)
         lut[: self.n_words] = np.asarray(query_bow, dtype=np.float32)
         qw = lut[np.where(self.ids >= 0, self.ids, self.n_words)]  # (K,T)

@@ -278,10 +278,11 @@ def mono_inputs(rng, device):
 
 def test_build_flags_and_sources():
     srcs = sorted(p.name for p in _kernels.SRC_DIR.glob("*.cu"))
-    assert srcs == ["ba_blocks.cu", "ba_lm.cu", "ba_pcg.cu", "ba_schur.cu", "common.cu", "fast_nms.cu",
+    assert srcs == ["ba_blocks.cu", "ba_lm.cu", "ba_pcg.cu", "ba_schur.cu", "ba_shard.cu", "common.cu", "fast_nms.cu",
                     "fisheye_stereo.cu",
                     "hamming_best2.cu",
-                    "imu_init.cu", "imu_preint.cu", "match_epilogue.cu", "orb_describe.cu", "pnp_ransac.cu", "pose_graph4.cu",
+                    "imu_init.cu", "imu_preint.cu", "kfdb_score.cu", "match_epilogue.cu", "orb_describe.cu",
+                    "pnp_ransac.cu", "pose_graph4.cu",
                     "pose_inertial.cu", "pose_inertial_kb8.cu", "pose_inertial_radtan.cu", "pose_lm.cu",
                     "pyramid_blur.cu", "sad_refine.cu", "select_subpixel.cu",
                     "sim3_graph.cu", "sim3_pcg.cu", "sim3_ransac.cu", "sim3_refine.cu", "triangulate_dlt.cu",
@@ -289,23 +290,28 @@ def test_build_flags_and_sources():
     # the one Jacobi eigen-solver, shared by G, M, P, Q, R, S, T, V and Z; the Sim3 maps and dual numbers, shared by
     # R, S, U and Z and (through inertial.cuh) W, X, Y and AA; the distorted pin-hole and the KB8 camera, shared by D,
     # E, L, M, P, Q, R, W, Y, AA and AB; the inertial factors, shared by V, W, X, Y and AA; kernel W's code, shared by
-    # its three camera kinds' translation units; a BA observation's residual and robust cost, shared by E and AC
-    assert sorted(p.name for p in _kernels.SRC_DIR.glob("*.cuh")) == ["ba_obs.cuh", "camera.cuh", "inertial.cuh",
-                                                                      "jacobi.cuh", "pose_inertial.cuh", "sim3.cuh"]
-    for name in ("ba_blocks.cu", "ba_lm.cu"):
+    # its three camera kinds' translation units; a BA observation's residual and robust cost, shared by E and AC;
+    # E's, AC's and T's device code, shared with AF
+    assert sorted(p.name for p in _kernels.SRC_DIR.glob("*.cuh")) == [
+        "ba_blocks.cuh", "ba_lm.cuh", "ba_obs.cuh", "ba_pcg.cuh", "camera.cuh", "inertial.cuh", "jacobi.cuh",
+        "pose_inertial.cuh", "sim3.cuh"]
+    for name in ("ba_blocks.cuh", "ba_lm.cuh"):
         assert '#include "ba_obs.cuh"' in (_kernels.SRC_DIR / name).read_text()
+    for name, headers in (("ba_blocks.cu", ("ba_blocks",)), ("ba_lm.cu", ("ba_lm",)), ("ba_pcg.cu", ("ba_pcg",)),
+                          ("ba_shard.cu", ("ba_blocks", "ba_lm", "ba_pcg"))):
+        assert all(f'#include "{h}.cuh"' in (_kernels.SRC_DIR / name).read_text() for h in headers)
     for name in ("imu_preint.cu", "pose_inertial.cuh", "imu_init.cu", "vi_ba.cu", "vi_pcg.cu"):
         assert '#include "inertial.cuh"' in (_kernels.SRC_DIR / name).read_text()
     for name in ("pose_inertial.cuh", "vi_ba.cu", "vi_pcg.cu"):
         assert '#include "camera.cuh"' in (_kernels.SRC_DIR / name).read_text()
     for name in ("pose_inertial.cu", "pose_inertial_radtan.cu", "pose_inertial_kb8.cu"):
         assert '#include "pose_inertial.cuh"' in (_kernels.SRC_DIR / name).read_text()
-    for name in ("triangulate_dlt.cu", "twoview_ransac.cu", "pnp_ransac.cu", "sim3_ransac.cu", "ba_pcg.cu",
+    for name in ("triangulate_dlt.cu", "twoview_ransac.cu", "pnp_ransac.cu", "sim3_ransac.cu", "ba_pcg.cuh",
                  "pose_graph4.cu", "fisheye_stereo.cu"):
         assert '#include "jacobi.cuh"' in (_kernels.SRC_DIR / name).read_text()
     for name in ("sim3_refine.cu", "sim3_graph.cu", "sim3_pcg.cu", "pose_graph4.cu"):
         assert '#include "sim3.cuh"' in (_kernels.SRC_DIR / name).read_text()
-    for name in ("pose_lm.cu", "ba_blocks.cu", "ba_lm.cu", "sim3_ransac.cu", "sim3_refine.cu", "visible_landmarks.cu",
+    for name in ("pose_lm.cu", "ba_blocks.cuh", "ba_lm.cuh", "sim3_ransac.cu", "sim3_refine.cu", "visible_landmarks.cu",
                  "pnp_ransac.cu", "fisheye_stereo.cu", "twoview_ransac.cu"):
         assert '#include "camera.cuh"' in (_kernels.SRC_DIR / name).read_text()
     assert set(_kernels.SIGNATURES) == {
@@ -316,6 +322,9 @@ def test_build_flags_and_sources():
         "ba_pcg_launch", "imu_preint_launch", "imu_compose_launch", "pose_inertial_launch", "imu_init_launch",
         "vi_ba_launch", "pose_graph4_launch", "vi_pcg_launch", "fisheye_stereo_launch", "ba_lm_update_launch",
         "ba_classify_launch", "match_epilogue_launch", "twoview_unproject_launch", "twoview_verdict_launch",
+        "kfdb_score_launch", "ba_shard_blocks_launch", "ba_shard_round_launch", "ba_shard_cost_launch",
+        "ba_shard_commit_launch", "ba_shard_cg_setup_launch", "ba_shard_cg_start_launch", "ba_shard_cg_lm_launch",
+        "ba_shard_cg_pose_launch", "ba_shard_cg_update_launch", "ba_shard_cg_backsub_launch",
     }
     assert "arch=compute_90a,code=sm_90a" in _kernels.NVCC_FLAGS
     assert _kernels.LIB_PATH.parent.name == "_build"
@@ -1010,3 +1019,66 @@ def test_fisheye_kernels_match_plain_on_card(fisheye_checks, name):
     assert e["max_abs_err"] <= {"visible_landmarks": 1e-3, "pose_inertial": 5e-3, "vi_ba": 1e-2,
                                 "ba_blocks": 1e-4, "sim3_ransac": 1e-4, "sim3_refine": 2e-4}.get(name, 1e-3)
     assert counts[name if name == "fisheye_stereo" else f"{name}[kb8]"] >= 1
+
+
+def test_dist_wrappers_cpu_plain_and_other_devices_raise():
+    """AE and AF (parallel/dist_kfdb.py, parallel/dist_ba.py): CPU tensors
+    take the plain version (no launch); a tensor on another device (meta)
+    gets no plain path."""
+    import chip_smoke
+    from orb_slam3_fast_tpu_torch.parallel import dist_ba, dist_kfdb, multihost
+
+    ids, w, q = chip_smoke.kfdb_case(np.random.default_rng(0), 2000, n_rows=16, row_words=64)
+    lut = torch.from_numpy(np.concatenate([q, np.zeros(1, np.float32)]))
+    before = dist_kfdb.score_rows.launches.total(), dist_ba.LAUNCHES.total()
+    c, s = dist_kfdb.score_rows(torch.from_numpy(ids), torch.from_numpy(w), lut)
+    assert torch.equal(c, dist_kfdb.score_rows_plain(torch.from_numpy(ids), torch.from_numpy(w), lut)[0])
+    cam = cm.Camera.pinhole(400.0, 400.0, 320.0, 240.0)
+    prob = chip_smoke.ba_problem(np.random.default_rng(3), "cpu")
+    mesh = multihost.global_mesh("cpu")
+    inl = torch.ones_like(prob.obs_valid)
+    acc, W = dist_ba.blocks_partial(cam, 48.0, prob.R, prob.t, prob.xw, prob, inl)
+    p_acc, p_W = dist_ba.blocks_partial_plain(cam, 48.0, prob.R, prob.t, prob.xw, prob, inl)
+    assert torch.equal(acc, p_acc) and torch.equal(W, p_W)
+    assert (dist_kfdb.score_rows.launches.total(), dist_ba.LAUNCHES.total()) == before
+    meta = lambda t: t.to("meta")  # noqa: E731
+    with pytest.raises(ValueError, match="CUDA"):
+        dist_kfdb.score_rows(meta(torch.from_numpy(ids)), meta(torch.from_numpy(w)), meta(lut))
+    mprob = ba.BAProblem(*map(meta, prob))
+    with pytest.raises(ValueError, match="CUDA"):
+        dist_ba.blocks_partial(cam, 48.0, mprob.R, mprob.t, mprob.xw, mprob, meta(inl))
+    with pytest.raises(ValueError, match="CUDA"):
+        dist_ba.round_blocks(meta(acc), 32, 4096)
+    with pytest.raises(ValueError, match="CUDA"):
+        dist_ba.cg_solve(mesh, *map(meta, (prob.R.new_zeros(32, 6, 6), prob.xw.new_zeros(4096, 3, 3),
+                                           prob.R.new_zeros(32, 6), prob.xw.new_zeros(4096, 3), W)), mprob,
+                         meta(prob.xw.new_zeros(4096)), meta(torch.tensor(1e-4)), 4)
+
+
+@pytest.mark.cuda
+def test_dist_kernels_match_plain_on_card(cuda):
+    """AE bit for bit its plain version on the card; AF in a world of one
+    (no process group): one iteration's stages of the dense run (local-BA
+    caps) and of the CG run against their plain versions (state within
+    1e-5, the accepts equal: chip_smoke.af_stage_check), and each whole run
+    within 5e-4 / 5e-3 of the single-device BA (E -> F -> AC, E -> T ->
+    AC)."""
+    import chip_smoke
+    from orb_slam3_fast_tpu_torch.parallel import dist_kfdb, multihost
+
+    ids, w, q = chip_smoke.kfdb_case(np.random.default_rng(1), 10_000, n_rows=256)
+    lut = torch.from_numpy(np.concatenate([q, np.zeros(1, np.float32)])).to(cuda)
+    args = (torch.from_numpy(ids).to(cuda), torch.from_numpy(w).to(cuda), lut)
+    n0 = dist_kfdb.score_rows.launches.total()
+    ck, sk = dist_kfdb.score_rows(*args)
+    cp, sp = dist_kfdb.score_rows_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(ck, cp) and torch.equal(sk, sp) and dist_kfdb.score_rows.launches.total() == n0 + 1
+    mesh = multihost.global_mesh(cuda)
+    cam = cm.Camera.pinhole(400.0, 400.0, 320.0, 240.0)
+    for form, (prob, bf) in chip_smoke.af_problems(cuda).items():
+        run, shard = chip_smoke.af_run(mesh, cam, form, prob, bf)
+        checks = chip_smoke.af_stage_check(mesh, cam, bf, shard, form)
+        assert checks["state"] <= 1e-5, (form, checks)
+        err = chip_smoke.af_errors(run(shard), chip_smoke.single_run(cam, bf, prob, form))
+        assert err[0] <= 5e-4 and err[1] <= 5e-3, (form, err)

@@ -170,8 +170,9 @@ def test_loop_closes_alike_in_both_packages(monkeypatch, tmp_path):
     and 6.5e-3); the landmarks within 1e-2 of the scene's 9 m; the same
     landmarks replaced and the same observation table."""
     monkeypatch.setattr(tsim3, "_sample_subsets", jax_subsets)
-    # the port has one device; the JAX package's tests run on 8 virtual ones, where its global BA
-    # would take the sharded path (parallel/dist_ba.py, ROADMAP §A item 12): hold it to one device
+    # the JAX package's tests run on 8 virtual devices, where its global BA would take the sharded path
+    # (parallel/dist_ba.py); this test holds it to one device, as the port's lone process runs it. The sharded
+    # path of both packages is held against each other in tests/test_torch_dist_gba.py
     run_gba = JMapper._run_gba
     monkeypatch.setattr(JMapper, "_run_gba", lambda self, *a, **kw: run_gba(self, *a, **{**kw, "distributed": False}))
     cam_t, cam_j = tcam.Camera.pinhole(400.0, 400.0, 320.0, 240.0), jcam.Camera.pinhole(400.0, 400.0, 320.0, 240.0)

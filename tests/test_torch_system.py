@@ -17,6 +17,7 @@ from orb_slam3_fast_tpu.frontend import tracker as jtrk
 from orb_slam3_fast_tpu.map.worldmap import WorldMap as JMap
 from orb_slam3_fast_tpu.ops import extractor as jext
 from orb_slam3_fast_tpu.slam.system import System as JSystem
+from orb_slam3_fast_tpu_torch.parallel import multihost
 from orb_slam3_fast_tpu_torch.slam import system as tsys
 from tests import synthetic as syn
 
@@ -47,9 +48,11 @@ def test_numpy_scene_matches_synthetic():
 
 
 def test_not_ported_options_raise():
-    """The database on a device mesh raises, naming ROADMAP §A item 12;
-    loop closing on the fisheye two-camera rig builds, its loop closer on
-    the left KB8 camera (item 14 is ported).  The three inertial sensors build
+    """In a lone process the database stays host numpy and takes a world
+    of one's mesh when asked (ROADMAP §A item 12 is ported; several ranks:
+    tests/test_torch_multihost.py and tests/test_torch_dist_*.py); loop
+    closing on the fisheye two-camera rig builds, its loop closer on the
+    left KB8 camera (item 14 is ported).  The three inertial sensors build
     with loop closing and with the async backend (the default
     constructor), the loop closer wired to the inertial tracker's windowed
     VI-BA, MergeInertialBA and FullInertialBA, which run (on an empty map:
@@ -77,8 +80,10 @@ def test_not_ported_options_raise():
             assert slam.tracker._full_inertial_ba(slam.world, [0]) is False
             assert slam.tracker._merge_inertial_ba(slam.world, 1, 0) is None
             slam.shutdown()
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 12"):
-        tsys.System(CONFIG, "stereo", **OPTS).kfdb.attach_mesh(None)
+    slam = tsys.System(CONFIG, "stereo", **OPTS)
+    assert slam.kfdb.sharded is None
+    slam.kfdb.attach_mesh(multihost.global_mesh("cpu"))
+    assert slam.kfdb.sharded.max_kf == slam.kfdb.max_kf
     slam = tsys.System(CONFIG, "stereo", **dict(OPTS, enable_loop_closing=True, multi_map=True))
     assert slam.loopcloser.cfg.fix_scale and slam.atlas.current is slam.world
 

@@ -164,5 +164,20 @@ def test_database_matches_jax(vocs, frame_desc):
 
 
 def test_attach_mesh_waits_for_multi_device():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tdb.KeyFrameDatabase(100).attach_mesh(None)
+    """attach_mesh, ported (parallel/dist_kfdb.py): a world of one's mirror
+    holds every row and scores as the host does; a row added after it ships
+    to the mirror (tests/test_torch_dist_kfdb.py holds two ranks)."""
+    from orb_slam3_fast_tpu_torch.parallel import multihost
+
+    rng = np.random.default_rng(2)
+    db = tdb.KeyFrameDatabase(100, max_kf=8)
+    db.add(0, rng.uniform(0, 1, 100).astype(np.float32) * (rng.uniform(size=100) < 0.3))
+    db.attach_mesh(multihost.global_mesh("cpu"))
+    db.add(1, rng.uniform(0, 1, 100).astype(np.float32) * (rng.uniform(size=100) < 0.3))
+    assert (db.sharded.lo, db.sharded.hi) == (0, 8) and torch.equal(db.sharded.ids, torch.from_numpy(db.ids))
+    q = db.dense_row(1)
+    c, s, _ = db._scores(q, np.zeros(0, np.int64))
+    db.sharded = None
+    ch, sh, _ = db._scores(q, np.zeros(0, np.int64))
+    np.testing.assert_array_equal(c, ch)
+    np.testing.assert_allclose(s, sh, atol=1e-6)
