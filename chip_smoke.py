@@ -5,8 +5,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It imports only
 the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs sixteen phases:
 
 1. device: fails without CUDA; prints the card's name and power limit;
-2. build: compiles the thirty kernels (A-Y, no K or O, then Z, AA, AB,
-   AC, AD, AE and AF) from the 33 sources of ``orb_slam3_fast_tpu_torch/csrc``
+2. build: compiles the thirty-one kernels (A-Y, no K or O, then Z, AA,
+   AB, AC, AD, AE, AF and AG) from the 34 sources of
+   ``orb_slam3_fast_tpu_torch/csrc``
    (kernel W's camera kinds in three), one nvcc per source in parallel,
    each source's finishing time logged, and the map's host C++ library,
    so that no timed frame pays for g++;
@@ -59,7 +60,8 @@ the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs sixteen phases:
    zero step rejected with AC's cost E's bit for bit, the state within
    1e-5 of the plain version's with the same accepts and damping, two
    runs bit for bit, the gate's mask equal off the chi2 bound; E's
-   outputs bit for bit the parent commit's (``E_DIGESTS``); both BA forms
+   outputs bit for bit the parent commit's (``E_DIGESTS``), and AA's on its
+   problem in three camera instances (``AA_DIGESTS``); both BA forms
    timed whole with every plain LM function made to raise; AD (the
    searches' epilogues) at each search's stage set on kernel C's outputs
    at its shapes (stereo 1024 x 1024, projection 4096 x 1024,
@@ -184,13 +186,24 @@ the port (``orb_slam3_fast_tpu_torch``), never JAX, and runs sixteen phases:
    1e-5; kernel AF's dense run at the local caps and its CG run at phase
    3's global-BA size, one iteration's stages against their plain versions
    (the state within 1e-5, the accepts equal), each whole run within 5e-4
-   (R) and 5e-3 (t) of the single-device BA and of its plain run; times
-   split into kernels and collectives; (b) two gloo ranks spawned on the
+   (R) and 5e-3 (t) of the single-device BA and of its plain run; kernel
+   AG (FullInertialBA over observation shards) on phase 3's AA problem,
+   pin-hole and through TUM-VI's cam0: one LM step of its stages against
+   the plain stages (states within 1e-4, ten times AA's own distance from
+   them, the damping equal), the whole 5 + 8 run against AA's two-phase
+   run within 1e-6 (bit for bit by design, the inlier masks equal) and
+   its plain run within 2e-3; times split into kernels and collectives
+   beside AA's; (b) two gloo ranks spawned on the
    card (``run_ranks``): AE's scores bit for bit (a)'s, AF's runs in halves
-   within 5e-4 / 5e-3 of (a)'s and the ranks' states equal, then phase 9's
-   loop System run by both, synchronous: phase 9's gates, the loop at phase
-   9's frame +- 5, both ranks' keyframe poses and tracks bit for bit equal,
-   AE and AF launched on each rank, T not inside the global BA;
+   within 5e-4 / 5e-3 of (a)'s and AG's within 5e-3, the ranks' states
+   equal, then phase 9's loop System run by both, synchronous: phase 9's
+   gates, the loop at phase 9's frame +- 5, both ranks' keyframe poses and
+   tracks bit for bit equal, AE and AF launched on each rank, T not inside
+   the global BA; (c) phase 12 (a)'s stereo-inertial System with loop
+   closing run by both ranks, synchronous: phase 12's gates, the loop at
+   phase 12's frame +- 5, both ranks' keyframe states and tracks bit for
+   bit equal, AG launched on each rank and AA not (its global BA is
+   FullInertialBA over the shards);
 8. one frame of the plain (CPU) step, and the stereo and mono Systems, the
    relocalisation run (from the host mono run's state after frame 29), the
    RGB-D and the distorted mono Systems' first ``HOST_PREFIX`` frames and
@@ -3681,7 +3694,7 @@ def vi_loop_system(device):
     return slam
 
 
-def run_vi_loop(frames, poses, imu, device):
+def run_vi_loop(frames, poses, imu, device, track_out=None):
     """Phase 12 (a): the stereo-inertial System, synchronous, with loop
     closing and the Atlas, on the circle with its IMU stream.  The first
     loop correction's inputs are kept: the map as it stood just before it
@@ -3689,11 +3702,11 @@ def run_vi_loop(frames, poses, imu, device):
     a summary (state, frames tracked, the IMU-initialisation frame, loops
     and their frames, keyframes, the unscaled ATE of the frames tracked
     after the initialisation, in the gravity-aligned world) and the
-    snapshot."""
-    return _run_loop_with_snapshot(vi_loop_system(device), frames, poses, imu, device)
+    snapshot; a list ``track_out`` receives each frame's (state, R, t)."""
+    return _run_loop_with_snapshot(vi_loop_system(device), frames, poses, imu, device, track_out)
 
 
-def _run_loop_with_snapshot(slam, frames, poses, imu, device):
+def _run_loop_with_snapshot(slam, frames, poses, imu, device, track_out=None):
     """Phases 12 (a), 14 and 15 (c): a synchronous System with loop closing
     on a stereo sequence (with its IMU stream, or ``imu`` None), or on the
     images of a monocular one, the first loop correction's map and
@@ -3714,7 +3727,8 @@ def _run_loop_with_snapshot(slam, frames, poses, imu, device):
         return correct(world, k, c, S_kc)
 
     lc._correct = kept
-    est, gt, ts, closed_at, init_frame, track = [], [], [], [], None, []
+    est, gt, ts, closed_at, init_frame = [], [], [], [], None
+    track = [] if track_out is None else track_out
     samples = imu_slices(imu, len(frames)) if imu is not None else [()] * len(frames)
     mono = slam.sensor.startswith("monocular")
     for i, (f, (R, t), smp) in enumerate(zip(frames, poses, samples)):
@@ -3745,14 +3759,16 @@ def _run_loop_with_snapshot(slam, frames, poses, imu, device):
     return slam, summary, snapshot
 
 
-def check_vi_loop(summary, launches) -> None:
+def check_vi_loop(summary, launches, gba: str = "vi_pcg") -> None:
     """Phase 12 (a)'s gates: final OK, > 120 frames tracked, the IMU
-    initialised, >= 1 loop closed, unscaled ATE < VI_LOOP_MAX_ATE; Z and AA
-    launched on the path, S, U and T not."""
+    initialised, >= 1 loop closed, unscaled ATE < VI_LOOP_MAX_ATE; Z and
+    ``gba`` (FullInertialBA's kernel: AA, or AG on several ranks, and then
+    AA not) launched on the path, S, U and T not."""
     ok = (summary["state"] == "OK" and summary["tracked"] > 120 and summary["init_frame"] is not None
           and summary["loops"] >= 1 and summary.get("ate_unscaled_m", 1e9) < VI_LOOP_MAX_ATE)
-    kernels = launches["pose_graph4"] >= 1 and launches["vi_pcg"] >= 1 and not (
-        launches["sim3_graph"] or launches["sim3_pcg"] or launches["ba_pcg"])
+    kernels = launches["pose_graph4"] >= 1 and launches[gba] >= 1 and not (
+        launches["sim3_graph"] or launches["sim3_pcg"] or launches["ba_pcg"]
+        or (gba != "vi_pcg" and launches["vi_pcg"]))
     if not (ok and kernels):
         raise RuntimeError(f"stereo-inertial loop System gates failed: {summary}, launches {launches}")
 
@@ -4590,6 +4606,11 @@ def log_frame_kinds(label: str, slam, summary) -> None:
 # robust cost into csrc/ba_obs.cuh computes them on an H100 (``track_spread.py --e-digest --root <parent>``): phase 3
 # holds E to them bit for bit (recorded from commit fc1a711 on an NVIDIA H100 80GB HBM3, CUDA 12.8)
 E_DIGESTS = {"pinhole": "50d4839b138e60af", "radtan": "adec1a69cd130040", "kb8": "29bfef4090596071"}
+# Kernel AA's outputs on phase 3's AA problem in its three camera instances (``aa_digests``), as the parent of the
+# commit that moved AA's passes into csrc/vi_pcg.cuh computes them on an H100 (``track_spread.py --aa-digest --root
+# <parent>``): phase 3 holds AA to them bit for bit (recorded from commit ef5bbc0 on an NVIDIA H100 80GB HBM3, CUDA
+# 12.8)
+AA_DIGESTS = {"pinhole": "1360d553709f65e2", "radtan": "7ec2089a63203b34", "kb8": "5c64f01580142793"}
 
 
 def lm_cameras() -> dict:
@@ -4752,6 +4773,9 @@ def compare_lm_kernels(device) -> list[dict]:
     digests = e_digests(device)
     if digests != E_DIGESTS:
         raise RuntimeError(f"kernel E's outputs moved: {digests}, the parent's {E_DIGESTS}")
+    aa = aa_digests(device)
+    if aa != AA_DIGESTS:
+        raise RuntimeError(f"kernel AA's outputs moved: {aa}, the parent's {AA_DIGESTS}")
     cams = lm_cameras()
     obs_flops = {"pinhole": 60, "radtan": 80, "kb8": 120}
     rows = {}
@@ -4795,9 +4819,9 @@ def compare_lm_kernels(device) -> list[dict]:
     runs = [2 + n for n in BA_REPS]
     if not (n_e == n_u == 15 * runs[0] + 20 * runs[1] and n_c == 2 * sum(runs)):
         raise RuntimeError(f"the BA forms on the card: E {n_e}, AC's update {n_u}, its gate {n_c} launches")
-    whole = (f"; E's outputs bit for bit the parent's ({digests}); with every plain LM function refusing, "
-             f"bundle_adjust 5+10 via E -> F -> AC {times['bundle_adjust']:.3f} ms and bundle_adjust_cg 8+12 via "
-             f"E -> T -> AC {times['bundle_adjust_cg']:.3f} ms, AC launched once per E launch; "
+    whole = (f"; E's outputs bit for bit the parent's ({digests}), AA's too ({aa}); with every plain LM function "
+             f"refusing, bundle_adjust 5+10 via E -> F -> AC {times['bundle_adjust']:.3f} ms and bundle_adjust_cg "
+             f"8+12 via E -> T -> AC {times['bundle_adjust_cg']:.3f} ms, AC launched once per E launch; "
              f"{time.perf_counter() - t0:.1f} s for AC's rows")
 
     def entry(name, key, replaces, what, err, tolerance, tail=""):
@@ -5063,10 +5087,205 @@ def single_run(cam, bf: float, prob, form: str):
     return ba_cg.bundle_adjust_cg(cam, bf, prob, *AF_CG, cg_iters=32)
 
 
+AG_RUN = (5, 8)  # kernel AG's whole runs: full_inertial_ba_cg's LM steps, 40 CG iterations a step
+AG_CG = 40
+AG_TOL = 5e-3  # AG's run in halves against the world of one's (tests/test_dist_ba.py:72)
+# one LM step of AG's stages against the plain stages (states, landmarks in m): AG's step is AA's bit for bit, whose
+# float32 observation terms the plain step sums in another order; read on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md's
+# errors): 1.04e-5 (pin-hole), 1.41e-5 (KB8) and 1.19e-5 (the 200-keyframe world) in the states, at most 1.68e-4,
+# 2.05e-4 and 1.08e-4 m in the landmarks; the gates are about twice and five times the largest
+AG_STEP_TOL = (3e-5, 1e-3)
+AG_CASES = ("pinhole", "kb8")  # phase 3's AA problem through the pin-hole camera and through TUM-VI's cam0
+# (a) also holds AG on phase 3's 200-keyframe world, whose per-state loops take several passes of AG's CTA
+AG_WORLD1_CASES = AG_CASES + ("world200",)
+
+
+def vi_camera_case(device, kind: str) -> tuple:
+    """Phase 3's AA problem (``vi_cg_problem``, seed 12) in a camera
+    instance (``lm_cameras``): the pin-hole's as it is; with EuRoC cam0's
+    distortion (``"radtan"``) or TUM-VI's cam0 (``"kb8"``) its pixels on
+    the same rays, every edge monocular (``kb8_mono``).  Returns (camera,
+    problem)."""
+    prob, _ = vi_cg_problem(np.random.default_rng(12), device)
+    cam = lm_cameras()[kind]
+    if kind != "pinhole":
+        prob = prob._replace(obs_uv=kb8_mono(prob.obs_uv, cam), obs_is_stereo=torch.zeros_like(prob.obs_is_stereo))
+    return cam, prob
+
+
+def ag_case(device, kind: str) -> tuple:
+    """(camera, problem) of an ``AG_WORLD1_CASES`` case: ``vi_camera_case``'s,
+    or for ``"world200"`` phase 3's 200-keyframe world (``inertial_world``,
+    seed 13) as the inertial tracker gathers it for FullInertialBA
+    (keyframe 0 fixed; the pin-hole camera = body)."""
+    if kind != "world200":
+        return vi_camera_case(device, kind)
+    w, _, _, _ = inertial_world(np.random.default_rng(13), n_kf=200, device=device)
+    return lm_cameras()["pinhole"], inertial_tracker(w, device).full_inertial_problem(w, [0])[0]
+
+
+def aa_two_phase(cam, prob, iters=AG_RUN, cg_iters: int = AG_CG, bf: float = 0.0, T_cb=None) -> tuple:
+    """Kernel AA's ``full_inertial_ba_cg`` schedule (segments of 2 LM
+    steps, the chi2 gate after each phase) on ``prob`` (``T_cb`` None: camera
+    = body): ((R, p, v, bias, xw, inlier), the CG iterations its segments
+    ran)."""
+    from orb_slam3_fast_tpu_torch.optim import vi_ba_cg
+    from orb_slam3_fast_tpu_torch.utils import lie
+
+    ran = []
+
+    def segment(cam, bf, T_cb, prob, R, p, v, b, xw, inlier, lam, n_iters, cg_iters):
+        info = {}
+        out = vi_ba_cg._kernel(cam, bf, T_cb, prob, (R, p, v, b), xw, inlier, lam, n_iters, cg_iters, info)
+        ran.append(info["cg_run"])
+        return out
+
+    def classify(cam, bf, T_cb, prob, R, p, xw):
+        return vi_ba_cg._kernel(cam, bf, T_cb, prob, (R, p, None, None), xw, None, None, 0, 0)
+
+    T_cb = lie.SE3.identity(prob.xw.device) if T_cb is None else T_cb
+    out = vi_ba_cg._two_phase(segment, classify, cam, bf, T_cb, prob, *iters, cg_iters, 2, None)
+    return out[:6], sum(ran)
+
+
+def aa_digests(device) -> dict:
+    """Kernel AA's outputs on phase 3's problem in each camera instance
+    (``vi_camera_case``): a segment of 2 LM steps (40 CG iterations: the
+    state, landmarks, damping, cost and CG iterations run), the
+    classification at its result, and the whole 5 + 8 solve (``aa_two_phase``,
+    with its inlier mask): the first 16 hex digits of the SHA-256 of their
+    bytes, by instance."""
+    import hashlib
+
+    from orb_slam3_fast_tpu_torch.optim import vi_ba_cg
+    from orb_slam3_fast_tpu_torch.utils import lie
+
+    out = {}
+    T_id = lie.SE3.identity(device)
+    for kind in ("pinhole", "radtan", "kb8"):
+        cam, pr = vi_camera_case(device, kind)
+        inl = torch.ones(pr.obs_kf.shape[0], dtype=torch.bool, device=device)
+        info = {}
+        seg = vi_ba_cg._kernel(cam, 0.0, T_id, pr, (pr.R_wb, pr.p_wb, pr.v_w, pr.bias), pr.xw, inl,
+                               torch.tensor(1e-4, device=device), 2, AG_CG, info)
+        cls = vi_ba_cg._kernel(cam, 0.0, T_id, pr, (seg[0], seg[1], None, None), seg[4], None, None, 0, 0)
+        whole, cg_run = aa_two_phase(cam, pr)
+        h = hashlib.sha256()
+        for x in (*seg, cls, *whole):
+            h.update(x.contiguous().cpu().numpy().tobytes())
+        h.update(f"{info['cg_run']} {cg_run}".encode())
+        out[kind] = h.hexdigest()[:16]
+    return out
+
+
+def ag_run(mesh, cam, prob, plain: bool = False) -> tuple:
+    """AG's whole run (``make_distributed_vi_ba_cg``, ``AG_RUN``, camera =
+    body) on this rank's shard of ``prob``: (run, shard)."""
+    from orb_slam3_fast_tpu_torch.parallel import dist_ba
+    from orb_slam3_fast_tpu_torch.utils import lie
+
+    run = dist_ba.make_distributed_vi_ba_cg(mesh, cam, 0.0, lie.SE3.identity(prob.xw.device), *AG_RUN, AG_CG,
+                                            plain=plain)
+    return run, dist_ba.shard_vi_problem(prob, mesh)
+
+
+def ag_stage_check(mesh, cam, prob) -> dict:
+    """One LM step of AG's stages (a segment of one step, 40 CG iterations)
+    from the problem's start on this rank's shard against its plain stages
+    on the same CUDA tensors, and AG's classification at the result against
+    the plain one: the largest state difference (rotation entries,
+    positions, velocities, biases), the landmarks', the damping equal, the
+    cost's relative difference, the observations classified otherwise."""
+    from orb_slam3_fast_tpu_torch.optim import vi_ba_cg
+    from orb_slam3_fast_tpu_torch.parallel import dist_ba
+    from orb_slam3_fast_tpu_torch.utils import lie
+
+    dev = prob.xw.device
+    shard = dist_ba.shard_vi_problem(prob, mesh)
+    loc = shard.local
+    T_id = lie.SE3.identity(dev)
+    args = (cam, 0.0, T_id, loc, loc.R_wb, loc.p_wb, loc.v_w, loc.bias, loc.xw, torch.ones_like(loc.obs_valid),
+            torch.tensor(1e-4, device=dev), 1, AG_CG)
+    k = dist_ba.lm_segment_vi_shard(*args, mesh=mesh, csr=shard.csr)
+    p = dist_ba.lm_segment_vi_shard_plain(*args, mesh=mesh)
+    ck = dist_ba.classify_vi_shard(cam, 0.0, T_id, loc, k[0], k[1], k[4])
+    cp = vi_ba_cg.classify_vi_plain(cam, 0.0, T_id, loc, k[0], k[1], k[4])
+    return dict(state=max(float((a - b).abs().max()) for a, b in zip(k[:4], p[:4])),
+                xw=float((k[4] - p[4]).abs().max()), lam_equal=float(k[5]) == float(p[5]),
+                cost=abs(float(k[6]) - float(p[6])) / max(abs(float(p[6])), 1e-12), flips=int((ck != cp).sum()))
+
+
+def ag_bytes(K: int, M: int, O: int, E: int, steps: int, cg: int) -> int:
+    """Bytes AG's run must move: AA's (``vi_pcg_bytes``), then each step the
+    shard's observation table (26 a row) and its W (72) once, and each
+    collective's float64 sums in and out: 42 K + 13 M + 1, 42 K, per CG
+    iteration 3 M and 6 K, then 3 M and 1."""
+    coll = 42 * K + 13 * M + 1 + 42 * K + cg * (3 * M + 6 * K) + 3 * M + 1
+    return vi_pcg_bytes(K, M, O, E) + steps * (O * (26 + 72) + 2 * 8 * coll)
+
+
+def check_ag_world1(device, mesh) -> tuple[dict, dict]:
+    """Phase 16 (a) for kernel AG in a world of one, on ``AG_WORLD1_CASES``:
+    one LM step of its stages against the plain stages (``AG_STEP_TOL``, the
+    damping equal, at most 2 flags), the whole run against AA's two-phase
+    run (1e-6, the inlier masks equal: bit for bit by design) and against
+    the plain run (2e-3, phase 3's bound for AA); kernel and collective
+    times beside AA's and the plain run's.  Returns (AG's entry, the runs'
+    (R, p, v, bias, xw) per ``AG_CASES`` case for (b))."""
+    from orb_slam3_fast_tpu_torch.optim import vi_ba_cg
+    from orb_slam3_fast_tpu_torch.utils import lie
+
+    rows, ref = {}, {}
+    for kind in AG_WORLD1_CASES:
+        cam, prob = ag_case(device, kind)
+        stages = ag_stage_check(mesh, cam, prob)
+        if not (stages["state"] <= AG_STEP_TOL[0] and stages["xw"] <= AG_STEP_TOL[1] and stages["lam_equal"]
+                and stages["flips"] <= 2):
+            raise RuntimeError(f"vi_shard {kind}: one step's stages off the plain stages: {stages} (states, "
+                               f"landmarks {AG_STEP_TOL}, the damping equal, 2 flags)")
+        run, shard = ag_run(mesh, cam, prob)
+        out = run(shard)
+        aa, cg_run = aa_two_phase(cam, prob)
+        plain, plain_ms = timed(lambda: ag_run(mesh, cam, prob, plain=True)[0](shard))
+        e_aa = max(float((a - b).abs().max()) for a, b in zip(out[:5], aa[:5]))
+        e_plain = max(float((a - b).abs().max()) for a, b in zip(out[:4], plain[:4]))
+        if not (e_aa <= 1e-6 and torch.equal(out[5], aa[5]) and e_plain <= 2e-3):
+            raise RuntimeError(f"vi_shard {kind} run: {e_aa:.3g} from AA's two-phase run (1e-6), inlier masks equal "
+                               f"{torch.equal(out[5], aa[5])}, {e_plain:.3g} from the plain run (2e-3)")
+        ms, coll_ms = af_timed(mesh, run, shard, 3)
+        aa_ms = cuda_ms(lambda: vi_ba_cg.full_inertial_ba_cg(cam, 0.0, lie.SE3.identity(device), prob), 3, warmup=1)
+        K, M, O, E = prob.R_wb.shape[0], prob.xw.shape[0], prob.obs_kf.shape[0], prob.edge_i.shape[0]
+        steps = sum(AG_RUN)
+        rows[kind] = dict(K=K, M=M, O=O, E=E, stages=stages, e_aa=e_aa, e_plain=e_plain, ms=ms, coll_ms=coll_ms,
+                          aa_ms=aa_ms, plain_ms=plain_ms, cg_run=cg_run,
+                          **bound(ag_bytes(K, M, O, E, steps, AG_CG), vi_pcg_ops(K, M, O, E, steps, cg_run)))
+        if kind in AG_CASES:
+            ref[kind] = tuple(x.cpu().numpy() for x in out[:5])
+    c = rows["pinhole"]
+    each = "; ".join(
+        f"{kind} {AG_RUN[0]}+{AG_RUN[1]} LM steps, {AG_CG} CG iterations a step (K={r['K']}, M={r['M']}, O={r['O']}, "
+        f"E={r['E']}, {r['cg_run']} CG iterations needed): {r['ms']:.3f} ms a run, {r['coll_ms']:.3f} of it in "
+        f"collectives (AA's whole solve {r['aa_ms']:.3f}, the plain run {r['plain_ms']:.3f}, bound "
+        f"{r['bound_ms']:.5f} {r['bound_by']}), {r['e_aa']:.2e} from AA's run, {r['e_plain']:.2e} from the plain "
+        f"run; one step's stages: states {r['stages']['state']:.2e}, landmarks {r['stages']['xw']:.2e}, cost "
+        f"{r['stages']['cost']:.2e} relative, damping equal {r['stages']['lam_equal']}, {r['stages']['flips']} "
+        "flags" for kind, r in rows.items())
+    entry = dict(name="vi_shard", route="cuda", source="orb_slam3_fast_tpu_torch/csrc/vi_shard.cu",
+                 replaces="orb_slam3_fast_tpu/parallel/dist_ba.py:309",
+                 max_abs_err=max(r["stages"]["state"] for r in rows.values()), library_ms=None,
+                 ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+                 collective_ms=c["coll_ms"],
+                 shapes="max_abs_err: the states after one LM step of the stages against the plain stages' "
+                        f"(tolerance {AG_STEP_TOL[0]}, the damping equal); a world of one (NCCL); " + each +
+                        "; no single library call")
+    return entry, ref
+
+
 def _rank_main(rank: int, world: int, tmp: str) -> None:
-    """Phase 16 (b), one rank: its shard of AE's rows and of AF's problems
-    (the times split into kernels and collectives), then phase 9's loop
-    System, synchronous, with every plain epilogue refused; the results
+    """Phase 16 (b) and (c), one rank: its shard of AE's rows and of AF's
+    and AG's problems (the times split into kernels and collectives), then
+    phase 9's loop System and phase 12 (a)'s stereo-inertial loop System,
+    synchronous, each with every plain epilogue refused; the results
     pickled to ``tmp/rank{rank}.pkl`` (a traceback where it failed)."""
     import os
     import pickle
@@ -5077,7 +5296,7 @@ def _rank_main(rank: int, world: int, tmp: str) -> None:
     out: dict = {}
     try:
         from orb_slam3_fast_tpu_torch.cameras.models import Camera
-        from orb_slam3_fast_tpu_torch.parallel import dist_kfdb, multihost
+        from orb_slam3_fast_tpu_torch.parallel import dist_ba, dist_kfdb, multihost
 
         multihost.initialize(f"file://{tmp}/gloo_store", world, rank)
         mesh = multihost.global_mesh()
@@ -5093,6 +5312,12 @@ def _rank_main(rank: int, world: int, tmp: str) -> None:
             run, shard = af_run(mesh, cam, form, prob, bf)
             out["af"][form] = tuple(x.cpu().numpy() for x in run(shard)[:3])
             out["af_ms"][form] = af_timed(mesh, run, shard, 2)
+        out["ag"] = {}
+        for kind in AG_CASES:
+            run, shard = ag_run(mesh, *vi_camera_case(device, kind))
+            out["ag"][kind] = tuple(x.cpu().numpy() for x in run(shard)[:5])
+            if kind == "pinhole":
+                out["ag_ms"] = af_timed(mesh, run, shard, 1)
         frames = np.load(f"{tmp}/frames.npy", mmap_mode="r")
         poses = circle_trajectory(LOOP_FRAMES, radius=4.0, frac=1.12)
         refused, restore_plain = refuse_plain_functions()
@@ -5110,6 +5335,35 @@ def _rank_main(rank: int, world: int, tmp: str) -> None:
         out["kf"] = (w.kf_R[: w.n_kf].copy(), w.kf_t[: w.n_kf].copy())
         out["track"] = [(s, np.asarray(R), np.asarray(t)) for s, R, t in track]
         out["collectives"] = mesh.log.calls
+        # 16 (c): phase 12 (a)'s stereo-inertial System with loop closing; its global BA is FullInertialBA (AG)
+        del slam, frames
+        pairs = np.load(f"{tmp}/vi_frames.npy", mmap_mode="r")
+        vi_poses, imu = circle_trajectory_with_imu(LOOP_FRAMES)
+        out["vi_gba_shapes"], shard_vi = [], dist_ba.shard_vi_problem
+
+        def recorded(prob, mesh):  # each FullInertialBA's (K, M, O, E), as the tracker gathered it
+            out["vi_gba_shapes"].append(tuple(getattr(prob, f).shape[0] for f in ("R_wb", "xw", "obs_kf", "edge_i")))
+            return shard_vi(prob, mesh)
+
+        refused, restore_plain = refuse_plain_functions()
+        reset_counts()
+        dist_ba.shard_vi_problem = recorded
+        t, vi_track = time.perf_counter(), []
+        try:
+            slam_v, summary_v, _ = run_vi_loop([(np.array(a), np.array(b)) for a, b in pairs], vi_poses, imu, device,
+                                               track_out=vi_track)
+        finally:
+            dist_ba.shard_vi_problem = shard_vi
+        out["vi_loop_s"] = time.perf_counter() - t
+        out["vi_counts"] = path_counts("projection", "mutual")
+        restore_plain()
+        if refused:
+            raise RuntimeError(f"plain functions ran on CUDA tensors in 16 (c): {sorted(set(refused))}")
+        w = slam_v.tracker.world
+        out["vi_summary"] = summary_v
+        out["vi_closure_ms"] = float(max(slam_v.timers.spans["track_total"]))
+        out["vi_kf"] = tuple(getattr(w, f)[: w.n_kf].copy() for f in ("kf_R", "kf_t", "kf_vel", "kf_bias"))
+        out["vi_track"] = [(s, np.asarray(R), np.asarray(t)) for s, R, t in vi_track]
     except BaseException:  # noqa: BLE001 -- reported by the parent, which fails the phase
         out["error"] = traceback.format_exc()
     with open(f"{tmp}/rank{rank}.pkl", "wb") as f:
@@ -5148,16 +5402,20 @@ def run_ranks(tmp: str) -> list[dict]:
     return outs
 
 
-def run_phase16(device, loop_in, loop_summary) -> tuple[list[dict], dict]:
-    """Phase 16: (a) a NCCL world of one in this process: AE and AF against
-    their plain versions, the host database and the single-device BAs;
-    (b) ``RANKS`` gloo ranks spawned on the card: AE's scores bit for bit
-    (a)'s, AF's runs in halves within ``AF_TOL`` of (a)'s, the ranks' states
-    bit for bit equal, and phase 9's loop System run by every rank
-    (phase 9's gates, the loop at phase 9's frame +- 5, the ranks'
-    keyframe poses and tracks bit for bit equal, AE and AF launched, T not
-    inside the global BA).  Returns (AE's and AF's entries, rank 0's
-    launch counts of the System run)."""
+def run_phase16(device, loop_in, loop_summary, vi_loop_in, vi_loop_summary) -> tuple[list[dict], dict]:
+    """Phase 16: (a) a NCCL world of one in this process: AE, AF and AG
+    against their plain versions, the host database, the single-device BAs
+    and AA's two-phase run; (b) ``RANKS`` gloo ranks spawned on the card:
+    AE's scores bit for bit (a)'s, AF's and AG's runs in halves within
+    ``AF_TOL`` and ``AG_TOL`` of (a)'s, the ranks' states bit for bit equal,
+    and phase 9's loop System run by every rank (phase 9's gates, the loop
+    at phase 9's frame +- 5, the ranks' keyframe poses and tracks bit for
+    bit equal, AE and AF launched, T not inside the global BA); (c) phase
+    12 (a)'s stereo-inertial loop System run by every rank (phase 12's
+    gates, the loop at phase 12's frame +- 5, the ranks' keyframe states and
+    tracks bit for bit equal, AG launched and AA not).  Returns (AE's, AF's
+    and AG's entries, rank 0's launch counts of the two System runs by
+    path)."""
     import pickle
     import tempfile
 
@@ -5172,16 +5430,21 @@ def run_phase16(device, loop_in, loop_summary) -> tuple[list[dict], dict]:
         try:
             ae, kfdb_ref = check_kfdb_kernel(device, mesh)
             af, af_ref = check_af_world1(device, mesh)
+            ag, ag_ref = check_ag_world1(device, mesh)
         finally:
             torch.distributed.destroy_process_group()
         log(f"16 (a) a NCCL world of one: {time.perf_counter() - t0:.1f} s")
         t1 = time.perf_counter()
         np.save(f"{tmp}/frames.npy", np.stack([np.asarray(f, np.float32) for f in loop_in]))
+        np.save(f"{tmp}/vi_frames.npy", np.stack([np.stack([np.asarray(a, np.float32), np.asarray(b, np.float32)])
+                                                  for a, b in vi_loop_in]))
         with open(f"{tmp}/job.pkl", "wb") as f:
             pickle.dump({"kfdb": {n: v[:3] for n, v in kfdb_ref.items()}}, f)
         outs = run_ranks(tmp)
-        log(f"16 (b) {RANKS} ranks on the card ({outs[0]['backend']}): {time.perf_counter() - t1:.1f} s, the loop "
-            f"System {', '.join('%.1f' % o['loop_s'] for o in outs)} s, {outs[0]['collectives']} collectives a rank")
+        log(f"16 (b, c) {RANKS} ranks on the card ({outs[0]['backend']}): {time.perf_counter() - t1:.1f} s, the loop "
+            f"System {', '.join('%.1f' % o['loop_s'] for o in outs)} s, {outs[0]['collectives']} collectives a rank; "
+            f"the stereo-inertial loop System {', '.join('%.1f' % o['vi_loop_s'] for o in outs)} s, its slowest "
+            f"frame {', '.join('%.1f' % o['vi_closure_ms'] for o in outs)} ms")
     failures = []
     for n, (ids, w, q, ck, sk) in kfdb_ref.items():
         for r, o in enumerate(outs):
@@ -5211,12 +5474,43 @@ def run_phase16(device, loop_in, loop_summary) -> tuple[list[dict], dict]:
             failures.append(f"rank {r}: keyframe poses or track not bit for bit rank 0's")
         log(f"16 (b) rank {r}: {s}")
     log(f"launches in 16 (b), rank 0: {outs[0]['counts']}")
+    for kind, ref in ag_ref.items():
+        e = max(float(np.abs(a - b).max()) for a, b in zip(outs[0]["ag"][kind], ref))
+        if not e <= AG_TOL:
+            failures.append(f"AG {kind} in halves: {e:.3g} from (a)'s (tolerance {AG_TOL})")
+        if not all(np.array_equal(a, b) for o in outs[1:] for a, b in zip(o["ag"][kind], outs[0]["ag"][kind])):
+            failures.append(f"AG {kind}: the ranks' states differ")
+        log(f"16 (b) AG {kind} in halves: {e:.2e} from (a)'s" + ("; a run " + ", ".join(
+            f"rank {r} {o['ag_ms'][0]:.3f} ms ({o['ag_ms'][1]:.3f} in collectives)" for r, o in enumerate(outs))
+            if kind == "pinhole" else ""))
+    closed12 = vi_loop_summary["closed_at"]
+    for r, o in enumerate(outs):
+        s = o["vi_summary"]
+        try:
+            check_vi_loop(s, o["vi_counts"], gba="vi_shard")
+        except RuntimeError as err:
+            failures.append(f"16 (c) rank {r}: {err}")
+        if not (s["closed_at"] and closed12 and abs(s["closed_at"][0] - closed12[0]) <= 5):
+            failures.append(f"16 (c) rank {r}: the loop closed at {s['closed_at']}, phase 12's at {closed12} (+- 5)")
+        if r and not (all(np.array_equal(a, b) for a, b in zip(o["vi_kf"], outs[0]["vi_kf"])) and
+                      all(a[0] == b[0] and np.array_equal(a[1], b[1]) and np.array_equal(a[2], b[2])
+                          for a, b in zip(o["vi_track"], outs[0]["vi_track"]))):
+            failures.append(f"16 (c) rank {r}: keyframe states or track not bit for bit rank 0's")
+        log(f"16 (c) rank {r}: {s}")
+    log(f"launches in 16 (c), rank 0: {outs[0]['vi_counts']}; its FullInertialBA problems (K, M, O, E): "
+        f"{outs[0]['vi_gba_shapes']}")
+    if not outs[0]["vi_gba_shapes"]:
+        failures.append("16 (c): no FullInertialBA over the ranks")
     if failures:
         raise RuntimeError("phase 16:\n" + "\n".join(failures))
     af["shapes"] += "; in halves over 2 gloo ranks on the card: " + ", ".join(
         f"{form} {outs[0]['af_ms'][form][0]:.3f} ms a run ({outs[0]['af_ms'][form][1]:.3f} in collectives)"
         for form in af_ref)
-    return [ae, af], outs[0]["counts"]
+    ag["shapes"] += (f"; in halves over 2 gloo ranks on the card: pinhole {outs[0]['ag_ms'][0]:.3f} ms a run "
+                     f"({outs[0]['ag_ms'][1]:.3f} in collectives); 16 (c)'s stereo-inertial loop System on each rank "
+                     f"{outs[0]['vi_loop_s']:.1f} s, its slowest frame (the loop closure) {outs[0]['vi_closure_ms']:.1f} "
+                     f"ms, its FullInertialBA problems (K, M, O, E) {outs[0]['vi_gba_shapes']}")
+    return [ae, af, ag], {"ranks_loop": outs[0]["counts"], "ranks_vi_loop": outs[0]["vi_counts"]}
 
 
 # --- kernel AD: the searches' epilogues (phase 3), the plain epilogues refused on the card (phases 5-15) -------
@@ -5537,7 +5831,7 @@ WRAPPER_NAMES = ("fast_nms", "orb_describe", "hamming_best2", "pose_lm", "ba_blo
                  "pyramid_blur", "select_subpixel", "stereo_subpixel_refine", "visible_landmarks", "twoview_ransac",
                  "vocab_transform", "pnp_ransac", "sim3_ransac", "sim3_refine", "sim3_graph", "ba_pcg", "sim3_pcg",
                  "imu_preint", "pose_inertial", "imu_init", "vi_ba", "pose_graph4", "vi_pcg", "fisheye_stereo",
-                 "ba_lm_update", "ba_classify", "match_epilogue", "kfdb_score", "ba_shard")
+                 "ba_lm_update", "ba_classify", "match_epilogue", "kfdb_score", "ba_shard", "vi_shard")
 VI_KERNELS = ("imu_preint", "pose_inertial", "imu_init", "vi_ba")  # V, W, X, Y: the inertial path
 LM_KERNELS = ("ba_lm_update", "ba_classify")  # AC's two entries: wherever a BA runs
 # the stereo System runs A-L and AC, N to index its keyframes, and not M or P
@@ -5563,7 +5857,7 @@ RADTAN_KERNELS = ("pose_lm", "ba_blocks", "sim3_ransac", "sim3_refine", "twoview
 
 def wrappers() -> dict:
     """Each kernel's wrapper, by the kernel's name (S and U share one; AF's
-    entries share one counter)."""
+    entries share one counter, and AG's)."""
     from orb_slam3_fast_tpu_torch.frontend import tracker as trk
     from orb_slam3_fast_tpu_torch.imu import preintegration as pre
     from orb_slam3_fast_tpu_torch.ops import extractor as ext
@@ -5585,7 +5879,7 @@ def wrappers() -> dict:
                                     inertial.pose_inertial_optimization, imu_init.inertial_only_optimization,
                                     vi_ba.vi_bundle_adjust, pg.optimize_4dof_graph, vi_ba_cg.lm_segment_vi,
                                     mat.fisheye_stereo_gate, ba.lm_update, ba.classify, ham.match_epilogue,
-                                    dist_kfdb.score_rows, dist_ba.blocks_partial)))
+                                    dist_kfdb.score_rows, dist_ba.blocks_partial, dist_ba.lm_segment_vi_shard)))
 
 
 def reset_counts() -> None:
@@ -6156,11 +6450,11 @@ def run_phases() -> int:
     log(f"phases 5-15: no plain epilogue function ({', '.join(EPILOGUE_PLAIN)}) and neither of kernel M's plain "
         f"stages ({', '.join(TWOVIEW_PLAIN)}) ran on a CUDA tensor")
 
-    # 16. several ranks (before phase 8 too): (a) a NCCL world of one here, kernels AE and AF against their plain
-    # versions, the host database and the single-device BAs; (b) two gloo ranks spawned on the card: AE and AF in
-    # halves, then phase 9's loop System run by both
+    # 16. several ranks (before phase 8 too): (a) a NCCL world of one here, kernels AE, AF and AG against their plain
+    # versions, the host database, the single-device BAs and AA's run; (b) two gloo ranks spawned on the card: AE, AF
+    # and AG in halves, then phase 9's loop System run by both; (c) phase 12 (a)'s stereo-inertial loop System, by both
     t0 = time.perf_counter()
-    ranks_kernels, ranks_launches = run_phase16(device, loop_in, summary_l)
+    ranks_kernels, ranks_launches = run_phase16(device, loop_in, summary_l, vil_in[0], summary_v)
     for k in ranks_kernels:
         log(f"kernel {k['name']}: max_abs_err {k['max_abs_err']:.3g}, {k['ms']:.4f} ms vs plain {k['plain_ms']:.4f} "
             f"ms, bound {k['bound_ms']:.5f} ms ({k['bound_by']}) ({k['shapes']})")
@@ -6286,12 +6580,12 @@ def run_phases() -> int:
             "fisheye": launches_fe, "fisheye_reloc": launches_fr, "fisheye_vi": launches_fv,
             "fisheye_loop": fl_runs["stereo"][0], "fisheye_vi_loop": fl_runs["stereo-inertial"][0],
             "fisheye_mono": launches_fm, "fisheye_mono_vi": launches_fmv, "fisheye_mono_loop": launches_flm,
-            "ranks_loop": ranks_launches}
+            **ranks_launches}
     main_run = {"twoview_ransac": "mono_system", "vocab_transform": "mono_system", "pnp_ransac": "relocalisation",
                 "sim3_ransac": "loop", "sim3_refine": "loop", "sim3_graph": "loop", "ba_pcg": "loop",
                 "sim3_pcg": "loop_pcg", **{name: "vi_mono" for name in VI_KERNELS}, "pose_graph4": "vi_loop",
                 "vi_pcg": "vi_loop", "fisheye_stereo": "fisheye", "kfdb_score": "ranks_loop",
-                "ba_shard": "ranks_loop"}
+                "ba_shard": "ranks_loop", "vi_shard": "ranks_vi_loop"}
     kb8_run = {"pnp_ransac": "fisheye_reloc", "pose_inertial": "fisheye_vi", "vi_ba": "fisheye_vi",
                "sim3_ransac": "fisheye_loop", "sim3_refine": "fisheye_loop", "vi_pcg": "fisheye_vi_loop",
                "twoview_ransac": "fisheye_mono"}

@@ -157,6 +157,9 @@ SIGNATURES = {
     # is_stereo, obs_valid, edge_i, edge_j, edge_valid, pk, lm_ptr, lm_obs, kf_ptr, kf_obs, ke_ptr, ke_edge,
     # inlier, n_iters, cg_iters, scratch, lam_io, state_out, xw_out, inlier_out, stream
     "vi_pcg_launch": [_P, _I, _P] + [_I] * 4 + [_P] * 24 + [_I] * 2 + [_P] * 6,
+    # kernel AG (csrc/vi_shard.cu): stage, then vi_pcg_launch's cam10 ... inlier_in over the rank's shard, lead (1 on
+    # rank 0), scratch, part (float64 partial sums), lam_io, state_out, xw_out, inlier_out, stream
+    "vi_shard_launch": [_I, _P, _I, _P] + [_I] * 4 + [_P] * 24 + [_I] + [_P] * 7,
     # xy_l, level_l, xy_r, level_r, idx, dist, dist2, col, sigma2, n, cams16 (host), Rt (host), ratio, th,
     # min_cos, depth, x3d, valid, stream
     "fisheye_stereo_launch": [_P] * 9 + [_I, _P, _P, _F, _I, _F] + [_P] * 4,

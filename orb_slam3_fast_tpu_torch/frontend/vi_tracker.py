@@ -35,9 +35,9 @@ the inertial tracker's solves (the IMU initialisation, the local VI-BA,
 the scale refinement, FullInertialBA) holds the backend's map lock, never
 around a kernel; the JAX package runs them on the tracker thread with no
 lock while the worker maps.  On a world of several ranks
-(``parallel/multihost.py``) FullInertialBA raises: its form over
-observation shards (the JAX package's ``make_distributed_vi_ba_cg``) is not
-ported yet.
+(``parallel/multihost.py``) FullInertialBA runs over observation shards
+(``parallel/dist_ba.make_distributed_vi_ba_cg``, kernel AG), its abort flag
+read once after the solve, as the JAX package's sharded branch does.
 """
 from __future__ import annotations
 
@@ -52,7 +52,7 @@ from orb_slam3_fast_tpu_torch.imu import preintegration as pre
 from orb_slam3_fast_tpu_torch.map.worldmap import host
 from orb_slam3_fast_tpu_torch.backend.mapper import correct_new_since_snapshot
 from orb_slam3_fast_tpu_torch.optim import imu_init, inertial, vi_ba, vi_ba_cg
-from orb_slam3_fast_tpu_torch.parallel import multihost
+from orb_slam3_fast_tpu_torch.parallel import dist_ba, multihost
 from orb_slam3_fast_tpu_torch.utils import lie, verbose
 
 
@@ -630,18 +630,16 @@ class InertialTracker(Tracker):
         of an inertial map, LoopClosing.cc:2397-2650): every valid
         keyframe's 15-D state, the whole preintegration chain and every
         landmark and observation, no caps, through kernel AA
-        (``optim/vi_ba_cg.py``).  The gather and the write-back hold
-        ``map_lock``; the solve runs outside it and polls ``abort_flag``
-        between its segments.  Keyframes made meanwhile follow the
+        (``optim/vi_ba_cg.py``), or on a world of several ranks over
+        observation shards through kernel AG (``parallel/dist_ba.py``).  The
+        gather and the write-back hold ``map_lock``; the solve runs outside
+        it and polls ``abort_flag`` between its segments (on several ranks
+        once after it).  Keyframes made meanwhile follow the
         correction (``correct_new_since_snapshot``), their velocities turned
         with their poses, and an outlier observation is erased only where
         its slot still holds the landmark that was gathered.  Returns True
         when the solve completed (False: aborted, nothing to solve, or the
         map changed frame while it ran, ``n_ba_discarded``)."""
-        if multihost.process_info()[1] > 1:
-            raise NotImplementedError("FullInertialBA over several ranks (the JAX package's make_distributed_vi_ba_cg) "
-                                      "waits for the remainder of ROADMAP §A item 12: kernel AA's segment split at "
-                                      "every CG matvec")
         w = world
         lock = map_lock if map_lock is not None else contextlib.nullcontext()
         with lock:
@@ -652,9 +650,15 @@ class InertialTracker(Tracker):
             prob, kf_ids, fixed, lm_ids, obs_lm, kf_sel, slots = gathered
             K_snap, M_snap = w.n_kf, w.n_lm
             R_before, t_before = w.kf_R[:K_snap].copy(), w.kf_t[:K_snap].copy()
-        R2, p2, v2, b2, xw2, inlier, aborted = vi_ba_cg.full_inertial_ba_cg(
-            self.cam, self.bf, self.T_cb, prob, iters1=iters[0], iters2=iters[1], cg_iters=cg_iters,
-            abort_flag=abort_flag)
+        if multihost.process_info()[1] > 1:
+            mesh = multihost.global_mesh(self.device)
+            run = dist_ba.get_distributed_vi_ba_cg(mesh, self.cam, self.bf, self.T_cb, iters[0], iters[1], cg_iters)
+            R2, p2, v2, b2, xw2, inlier = run(dist_ba.shard_vi_problem(prob, mesh))
+            aborted = abort_flag is not None and abort_flag.is_set()
+        else:
+            R2, p2, v2, b2, xw2, inlier, aborted = vi_ba_cg.full_inertial_ba_cg(
+                self.cam, self.bf, self.T_cb, prob, iters1=iters[0], iters2=iters[1], cg_iters=cg_iters,
+                abort_flag=abort_flag)
         if aborted:
             return False  # an aborted global BA is discarded (LoopClosing.cc:2412-2422)
         Rc, tc = camera_from_body(self.T_cb, R2, p2)

@@ -95,11 +95,20 @@ def _visual_cost(cam, bf, T_cb, R_wb, p_wb, xw, prob: VIBAProblem, inlier):
     return vb._visual_blocks(cam, bf, T_cb, R_wb, p_wb, xw, prob, inlier, with_blocks=False)
 
 
+def _identity(x):
+    return x
+
+
 def _implicit_vi_solve(Hpp, Hll, bp, bl, Wob, Hii, Hjj, Hij, g_chain, obs_kf, obs_lm, edge_i, edge_j, w_lm,
-                       state_fixed, lm_valid, lam, cg_iters: int):
+                       state_fixed, lm_valid, lam, cg_iters: int, reduce_k=_identity, reduce_m=_identity):
     """PCG on the landmark-Schur-reduced 15-D state system applied as an
     operator, in float64 (kernel AA's arithmetic).  Returns (dx (K,15), dl
-    (M,3)) in float32."""
+    (M,3)) in float32.
+
+    ``reduce_k`` / ``reduce_m`` sum a (K,...) / (M,...) tensor of partial
+    sums over the observation shards (the JAX package's hooks, the identity
+    on one device; ``parallel/dist_ba.py`` passes ``Mesh.all_reduce``): the
+    visual blocks must already be reduced and the chain's blocks replicated."""
     f64 = torch.float64
     K, M = Hpp.shape[0], Hll.shape[0]
     dev = Hpp.device
@@ -120,10 +129,12 @@ def _implicit_vi_solve(Hpp, Hll, bp, bl, Wob, Hii, Hjj, Hij, g_chain, obs_kf, ob
     damp = lam * torch.clamp(diag15, min=1e-3)
 
     def Zt_v(v6):  # (K,6) -> (M,3)
-        return torch.zeros((M, 3), dtype=f64, device=dev).index_add_(0, lm, torch.einsum("oab,oa->ob", Wob, v6[kf]))
+        t = torch.einsum("oab,oa->ob", Wob, v6[kf])
+        return reduce_m(torch.zeros((M, 3), dtype=f64, device=dev).index_add_(0, lm, t))
 
     def Z_y(y):  # (M,3) -> (K,6)
-        return torch.zeros((K, 6), dtype=f64, device=dev).index_add_(0, kf, torch.einsum("oab,ob->oa", Wob, y[lm]))
+        t = torch.einsum("oab,ob->oa", Wob, y[lm])
+        return reduce_k(torch.zeros((K, 6), dtype=f64, device=dev).index_add_(0, kf, t))
 
     def S_mv(v):
         v = v * free_f
@@ -143,7 +154,7 @@ def _implicit_vi_solve(Hpp, Hll, bp, bl, Wob, Hii, Hjj, Hij, g_chain, obs_kf, ob
     D.index_add_(0, ei, Hii).index_add_(0, ej, Hjj)
     D = D + torch.diag_embed(damp)
     coup = torch.einsum("oab,obc,odc->oad", Wob, Vinv[lm], Wob)
-    D[:, 0:6, 0:6] -= torch.zeros((K, 6, 6), dtype=f64, device=dev).index_add_(0, kf, coup)
+    D[:, 0:6, 0:6] -= reduce_k(torch.zeros((K, 6, 6), dtype=f64, device=dev).index_add_(0, kf, coup))
     Dinv = torch.linalg.inv(torch.where(free[:, None, None], D, eyeS) + 1e-5 * eyeS)
 
     def precond(r):
@@ -172,16 +183,22 @@ def _implicit_vi_solve(Hpp, Hll, bp, bl, Wob, Hii, Hjj, Hij, g_chain, obs_kf, ob
     return dx.to(torch.float32), dl.to(torch.float32)
 
 
-def _lm_step_vi(cam, bf, T_cb, prob: VIBAProblem, R_wb, p_wb, v_w, bias, xw, inlier, lam, cg_iters: int):
-    """One LM step: (R, p, v, bias, xw, lam) after it and the cost before it."""
+def _lm_step_vi(cam, bf, T_cb, prob: VIBAProblem, R_wb, p_wb, v_w, bias, xw, inlier, lam, cg_iters: int,
+                reduce_k=_identity, reduce_m=_identity, reduce_s=_identity):
+    """One LM step: (R, p, v, bias, xw, lam) after it and the cost before it.
+    On observation shards (``reduce_*`` the JAX package's hooks) the visual
+    blocks and costs are the shard's partial sums, reduced by ``reduce_s``;
+    the chain is replicated and not reduced."""
     Hpp, Hll, bp, bl, Wob, w_lm, vcost = _visual_blocks_cg(cam, bf, T_cb, R_wb, p_wb, xw, prob, inlier)
+    Hpp, Hll, bp, bl, w_lm, vcost = (reduce_s(x) for x in (Hpp, Hll, bp, bl, w_lm, vcost))
     Hii, Hjj, Hij, g_chain, icost = _inertial_edge_blocks(prob, R_wb, p_wb, v_w, bias)
     dx, dl = _implicit_vi_solve(Hpp, Hll, bp, bl, Wob, Hii, Hjj, Hij, g_chain, prob.obs_kf, prob.obs_lm, prob.edge_i,
-                                prob.edge_j, w_lm, prob.state_fixed, prob.lm_valid, lam, cg_iters)
+                                prob.edge_j, w_lm, prob.state_fixed, prob.lm_valid, lam, cg_iters, reduce_k=reduce_k,
+                                reduce_m=reduce_m)
     R_new = R_wb @ lie.so3_exp(dx[:, 0:3])
     p_new = p_wb + torch.einsum("kij,kj->ki", R_wb, dx[:, 3:6])
     v_new, b_new, xw_new = v_w + dx[:, 6:9], bias + dx[:, 9:15], xw + dl
-    cost_new = _visual_cost(cam, bf, T_cb, R_new, p_new, xw_new, prob, inlier) + \
+    cost_new = reduce_s(_visual_cost(cam, bf, T_cb, R_new, p_new, xw_new, prob, inlier)) + \
         _inertial_cost(prob, R_new, p_new, v_new, b_new)
     accept = cost_new < vcost + icost
     pick = [torch.where(accept, a, c) for a, c in ((R_new, R_wb), (p_new, p_wb), (v_new, v_w), (b_new, bias),

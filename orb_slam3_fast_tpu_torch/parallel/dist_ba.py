@@ -34,12 +34,22 @@ in the single-device BA (the JAX runs also drop an invalid landmark's
 observations there, ``dist_ba.py:132``; their solves do not see them).  A
 world of one computes what E -> F -> AC and E -> T -> AC compute.
 
-The factories cache nothing: a run closes over its mesh, camera, ``bf`` and
-iteration counts and is rebuilt per call at no cost, so no camera can go
-stale in it (the JAX package's caches key on the mesh size, the camera's
-kind and the counts, ``dist_ba.py:326, 340, 354``, and return one camera's
-compiled program for another).  FullInertialBA over shards
-(``shard_vi_problem``, ``make_distributed_vi_ba_cg``) is not ported.
+* FullInertialBA (``shard_vi_problem`` :221, ``make_distributed_vi_ba_cg``
+  :245-321): the visual observations sharded, the 15-D states, the
+  landmarks and the preintegration chain whole on every rank; per LM step
+  the shard's visual sums (``reduce_s``, JAX ``optim/vi_ba_cg.py:320-321,
+  335``), the coupling at setup and per CG iteration (``reduce_k`` /
+  ``reduce_m``, ``:239, 243, 277``) all-reduced, the chain computed alike
+  by every rank.  Kernel AG on CUDA tensors, the plain LM step of
+  ``optim/vi_ba_cg.py`` with ``Mesh.all_reduce`` as its hooks on CPU ones.
+  Returns (R_wb, p_wb, v_w, bias, xw, inlier) with the inlier mask of the
+  whole table, gathered, unpadded.
+
+The factories cache nothing: a run closes over its mesh, camera, ``bf``
+(and ``T_cb``) and iteration counts and is rebuilt per call at no cost, so
+no camera can go stale in it (the JAX package's caches key on the mesh
+size, the camera's kind and the counts, ``dist_ba.py:326, 340, 354``, and
+return one camera's compiled program for another).
 
 Kernel AF -- source note.
   Replaces: the jitted ``run`` of ``make_distributed_ba``
@@ -63,18 +73,52 @@ Kernel AF -- source note.
   ``all_reduce`` / ``all_gather`` between launches on the same stream and
   reads nothing back mid-solve.  Every sum keeps T's and E's fixed order
   within a shard.
+
+Kernel AG -- source note.
+  Replaces: the jitted ``run`` of ``make_distributed_vi_ba_cg``
+  (``orb_slam3_fast_tpu/parallel/dist_ba.py:309``, its ``shard_map`` body
+  ``:272-306``), K27's third run: FullInertialBA's LM steps over the
+  observation shards with the psums of ``_lm_step_vi`` and
+  ``_implicit_vi_solve``, the replicated chain, the chi2 gate per phase.
+  Bound on the card: as kernel AA's (its note in ``optim/vi_ba_cg.py``):
+  the shard's observation table and its W once a step, and the
+  collectives: a step reduces 42 K + 13 M + 1, then 42 K, then per CG
+  iteration 3 M and 6 K, then 3 M and 1 float64 sums; 40 CG iterations
+  are 84 dependent collectives a step, which set the pace where the ranks
+  share a card over gloo.
+  Design: ``csrc/vi_shard.cu``, AA's device code (its header
+  ``vi_pcg.cuh``) behind one entry with a stage argument, each stage one
+  CTA of AA's 512 threads running AA's passes (the per-landmark sums of
+  the CG one thread a landmark), cut where the sums over the
+  observations end: obs (the shard's rows and sums; the chain, replicated)
+  -> all_reduce; landmarks (V^-1, each state's chain terms, the shard's
+  coupling) -> all_reduce; start (the block-Jacobi inverses, r.z); per CG
+  iteration cg_lm -> all_reduce, cg_zy -> all_reduce, cg_update (one CTA,
+  a device-side freeze once r.z <= 1e-12 where AA leaves its loop);
+  backsub -> all_reduce; candidate -> all_reduce; commit.  Where AA
+  subtracts a sum over the observations term by term from a starting
+  value (D's pose block, the back-substitution's bl), rank 0's partial
+  starts from that value and the others' from zero, so a world of one
+  runs AA's arithmetic in AA's order and its result bit for bit; the
+  damping crosses segments in float32, as it crosses AA's launches.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from orb_slam3_fast_tpu_torch import _kernels
+from orb_slam3_fast_tpu_torch.imu import preintegration as pre
 from orb_slam3_fast_tpu_torch.optim import ba, ba_cg
+from orb_slam3_fast_tpu_torch.optim import inertial as inr
+from orb_slam3_fast_tpu_torch.optim import vi_ba as vb
+from orb_slam3_fast_tpu_torch.optim import vi_ba_cg as vbc
 from orb_slam3_fast_tpu_torch.optim.ba import BAProblem
-from orb_slam3_fast_tpu_torch.optim.pose_opt import CAMERA_NAMES
+from orb_slam3_fast_tpu_torch.optim.pose_opt import CAMERA_NAMES, kernel_camera
+from orb_slam3_fast_tpu_torch.optim.vi_ba import VIBAProblem
 from orb_slam3_fast_tpu_torch.parallel.multihost import Mesh
 
 STATE = ("R", "t", "pose_fixed", "xw", "lm_valid")
@@ -436,3 +480,224 @@ def get_distributed_ba_cg(mesh: Mesh, cam, bf, iters1: int, iters2: int, cg_iter
 
 for _wrapper in (blocks_partial, round_blocks, update_partial, commit, cg_solve):
     _wrapper.launches = LAUNCHES
+
+
+# --- FullInertialBA over observation shards: kernel AG's stages ---------------------------------------------------
+
+class VIShard(NamedTuple):
+    local: VIBAProblem  # this rank's observation rows (padded), the whole states, landmarks and chain
+    csr: tuple  # (lm_ptr, lm_obs, kf_ptr, kf_obs) over the shard's valid rows, (ke_ptr, ke_edge) each state's edges
+    n_obs: int  # the whole table's observations, before the padding
+
+
+def shard_vi_problem(prob: VIBAProblem, mesh: Mesh) -> VIShard:
+    """This rank's contiguous chunk of ``prob``'s observations, padded with
+    ``obs_valid=False`` rows to a multiple of the world size (a padded row
+    is in no CSR and adds nothing), the states, landmarks, edges and
+    windows whole, on the mesh's device, with the shard's CSRs."""
+    dev = mesh.device
+    O = prob.obs_kf.shape[0]
+    pad = -O % mesh.world
+    n = O + pad
+    lo, hi = mesh.rank * n // mesh.world, (mesh.rank + 1) * n // mesh.world
+
+    def rows(f):
+        a = getattr(prob, f).to(dev)
+        if pad:
+            a = torch.cat([a, torch.full((pad,) + a.shape[1:], OBS_PAD[f], dtype=a.dtype, device=dev)])
+        return a[lo:hi].contiguous()
+
+    whole = {f: getattr(prob, f).to(dev) for f in VIBAProblem._fields if f not in OBS and f != "preint"}
+    local = prob._replace(**whole, **{f: rows(f) for f in OBS}, preint=prob.preint.to(dev))
+    K, M = local.R_wb.shape[0], local.xw.shape[0]
+    i32 = torch.int32
+    kf, lm, ei, ej = (getattr(local, f).to(i32) for f in ("obs_kf", "obs_lm", "edge_i", "edge_j"))
+    csr = (*vb._csr(lm, None, M, local.obs_valid), *vb._csr(kf, lm, K, local.obs_valid),
+           *vb._state_edges(ei, ej, local.edge_valid, K))
+    return VIShard(local, csr, O)
+
+
+VI_LAUNCHES = _kernels.LaunchCounter()  # kernel AG's stages, by mode (the stage's name) and camera instance
+# LM steps a launch segment of AG, full_inertial_ba_cg's: the damping crosses segments in float32 as it crosses AA's
+# launches, so that a world of one runs AA's arithmetic
+VI_SEGMENT = 2
+# kernel AG's stages in the order of csrc/vi_shard.cu's stage numbers
+VI_STAGES = ("begin", "obs", "landmarks", "start", "cg_lm", "cg_zy", "cg_update", "backsub", "candidate", "commit",
+             "end", "classify")
+
+
+def vi_part_doubles(K: int, M: int) -> int:
+    """Doubles of AG's buffer of partial sums: all_reduce #1's 42 K + 13 M + 1,
+    the largest; each later stage's sums use its start."""
+    return 42 * K + 13 * M + 1
+
+
+def lm_segment_vi_shard_plain(cam, bf, T_cb, prob: VIBAProblem, R_wb, p_wb, v_w, bias, xw, inlier, lam,
+                              n_iters: int = 2, cg_iters: int = 40, *, mesh: Mesh):
+    """Plain version of AG's segment: ``n_iters`` plain LM steps
+    (``optim/vi_ba_cg._lm_step_vi``) on the shard ``prob`` with every hook
+    ``mesh.all_reduce``.  Returns (R_wb, p_wb, v_w, bias, xw, lam, the last
+    step's cost before it)."""
+    lam = torch.as_tensor(lam, dtype=torch.float32, device=xw.device)
+    cost = torch.zeros((), dtype=torch.float32, device=xw.device)
+    red = mesh.all_reduce
+    for _ in range(n_iters):
+        R_wb, p_wb, v_w, bias, xw, lam, cost = vbc._lm_step_vi(cam, bf, T_cb, prob, R_wb, p_wb, v_w, bias, xw, inlier,
+                                                               lam, cg_iters, reduce_k=red, reduce_m=red,
+                                                               reduce_s=red)
+    return R_wb, p_wb, v_w, bias, xw, lam, cost
+
+
+def lm_segment_vi_shard(cam, bf, T_cb, prob: VIBAProblem, R_wb, p_wb, v_w, bias, xw, inlier, lam,
+                        n_iters: int = 2, cg_iters: int = 40, *, mesh: Mesh, csr):
+    """``n_iters`` LM steps of FullInertialBA on this rank's shard ``prob``
+    (its CSRs ``csr``, ``VIShard.csr``): kernel AG's stages on CUDA tensors
+    (6 + 3 ``cg_iters`` launches and 4 + 2 ``cg_iters`` all_reduces a step,
+    2 more launches a segment, no host read), the plain version on CPU ones.
+    Returns (R_wb, p_wb, v_w, bias, xw, lam, cost), the same on every rank."""
+    if xw.device.type == "cpu":
+        return lm_segment_vi_shard_plain(cam, bf, T_cb, prob, R_wb, p_wb, v_w, bias, xw, inlier, lam, n_iters,
+                                         cg_iters, mesh=mesh)
+    return _segment_kernel(cam, bf, T_cb, prob, R_wb, p_wb, v_w, bias, xw, inlier, lam, n_iters, cg_iters, mesh=mesh,
+                           csr=csr)
+
+
+def classify_vi_shard(cam, bf, T_cb, prob: VIBAProblem, R_wb, p_wb, xw):
+    """AG's classify stage (AA's chi2 gate) over the shard's observations on
+    CUDA tensors, ``classify_vi``'s plain version on CPU ones: the shard's
+    (O,) inlier mask."""
+    if xw.device.type == "cpu":
+        return vbc.classify_vi_plain(cam, bf, T_cb, prob, R_wb, p_wb, xw)
+    return _classify_kernel(cam, bf, T_cb, prob, R_wb, p_wb, xw)
+
+
+def _classify_kernel(cam, bf, T_cb, prob: VIBAProblem, R_wb, p_wb, xw):
+    out = torch.empty(prob.obs_kf.shape[0], dtype=torch.bool, device=xw.device)
+    args, kind, _keep = _vi_args(cam, bf, T_cb, prob, None, (R_wb, p_wb, prob.v_w, prob.bias), xw, None)
+    _vi_launch(xw.device, "classify", kind, args, 0, None, None, None, None, None, out)
+    return out
+
+
+def _vi_args(cam, bf, T_cb, prob: VIBAProblem, csr, state, xw, inlier):
+    """AG's problem arguments (cam10 ... inlier_in of ``vi_shard_launch``),
+    the camera's kind and the tensors they point into; ``csr`` None: the
+    classification's (the CSR, edge and window pointers unread)."""
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    dev = xw.device
+    cam10, kind = kernel_camera(cam, bf, "kernel AG")
+    c = {name: getattr(prob, name).contiguous() for name in VIBAProblem._fields if name != "preint"}
+    for name in ("obs_kf", "obs_lm", "edge_i", "edge_j"):
+        c[name] = c[name].to(i32)
+    R, p, v, b, xw = (x.to(f32).contiguous() for x in (*state, xw))
+    inl = (torch.ones(prob.obs_kf.shape[0], dtype=b8, device=dev) if inlier is None else inlier).contiguous()
+    types = dict(state_fixed=b8, lm_valid=b8, obs_kf=i32, obs_lm=i32, obs_uv=f32, obs_inv_sigma2=f32,
+                 obs_is_stereo=b8, obs_valid=b8, edge_i=i32, edge_j=i32, edge_valid=b8)
+    _kernels.require_cuda("kernel AG", R_wb=(R, f32), p_wb=(p, f32), v_w=(v, f32), bias=(b, f32), xw=(xw, f32),
+                          inlier=(inl, b8), **{k: (c[k], t) for k, t in types.items()})
+    cam10 = cam10.to(dev)
+    tcb = torch.cat([T_cb.R.reshape(9), T_cb.t]).to(device=dev, dtype=f32).contiguous()
+    if csr is None:
+        pk, csr = inl, (inl,) * 6
+    else:
+        pk = pre.pack(prob.preint.to(dev))
+        _kernels.require_cuda("kernel AG", **{f"csr{i}": (t, i32) for i, t in enumerate(csr)})
+    K, M, O, E = R.shape[0], xw.shape[0], c["obs_kf"].shape[0], c["edge_i"].shape[0]
+    keep = (cam10, tcb, R, p, v, b, xw, inl, pk, *c.values(), *csr)
+    ptr = [t.data_ptr() for t in (R, p, v, b, c["state_fixed"], xw, c["lm_valid"], c["obs_kf"], c["obs_lm"],
+                                  c["obs_uv"], c["obs_inv_sigma2"], c["obs_is_stereo"], c["obs_valid"], c["edge_i"],
+                                  c["edge_j"], c["edge_valid"], pk, *csr, inl)]
+    return (cam10.data_ptr(), kind, tcb.data_ptr(), K, M, O, E, *ptr), kind, keep
+
+
+def _vi_launch(dev, stage: str, kind: int, args: tuple, lead: int, scratch, part, lam_io, state_out, xw_out,
+               inlier_out=None) -> None:
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    _kernels.launch("vi_shard_launch", dev, VI_STAGES.index(stage), *args, lead, ptr(scratch), ptr(part), ptr(lam_io),
+                    ptr(state_out), ptr(xw_out), ptr(inlier_out))
+    VI_LAUNCHES.add(mode=stage, camera=CAMERA_NAMES[kind])
+
+
+def _segment_kernel(cam, bf, T_cb, prob: VIBAProblem, R_wb, p_wb, v_w, bias, xw, inlier, lam, n_iters: int,
+                    cg_iters: int, *, mesh: Mesh, csr):
+    f32, f64 = torch.float32, torch.float64
+    dev = xw.device
+    args, kind, _keep = _vi_args(cam, bf, T_cb, prob, csr, (R_wb, p_wb, v_w, bias), xw, inlier)
+    K, M, O, E = args[3:7]
+    scratch = torch.empty(vbc.vi_pcg_scratch_doubles(K, M, O, E), dtype=f64, device=dev)
+    part = torch.empty(vi_part_doubles(K, M), dtype=f64, device=dev)
+    lam_io = torch.zeros(3, dtype=f32, device=dev)  # lam in, then lam | cost | CG iterations run out
+    lam_io[0] = lam
+    state_out = torch.empty((K, 21), dtype=f32, device=dev)
+    xw_out = torch.empty((M, 3), dtype=f32, device=dev)
+    lead = int(mesh.rank == 0)
+
+    def stage(name: str, reduce: int = 0) -> None:
+        _vi_launch(dev, name, kind, args, lead, scratch, part, lam_io, state_out, xw_out)
+        if reduce:
+            mesh.all_reduce(part[:reduce])
+
+    stage("begin")
+    for _ in range(n_iters):
+        stage("obs", vi_part_doubles(K, M))
+        stage("landmarks", 42 * K)
+        stage("start")
+        for _ in range(cg_iters):
+            stage("cg_lm", 3 * M)
+            stage("cg_zy", 6 * K)
+            stage("cg_update")
+        stage("backsub", 3 * M)
+        stage("candidate", 1)
+        stage("commit")
+    stage("end")
+    s = inr.unpack_state(state_out)
+    return s.R, s.p, s.v, s.bias, xw_out, lam_io[0], lam_io[1]
+
+
+class VIStages(NamedTuple):
+    segment: object
+    classify: object
+
+
+VI_DISPATCH = VIStages(lm_segment_vi_shard, classify_vi_shard)
+VI_PLAIN = VIStages(lm_segment_vi_shard_plain, vbc.classify_vi_plain)
+
+
+def _run_vi(mesh: Mesh, st: VIStages, cam, bf, T_cb, shard: VIShard, iters1: int, iters2: int, cg_iters: int):
+    """``vi_ba_cg.full_inertial_ba_cg``'s two robust phases (the damping
+    1e-4 at each, the chi2 gate after each, no abort flag) on the shard,
+    the inlier mask gathered and unpadded."""
+    step = functools.partial(st.segment, mesh=mesh, **({} if st is VI_PLAIN else dict(csr=shard.csr)))
+    R, p, v, b, xw, inlier, _ = vbc._two_phase(step, st.classify, cam, bf, T_cb, shard.local, iters1, iters2,
+                                               cg_iters, VI_SEGMENT, None)
+    return R, p, v, b, xw, mesh.all_gather(inlier)[: shard.n_obs]
+
+
+def make_distributed_vi_ba_cg(mesh: Mesh, cam, bf, T_cb, iters1: int = 5, iters2: int = 8, cg_iters: int = 40,
+                              plain: bool = False):
+    """FullInertialBA over observation shards for ``mesh``: ``iters1`` LM
+    steps, the chi2 gate, ``iters2`` more from the damping 1e-4, the gate
+    again, ``cg_iters`` CG iterations a step (``VI_SEGMENT`` steps a
+    launch segment).  No abort flag: the caller reads its own once after
+    the run, as the JAX package's tracker does.  Returns ``run(shard) ->
+    (R_wb, p_wb, v_w, bias, xw, inlier)`` for a ``VIShard``, ``inlier`` the
+    whole table's (gathered, unpadded); ``plain`` runs the plain stages on
+    any device."""
+    st = VI_PLAIN if plain else VI_DISPATCH
+
+    def run(shard: VIShard):
+        return _run_vi(mesh, st, cam, bf, T_cb, shard, iters1, iters2, cg_iters)
+
+    return run
+
+
+def get_distributed_vi_ba_cg(mesh: Mesh, cam, bf, T_cb, iters1: int, iters2: int, cg_iters: int = 40):
+    """The inertial tracker's FullInertialBA over the ranks (the JAX
+    package's cached factory, whose key omits ``bf``, the intrinsics and
+    ``T_cb``): built anew per call."""
+    return make_distributed_vi_ba_cg(mesh, cam, bf, T_cb, iters1=iters1, iters2=iters2, cg_iters=cg_iters)
+
+
+lm_segment_vi_shard.launches = VI_LAUNCHES
+classify_vi_shard.launches = VI_LAUNCHES

@@ -47,8 +47,10 @@ the group up, and where the world has more than one rank and its size
 divides ``max_keyframes`` the keyframe database scores on the ranks
 (``attach_mesh``, kernel AE), as the JAX package's System.cc wiring does
 (``slam/system.py:65-76``); the loop closer's global BA then runs over
-observation shards (kernel AF).  Every rank runs the same program on the
-same frames and holds the same map.  Only the synchronous backend
+observation shards: kernel AF's CG run on a visual map, FullInertialBA
+(kernel AG) on an inertial one, so an inertial System with loop closing
+runs on the ranks too.  Every rank runs the same program on the same
+frames and holds the same map.  Only the synchronous backend
 (``async_backend=False``) runs so: the worker threads of the async one
 would schedule differently on each rank and the ranks' collectives would
 not match, so it raises ``ValueError`` there.

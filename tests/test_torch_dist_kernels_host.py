@@ -1,15 +1,18 @@
-"""Kernels AE (csrc/kfdb_score.cu) and AF (csrc/ba_shard.cu) compiled for
-the host with g++ through the emulated-CTA harness of
-tests/test_torch_ba_lm_host.py and tests/test_torch_loop_kernels_host.py
-(one std::thread per CUDA thread; a launch of several CTAs runs them one
-after another; every CTA here at its full width, up to AF's one-CTA
-launches of 1024 threads, since the kernels stride by their launch
-constants), beside E, T and AC (ba_blocks.cu, ba_pcg.cu, ba_lm.cu) and
-through the wrappers' marshalling, at a world of one (no process group):
-AE bit for bit its plain version; AF's stages bit for bit E's, T's and
-AC's on the same inputs (a world of one runs their arithmetic in their
-order), and its whole dense and CG runs those of E -> F -> AC (F's plain
-version on both sides) and E -> T -> AC.  The card runs the same sources
+"""Kernels AE (csrc/kfdb_score.cu), AF (csrc/ba_shard.cu) and AG
+(csrc/vi_shard.cu) compiled for the host with g++ through the emulated-CTA
+harness of tests/test_torch_ba_lm_host.py and
+tests/test_torch_loop_kernels_host.py (one std::thread per CUDA thread; a
+launch of several CTAs runs them one after another; every CTA of AE, AF
+and their neighbours at its full width, up to AF's one-CTA launches of
+1024 threads, since those kernels stride by their launch constants; AA's
+and AG's, which stride by the block's width, at most 64 threads), beside
+E, T and AC (ba_blocks.cu, ba_pcg.cu, ba_lm.cu) and through the wrappers'
+marshalling, at a world of one (no process group): AE bit for bit its
+plain version; AF's stages bit for bit E's, T's and AC's on the same
+inputs (a world of one runs their arithmetic in their order), and its
+whole dense and CG runs those of E -> F -> AC (F's plain version on both
+sides) and E -> T -> AC; AG's whole two-phase run kernel AA's (vi_pcg.cu)
+bit for bit, both at the same width.  The card runs the same sources
 (tests/test_torch_kernels.py's cuda cases, chip_smoke.py phase 16)."""
 import ctypes
 import shutil
@@ -24,6 +27,7 @@ from orb_slam3_fast_tpu_torch.cameras import models as cm
 from orb_slam3_fast_tpu_torch.optim import ba as tba
 from orb_slam3_fast_tpu_torch.optim import ba_cg as tcg
 from orb_slam3_fast_tpu_torch.parallel import dist_ba, dist_kfdb, multihost
+from orb_slam3_fast_tpu_torch.utils import lie as tlie
 from tests.test_torch_ba_lm_host import BF, small_problem
 from tests.test_torch_fisheye_kernels_host import _FISHEYE_STUB
 from tests.test_torch_loop_kernels_host import _host_source
@@ -31,10 +35,14 @@ from tests.test_torch_vi_kernels_host import EMULATED_THREADS
 
 torch.set_num_threads(1)
 
-SOURCES = ("kfdb_score.cu", "ba_shard.cu", "ba_blocks.cu", "ba_lm.cu", "ba_pcg.cu")
+VI_SOURCES = ("vi_pcg.cu", "vi_shard.cu")  # kernels AA and AG: their one-CTA launches emulated at EMULATED_THREADS
+SOURCES = ("kfdb_score.cu", "ba_shard.cu", "ba_blocks.cu", "ba_lm.cu", "ba_pcg.cu", *VI_SOURCES)
 CAM = cm.Camera.pinhole(400.0, 400.0, 320.0, 240.0)
 CG_ITERS = 2
 ITERS = (1, 1)  # LM iterations of the whole runs, the chi2 gate between and after
+
+VI_ITERS, VI_CG = (3, 2), 6  # AG's and AA's whole runs: LM steps of the two phases, CG iterations a step
+AG_KERNEL = dist_ba.VIStages(dist_ba._segment_kernel, dist_ba._classify_kernel)  # AG's stages on the host
 
 # AF at a world of one, launching its kernels on the host
 KERNEL = dist_ba.Stages(dist_ba._blocks_partial_kernel, dist_ba._round_blocks_kernel, dist_ba._update_partial_kernel,
@@ -53,7 +61,8 @@ def host_kernels(tmp_path_factory):
     objs, procs = [], []
     for name in SOURCES:
         cpp = d / (name[:-3] + ".cpp")
-        cpp.write_text(_host_source((_kernels.SRC_DIR / name).read_text()).replace(f"{EMULATED_THREADS}u", "1024u"))
+        src = _host_source((_kernels.SRC_DIR / name).read_text())
+        cpp.write_text(src if name in VI_SOURCES else src.replace(f"{EMULATED_THREADS}u", "1024u"))
         obj = d / (name[:-3] + ".o")
         procs.append(subprocess.Popen(["g++", "-std=c++20", "-O1", "-fPIC", "-pthread", f"-I{d}",
                                        f"-I{_kernels.SRC_DIR}", "-c", str(cpp), "-o", str(obj)],
@@ -177,3 +186,48 @@ def test_af_runs_match_single_device(host_kernels, form):
     per_iter = 4 if form == "dense" else 4 + 2 + 3 * CG_ITERS + 2
     assert dist_ba.LAUNCHES.total() - n_af == sum(ITERS) * per_iter
     assert tba.build_normal_blocks.launches.total() == n_e  # AF launched no E of its wrapper
+
+
+def _vi_case(case: str):
+    """(camera, bf, T_cb, problem): AA's host test's tracker-shaped problem
+    (pin-hole, stereo edges, outliers, padded fixed states, invalid
+    landmarks, padded observations; a camera offset from the body) or
+    chip_smoke.vi_cg_problem's flight seen through TUM-VI's cam0 (KB8,
+    monocular)."""
+    import chip_smoke
+    from tests.test_torch_loop_kernels_host import _aa_problem
+    from tests.test_torch_vi_ba import T_CAM
+
+    if case == "pinhole":
+        prob, T_cb = _aa_problem()
+        return T_CAM, 40.0, T_cb, prob
+    cam = chip_smoke.fisheye_settings("stereo").cam
+    prob, _ = chip_smoke.vi_cg_problem(np.random.default_rng(12), "cpu", n_kf=5, n_lm=120)
+    prob = prob._replace(obs_uv=chip_smoke.kb8_mono(prob.obs_uv, cam), obs_is_stereo=torch.zeros_like(
+        prob.obs_is_stereo))
+    return cam, 0.0, tlie.SE3.identity("cpu"), prob
+
+
+@pytest.mark.parametrize("case", ["pinhole", "kb8"])
+def test_ag_run_is_aa_bit_for_bit(host_kernels, case):
+    """AG's whole two-phase run at a world of one (3 + 2 LM steps, 6 CG
+    iterations a step, segments of 2: the damping crosses them in float32)
+    against kernel AA's full_inertial_ba_cg schedule on the same problem:
+    states, landmarks and the inlier mask bit for bit, the state moved;
+    every stage launched in its count (6 + 3 x 6 a step, 2 a segment, 2
+    classifications), counted in the camera's instance."""
+    import chip_smoke
+
+    cam, bf, T_cb, prob = _vi_case(case)
+    mesh = multihost.global_mesh("cpu")
+    dist_ba.VI_LAUNCHES.reset()
+    ag = dist_ba._run_vi(mesh, AG_KERNEL, cam, bf, T_cb, dist_ba.shard_vi_problem(prob, mesh), *VI_ITERS, VI_CG)
+    aa, _ = chip_smoke.aa_two_phase(cam, prob, VI_ITERS, VI_CG, bf=bf, T_cb=T_cb)
+    for name, a, b in zip(("R", "p", "v", "bias", "xw", "inlier"), ag, aa):
+        assert torch.equal(a, b), name
+    assert float((ag[1] - prob.p_wb).abs().max()) > 1e-4
+    steps, segments = sum(VI_ITERS), 2 + 1
+    camera = "kb8" if case == "kb8" else ""
+    assert dist_ba.VI_LAUNCHES.total(camera=camera) == steps * (6 + 3 * VI_CG) + 2 * segments + 2
+    assert dist_ba.VI_LAUNCHES.total(mode="cg_update") == steps * VI_CG
+    assert dist_ba.VI_LAUNCHES.total(mode="classify") == 2

@@ -286,23 +286,25 @@ def test_build_flags_and_sources():
                     "pose_inertial.cu", "pose_inertial_kb8.cu", "pose_inertial_radtan.cu", "pose_lm.cu",
                     "pyramid_blur.cu", "sad_refine.cu", "select_subpixel.cu",
                     "sim3_graph.cu", "sim3_pcg.cu", "sim3_ransac.cu", "sim3_refine.cu", "triangulate_dlt.cu",
-                    "twoview_ransac.cu", "vi_ba.cu", "vi_pcg.cu", "visible_landmarks.cu", "vocab_transform.cu"]
+                    "twoview_ransac.cu", "vi_ba.cu", "vi_pcg.cu", "vi_shard.cu", "visible_landmarks.cu",
+                    "vocab_transform.cu"]
     # the one Jacobi eigen-solver, shared by G, M, P, Q, R, S, T, V and Z; the Sim3 maps and dual numbers, shared by
     # R, S, U and Z and (through inertial.cuh) W, X, Y and AA; the distorted pin-hole and the KB8 camera, shared by D,
     # E, L, M, P, Q, R, W, Y, AA and AB; the inertial factors, shared by V, W, X, Y and AA; kernel W's code, shared by
     # its three camera kinds' translation units; a BA observation's residual and robust cost, shared by E and AC;
-    # E's, AC's and T's device code, shared with AF
+    # E's, AC's and T's device code, shared with AF; AA's, shared with AG
     assert sorted(p.name for p in _kernels.SRC_DIR.glob("*.cuh")) == [
         "ba_blocks.cuh", "ba_lm.cuh", "ba_obs.cuh", "ba_pcg.cuh", "camera.cuh", "inertial.cuh", "jacobi.cuh",
-        "pose_inertial.cuh", "sim3.cuh"]
+        "pose_inertial.cuh", "sim3.cuh", "vi_pcg.cuh"]
     for name in ("ba_blocks.cuh", "ba_lm.cuh"):
         assert '#include "ba_obs.cuh"' in (_kernels.SRC_DIR / name).read_text()
     for name, headers in (("ba_blocks.cu", ("ba_blocks",)), ("ba_lm.cu", ("ba_lm",)), ("ba_pcg.cu", ("ba_pcg",)),
-                          ("ba_shard.cu", ("ba_blocks", "ba_lm", "ba_pcg"))):
+                          ("ba_shard.cu", ("ba_blocks", "ba_lm", "ba_pcg")), ("vi_pcg.cu", ("vi_pcg",)),
+                          ("vi_shard.cu", ("vi_pcg",))):
         assert all(f'#include "{h}.cuh"' in (_kernels.SRC_DIR / name).read_text() for h in headers)
-    for name in ("imu_preint.cu", "pose_inertial.cuh", "imu_init.cu", "vi_ba.cu", "vi_pcg.cu"):
+    for name in ("imu_preint.cu", "pose_inertial.cuh", "imu_init.cu", "vi_ba.cu", "vi_pcg.cuh"):
         assert '#include "inertial.cuh"' in (_kernels.SRC_DIR / name).read_text()
-    for name in ("pose_inertial.cuh", "vi_ba.cu", "vi_pcg.cu"):
+    for name in ("pose_inertial.cuh", "vi_ba.cu", "vi_pcg.cuh"):
         assert '#include "camera.cuh"' in (_kernels.SRC_DIR / name).read_text()
     for name in ("pose_inertial.cu", "pose_inertial_radtan.cu", "pose_inertial_kb8.cu"):
         assert '#include "pose_inertial.cuh"' in (_kernels.SRC_DIR / name).read_text()
@@ -324,7 +326,7 @@ def test_build_flags_and_sources():
         "ba_classify_launch", "match_epilogue_launch", "twoview_unproject_launch", "twoview_verdict_launch",
         "kfdb_score_launch", "ba_shard_blocks_launch", "ba_shard_round_launch", "ba_shard_cost_launch",
         "ba_shard_commit_launch", "ba_shard_cg_setup_launch", "ba_shard_cg_start_launch", "ba_shard_cg_lm_launch",
-        "ba_shard_cg_pose_launch", "ba_shard_cg_update_launch", "ba_shard_cg_backsub_launch",
+        "ba_shard_cg_pose_launch", "ba_shard_cg_update_launch", "ba_shard_cg_backsub_launch", "vi_shard_launch",
     }
     assert "arch=compute_90a,code=sm_90a" in _kernels.NVCC_FLAGS
     assert _kernels.LIB_PATH.parent.name == "_build"
@@ -1053,6 +1055,56 @@ def test_dist_wrappers_cpu_plain_and_other_devices_raise():
         dist_ba.cg_solve(mesh, *map(meta, (prob.R.new_zeros(32, 6, 6), prob.xw.new_zeros(4096, 3, 3),
                                            prob.R.new_zeros(32, 6), prob.xw.new_zeros(4096, 3), W)), mprob,
                          meta(prob.xw.new_zeros(4096)), meta(torch.tensor(1e-4)), 4)
+
+
+def test_vi_shard_wrappers_cpu_plain_and_other_devices_raise():
+    """AG (parallel/dist_ba.py's FullInertialBA stages): CPU tensors take
+    the plain stages (no launch; a world of one's segment bit for bit
+    lm_segment_vi_plain's, its classification classify_vi_plain's); tensors
+    on another device (meta) get no plain path."""
+    import chip_smoke
+    from orb_slam3_fast_tpu_torch.optim import vi_ba_cg
+    from orb_slam3_fast_tpu_torch.optim.vi_ba import VIBAProblem
+    from orb_slam3_fast_tpu_torch.parallel import dist_ba, multihost
+
+    prob, _ = chip_smoke.vi_cg_problem(np.random.default_rng(12), "cpu", n_kf=4, n_lm=60)
+    mesh = multihost.global_mesh("cpu")
+    shard = dist_ba.shard_vi_problem(prob, mesh)
+    cam, T_id = cm.Camera.pinhole(400.0, 400.0, 320.0, 240.0), lie.SE3.identity("cpu")
+    state = (prob.R_wb, prob.p_wb, prob.v_w, prob.bias, prob.xw)
+    inl = torch.ones(prob.obs_kf.shape[0], dtype=torch.bool)
+    before = dist_ba.VI_LAUNCHES.total()
+    got = dist_ba.lm_segment_vi_shard(cam, 0.0, T_id, shard.local, *state, inl, torch.tensor(1e-4), 2, 8, mesh=mesh,
+                                      csr=shard.csr)
+    ref = vi_ba_cg.lm_segment_vi_plain(cam, 0.0, T_id, prob, *state, inl, torch.tensor(1e-4), 2, 8)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert torch.equal(dist_ba.classify_vi_shard(cam, 0.0, T_id, shard.local, prob.R_wb, prob.p_wb, prob.xw),
+                       vi_ba_cg.classify_vi_plain(cam, 0.0, T_id, prob, prob.R_wb, prob.p_wb, prob.xw))
+    assert dist_ba.VI_LAUNCHES.total() == before
+    meta = lambda t: t.to("meta")  # noqa: E731
+    mprob = VIBAProblem(*(meta(x) for x in prob[:-1]), prob.preint.to("meta"))
+    mstate = tuple(meta(x) for x in state)
+    with pytest.raises(ValueError, match="CUDA"):
+        dist_ba.lm_segment_vi_shard(cam, 0.0, T_id, mprob, *mstate, meta(inl), meta(torch.tensor(1e-4)), 1, 8,
+                                    mesh=mesh, csr=tuple(meta(c) for c in shard.csr))
+    with pytest.raises(ValueError, match="CUDA"):
+        dist_ba.classify_vi_shard(cam, 0.0, T_id, mprob, mstate[0], mstate[1], mstate[4])
+
+
+@pytest.mark.cuda
+def test_vi_shard_kernel_matches_plain_on_card(cuda):
+    """AG in a world of one (no process group) on chip_smoke's
+    ``vi_cg_problem``, pin-hole and through TUM-VI's cam0 (KB8), as phase 16
+    (a) holds it (``chip_smoke.check_ag_world1``, which raises where a gate
+    fails): one LM step of its stages against the plain stages on the same
+    CUDA tensors (``AG_STEP_TOL``, the damping equal), the whole 5 + 8 run
+    within 1e-6 of kernel AA's two-phase run with the same inlier mask (bit
+    for bit as designed) and within 2e-3 of its plain run."""
+    import chip_smoke
+    from orb_slam3_fast_tpu_torch.parallel import multihost
+
+    entry, ref = chip_smoke.check_ag_world1(cuda, multihost.global_mesh(cuda))
+    assert entry["max_abs_err"] <= chip_smoke.AG_STEP_TOL[0] and set(ref) == set(chip_smoke.AG_CASES)
 
 
 @pytest.mark.cuda

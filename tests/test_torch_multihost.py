@@ -105,12 +105,23 @@ def test_two_ranks_group_and_collectives(ranks):
         np.testing.assert_array_equal(o["flags"], [True, True, False, True])
 
 
-def test_two_ranks_refuse_async_system_and_full_inertial_ba(ranks):
+def test_two_ranks_refuse_async_system(ranks):
     """On a world of two an async-backend System raises ValueError at
     construction (its worker threads would schedule differently on each
-    rank), and FullInertialBA raises NotImplementedError naming ROADMAP
-    item 12's remainder."""
+    rank)."""
     for msgs in ranks.run(cases.refusals):
-        assert len(msgs) == 2
+        assert len(msgs) == 1
         assert "async_backend=False" in msgs[0] and "collectives would not match" in msgs[0]
-        assert "ROADMAP §A item 12" in msgs[1]
+
+
+def test_two_ranks_run_full_inertial_ba_hook(ranks):
+    """On a world of two the inertial tracker's FullInertialBA hook (the
+    loop closer's global BA of an inertial map) runs over observation
+    shards: both ranks complete it, hold the same keyframe poses and
+    velocities bit for bit, and move the keyframes toward the truth; a
+    world of one completes it too."""
+    one = cases.small_full_inertial_ba()
+    two = ranks.run(cases.small_full_inertial_ba)
+    assert one[0] and two[0][0] and two[1][0]
+    assert all(np.array_equal(a, b) for a, b in zip(two[0][1:4], two[1][1:4]))
+    assert two[0][5] < 0.5 * two[0][4] and one[5] < 0.5 * one[4], (one[4:], two[0][4:])

@@ -57,7 +57,8 @@ accumulation of many does it.  ``--e-digest`` first prints the digest of
 kernel E's outputs on chip_smoke.py's phase-3 problems
 (``chip_smoke.e_digests`` of this checkout, run on the measured
 checkout's port: with ``--root`` at a parent commit, the numbers that
-``chip_smoke.E_DIGESTS`` holds E to); ``--ba-ms`` times a whole local
+``chip_smoke.E_DIGESTS`` holds E to), and ``--aa-digest`` kernel AA's
+(``chip_smoke.aa_digests``, ``AA_DIGESTS``); ``--ba-ms`` times a whole local
 and global BA on the same problems (``chip_smoke.ba_times``), so that two
 checkouts measured in one call compare; ``--sensor`` with no name then
 runs no System.
@@ -227,6 +228,7 @@ def main() -> int:
     parser.add_argument("--no-host", action="store_true")
     parser.add_argument("--threads", type=int, default=None, help="the host run's torch threads")
     parser.add_argument("--e-digest", action="store_true", help="print kernel E's output digests first")
+    parser.add_argument("--aa-digest", action="store_true", help="print kernel AA's output digests first")
     parser.add_argument("--ba-ms", action="store_true", help="time a whole local and global BA first")
     args = parser.parse_args()
     if args.threads:
@@ -261,6 +263,9 @@ def main() -> int:
     if args.e_digest:
         report["e_digests"] = here.e_digests(card)
         print(f"kernel E's output digests with the port at {root}: {report['e_digests']}", flush=True)
+    if args.aa_digest:
+        report["aa_digests"] = here.aa_digests(card)
+        print(f"kernel AA's output digests with the port at {root}: {report['aa_digests']}", flush=True)
     if args.ba_ms:
         report["ba_ms"] = here.ba_times(card)
         print(f"whole BAs with the port at {root}, ms: {report['ba_ms']}", flush=True)
